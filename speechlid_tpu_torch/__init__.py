@@ -1,0 +1,23 @@
+"""speechlid_tpu_torch — the PyTorch/CUDA port of ``speechlid_tpu``.
+
+The JAX package beside it is the reference: each module here has a
+counterpart of the same name there, and the tests under
+``tests/test_torch_*.py`` hold the two against each other on the CPU.  This
+package imports ``torch``, numpy and the standard library only — never JAX,
+flax or anything under ``speechlid_tpu``.
+
+The TPU's Pallas kernels become CUDA C++ kernels written for Hopper
+(``csrc/*.cu``, built with ``nvcc`` for ``sm_90a`` at first use and loaded
+with ``ctypes``, see ``ops/cuda/_build.py``).  Each kernel keeps a plain
+PyTorch version beside it; a wrapper takes that version only for a tensor
+on the CPU, and on a CUDA tensor launches the kernel or raises.
+
+Layout (the slice ported so far: Conformer joint-LID ``/lid`` serving):
+
+- ``ops``     — frontend (normalize, log-mel) and the two kernels
+- ``models``  — Conformer encoder, per-language heads, discriminator
+- ``tasks``   — ``LidASRTask`` inference
+- ``convert`` — flax variables → ``state_dict``
+- ``core``    — reading the JAX package's checkpoints without JAX
+- ``cli``     — the ``/lid`` HTTP server
+"""

@@ -1,0 +1,143 @@
+"""Weight bridge: the JAX package's flax variables → this port's ``state_dict``.
+
+Input: ``{"params": …, "batch_stats": …}`` as nested mappings of arrays
+(numpy, or anything ``np.asarray`` takes), e.g. from
+``core.checkpoint.load_checkpoint``.  Output: a ``state_dict`` of CPU
+tensors for ``MutiLangModel`` (or ``ConformerModel``) of ``models/``.
+
+Layout changes, leaf by leaf:
+
+- ``Dense`` kernel (in, out) → ``Linear.weight`` (out, in);
+- 2-D ``Conv`` kernel (kh, kw, in, out) → (out, in, kh, kw); 1-D (k, in, out)
+  → (out, in, k);
+- the depthwise ``Conv`` kernel (k, 1, C) → the (k, C) the kernel takes;
+- ``LayerNorm``/BN ``scale`` → ``weight``; ``batch_stats`` mean/var →
+  ``running_mean``/``running_var``;
+- the stacked heads ``heads/heads/…`` carry a leading language axis L:
+  slice l goes to ``heads.heads.{l}``;
+- encoder blocks come unrolled (``block_i/``) or scanned
+  (``blocks/ConformerBlock_0/`` with a leading block axis N); both load.
+
+The Conv2d subsampling's Dense needs no permutation: the port flattens its
+(T', F', C) features frequency-major, as the JAX NHWC convolution does.
+"""
+
+from __future__ import annotations
+
+from collections.abc import Mapping
+from typing import Dict
+
+import numpy as np
+import torch
+
+StateDict = Dict[str, np.ndarray]
+
+
+def _a(x) -> np.ndarray:
+    return np.asarray(x, dtype=np.float32)
+
+
+def _take(tree: Mapping, index) -> Mapping:
+    """Slice ``index`` off the leading axis of every leaf of ``tree``."""
+    return {k: (_take(v, index) if isinstance(v, Mapping) else _a(v)[index])
+            for k, v in tree.items()}
+
+
+def _dense(p: Mapping, prefix: str) -> StateDict:
+    out = {prefix + "weight": _a(p["kernel"]).T}
+    if "bias" in p:
+        out[prefix + "bias"] = _a(p["bias"])
+    return out
+
+
+def _norm(p: Mapping, prefix: str) -> StateDict:
+    return {prefix + "weight": _a(p["scale"]), prefix + "bias": _a(p["bias"])}
+
+
+def conv_module_state(p: Mapping, s: Mapping, prefix: str) -> StateDict:
+    """One JAX ``ConformerConvModule`` (params ``p``, batch_stats ``s``)."""
+    sd = _norm(p["LayerNorm_0"], prefix + "norm.")
+    sd.update(_dense(p["Dense_0"], prefix + "pointwise_in."))
+    sd[prefix + "depthwise.weight"] = _a(p["depthwise"]["kernel"])[:, 0, :]
+    sd[prefix + "depthwise.bias"] = _a(p["depthwise"]["bias"])
+    sd.update(_norm(p["bn"], prefix + "bn."))
+    sd[prefix + "bn.running_mean"] = _a(s["bn"]["mean"])
+    sd[prefix + "bn.running_var"] = _a(s["bn"]["var"])
+    sd.update(_dense(p["Dense_1"], prefix + "pointwise_out."))
+    return sd
+
+
+def block_state(p: Mapping, s: Mapping, prefix: str) -> StateDict:
+    """One JAX ``ConformerBlock`` (params ``p``, batch_stats ``s``)."""
+    attn = p["attn"]
+    sd: StateDict = {}
+    sd.update(_norm(p["LayerNorm_0"], prefix + "norm_ff1."))
+    sd.update(_dense(p["ff1"]["Dense_0"], prefix + "ff1.fc1."))
+    sd.update(_dense(p["ff1"]["Dense_1"], prefix + "ff1.fc2."))
+    sd.update(_norm(p["LayerNorm_1"], prefix + "norm_attn."))
+    sd.update(_dense(attn["to_q"], prefix + "attn.to_q."))
+    sd.update(_dense(attn["to_kv"], prefix + "attn.to_kv."))
+    sd.update(_dense(attn["to_out"], prefix + "attn.to_out."))
+    sd[prefix + "attn.rel_pos_emb"] = _a(attn["rel_pos_emb"])
+    sd.update(conv_module_state(p["conv"], s["conv"], prefix + "conv."))
+    sd.update(_norm(p["LayerNorm_2"], prefix + "norm_ff2."))
+    sd.update(_dense(p["ff2"]["Dense_0"], prefix + "ff2.fc1."))
+    sd.update(_dense(p["ff2"]["Dense_1"], prefix + "ff2.fc2."))
+    sd.update(_norm(p["post_norm"], prefix + "post_norm."))
+    return sd
+
+
+def conformer_state(params: Mapping, stats: Mapping, prefix: str = "") -> StateDict:
+    """JAX ``ConformerModel`` variables → ``ConformerModel`` state_dict."""
+    sd: StateDict = {}
+    sub = params["subsample"]
+    if "Conv_1" in sub:  # Conv2dSubsampling: (kh, kw, in, out) → (out, in, kh, kw)
+        for i in (0, 1):
+            conv = sub[f"Conv_{i}"]
+            sd[f"{prefix}subsample.conv{i}.weight"] = _a(conv["kernel"]).transpose(3, 2, 0, 1)
+            sd[f"{prefix}subsample.conv{i}.bias"] = _a(conv["bias"])
+    else:  # Conv1dSubSampling2: (k, in, out) → (out, in, k)
+        sd[prefix + "subsample.conv.weight"] = _a(sub["Conv_0"]["kernel"]).transpose(2, 1, 0)
+        sd[prefix + "subsample.conv.bias"] = _a(sub["Conv_0"]["bias"])
+    sd.update(_dense(sub["Dense_0"], prefix + "subsample.out."))
+
+    if "blocks" in params:  # scanned: one ConformerBlock_0 with a leading N axis
+        p_all = params["blocks"]["ConformerBlock_0"]
+        s_all = stats["blocks"]["ConformerBlock_0"]
+        n_blocks = _a(p_all["post_norm"]["scale"]).shape[0]
+        blocks = [(_take(p_all, i), _take(s_all, i)) for i in range(n_blocks)]
+    else:
+        n_blocks = sum(1 for k in params if k.startswith("block_"))
+        blocks = [(params[f"block_{i}"], stats[f"block_{i}"]) for i in range(n_blocks)]
+    for i, (p, s) in enumerate(blocks):
+        sd.update(block_state(p, s, f"{prefix}blocks.{i}."))
+    return sd
+
+
+def lid_state(variables: Mapping) -> StateDict:
+    """JAX ``MutiLangModel`` (Conformer featurizer, Conformer heads)
+    variables → ``MutiLangModel`` state_dict."""
+    params, stats = variables["params"], variables.get("batch_stats", {})
+    sd = conformer_state(params["featurizer"], stats.get("featurizer", {}), "featurizer.")
+    heads_p, heads_s = params["heads"]["heads"], stats["heads"]["heads"]
+    n_lang = _a(heads_p["Dense_0"]["bias"]).shape[0]
+    n_layers = sum(1 for k in heads_p if k.startswith("block_"))
+    for lang in range(n_lang):
+        p, s = _take(heads_p, lang), _take(heads_s, lang)
+        prefix = f"heads.heads.{lang}."
+        for j in range(n_layers):
+            sd.update(block_state(p[f"block_{j}"], s[f"block_{j}"], f"{prefix}blocks.{j}."))
+        sd.update(_dense(p["Dense_0"], prefix + "out."))
+    disc = params["discriminator"]
+    sd.update(_dense(disc["Dense_0"], "discriminator.fc1."))
+    sd.update(_dense(disc["Dense_1"], "discriminator.fc2."))
+    return sd
+
+
+def load_into(module: torch.nn.Module, state: StateDict) -> None:
+    """Copy a converted state into ``module`` (strict: every key and shape
+    must match)."""
+    module.load_state_dict(
+        {k: torch.tensor(v) for k, v in state.items()},
+        strict=True,
+    )

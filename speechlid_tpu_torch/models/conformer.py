@@ -1,0 +1,265 @@
+"""Conformer encoder, eval mode (port of ``speechlid_tpu/models/conformer.py``).
+
+ConformerBlock = ½FF + MHSA (Shaw rel-pos, clip ±512) + conv module
+(pointwise → GLU → depthwise k31 → masked BN → Swish → pointwise) + ½FF +
+post-LN; Conv2d ×4 or Conv1d ×2 subsampling; ×√d scale before the blocks.
+
+Activations stay (B, T, C) as in the JAX package, so the depthwise kernel
+needs no transposes.  Parity details that differ from PyTorch's defaults:
+
+- LayerNorm eps is flax's 1e-6, not torch's 1e-5;
+- attention masks fill with ``finfo(float32).min`` (not -inf) before a
+  float32 softmax, so a fully padded query row comes out uniform;
+- the Conv2d subsampling flattens (B, T', F', C) frequency-major, as the
+  NHWC JAX convolution does;
+- every ``ConformerConvModule`` runs its depthwise conv through
+  ``ops/cuda/depthwise_kernel.depthwise_conv1d``.
+
+Dropout, stochastic depth and BatchNorm's batch statistics belong to the
+training path and are not ported yet: every module computes its eval
+forward.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from speechlid_tpu_torch.ops.cuda.depthwise_kernel import depthwise_conv1d
+
+LN_EPS = 1e-6  # flax nn.LayerNorm default
+_NEG = torch.finfo(torch.float32).min
+
+
+def swish(x: torch.Tensor) -> torch.Tensor:
+    return x * torch.sigmoid(x)
+
+
+def double_swish(x: torch.Tensor) -> torch.Tensor:
+    """x * sigmoid(x - 1) (reference DoubleSwish)."""
+    return x * torch.sigmoid(x - 1.0)
+
+
+def _layer_norm(dim: int) -> nn.LayerNorm:
+    return nn.LayerNorm(dim, eps=LN_EPS)
+
+
+class FeedForward(nn.Module):
+    """dim → dim·mult → dim with Swish."""
+
+    def __init__(self, dim: int, mult: int = 4, use_double_swish: bool = False):
+        super().__init__()
+        self.act = double_swish if use_double_swish else swish
+        self.fc1 = nn.Linear(dim, dim * mult)
+        self.fc2 = nn.Linear(dim * mult, dim)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.fc2(self.act(self.fc1(x)))
+
+
+class RelPosAttention(nn.Module):
+    """MHSA with Shaw relative position bias:
+    dots = q·kᵀ·scale + q·E[clip(i-j, ±max_pos)]·scale.
+
+    Plain matmul and softmax (no fused attention): the JAX package computes
+    it outside any kernel, and parity is the point."""
+
+    def __init__(self, dim: int, heads: int = 8, dim_head: int = 64,
+                 max_pos_emb: int = 512):
+        super().__init__()
+        self.heads, self.dim_head, self.max_pos_emb = heads, dim_head, max_pos_emb
+        inner = heads * dim_head
+        self.to_q = nn.Linear(dim, inner, bias=False)
+        self.to_kv = nn.Linear(dim, 2 * inner, bias=False)
+        self.to_out = nn.Linear(inner, dim)
+        self.rel_pos_emb = nn.Parameter(torch.randn(2 * max_pos_emb + 1, dim_head))
+
+    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        b, n, _ = x.shape
+        h, d = self.heads, self.dim_head
+        q = self.to_q(x).view(b, n, h, d).transpose(1, 2)
+        k, v = self.to_kv(x).chunk(2, dim=-1)
+        k = k.reshape(b, n, h, d).transpose(1, 2)
+        v = v.reshape(b, n, h, d).transpose(1, 2)
+
+        scale = d ** -0.5
+        dots = (q @ k.transpose(-1, -2)) * scale
+        # q·Eᵀ over the whole (2P+1, d) table, then a gather along the
+        # relative-distance axis: no (n, n, d) embedding is materialised
+        seq = torch.arange(n, device=x.device)
+        dist = (seq[:, None] - seq[None, :]).clamp(-self.max_pos_emb, self.max_pos_emb)
+        dist = dist + self.max_pos_emb
+        pos_scores = (q @ self.rel_pos_emb.t()) * scale  # (b, h, n, 2P+1)
+        dots = dots + torch.gather(pos_scores, -1, dist.expand(b, h, n, n))
+
+        if mask is not None:
+            pair = mask[:, None, :, None] & mask[:, None, None, :]
+            dots = dots.masked_fill(~pair, _NEG)
+        attn = torch.softmax(dots.float(), dim=-1).to(x.dtype)
+        out = (attn @ v).transpose(1, 2).reshape(b, n, h * d)
+        return self.to_out(out)
+
+
+class DepthwiseConv1d(nn.Module):
+    """'SAME' depthwise conv1d over (B, T, C) through the CUDA kernel
+    (plain version on the CPU); weight (k, C), the layout the kernel takes."""
+
+    def __init__(self, channels: int, kernel_size: int):
+        super().__init__()
+        self.weight = nn.Parameter(torch.empty(kernel_size, channels))
+        self.bias = nn.Parameter(torch.zeros(channels))
+        nn.init.normal_(self.weight, std=kernel_size ** -0.5)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return depthwise_conv1d(x.contiguous(), self.weight.to(x.dtype),
+                                self.bias.to(x.dtype))
+
+
+class MaskedBatchNorm(nn.Module):
+    """BatchNorm over (B, T, C) with running statistics, eval mode:
+    (x - mean)·rsqrt(var + eps)·weight + bias in float32."""
+
+    def __init__(self, channels: int, eps: float = 1e-5):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(channels))
+        self.bias = nn.Parameter(torch.zeros(channels))
+        self.register_buffer("running_mean", torch.zeros(channels))
+        self.register_buffer("running_var", torch.ones(channels))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = (x.float() - self.running_mean) * torch.rsqrt(self.running_var + self.eps)
+        return (y * self.weight + self.bias).to(x.dtype)
+
+
+class ConformerConvModule(nn.Module):
+    """LN → pointwise(2·inner) → GLU → zero padded frames → depthwise →
+    BN → Swish → pointwise."""
+
+    def __init__(self, dim: int, expansion_factor: int = 2, kernel_size: int = 31,
+                 use_double_swish: bool = False):
+        super().__init__()
+        inner = dim * expansion_factor
+        self.act = double_swish if use_double_swish else swish
+        self.norm = _layer_norm(dim)
+        self.pointwise_in = nn.Linear(dim, 2 * inner)
+        self.depthwise = DepthwiseConv1d(inner, kernel_size)
+        self.bn = MaskedBatchNorm(inner)
+        self.pointwise_out = nn.Linear(inner, dim)
+
+    def forward(self, x: torch.Tensor, pad_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        a, g = self.pointwise_in(self.norm(x)).chunk(2, dim=-1)
+        y = a * torch.sigmoid(g)  # GLU
+        if pad_mask is not None:
+            # padded frames must not leak into the depthwise conv
+            y = y.masked_fill(~pad_mask[:, :, None], 0.0)
+        y = self.depthwise(y)
+        y = self.act(self.bn(y))
+        return self.pointwise_out(y)
+
+
+class ConformerBlock(nn.Module):
+    """½FF → MHSA → conv → ½FF → post-LN, pre-norm residuals."""
+
+    def __init__(self, dim: int, dim_head: int = 64, heads: int = 8, ff_mult: int = 4,
+                 conv_expansion_factor: int = 2, conv_kernel_size: int = 31,
+                 use_double_swish: bool = False):
+        super().__init__()
+        self.norm_ff1 = _layer_norm(dim)
+        self.ff1 = FeedForward(dim, ff_mult, use_double_swish)
+        self.norm_attn = _layer_norm(dim)
+        self.attn = RelPosAttention(dim, heads, dim_head)
+        self.conv = ConformerConvModule(dim, conv_expansion_factor, conv_kernel_size,
+                                        use_double_swish)
+        self.norm_ff2 = _layer_norm(dim)
+        # ff2 ignores use_double_swish, as the reference's second half-FFN does
+        self.ff2 = FeedForward(dim, ff_mult, False)
+        self.post_norm = _layer_norm(dim)
+
+    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        x = 0.5 * self.ff1(self.norm_ff1(x)) + x
+        x = self.attn(self.norm_attn(x), mask) + x
+        x = self.conv(x, pad_mask=mask) + x
+        x = 0.5 * self.ff2(self.norm_ff2(x)) + x
+        return self.post_norm(x)
+
+
+class Conv1dSubSampling2(nn.Module):
+    """conv1d k3 s2 p1 + ReLU + Linear: T → ⌊(T-1)/2⌋ + 1."""
+
+    def __init__(self, idim: int, odim: int):
+        super().__init__()
+        self.conv = nn.Conv1d(idim, idim, 3, stride=2, padding=1)
+        self.out = nn.Linear(idim, odim)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:  # (B, T, idim)
+        y = F.relu(self.conv(x.transpose(1, 2))).transpose(1, 2)
+        return self.out(y)
+
+    @staticmethod
+    def out_lengths(lengths: torch.Tensor) -> torch.Tensor:
+        return torch.div(lengths - 1, 2, rounding_mode="floor") + 1
+
+
+class Conv2dSubsampling(nn.Module):
+    """ESPnet 2D ×4 subsampling: two conv k3 s2 (valid) over (T, mel), then
+    Linear over the (freq, channel) features flattened frequency-major."""
+
+    def __init__(self, idim: int, odim: int):
+        super().__init__()
+        self.conv0 = nn.Conv2d(1, odim, 3, stride=2)
+        self.conv1 = nn.Conv2d(odim, odim, 3, stride=2)
+        f_out = ((idim - 1) // 2 - 1) // 2
+        self.out = nn.Linear(f_out * odim, odim)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:  # (B, T, idim)
+        y = F.relu(self.conv0(x[:, None]))  # (B, C, T, F): H = time, W = mel
+        y = F.relu(self.conv1(y))
+        y = y.permute(0, 2, 3, 1)  # (B, T', F', C), the NHWC order of the JAX conv
+        b, t, f, c = y.shape
+        return self.out(y.reshape(b, t, f * c))
+
+    @staticmethod
+    def out_lengths(lengths: torch.Tensor) -> torch.Tensor:
+        half = torch.div(lengths - 1, 2, rounding_mode="floor")
+        return torch.div(half - 1, 2, rounding_mode="floor")
+
+
+class ConformerModel(nn.Module):
+    """Subsample → ×√d → N ConformerBlocks over the valid-frame mask."""
+
+    def __init__(self, n_blocks: int = 14, n_mels: int = 80, encoder_dim: int = 144,
+                 dim_head: int = 64, heads: int = 4, ff_mult: int = 4,
+                 conv_expansion_factor: int = 2, conv_kernel_size: int = 31,
+                 use_double_swish: bool = False, sub_sampling: int = 2):
+        super().__init__()
+        self.encoder_dim = encoder_dim
+        self.sub_sampling = sub_sampling
+        if sub_sampling == 4:
+            self.subsample = Conv2dSubsampling(n_mels, encoder_dim)
+        else:
+            self.subsample = Conv1dSubSampling2(n_mels, encoder_dim)
+        self.blocks = nn.ModuleList(
+            ConformerBlock(encoder_dim, dim_head, heads, ff_mult, conv_expansion_factor,
+                           conv_kernel_size, use_double_swish)
+            for _ in range(n_blocks)
+        )
+
+    def subsampled_lengths(self, lengths: torch.Tensor) -> torch.Tensor:
+        if self.sub_sampling == 4:
+            return Conv2dSubsampling.out_lengths(lengths)
+        return Conv1dSubSampling2.out_lengths(lengths)
+
+    def forward(self, x: torch.Tensor, lengths: Optional[torch.Tensor] = None) -> torch.Tensor:
+        x = self.subsample(x) * math.sqrt(self.encoder_dim)
+        mask = None
+        if lengths is not None:
+            sub_len = self.subsampled_lengths(lengths)
+            mask = torch.arange(x.shape[1], device=x.device)[None, :] < sub_len[:, None]
+        for block in self.blocks:
+            x = block(x, mask)
+        return x  # (B, T', encoder_dim)

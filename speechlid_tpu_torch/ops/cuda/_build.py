@@ -1,0 +1,115 @@
+"""Build and load the port's CUDA kernels.
+
+Every ``csrc/*.cu`` source of this package is compiled by ``nvcc`` for
+``sm_90a`` into one shared library with a plain C interface, loaded with
+``ctypes`` (no PyTorch headers: a build takes seconds, not minutes).  The
+library lands in ``build/`` at the root of the checkout, named by a hash of
+the sources and flags, so a changed source is rebuilt at its first use and
+an unchanged one is loaded as it is.  The sources compile in parallel, one
+``nvcc`` each, and link once.
+
+Nothing here runs at import: :func:`lib` builds on its first call, which a
+kernel wrapper makes only for a tensor on the card.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+
+_PKG = Path(__file__).resolve().parents[2]
+CSRC = _PKG / "csrc"
+SOURCES = ("fbank.cu", "depthwise.cu")
+BUILD_DIR = _PKG.parent / "build"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_SIGNATURES = {
+    # xp, batch, Tp, n_frames, basis, win_pad, bins, fb, mel_range, n_mels,
+    # hop, pad_left, out, stream
+    "fbank_log_mel_f32": (_P, _I, _I, _I, _P, _I, _I, _P, _P, _I, _I, _I, _P, _P),
+    # x, w, bias, y, B, T, C, K, pad_l, dtype, stream
+    "depthwise_conv1d_fwd": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+}
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
+    path = Path(home) / "bin" / "nvcc"
+    if not path.exists():
+        raise RuntimeError(f"nvcc not found on PATH or under {home}")
+    return str(path)
+
+
+def library_path() -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for name in SOURCES:
+        h.update(name.encode())
+        h.update((CSRC / name).read_bytes())
+    return BUILD_DIR / f"libspeechlid_kernels_{h.hexdigest()[:16]}.so"
+
+
+def _build(target: Path) -> None:
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [Path(tmp) / (Path(s).stem + ".o") for s in SOURCES]
+        procs = [
+            subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-c", str(CSRC / s), "-o", str(o)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+            )
+            for s, o in zip(SOURCES, objs)
+        ]
+        logs = [p.communicate()[0] for p in procs]
+        failed = [(s, log) for s, p, log in zip(SOURCES, procs, logs) if p.returncode]
+        if failed:
+            raise RuntimeError(
+                "nvcc failed:\n" + "\n".join(f"--- {s}\n{log}" for s, log in failed)
+            )
+        tmp_so = Path(tmp) / target.name
+        link = subprocess.run(
+            [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-shared",
+             *map(str, objs), "-o", str(tmp_so)],
+            capture_output=True, text=True,
+        )
+        if link.returncode:
+            raise RuntimeError(f"nvcc link failed:\n{link.stdout}{link.stderr}")
+        target.with_suffix(".log").write_text("".join(logs))
+        os.replace(tmp_so, target)  # atomic: a concurrent loader sees all or nothing
+
+
+@functools.lru_cache(maxsize=None)
+def lib() -> ctypes.CDLL:
+    """The kernels' library, built first if its sources changed."""
+    target = library_path()
+    if not target.exists():
+        _build(target)
+    so = ctypes.CDLL(str(target))
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(so, name)
+        fn.argtypes = list(argtypes)
+        fn.restype = ctypes.c_int
+    so.speechlid_cuda_error_string.argtypes = [ctypes.c_int]
+    so.speechlid_cuda_error_string.restype = ctypes.c_char_p
+    return so
+
+
+def check(err: int, what: str) -> None:
+    """Raise if a launch returned a CUDA error."""
+    if err:
+        msg = lib().speechlid_cuda_error_string(err).decode()
+        raise RuntimeError(f"{what}: CUDA error {err} ({msg})")

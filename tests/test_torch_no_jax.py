@@ -1,0 +1,36 @@
+"""The port stands alone: importing every module of ``speechlid_tpu_torch``
+and ``chip_smoke`` loads no JAX, flax or ``speechlid_tpu`` module.
+
+It runs in a subprocess because this test process has JAX loaded already
+(tests/conftest.py imports it)."""
+
+import pkgutil
+import subprocess
+import sys
+from pathlib import Path
+
+import speechlid_tpu_torch
+
+ROOT = Path(__file__).resolve().parents[1]
+
+CHECK = r"""
+import importlib, sys
+for name in sys.argv[1:]:
+    importlib.import_module(name)
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "flax") or m.split(".")[0] == "speechlid_tpu")
+assert not bad, bad
+print("imported", len(sys.argv) - 1, "modules")
+"""
+
+
+def test_port_imports_no_jax():
+    modules = [m.name for m in pkgutil.walk_packages(
+        speechlid_tpu_torch.__path__, prefix="speechlid_tpu_torch.")]
+    assert "speechlid_tpu_torch.cli.serve" in modules
+    result = subprocess.run(
+        [sys.executable, "-c", CHECK, "chip_smoke", *modules],
+        cwd=ROOT, capture_output=True, text=True, timeout=120,
+    )
+    assert result.returncode == 0, result.stderr
+    assert f"imported {len(modules) + 1} modules" in result.stdout
