@@ -12,12 +12,18 @@ with ``ctypes``, see ``ops/cuda/_build.py``).  Each kernel keeps a plain
 PyTorch version beside it; a wrapper takes that version only for a tensor
 on the CPU, and on a CUDA tensor launches the kernel or raises.
 
-Layout (the slice ported so far: Conformer joint-LID ``/lid`` serving):
+Layout (the slices ported so far: Conformer joint-LID ``/lid`` serving, and
+joint LID+ASR training of the same model):
 
-- ``ops``     — frontend (normalize, log-mel) and the two kernels
-- ``models``  — Conformer encoder, per-language heads, discriminator
-- ``tasks``   — ``LidASRTask`` inference
-- ``convert`` — flax variables → ``state_dict``
-- ``core``    — reading the JAX package's checkpoints without JAX
+- ``ops``     — frontend (normalize, log-mel, time stretch, SpecAugment), CTC,
+  and the kernels (fbank; depthwise conv forward, dX and dW/db)
+- ``models``  — Conformer encoder, per-language heads, discriminator, in eval
+  and training mode
+- ``tasks``   — ``LidASRTask``: training, validation and inference
+- ``metrics`` — EER, Cavg, CER/WER on the host
+- ``convert`` — flax variables ↔ ``state_dict``
+- ``core``    — ``Trainer``, ``TaskModule``, optimizer and schedules,
+  callbacks, loggers, seeding, and checkpoints (the port's own, and reading
+  the JAX package's without JAX)
 - ``cli``     — the ``/lid`` HTTP server
 """

@@ -185,24 +185,28 @@ def make_lid_fn(task) -> LidFn:
 
 
 def build_lid_fn(ckpt: str, device: str = "cuda"):
-    """Restore a JAX checkpoint into the port: the task comes from the
-    checkpoint's ``hyper_parameters``, the weights through ``convert``.
-    Returns (lid_fn, index2lang)."""
+    """Restore a checkpoint into the port: the task comes from the
+    checkpoint's ``hyper_parameters``; the weights of one written by the
+    port's trainer load as they are, those of a JAX checkpoint go through
+    ``convert``.  Returns (lid_fn, index2lang)."""
     from speechlid_tpu_torch import convert
     from speechlid_tpu_torch.core.checkpoint import load_checkpoint
     from speechlid_tpu_torch.tasks.lid_asr import LidASRTask
 
     ckpt_data = load_checkpoint(ckpt)
     task = LidASRTask(**ckpt_data["hyper_parameters"], device=device)
-    convert.load_into(task.model, convert.lid_state(
-        {"params": ckpt_data["params"], "batch_stats": ckpt_data["batch_stats"]}))
+    if "state" in ckpt_data:
+        task.model.load_state_dict(ckpt_data["state"]["model"])
+    else:
+        convert.load_into(task.model, convert.lid_state(
+            {"params": ckpt_data["params"], "batch_stats": ckpt_data["batch_stats"]}))
     return make_lid_fn(task), task.index2lang
 
 
 def main(argv=None) -> None:
     parser = argparse.ArgumentParser(description=__doc__,
                                      formatter_class=argparse.RawDescriptionHelpFormatter)
-    parser.add_argument("--ckpt", required=True, help="LID checkpoint of the JAX package")
+    parser.add_argument("--ckpt", required=True, help="LID checkpoint of the port's trainer or of the JAX package")
     parser.add_argument("--host", default="127.0.0.1")
     parser.add_argument("--port", type=int, default=8080)
     parser.add_argument("--device", default="cuda")

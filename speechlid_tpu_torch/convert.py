@@ -1,4 +1,5 @@
-"""Weight bridge: the JAX package's flax variables → this port's ``state_dict``.
+"""Weight bridge: the JAX package's flax variables → this port's ``state_dict``,
+and back.
 
 Input: ``{"params": …, "batch_stats": …}`` as nested mappings of arrays
 (numpy, or anything ``np.asarray`` takes), e.g. from
@@ -17,6 +18,10 @@ Layout changes, leaf by leaf:
   slice l goes to ``heads.heads.{l}``;
 - encoder blocks come unrolled (``block_i/``) or scanned
   (``blocks/ConformerBlock_0/`` with a leading block axis N); both load.
+
+:func:`lid_variables` is the reverse direction (``state_dict`` → flax-shaped
+numpy trees, unrolled ``block_i`` layout), so that parameters and BatchNorm
+statistics after N training steps can be compared leaf by leaf.
 
 The Conv2d subsampling's Dense needs no permutation: the port flattens its
 (T', F', C) features frequency-major, as the JAX NHWC convolution does.
@@ -132,6 +137,114 @@ def lid_state(variables: Mapping) -> StateDict:
     sd.update(_dense(disc["Dense_0"], "discriminator.fc1."))
     sd.update(_dense(disc["Dense_1"], "discriminator.fc2."))
     return sd
+
+
+# ---------------------------------------------------------------------------
+# The reverse direction: state_dict → flax-shaped numpy trees
+# ---------------------------------------------------------------------------
+
+
+def _n(x) -> np.ndarray:
+    return np.asarray(x.detach().cpu() if isinstance(x, torch.Tensor) else x, dtype=np.float32)
+
+
+def _dense_tree(sd: Mapping, prefix: str) -> Dict[str, np.ndarray]:
+    out = {"kernel": _n(sd[prefix + "weight"]).T}
+    if prefix + "bias" in sd:
+        out["bias"] = _n(sd[prefix + "bias"])
+    return out
+
+
+def _norm_tree(sd: Mapping, prefix: str) -> Dict[str, np.ndarray]:
+    return {"scale": _n(sd[prefix + "weight"]), "bias": _n(sd[prefix + "bias"])}
+
+
+def block_variables(sd: Mapping, prefix: str):
+    """One ``ConformerBlock`` of a state_dict → (params, batch_stats) of the
+    JAX ``ConformerBlock``."""
+    conv = prefix + "conv."
+    params = {
+        "LayerNorm_0": _norm_tree(sd, prefix + "norm_ff1."),
+        "ff1": {"Dense_0": _dense_tree(sd, prefix + "ff1.fc1."),
+                "Dense_1": _dense_tree(sd, prefix + "ff1.fc2.")},
+        "LayerNorm_1": _norm_tree(sd, prefix + "norm_attn."),
+        "attn": {"to_q": _dense_tree(sd, prefix + "attn.to_q."),
+                 "to_kv": _dense_tree(sd, prefix + "attn.to_kv."),
+                 "to_out": _dense_tree(sd, prefix + "attn.to_out."),
+                 "rel_pos_emb": _n(sd[prefix + "attn.rel_pos_emb"])},
+        "conv": {
+            "LayerNorm_0": _norm_tree(sd, conv + "norm."),
+            "Dense_0": _dense_tree(sd, conv + "pointwise_in."),
+            "depthwise": {"kernel": _n(sd[conv + "depthwise.weight"])[:, None, :],
+                          "bias": _n(sd[conv + "depthwise.bias"])},
+            "bn": _norm_tree(sd, conv + "bn."),
+            "Dense_1": _dense_tree(sd, conv + "pointwise_out."),
+        },
+        "LayerNorm_2": _norm_tree(sd, prefix + "norm_ff2."),
+        "ff2": {"Dense_0": _dense_tree(sd, prefix + "ff2.fc1."),
+                "Dense_1": _dense_tree(sd, prefix + "ff2.fc2.")},
+        "post_norm": _norm_tree(sd, prefix + "post_norm."),
+    }
+    stats = {"conv": {"bn": {"mean": _n(sd[conv + "bn.running_mean"]),
+                             "var": _n(sd[conv + "bn.running_var"])}}}
+    return params, stats
+
+
+def _count(sd: Mapping, prefix: str) -> int:
+    """How many ``{prefix}{i}.`` groups a state_dict holds."""
+    return len({k[len(prefix):].split(".")[0] for k in sd if k.startswith(prefix)})
+
+
+def _stack(trees):
+    if isinstance(trees[0], Mapping):
+        return {k: _stack([t[k] for t in trees]) for k in trees[0]}
+    return np.stack(trees)
+
+
+def conformer_variables(sd: Mapping, prefix: str = ""):
+    """``ConformerModel`` entries of a state_dict → (params, batch_stats) of
+    the JAX ``ConformerModel`` (unrolled ``block_i`` layout): the inverse of
+    :func:`conformer_state`."""
+    params: Dict = {}
+    stats: Dict = {}
+    sub = prefix + "subsample."
+    if sub + "conv1.weight" in sd:
+        params["subsample"] = {
+            f"Conv_{i}": {"kernel": _n(sd[f"{sub}conv{i}.weight"]).transpose(2, 3, 1, 0),
+                          "bias": _n(sd[f"{sub}conv{i}.bias"])} for i in (0, 1)}
+    else:
+        params["subsample"] = {"Conv_0": {
+            "kernel": _n(sd[sub + "conv.weight"]).transpose(2, 1, 0),
+            "bias": _n(sd[sub + "conv.bias"])}}
+    params["subsample"]["Dense_0"] = _dense_tree(sd, sub + "out.")
+    for i in range(_count(sd, prefix + "blocks.")):
+        params[f"block_{i}"], stats[f"block_{i}"] = block_variables(sd, f"{prefix}blocks.{i}.")
+    return params, stats
+
+
+def lid_variables(sd: Mapping) -> Dict[str, Dict]:
+    """``MutiLangModel`` state_dict → ``{"params", "batch_stats"}`` of the JAX
+    ``MutiLangModel`` (unrolled encoder blocks, heads stacked on a leading
+    language axis): the inverse of :func:`lid_state`."""
+    feat_p, feat_s = conformer_variables(sd, "featurizer.")
+    heads_p, heads_s = [], []
+    for lang in range(_count(sd, "heads.heads.")):
+        prefix = f"heads.heads.{lang}."
+        p, s = {}, {}
+        for j in range(_count(sd, prefix + "blocks.")):
+            p[f"block_{j}"], s[f"block_{j}"] = block_variables(sd, f"{prefix}blocks.{j}.")
+        p["Dense_0"] = _dense_tree(sd, prefix + "out.")
+        heads_p.append(p)
+        heads_s.append(s)
+    return {
+        "params": {
+            "featurizer": feat_p,
+            "heads": {"heads": _stack(heads_p)},
+            "discriminator": {"Dense_0": _dense_tree(sd, "discriminator.fc1."),
+                              "Dense_1": _dense_tree(sd, "discriminator.fc2.")},
+        },
+        "batch_stats": {"featurizer": feat_s, "heads": {"heads": _stack(heads_s)}},
+    }
 
 
 def load_into(module: torch.nn.Module, state: StateDict) -> None:

@@ -1,0 +1,183 @@
+"""Optimizer factory: name + config → the optimizer the port's trainer steps
+(port of ``speechlid_tpu/core/optim/factory.py`` and ``routed.py``).
+
+The JAX package builds an optax chain (clip by global norm → [L2] → Adam /
+AdamW / SGD → schedule).  :class:`Optimizer` is that chain written out over
+the model's tensors with ``torch._foreach`` operations, because three of
+optax's conventions differ from ``torch.optim`` and a step-exact port needs
+them:
+
+- the schedule is read at the count *before* the step (the first step uses
+  ``schedule(0)``); the routed variant reads it at ``count + 1``;
+- the clip scales by ``clip / max(norm, clip)`` with no epsilon added to
+  the norm (``clip_grad_norm_`` adds 1e-6);
+- ``routed=False`` is plain Adam over *zero* gradients for parameters that
+  took no part in the step (the other languages' heads): their moments decay
+  and they keep moving, on one global step count.  ``routed=True`` is
+  ``routed_adam``: a parameter without a gradient is skipped, with its
+  moments and its own step count frozen, which is what ``torch.optim.Adam``
+  does with ``grad is None``.
+
+A frozen parameter (``requires_grad=False``) keeps its moments exactly in
+both modes.  The update is in place.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Iterable, List, Optional, Tuple
+
+import torch
+
+from speechlid_tpu_torch.core.optim.schedules import (
+    ReduceLROnPlateau,
+    Schedule,
+    cosine_annealing_warmup_restarts,
+    tristage_schedule,
+)
+
+
+class Optimizer:
+    """Clip → [L2] → Adam / AdamW / SGD → lr, over named parameters.
+
+    ``step()`` reads each parameter's ``.grad``; ``lr_fn`` is the schedule
+    (``None``: the constant ``lr``, or the plateau scheduler's current lr).
+    ``b1``, ``b2`` and ``eps`` are optax's Adam defaults."""
+
+    b1, b2, eps = 0.9, 0.999, 1e-8
+
+    def __init__(
+        self,
+        named_params: Iterable[Tuple[str, torch.nn.Parameter]],
+        name: str = "adam",
+        lr: float = 1e-3,
+        weight_decay: float = 0.0,
+        clip_norm: Optional[float] = 20.0,
+        lr_fn: Optional[Schedule] = None,
+        plateau: Optional[ReduceLROnPlateau] = None,
+        routed: bool = False,
+    ) -> None:
+        if name not in ("adam", "adamw", "sgd"):
+            raise ValueError(f"unknown optimizer: {name}")
+        self.names, self.params = map(list, zip(*named_params))
+        self.name, self.lr, self.weight_decay = name, float(lr), float(weight_decay)
+        self.clip_norm, self.lr_fn, self.plateau, self.routed = clip_norm, lr_fn, plateau, routed
+        self.count = 0  # steps taken
+        self.counts = [0] * len(self.params)  # routed: steps each parameter took part in
+        self.mu: List[torch.Tensor] = []
+        self.nu: List[torch.Tensor] = []
+        if name != "sgd":
+            self.mu = [torch.zeros_like(p) for p in self.params]
+            self.nu = [torch.zeros_like(p) for p in self.params]
+
+    def lr_at(self, count: int) -> float:
+        """The learning rate of the step taken after ``count`` steps."""
+        if self.plateau is not None:
+            return self.plateau.lr
+        if self.lr_fn is None:
+            return self.lr
+        return self.lr_fn(count + 1 if self.routed else count)
+
+    def zero_grad(self) -> None:
+        for p in self.params:
+            p.grad = None
+
+    @torch.no_grad()
+    def step(self) -> None:
+        idx, grads = [], []
+        for i, p in enumerate(self.params):
+            if not p.requires_grad or (p.grad is None and self.routed):
+                continue
+            idx.append(i)
+            grads.append(torch.zeros_like(p) if p.grad is None else p.grad)
+        lr = self.lr_at(self.count)
+        self.count += 1
+        if not idx:
+            return
+        params = [self.params[i] for i in idx]
+        if self.clip_norm:
+            norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+            if self.routed:
+                scale = (self.clip_norm / norm.clamp_min(1e-12)).clamp_max(1.0)
+            else:
+                scale = torch.where(norm < self.clip_norm, torch.ones_like(norm),
+                                    self.clip_norm / norm)
+            grads = torch._foreach_mul(grads, scale)
+        if self.name == "adam" and self.weight_decay:
+            # L2 inside the optimizer, after the clip of the raw gradients
+            grads = torch._foreach_add(grads, params, alpha=self.weight_decay)
+        if self.name == "sgd":
+            torch._foreach_add_(params, grads, alpha=-lr)
+            return
+        mu = [self.mu[i] for i in idx]
+        nu = [self.nu[i] for i in idx]
+        torch._foreach_mul_(mu, self.b1)
+        torch._foreach_add_(mu, grads, alpha=1.0 - self.b1)
+        torch._foreach_mul_(nu, self.b2)
+        torch._foreach_addcmul_(nu, grads, grads, value=1.0 - self.b2)
+        if self.routed:
+            for i in idx:
+                self.counts[i] += 1
+            counts = [self.counts[i] for i in idx]
+        else:
+            counts = [self.count] * len(idx)
+        denom = torch._foreach_div(nu, [1.0 - self.b2 ** c for c in counts])
+        torch._foreach_sqrt_(denom)
+        torch._foreach_add_(denom, self.eps)
+        if self.name == "adamw" and self.weight_decay:
+            torch._foreach_mul_(params, 1.0 - lr * self.weight_decay)
+        torch._foreach_addcdiv_(params, mu, denom,
+                                scalars=[-lr / (1.0 - self.b1 ** c) for c in counts])
+
+    def state_dict(self) -> Dict[str, Any]:
+        return {
+            "count": self.count, "counts": dict(zip(self.names, self.counts)),
+            "mu": dict(zip(self.names, self.mu)), "nu": dict(zip(self.names, self.nu)),
+        }
+
+    def load_state_dict(self, state: Dict[str, Any]) -> None:
+        self.count = int(state["count"])
+        self.counts = [int(state["counts"][n]) for n in self.names]
+        for mine, theirs in ((self.mu, state["mu"]), (self.nu, state["nu"])):
+            for n, t in zip(self.names, mine):
+                t.copy_(theirs[n])
+
+
+def make_optimizer(
+    named_params: Iterable[Tuple[str, torch.nn.Parameter]],
+    name: str = "adam",
+    lr: float = 1e-3,
+    weight_decay: float = 0.0,
+    clip_norm: Optional[float] = 20.0,
+    schedule: Optional[str] = None,
+    schedule_conf: Optional[Dict[str, Any]] = None,
+    routed: bool = False,
+) -> Tuple[Optimizer, Optional[ReduceLROnPlateau]]:
+    """Returns (optimizer, plateau_or_None).
+
+    schedule: None | 'tristage' | 'cosine' | 'plateau'.  For 'plateau' the
+    trainer feeds the returned scheduler after each eval epoch and the
+    optimizer reads its current lr.  ``routed=True`` (adam only) is the
+    routing-aware Adam of the module docstring."""
+    lr = float(lr)  # guard against YAML "2e-3"-style string floats
+    schedule_conf = dict(schedule_conf or {})
+    if name == "novograd":
+        raise NotImplementedError("novograd is not ported yet: it comes with a later slice")
+    if routed:
+        if name != "adam":
+            raise ValueError("routed mode currently supports adam only")
+        if weight_decay:
+            raise ValueError("routed adam does not take weight_decay")
+        if schedule == "plateau":
+            raise ValueError("routed adam does not support plateau lr")
+    lr_fn, plateau = None, None
+    if schedule == "tristage":
+        lr_fn = tristage_schedule(lr=lr, **schedule_conf)
+    elif schedule == "cosine":
+        schedule_conf.setdefault("max_lr", lr)
+        lr_fn = cosine_annealing_warmup_restarts(**schedule_conf)
+    elif schedule == "plateau":
+        plateau = ReduceLROnPlateau(lr=lr, **schedule_conf)
+    elif schedule is not None:
+        raise ValueError(f"unknown schedule: {schedule}")
+    optimizer = Optimizer(named_params, name, lr, weight_decay, clip_norm, lr_fn, plateau, routed)
+    return optimizer, plateau

@@ -1,4 +1,4 @@
-"""Conformer encoder, eval mode (port of ``speechlid_tpu/models/conformer.py``).
+"""Conformer encoder, eval and training mode (port of ``speechlid_tpu/models/conformer.py``).
 
 ConformerBlock = ½FF + MHSA (Shaw rel-pos, clip ±512) + conv module
 (pointwise → GLU → depthwise k31 → masked BN → Swish → pointwise) + ½FF +
@@ -15,9 +15,17 @@ needs no transposes.  Parity details that differ from PyTorch's defaults:
 - every ``ConformerConvModule`` runs its depthwise conv through
   ``ops/cuda/depthwise_kernel.depthwise_conv1d``.
 
-Dropout, stochastic depth and BatchNorm's batch statistics belong to the
-training path and are not ported yet: every module computes its eval
-forward.
+``nn.Module.training`` selects the mode.  In training mode:
+
+- ``MaskedBatchNorm`` normalises with the statistics of the batch's valid
+  frames and moves its running statistics (momentum 0.1, unbiased variance
+  stored), as the JAX ``_MaskedBatchNorm`` does;
+- :class:`Dropout` draws from the ``torch.Generator`` the model was given
+  with ``set_generator`` (the global generator if none was given);
+- linear stochastic depth keeps block i with p_i = 1 − ((i+1)/N)(1 − p), one
+  draw per block for the whole batch.  As in the JAX package the block is
+  always evaluated, and its BatchNorm statistics move, even when its
+  output is dropped: ``x = where(keep, block(x), x)``.
 """
 
 from __future__ import annotations
@@ -48,17 +56,45 @@ def _layer_norm(dim: int) -> nn.LayerNorm:
     return nn.LayerNorm(dim, eps=LN_EPS)
 
 
+class Dropout(nn.Module):
+    """Inverted dropout in training mode, drawn from ``self.generator`` (a
+    ``torch.Generator`` on the input's device; ``None`` is the global one)."""
+
+    def __init__(self, p: float = 0.0):
+        super().__init__()
+        if not 0.0 <= p < 1.0:
+            raise ValueError(f"dropout rate must lie in [0, 1), got {p}")
+        self.p = p
+        self.generator: Optional[torch.Generator] = None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training or self.p == 0.0:
+            return x
+        keep = torch.rand(x.shape, generator=self.generator, device=x.device) >= self.p
+        return x * keep.to(x.dtype) / (1.0 - self.p)
+
+
+def set_generator(module: nn.Module, generator: Optional[torch.Generator]) -> None:
+    """Give every random draw under ``module`` (dropout, stochastic depth)
+    the same explicit generator."""
+    for m in module.modules():
+        if isinstance(m, (Dropout, ConformerModel)):
+            m.generator = generator
+
+
 class FeedForward(nn.Module):
     """dim → dim·mult → dim with Swish."""
 
-    def __init__(self, dim: int, mult: int = 4, use_double_swish: bool = False):
+    def __init__(self, dim: int, mult: int = 4, use_double_swish: bool = False,
+                 dropout: float = 0.0):
         super().__init__()
         self.act = double_swish if use_double_swish else swish
         self.fc1 = nn.Linear(dim, dim * mult)
         self.fc2 = nn.Linear(dim * mult, dim)
+        self.dropout = Dropout(dropout)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.fc2(self.act(self.fc1(x)))
+        return self.dropout(self.fc2(self.dropout(self.act(self.fc1(x)))))
 
 
 class RelPosAttention(nn.Module):
@@ -69,9 +105,10 @@ class RelPosAttention(nn.Module):
     it outside any kernel, and parity is the point."""
 
     def __init__(self, dim: int, heads: int = 8, dim_head: int = 64,
-                 max_pos_emb: int = 512):
+                 max_pos_emb: int = 512, dropout: float = 0.0):
         super().__init__()
         self.heads, self.dim_head, self.max_pos_emb = heads, dim_head, max_pos_emb
+        self.dropout = Dropout(dropout)
         inner = heads * dim_head
         self.to_q = nn.Linear(dim, inner, bias=False)
         self.to_kv = nn.Linear(dim, 2 * inner, bias=False)
@@ -101,7 +138,7 @@ class RelPosAttention(nn.Module):
             dots = dots.masked_fill(~pair, _NEG)
         attn = torch.softmax(dots.float(), dim=-1).to(x.dtype)
         out = (attn @ v).transpose(1, 2).reshape(b, n, h * d)
-        return self.to_out(out)
+        return self.dropout(self.to_out(out))
 
 
 class DepthwiseConv1d(nn.Module):
@@ -120,19 +157,41 @@ class DepthwiseConv1d(nn.Module):
 
 
 class MaskedBatchNorm(nn.Module):
-    """BatchNorm over (B, T, C) with running statistics, eval mode:
-    (x - mean)·rsqrt(var + eps)·weight + bias in float32."""
+    """BatchNorm over (B, T, C), (x - mean)·rsqrt(var + eps)·weight + bias in
+    float32.  Eval mode uses the running statistics.  Training mode uses the
+    statistics of the valid frames (``mask`` (B, T), True = valid; all
+    frames without one): n = max(Σmask, 1), var = E[x²] − mean², biased for
+    the normalisation, and moves the running statistics by ``momentum``
+    towards the batch mean and the unbiased variance var·n/max(n − 1, 1)."""
 
-    def __init__(self, channels: int, eps: float = 1e-5):
+    def __init__(self, channels: int, eps: float = 1e-5, momentum: float = 0.1):
         super().__init__()
         self.eps = eps
+        self.momentum = momentum
         self.weight = nn.Parameter(torch.ones(channels))
         self.bias = nn.Parameter(torch.zeros(channels))
         self.register_buffer("running_mean", torch.zeros(channels))
         self.register_buffer("running_var", torch.ones(channels))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = (x.float() - self.running_mean) * torch.rsqrt(self.running_var + self.eps)
+    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        xf = x.float()
+        if self.training:
+            if mask is None:
+                n = torch.tensor(float(x.shape[0] * x.shape[1]), device=x.device)
+                mean = xf.mean(dim=(0, 1))
+                var = xf.var(dim=(0, 1), unbiased=False)
+            else:
+                m = mask[..., None].float()
+                n = m.sum(dim=(0, 1)).clamp_min(1.0)
+                mean = (xf * m).sum(dim=(0, 1)) / n
+                var = (xf.square() * m).sum(dim=(0, 1)) / n - mean.square()
+            with torch.no_grad():
+                unbiased = var * (n / (n - 1.0).clamp_min(1.0))
+                self.running_mean.lerp_(mean, self.momentum)
+                self.running_var.lerp_(unbiased, self.momentum)
+        else:
+            mean, var = self.running_mean, self.running_var
+        y = (xf - mean) * torch.rsqrt(var + self.eps)
         return (y * self.weight + self.bias).to(x.dtype)
 
 
@@ -141,9 +200,10 @@ class ConformerConvModule(nn.Module):
     BN → Swish → pointwise."""
 
     def __init__(self, dim: int, expansion_factor: int = 2, kernel_size: int = 31,
-                 use_double_swish: bool = False):
+                 use_double_swish: bool = False, dropout: float = 0.0):
         super().__init__()
         inner = dim * expansion_factor
+        self.dropout = Dropout(dropout)
         self.act = double_swish if use_double_swish else swish
         self.norm = _layer_norm(dim)
         self.pointwise_in = nn.Linear(dim, 2 * inner)
@@ -158,8 +218,8 @@ class ConformerConvModule(nn.Module):
             # padded frames must not leak into the depthwise conv
             y = y.masked_fill(~pad_mask[:, :, None], 0.0)
         y = self.depthwise(y)
-        y = self.act(self.bn(y))
-        return self.pointwise_out(y)
+        y = self.act(self.bn(y, pad_mask))
+        return self.dropout(self.pointwise_out(y))
 
 
 class ConformerBlock(nn.Module):
@@ -167,17 +227,18 @@ class ConformerBlock(nn.Module):
 
     def __init__(self, dim: int, dim_head: int = 64, heads: int = 8, ff_mult: int = 4,
                  conv_expansion_factor: int = 2, conv_kernel_size: int = 31,
-                 use_double_swish: bool = False):
+                 use_double_swish: bool = False, attn_dropout: float = 0.0,
+                 ff_dropout: float = 0.0, conv_dropout: float = 0.0):
         super().__init__()
         self.norm_ff1 = _layer_norm(dim)
-        self.ff1 = FeedForward(dim, ff_mult, use_double_swish)
+        self.ff1 = FeedForward(dim, ff_mult, use_double_swish, ff_dropout)
         self.norm_attn = _layer_norm(dim)
-        self.attn = RelPosAttention(dim, heads, dim_head)
+        self.attn = RelPosAttention(dim, heads, dim_head, dropout=attn_dropout)
         self.conv = ConformerConvModule(dim, conv_expansion_factor, conv_kernel_size,
-                                        use_double_swish)
+                                        use_double_swish, conv_dropout)
         self.norm_ff2 = _layer_norm(dim)
         # ff2 ignores use_double_swish, as the reference's second half-FFN does
-        self.ff2 = FeedForward(dim, ff_mult, False)
+        self.ff2 = FeedForward(dim, ff_mult, False, ff_dropout)
         self.post_norm = _layer_norm(dim)
 
     def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -230,24 +291,41 @@ class Conv2dSubsampling(nn.Module):
 
 
 class ConformerModel(nn.Module):
-    """Subsample → ×√d → N ConformerBlocks over the valid-frame mask."""
+    """Subsample → ×√d → positional dropout → N ConformerBlocks over the
+    valid-frame mask, with linear stochastic depth in training mode."""
 
     def __init__(self, n_blocks: int = 14, n_mels: int = 80, encoder_dim: int = 144,
                  dim_head: int = 64, heads: int = 4, ff_mult: int = 4,
                  conv_expansion_factor: int = 2, conv_kernel_size: int = 31,
-                 use_double_swish: bool = False, sub_sampling: int = 2):
+                 use_double_swish: bool = False, sub_sampling: int = 2,
+                 attn_dropout: float = 0.0, ff_dropout: float = 0.0,
+                 conv_dropout: float = 0.0, pos_dropout: float = 0.1,
+                 use_stochastic_depth: bool = True, stochastic_depth_p: float = 0.7):
         super().__init__()
         self.encoder_dim = encoder_dim
         self.sub_sampling = sub_sampling
+        self.pos_dropout = Dropout(pos_dropout)
+        self.use_stochastic_depth = use_stochastic_depth
+        self.generator: Optional[torch.Generator] = None
+        survival = 1.0 - (torch.arange(1, n_blocks + 1) / n_blocks) * (1.0 - stochastic_depth_p)
+        self.register_buffer("survival", survival, persistent=False)
         if sub_sampling == 4:
             self.subsample = Conv2dSubsampling(n_mels, encoder_dim)
         else:
             self.subsample = Conv1dSubSampling2(n_mels, encoder_dim)
         self.blocks = nn.ModuleList(
             ConformerBlock(encoder_dim, dim_head, heads, ff_mult, conv_expansion_factor,
-                           conv_kernel_size, use_double_swish)
+                           conv_kernel_size, use_double_swish, attn_dropout, ff_dropout,
+                           conv_dropout)
             for _ in range(n_blocks)
         )
+
+    def draw_keep(self, device: torch.device) -> torch.Tensor:
+        """(N,) bool, one stochastic-depth draw per block for the whole
+        batch: block i survives with probability ``survival[i]``.  It stays
+        on the device, so the step does not wait for it."""
+        u = torch.rand(len(self.blocks), generator=self.generator, device=device)
+        return u < self.survival
 
     def subsampled_lengths(self, lengths: torch.Tensor) -> torch.Tensor:
         if self.sub_sampling == 4:
@@ -255,11 +333,16 @@ class ConformerModel(nn.Module):
         return Conv1dSubSampling2.out_lengths(lengths)
 
     def forward(self, x: torch.Tensor, lengths: Optional[torch.Tensor] = None) -> torch.Tensor:
-        x = self.subsample(x) * math.sqrt(self.encoder_dim)
+        x = self.pos_dropout(self.subsample(x) * math.sqrt(self.encoder_dim))
         mask = None
         if lengths is not None:
             sub_len = self.subsampled_lengths(lengths)
             mask = torch.arange(x.shape[1], device=x.device)[None, :] < sub_len[:, None]
-        for block in self.blocks:
-            x = block(x, mask)
+        keep = None
+        if self.training and self.use_stochastic_depth:
+            keep = self.draw_keep(x.device)
+        for i, block in enumerate(self.blocks):
+            y = block(x, mask)
+            # a dropped block still ran: its BatchNorm statistics have moved
+            x = y if keep is None else torch.where(keep[i], y, x)
         return x  # (B, T', encoder_dim)

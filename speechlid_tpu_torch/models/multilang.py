@@ -9,6 +9,12 @@ sizes padded to V_max+1, padded ids masked to ``finfo(float32).min``, the
 blank at index V_max for every language.  Each head's ConformerBlock runs
 its own depthwise kernel launch.
 
+Training runs one head, the batch's own (``only=``): the JAX task computes
+every head under ``vmap`` but takes the loss from the own head and commits
+only the own head's BatchNorm statistics, so loss, gradients and state are
+the same and two head passes are saved.  The other languages' rows of the
+returned logits are then absent: the result is (1, B, T, V_max+1).
+
 ``BiLSTMLinearHead`` is not ported yet.
 """
 
@@ -20,17 +26,19 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from speechlid_tpu_torch.models.conformer import ConformerBlock
+from speechlid_tpu_torch.models.conformer import ConformerBlock, Dropout
 
 _NEG = torch.finfo(torch.float32).min
 
 
 class ConformerLinearHead(nn.Module):
-    """N ConformerBlocks → Linear(V+1)."""
+    """N ConformerBlocks → dropout → Linear(V+1)."""
 
     def __init__(self, vocab_size: int, linear_dim: int = 768, num_layers: int = 1,
-                 dim_head: int = 32, num_head: int = 8, use_double_swish: bool = False):
+                 dim_head: int = 32, num_head: int = 8, use_double_swish: bool = False,
+                 dropout: float = 0.0):
         super().__init__()
+        self.dropout = Dropout(dropout)
         self.blocks = nn.ModuleList(
             ConformerBlock(linear_dim, dim_head=dim_head, heads=num_head,
                            use_double_swish=use_double_swish)
@@ -41,21 +49,22 @@ class ConformerLinearHead(nn.Module):
     def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         for block in self.blocks:
             x = block(x, mask)
-        return self.out(x)
+        return self.out(self.dropout(x))
 
 
 class MultiLangHeadStack(nn.Module):
-    """(B, T, D) → logits (L, B, T, V_max+1), padded vocab ids masked."""
+    """(B, T, D) → logits (L, B, T, V_max+1), padded vocab ids masked; with
+    ``only=l`` just head l, (1, B, T, V_max+1)."""
 
     def __init__(self, vocab_sizes: Sequence[int], linear_dim: int = 768,
                  num_layers: int = 1, dim_head: int = 32, num_head: int = 8,
-                 use_double_swish: bool = False):
+                 use_double_swish: bool = False, dropout: float = 0.0):
         super().__init__()
         self.vocab_sizes = tuple(int(v) for v in vocab_sizes)
         self.vocab_max = max(self.vocab_sizes)
         self.heads = nn.ModuleList(
             ConformerLinearHead(self.vocab_max, linear_dim, num_layers, dim_head,
-                                num_head, use_double_swish)
+                                num_head, use_double_swish, dropout)
             for _ in self.vocab_sizes
         )
         ids = torch.arange(self.vocab_max + 1)
@@ -63,10 +72,14 @@ class MultiLangHeadStack(nn.Module):
         valid = (ids[None, :] < sizes) | (ids[None, :] == self.vocab_max)  # chars ∪ blank
         self.register_buffer("vocab_valid", valid[:, None, None, :], persistent=False)
 
-    def forward(self, x: torch.Tensor, lengths: Optional[torch.Tensor] = None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, lengths: Optional[torch.Tensor] = None,
+                only: Optional[int] = None) -> torch.Tensor:
         mask = None
         if lengths is not None:
             mask = torch.arange(x.shape[1], device=x.device)[None, :] < lengths[:, None]
+        if only is not None:
+            logits = self.heads[only](x, mask)[None]
+            return logits.masked_fill(~self.vocab_valid[only : only + 1], _NEG)
         logits = torch.stack([head(x, mask) for head in self.heads])
         return logits.masked_fill(~self.vocab_valid, _NEG)
 
@@ -126,23 +139,26 @@ class MutiLangModel(nn.Module):
 
     ``featurizer`` maps (feats, lengths) → (B, T', D) and has
     ``subsampled_lengths``.  ``forward`` returns (logits (L, B, T', V+1),
-    feat_lengths); :meth:`infer` the all-language scoring dict."""
+    feat_lengths), or with ``only=l`` head l's logits alone as (1, B, T',
+    V+1); :meth:`infer` the all-language scoring dict."""
 
     def __init__(self, featurizer: nn.Module, vocab_sizes: Sequence[int],
                  linear_dim: int = 768, num_layers: int = 1, dim_head: int = 32,
-                 num_head: int = 8, use_double_swish: bool = False, disc_hidden: int = 128):
+                 num_head: int = 8, use_double_swish: bool = False, disc_hidden: int = 128,
+                 dropout: float = 0.0):
         super().__init__()
         self.featurizer = featurizer
         self.heads = MultiLangHeadStack(vocab_sizes, linear_dim, num_layers, dim_head,
-                                        num_head, use_double_swish)
+                                        num_head, use_double_swish, dropout)
         self.discriminator = LangDiscriminatorMLP(len(vocab_sizes), disc_hidden)
         self.register_buffer("vocab_sizes", torch.tensor(tuple(vocab_sizes)),
                              persistent=False)
 
-    def forward(self, x: torch.Tensor, lengths: Optional[torch.Tensor] = None):
+    def forward(self, x: torch.Tensor, lengths: Optional[torch.Tensor] = None,
+                only: Optional[int] = None):
         feats = self.featurizer(x, lengths)
         feat_lengths = None if lengths is None else self.featurizer.subsampled_lengths(lengths)
-        return self.heads(feats, feat_lengths), feat_lengths
+        return self.heads(feats, feat_lengths, only), feat_lengths
 
     def infer(self, x: torch.Tensor, lengths: Optional[torch.Tensor] = None
               ) -> Dict[str, torch.Tensor]:

@@ -40,6 +40,9 @@ _SIGNATURES = {
     "fbank_log_mel_f32": (_P, _I, _I, _I, _P, _I, _I, _P, _P, _I, _I, _I, _P, _P),
     # x, w, bias, y, B, T, C, K, pad_l, dtype, stream
     "depthwise_conv1d_fwd": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    # x, g, scratch, dw, db, B, T, C, K, pad_l, scratch_chunks, dtype, stream
+    "depthwise_conv1d_bwd_w": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
+    "depthwise_conv1d_bwd_w_time_chunk": (),
 }
 
 

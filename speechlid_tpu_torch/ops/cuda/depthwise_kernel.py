@@ -1,27 +1,29 @@
-"""Depthwise conv1d kernel (``csrc/depthwise.cu``), forward, and its plain
-PyTorch version.
+"""Depthwise conv1d kernels (``csrc/depthwise.cu``), forward and backward,
+and their plain PyTorch versions.
 
 Replaces ``speechlid_tpu/ops/pallas/depthwise_kernel.py`` (``_pallas_impl``,
-body ``_dw_kernel_3d``): 'SAME' depthwise conv1d plus bias over (B, T, C)
-activations, (B, T, C) ⊛ (k, C) + (C,), left halo ``pad_l``, float32
-accumulation for bfloat16 inputs.
+body ``_dw_kernel_3d``, and its ``custom_vjp`` ``_dw_bwd``): 'SAME'
+depthwise conv1d plus bias over (B, T, C) activations, (B, T, C) ⊛ (k, C) +
+(C,), left halo ``pad_l``, float32 accumulation for bfloat16 inputs.
 
-On the card it moves each element in and out once for 2·k FLOP, so it is
-bound by bytes and, at the Conformer's serving shapes, by launch latency;
-the kernel stages a (time tile + halo) × 32-channel span in shared memory
-so every warp's loads coalesce over channels (design notes in the CUDA
-source).  Only the forward is ported: the backward (dX through this kernel
-with flipped weights and ``pad_l`` swapped, dW/db as a reduction kernel)
-comes with the training path.
+On the card every kernel here moves each element once for 2·k FLOP, so each
+is bound by bytes and, at the Conformer's shapes, by launch latency.  The
+forward stages a (time tile + halo) × 32-channel span in shared memory so
+every warp's loads coalesce over channels.  The backward is
+:class:`DepthwiseConv1dFn`: dX is the forward kernel on the output gradient
+with time-flipped weights, a zero bias and the halo swapped
+(``k - 1 - pad_l``); dW and db come from ``depthwise_conv1d_bwd_w``, which
+writes per-chunk partial sums to a scratch and reduces them in a fixed
+order, so two runs give the same bits (design notes in the CUDA source).
 
-:func:`depthwise_conv1d` takes :func:`depthwise_conv1d_plain` for tensors on
-the CPU and launches the kernel for tensors on the card; there is no other
-path.
+:func:`depthwise_conv1d` and :func:`depthwise_conv1d_bwd_w` take their plain
+versions for tensors on the CPU and launch the kernels for tensors on the
+card; there is no other path.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -36,17 +38,135 @@ def depthwise_conv1d_plain(
     pad_l: Optional[int] = None,
 ) -> torch.Tensor:
     """Plain version: the k shifted multiply-accumulates written out, in
-    float32, over x zero-padded by ``pad_l`` on the left and
-    ``k - 1 - pad_l`` on the right; the result in x's dtype."""
+    float32 (float64 for float64 inputs), over x zero-padded by ``pad_l`` on
+    the left and ``k - 1 - pad_l`` on the right; the result in x's dtype."""
     k = w.shape[0]
     pad_l = (k - 1) // 2 if pad_l is None else pad_l
     t = x.shape[1]
-    xp = torch.nn.functional.pad(x.float(), (0, 0, pad_l, k - 1 - pad_l))
-    w32 = w.float()
+    acc_dtype = torch.promote_types(x.dtype, torch.float32)
+    xp = torch.nn.functional.pad(x.to(acc_dtype), (0, 0, pad_l, k - 1 - pad_l))
+    w32 = w.to(acc_dtype)
     acc = xp[:, 0:t] * w32[0]
     for j in range(1, k):
         acc = acc + xp[:, j : j + t] * w32[j]
-    return (acc + bias.float()).to(x.dtype)
+    return (acc + bias.to(acc_dtype)).to(x.dtype)
+
+
+def depthwise_conv1d_bwd_w_plain(
+    x: torch.Tensor, g: torch.Tensor, k: int, pad_l: Optional[int] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of the weight and bias gradient: dW[j] = Σ_{b,t}
+    x_pad[:, t+j]·g[:, t] as k shifted products summed over (B, T) in
+    float32 (float64 for float64 inputs), db = Σ_{b,t} g; both in x's
+    dtype."""
+    pad_l = (k - 1) // 2 if pad_l is None else pad_l
+    t = x.shape[1]
+    acc_dtype = torch.promote_types(x.dtype, torch.float32)
+    xp = torch.nn.functional.pad(x.to(acc_dtype), (0, 0, pad_l, k - 1 - pad_l))
+    g32 = g.to(acc_dtype)
+    dw = torch.stack([(xp[:, j : j + t] * g32).sum(dim=(0, 1)) for j in range(k)])
+    return dw.to(x.dtype), g32.sum(dim=(0, 1)).to(x.dtype)
+
+
+def _check_cuda(what: str, *tensors: torch.Tensor) -> None:
+    first = tensors[0]
+    if first.dtype not in _DTYPES or any(t.dtype != first.dtype for t in tensors):
+        raise TypeError(
+            f"{what} kernel takes float32 or bfloat16 tensors of one dtype; got "
+            f"{[t.dtype for t in tensors]}"
+        )
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError(f"{what} kernel needs contiguous tensors")
+
+
+def _launch_fwd(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
+                pad_l: int, dx: bool = False) -> torch.Tensor:
+    """One launch of ``depthwise_conv1d_fwd`` on checked CUDA tensors,
+    counted in ``depthwise_conv1d.launches`` and, when the backward makes it
+    for dX, in ``depthwise_conv1d.dx_launches`` as well."""
+    _check_cuda("depthwise_conv1d", x, w, bias)
+    b, t, c = x.shape
+    y = torch.empty_like(x)
+    with torch.cuda.device(x.device):
+        err = _build.lib().depthwise_conv1d_fwd(
+            x.data_ptr(), w.data_ptr(), bias.data_ptr(), y.data_ptr(),
+            b, t, c, w.shape[0], pad_l, _DTYPES[x.dtype],
+            torch.cuda.current_stream().cuda_stream,
+        )
+    _build.check(err, "depthwise_conv1d_fwd")
+    depthwise_conv1d.launches += 1
+    depthwise_conv1d.dx_launches += dx
+    return y
+
+
+def depthwise_conv1d_bwd_w(
+    x: torch.Tensor, g: torch.Tensor, k: int, pad_l: Optional[int] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(dW (k, C), db (C,)) of the depthwise conv from its input ``x`` and
+    output gradient ``g``, both (B, T, C).
+
+    CPU tensors: :func:`depthwise_conv1d_bwd_w_plain`.  CUDA tensors: the
+    reduction kernel, counted in ``depthwise_conv1d_bwd_w.launches``."""
+    if x.dim() != 3 or g.shape != x.shape:
+        raise ValueError(f"expected x and g (B, T, C); got {tuple(x.shape)}, {tuple(g.shape)}")
+    pad_l = (k - 1) // 2 if pad_l is None else pad_l
+    if not 1 <= k <= MAX_KERNEL_SIZE or not 0 <= pad_l < k:
+        raise ValueError(f"need 1 <= k <= {MAX_KERNEL_SIZE} and 0 <= pad_l < k; got {k}, {pad_l}")
+    if x.device != g.device:
+        raise ValueError(f"x and g lie on different devices: {x.device}, {g.device}")
+    if x.device.type == "cpu":
+        return depthwise_conv1d_bwd_w_plain(x, g, k, pad_l)
+    if x.device.type != "cuda":
+        raise ValueError(f"depthwise_conv1d_bwd_w runs on cpu or cuda, not {x.device}")
+    _check_cuda("depthwise_conv1d_bwd_w", x, g)
+    b, t, c = x.shape
+    lib = _build.lib()
+    time_chunk = lib.depthwise_conv1d_bwd_w_time_chunk()
+    chunks = b * ((t + time_chunk - 1) // time_chunk)
+    # the kernel allocates nothing: partial sums per (chunk, tap or bias, channel)
+    scratch = torch.empty((chunks, k + 1, c), dtype=torch.float32, device=x.device)
+    dw = torch.empty((k, c), dtype=x.dtype, device=x.device)
+    db = torch.empty((c,), dtype=x.dtype, device=x.device)
+    with torch.cuda.device(x.device):
+        err = lib.depthwise_conv1d_bwd_w(
+            x.data_ptr(), g.data_ptr(), scratch.data_ptr(), dw.data_ptr(), db.data_ptr(),
+            b, t, c, k, pad_l, chunks, _DTYPES[x.dtype],
+            torch.cuda.current_stream().cuda_stream,
+        )
+    _build.check(err, "depthwise_conv1d_bwd_w")
+    depthwise_conv1d_bwd_w.launches += 1
+    return dw, db
+
+
+depthwise_conv1d_bwd_w.launches = 0
+
+
+class DepthwiseConv1dFn(torch.autograd.Function):
+    """The depthwise conv on the card with its gradient, all through the
+    kernels: forward and dX by ``depthwise_conv1d_fwd``, dW and db by
+    ``depthwise_conv1d_bwd_w``.  An input that needs no gradient costs no
+    launch."""
+
+    @staticmethod
+    def forward(ctx, x, w, bias, pad_l):
+        ctx.save_for_backward(x, w)
+        ctx.pad_l = pad_l
+        return _launch_fwd(x, w, bias, pad_l)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        k = w.shape[0]
+        g = g.contiguous()
+        dx = dw = db = None
+        if ctx.needs_input_grad[0]:
+            # transposed correlation: flipped taps, the asymmetric halo swapped
+            dx = _launch_fwd(g, w.flip(0).contiguous(), w.new_zeros(w.shape[1]),
+                             k - 1 - ctx.pad_l, dx=True)
+        if ctx.needs_input_grad[1] or ctx.needs_input_grad[2]:
+            dw, db = depthwise_conv1d_bwd_w(x, g, k, ctx.pad_l)
+        return dx, dw, db, None
 
 
 def depthwise_conv1d(
@@ -54,10 +174,12 @@ def depthwise_conv1d(
     pad_l: Optional[int] = None,
 ) -> torch.Tensor:
     """(B, T, C) ⊛ (k, C) + (C,), 'SAME' with left halo ``pad_l``
-    (default (k-1)//2).
+    (default (k-1)//2), differentiable in x, w and bias.
 
-    CPU tensors: :func:`depthwise_conv1d_plain`.  CUDA tensors: the kernel,
-    counted in ``depthwise_conv1d.launches``.  Anything else raises."""
+    CPU tensors: :func:`depthwise_conv1d_plain` under autograd.  CUDA
+    tensors: :class:`DepthwiseConv1dFn`, whose forward and dX launches count
+    in ``depthwise_conv1d.launches`` (the dX ones also in
+    ``depthwise_conv1d.dx_launches``).  Anything else raises."""
     if x.dim() != 3 or w.dim() != 2 or bias.dim() != 1:
         raise ValueError(
             f"expected x (B, T, C), w (k, C), bias (C,); got {tuple(x.shape)}, "
@@ -77,25 +199,10 @@ def depthwise_conv1d(
         return depthwise_conv1d_plain(x, w, bias, pad_l)
     if x.device.type != "cuda":
         raise ValueError(f"depthwise_conv1d runs on cpu or cuda, not {x.device}")
-    if x.dtype not in _DTYPES or w.dtype != x.dtype or bias.dtype != x.dtype:
-        raise TypeError(
-            f"kernel takes float32 or bfloat16 x, w and bias of one dtype; got "
-            f"{x.dtype}, {w.dtype}, {bias.dtype}"
-        )
-    if not (x.is_contiguous() and w.is_contiguous() and bias.is_contiguous()):
-        raise ValueError("depthwise_conv1d kernel needs contiguous x, w and bias")
     if k > MAX_KERNEL_SIZE:
         raise ValueError(f"kernel size {k} over the kernel's limit {MAX_KERNEL_SIZE}")
-    y = torch.empty_like(x)
-    with torch.cuda.device(x.device):
-        err = _build.lib().depthwise_conv1d_fwd(
-            x.data_ptr(), w.data_ptr(), bias.data_ptr(), y.data_ptr(),
-            b, t, c, k, pad_l, _DTYPES[x.dtype],
-            torch.cuda.current_stream().cuda_stream,
-        )
-    _build.check(err, "depthwise_conv1d_fwd")
-    depthwise_conv1d.launches += 1
-    return y
+    return DepthwiseConv1dFn.apply(x, w, bias, pad_l)
 
 
 depthwise_conv1d.launches = 0
+depthwise_conv1d.dx_launches = 0

@@ -1,4 +1,4 @@
-"""Batched audio frontend: wav → dB log-mel, eval path.
+"""Batched audio frontend: wav → dB log-mel, eval and training path.
 
 Port of ``speechlid_tpu/ops/frontend.py`` (torchaudio ``MelSpectrogram`` +
 ``AmplitudeToDB(top_db=80)`` semantics, HTK mel, n_fft 512, win 400,
@@ -8,8 +8,10 @@ stands alone.
 ``wav2mel`` goes through the fbank kernel wrapper
 (``ops/cuda/fbank_kernel.log_mel``): the CUDA kernel for a tensor on the
 card, the plain :func:`mel_spectrogram` formulation for one on the CPU.
-Kaldi fbank, SpecAugment and time stretch are training-path pieces and
-are not ported yet.
+In training :func:`fused_frontend` adds the time stretch and SpecAugment of
+``ops/specaugment.py``.  Kaldi fbank is not ported yet.  The fbank kernel
+has no backward (neither has the TPU kernel): call the frontend under
+``torch.no_grad``.
 """
 
 from __future__ import annotations
@@ -223,12 +225,26 @@ def fused_frontend(
     win_length: float = 0.025,
     hop_length: float = 0.01,
     normalize: bool = True,
+    generator: Optional[torch.Generator] = None,
+    t_stretch: bool = False,
+    stretch_generator: Optional[torch.Generator] = None,
+    mask_times: int = 0,
+    t_mask_ratio: float = 0.05,
+    f_mask: int = 27,
 ):
-    """Eval frontend: normalize → dB mel → transpose.  Returns
-    ((B, F, n_mels) features, frame lengths or None).
+    """normalize → dB mel → [time stretch] → [SpecAugment] → transpose.
+    Returns ((B, F, n_mels) features, frame lengths or None).
 
-    The JAX version also applies TimeStretch and SpecAugment when given a
-    PRNG key; that is the training path, not ported yet."""
+    ``generator=None`` is the eval frontend.  Given a generator (on the
+    wav's device; it takes the place of the JAX function's ``key``) the
+    stretch comes before the masks: one rate per batch from
+    ``stretch_generator`` (a CPU generator, since the rate sets a shape on
+    the host; ``generator`` itself if none is given), the output cropped or
+    padded to the input width; then ``mask_times`` frequency and time masks
+    drawn from ``generator``, the time spans scaled by each utterance's
+    valid, stretched frame count."""
+    from speechlid_tpu_torch.ops.specaugment import random_time_stretch, spec_augment
+
     if normalize:
         wav = normalize_wav(wav, lengths)
     mel = wav2mel(
@@ -237,6 +253,15 @@ def fused_frontend(
     )  # (B, n_mels, F)
     hop = int(sample_rate * hop_length)
     f_len = None if lengths is None else frame_lengths(lengths, hop)
+    if generator is not None and t_stretch:
+        mel, new_len = random_time_stretch(stretch_generator or generator, mel,
+                                           lengths=f_len)
+        f_len = new_len if new_len is not None else f_len
+    if generator is not None and mask_times > 0:
+        mel = spec_augment(
+            generator, mel, time_mask_ratio=t_mask_ratio, freq_mask_param=f_mask,
+            n_time_masks=mask_times, n_freq_masks=mask_times, lengths=f_len,
+        )
     return mel.transpose(1, 2), f_len
 
 

@@ -1,31 +1,65 @@
-"""Joint LID + per-language CTC-ASR task, inference (port of
-``speechlid_tpu/tasks/lid_asr.py``).
+"""Joint LID + per-language CTC-ASR task (port of
+``speechlid_tpu/tasks/lid_asr.py``), Conformer featurizer.
 
 Builds the same model from the same hyper-parameter names as the JAX
-``LidASRTask`` (so a JAX checkpoint's ``hyper_parameters`` construct it),
-for the Conformer featurizer: eval frontend → ``ConformerModel`` →
-``MutiLangModel.infer``.  Training hooks (CTC loss, freeze gates, metrics)
-and the SSL featurizers are not ported yet; hyper-parameters that only they
-read are accepted and ignored.
+``LidASRTask``, so either package's checkpoint ``hyper_parameters``
+construct it.
+
+- train: language-homogeneous batches; fbank (+ time stretch, SpecAugment)
+  → Conformer featurizer → the batch's OWN language head → CTC loss with the
+  blank last, ``reduction="none"`` then a plain batch mean of the
+  unnormalised NLLs.  Only the own head runs: the JAX task computes every
+  head in one graph but takes the loss from the own head and commits only
+  its BatchNorm statistics, so loss, gradients and state are the same.
+- val: all heads; CTC loss of each utterance's own head, greedy ids, and the
+  all-head confidence scores; EER/Cavg accumulate on the
+  ``-1/(s-1e-9)``-normalised probability vector, accuracy on its argmax.
+- freeze schedule: ``freeze_featurizer_epoch`` keeps the encoder frozen
+  through epoch N; ``keep_train_lang`` freezes every head but one.  Frozen
+  means ``requires_grad=False``.
+
+Not ported yet, and raising: the SSL featurizers (wavlm, wav2vec2),
+``bilstm`` heads, ``dtype`` other than float32, ``quant_dot``.  Accepted and
+without effect here: ``remat`` and ``scan_blocks`` (they change how XLA
+compiles the same numbers), ``freeze_transformer_epoch`` and the SSL
+options (they name parts of an SSL featurizer).
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Union
+import logging
+from typing import Any, Dict, List, Optional, Union
 
+import numpy as np
 import torch
 
-from speechlid_tpu_torch.models.conformer import ConformerModel
-from speechlid_tpu_torch.models.multilang import MutiLangModel
+from speechlid_tpu_torch.core.module import TaskModule
+from speechlid_tpu_torch.core.optim import make_optimizer
+from speechlid_tpu_torch.metrics import CAvg, CharErrorRate, EER, WordErrorRate
+from speechlid_tpu_torch.models.conformer import ConformerModel, set_generator
+from speechlid_tpu_torch.models.multilang import MutiLangModel, lang_confidence_scores
+from speechlid_tpu_torch.ops.ctc import ctc_loss
 from speechlid_tpu_torch.ops.frontend import fused_frontend
 
 
-class LidASRTask:
+def normalize_scores(scores: np.ndarray) -> np.ndarray:
+    """(B, L) raw confidences → probability-like vector: the -1/(s-1e-9) map,
+    then sum-normalisation."""
+    p = -1.0 / (scores - 1e-9)
+    return p / p.sum(axis=-1, keepdims=True)
+
+
+class LidASRTask(TaskModule):
     def __init__(
         self,
         lang2vocab: Dict[str, int],
         lang2index: Dict[str, int],
+        tokenizers: Optional[Dict[str, Any]] = None,
         featurizer: str = "conformer",
+        pt_path: Optional[str] = None,
+        feature_selection: str = "last_hidden_state",
+        ssl_config: Optional[Dict] = None,
+        # model
         n_blocks: int = 14,
         encoder_dim: int = 144,
         heads: int = 4,
@@ -36,47 +70,277 @@ class LidASRTask:
         head_dim_head: int = 32,
         head_num_head: int = 8,
         double_swish: bool = False,
+        dropout: float = 0.1,
+        pos_dropout: float = 0.1,
+        use_stochastic_depth: bool = True,
+        stochastic_depth_p: float = 0.7,
+        use_cer: bool = True,
+        # frontend
         sample_rate: int = 16000,
         n_mels: int = 80,
+        t_mask_ratio: float = 0.05,
+        f_mask: int = 27,
+        mask_times: int = 2,
+        t_stretch: bool = False,
+        # optim
+        lr: float = 1e-3,
+        optimizer: str = "adam",
+        schedule: Optional[str] = "tristage",
+        schedule_conf: Optional[Dict] = None,
+        clip_norm: float = 20.0,
+        # routing-aware Adam (core/optim/factory.py): a head's moments and
+        # step count freeze on batches that do not route to it
+        routed_optim: bool = False,
+        remat: bool = False,
+        scan_blocks: bool = False,
         dtype: str = "float32",
         quant_dot: Optional[str] = None,
+        ssl_conv_impl: Optional[str] = None,
+        # freeze schedule
+        freeze_featurizer_epoch: int = -1,
+        freeze_transformer_epoch: int = -1,
+        keep_train_lang: Optional[str] = None,
         device: Union[str, torch.device] = "cuda",
-        **training_only: Any,
     ) -> None:
+        super().__init__()
         if featurizer != "conformer":
             raise NotImplementedError(f"featurizer {featurizer!r} is not ported yet")
         if head_type != "conformer_linear":
             raise NotImplementedError(f"head_type {head_type!r} is not ported yet")
         if dtype != "float32" or quant_dot:
-            raise NotImplementedError("only float32 inference is ported yet")
+            raise NotImplementedError("only float32 is ported yet")
+        self.save_hyper_parameters(
+            featurizer=featurizer, pt_path=pt_path, feature_selection=feature_selection,
+            ssl_config=ssl_config, lang2vocab=lang2vocab, lang2index=lang2index,
+            n_blocks=n_blocks, encoder_dim=encoder_dim, heads=heads, dim_head=dim_head,
+            sub_sampling=sub_sampling, head_type=head_type, head_layers=head_layers,
+            head_dim_head=head_dim_head, head_num_head=head_num_head,
+            double_swish=double_swish, dropout=dropout, pos_dropout=pos_dropout,
+            use_stochastic_depth=use_stochastic_depth,
+            stochastic_depth_p=stochastic_depth_p, use_cer=use_cer,
+            sample_rate=sample_rate, n_mels=n_mels, t_mask_ratio=t_mask_ratio,
+            f_mask=f_mask, mask_times=mask_times, t_stretch=t_stretch, lr=lr,
+            optimizer=optimizer, schedule=schedule, schedule_conf=schedule_conf,
+            clip_norm=clip_norm, routed_optim=routed_optim,
+            freeze_featurizer_epoch=freeze_featurizer_epoch,
+            freeze_transformer_epoch=freeze_transformer_epoch,
+            keep_train_lang=keep_train_lang, dtype=dtype, remat=remat,
+            scan_blocks=scan_blocks, quant_dot=quant_dot, ssl_conv_impl=ssl_conv_impl,
+        )
         self.lang2vocab = dict(lang2vocab)
         self.lang2index = dict(lang2index)
         self.index2lang = {v: k for k, v in self.lang2index.items()}
+        self.tokenizers = tokenizers or {}
+        self.n_lang = len(self.lang2vocab)
         ordered = sorted(self.lang2index, key=self.lang2index.get)
         self.vocab_sizes = tuple(self.lang2vocab[lang] for lang in ordered)
+
         self.sample_rate = sample_rate
         self.n_mels = n_mels
+        self.t_mask_ratio = t_mask_ratio
+        self.f_mask = f_mask
+        self.mask_times = mask_times
+        self.t_stretch = t_stretch
+        self.lr = lr
+        self.optimizer = optimizer
+        self.schedule = schedule
+        self.schedule_conf = schedule_conf or {}
+        self.clip_norm = clip_norm
+        self.routed_optim = routed_optim
+        self.freeze_featurizer_epoch = freeze_featurizer_epoch
+        self.keep_train_lang = keep_train_lang
         self.device = torch.device(device)
+        self._generator: Optional[torch.Generator] = None
+        self._host_generator: Optional[torch.Generator] = None
+
         featurizer_module = ConformerModel(
             n_blocks=n_blocks, n_mels=n_mels, encoder_dim=encoder_dim, heads=heads,
             dim_head=dim_head, sub_sampling=sub_sampling, use_double_swish=double_swish,
+            pos_dropout=pos_dropout, use_stochastic_depth=use_stochastic_depth,
+            stochastic_depth_p=stochastic_depth_p,
         )
         self.model = MutiLangModel(
             featurizer_module, self.vocab_sizes, linear_dim=encoder_dim,
             num_layers=head_layers, dim_head=head_dim_head, num_head=head_num_head,
-            use_double_swish=double_swish,
+            use_double_swish=double_swish, dropout=dropout,
         ).to(self.device).eval()
+        self.eer = EER(num_class=self.n_lang)
+        self.cavg = CAvg(num_class=self.n_lang)
+        # against the true label, where the two above score against the
+        # model's own argmax and are blind to systematic LID errors
+        self.eer_true = EER(num_class=self.n_lang)
+        self.cavg_true = CAvg(num_class=self.n_lang)
+        self.err_fn = CharErrorRate() if use_cer else WordErrorRate()
 
-    def _features(self, wavs: torch.Tensor, wav_lengths: Optional[torch.Tensor]):
-        return fused_frontend(wavs, wav_lengths, sample_rate=self.sample_rate,
-                              n_mels=self.n_mels)  # ((B, F, n_mels), frame lengths)
+    # ----------------------------------------------------------------- setup
+    def set_generators(self, device_generator: torch.Generator,
+                       host_generator: torch.Generator) -> None:
+        set_generator(self.model, device_generator)
+        self._generator = device_generator
+        self._host_generator = host_generator
 
+    def config_optim(self):
+        optimizer, plateau = make_optimizer(
+            self.model.named_parameters(), self.optimizer, lr=self.lr,
+            clip_norm=self.clip_norm, schedule=self.schedule,
+            schedule_conf=dict(self.schedule_conf), routed=self.routed_optim,
+        )
+        return optimizer, plateau
+
+    def place_batch(self, batch: Dict[str, Any]) -> Dict[str, Any]:
+        """A host batch (numpy, the feeder's layout) → tensors on the task's
+        device.  ``langs`` stays on the host: the train step picks its head
+        from it, and reading it back from the card would make the host wait
+        for the card every step.  ``n_valid`` stays a Python int."""
+        out: Dict[str, Any] = {}
+        for key, value in batch.items():
+            if key == "n_valid":
+                out[key] = int(value)
+            elif key == "langs":
+                out[key] = torch.as_tensor(np.asarray(value)).long()
+            else:
+                out[key] = torch.as_tensor(np.asarray(value)).to(self.device, non_blocking=True)
+        return out
+
+    # -------------------------------------------------------------- frontend
+    def _features(self, wavs: torch.Tensor, wav_lengths: Optional[torch.Tensor],
+                  augment: bool = False):
+        """((B, F, n_mels) features, frame lengths), without a graph: the
+        frontend has no parameters and the fbank kernel no backward."""
+        if augment and self._generator is None:
+            raise RuntimeError("training needs set_generators() first (the Trainer calls it)")
+        with torch.no_grad():
+            return fused_frontend(
+                wavs, wav_lengths, sample_rate=self.sample_rate, n_mels=self.n_mels,
+                generator=self._generator if augment else None,
+                stretch_generator=self._host_generator,
+                t_stretch=self.t_stretch, mask_times=self.mask_times,
+                t_mask_ratio=self.t_mask_ratio, f_mask=self.f_mask,
+            )
+
+    # ----------------------------------------------------------- device loops
+    def _forward_ctc(self, batch: Dict[str, Any], train: bool):
+        """→ (loss, logits, log-probs of each utterance's own head,
+        feat_lengths).  Training runs the batch's own head alone (logits
+        (1, B, T, V)); eval all heads."""
+        langs = batch["langs"]  # on the host, see place_batch
+        wavs = batch["wavs"].to(self.device, torch.float32)
+        feats, f_len = self._features(wavs, batch["wav_lengths"].to(self.device), augment=train)
+        if train:
+            own_lang = int(langs[0])
+            if bool((langs != own_lang).any()):
+                raise ValueError(
+                    f"a training batch must hold one language, got {langs.tolist()}"
+                )
+            logits, feat_lens = self.model(feats, f_len, only=own_lang)
+            own = logits[0]
+        else:
+            logits, feat_lens = self.model(feats, f_len)
+            own = logits[langs.to(self.device), torch.arange(len(langs), device=self.device)]
+        lp = torch.log_softmax(own, dim=-1)
+        # the plain batch mean of the UNNORMALISED per-sample NLLs, not
+        # torch's label-length-normalised 'mean': the scale (× mean label
+        # length) is part of the effective learning rate
+        loss = ctc_loss(lp, batch["texts"], feat_lens, batch["text_lengths"], blank=-1,
+                        reduction="none").mean()
+        return loss, logits, lp, feat_lens
+
+    def train_loop(self, batch: Dict[str, Any]):
+        loss, _, _, _ = self._forward_ctc(batch, train=True)
+        return loss, {}
+
+    @torch.no_grad()
+    def val_loop(self, batch: Dict[str, Any]) -> Dict[str, Any]:
+        loss, logits, lp, feat_lens = self._forward_ctc(batch, train=False)
+        scores = lang_confidence_scores(logits, self.model.vocab_sizes, feat_lens)  # (B, L)
+        out = {
+            "loss": loss,
+            "scores": scores,
+            "pred_ids": lp.argmax(dim=-1).to(torch.int32),
+            "feat_lens": feat_lens,
+            "langs": batch["langs"],
+            "texts": batch["texts"],
+            "text_lengths": batch["text_lengths"],
+        }
+        if "n_valid" in batch:  # repeat-padded partial batches
+            out["n_valid"] = batch["n_valid"]
+        return out
+
+    # ------------------------------------------------------------- host hooks
+    def before_train_loop(self, epoch: int) -> None:
+        freeze_feat = epoch <= self.freeze_featurizer_epoch
+        keep_idx = None if self.keep_train_lang is None else self.lang2index[self.keep_train_lang]
+        kept_head = f"heads.heads.{keep_idx}."
+        for name, p in self.model.named_parameters():
+            frozen = (freeze_feat and name.startswith("featurizer.")) or (
+                keep_idx is not None and name.startswith("heads.heads.")
+                and not name.startswith(kept_head))
+            p.requires_grad_(not frozen)
+        if freeze_feat or keep_idx is not None:
+            logging.info("freeze schedule: featurizer_frozen=%s keep_train_lang=%s",
+                         freeze_feat, self.keep_train_lang)
+
+    def val_loop_end(self, outputs: List[Dict]) -> Dict[str, float]:
+        losses, correct, total = [], 0, 0
+        self.err_fn.reset()
+        for out in outputs:
+            scores = np.asarray(out["scores"])  # (B, L)
+            langs = np.asarray(out["langs"])
+            # slice away the repeated rows that pad a partial batch
+            nv = int(out.get("n_valid", 0)) or len(langs)
+            scores, langs = scores[:nv], langs[:nv]
+            if np.isfinite(out["loss"]):
+                losses.append(out["loss"])
+            prob = normalize_scores(scores)
+            pred = prob.argmax(axis=-1)
+            # EER/Cavg take the predicted language as the "target" (the
+            # original recipe's convention); accuracy uses the true label
+            self.eer.update(prob, pred)
+            self.cavg.update(prob, pred)
+            self.eer_true.update(prob, langs)
+            self.cavg_true.update(prob, langs)
+            correct += int((pred == langs).sum())
+            total += len(langs)
+            # CER/WER via host decode with the right language's tokenizer
+            if self.tokenizers:
+                pred_ids = np.asarray(out["pred_ids"])[:nv]
+                feat_lens = np.asarray(out["feat_lens"])[:nv]
+                texts = np.asarray(out["texts"])[:nv]
+                text_lens = np.asarray(out["text_lengths"])[:nv]
+                for i in range(len(langs)):
+                    tok = self.tokenizers.get(self.index2lang[int(langs[i])])
+                    if tok is None:
+                        continue
+                    hyp = tok.ctc_decode(
+                        pred_ids[i : i + 1], [int(feat_lens[i])],
+                        blank_id=max(self.vocab_sizes),  # the shared padded blank
+                    )[0]
+                    ref = tok.decoder(texts[i : i + 1], [int(text_lens[i])])[0]
+                    self.err_fn.update([hyp], [ref])
+        multi = self.n_lang > 1  # LID metrics degenerate for pure ASR
+        nan = float("nan")
+        result = {
+            "avg_val_loss": float(np.mean(losses)) if losses else nan,
+            "val_acc": correct / max(total, 1),
+            "val_wer": self.err_fn.compute(),
+            "eer": self.eer.compute() if (total and multi) else nan,
+            "cavg": self.cavg.compute() if (total and multi) else nan,
+            "eer_true": self.eer_true.compute() if (total and multi) else nan,
+            "cavg_true": self.cavg_true.compute() if (total and multi) else nan,
+        }
+        for metric in (self.eer, self.cavg, self.eer_true, self.cavg_true):
+            metric.reset()
+        logging.info("val: %s", result)
+        return result
+
+    # ---------------------------------------------------------------- infer
     def infer_fn(self):
         """``fn(wavs (B, T), wav_lengths (B,)) → infer dict`` on the task's
-        device (inputs are moved there)."""
+        device (inputs are moved there), in eval mode."""
 
         @torch.inference_mode()
         def fn(wavs: torch.Tensor, wav_lengths: Optional[torch.Tensor] = None):
+            self.model.eval()
             wavs = wavs.to(self.device, torch.float32)
             if wav_lengths is not None:
                 wav_lengths = wav_lengths.to(self.device)

@@ -13,6 +13,7 @@ import torch
 from speechlid_tpu.models import conformer as jconf
 from speechlid_tpu_torch import convert
 from speechlid_tpu_torch.models import conformer
+from tests.torch_parity import init_variables as _init
 
 TOL = 1e-4
 DIM = 32
@@ -24,21 +25,6 @@ def _one_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(prev)
-
-
-def _init(module, seed, *args):
-    """flax init → numpy variables with random BN statistics (var > 0)."""
-    variables = jax.tree_util.tree_map(
-        np.asarray, dict(jax.jit(lambda key: module.init(key, *args))(jax.random.PRNGKey(seed))))
-    rng = np.random.RandomState(seed)
-
-    def fill(path, leaf):
-        if getattr(path[-1], "key", "") == "var":
-            return rng.uniform(0.5, 1.5, leaf.shape).astype(np.float32)
-        return (0.2 * rng.randn(*leaf.shape)).astype(np.float32)
-
-    variables["batch_stats"] = jax.tree_util.tree_map_with_path(fill, variables["batch_stats"])
-    return variables
 
 
 def _x(shape, seed):

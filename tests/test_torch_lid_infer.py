@@ -12,9 +12,9 @@ import numpy as np
 import pytest
 import torch
 
-from speechlid_tpu.tasks.lid_asr import LidASRTask as JaxLidASRTask
 from speechlid_tpu_torch import convert
 from speechlid_tpu_torch.tasks.lid_asr import LidASRTask
+from tests.torch_parity import lid_pair
 
 TOL = 1e-4
 HPARAMS = dict(
@@ -33,37 +33,12 @@ def _one_thread():
     torch.set_num_threads(prev)
 
 
-def random_batch_stats(variables, seed):
-    """Replace every BN mean/var with random values (var positive) so BN is
-    not the identity."""
-    rng = np.random.RandomState(seed)
-
-    def fill(path, leaf):
-        name = getattr(path[-1], "key", "")
-        shape = np.shape(leaf)
-        if name == "var":
-            return rng.uniform(0.5, 1.5, shape).astype(np.float32)
-        return (0.2 * rng.randn(*shape)).astype(np.float32)
-
-    out = jax.tree_util.tree_map(np.asarray, dict(variables))
-    out["batch_stats"] = jax.tree_util.tree_map_with_path(fill, out["batch_stats"])
-    return out
-
-
 @pytest.fixture(scope="module")
 def pair():
     """(jax task, numpy variables, port task, jitted JAX infer) sharing
     converted weights; built once for the module."""
     torch.set_num_threads(1)
-    jtask = JaxLidASRTask(**HPARAMS)
-    rng = np.random.RandomState(0)
-    sample = {"wavs": rng.randn(2, 16000).astype(np.float32),
-              "wav_lengths": np.array([16000, 12000], np.int32)}
-    variables = random_batch_stats(
-        jtask.init_variables(jax.random.PRNGKey(0), sample), 0
-    )
-    ptask = LidASRTask(**HPARAMS, device="cpu")
-    convert.load_into(ptask.model, convert.lid_state(variables))
+    jtask, variables, ptask = lid_pair(HPARAMS)
     return jtask, variables, ptask, jax.jit(jtask.infer_fn())
 
 

@@ -27,7 +27,13 @@ print("imported", len(sys.argv) - 1, "modules")
 def test_port_imports_no_jax():
     modules = [m.name for m in pkgutil.walk_packages(
         speechlid_tpu_torch.__path__, prefix="speechlid_tpu_torch.")]
-    assert "speechlid_tpu_torch.cli.serve" in modules
+    for name in ("cli.serve", "core.trainer", "core.module", "core.seed", "core.checkpoint",
+                 "core.optim.factory", "core.optim.schedules", "core.callbacks.ckpt",
+                 "core.callbacks.lr", "core.loggers", "tasks.lid_asr", "metrics.eer",
+                 "metrics.cavg", "metrics.error_rate", "ops.specaugment", "ops.ctc",
+                 "ops.frontend", "ops.cuda.depthwise_kernel", "models.conformer",
+                 "models.multilang", "convert"):
+        assert f"speechlid_tpu_torch.{name}" in modules, name
     result = subprocess.run(
         [sys.executable, "-c", CHECK, "chip_smoke", *modules],
         cwd=ROOT, capture_output=True, text=True, timeout=120,
