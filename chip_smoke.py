@@ -11,7 +11,10 @@ one deterministic training step with every parameter's gradient), serves it
 on ``/lid`` from a thread and posts requests to it, trains it through
 ``Trainer.fit`` with augmentation, checkpoints, a resume and a served
 request from the trained checkpoint, and times the kernels, the model and
-the train step.  Each phase prints one JSON line; any failure raises and
+the train step.  The kernels that have had a redesign are also timed
+against their previous designs (``scripts/previous_kernels``, outside the
+package, built into a library of their own that only this script loads), in
+turns old, new, new, old.  Each phase prints one JSON line; any failure raises and
 exits non-zero.  The ``{"kernels": …}`` line lists every kernel at the
 shape the served or the trained path gives it, with its launches as counted
 on that path, its error against its plain version at that shape and its
@@ -25,6 +28,7 @@ random, from a seeded ``torch.Generator``.  Imports nothing of JAX.
 
 from __future__ import annotations
 
+import ctypes
 import json
 import statistics
 import subprocess
@@ -34,6 +38,7 @@ import threading
 import time
 import urllib.request
 from http.server import ThreadingHTTPServer
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -49,14 +54,20 @@ from speechlid_tpu_torch.core.callbacks import Callback, CkptCallback
 from speechlid_tpu_torch.core.trainer import Trainer
 from speechlid_tpu_torch.models.conformer import DepthwiseConv1d, MaskedBatchNorm
 from speechlid_tpu_torch.ops import frontend
-from speechlid_tpu_torch.ops.cuda import _build
+from speechlid_tpu_torch.ops.cuda import _build, fbank_kernel
 from speechlid_tpu_torch.ops.cuda.depthwise_kernel import (
     depthwise_conv1d,
     depthwise_conv1d_bwd_w,
     depthwise_conv1d_bwd_w_plain,
+    depthwise_conv1d_bwd_w_tiled_plain,
+    depthwise_conv1d_dx,
     depthwise_conv1d_plain,
 )
-from speechlid_tpu_torch.ops.cuda.fbank_kernel import log_mel, log_mel_plain
+from speechlid_tpu_torch.ops.cuda.fbank_kernel import (
+    log_mel,
+    log_mel_plain,
+    log_mel_tiled_plain,
+)
 from speechlid_tpu_torch.tasks.lid_asr import LidASRTask
 
 SR = 16000
@@ -65,6 +76,9 @@ SR = 16000
 PEAK_FP32_FLOPS = 67e12
 PEAK_HBM_BYTES_S = 3.35e12
 FBANK_TOL = 1e-3  # dB, atol and rtol: the JAX package's fbank tolerance
+# the kernel's mean error against the float64 sums, over the plain version's,
+# both taken over every cell of every shape checked
+FBANK_MEAN_ERR_OVER_PLAIN = 1.25
 DW_TOL = 1e-5  # f32, atol and rtol (tests/test_pallas_depthwise.py)
 DW_BF16_TOL = (0.1, 0.15)  # rtol, atol of bf16 against the f32 result
 DW_BF16_GRAD_TOL = 2e-2  # bf16 gradients: of the f32 gradient's largest entry
@@ -155,6 +169,94 @@ def bound_ms(n_bytes: float, flops: float):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def device_ms_in_turns(old, new):
+    """(old ms, new ms) of two designs timed in one call in turns old, new,
+    new, old; each the mean of its two readings."""
+    a, b, c, d = device_ms(old), device_ms(new), device_ms(new), device_ms(old)
+    return (a + d) / 2, (b + c) / 2
+
+
+# ------------------------------------------- the previous designs, for ms_before
+# Kept for the measurement of the cluster designs against what they replaced
+# (October 2026).  Delete this section, scripts/previous_kernels and the
+# ms_before keys with the next change to either kernel.
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+PREVIOUS_DIR = Path(__file__).resolve().parent / "scripts" / "previous_kernels"
+PREVIOUS_SIGNATURES = {
+    # xp, batch, Tp, n_frames, basis, win_pad, bins, fb, mel_range, n_mels, hop, pad_left,
+    # out, stream
+    "fbank_log_mel_previous_f32": (_P, _I, _I, _I, _P, _I, _I, _P, _P, _I, _I, _I, _P, _P),
+    # x, g, scratch, dw, db, B, T, C, K, pad_l, scratch_chunks, dtype, stream
+    "depthwise_conv1d_bwd_w_previous": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
+    "depthwise_conv1d_bwd_w_previous_time_chunk": (),
+}
+_previous = {}
+
+
+def start_previous_build() -> None:
+    """One nvcc over the previous designs, left running beside the package's
+    own build; :func:`previous_lib` waits for it."""
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    target = _build.BUILD_DIR / "libspeechlid_previous.so"
+    sources = sorted(str(src) for src in PREVIOUS_DIR.glob("*.cu"))
+    _previous["build"] = target, subprocess.Popen(
+        [_build._nvcc(), *_build.NVCC_FLAGS, "-t", "2", "-shared", *sources, "-o", str(target)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+
+def previous_lib():
+    if "lib" not in _previous:
+        target, proc = _previous.pop("build")
+        log = proc.communicate()[0]
+        if proc.returncode:
+            raise RuntimeError(f"nvcc failed on the previous designs:\n{log}")
+        so = ctypes.CDLL(str(target))
+        for name, argtypes in PREVIOUS_SIGNATURES.items():
+            getattr(so, name).argtypes = list(argtypes)
+        _previous["lib"] = so
+    return _previous["lib"]
+
+
+def log_mel_previous(wav: torch.Tensor) -> torch.Tensor:
+    """The previous fbank wrapper call: a reflect-pad kernel, then the
+    kernel that tiles over frames alone and streams the whole basis."""
+    n_fft, win, hop, n_mels = 512, 400, 160, 80
+    if "fbank_bases" not in _previous:
+        basis, fb = frontend.mel_bases(n_fft, win, n_mels, SR, wav.device)
+        pad_left = (n_fft - win) // 2
+        ranges = torch.from_numpy(fbank_kernel.mel_ranges(n_fft, n_mels, SR)).to(wav.device)
+        _previous["fbank_bases"] = (basis[pad_left:pad_left + win].contiguous(),  # 400 = 25 × 16
+                                    fb.contiguous(), ranges)
+    basis, fb, ranges = _previous["fbank_bases"]
+    xp = frontend._reflect_pad(wav, n_fft // 2).contiguous()
+    n_frames = 1 + wav.shape[1] // hop
+    out = torch.empty((wav.shape[0], n_frames, n_mels), dtype=torch.float32, device=wav.device)
+    err = previous_lib().fbank_log_mel_previous_f32(
+        xp.data_ptr(), wav.shape[0], xp.shape[1], n_frames, basis.data_ptr(), win,
+        n_fft // 2 + 1, fb.data_ptr(), ranges.data_ptr(), n_mels, hop, (n_fft - win) // 2,
+        out.data_ptr(), torch.cuda.current_stream().cuda_stream)
+    _build.check(err, "fbank_log_mel_previous_f32")
+    return out.transpose(1, 2)
+
+
+def bwd_w_previous(x: torch.Tensor, g: torch.Tensor, k: int):
+    """The previous dW/db wrapper call: a scratch allocation, the partial-sum
+    kernel and the reduce kernel."""
+    lib = previous_lib()
+    b, t, c = x.shape
+    time_chunk = lib.depthwise_conv1d_bwd_w_previous_time_chunk()
+    chunks = b * ((t + time_chunk - 1) // time_chunk)
+    scratch = torch.empty((chunks, k + 1, c), dtype=torch.float32, device=x.device)
+    dw = torch.empty((k, c), dtype=x.dtype, device=x.device)
+    db = torch.empty((c,), dtype=x.dtype, device=x.device)
+    err = lib.depthwise_conv1d_bwd_w_previous(
+        x.data_ptr(), g.data_ptr(), scratch.data_ptr(), dw.data_ptr(), db.data_ptr(),
+        b, t, c, k, (k - 1) // 2, chunks, 0, torch.cuda.current_stream().cuda_stream)
+    _build.check(err, "depthwise_conv1d_bwd_w_previous")
+    return dw, db
+
+
 # ---------------------------------------------------------------- phases
 
 
@@ -168,42 +270,93 @@ def phase_build() -> None:
     torch.backends.cudnn.allow_tf32 = False
     t0 = time.perf_counter()
     path = _build.library_path()
+    start_previous_build()  # runs while the package's sources compile, one nvcc each
     _build.lib()
+    previous_lib()
+    blocks_per_sm, clusters = fbank_kernel.kernel_occupancy(
+        160, 400, fbank_kernel.n_bin_tiles(512), torch.device("cuda", 0))
     emit({
         "phase": "build", "seconds": round(time.perf_counter() - t0, 3),
         "library": str(path.relative_to(_build.BUILD_DIR.parent)),
         "ptxas": [l.strip() for l in path.with_suffix(".log").read_text().splitlines()
                   if "registers" in l or "spill" in l],
+        "fbank_blocks_per_sm": blocks_per_sm,
+        "fbank_resident_clusters": clusters,
         "python": sys.version.split()[0], "torch": torch.__version__,
         "cuda": torch.version.cuda, "nvidia_smi": smi,
     })
 
 
-def _wav(b: int, seconds: float, gen: torch.Generator) -> torch.Tensor:
-    wav = torch.randn(b, int(seconds * SR), generator=gen)
-    return frontend.normalize_wav(wav).cuda()
+def _wav(b: int, t: int, gen: torch.Generator) -> torch.Tensor:
+    return frontend.normalize_wav(torch.randn(b, t, generator=gen)).cuda()
 
 
-def phase_fbank(gen: torch.Generator) -> float:
-    worst = 0.0
-    for b, seconds in ((1, 3.0), (32, 3.0), (1, 17.0)):
-        wav = _wav(b, seconds, gen)
+FBANK_SHAPES = {"serve": (1, 3 * SR), "b32": (32, 3 * SR), "long": (1, 17 * SR),
+                "train": (TRAIN_B, int(TRAIN_SECONDS * SR)), "short": (1, 300)}
+
+
+def _log_mel_float64(wav: torch.Tensor) -> torch.Tensor:
+    """The plain version's sums in float64 on the card (the float32 bases
+    cast up): what the float32 versions' rounding is measured against."""
+    n_fft, win, hop, n_mels = 512, 400, 160, 80
+    frames = frontend._reflect_pad(wav.double(), n_fft // 2).unfold(-1, n_fft, hop)
+    basis, fb = frontend.mel_bases(n_fft, win, n_mels, SR, wav.device)
+    proj = frames @ basis.double()
+    re, im = proj[..., :n_fft // 2 + 1], proj[..., n_fft // 2 + 1:]
+    mel = (re * re + im * im) @ fb.double()
+    return (10.0 * torch.log10(mel.clamp_min(1e-10))).transpose(1, 2)
+
+
+def phase_fbank(gen: torch.Generator) -> dict:
+    """The kernel against its plain version and against the emulation of
+    its tiling, and kernel and plain version against the same sums in
+    float64: two float32 results differ by the rounding of both, so the
+    kernel is also held to be no further from the float64 result, on
+    average over all shapes, than the plain version is.  Returns the error
+    against plain found at each shape."""
+    found = {}
+    summed = {"kernel": 0.0, "plain": 0.0}  # abs error against float64, over all cells
+    for name, (b, t) in FBANK_SHAPES.items():
+        wav = _wav(b, t, gen)
         got = log_mel(wav)
         ref = log_mel_plain(wav)
+        tiled = log_mel_tiled_plain(wav)
+        exact = _log_mel_float64(wav)
+        vs_exact = {"kernel": (got.double() - exact).abs(), "plain": (ref.double() - exact).abs()}
         torch.cuda.synchronize()
         err = (got - ref).abs().max().item()
-        ok = torch.allclose(got, ref, rtol=FBANK_TOL, atol=FBANK_TOL)
-        emit({"phase": "fbank_vs_plain", "shape": [b, wav.shape[1]],
-              "out": list(got.shape), "max_abs_err_db": err, "tol": FBANK_TOL,
-              "ok": ok})
+        err_tiled = (got - tiled).abs().max().item()
+        ok = (got.shape == ref.shape and bool(torch.isfinite(got).all())
+              and torch.allclose(got, ref, rtol=FBANK_TOL, atol=FBANK_TOL)
+              and torch.allclose(got, tiled, rtol=FBANK_TOL, atol=FBANK_TOL)
+              and vs_exact["kernel"].max().item() <= FBANK_TOL)
+        for which, v in vs_exact.items():
+            summed[which] += v.sum().item()
+        emit({"phase": "fbank_vs_plain", "shape": [b, t],
+              "out": list(got.shape), "max_abs_err_db": err,
+              "max_abs_err_db_vs_tiled_emulation": err_tiled,
+              "max_abs_err_db_vs_float64": {k: v.max().item() for k, v in vs_exact.items()},
+              "mean_abs_err_db_vs_float64": {k: v.mean().item() for k, v in vs_exact.items()},
+              "tol": FBANK_TOL, "ok": ok})
         if not ok:
-            raise AssertionError(f"fbank kernel disagrees with plain at B={b}, {seconds}s")
-        worst = max(worst, err)
-    return worst
+            raise AssertionError(f"fbank kernel disagrees with plain at {(b, t)}")
+        found[name] = err
+    ratio = summed["kernel"] / summed["plain"]
+    emit({"phase": "fbank_vs_float64", "shapes": len(FBANK_SHAPES),
+          "mean_abs_err_kernel_over_plain": ratio, "tol": FBANK_MEAN_ERR_OVER_PLAIN,
+          "ok": ratio <= FBANK_MEAN_ERR_OVER_PLAIN})
+    if ratio > FBANK_MEAN_ERR_OVER_PLAIN:
+        raise AssertionError("fbank kernel is further from the float64 sums than plain")
+    try:  # no reflection of 256 samples without more than 256 samples
+        log_mel(torch.zeros(1, 256, device="cuda"))
+    except ValueError:
+        return found
+    raise AssertionError("log_mel took a wav no longer than its reflect padding")
 
 
 DW_SHAPES = (SERVE_DW_SHAPE, (32, 74, 288, 31), (1, 7, 64, 31),
              (3, 100, 129, 15), (2, 50, 96, 4), TRAIN_DW_SHAPE)
+LARGE_BWD_W_SHAPE = (32, 300, 288, 31)  # 160 time chunks for the 8 blocks of a cluster
 
 
 def phase_depthwise(gen: torch.Generator) -> dict:
@@ -217,14 +370,20 @@ def phase_depthwise(gen: torch.Generator) -> dict:
         got = depthwise_conv1d(x, w, bias)
         ref = depthwise_conv1d_plain(x, w, bias)
         got16 = depthwise_conv1d(x.bfloat16(), w.bfloat16(), bias.bfloat16())
+        # flipped taps and no bias, as the backward asks for dX
+        got_flip = depthwise_conv1d_dx(x, w)
+        ref_flip = depthwise_conv1d_plain(x, w, None, k - 1 - (k - 1) // 2, flip=True)
         torch.cuda.synchronize()
         err = (got - ref).abs().max().item()
         err16 = (got16.float() - ref).abs().max().item()
-        ok = torch.allclose(got, ref, rtol=DW_TOL, atol=DW_TOL)
+        err_flip = (got_flip - ref_flip).abs().max().item()
+        ok = (torch.allclose(got, ref, rtol=DW_TOL, atol=DW_TOL)
+              and torch.allclose(got_flip, ref_flip, rtol=DW_TOL, atol=DW_TOL))
         ok16 = got16.dtype == torch.bfloat16 and torch.allclose(
             got16.float(), ref, rtol=DW_BF16_TOL[0], atol=DW_BF16_TOL[1])
         emit({"phase": "depthwise_vs_plain", "shape": [b, t, c], "k": k,
-              "max_abs_err_f32": err, "tol_f32": DW_TOL,
+              "max_abs_err_f32": err, "max_abs_err_f32_flip_no_bias": err_flip,
+              "tol_f32": DW_TOL,
               "max_abs_err_bf16_vs_f32": err16, "tol_bf16": DW_BF16_TOL,
               "ok": ok and ok16})
         if not (ok and ok16):
@@ -286,6 +445,26 @@ def phase_depthwise_bwd(gen: torch.Generator) -> dict:
         if not (ok and ok16 and same_bits and counted == expect):
             raise AssertionError(f"depthwise backward disagrees with plain at {(b, t, c, k)}")
         found[(b, t, c, k)] = {"dx": errs[0], "bwd_w": max(errs[1], errs[2], *direct_errs)}
+
+    # dW/db alone where every block of a cluster walks over many chunks, and
+    # against the emulation of the kernel's summation order at the train shape
+    for (b, t, c, k), reference in ((LARGE_BWD_W_SHAPE, depthwise_conv1d_bwd_w_plain),
+                                    (TRAIN_DW_SHAPE, depthwise_conv1d_bwd_w_tiled_plain)):
+        x = torch.randn(b, t, c, generator=gen).cuda()
+        g = (torch.randn(b, t, c, generator=gen) / (b * t) ** 0.5).cuda()
+        got, again, ref = (depthwise_conv1d_bwd_w(x, g, k), depthwise_conv1d_bwd_w(x, g, k),
+                           reference(x, g, k))
+        torch.cuda.synchronize()
+        errs = [(a - r).abs().max().item() for a, r in zip(got, ref)]
+        ok = all(torch.allclose(a, r, rtol=DW_GRAD_TOL, atol=DW_GRAD_TOL)
+                 for a, r in zip(got, ref))
+        same_bits = all(torch.equal(a, b2) for a, b2 in zip(got, again))
+        emit({"phase": "depthwise_bwd_w_vs_" + reference.__name__.split("bwd_w_")[1],
+              "shape": [b, t, c], "k": k, "max_abs_err": dict(zip(("dw", "db"), errs)),
+              "tol": DW_GRAD_TOL, "bit_equal_reruns": same_bits, "ok": ok and same_bits})
+        if not (ok and same_bits):
+            raise AssertionError(f"bwd_w disagrees with {reference.__name__} at {(b, t, c, k)}")
+
     return found
 
 
@@ -459,13 +638,29 @@ def synthetic_batch(rng: np.random.RandomState, lang: int, b: int, seconds: floa
 def phase_train_card_vs_cpu(gen: torch.Generator) -> None:
     """One deterministic train step (no dropout, stochastic depth or
     augmentation) at full width on the card (kernels) and on the CPU (plain
-    versions) from the same state_dict: the loss and every gradient."""
+    versions) from the same state_dict: the loss and every gradient.
+
+    The CPU side is given the features the card computed.  The frontend has
+    no parameters, so no gradient depends on how it is differentiated, and
+    the fbank kernel is held against its plain version at this path's shape
+    in ``phase_fbank``.  With features of its own the CPU side would start
+    from a mel that differs in rounding (reported here as
+    ``max_abs_diff_features_db``), and the subsampling's ReLUs turn such a
+    difference, when it flips one unit, into a jump of a percent in single
+    gradients (a conv bias): then the check reads the random draw and not
+    the kernels behind the frontend."""
     hp = dict(FLAGSHIP, dropout=0.0, pos_dropout=0.0, use_stochastic_depth=False,
               mask_times=0, t_stretch=False)
     card, cpu = LidASRTask(**hp, device="cuda"), LidASRTask(**hp, device="cpu")
     init_random_(card.model, gen)
     cpu.model.load_state_dict(card.model.state_dict())
     batch = synthetic_batch(np.random.RandomState(1), lang=1, b=2, seconds=3.0)
+    placed = card.place_batch(batch)
+    feats, f_len = card._features(placed["wavs"].float(), placed["wav_lengths"])
+    own_feats, _ = cpu._features(torch.from_numpy(batch["wavs"]),
+                                 torch.from_numpy(batch["wav_lengths"]))
+    feats_diff = (feats.cpu() - own_feats).abs().max().item()
+    cpu._features = lambda wavs, wav_lengths, augment=False: (feats.cpu(), f_len.cpu())
     results = {}
     for name, task in (("card", card), ("cpu", cpu)):
         task.set_generators(torch.Generator(task.device).manual_seed(0),
@@ -492,6 +687,7 @@ def phase_train_card_vs_cpu(gen: torch.Generator) -> None:
             worst, worst_name = err, name
     emit({"phase": "train_card_vs_cpu", "batch": [2, 3 * SR], "loss_card": loss_card,
           "loss_cpu": loss_cpu, "gradients": len(grads_cpu),
+          "cpu_features": "the card's", "max_abs_diff_features_db": feats_diff,
           "max_rel_err_gradient": worst, "worst_gradient": worst_name,
           "largest_gradient_entry": largest, "tol": TRAIN_TOL,
           "launches_per_train_step": counted})
@@ -628,6 +824,22 @@ def _profile_device(fn) -> dict:
             "top": [{"kernel": key[:80], "us": dev, "count": n} for dev, key, n in rows[:10]]}
 
 
+def backward_device_kernels(gen: torch.Generator) -> dict:
+    """One backward of the autograd Function at the train shape under the
+    profiler: two device kernels (dX, dW/db) and nothing else."""
+    b, t, c, k = TRAIN_DW_SHAPE
+    leaves = [torch.randn(*shape, generator=gen).cuda().requires_grad_(True)
+              for shape in ((b, t, c), (k, c), (c,))]
+    g = torch.randn(b, t, c, generator=gen).cuda()
+    y = depthwise_conv1d(*leaves)
+    profile = _profile_device(lambda: torch.autograd.grad(y, leaves, g))
+    report = {"shape": [b, t, c], "k": k, "device_kernels": profile["device_kernels"],
+              "expected": 2, "kernel_names": [row["kernel"] for row in profile["top"]]}
+    if profile["device_kernels"] != 2:
+        raise AssertionError(f"one depthwise backward ran {report}")
+    return report
+
+
 def phase_timings(task: LidASRTask, gen: torch.Generator, errs: dict, served: dict,
                   serve_report: dict, trained: dict, training) -> None:
     """Kernel, plain and library times at the main paths' shapes (serving:
@@ -637,41 +849,116 @@ def phase_timings(task: LidASRTask, gen: torch.Generator, errs: dict, served: di
     n_steps = TRAIN_EPOCHS * TRAIN_BATCHES
     kernels = []
 
-    # kernel 1: fbank at B=1, 3 s → (1, 80, 301)
-    wav = _wav(1, 3.0, gen)
+    # Host-clock timings come before the first use of torch.profiler and
+    # are read again after the last: the second reading shows what the
+    # profiler leaves behind in its process for a host-bound loop.
+    # end to end, training: the step at B = 8, 4 s clips, its launches as
+    # counted over these steps and the shape its encoder convs see
+    trainer, train_batches = training
+    seen = []
+    conv = trainer.module.model.featurizer.blocks[0].conv.depthwise
+    hook = conv.register_forward_hook(
+        lambda mod, args, out: seen.append((*args[0].shape, mod.weight.shape[0])))
+    for batch in train_batches[:3]:
+        trainer.train_step(batch)
+    timed_steps = 12
+
+    def timed_train_steps() -> float:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(timed_steps):
+            metrics = trainer.train_step(train_batches[i % len(train_batches)])
+        float(metrics["loss"])
+        return (time.perf_counter() - t0) / timed_steps
+
+    reset_launches()
+    step_s = timed_train_steps()
+    per_step = {name: n / timed_steps for name, n in launches().items()}
+    hook.remove()
+    if per_step != TRAIN_STEP_LAUNCHES or set(seen) != {TRAIN_DW_SHAPE}:
+        raise AssertionError(f"train step: launches {per_step}, encoder conv shapes {set(seen)}")
+
+    # end to end, inference: throughput on 3 s clips at B = 1 and B = 32,
+    # with the fbank launches counted over the timed calls
+    infer = task.infer_fn()
+    e2e, infer_fbank, infer_inputs = {}, {}, {}
+
+    def timed_infer(batch: int, iters: int) -> float:
+        wavs, lengths = infer_inputs[batch]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            out = infer(wavs, lengths)
+        out["scores"].cpu()
+        return (time.perf_counter() - t0) / iters
+
+    for batch, iters in ((1, 30), (32, 10)):
+        infer_inputs[batch] = (0.1 * torch.randn(batch, 3 * SR, generator=gen),
+                               torch.full((batch,), 3 * SR))
+        for _ in range(3):
+            infer(*infer_inputs[batch])
+        reset_launches()
+        dt = timed_infer(batch, iters)
+        infer_fbank[batch] = launches()["fbank"]
+        e2e[f"b{batch}"] = {"ms_per_batch": dt * 1e3, "utt_per_s": batch / dt,
+                            "fbank_launches": infer_fbank[batch], "calls": iters}
+
+    # kernel 1: fbank where the paths call it: a served 3 s clip, a train
+    # batch of 8 × 4 s, a scored batch of 32 × 3 s
     n_fft, win, hop, n_mels = 512, 400, 160, 80
     bins = n_fft // 2 + 1
-    n_frames = 1 + wav.shape[1] // hop
     window = torch.hann_window(win, device="cuda")
-    fb = frontend.mel_bases(n_fft, win, n_mels, SR, wav.device)[1]
+    fb = frontend.mel_bases(n_fft, win, n_mels, SR, "cuda")[1]
 
-    def stft_composite():  # one torch.stft plus the mel projection and log
-        spec = torch.stft(wav, n_fft, hop, win, window, center=True, pad_mode="reflect",
-                          return_complex=True)
-        power = spec.real ** 2 + spec.imag ** 2  # (1, bins, F)
-        return 10.0 * torch.log10((power.transpose(1, 2) @ fb).clamp_min(1e-10)).transpose(1, 2)
+    def fbank_entry(name, shape_key, count, extra):
+        nb, nt = FBANK_SHAPES[shape_key]
+        wav = _wav(nb, nt, gen)
+        n_frames = 1 + nt // hop
 
-    lib_err = (stft_composite() - log_mel(wav)).abs().max().item()
-    flops = 2.0 * n_frames * win * 2 * bins + 2.0 * n_frames * bins * n_mels
-    n_bytes = 4.0 * (wav.numel() + win * 2 * bins + bins * n_mels + n_frames * n_mels)
-    b_ms, b_by = bound_ms(n_bytes, flops)
-    k_ms = device_ms(lambda: log_mel(wav))
-    kernels.append({
-        "name": "fbank_log_mel", "route": "cuda",
-        "source": "speechlid_tpu_torch/csrc/fbank.cu",
-        "replaces": "speechlid_tpu/ops/pallas/fbank_kernel.py:87",
-        "launches": served["fbank"], "launches_per_request": served["fbank"] / n_req,
+        def stft_composite():  # one torch.stft plus the mel projection and log
+            spec = torch.stft(wav, n_fft, hop, win, window, center=True, pad_mode="reflect",
+                              return_complex=True)
+            power = spec.real ** 2 + spec.imag ** 2  # (B, bins, F)
+            return 10.0 * torch.log10(
+                (power.transpose(1, 2) @ fb).clamp_min(1e-10)).transpose(1, 2)
+
+        lib_err = (stft_composite() - log_mel(wav)).abs().max().item()
+        old_err = (log_mel_previous(wav) - log_mel(wav)).abs().max().item()
+        flops = nb * (2.0 * n_frames * win * 2 * bins + 2.0 * n_frames * bins * n_mels)
+        n_bytes = 4.0 * (wav.numel() + win * 2 * bins + bins * n_mels + nb * n_frames * n_mels)
+        b_ms, b_by = bound_ms(n_bytes, flops)
+        before_ms, k_ms = device_ms_in_turns(lambda: log_mel_previous(wav), lambda: log_mel(wav))
+        return {
+            "name": name, "route": "cuda",
+            "source": "speechlid_tpu_torch/csrc/fbank.cu",
+            "replaces": "speechlid_tpu/ops/pallas/fbank_kernel.py:87",
+            "launches": count, **extra,
+            "max_abs_err": errs["fbank"][shape_key], "ms": k_ms, "kernel_ms": k_ms,
+            "ms_before": before_ms,
+            "ms_before_is": "the previous design's wrapper call: reflect-pad kernel + "
+                            "frames-only kernel (scripts/previous_kernels/fbank_streamed.cu), "
+                            "timed in turns old, new, new, old",
+            "max_abs_diff_db_vs_before": old_err,
+            "plain_ms": device_ms(lambda: log_mel_plain(wav)),
+            "library_ms": device_ms(stft_composite),
+            "library_call": "composite: torch.stft -> |.|^2 -> @ mel fb -> 10 log10",
+            "library_max_abs_err_db": lib_err,
+            "bound_ms": b_ms, "bound_us": b_ms * 1e3, "bound_by": b_by,
+            "shape": f"wav ({nb}, {nt}) f32 -> ({nb}, {n_mels}, {n_frames})",
+            "flops": flops, "bytes": n_bytes,
+            "ms_includes": "the wrapper call: one cluster kernel, no pad kernel",
+        }
+
+    kernels.append(fbank_entry("fbank_log_mel", "serve", served["fbank"], {
+        "launches_per_request": served["fbank"] / n_req,
         "launches_train_path": trained["fbank"],
+        "launches_per_train_step": trained["fbank"] / n_steps}))
+    kernels.append(fbank_entry("fbank_log_mel@train", "train", trained["fbank"], {
         "launches_per_train_step": trained["fbank"] / n_steps,
-        "max_abs_err": errs["fbank"], "ms": k_ms, "kernel_ms": k_ms,
-        "plain_ms": device_ms(lambda: log_mel_plain(wav)),
-        "library_ms": device_ms(stft_composite),
-        "library_call": "composite: torch.stft -> |.|^2 -> @ mel fb -> 10 log10",
-        "library_max_abs_err_db": lib_err,
-        "bound_ms": b_ms, "bound_us": b_ms * 1e3, "bound_by": b_by,
-        "shape": "wav (1, 48000) f32 -> (1, 80, 301)", "flops": flops, "bytes": n_bytes,
-        "ms_includes": "reflect pad + kernel (the wrapper call)",
-    })
+        "launches_counted_on": "the train steps of Trainer.fit"}))
+    kernels.append(fbank_entry("fbank_log_mel@b32", "b32", infer_fbank[32], {
+        "launches_per_batch": infer_fbank[32] / e2e["b32"]["calls"],
+        "launches_counted_on": "the timed infer calls at B = 32 on 3 s clips"}))
 
     # kernel 2: depthwise at the encoder's 3 s shape (1, 74, 288), k = 31
     b, t, c, k = SERVE_DW_SHAPE
@@ -720,7 +1007,6 @@ def phase_timings(task: LidASRTask, gen: torch.Generator, errs: dict, served: di
     tb, tt = TRAIN_DW_SHAPE[:2]
     xt = torch.randn(tb, tt, c, generator=gen).cuda()
     gt = (torch.randn(tb, tt, c, generator=gen) / (tb * tt) ** 0.5).cuda()
-    w_flip, zero = w.flip(0).contiguous(), torch.zeros_like(bias)
     pad_dx = k - 1 - (k - 1) // 2
     kernels.append(depthwise_entry(
         "depthwise_conv1d_fwd@train", "x (8, 99, 288) f32, w (31, 288)", train_fwd, xt,
@@ -730,12 +1016,11 @@ def phase_timings(task: LidASRTask, gen: torch.Generator, errs: dict, served: di
         return torch.nn.grad.conv1d_input((tb, c, tt), w_conv, gt.transpose(1, 2),
                                           padding=(k - 1) // 2, groups=c).transpose(1, 2)
 
-    dx_lib_err = (conv1d_input_library()
-                  - depthwise_conv1d(gt, w_flip, zero, pad_dx)).abs().max().item()
+    dx_lib_err = (conv1d_input_library() - depthwise_conv1d_dx(gt, w)).abs().max().item()
     flops = 2.0 * tb * tt * c * k
     n_bytes = 4.0 * (2 * tb * tt * c + k * c + c)
     b_ms, b_by = bound_ms(n_bytes, flops)
-    k_ms = device_ms(lambda: depthwise_conv1d(gt, w_flip, zero, pad_dx))
+    k_ms = device_ms(lambda: depthwise_conv1d_dx(gt, w))
     kernels.append({
         "name": "depthwise_conv1d_dx", "route": "cuda",
         "source": "speechlid_tpu_torch/csrc/depthwise.cu",
@@ -745,14 +1030,14 @@ def phase_timings(task: LidASRTask, gen: torch.Generator, errs: dict, served: di
         "launches_per_request": served["depthwise_dx"] / n_req,
         "max_abs_err": errs["depthwise_bwd"][TRAIN_DW_SHAPE]["dx"],
         "ms": k_ms, "kernel_ms": k_ms,
-        "plain_ms": device_ms(lambda: depthwise_conv1d_plain(gt, w_flip, zero, pad_dx)),
+        "plain_ms": device_ms(lambda: depthwise_conv1d_plain(gt, w, None, pad_dx, flip=True)),
         "library_ms": device_ms(conv1d_input_library),
         "library_call": "torch.nn.grad.conv1d_input(groups=C) on the (B, C, T) view",
         "library_max_abs_err": dx_lib_err,
         "bound_ms": b_ms, "bound_us": b_ms * 1e3, "bound_by": b_by,
-        "shape": "g (8, 99, 288) f32, flipped w (31, 288), zero bias",
+        "shape": "g (8, 99, 288) f32, w (31, 288) read flipped, no bias",
         "flops": flops, "bytes": n_bytes,
-        "ms_includes": "the forward kernel alone; the backward's flip and zero bias are not in it",
+        "ms_includes": "the wrapper call the backward makes: the forward kernel alone",
     })
 
     # kernel 3: the weight/bias gradient at the train step's encoder shape
@@ -768,7 +1053,14 @@ def phase_timings(task: LidASRTask, gen: torch.Generator, errs: dict, served: di
     lib_err = max((got_dw - lib_dw).abs().max().item(), (got_db - lib_db).abs().max().item())
     n_bytes = 4.0 * 2 * tb * tt * c  # x and g read once; the (k+1, C) result is 0.5 % of that
     b_ms, b_by = bound_ms(n_bytes, flops)
-    k_ms = device_ms(lambda: depthwise_conv1d_bwd_w(xt, gt, k))
+    old_dw, old_db = bwd_w_previous(xt, gt, k)
+    old_err = max((got_dw - old_dw).abs().max().item(), (got_db - old_db).abs().max().item())
+    before_ms, k_ms = device_ms_in_turns(lambda: bwd_w_previous(xt, gt, k),
+                                         lambda: depthwise_conv1d_bwd_w(xt, gt, k))
+    xl = torch.randn(*LARGE_BWD_W_SHAPE[:3], generator=gen).cuda()
+    gl = torch.randn(*LARGE_BWD_W_SHAPE[:3], generator=gen).cuda()
+    large_before_ms, large_ms = device_ms_in_turns(
+        lambda: bwd_w_previous(xl, gl, k), lambda: depthwise_conv1d_bwd_w(xl, gl, k))
     kernels.append({
         "name": "depthwise_conv1d_bwd_w", "route": "cuda",
         "source": "speechlid_tpu_torch/csrc/depthwise.cu",
@@ -777,7 +1069,13 @@ def phase_timings(task: LidASRTask, gen: torch.Generator, errs: dict, served: di
         "launches_per_train_step": trained["depthwise_bwd_w"] / n_steps,
         "launches_per_request": served["depthwise_bwd_w"] / n_req,
         "max_abs_err": errs["depthwise_bwd"][TRAIN_DW_SHAPE]["bwd_w"],
-        "ms": k_ms, "kernel_ms": k_ms,
+        "ms": k_ms, "kernel_ms": k_ms, "ms_before": before_ms,
+        "ms_before_is": "the previous design's wrapper call: partial-sum kernel + reduce "
+                        "kernel (scripts/previous_kernels/depthwise_bwd_w_two_pass.cu), timed in turns "
+                        "old, new, new, old",
+        "max_abs_diff_vs_before": old_err,
+        "ms_at_32x300x288": large_ms, "ms_before_at_32x300x288": large_before_ms,
+        "bound_ms_at_32x300x288": bound_ms(4.0 * 2 * xl.numel(), 2.0 * xl.numel() * k)[0],
         "plain_ms": device_ms(lambda: depthwise_conv1d_bwd_w_plain(xt, gt, k)),
         "library_ms": device_ms(conv1d_weight_library),
         "library_call": "torch.nn.grad.conv1d_weight(groups=C) + g.sum((0, 1))",
@@ -785,33 +1083,13 @@ def phase_timings(task: LidASRTask, gen: torch.Generator, errs: dict, served: di
         "bound_ms": b_ms, "bound_us": b_ms * 1e3, "bound_by": b_by,
         "shape": "x, g (8, 99, 288) f32 -> dw (31, 288), db (288,)",
         "flops": flops, "bytes": n_bytes,
-        "ms_includes": "partial-sum kernel + fixed-order reduce kernel (the wrapper call)",
+        "ms_includes": "the wrapper call: one cluster kernel, no scratch",
     })
     for entry in kernels:
         if not entry["launches"] > 0:
             raise AssertionError(f"{entry['name']} was not launched on its main path")
 
-    # end to end, training: the step at B = 8, 4 s clips, its launches as
-    # counted over these steps, the shape its encoder convs see, and its profile
-    trainer, train_batches = training
-    seen = []
-    conv = trainer.module.model.featurizer.blocks[0].conv.depthwise
-    hook = conv.register_forward_hook(
-        lambda mod, args, out: seen.append((*args[0].shape, mod.weight.shape[0])))
-    for batch in train_batches[:3]:
-        trainer.train_step(batch)
-    torch.cuda.synchronize()
-    timed_steps = 12
-    reset_launches()
-    t0 = time.perf_counter()
-    for i in range(timed_steps):
-        metrics = trainer.train_step(train_batches[i % len(train_batches)])
-    float(metrics["loss"])
-    step_s = (time.perf_counter() - t0) / timed_steps
-    per_step = {name: n / timed_steps for name, n in launches().items()}
-    hook.remove()
-    if per_step != TRAIN_STEP_LAUNCHES or set(seen) != {TRAIN_DW_SHAPE}:
-        raise AssertionError(f"train step: launches {per_step}, encoder conv shapes {set(seen)}")
+    # under the profiler: one train step, one B=1 forward, one depthwise backward
     torch.cuda.reset_peak_memory_stats()
     train_profile = _profile_device(lambda: trainer.train_step(train_batches[0]))
     train_e2e = {"batch": [TRAIN_B, int(TRAIN_SECONDS * SR)], "ms_per_step": step_s * 1e3,
@@ -821,33 +1099,23 @@ def phase_timings(task: LidASRTask, gen: torch.Generator, errs: dict, served: di
                  "peak_memory_mb": torch.cuda.max_memory_allocated() / 2 ** 20,
                  "profile_step": train_profile}
 
-    # end to end: infer throughput on 3 s clips, served p50
-    infer = task.infer_fn()
-    e2e = {}
-    for batch, iters in ((1, 30), (32, 10)):
-        wavs = 0.1 * torch.randn(batch, 3 * SR, generator=gen)
-        lengths = torch.full((batch,), 3 * SR)
-        for _ in range(3):
-            infer(wavs, lengths)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(iters):
-            out = infer(wavs, lengths)
-        out["scores"].cpu()
-        dt = (time.perf_counter() - t0) / iters
-        e2e[f"b{batch}"] = {"ms_per_batch": dt * 1e3, "utt_per_s": batch / dt}
-
     # one B=1 forward under the profiler: device time by kernel, busy share
     wavs = 0.1 * torch.randn(1, 3 * SR, generator=gen)
     lengths = torch.tensor([3 * SR])
     infer_profile = _profile_device(lambda: infer(wavs, lengths)["scores"].cpu())
+    backward_report = backward_device_kernels(gen)
+    after_profiler = {"train_ms_per_step": timed_train_steps() * 1e3,
+                      "b1_ms_per_batch": timed_infer(1, 30) * 1e3,
+                      "b32_ms_per_batch": timed_infer(32, 10) * 1e3}
     emit({
         "phase": "e2e", "infer_3s": e2e,
+        "after_profiler": after_profiler,
         "lid_p50_ms_client": serve_report["client_p50_ms"],
         "lid_p50_ms_handler": serve_report["stats"]["total"]["p50_ms"],
         "lid_p50_ms_device": serve_report["stats"]["device"]["p50_ms"],
         "profile_b1_3s": infer_profile,
         "train_step_b8_4s": train_e2e,
+        "depthwise_backward": backward_report,
     })
     emit({"kernels": kernels})
 

@@ -10,6 +10,10 @@ an unchanged one is loaded as it is.  The sources compile in parallel, one
 
 Nothing here runs at import: :func:`lib` builds on its first call, which a
 kernel wrapper makes only for a tensor on the card.
+
+The kernels' tile sizes are set here and nowhere else (:data:`TILING`):
+``nvcc`` gets them as ``-D`` definitions, and the wrappers' index functions
+and plain-PyTorch emulations import them from here.
 """
 
 from __future__ import annotations
@@ -27,22 +31,34 @@ _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
 SOURCES = ("fbank.cu", "depthwise.cu")
 BUILD_DIR = _PKG.parent / "build"
+TILING = {
+    "FBANK_TILE_FRAMES": 16,   # frames of a block's tile
+    "FBANK_TILE_BINS": 32,     # packed bins of a block: twice as many basis columns
+    "FBANK_TAP_PARTS": 4,      # parts the taps are split into, added (p0 + p2) + (p1 + p3)
+    "FBANK_MAX_TILES": 8,      # blocks of a cluster (the portable limit): bin tiles
+    "DW_MAX_KERNEL_SIZE": 64,  # taps: the staging stays under 48 KB of shared memory
+    "DW_BWD_TIME_CHUNK": 64,   # frames of one utterance per time chunk of bwd_w
+    "DW_BWD_QUARTERS": 4,      # runs a chunk's frames are summed in
+    "DW_BWD_MAX_CLUSTER": 8,   # blocks that share one channel tile's chunks
+}
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    *(f"-D{name}={value}" for name, value in TILING.items()),
 )
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
-    # xp, batch, Tp, n_frames, basis, win_pad, bins, fb, mel_range, n_mels,
-    # hop, pad_left, out, stream
-    "fbank_log_mel_f32": (_P, _I, _I, _I, _P, _I, _I, _P, _P, _I, _I, _I, _P, _P),
-    # x, w, bias, y, B, T, C, K, pad_l, dtype, stream
-    "depthwise_conv1d_fwd": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
-    # x, g, scratch, dw, db, B, T, C, K, pad_l, scratch_chunks, dtype, stream
-    "depthwise_conv1d_bwd_w": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
-    "depthwise_conv1d_bwd_w_time_chunk": (),
+    # wav, batch, T, n_frames, basis, win_pad, n_tiles, bins, fb, mel_range,
+    # n_mels, hop, frame_offset, resident_clusters, out, stream
+    "fbank_log_mel_f32": (_P, _I, _I, _I, _P, _I, _I, _I, _P, _P, _I, _I, _I, _I, _P, _P),
+    # hop, win_pad, n_tiles, blocks_per_sm (int*), clusters (int*)
+    "fbank_log_mel_setup": (_I, _I, _I, _P, _P),
+    # x, w, bias (or null), y, B, T, C, K, pad_l, flip, dtype, stream
+    "depthwise_conv1d_fwd": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
+    # x, g, dw, db, B, T, C, K, pad_l, dtype, stream
+    "depthwise_conv1d_bwd_w": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
 }
 
 
