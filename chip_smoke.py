@@ -4,21 +4,24 @@
     python3 chip_smoke.py        # from the root of a checkout, one H100
 
 It builds the port's CUDA kernels from ``speechlid_tpu_torch/csrc`` (into
-``build/``), holds each kernel, forward and backward, against its plain
-PyTorch version on the card, runs the full-width Conformer joint-LID model
-through the kernels and against the same weights on the CPU (inference, and
-one deterministic training step with every parameter's gradient), serves it
-on ``/lid`` from a thread and posts requests to it, trains it through
+``build/``), holds each kernel, forward and backward, and each fused mode of
+the depthwise forward kernel (the conv module's GLU, mask, conv, eval
+BatchNorm and activation in one launch; GLU and mask in front of the
+training forward; the GLU backward behind dX) against its plain PyTorch
+version on the card, runs the full-width Conformer joint-LID model through
+the kernels and against the same weights on the CPU (inference, and one
+deterministic training step with every parameter's gradient), serves it on
+``/lid`` from a thread and posts requests to it, trains it through
 ``Trainer.fit`` with augmentation, checkpoints, a resume and a served
 request from the trained checkpoint, and times the kernels, the model and
-the train step.  The kernels that have had a redesign are also timed
-against their previous designs (``scripts/previous_kernels``, outside the
-package, built into a library of their own that only this script loads), in
-turns old, new, new, old.  Each phase prints one JSON line; any failure raises and
-exits non-zero.  The ``{"kernels": …}`` line lists every kernel at the
-shape the served or the trained path gives it, with its launches as counted
-on that path, its error against its plain version at that shape and its
-times beside its bound.  The last line is
+the train step.  The fused modes are also timed against the unfused chain
+they replace (``chain_ms``), in turns chain, fused, fused, chain, and the
+profiler shows one device kernel between a conv module's two pointwise
+GEMMs.  Each phase prints one JSON line; any failure raises and exits
+non-zero.  The ``{"kernels": …}`` line lists every kernel and fused mode
+at the shape the served or the trained path gives it, with its launches as
+counted on that path, its error against its plain version at that shape
+and its times beside its bound.  The last line is
 ``{"ok": true, "device": …}``.
 
 float32 throughout, with TF32 off for matmuls and cuDNN convolutions
@@ -28,7 +31,6 @@ random, from a seeded ``torch.Generator``.  Imports nothing of JAX.
 
 from __future__ import annotations
 
-import ctypes
 import json
 import statistics
 import subprocess
@@ -38,7 +40,6 @@ import threading
 import time
 import urllib.request
 from http.server import ThreadingHTTPServer
-from pathlib import Path
 
 import numpy as np
 import torch
@@ -56,12 +57,23 @@ from speechlid_tpu_torch.models.conformer import DepthwiseConv1d, MaskedBatchNor
 from speechlid_tpu_torch.ops import frontend
 from speechlid_tpu_torch.ops.cuda import _build, fbank_kernel
 from speechlid_tpu_torch.ops.cuda.depthwise_kernel import (
+    FWD_MODES,
+    BatchNormStats,
+    batch_norm_act_plain,
     depthwise_conv1d,
     depthwise_conv1d_bwd_w,
     depthwise_conv1d_bwd_w_plain,
     depthwise_conv1d_bwd_w_tiled_plain,
     depthwise_conv1d_dx,
     depthwise_conv1d_plain,
+    fwd_blocks,
+    glu_depthwise,
+    glu_depthwise_bn_act,
+    glu_depthwise_bn_act_plain,
+    glu_depthwise_dx,
+    glu_depthwise_plain,
+    glu_mask_bwd_plain,
+    reset_launch_counts,
 )
 from speechlid_tpu_torch.ops.cuda.fbank_kernel import (
     log_mel,
@@ -109,10 +121,24 @@ TRAIN_B, TRAIN_SECONDS, TRAIN_BATCHES, TRAIN_EPOCHS = 8, 4.0, 6, 2
 TRAIN_TOL = 1e-3  # card vs CPU: the loss, and each gradient relative to its largest entry
 N_BLOCKS, N_LANG = FLAGSHIP["n_blocks"], len(FLAGSHIP["lang2vocab"])
 DW_PER_TRAIN_STEP = N_BLOCKS + 1  # the encoder's blocks and the batch's own head
-# what one train step is expected to launch: forward and dX through the one
-# kernel, dW/db through the other; the counts found are held to it
-TRAIN_STEP_LAUNCHES = {"fbank": 1, "depthwise": 2 * DW_PER_TRAIN_STEP,
-                       "depthwise_dx": DW_PER_TRAIN_STEP, "depthwise_bwd_w": DW_PER_TRAIN_STEP}
+
+
+def launch_counts(fbank: int = 0, bwd_w: int = 0, **modes: int) -> dict:
+    """The launch counts of :func:`launches` for the given fbank, dW/db and
+    forward-kernel launches by mode (``FWD_MODES``; absent modes are 0)."""
+    modes = {m: modes.get(m, 0) for m in FWD_MODES}
+    return {"fbank": fbank, "depthwise": sum(modes.values()),
+            "depthwise_dx": modes["plain_dx"] + modes["glu_dx"], "depthwise_bwd_w": bwd_w,
+            **{f"depthwise_{m}": n for m, n in modes.items()}}
+
+
+# what one B = 1 forward and one train step are expected to launch, every
+# depthwise launch in a fused mode: eval GLU + conv + BN + act in each conv
+# module; in training the forward with GLU in front, dX with the GLU
+# backward behind, and dW/db through the other kernel
+PER_FORWARD_LAUNCHES = launch_counts(fbank=1, glu_bn_act=DW_PER_FORWARD)
+TRAIN_STEP_LAUNCHES = launch_counts(fbank=1, bwd_w=DW_PER_TRAIN_STEP, glu=DW_PER_TRAIN_STEP,
+                                    glu_dx=DW_PER_TRAIN_STEP)
 
 
 def _encoder_frames(seconds: float) -> int:
@@ -127,6 +153,7 @@ def _encoder_frames(seconds: float) -> int:
 # the encoder conv module's shape on the training path (8, 99, 288), k = 31
 TRAIN_DW_SHAPE = (TRAIN_B, _encoder_frames(TRAIN_SECONDS), 2 * FLAGSHIP["encoder_dim"], 31)
 SERVE_DW_SHAPE = (1, _encoder_frames(3.0), 2 * FLAGSHIP["encoder_dim"], 31)  # B=1, 3 s clip
+SCORE_DW_SHAPE = (32, _encoder_frames(3.0), 2 * FLAGSHIP["encoder_dim"], 31)  # B=32 scorer
 
 
 def emit(obj) -> None:
@@ -176,87 +203,6 @@ def device_ms_in_turns(old, new):
     return (a + d) / 2, (b + c) / 2
 
 
-# ------------------------------------------- the previous designs, for ms_before
-# Kept for the measurement of the cluster designs against what they replaced
-# (October 2026).  Delete this section, scripts/previous_kernels and the
-# ms_before keys with the next change to either kernel.
-
-_P, _I = ctypes.c_void_p, ctypes.c_int
-PREVIOUS_DIR = Path(__file__).resolve().parent / "scripts" / "previous_kernels"
-PREVIOUS_SIGNATURES = {
-    # xp, batch, Tp, n_frames, basis, win_pad, bins, fb, mel_range, n_mels, hop, pad_left,
-    # out, stream
-    "fbank_log_mel_previous_f32": (_P, _I, _I, _I, _P, _I, _I, _P, _P, _I, _I, _I, _P, _P),
-    # x, g, scratch, dw, db, B, T, C, K, pad_l, scratch_chunks, dtype, stream
-    "depthwise_conv1d_bwd_w_previous": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
-    "depthwise_conv1d_bwd_w_previous_time_chunk": (),
-}
-_previous = {}
-
-
-def start_previous_build() -> None:
-    """One nvcc over the previous designs, left running beside the package's
-    own build; :func:`previous_lib` waits for it."""
-    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    target = _build.BUILD_DIR / "libspeechlid_previous.so"
-    sources = sorted(str(src) for src in PREVIOUS_DIR.glob("*.cu"))
-    _previous["build"] = target, subprocess.Popen(
-        [_build._nvcc(), *_build.NVCC_FLAGS, "-t", "2", "-shared", *sources, "-o", str(target)],
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-
-
-def previous_lib():
-    if "lib" not in _previous:
-        target, proc = _previous.pop("build")
-        log = proc.communicate()[0]
-        if proc.returncode:
-            raise RuntimeError(f"nvcc failed on the previous designs:\n{log}")
-        so = ctypes.CDLL(str(target))
-        for name, argtypes in PREVIOUS_SIGNATURES.items():
-            getattr(so, name).argtypes = list(argtypes)
-        _previous["lib"] = so
-    return _previous["lib"]
-
-
-def log_mel_previous(wav: torch.Tensor) -> torch.Tensor:
-    """The previous fbank wrapper call: a reflect-pad kernel, then the
-    kernel that tiles over frames alone and streams the whole basis."""
-    n_fft, win, hop, n_mels = 512, 400, 160, 80
-    if "fbank_bases" not in _previous:
-        basis, fb = frontend.mel_bases(n_fft, win, n_mels, SR, wav.device)
-        pad_left = (n_fft - win) // 2
-        ranges = torch.from_numpy(fbank_kernel.mel_ranges(n_fft, n_mels, SR)).to(wav.device)
-        _previous["fbank_bases"] = (basis[pad_left:pad_left + win].contiguous(),  # 400 = 25 × 16
-                                    fb.contiguous(), ranges)
-    basis, fb, ranges = _previous["fbank_bases"]
-    xp = frontend._reflect_pad(wav, n_fft // 2).contiguous()
-    n_frames = 1 + wav.shape[1] // hop
-    out = torch.empty((wav.shape[0], n_frames, n_mels), dtype=torch.float32, device=wav.device)
-    err = previous_lib().fbank_log_mel_previous_f32(
-        xp.data_ptr(), wav.shape[0], xp.shape[1], n_frames, basis.data_ptr(), win,
-        n_fft // 2 + 1, fb.data_ptr(), ranges.data_ptr(), n_mels, hop, (n_fft - win) // 2,
-        out.data_ptr(), torch.cuda.current_stream().cuda_stream)
-    _build.check(err, "fbank_log_mel_previous_f32")
-    return out.transpose(1, 2)
-
-
-def bwd_w_previous(x: torch.Tensor, g: torch.Tensor, k: int):
-    """The previous dW/db wrapper call: a scratch allocation, the partial-sum
-    kernel and the reduce kernel."""
-    lib = previous_lib()
-    b, t, c = x.shape
-    time_chunk = lib.depthwise_conv1d_bwd_w_previous_time_chunk()
-    chunks = b * ((t + time_chunk - 1) // time_chunk)
-    scratch = torch.empty((chunks, k + 1, c), dtype=torch.float32, device=x.device)
-    dw = torch.empty((k, c), dtype=x.dtype, device=x.device)
-    db = torch.empty((c,), dtype=x.dtype, device=x.device)
-    err = lib.depthwise_conv1d_bwd_w_previous(
-        x.data_ptr(), g.data_ptr(), scratch.data_ptr(), dw.data_ptr(), db.data_ptr(),
-        b, t, c, k, (k - 1) // 2, chunks, 0, torch.cuda.current_stream().cuda_stream)
-    _build.check(err, "depthwise_conv1d_bwd_w_previous")
-    return dw, db
-
-
 # ---------------------------------------------------------------- phases
 
 
@@ -270,9 +216,7 @@ def phase_build() -> None:
     torch.backends.cudnn.allow_tf32 = False
     t0 = time.perf_counter()
     path = _build.library_path()
-    start_previous_build()  # runs while the package's sources compile, one nvcc each
     _build.lib()
-    previous_lib()
     blocks_per_sm, clusters = fbank_kernel.kernel_occupancy(
         160, 400, fbank_kernel.n_bin_tiles(512), torch.device("cuda", 0))
     emit({
@@ -282,6 +226,9 @@ def phase_build() -> None:
                   if "registers" in l or "spill" in l],
         "fbank_blocks_per_sm": blocks_per_sm,
         "fbank_resident_clusters": clusters,
+        "depthwise_fwd_blocks": {f"{b}x{t}x{c}": fwd_blocks(b, t, c)
+                                 for b, t, c, _ in (SERVE_DW_SHAPE, TRAIN_DW_SHAPE,
+                                                    SCORE_DW_SHAPE)},
         "python": sys.version.split()[0], "torch": torch.__version__,
         "cuda": torch.version.cuda, "nvidia_smi": smi,
     })
@@ -441,7 +388,7 @@ def phase_depthwise_bwd(gen: torch.Generator) -> dict:
               "max_abs_err_direct_bwd_w": dict(zip(("dw", "db"), direct_errs)),
               "launches": counted,
               "bit_equal_reruns": same_bits, "ok": ok and ok16 and same_bits})
-        expect = {"fbank": 0, "depthwise": 2, "depthwise_dx": 1, "depthwise_bwd_w": 1}
+        expect = launch_counts(plain=1, plain_dx=1, bwd_w=1)
         if not (ok and ok16 and same_bits and counted == expect):
             raise AssertionError(f"depthwise backward disagrees with plain at {(b, t, c, k)}")
         found[(b, t, c, k)] = {"dx": errs[0], "bwd_w": max(errs[1], errs[2], *direct_errs)}
@@ -465,6 +412,112 @@ def phase_depthwise_bwd(gen: torch.Generator) -> dict:
         if not (ok and same_bits):
             raise AssertionError(f"bwd_w disagrees with {reference.__name__} at {(b, t, c, k)}")
 
+    return found
+
+
+ACTS = ("swish", "double_swish")
+# the served, trained and scored conv shapes, then a short clip, channels
+# that take the kernel's scalar path (129) and an even kernel
+FUSED_SHAPES = (SERVE_DW_SHAPE, TRAIN_DW_SHAPE, SCORE_DW_SHAPE, (1, 7, 64, 31),
+                (3, 100, 129, 15), (2, 50, 96, 4))
+
+
+def fused_inputs(b: int, t: int, c: int, k: int, gen: torch.Generator):
+    """On the card: h (B, T, 2C), a ragged padding mask (every utterance,
+    the first one included, has padded frames when T > 3), conv weights and
+    bias, eval BatchNorm statistics away from the identity, and an output
+    gradient scaled so that dW stays near 1."""
+    h = torch.randn(b, t, 2 * c, generator=gen)
+    lengths = torch.tensor([t - (i + 1) * t // (2 * b + 2) for i in range(b)])
+    mask = torch.arange(t)[None, :] < lengths[:, None]
+    w = k ** -0.5 * torch.randn(k, c, generator=gen)
+    bias = 0.05 * torch.randn(c, generator=gen)
+    bn = BatchNormStats(0.2 * torch.randn(c, generator=gen), 0.5 + torch.rand(c, generator=gen),
+                        1.0 + 0.1 * torch.randn(c, generator=gen),
+                        0.05 * torch.randn(c, generator=gen), 1e-5)
+    gy = torch.randn(b, t, c, generator=gen) / (b * t) ** 0.5
+    return (h.cuda(), mask.cuda(), w.cuda(), bias.cuda(),
+            BatchNormStats(*(v.cuda() for v in bn[:4]), bn.eps), gy.cuda())
+
+
+def _bf16(*tensors):
+    return [t.bfloat16() for t in tensors]
+
+
+def phase_conv_fused(gen: torch.Generator) -> dict:
+    """The fused modes of the forward kernel against their plain versions
+    on the card, float32 and bfloat16, Swish and DoubleSwish, with a ragged
+    mask (and without one in eval): the eval call; the training forward;
+    ``GluDepthwiseFn``'s dh, dW and db against autograd through the plain
+    chain, bit-equal on a second run, exact zeros at padded frames, and the
+    launches of one forward and backward.  Returns the f32 errors found at
+    each shape."""
+    found = {}
+    for b, t, c, k in FUSED_SHAPES:
+        h, mask, w, bias, bn, gy = fused_inputs(b, t, c, k, gen)
+        errs, errs16 = {}, {}
+        ok = True
+        with torch.no_grad():
+            for act in ACTS:
+                for name, m in ((f"eval_{act}", mask), (f"eval_{act}_no_mask", None)):
+                    got = glu_depthwise_bn_act(h, m, w, bias, bn, act)
+                    ref = glu_depthwise_bn_act_plain(h, m, w, bias, bn, act)
+                    errs[name] = (got - ref).abs().max().item()
+                    ok &= torch.allclose(got, ref, rtol=DW_TOL, atol=DW_TOL)
+                got16 = glu_depthwise_bn_act(*_bf16(h), mask, *_bf16(w, bias), bn, act)
+                ref = glu_depthwise_bn_act_plain(h, mask, w, bias, bn, act)
+                errs16[f"eval_{act}"] = (got16.float() - ref).abs().max().item()
+                ok &= got16.dtype == torch.bfloat16 and torch.allclose(
+                    got16.float(), ref, rtol=DW_BF16_TOL[0], atol=DW_BF16_TOL[1])
+            got = glu_depthwise(h, mask, w, bias)
+            ref = glu_depthwise_plain(h, mask, w, bias)[1]
+            errs["train_forward"] = (got - ref).abs().max().item()
+            ok &= torch.allclose(got, ref, rtol=DW_TOL, atol=DW_TOL)
+
+        def grads(fn, *inputs):
+            leaves = [v.detach().clone().requires_grad_(True) for v in inputs]
+            return torch.autograd.grad(fn(leaves[0], mask, leaves[1], leaves[2]), leaves,
+                                       gy.to(inputs[0].dtype))
+
+        before = launches()
+        got = grads(glu_depthwise, h, w, bias)
+        counted = {name: n - before[name] for name, n in launches().items()}
+        again = grads(glu_depthwise, h, w, bias)
+        ref = grads(lambda *a: glu_depthwise_plain(*a)[1], h, w, bias)
+        got16 = grads(glu_depthwise, *_bf16(h, w, bias))
+        # the GLU backward's formula on the plain dX, against the kernel's epilogue
+        dh_formula = glu_mask_bwd_plain(
+            depthwise_conv1d_plain(gy, w, None, k - 1 - (k - 1) // 2, flip=True), h, mask)
+        torch.cuda.synchronize()
+        names = ("dh", "dw", "db")
+        errs.update({f"grad_{n}": (a - r).abs().max().item() for n, a, r in zip(names, got, ref)})
+        errs["dh_vs_glu_mask_bwd_plain"] = (got[0] - dh_formula).abs().max().item()
+        rel16 = {n: (a.float() - r).abs().max().item() / r.abs().max().item()
+                 for n, a, r in zip(names, got16, ref)}
+        ok &= all(torch.allclose(a, r, rtol=DW_GRAD_TOL, atol=DW_GRAD_TOL)
+                  for a, r in zip(got, ref))
+        ok &= torch.allclose(got[0], dh_formula, rtol=DW_GRAD_TOL, atol=DW_GRAD_TOL)
+        ok &= all(a.dtype == torch.bfloat16 and torch.allclose(
+            a.float(), r, rtol=DW_BF16_TOL[0], atol=DW_BF16_TOL[1]) for a, r in zip(got16, ref))
+        ok &= max(rel16.values()) <= DW_BF16_GRAD_TOL
+        same_bits = all(torch.equal(a, b2) for a, b2 in zip(got, again))
+        padded_zero = bool((got[0][~mask] == 0).all()) and bool((got16[0][~mask] == 0).all())
+        expect = launch_counts(glu=1, glu_dx=1, bwd_w=1)
+        emit({"phase": "conv_fused_vs_plain", "shape": [b, t, c], "k": k,
+              "valid_frames": mask.sum(dim=1).tolist(), "max_abs_err_f32": errs,
+              "tol_f32": DW_TOL, "tol_grad_f32": DW_GRAD_TOL,
+              "max_abs_err_bf16_vs_f32": errs16, "tol_bf16": DW_BF16_TOL,
+              "max_err_bf16_grad_over_largest_f32": rel16,
+              "tol_bf16_grad_over_largest": DW_BF16_GRAD_TOL,
+              "bit_equal_reruns": same_bits, "dh_zero_at_padded_frames": padded_zero,
+              "launches_forward_backward": counted,
+              "ok": bool(ok) and same_bits and padded_zero and counted == expect})
+        if not (ok and same_bits and padded_zero and counted == expect):
+            raise AssertionError(f"fused conv modes disagree with plain at {(b, t, c, k)}")
+        found[(b, t, c, k)] = {
+            "glu_bn_act": max(v for n, v in errs.items() if n.startswith("eval")),
+            "glu": errs["train_forward"], "glu_dx": errs["grad_dh"],
+            "bwd_w": max(errs["grad_dw"], errs["grad_db"])}
     return found
 
 
@@ -492,17 +545,17 @@ def init_random_(model: torch.nn.Module, gen: torch.Generator) -> None:
 
 def reset_launches() -> None:
     log_mel.launches = 0
-    depthwise_conv1d.launches = 0
-    depthwise_conv1d.dx_launches = 0
-    depthwise_conv1d_bwd_w.launches = 0
+    reset_launch_counts()
 
 
 def launches() -> dict:
-    """The wrappers' counts; ``depthwise`` holds forward and dX launches of
-    the one kernel, ``depthwise_dx`` the dX ones among them."""
+    """The wrappers' counts; ``depthwise`` holds every launch of the forward
+    kernel, ``depthwise_dx`` the flipped ones among them, and
+    ``depthwise_<mode>`` each mode's (``FWD_MODES``)."""
     return {"fbank": log_mel.launches, "depthwise": depthwise_conv1d.launches,
             "depthwise_dx": depthwise_conv1d.dx_launches,
-            "depthwise_bwd_w": depthwise_conv1d_bwd_w.launches}
+            "depthwise_bwd_w": depthwise_conv1d_bwd_w.launches,
+            **{f"depthwise_{m}": n for m, n in depthwise_conv1d.mode_launches.items()}}
 
 
 def phase_model(gen: torch.Generator) -> LidASRTask:
@@ -547,8 +600,7 @@ def phase_model(gen: torch.Generator) -> LidASRTask:
         "scores": score_err <= MODEL_TOL,
         "masked_slots": bool(torch.equal(got["logits"] == neg, ref["logits"] == neg)),
         "pred_lang": torch.equal(got["pred_lang"], ref["pred_lang"]),
-        "launches": per_forward == {"fbank": 1, "depthwise": DW_PER_FORWARD,
-                                    "depthwise_dx": 0, "depthwise_bwd_w": 0},
+        "launches": per_forward == PER_FORWARD_LAUNCHES,
     }
     if not all(checks.values()):
         raise AssertionError(f"full model on the card failed: {checks}")
@@ -612,8 +664,7 @@ def phase_serve(task: LidASRTask, gen: torch.Generator) -> dict:
     }
     emit(report)
     ok = (worst == 0.0 and health == {"status": "ok"} and not thread.is_alive()
-          and served == {"fbank": n_req, "depthwise": DW_PER_FORWARD * n_req,
-                         "depthwise_dx": 0, "depthwise_bwd_w": 0})
+          and served == {k: n * n_req for k, n in PER_FORWARD_LAUNCHES.items()})
     if not ok:
         raise AssertionError("serving phase failed")
     return report
@@ -635,6 +686,30 @@ def synthetic_batch(rng: np.random.RandomState, lang: int, b: int, seconds: floa
     }
 
 
+def pin_subsampling_relus(card_sub, cpu_sub) -> dict:
+    """Make the CPU side's Conv2d subsampling take each ReLU decision from
+    the card's forward: hooks on the card's two convs record which units are
+    positive, and the CPU's subsampling (the same convs and Linear as
+    ``Conv2dSubsampling.forward``) multiplies by those masks in place of its
+    ReLUs.  Returns the hooks and, filled in by the CPU's forward, how many
+    units of each ReLU the CPU's own rounding would have decided otherwise."""
+    masks, differ = [], {"conv0": 0, "conv1": 0}
+    hooks = [conv.register_forward_hook(lambda mod, args, out: masks.append((out > 0).cpu()))
+             for conv in (card_sub.conv0, card_sub.conv1)]
+
+    def forward(x):
+        z0 = cpu_sub.conv0(x[:, None])
+        differ["conv0"] += int(((z0 > 0) != masks[0]).sum())
+        z1 = cpu_sub.conv1(z0 * masks[0])
+        differ["conv1"] += int(((z1 > 0) != masks[1]).sum())
+        y = (z1 * masks[1]).permute(0, 2, 3, 1)
+        b, t, f, c = y.shape
+        return cpu_sub.out(y.reshape(b, t, f * c))
+
+    cpu_sub.forward = forward
+    return {"hooks": hooks, "differ": differ}
+
+
 def phase_train_card_vs_cpu(gen: torch.Generator) -> None:
     """One deterministic train step (no dropout, stochastic depth or
     augmentation) at full width on the card (kernels) and on the CPU (plain
@@ -648,7 +723,14 @@ def phase_train_card_vs_cpu(gen: torch.Generator) -> None:
     ``max_abs_diff_features_db``), and the subsampling's ReLUs turn such a
     difference, when it flips one unit, into a jump of a percent in single
     gradients (a conv bias): then the check reads the random draw and not
-    the kernels behind the frontend."""
+    the kernels behind the frontend.  The same holds inside the
+    subsampling: cuDNN's convolutions and the CPU's round differently, and
+    one unit whose pre-activation lies within that rounding of 0 takes its
+    ReLU one way on the card and the other on the CPU (4.6 % on
+    ``subsample.conv1.bias`` with one draw of the weights).  So the CPU side
+    takes the card's ReLU decisions there (:func:`pin_subsampling_relus`),
+    and the units it would have decided otherwise are counted and reported
+    (``relu_units_decided_otherwise``)."""
     hp = dict(FLAGSHIP, dropout=0.0, pos_dropout=0.0, use_stochastic_depth=False,
               mask_times=0, t_stretch=False)
     card, cpu = LidASRTask(**hp, device="cuda"), LidASRTask(**hp, device="cpu")
@@ -661,6 +743,7 @@ def phase_train_card_vs_cpu(gen: torch.Generator) -> None:
                                  torch.from_numpy(batch["wav_lengths"]))
     feats_diff = (feats.cpu() - own_feats).abs().max().item()
     cpu._features = lambda wavs, wav_lengths, augment=False: (feats.cpu(), f_len.cpu())
+    pinned = pin_subsampling_relus(card.model.featurizer.subsample, cpu.model.featurizer.subsample)
     results = {}
     for name, task in (("card", card), ("cpu", cpu)):
         task.set_generators(torch.Generator(task.device).manual_seed(0),
@@ -669,6 +752,9 @@ def phase_train_card_vs_cpu(gen: torch.Generator) -> None:
         reset_launches()
         loss, _ = task.train_loop(task.place_batch(batch))
         loss.backward()
+        if name == "card":
+            for hook in pinned["hooks"]:
+                hook.remove()
         results[name] = (loss.item(), launches(),
                          {k: p.grad.cpu() for k, p in task.model.named_parameters()
                           if p.grad is not None})
@@ -688,6 +774,8 @@ def phase_train_card_vs_cpu(gen: torch.Generator) -> None:
     emit({"phase": "train_card_vs_cpu", "batch": [2, 3 * SR], "loss_card": loss_card,
           "loss_cpu": loss_cpu, "gradients": len(grads_cpu),
           "cpu_features": "the card's", "max_abs_diff_features_db": feats_diff,
+          "cpu_subsampling_relus": "the card's",
+          "relu_units_decided_otherwise": pinned["differ"],
           "max_rel_err_gradient": worst, "worst_gradient": worst_name,
           "largest_gradient_entry": largest, "tol": TRAIN_TOL,
           "launches_per_train_step": counted})
@@ -786,8 +874,7 @@ def phase_train(gen: torch.Generator):
         "finite_losses": bool(np.isfinite(rec.losses + resumed_rec.losses).all()),
         "loss_falls": epoch_loss[-1] < epoch_loss[0],
         "launches": (per_train_step == TRAIN_STEP_LAUNCHES
-                     and per_eval_batch == {"fbank": 1, "depthwise": DW_PER_FORWARD,
-                                            "depthwise_dx": 0, "depthwise_bwd_w": 0}
+                     and per_eval_batch == PER_FORWARD_LAUNCHES
                      and counted == {k: rec.train_launches[k] + rec.eval_launches[k]
                                      for k in counted}),
         "eval_metrics": all(np.isfinite(last_eval[k]) for k in ("val_acc", "eer", "cavg",
@@ -802,9 +889,11 @@ def phase_train(gen: torch.Generator):
     return rec.train_launches, (trainer, train)
 
 
-def _profile_device(fn) -> dict:
+def _profile_device(fn, sequence: bool = False) -> dict:
     """One ``fn()`` under torch.profiler: wall time, the summed device time
-    of its kernels, their ratio, and the ten largest kernel rows."""
+    of its kernels, their ratio, the ten largest kernel rows and, with
+    ``sequence``, every device kernel's name in the order the card started
+    them."""
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
@@ -818,26 +907,189 @@ def _profile_device(fn) -> dict:
             rows.append((e.self_device_time_total, e.key, e.count))
     rows.sort(reverse=True)
     device_us = sum(r[0] for r in rows)
-    return {"wall_us": wall_us, "device_us": device_us,
-            "device_busy_share": device_us / wall_us,
-            "device_kernels": sum(r[2] for r in rows),
-            "top": [{"kernel": key[:80], "us": dev, "count": n} for dev, key, n in rows[:10]]}
+    out = {"wall_us": wall_us, "device_us": device_us,
+           "device_busy_share": device_us / wall_us,
+           "device_kernels": sum(r[2] for r in rows),
+           "top": [{"kernel": key[:80], "us": dev, "count": n} for dev, key, n in rows[:10]]}
+    if sequence:
+        out["sequence"] = [name[:80] for _, name in sorted(
+            (e.time_range.start, e.name) for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA)]
+    return out
+
+
+def _backward_kernels(fn, leaves, g, what: str) -> dict:
+    """One backward of ``fn()`` under the profiler: two device kernels (dX,
+    dW/db) and nothing else."""
+    y = fn()
+    profile = _profile_device(lambda: torch.autograd.grad(y, leaves, g), sequence=True)
+    report = {"device_kernels": profile["device_kernels"], "expected": 2,
+              "kernel_names": profile["sequence"]}
+    if profile["device_kernels"] != 2:
+        raise AssertionError(f"one {what} backward ran {report}")
+    return report
 
 
 def backward_device_kernels(gen: torch.Generator) -> dict:
-    """One backward of the autograd Function at the train shape under the
-    profiler: two device kernels (dX, dW/db) and nothing else."""
+    """One backward of each autograd Function at the train shape: the plain
+    conv's (``DepthwiseConv1dFn``) and the conv module's training op
+    (``GluDepthwiseFn``: dh with the GLU backward, dW/db on the saved u)."""
     b, t, c, k = TRAIN_DW_SHAPE
     leaves = [torch.randn(*shape, generator=gen).cuda().requires_grad_(True)
               for shape in ((b, t, c), (k, c), (c,))]
     g = torch.randn(b, t, c, generator=gen).cuda()
-    y = depthwise_conv1d(*leaves)
-    profile = _profile_device(lambda: torch.autograd.grad(y, leaves, g))
-    report = {"shape": [b, t, c], "k": k, "device_kernels": profile["device_kernels"],
-              "expected": 2, "kernel_names": [row["kernel"] for row in profile["top"]]}
-    if profile["device_kernels"] != 2:
-        raise AssertionError(f"one depthwise backward ran {report}")
+    h, mask, w, bias, _, gy = fused_inputs(b, t, c, k, gen)
+    fused = [v.requires_grad_(True) for v in (h, w, bias)]
+    return {"shape": [b, t, c], "k": k,
+            "depthwise_conv1d": _backward_kernels(lambda: depthwise_conv1d(*leaves), leaves, g,
+                                                  "depthwise"),
+            "glu_depthwise": _backward_kernels(
+                lambda: glu_depthwise(fused[0], mask, fused[1], fused[2]), fused, gy,
+                "glu_depthwise")}
+
+
+def glu_mask_chain(h: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """The GLU and padding mask as the conv module ran them before the
+    fusion, in PyTorch."""
+    a, g = h.chunk(2, dim=-1)
+    return (a * torch.sigmoid(g)).masked_fill(~mask[:, :, None], 0.0)
+
+
+def conv_module_device_kernels(task: LidASRTask, gen: torch.Generator) -> dict:
+    """One eval ``ConformerConvModule.forward`` of the flagship's first
+    block with a ragged mask at the served shape, under the profiler, and
+    its two pointwise GEMMs (with the LayerNorm in front) alone: exactly one
+    device kernel, the depthwise kernel, runs between them.  Also counts the
+    device kernels of the unfused chain that ran there before (GLU and mask,
+    the plain-mode kernel, BatchNorm and act in PyTorch)."""
+    conv = task.model.featurizer.blocks[0].conv
+    b, t = SERVE_DW_SHAPE[:2]
+    x = torch.randn(b, t, FLAGSHIP["encoder_dim"], generator=gen).cuda()
+    mask = (torch.arange(t) < t - 9)[None].cuda()
+    conv.eval()
+    with torch.no_grad():
+        whole = _profile_device(lambda: conv(x, mask), sequence=True)
+        front = _profile_device(lambda: conv.pointwise_in(conv.norm(x)), sequence=True)
+        y = torch.randn(b, t, conv.pointwise_out.in_features, generator=gen).cuda()
+        back = _profile_device(lambda: conv.pointwise_out(y), sequence=True)
+        h = conv.pointwise_in(conv.norm(x))
+        w, bias = conv.depthwise.weight, conv.depthwise.bias
+        chain = _profile_device(lambda: batch_norm_act_plain(
+            depthwise_conv1d(glu_mask_chain(h, mask), w, bias), conv.bn.eval_stats(),
+            conv.act_name), sequence=True)
+    n_front, n_back = front["device_kernels"], back["device_kernels"]
+    between = whole["sequence"][n_front:len(whole["sequence"]) - n_back]
+    report = {"shape": [b, t, FLAGSHIP["encoder_dim"]], "device_kernels": whole["device_kernels"],
+              "before": n_front, "after": n_back, "between": between,
+              "sequence": whole["sequence"], "expected_between": 1,
+              "unfused_chain_device_kernels": chain["device_kernels"],
+              "unfused_chain": chain["sequence"]}
+    ok = (whole["device_kernels"] == n_front + 1 + n_back and len(between) == 1
+          and "depthwise" in between[0]
+          and whole["sequence"][:n_front] == front["sequence"]
+          and whole["sequence"][len(whole["sequence"]) - n_back:] == back["sequence"])
+    if not ok:
+        raise AssertionError(f"an eval conv module runs {report}")
     return report
+
+
+def fused_kernel_rows(gen: torch.Generator, errs: dict, counts: dict) -> list:
+    """The ``kernels`` line's rows of the fused modes where a path calls
+    them: eval at the served and the scored shape, the training forward and
+    dX with the GLU backward at the train shape.  Each is timed against the
+    unfused chain the conv module ran before (PyTorch GLU and mask, the
+    plain-mode kernel, PyTorch BatchNorm and act) in turns chain, fused,
+    fused, chain; against its plain version; and against a composite of
+    library calls.  ``counts`` holds each row's launches on its path."""
+    rows = []
+
+    def row(name, mode, shape, fused, chain, plain, library, library_call, n_bytes, flops,
+            what):
+        b, t, c, k = shape
+        with torch.no_grad():
+            lib_err = (library().float() - fused().float()).abs().max().item()
+            chain_ms, k_ms = device_ms_in_turns(chain, fused)
+            b_ms, b_by = bound_ms(n_bytes, flops)
+            return {
+                "name": name, "route": "cuda", "source": "speechlid_tpu_torch/csrc/depthwise.cu",
+                "replaces": "speechlid_tpu/ops/pallas/depthwise_kernel.py:122",
+                "mode": mode, "launches": counts[name][0], **counts[name][1],
+                "max_abs_err": errs[shape][mode], "ms": k_ms, "kernel_ms": k_ms,
+                "chain_ms": chain_ms, "plain_ms": device_ms(plain),
+                "library_ms": device_ms(library), "library_call": library_call,
+                "library_max_abs_err": lib_err,
+                "bound_ms": b_ms, "bound_us": b_ms * 1e3, "bound_by": b_by,
+                "shape": f"h ({b}, {t}, {2 * c}) f32, mask ({b}, {t}), w ({k}, {c}): {what}",
+                "blocks": fwd_blocks(b, t, c), "flops": flops, "bytes": n_bytes,
+            }
+
+    def conv_library(u, w, bias, k):  # F.conv1d(groups=C) on the (B, C, T) view
+        c = w.shape[1]
+        return F.conv1d(u.transpose(1, 2), w.t().unsqueeze(1), bias, padding=(k - 1) // 2,
+                        groups=c)
+
+    for name, shape in (("depthwise_conv1d_fwd[glu_bn_act]", SERVE_DW_SHAPE),
+                        ("depthwise_conv1d_fwd[glu_bn_act]@b32", SCORE_DW_SHAPE)):
+        b, t, c, k = shape
+        h, mask, w, bias, bn, _ = fused_inputs(b, t, c, k, gen)
+
+        def library():  # row() calls it in this iteration
+            u = F.glu(h, dim=-1).masked_fill(~mask[:, :, None], 0.0)
+            y = F.batch_norm(conv_library(u, w, bias, k), bn.mean, bn.var, bn.weight, bn.bias,
+                             training=False, eps=bn.eps)
+            return F.silu(y).transpose(1, 2)
+
+        rows.append(row(
+            name, "glu_bn_act", shape,
+            lambda: glu_depthwise_bn_act(h, mask, w, bias, bn, "swish"),
+            lambda: batch_norm_act_plain(depthwise_conv1d(glu_mask_chain(h, mask), w, bias), bn,
+                                         "swish"),
+            lambda: glu_depthwise_bn_act_plain(h, mask, w, bias, bn, "swish"),
+            library, "composite: F.glu -> masked_fill -> F.conv1d(groups=C) -> "
+                     "F.batch_norm(eval) -> F.silu",
+            # read h and the mask, write y; weights and BatchNorm's five (C,) rows
+            4.0 * 3 * b * t * c + b * t + 4.0 * (k * c + 5 * c),
+            # 2k per output for the taps, about 12 for GLU, BatchNorm and Swish
+            b * t * c * (2.0 * k + 12), "eval GLU + mask + conv + BN + Swish"))
+
+    b, t, c, k = TRAIN_DW_SHAPE
+    h, mask, w, bias, _, gy = fused_inputs(b, t, c, k, gen)
+    rows.append(row(
+        "depthwise_conv1d_fwd[glu]@train", "glu", TRAIN_DW_SHAPE,
+        lambda: glu_depthwise(h, mask, w, bias),
+        lambda: depthwise_conv1d(glu_mask_chain(h, mask), w, bias),
+        lambda: glu_depthwise_plain(h, mask, w, bias)[1],
+        lambda: conv_library(F.glu(h, dim=-1).masked_fill(~mask[:, :, None], 0.0), w, bias,
+                             k).transpose(1, 2),
+        "composite: F.glu -> masked_fill -> F.conv1d(groups=C)",
+        # read h and the mask, write u and y
+        4.0 * 4 * b * t * c + b * t + 4.0 * (k * c + c), b * t * c * (2.0 * k + 4),
+        "training GLU + mask + conv + bias, u written"))
+
+    keep = ~mask[:, :, None]
+    a, g = h.chunk(2, dim=-1)
+    s = torch.sigmoid(g)  # saved by the parent's forward
+
+    def dx_chain():  # the parent's backward of GLU and mask behind the dX launch
+        du = depthwise_conv1d_dx(gy, w).masked_fill(keep, 0.0)
+        return torch.cat([du * s, torch.ops.aten.sigmoid_backward(du * a, s)], dim=-1)
+
+    def dx_library():
+        du = torch.nn.grad.conv1d_input((b, c, t), w.t().unsqueeze(1).contiguous(),
+                                        gy.transpose(1, 2), padding=(k - 1) // 2, groups=c)
+        return torch.ops.aten.glu_backward(du.transpose(1, 2).masked_fill(keep, 0.0), h, -1)
+
+    rows.append(row(
+        "depthwise_conv1d_fwd[glu_dx]@train", "glu_dx", TRAIN_DW_SHAPE,
+        lambda: glu_depthwise_dx(gy, w, h, mask), dx_chain,
+        lambda: glu_mask_bwd_plain(
+            depthwise_conv1d_plain(gy, w, None, k - 1 - (k - 1) // 2, flip=True), h, mask),
+        dx_library, "composite: torch.nn.grad.conv1d_input(groups=C) -> masked_fill -> "
+                    "aten.glu_backward",
+        # read the output gradient, h and the mask, write dh
+        4.0 * 5 * b * t * c + b * t + 4.0 * k * c, b * t * c * (2.0 * k + 8),
+        "dX (flipped taps) + GLU backward, dh written"))
+    return rows
 
 
 def phase_timings(task: LidASRTask, gen: torch.Generator, errs: dict, served: dict,
@@ -856,9 +1108,10 @@ def phase_timings(task: LidASRTask, gen: torch.Generator, errs: dict, served: di
     # counted over these steps and the shape its encoder convs see
     trainer, train_batches = training
     seen = []
-    conv = trainer.module.model.featurizer.blocks[0].conv.depthwise
-    hook = conv.register_forward_hook(
-        lambda mod, args, out: seen.append((*args[0].shape, mod.weight.shape[0])))
+    conv = trainer.module.model.featurizer.blocks[0].conv
+    k_conv = conv.depthwise.weight.shape[0]
+    hook = conv.pointwise_in.register_forward_hook(  # h (B, T, 2C) into the fused call
+        lambda mod, args, out: seen.append((*out.shape[:2], out.shape[2] // 2, k_conv)))
     for batch in train_batches[:3]:
         trainer.train_step(batch)
     timed_steps = 12
@@ -879,9 +1132,9 @@ def phase_timings(task: LidASRTask, gen: torch.Generator, errs: dict, served: di
         raise AssertionError(f"train step: launches {per_step}, encoder conv shapes {set(seen)}")
 
     # end to end, inference: throughput on 3 s clips at B = 1 and B = 32,
-    # with the fbank launches counted over the timed calls
+    # with the launches counted over the timed calls
     infer = task.infer_fn()
-    e2e, infer_fbank, infer_inputs = {}, {}, {}
+    e2e, infer_counts, infer_inputs = {}, {}, {}
 
     def timed_infer(batch: int, iters: int) -> float:
         wavs, lengths = infer_inputs[batch]
@@ -899,9 +1152,11 @@ def phase_timings(task: LidASRTask, gen: torch.Generator, errs: dict, served: di
             infer(*infer_inputs[batch])
         reset_launches()
         dt = timed_infer(batch, iters)
-        infer_fbank[batch] = launches()["fbank"]
+        infer_counts[batch] = launches()
         e2e[f"b{batch}"] = {"ms_per_batch": dt * 1e3, "utt_per_s": batch / dt,
-                            "fbank_launches": infer_fbank[batch], "calls": iters}
+                            "launches": infer_counts[batch], "calls": iters}
+        if infer_counts[batch] != {k: n * iters for k, n in PER_FORWARD_LAUNCHES.items()}:
+            raise AssertionError(f"infer at B = {batch}: launches {infer_counts[batch]}")
 
     # kernel 1: fbank where the paths call it: a served 3 s clip, a train
     # batch of 8 × 4 s, a scored batch of 32 × 3 s
@@ -923,22 +1178,16 @@ def phase_timings(task: LidASRTask, gen: torch.Generator, errs: dict, served: di
                 (power.transpose(1, 2) @ fb).clamp_min(1e-10)).transpose(1, 2)
 
         lib_err = (stft_composite() - log_mel(wav)).abs().max().item()
-        old_err = (log_mel_previous(wav) - log_mel(wav)).abs().max().item()
         flops = nb * (2.0 * n_frames * win * 2 * bins + 2.0 * n_frames * bins * n_mels)
         n_bytes = 4.0 * (wav.numel() + win * 2 * bins + bins * n_mels + nb * n_frames * n_mels)
         b_ms, b_by = bound_ms(n_bytes, flops)
-        before_ms, k_ms = device_ms_in_turns(lambda: log_mel_previous(wav), lambda: log_mel(wav))
+        k_ms = device_ms(lambda: log_mel(wav))
         return {
             "name": name, "route": "cuda",
             "source": "speechlid_tpu_torch/csrc/fbank.cu",
             "replaces": "speechlid_tpu/ops/pallas/fbank_kernel.py:87",
             "launches": count, **extra,
             "max_abs_err": errs["fbank"][shape_key], "ms": k_ms, "kernel_ms": k_ms,
-            "ms_before": before_ms,
-            "ms_before_is": "the previous design's wrapper call: reflect-pad kernel + "
-                            "frames-only kernel (scripts/previous_kernels/fbank_streamed.cu), "
-                            "timed in turns old, new, new, old",
-            "max_abs_diff_db_vs_before": old_err,
             "plain_ms": device_ms(lambda: log_mel_plain(wav)),
             "library_ms": device_ms(stft_composite),
             "library_call": "composite: torch.stft -> |.|^2 -> @ mel fb -> 10 log10",
@@ -956,8 +1205,8 @@ def phase_timings(task: LidASRTask, gen: torch.Generator, errs: dict, served: di
     kernels.append(fbank_entry("fbank_log_mel@train", "train", trained["fbank"], {
         "launches_per_train_step": trained["fbank"] / n_steps,
         "launches_counted_on": "the train steps of Trainer.fit"}))
-    kernels.append(fbank_entry("fbank_log_mel@b32", "b32", infer_fbank[32], {
-        "launches_per_batch": infer_fbank[32] / e2e["b32"]["calls"],
+    kernels.append(fbank_entry("fbank_log_mel@b32", "b32", infer_counts[32]["fbank"], {
+        "launches_per_batch": infer_counts[32]["fbank"] / e2e["b32"]["calls"],
         "launches_counted_on": "the timed infer calls at B = 32 on 3 s clips"}))
 
     # kernel 2: depthwise at the encoder's 3 s shape (1, 74, 288), k = 31
@@ -971,13 +1220,19 @@ def phase_timings(task: LidASRTask, gen: torch.Generator, errs: dict, served: di
         return F.conv1d(inp.transpose(1, 2), w_conv, bias, padding=(k - 1) // 2,
                         groups=c).transpose(1, 2)
 
+    # Every launch on the paths is in a fused mode (their rows follow); the
+    # plain-mode rows count this kernel's launches on their path in any
+    # mode, and in plain mode apart
     train_fwd = trained["depthwise"] - trained["depthwise_dx"]
-    fwd_rates = {"launches_per_request": served["depthwise"] / n_req,
-                 "launches_per_train_step": train_fwd / n_steps}
+    fwd_rates = {"launches_are": "this kernel's, any mode",
+                 "launches_per_request": served["depthwise"] / n_req,
+                 "launches_per_train_step": train_fwd / n_steps,
+                 "launches_in_this_mode": {"serve": served["depthwise_plain"],
+                                           "train": trained["depthwise_plain"]}}
 
     def depthwise_entry(name, shape, count, inp, err):
-        """The forward kernel's entry at ``inp``'s shape; ``count`` is its
-        launches on the main path that has this shape."""
+        """The forward kernel's plain-mode entry at ``inp``'s shape;
+        ``count`` is its launches on the main path that has this shape."""
         nb, nt = inp.shape[:2]
         flops = 2.0 * nb * nt * c * k
         n_bytes = 4.0 * (2 * nb * nt * c + k * c + c)
@@ -1025,9 +1280,11 @@ def phase_timings(task: LidASRTask, gen: torch.Generator, errs: dict, served: di
         "name": "depthwise_conv1d_dx", "route": "cuda",
         "source": "speechlid_tpu_torch/csrc/depthwise.cu",
         "replaces": "speechlid_tpu/ops/pallas/depthwise_kernel.py:77",
-        "launches": trained["depthwise_dx"],
+        "launches": trained["depthwise_dx"], "launches_are": "this kernel's flipped, any mode",
         "launches_per_train_step": trained["depthwise_dx"] / n_steps,
         "launches_per_request": served["depthwise_dx"] / n_req,
+        "launches_in_this_mode": {"serve": served["depthwise_plain_dx"],
+                                  "train": trained["depthwise_plain_dx"]},
         "max_abs_err": errs["depthwise_bwd"][TRAIN_DW_SHAPE]["dx"],
         "ms": k_ms, "kernel_ms": k_ms,
         "plain_ms": device_ms(lambda: depthwise_conv1d_plain(gt, w, None, pad_dx, flip=True)),
@@ -1037,7 +1294,7 @@ def phase_timings(task: LidASRTask, gen: torch.Generator, errs: dict, served: di
         "bound_ms": b_ms, "bound_us": b_ms * 1e3, "bound_by": b_by,
         "shape": "g (8, 99, 288) f32, w (31, 288) read flipped, no bias",
         "flops": flops, "bytes": n_bytes,
-        "ms_includes": "the wrapper call the backward makes: the forward kernel alone",
+        "ms_includes": "the wrapper call DepthwiseConv1dFn's backward makes",
     })
 
     # kernel 3: the weight/bias gradient at the train step's encoder shape
@@ -1053,14 +1310,18 @@ def phase_timings(task: LidASRTask, gen: torch.Generator, errs: dict, served: di
     lib_err = max((got_dw - lib_dw).abs().max().item(), (got_db - lib_db).abs().max().item())
     n_bytes = 4.0 * 2 * tb * tt * c  # x and g read once; the (k+1, C) result is 0.5 % of that
     b_ms, b_by = bound_ms(n_bytes, flops)
-    old_dw, old_db = bwd_w_previous(xt, gt, k)
-    old_err = max((got_dw - old_dw).abs().max().item(), (got_db - old_db).abs().max().item())
-    before_ms, k_ms = device_ms_in_turns(lambda: bwd_w_previous(xt, gt, k),
-                                         lambda: depthwise_conv1d_bwd_w(xt, gt, k))
-    xl = torch.randn(*LARGE_BWD_W_SHAPE[:3], generator=gen).cuda()
-    gl = torch.randn(*LARGE_BWD_W_SHAPE[:3], generator=gen).cuda()
-    large_before_ms, large_ms = device_ms_in_turns(
-        lambda: bwd_w_previous(xl, gl, k), lambda: depthwise_conv1d_bwd_w(xl, gl, k))
+    k_ms = device_ms(lambda: depthwise_conv1d_bwd_w(xt, gt, k))
+    lb, lt, lc, _ = LARGE_BWD_W_SHAPE
+    xl = torch.randn(lb, lt, lc, generator=gen).cuda()
+    gl = torch.randn(lb, lt, lc, generator=gen).cuda()
+    xl_conv, gl_conv = xl.transpose(1, 2), gl.transpose(1, 2)
+
+    def conv1d_weight_library_large():
+        dw = torch.nn.grad.conv1d_weight(xl_conv, (lc, 1, k), gl_conv, padding=(k - 1) // 2,
+                                         groups=lc)
+        return dw[:, 0, :].t(), gl.sum(dim=(0, 1))
+
+    large_ms = device_ms(lambda: depthwise_conv1d_bwd_w(xl, gl, k))
     kernels.append({
         "name": "depthwise_conv1d_bwd_w", "route": "cuda",
         "source": "speechlid_tpu_torch/csrc/depthwise.cu",
@@ -1069,12 +1330,10 @@ def phase_timings(task: LidASRTask, gen: torch.Generator, errs: dict, served: di
         "launches_per_train_step": trained["depthwise_bwd_w"] / n_steps,
         "launches_per_request": served["depthwise_bwd_w"] / n_req,
         "max_abs_err": errs["depthwise_bwd"][TRAIN_DW_SHAPE]["bwd_w"],
-        "ms": k_ms, "kernel_ms": k_ms, "ms_before": before_ms,
-        "ms_before_is": "the previous design's wrapper call: partial-sum kernel + reduce "
-                        "kernel (scripts/previous_kernels/depthwise_bwd_w_two_pass.cu), timed in turns "
-                        "old, new, new, old",
-        "max_abs_diff_vs_before": old_err,
-        "ms_at_32x300x288": large_ms, "ms_before_at_32x300x288": large_before_ms,
+        "ms": k_ms, "kernel_ms": k_ms,
+        "ms_at_32x300x288": large_ms,
+        "plain_ms_at_32x300x288": device_ms(lambda: depthwise_conv1d_bwd_w_plain(xl, gl, k)),
+        "library_ms_at_32x300x288": device_ms(conv1d_weight_library_large),
         "bound_ms_at_32x300x288": bound_ms(4.0 * 2 * xl.numel(), 2.0 * xl.numel() * k)[0],
         "plain_ms": device_ms(lambda: depthwise_conv1d_bwd_w_plain(xt, gt, k)),
         "library_ms": device_ms(conv1d_weight_library),
@@ -1085,6 +1344,19 @@ def phase_timings(task: LidASRTask, gen: torch.Generator, errs: dict, served: di
         "flops": flops, "bytes": n_bytes,
         "ms_includes": "the wrapper call: one cluster kernel, no scratch",
     })
+
+    # the fused modes where the paths call them, with their launches there
+    kernels.extend(fused_kernel_rows(gen, errs["conv_fused"], {
+        "depthwise_conv1d_fwd[glu_bn_act]": (served["depthwise_glu_bn_act"], {
+            "launches_per_request": served["depthwise_glu_bn_act"] / n_req}),
+        "depthwise_conv1d_fwd[glu_bn_act]@b32": (infer_counts[32]["depthwise_glu_bn_act"], {
+            "launches_per_batch": infer_counts[32]["depthwise_glu_bn_act"] / e2e["b32"]["calls"],
+            "launches_counted_on": "the timed infer calls at B = 32 on 3 s clips"}),
+        "depthwise_conv1d_fwd[glu]@train": (trained["depthwise_glu"], {
+            "launches_per_train_step": trained["depthwise_glu"] / n_steps}),
+        "depthwise_conv1d_fwd[glu_dx]@train": (trained["depthwise_glu_dx"], {
+            "launches_per_train_step": trained["depthwise_glu_dx"] / n_steps}),
+    }))
     for entry in kernels:
         if not entry["launches"] > 0:
             raise AssertionError(f"{entry['name']} was not launched on its main path")
@@ -1104,6 +1376,7 @@ def phase_timings(task: LidASRTask, gen: torch.Generator, errs: dict, served: di
     lengths = torch.tensor([3 * SR])
     infer_profile = _profile_device(lambda: infer(wavs, lengths)["scores"].cpu())
     backward_report = backward_device_kernels(gen)
+    conv_module_report = conv_module_device_kernels(task, gen)
     after_profiler = {"train_ms_per_step": timed_train_steps() * 1e3,
                       "b1_ms_per_batch": timed_infer(1, 30) * 1e3,
                       "b32_ms_per_batch": timed_infer(32, 10) * 1e3}
@@ -1116,6 +1389,7 @@ def phase_timings(task: LidASRTask, gen: torch.Generator, errs: dict, served: di
         "profile_b1_3s": infer_profile,
         "train_step_b8_4s": train_e2e,
         "depthwise_backward": backward_report,
+        "conv_module_eval": conv_module_report,
     })
     emit({"kernels": kernels})
 
@@ -1128,7 +1402,7 @@ def main() -> int:
     gen = torch.Generator().manual_seed(0)
     phase_build()
     errs = {"fbank": phase_fbank(gen), "depthwise": phase_depthwise(gen),
-            "depthwise_bwd": phase_depthwise_bwd(gen)}
+            "depthwise_bwd": phase_depthwise_bwd(gen), "conv_fused": phase_conv_fused(gen)}
     task = phase_model(gen)
     serve_report = phase_serve(task, gen)
     served = serve_report["launches"]

@@ -12,8 +12,11 @@ needs no transposes.  Parity details that differ from PyTorch's defaults:
   float32 softmax, so a fully padded query row comes out uniform;
 - the Conv2d subsampling flattens (B, T', F', C) frequency-major, as the
   NHWC JAX convolution does;
-- every ``ConformerConvModule`` runs its depthwise conv through
-  ``ops/cuda/depthwise_kernel.depthwise_conv1d``.
+- every ``ConformerConvModule`` runs everything between its two pointwise
+  GEMMs through one kernel of ``ops/cuda/depthwise_kernel``: GLU, padding
+  mask, depthwise conv, eval BatchNorm and activation in eval mode
+  (``glu_depthwise_bn_act``); GLU, mask and conv in training mode
+  (``glu_depthwise``), whose backward is two kernels.
 
 ``nn.Module.training`` selects the mode.  In training mode:
 
@@ -37,19 +40,18 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from speechlid_tpu_torch.ops.cuda.depthwise_kernel import depthwise_conv1d
+from speechlid_tpu_torch.ops.cuda.depthwise_kernel import (
+    ACTIVATIONS,
+    BatchNormStats,
+    depthwise_conv1d,
+    double_swish,
+    glu_depthwise,
+    glu_depthwise_bn_act,
+    swish,
+)
 
 LN_EPS = 1e-6  # flax nn.LayerNorm default
 _NEG = torch.finfo(torch.float32).min
-
-
-def swish(x: torch.Tensor) -> torch.Tensor:
-    return x * torch.sigmoid(x)
-
-
-def double_swish(x: torch.Tensor) -> torch.Tensor:
-    """x * sigmoid(x - 1) (reference DoubleSwish)."""
-    return x * torch.sigmoid(x - 1.0)
 
 
 def _layer_norm(dim: int) -> nn.LayerNorm:
@@ -143,7 +145,8 @@ class RelPosAttention(nn.Module):
 
 class DepthwiseConv1d(nn.Module):
     """'SAME' depthwise conv1d over (B, T, C) through the CUDA kernel
-    (plain version on the CPU); weight (k, C), the layout the kernel takes."""
+    (plain version on the CPU); weight (k, C), the layout the kernel takes.
+    ``ConformerConvModule`` reads its parameters into its fused call."""
 
     def __init__(self, channels: int, kernel_size: int):
         super().__init__()
@@ -173,6 +176,11 @@ class MaskedBatchNorm(nn.Module):
         self.register_buffer("running_mean", torch.zeros(channels))
         self.register_buffer("running_var", torch.ones(channels))
 
+    def eval_stats(self) -> BatchNormStats:
+        """What the eval branch reads, for the fused conv module call."""
+        return BatchNormStats(self.running_mean, self.running_var, self.weight, self.bias,
+                              self.eps)
+
     def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         xf = x.float()
         if self.training:
@@ -197,14 +205,17 @@ class MaskedBatchNorm(nn.Module):
 
 class ConformerConvModule(nn.Module):
     """LN → pointwise(2·inner) → GLU → zero padded frames → depthwise →
-    BN → Swish → pointwise."""
+    BN → Swish → pointwise.  What lies between the two pointwise GEMMs is
+    one kernel in eval mode; in training mode the kernel takes GLU, mask
+    and conv, and BatchNorm (batch statistics) and act stay in PyTorch."""
 
     def __init__(self, dim: int, expansion_factor: int = 2, kernel_size: int = 31,
                  use_double_swish: bool = False, dropout: float = 0.0):
         super().__init__()
         inner = dim * expansion_factor
         self.dropout = Dropout(dropout)
-        self.act = double_swish if use_double_swish else swish
+        self.act_name = "double_swish" if use_double_swish else "swish"
+        self.act = ACTIVATIONS[self.act_name]
         self.norm = _layer_norm(dim)
         self.pointwise_in = nn.Linear(dim, 2 * inner)
         self.depthwise = DepthwiseConv1d(inner, kernel_size)
@@ -212,13 +223,12 @@ class ConformerConvModule(nn.Module):
         self.pointwise_out = nn.Linear(inner, dim)
 
     def forward(self, x: torch.Tensor, pad_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-        a, g = self.pointwise_in(self.norm(x)).chunk(2, dim=-1)
-        y = a * torch.sigmoid(g)  # GLU
-        if pad_mask is not None:
-            # padded frames must not leak into the depthwise conv
-            y = y.masked_fill(~pad_mask[:, :, None], 0.0)
-        y = self.depthwise(y)
-        y = self.act(self.bn(y, pad_mask))
+        h = self.pointwise_in(self.norm(x))
+        w, b = self.depthwise.weight.to(h.dtype), self.depthwise.bias.to(h.dtype)
+        if self.training:
+            y = self.act(self.bn(glu_depthwise(h, pad_mask, w, b), pad_mask))
+        else:
+            y = glu_depthwise_bn_act(h, pad_mask, w, b, self.bn.eval_stats(), self.act_name)
         return self.dropout(self.pointwise_out(y))
 
 

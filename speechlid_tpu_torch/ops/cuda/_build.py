@@ -37,6 +37,8 @@ TILING = {
     "FBANK_TAP_PARTS": 4,      # parts the taps are split into, added (p0 + p2) + (p1 + p3)
     "FBANK_MAX_TILES": 8,      # blocks of a cluster (the portable limit): bin tiles
     "DW_MAX_KERNEL_SIZE": 64,  # taps: the staging stays under 48 KB of shared memory
+    "DW_FWD_TIME_TILE": 24,    # frames of a forward block of 32 channels
+    "DW_FWD_THREAD_FRAMES": 2,  # consecutive frames a forward thread sums: 96 threads a block
     "DW_BWD_TIME_CHUNK": 64,   # frames of one utterance per time chunk of bwd_w
     "DW_BWD_QUARTERS": 4,      # runs a chunk's frames are summed in
     "DW_BWD_MAX_CLUSTER": 8,   # blocks that share one channel tile's chunks
@@ -49,6 +51,7 @@ NVCC_FLAGS = (
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 _SIGNATURES = {
     # wav, batch, T, n_frames, basis, win_pad, n_tiles, bins, fb, mel_range,
     # n_mels, hop, frame_offset, resident_clusters, out, stream
@@ -57,6 +60,12 @@ _SIGNATURES = {
     "fbank_log_mel_setup": (_I, _I, _I, _P, _P),
     # x, w, bias (or null), y, B, T, C, K, pad_l, flip, dtype, stream
     "depthwise_conv1d_fwd": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
+    # h, mask (or null), w, bias, bn mean, var, weight, bias (or all null), eps, act,
+    # u (or null), y, B, T, C, K, pad_l, dtype, stream
+    "depthwise_conv1d_glu_fwd": (_P, _P, _P, _P, _P, _P, _P, _P, _F, _I, _P, _P,
+                                 _I, _I, _I, _I, _I, _I, _P),
+    # g, w, h, mask (or null), dh, B, T, C, K, pad_l, dtype, stream
+    "depthwise_conv1d_glu_bwd": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     # x, g, dw, db, B, T, C, K, pad_l, dtype, stream
     "depthwise_conv1d_bwd_w": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
 }
@@ -73,22 +82,26 @@ def _nvcc() -> str:
     return str(path)
 
 
-def library_path() -> Path:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+def library_path(flags=None) -> Path:
+    """Where the library built with ``flags`` (default ``NVCC_FLAGS``) lies."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS if flags is None else flags).encode())
     for name in SOURCES:
         h.update(name.encode())
         h.update((CSRC / name).read_bytes())
     return BUILD_DIR / f"libspeechlid_kernels_{h.hexdigest()[:16]}.so"
 
 
-def _build(target: Path) -> None:
+def build(target: Path, flags=None) -> None:
+    """Compile every source with ``flags`` (default ``NVCC_FLAGS``) and link
+    them into ``target``."""
+    flags = NVCC_FLAGS if flags is None else flags
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
         objs = [Path(tmp) / (Path(s).stem + ".o") for s in SOURCES]
         procs = [
             subprocess.Popen(
-                [nvcc, *NVCC_FLAGS, "-c", str(CSRC / s), "-o", str(o)],
+                [nvcc, *flags, "-c", str(CSRC / s), "-o", str(o)],
                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
             )
             for s, o in zip(SOURCES, objs)
@@ -116,7 +129,7 @@ def lib() -> ctypes.CDLL:
     """The kernels' library, built first if its sources changed."""
     target = library_path()
     if not target.exists():
-        _build(target)
+        build(target)
     so = ctypes.CDLL(str(target))
     for name, argtypes in _SIGNATURES.items():
         fn = getattr(so, name)

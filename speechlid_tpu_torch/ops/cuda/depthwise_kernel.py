@@ -1,5 +1,6 @@
 """Depthwise conv1d kernels (``csrc/depthwise.cu``), forward and backward,
-their plain PyTorch versions and an emulation of the backward's tiling.
+the Conformer conv module's fused modes of the forward kernel, their plain
+PyTorch versions and an emulation of the backward's tiling.
 
 Replaces ``speechlid_tpu/ops/pallas/depthwise_kernel.py`` (``_pallas_impl``,
 body ``_dw_kernel_3d``, and its ``custom_vjp`` ``_dw_bwd``): 'SAME'
@@ -7,30 +8,43 @@ depthwise conv1d plus bias over (B, T, C) activations, (B, T, C) ⊛ (k, C) +
 (C,), left halo ``pad_l``, float32 accumulation for bfloat16 inputs.
 
 On the card every kernel here moves each element once for 2·k FLOP, so each
-is bound by bytes and, at the Conformer's shapes, by the floor of a launch:
-the backward of one conv is therefore exactly two launches and no other
-device work.  The forward stages a (time tile + halo) × 32-channel span in
-shared memory so every warp's loads coalesce over channels.  The backward
-is :class:`DepthwiseConv1dFn`: dX is the forward kernel on the output
-gradient with ``flip`` set (tap j reads ``w[k-1-j]``), no bias and the halo
-swapped (``k - 1 - pad_l``); dW and db come from ``depthwise_conv1d_bwd_w``,
-one launch of thread-block clusters, one cluster per 32 channels, whose
-blocks split the time chunks in index order (:func:`chunk_share`), slide a
-register window of x along the frames, keep their partial sums in shared
-memory and add them in rank order through
+is bound by bytes and, at the Conformer's shapes, by the floor of a launch.
+So the forward kernel also does the conv module's elementwise work around
+the conv, and whole launches go:
+
+- :func:`depthwise_conv1d` (plain mode) is the direct counterpart of the
+  TPU kernel; its backward is :class:`DepthwiseConv1dFn`: dX is the forward
+  kernel on the output gradient with ``flip`` set (tap j reads
+  ``w[k-1-j]``), no bias and the halo swapped (``k - 1 - pad_l``).
+- :func:`glu_depthwise_bn_act` (eval): GLU and the padding mask in front of
+  the conv, eval BatchNorm and Swish or DoubleSwish behind it, one launch
+  between the conv module's two pointwise GEMMs.
+- :func:`glu_depthwise` (training): GLU and mask in front, the bias behind;
+  the launch also writes u = mask·GLU(h), which dW needs.  Its backward is
+  :class:`GluDepthwiseFn`: dh from the forward kernel with ``flip`` and the
+  GLU backward behind the conv (:func:`glu_depthwise_dx`;
+  :func:`glu_mask_bwd_plain` is the formula), dW and db from
+  ``depthwise_conv1d_bwd_w`` on u: two launches.
+
+``depthwise_conv1d_bwd_w`` is one launch of thread-block clusters, one
+cluster per 32 channels, whose blocks split the time chunks in index order
+(:func:`chunk_share`), slide a register window of x along the frames, keep
+their partial sums in shared memory and add them in rank order through
 distributed shared memory: no scratch in device memory, no atomics, the
 same bits on every run (design notes in the CUDA source).
 :func:`depthwise_conv1d_bwd_w_tiled_plain` follows that order in plain
 PyTorch.
 
-:func:`depthwise_conv1d` and :func:`depthwise_conv1d_bwd_w` take their plain
-versions for tensors on the CPU and launch the kernels for tensors on the
-card; there is no other path.
+Every wrapper takes its plain version for tensors on the CPU and launches
+its kernel for tensors on the card; there is no other path.  Each launch of
+the forward kernel counts in ``depthwise_conv1d.launches`` (the flipped
+ones also in ``.dx_launches``) and in ``depthwise_conv1d.mode_launches``
+under its mode (:data:`FWD_MODES`).
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -42,6 +56,41 @@ MAX_KERNEL_SIZE = _build.TILING["DW_MAX_KERNEL_SIZE"]  # the staging stays under
 TIME_CHUNK = _build.TILING["DW_BWD_TIME_CHUNK"]    # frames of one utterance per chunk of bwd_w
 QUARTERS = _build.TILING["DW_BWD_QUARTERS"]        # runs a chunk's frames are summed in
 MAX_CLUSTER = _build.TILING["DW_BWD_MAX_CLUSTER"]  # blocks that share a channel tile's chunks
+FWD_TIME_TILE = _build.TILING["DW_FWD_TIME_TILE"]  # frames of a forward block
+FWD_CHANNEL_TILE = 32  # channels of a forward block (kTC in the source)
+# the forward kernel's modes: plain conv, its dX, eval GLU + conv + BN + act,
+# training GLU + conv (u written), and dX with the GLU backward
+FWD_MODES = ("plain", "plain_dx", "glu_bn_act", "glu", "glu_dx")
+
+
+def swish(x: torch.Tensor) -> torch.Tensor:
+    return x * torch.sigmoid(x)
+
+
+def double_swish(x: torch.Tensor) -> torch.Tensor:
+    """x * sigmoid(x - 1) (reference DoubleSwish)."""
+    return x * torch.sigmoid(x - 1.0)
+
+
+ACTIVATIONS = {"swish": swish, "double_swish": double_swish}
+_ACT_CODES = {"swish": 0, "double_swish": 1}
+
+
+class BatchNormStats(NamedTuple):
+    """What eval-mode BatchNorm reads: running mean and variance, weight and
+    bias, each (C,) float32, and eps."""
+
+    mean: torch.Tensor
+    var: torch.Tensor
+    weight: torch.Tensor
+    bias: torch.Tensor
+    eps: float
+
+
+def fwd_blocks(b: int, t: int, c: int) -> int:
+    """Blocks of one forward launch over (B, T, C): a block per 32
+    channels, ``FWD_TIME_TILE`` frames and utterance."""
+    return -(-c // FWD_CHANNEL_TILE) * -(-t // FWD_TIME_TILE) * b
 
 
 def depthwise_conv1d_plain(
@@ -81,6 +130,57 @@ def depthwise_conv1d_bwd_w_plain(
     g32 = g.to(acc_dtype)
     dw = torch.stack([(xp[:, j : j + t] * g32).sum(dim=(0, 1)) for j in range(k)])
     return dw.to(x.dtype), g32.sum(dim=(0, 1)).to(x.dtype)
+
+
+def glu_mask_plain(h: torch.Tensor, mask: Optional[torch.Tensor]) -> torch.Tensor:
+    """u = a·σ(g) for h = [a, g] (B, T, 2C), 0 at frames where ``mask``
+    (B, T) is False: the conv module's GLU and padding mask as it runs them."""
+    a, g = h.chunk(2, dim=-1)
+    u = a * torch.sigmoid(g)
+    if mask is not None:
+        # padded frames must not leak into the depthwise conv
+        u = u.masked_fill(~mask[:, :, None], 0.0)
+    return u
+
+
+def glu_depthwise_plain(
+    h: torch.Tensor, mask: Optional[torch.Tensor], w: torch.Tensor, bias: torch.Tensor,
+    pad_l: Optional[int] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of the training forward: (u, conv(u) + bias) with u
+    from :func:`glu_mask_plain`."""
+    u = glu_mask_plain(h, mask)
+    return u, depthwise_conv1d_plain(u, w, bias, pad_l)
+
+
+def batch_norm_act_plain(y: torch.Tensor, bn: BatchNormStats, act: str) -> torch.Tensor:
+    """Eval BatchNorm in float32, (y - mean)·rsqrt(var + eps)·weight + bias,
+    back in y's dtype, then the activation: ``MaskedBatchNorm``'s eval
+    branch and the module's act."""
+    z = (y.float() - bn.mean) * torch.rsqrt(bn.var + bn.eps)
+    return ACTIVATIONS[act]((z * bn.weight + bn.bias).to(y.dtype))
+
+
+def glu_depthwise_bn_act_plain(
+    h: torch.Tensor, mask: Optional[torch.Tensor], w: torch.Tensor, bias: torch.Tensor,
+    bn: BatchNormStats, act: str, pad_l: Optional[int] = None,
+) -> torch.Tensor:
+    """Plain version of the eval mode: the chain the conv module ran between
+    its pointwise GEMMs, GLU → mask → conv + bias → eval BatchNorm → act."""
+    return batch_norm_act_plain(glu_depthwise_plain(h, mask, w, bias, pad_l)[1], bn, act)
+
+
+def glu_mask_bwd_plain(
+    du: torch.Tensor, h: torch.Tensor, mask: Optional[torch.Tensor],
+) -> torch.Tensor:
+    """dh (B, T, 2C) of u = mask·a·σ(g) under the gradient ``du`` of u:
+    mask·[du·σ(g), du·a·σ(g)·(1 − σ(g))], exactly 0 at padded frames."""
+    a, g = h.chunk(2, dim=-1)
+    s = torch.sigmoid(g)
+    dh = torch.cat([du * s, du * a * s * (1.0 - s)], dim=-1)
+    if mask is not None:
+        dh = dh.masked_fill(~mask[:, :, None], 0.0)
+    return dh
 
 
 def n_time_chunks(b: int, t: int) -> int:
@@ -145,25 +245,132 @@ def _check_cuda(what: str, *tensors: torch.Tensor) -> None:
         raise ValueError(f"{what} kernel needs contiguous tensors")
 
 
+def _count(mode: str) -> None:
+    depthwise_conv1d.launches += 1
+    depthwise_conv1d.dx_launches += mode in ("plain_dx", "glu_dx")
+    depthwise_conv1d.mode_launches[mode] += 1
+
+
+def _stream() -> int:
+    return torch.cuda.current_stream().cuda_stream
+
+
 def _launch_fwd(x: torch.Tensor, w: torch.Tensor, bias: Optional[torch.Tensor],
                 pad_l: int, dx: bool = False) -> torch.Tensor:
-    """One launch of ``depthwise_conv1d_fwd`` on checked CUDA tensors,
-    counted in ``depthwise_conv1d.launches``.  ``dx`` is the backward's
-    call: taps flipped, ``bias`` None, counted in
-    ``depthwise_conv1d.dx_launches`` as well."""
+    """One launch of ``depthwise_conv1d_fwd`` in plain mode on checked CUDA
+    tensors.  ``dx`` is the backward's call: taps flipped, ``bias`` None,
+    counted as mode ``plain_dx``."""
     _check_cuda("depthwise_conv1d", x, w, *(() if bias is None else (bias,)))
     b, t, c = x.shape
     y = torch.empty_like(x)
     with torch.cuda.device(x.device):
         err = _build.lib().depthwise_conv1d_fwd(
             x.data_ptr(), w.data_ptr(), None if bias is None else bias.data_ptr(),
-            y.data_ptr(), b, t, c, w.shape[0], pad_l, int(dx), _DTYPES[x.dtype],
-            torch.cuda.current_stream().cuda_stream,
+            y.data_ptr(), b, t, c, w.shape[0], pad_l, int(dx), _DTYPES[x.dtype], _stream(),
         )
     _build.check(err, "depthwise_conv1d_fwd")
-    depthwise_conv1d.launches += 1
-    depthwise_conv1d.dx_launches += dx
+    _count("plain_dx" if dx else "plain")
     return y
+
+
+def _check_glu(what: str, h: torch.Tensor, mask: Optional[torch.Tensor], w: torch.Tensor,
+               bias: Optional[torch.Tensor], pad_l: Optional[int]) -> int:
+    """Shapes and devices of a fused call; returns pad_l."""
+    if h.dim() != 3 or h.shape[2] % 2 or w.dim() != 2 or w.shape[1] != h.shape[2] // 2:
+        raise ValueError(f"{what}: expected h (B, T, 2C), w (k, C); got {tuple(h.shape)}, "
+                         f"{tuple(w.shape)}")
+    b, t, c2 = h.shape
+    if bias is not None and tuple(bias.shape) != (c2 // 2,):
+        raise ValueError(f"{what}: expected bias ({c2 // 2},), got {tuple(bias.shape)}")
+    if mask is not None and (mask.dtype != torch.bool or tuple(mask.shape) != (b, t)):
+        raise ValueError(f"{what}: mask must be (B, T) bool, got {mask.dtype} {tuple(mask.shape)}")
+    k = w.shape[0]
+    pad_l = (k - 1) // 2 if pad_l is None else pad_l
+    if not 1 <= k <= MAX_KERNEL_SIZE or not 0 <= pad_l < k:
+        raise ValueError(f"{what}: need 1 <= k <= {MAX_KERNEL_SIZE} and 0 <= pad_l < k; "
+                         f"got {k}, {pad_l}")
+    devices = {h.device, w.device, *(t.device for t in (bias, mask) if t is not None)}
+    if len(devices) != 1:
+        raise ValueError(f"{what}: tensors lie on different devices: {devices}")
+    if h.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{what} runs on cpu or cuda, not {h.device}")
+    return pad_l
+
+
+def _check_mask(what: str, mask: Optional[torch.Tensor]) -> Optional[int]:
+    if mask is None:
+        return None
+    if not mask.is_contiguous():
+        raise ValueError(f"{what} kernel needs a contiguous mask")
+    return mask.data_ptr()
+
+
+def _launch_glu(h: torch.Tensor, mask: Optional[torch.Tensor], w: torch.Tensor,
+                bias: torch.Tensor, pad_l: int, bn: Optional[BatchNormStats] = None,
+                act: str = "swish"):
+    """One launch of ``depthwise_conv1d_glu_fwd`` on checked CUDA tensors:
+    with ``bn`` the eval mode (returns y), else the training forward
+    (returns (u, y))."""
+    _check_cuda("glu_depthwise", h, w, bias)
+    mask_ptr = _check_mask("glu_depthwise", mask)
+    b, t, c2 = h.shape
+    y = torch.empty((b, t, c2 // 2), dtype=h.dtype, device=h.device)
+    u = torch.empty_like(y) if bn is None else None
+    stats = (None,) * 4
+    if bn is not None:
+        stats = tuple(v.detach() for v in (bn.mean, bn.var, bn.weight, bn.bias))
+        if any(v.dtype != torch.float32 or v.device != h.device or not v.is_contiguous()
+               or tuple(v.shape) != (c2 // 2,) for v in stats):
+            raise TypeError("glu_depthwise_bn_act: BatchNorm statistics must be contiguous "
+                            "(C,) float32 tensors on h's device")
+    with torch.cuda.device(h.device):
+        err = _build.lib().depthwise_conv1d_glu_fwd(
+            h.data_ptr(), mask_ptr, w.data_ptr(), bias.data_ptr(),
+            *(None if v is None else v.data_ptr() for v in stats),
+            float(bn.eps) if bn is not None else 0.0, _ACT_CODES[act],
+            None if u is None else u.data_ptr(), y.data_ptr(),
+            b, t, c2 // 2, w.shape[0], pad_l, _DTYPES[h.dtype], _stream(),
+        )
+    _build.check(err, "depthwise_conv1d_glu_fwd")
+    if bn is not None:
+        _count("glu_bn_act")
+        return y
+    _count("glu")
+    return u, y
+
+
+def glu_depthwise_dx(
+    g: torch.Tensor, w: torch.Tensor, h: torch.Tensor, mask: Optional[torch.Tensor],
+    pad_l: Optional[int] = None,
+) -> torch.Tensor:
+    """dh (B, T, 2C) of :func:`glu_depthwise` from its output gradient
+    ``g`` (B, T, C), weights ``w`` (k, C), the forward's ``h`` and mask;
+    ``pad_l`` is the forward's left halo.  The conv's dX (flipped taps, no
+    bias, halo ``k - 1 - pad_l``) followed by the GLU backward
+    (:func:`glu_mask_bwd_plain`).
+
+    CPU tensors: those two plain versions.  CUDA tensors: one launch of the
+    forward kernel, counted as mode ``glu_dx``."""
+    if g.dim() != 3 or h.shape != (*g.shape[:2], 2 * g.shape[2]) or g.device != h.device:
+        raise ValueError(f"expected g (B, T, C) and h (B, T, 2C) on one device; got "
+                         f"{tuple(g.shape)} on {g.device}, {tuple(h.shape)} on {h.device}")
+    pad_l = _check_glu("glu_depthwise_dx", h, mask, w, None, pad_l)
+    k = w.shape[0]
+    if g.device.type == "cpu":
+        du = depthwise_conv1d_plain(g, w, None, k - 1 - pad_l, flip=True)
+        return glu_mask_bwd_plain(du, h, mask)
+    _check_cuda("glu_depthwise_dx", g, w, h)
+    mask_ptr = _check_mask("glu_depthwise_dx", mask)
+    b, t, c = g.shape
+    dh = torch.empty_like(h)
+    with torch.cuda.device(g.device):
+        err = _build.lib().depthwise_conv1d_glu_bwd(
+            g.data_ptr(), w.data_ptr(), h.data_ptr(), mask_ptr, dh.data_ptr(),
+            b, t, c, k, k - 1 - pad_l, _DTYPES[g.dtype], _stream(),
+        )
+    _build.check(err, "depthwise_conv1d_glu_bwd")
+    _count("glu_dx")
+    return dh
 
 
 def depthwise_conv1d_dx(
@@ -176,7 +383,7 @@ def depthwise_conv1d_dx(
 
     CPU tensors: :func:`depthwise_conv1d_plain` with ``flip=True``.  CUDA
     tensors: one launch of the forward kernel, counted in
-    ``depthwise_conv1d.launches`` and ``depthwise_conv1d.dx_launches``."""
+    ``depthwise_conv1d.launches``, ``.dx_launches`` and mode ``plain_dx``."""
     if g.dim() != 3 or w.dim() != 2 or w.shape[1] != g.shape[2]:
         raise ValueError(f"expected g (B, T, C), w (k, C); got {tuple(g.shape)}, {tuple(w.shape)}")
     k = w.shape[0]
@@ -219,15 +426,11 @@ def depthwise_conv1d_bwd_w(
     with torch.cuda.device(x.device):
         err = _build.lib().depthwise_conv1d_bwd_w(
             x.data_ptr(), g.data_ptr(), dw.data_ptr(), db.data_ptr(),
-            b, t, c, k, pad_l, _DTYPES[x.dtype],
-            torch.cuda.current_stream().cuda_stream,
+            b, t, c, k, pad_l, _DTYPES[x.dtype], _stream(),
         )
     _build.check(err, "depthwise_conv1d_bwd_w")
     depthwise_conv1d_bwd_w.launches += 1
     return dw, db
-
-
-depthwise_conv1d_bwd_w.launches = 0
 
 
 class DepthwiseConv1dFn(torch.autograd.Function):
@@ -265,8 +468,7 @@ def depthwise_conv1d(
 
     CPU tensors: :func:`depthwise_conv1d_plain` under autograd.  CUDA
     tensors: :class:`DepthwiseConv1dFn`, whose forward and dX launches count
-    in ``depthwise_conv1d.launches`` (the dX ones also in
-    ``depthwise_conv1d.dx_launches``).  Anything else raises."""
+    as modes ``plain`` and ``plain_dx``.  Anything else raises."""
     if x.dim() != 3 or w.dim() != 2 or bias.dim() != 1:
         raise ValueError(
             f"expected x (B, T, C), w (k, C), bias (C,); got {tuple(x.shape)}, "
@@ -291,5 +493,82 @@ def depthwise_conv1d(
     return DepthwiseConv1dFn.apply(x, w, bias, pad_l)
 
 
-depthwise_conv1d.launches = 0
-depthwise_conv1d.dx_launches = 0
+def reset_launch_counts() -> None:
+    """Set every launch count of this module to 0."""
+    depthwise_conv1d.launches = 0
+    depthwise_conv1d.dx_launches = 0
+    depthwise_conv1d.mode_launches = dict.fromkeys(FWD_MODES, 0)
+    depthwise_conv1d_bwd_w.launches = 0
+
+
+class GluDepthwiseFn(torch.autograd.Function):
+    """The conv module's training forward on the card with its gradient:
+    the forward is one launch (GLU and mask in front of the conv, the bias
+    behind, u written); the backward is two launches and nothing else on
+    the device: dh by the forward kernel with ``flip`` and the GLU backward
+    behind the conv, dW and db by ``depthwise_conv1d_bwd_w`` on u.  An input
+    that needs no gradient costs no launch."""
+
+    @staticmethod
+    def forward(ctx, h, mask, w, bias, pad_l):
+        u, y = _launch_glu(h, mask, w, bias, pad_l)
+        ctx.save_for_backward(h, u, w, mask)
+        ctx.pad_l = pad_l
+        return y
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        h, u, w, mask = ctx.saved_tensors
+        g = g.contiguous()
+        dh = dw = db = None
+        if ctx.needs_input_grad[0]:
+            dh = glu_depthwise_dx(g, w, h, mask, ctx.pad_l)
+        if ctx.needs_input_grad[2] or ctx.needs_input_grad[3]:
+            dw, db = depthwise_conv1d_bwd_w(u, g, w.shape[0], ctx.pad_l)
+        return dh, None, dw, db, None
+
+
+def glu_depthwise(
+    h: torch.Tensor, mask: Optional[torch.Tensor], w: torch.Tensor, bias: torch.Tensor,
+    pad_l: Optional[int] = None,
+) -> torch.Tensor:
+    """The conv module's training forward between its pointwise GEMM and
+    its BatchNorm: conv(mask·GLU(h)) + bias, (B, T, 2C) → (B, T, C),
+    differentiable in h, w and bias.
+
+    CPU tensors: :func:`glu_depthwise_plain` under autograd.  CUDA tensors:
+    :class:`GluDepthwiseFn`, whose launches count as modes ``glu`` and
+    ``glu_dx`` (and dW/db in ``depthwise_conv1d_bwd_w.launches``)."""
+    pad_l = _check_glu("glu_depthwise", h, mask, w, bias, pad_l)
+    if h.device.type == "cpu":
+        return glu_depthwise_plain(h, mask, w, bias, pad_l)[1]
+    return GluDepthwiseFn.apply(h, mask, w, bias, pad_l)
+
+
+def glu_depthwise_bn_act(
+    h: torch.Tensor, mask: Optional[torch.Tensor], w: torch.Tensor, bias: torch.Tensor,
+    bn: BatchNormStats, act: str, pad_l: Optional[int] = None,
+) -> torch.Tensor:
+    """The conv module's eval work between its two pointwise GEMMs:
+    act(BN(conv(mask·GLU(h)) + bias)) with eval BatchNorm ``bn`` and act
+    ``"swish"`` or ``"double_swish"``, (B, T, 2C) → (B, T, C).  The output
+    at padded frames is not masked, as in the module.
+
+    CPU tensors: :func:`glu_depthwise_bn_act_plain`.  CUDA tensors: one
+    launch, counted as mode ``glu_bn_act``.  It has no backward: on the
+    card it raises where autograd would need one (train the module in
+    training mode)."""
+    pad_l = _check_glu("glu_depthwise_bn_act", h, mask, w, bias, pad_l)
+    if act not in ACTIVATIONS:
+        raise ValueError(f"act must be one of {sorted(ACTIVATIONS)}, got {act!r}")
+    if h.device.type == "cpu":
+        return glu_depthwise_bn_act_plain(h, mask, w, bias, bn, act, pad_l)
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (h, w, bias, bn.mean, bn.var, bn.weight, bn.bias)):
+        raise RuntimeError("glu_depthwise_bn_act has no backward on the card: run eval "
+                           "forwards under torch.no_grad(), or train in training mode")
+    return _launch_glu(h, mask, w, bias, pad_l, bn=bn, act=act)
+
+
+reset_launch_counts()

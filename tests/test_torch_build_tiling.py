@@ -27,9 +27,10 @@ def test_wrappers_take_their_constants_from_tiling():
             fbank_kernel.MAX_TILES) == (t["FBANK_TILE_FRAMES"], t["FBANK_TILE_BINS"],
                                         t["FBANK_TAP_PARTS"], t["FBANK_MAX_TILES"])
     assert (depthwise_kernel.MAX_KERNEL_SIZE, depthwise_kernel.TIME_CHUNK,
-            depthwise_kernel.QUARTERS, depthwise_kernel.MAX_CLUSTER) == (
+            depthwise_kernel.QUARTERS, depthwise_kernel.MAX_CLUSTER,
+            depthwise_kernel.FWD_TIME_TILE) == (
                 t["DW_MAX_KERNEL_SIZE"], t["DW_BWD_TIME_CHUNK"], t["DW_BWD_QUARTERS"],
-                t["DW_BWD_MAX_CLUSTER"])
+                t["DW_BWD_MAX_CLUSTER"], t["DW_FWD_TIME_TILE"])
 
 
 def test_library_name_follows_the_tiling(monkeypatch):
