@@ -1,0 +1,200 @@
+"""Train / evaluate the joint LID+ASR model from a YAML config tree (port of
+``speechlid_tpu/cli/main_lid.py``).
+
+The same config schema (trainer / module / data / logger / stage groups, the
+loader of ``core/config.py``), the same data pipeline (per-language
+manifests → ``MergedDataset`` → ``MultiBatchSampler`` → ``BucketFeeder``),
+the same callbacks and ``Trainer`` arguments.  It runs on the card unless
+``--device cpu`` asks for the CPU; it never moves to the CPU by itself.
+
+Usage:
+    python -m speechlid_tpu_torch.cli.main_lid --config-dir configs \
+        --config-name lid_supervised [trainer.total_epoch=10 ...] [--device cpu]
+
+Not ported yet, and raising ``NotImplementedError``: ``module.task`` other
+than ``lid_asr`` (the cross-entropy and ASR tasks), ``trainer.data_parallel``
+and ``trainer.model_parallel`` > 1 (the mesh), ``trainer.use_swa`` (SWA) and
+``data.wav_augment`` (the waveform augmentor).  The JAX CLI's persistent
+compilation cache has no counterpart here.
+"""
+
+from __future__ import annotations
+
+import argparse
+import logging
+import os
+from typing import Dict, List
+
+from speechlid_tpu_torch.core.callbacks import CkptCallback, LrCallback, ProfileCallback
+from speechlid_tpu_torch.core.config import load_config
+from speechlid_tpu_torch.core.loggers import ConsoleLogger, JsonlLogger, Logger
+from speechlid_tpu_torch.core.trainer import Trainer
+from speechlid_tpu_torch.data import (
+    BucketFeeder,
+    CTCTokenizer,
+    MergedDataset,
+    MultiBatchSampler,
+    RawManifest,
+)
+
+
+def build_data(conf) -> Dict:
+    """Per-language train (+optional val) manifests → merged datasets."""
+    train_manifests, val_manifests, tokenizers = [], [], {}
+    lang2index, lang2vocab = {}, {}
+    for i, lang_conf in enumerate(conf.data.langs):
+        m = RawManifest(
+            lang_conf.manifest,
+            max_duration=conf.data.get("max_duration", 16.7),
+            train=True,
+            source=conf.data.get("source", "xf"),
+        )
+        train_manifests.append(m)
+        lang = m.lang()
+        lang2index[lang] = i
+        vocab = lang_conf.get("vocab") if isinstance(lang_conf, dict) else None
+        tok = CTCTokenizer(vocab if vocab else m.export_vocab())
+        tokenizers[lang] = tok
+        lang2vocab[lang] = tok.vocab_size
+        val_path = (
+            lang_conf.get("val_manifest") if isinstance(lang_conf, dict) else None
+        )
+        if val_path:
+            val_manifests.append(
+                RawManifest(
+                    val_path,
+                    max_duration=conf.data.get("max_duration_eval", 16.7),
+                    train=False,
+                    source=conf.data.get("source", "xf"),
+                )
+            )
+    dataset = MergedDataset(train_manifests, tokenizers, lang2index)
+    val_dataset = (
+        MergedDataset(val_manifests, tokenizers, lang2index)
+        if val_manifests
+        else None
+    )
+    return {
+        "dataset": dataset,
+        "val_dataset": val_dataset,
+        "tokenizers": tokenizers,
+        "lang2index": lang2index,
+        "lang2vocab": lang2vocab,
+    }
+
+
+def build_feeder(conf, dataset, seed=0, train=True) -> BucketFeeder:
+    if train and conf.data.get("wav_augment"):
+        raise NotImplementedError(
+            "data.wav_augment: the waveform augmentor (data/augmentor.py) is not ported yet")
+    sampler = MultiBatchSampler(
+        dataset,
+        batch_size=conf.data.get("batch_size", 8),
+        drop_last=conf.data.get("drop_last", False),
+        seed=seed,
+        shard_id=int(os.environ.get("SPEECHLID_SHARD_ID", 0)),
+        num_shards=int(os.environ.get("SPEECHLID_NUM_SHARDS", 1)),
+    )
+    return BucketFeeder(
+        dataset,
+        sampler,
+        sample_rate=conf.data.get("sample_rate", 16000),
+        buckets_s=tuple(conf.data.get("buckets_s", [2.0, 4.0, 8.0, 13.0, 17.0])),
+        max_text_len=conf.data.get("max_text_len", 256),
+    )
+
+
+def build_task(conf, data, device: str = "cuda"):
+    module_conf = conf.module.to_dict() if hasattr(conf.module, "to_dict") else dict(conf.module)
+    task_type = module_conf.pop("task", "lid_asr")
+    if task_type in ("lid_cross_entropy", "asr"):
+        raise NotImplementedError(
+            f"module.task={task_type}: only lid_asr is ported yet (the other tasks "
+            "are a later slice)")
+    if task_type != "lid_asr":
+        raise ValueError(f"unknown module.task: {task_type}")
+    from speechlid_tpu_torch.tasks.lid_asr import LidASRTask
+
+    return LidASRTask(
+        lang2vocab=data["lang2vocab"],
+        lang2index=data["lang2index"],
+        tokenizers=data["tokenizers"],
+        device=device,
+        **module_conf,
+    )
+
+
+def main(argv: List[str] | None = None) -> None:
+    parser = argparse.ArgumentParser(description=__doc__,
+                                     formatter_class=argparse.RawDescriptionHelpFormatter)
+    parser.add_argument("--config-dir", default="configs")
+    parser.add_argument("--config-name", required=True)
+    parser.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    parser.add_argument("overrides", nargs="*", help="key=value overrides")
+    args = parser.parse_args(argv)
+
+    conf = load_config(args.config_dir, args.config_name, args.overrides)
+    logging.basicConfig(
+        level=getattr(logging, str(conf.get("log_level", "INFO"))),
+        format="%(asctime)s %(levelname)s %(message)s",
+        force=True,
+    )
+    logging.info("config: %s", conf.to_dict())
+    for key, what in (("data_parallel", "a mesh"), ("use_swa", "SWA")):
+        if conf.trainer.get(key, False):
+            raise NotImplementedError(f"trainer.{key}: {what} is not ported yet")
+    if int(conf.trainer.get("model_parallel", 1)) > 1:
+        raise NotImplementedError("trainer.model_parallel > 1: a mesh is not ported yet")
+
+    data = build_data(conf)
+    task = build_task(conf, data, device=args.device)
+
+    exp_dir = conf.get("exp_dir", "exp/default")
+    callbacks = [
+        CkptCallback(
+            os.path.join(exp_dir, "ckpt"),
+            monitor=conf.trainer.get("monitor", "avg_val_loss"),
+            mode=conf.trainer.get("monitor_mode", "min"),
+            save_topk=conf.trainer.get("save_topk", 3),
+        ),
+        LrCallback(),
+        ProfileCallback(),
+    ]
+    logger = Logger(
+        [ConsoleLogger(), JsonlLogger(os.path.join(exp_dir, "metrics.jsonl"))],
+        train_interval=conf.trainer.get("log_interval", 10),
+    )
+
+    trainer = Trainer(
+        total_epoch=conf.trainer.get("total_epoch", 10),
+        accum_grad=conf.trainer.get("accum_grad", 1),
+        eval_interval=conf.trainer.get("eval_interval", 1),
+        train_data_factor=conf.trainer.get("train_data_factor", 1.0),
+        lr_exec_mode=conf.trainer.get("lr_exec_mode", "step"),
+        seed=conf.get("seed", 0),
+        callbacks=callbacks,
+        loggers=logger,
+        checkpoint_path=conf.trainer.get("resume_from") or None,
+        use_progress_bar=conf.trainer.get("progress_bar", True),
+        device=args.device,
+    )
+
+    stage = conf.get("stage", "train")
+    train_feeder = build_feeder(conf, data["dataset"], seed=conf.get("seed", 0))
+    val_feeder = (
+        build_feeder(conf, data["val_dataset"], seed=conf.get("seed", 0),
+                     train=False)
+        if data["val_dataset"] is not None
+        else train_feeder
+    )
+    if stage == "train":
+        trainer.fit(task, train_feeder, val_feeder)
+    elif stage == "test":
+        trainer.test(task, val_feeder)
+    else:
+        raise ValueError(f"unknown stage: {stage}")
+    logger.finish()
+
+
+if __name__ == "__main__":
+    main()

@@ -52,6 +52,14 @@ class TaskModule:
         one on the CPU for draws whose value the host needs."""
         raise NotImplementedError
 
+    def init_parameters(self, generator: torch.Generator) -> None:
+        """Draw the model's fresh parameters from ``generator`` (on the CPU;
+        the trainer's ``seed`` determines it): the counterpart of the JAX
+        ``init_variables``.  The trainer calls it before the optimizer takes
+        the parameters and before a resume overwrites them.  A caller that
+        brings its own weights overrides it."""
+        raise NotImplementedError
+
     def config_optim(self) -> Tuple[Any, Any]:
         """→ (optimizer, plateau_scheduler_or_None)."""
         raise NotImplementedError

@@ -41,6 +41,7 @@ from speechlid_tpu_torch.core.callbacks.base import Callback
 from speechlid_tpu_torch.core.checkpoint import load_checkpoint
 from speechlid_tpu_torch.core.loggers import Logger
 from speechlid_tpu_torch.core.module import TaskModule
+from speechlid_tpu_torch.core.profile import _time_cost_recoder
 from speechlid_tpu_torch.core.seed import seed_everything
 
 
@@ -103,7 +104,8 @@ class Trainer:
 
     # ------------------------------------------------------------------ setup
     def trainer_prepare(self, module: TaskModule) -> None:
-        """Bind the task: seed, optimizer, generators, and the resume."""
+        """Bind the task: seed, fresh parameters, optimizer, generators, and
+        the resume."""
         if module.device != self.device:
             raise ValueError(
                 f"the task lives on {module.device}, the trainer on {self.device}"
@@ -118,6 +120,10 @@ class Trainer:
         device_gen, host_gen = seed_everything(self.seed, self.device)
         self.generators = {"device": device_gen, "host": host_gen}
         module.set_generators(device_gen, host_gen)
+        # the fresh parameters from a stream of their own (the device and
+        # host streams are seeded with seed and seed + 1), before the
+        # optimizer takes them and before a resume overwrites them
+        module.init_parameters(torch.Generator().manual_seed(self.seed + 2))
         self.optimizer, self.plateau = module.config_optim()
         if self.checkpoint_path:
             self._resume(self.checkpoint_path)
@@ -158,13 +164,16 @@ class Trainer:
         as a tensor on the device, so nothing here waits for the card."""
         model = self.module.model
         model.train()
-        loss, metrics = self.module.train_loop(self.module.place_batch(batch))
-        if loss.requires_grad:  # not when this batch reaches no trainable parameter
-            (loss / self.accum_grad).backward()
-        self.global_step += 1
-        if self.global_step % self.accum_grad == 0:
-            self.optimizer.step()
-            self.optimizer.zero_grad()
+        with _time_cost_recoder.measure("batch_to_device"):
+            placed = self.module.place_batch(batch)
+        with _time_cost_recoder.measure("train_step_dispatch"):
+            loss, metrics = self.module.train_loop(placed)
+            if loss.requires_grad:  # not when this batch reaches no trainable parameter
+                (loss / self.accum_grad).backward()
+            self.global_step += 1
+            if self.global_step % self.accum_grad == 0:
+                self.optimizer.step()
+                self.optimizer.zero_grad()
         metrics = dict(metrics)
         metrics["loss"] = loss.detach()
         return metrics
@@ -183,9 +192,14 @@ class Trainer:
             else:
                 bar = tqdm(total=n_batches, desc=f"epoch {epoch}", leave=False)
         pending = None  # fetch a step's metrics while the next step runs on the card
-        for i, batch in enumerate(loader):
-            if n_batches is not None and i >= n_batches:
+        it = iter(loader)
+        i = 0
+        while n_batches is None or i < n_batches:
+            with _time_cost_recoder.measure("get_batch"):
+                batch = next(it, None)
+            if batch is None:
                 break
+            i += 1
             metrics = self.train_step(batch)
             if pending is not None:
                 self._collect_train_metrics(pending, outputs, bar)

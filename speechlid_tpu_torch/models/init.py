@@ -1,0 +1,92 @@
+"""Fresh parameters drawn as flax draws them (the initializers of the JAX
+package's modules), from an explicit ``torch.Generator``.
+
+PyTorch's constructors draw ``Linear``/``Conv`` weights from a uniform of
+variance 1/(3·fan_in) with non-zero biases, from the global generator.  The
+JAX package's Conformer LID model draws:
+
+- every ``Dense`` and ``Conv`` kernel, the depthwise one included
+  (``models/conformer.py`` ``_PallasDepthwise``), from flax's
+  ``lecun_normal``: ``variance_scaling(1, "fan_in", "truncated_normal")``, a
+  normal truncated to ±2 standard units with σ = sqrt(1/fan_in) /
+  0.87962566103423978 (the truncation's own standard deviation), so the
+  draw has variance 1/fan_in;
+- every bias: zeros;
+- LayerNorm and BatchNorm: scale 1, bias 0; BatchNorm running mean 0 and
+  running variance 1;
+- ``rel_pos_emb``: N(0, 1).
+
+fan_in is the kernel's input width times its receptive field: ``in`` for a
+Linear (out, in), in·kh·kw for a Conv2d (out, in, kh, kw), in·k for a Conv1d,
+and k for the depthwise weight (k, C) (JAX shape (k, 1, C)).
+
+Every draw is made on the CPU, in the order of ``module.named_modules()``,
+and copied to the parameter's device: the same generator state gives the
+same bits on any device and any torch version.  The truncated normal is
+computed as JAX computes it (inverse error function of a uniform), not by
+``nn.init.trunc_normal_``, whose algorithm varies between torch versions.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn as nn
+
+from speechlid_tpu_torch.models.conformer import (
+    DepthwiseConv1d,
+    MaskedBatchNorm,
+    RelPosAttention,
+)
+
+# the standard deviation of a unit normal truncated to [-2, 2]
+TRUNCATED_NORMAL_STD = 0.87962566103423978
+
+
+def truncated_normal(shape, generator: torch.Generator) -> torch.Tensor:
+    """A unit normal truncated to [-2, 2], float32 on the CPU: √2·erfinv of
+    a uniform on [erf(-√2), erf(√2)], as ``jax.random.truncated_normal``."""
+    lo, hi = math.erf(-math.sqrt(2.0)), math.erf(math.sqrt(2.0))
+    u = torch.rand(shape, generator=generator, dtype=torch.float64) * (hi - lo) + lo
+    return (math.sqrt(2.0) * torch.erfinv(u)).float().clamp_(-2.0, 2.0)
+
+
+def lecun_normal(shape, fan_in: int, generator: torch.Generator) -> torch.Tensor:
+    """flax ``lecun_normal``: variance 1/fan_in, |w| ≤ 2σ."""
+    sigma = math.sqrt(1.0 / fan_in) / TRUNCATED_NORMAL_STD
+    return truncated_normal(shape, generator) * sigma
+
+
+@torch.no_grad()
+def init_like_flax_(module: nn.Module, generator: torch.Generator) -> None:
+    """Draw every parameter of ``module`` (the port's Conformer LID model or
+    a part of it) as its JAX counterpart's flax initializer does, and reset
+    the BatchNorm running statistics.  A parameter of a kind not listed in
+    the module docstring raises."""
+    for name, m in module.named_modules():
+        own = dict(m.named_parameters(recurse=False))
+        if not own:
+            continue
+        draws = {}
+        if isinstance(m, (nn.Linear, nn.Conv1d, nn.Conv2d)):
+            w = m.weight
+            draws["weight"] = lecun_normal(w.shape, w[0].numel(), generator)
+        elif isinstance(m, DepthwiseConv1d):
+            k = m.weight.shape[0]
+            draws["weight"] = lecun_normal(m.weight.shape, k, generator)
+        elif isinstance(m, (nn.LayerNorm, MaskedBatchNorm)):
+            draws["weight"] = torch.ones(m.weight.shape)
+            if isinstance(m, MaskedBatchNorm):
+                m.running_mean.zero_()
+                m.running_var.fill_(1.0)
+        elif isinstance(m, RelPosAttention):
+            draws["rel_pos_emb"] = torch.randn(m.rel_pos_emb.shape, generator=generator)
+        if "bias" in own:
+            draws["bias"] = torch.zeros(own["bias"].shape)
+        missing = sorted(set(own) - set(draws))
+        if missing:
+            raise TypeError(f"no flax initializer known for {name or type(m).__name__}."
+                            f"{missing} ({type(m).__name__})")
+        for pname, value in draws.items():
+            own[pname].copy_(value)

@@ -37,6 +37,7 @@ from speechlid_tpu_torch.core.module import TaskModule
 from speechlid_tpu_torch.core.optim import make_optimizer
 from speechlid_tpu_torch.metrics import CAvg, CharErrorRate, EER, WordErrorRate
 from speechlid_tpu_torch.models.conformer import ConformerModel, set_generator
+from speechlid_tpu_torch.models.init import init_like_flax_
 from speechlid_tpu_torch.models.multilang import MutiLangModel, lang_confidence_scores
 from speechlid_tpu_torch.ops.ctc import ctc_loss
 from speechlid_tpu_torch.ops.frontend import fused_frontend
@@ -178,6 +179,11 @@ class LidASRTask(TaskModule):
         set_generator(self.model, device_generator)
         self._generator = device_generator
         self._host_generator = host_generator
+
+    def init_parameters(self, generator: torch.Generator) -> None:
+        """Every parameter as the JAX task's ``init_variables`` draws it
+        (flax's initializers, ``models/init.py``)."""
+        init_like_flax_(self.model, generator)
 
     def config_optim(self):
         optimizer, plateau = make_optimizer(

@@ -1,0 +1,170 @@
+"""The port's training CLI (``speechlid_tpu_torch/cli/main_lid.py``) against
+the JAX package's, on a tiny 2-language corpus on the CPU.
+
+- ``main([... "--device", "cpu"])`` (1 block × 32-d, 1 epoch) writes the
+  ``metrics.jsonl`` lines the JAX CLI writes (the same keys at the same
+  steps, the same run config) and a checkpoint that
+  ``build_lid_fn(..., device="cpu")`` serves; ``stage=test`` runs from it;
+- the two CLIs' ``build_data`` / ``build_feeder`` give identical batches
+  (one process and one shard of two), and ``build_task`` the same
+  ``hyper_parameters``;
+- every option not ported yet raises ``NotImplementedError``, and without
+  ``--device`` the CLI asks for the card."""
+
+import json
+import os
+
+import numpy as np
+import pytest
+
+from speechlid_tpu.cli import main_lid as jax_main_lid
+from speechlid_tpu.core.config import load_config as jax_load_config
+from speechlid_tpu.data.audio_io import write_wav
+from speechlid_tpu_torch.cli import main_lid
+from speechlid_tpu_torch.cli.serve import build_lid_fn
+from speechlid_tpu_torch.core.config import load_config
+from tests.torch_parity import one_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_thread")
+
+SR = 16000
+TINY = ["module.n_blocks=1", "module.encoder_dim=32", "module.heads=2", "module.dim_head=16",
+        "module.head_dim_head=8", "module.head_num_head=2", "data.batch_size=3",
+        "data.buckets_s=[0.5, 1.0]", "trainer.total_epoch=1", "trainer.progress_bar=false",
+        "trainer.log_interval=2", "module.schedule=null"]
+
+
+@pytest.fixture(scope="module")
+def corpus(tmp_path_factory):
+    root = tmp_path_factory.mktemp("torch_cli_corpus")
+    rng = np.random.RandomState(0)
+    texts = {"aa": ["ba ba", "ab", "a b"], "bb": ["cd cd", "dc", "c"]}
+    for li, (lang, txts) in enumerate(sorted(texts.items())):
+        wav_dir = root / lang / "wav" / "train"
+        wav_dir.mkdir(parents=True)
+        lines = []
+        for i in range(5):
+            t = np.arange(int(SR * (0.4 + 0.15 * i))) / SR
+            wav = (np.sin(2 * np.pi * (150 + 200 * li) * t)
+                   + 0.01 * rng.randn(len(t))).astype(np.float32) * 0.3
+            write_wav(str(wav_dir / f"u{i}.wav"), wav, SR)
+            lines.append(f"u{i}.wav\t{txts[i % len(txts)]}")
+        (root / lang / "train.txt").write_text("\n".join(lines))
+        (root / lang / "val.txt").write_text("\n".join(lines[:3]))
+    return root
+
+
+def _langs(corpus, val=True):
+    entries = [f"manifest: {corpus / lang / 'train.txt'}"
+               + (f", val_manifest: {corpus / lang / 'val.txt'}" if val else "")
+               for lang in ("aa", "bb")]
+    return "data.langs=[" + ", ".join("{" + e + "}" for e in entries) + "]"
+
+
+def _args(corpus, exp_dir, *extra, val=True):
+    return ["--config-dir", "configs", "--config-name", "lid_supervised",
+            _langs(corpus, val), f"exp_dir={exp_dir}", *TINY, *extra]
+
+
+def _lines(path):
+    with open(path) as f:
+        return [json.loads(line) for line in f]
+
+
+@pytest.fixture(scope="module")
+def runs(corpus, tmp_path_factory):
+    """One epoch through each CLI on the same corpus and config."""
+    mp = pytest.MonkeyPatch()
+    mp.setenv("SPEECHLID_CACHE_DIR", str(tmp_path_factory.mktemp("cli_cache")))
+    try:
+        port_dir = tmp_path_factory.mktemp("port_exp")
+        jax_dir = tmp_path_factory.mktemp("jax_exp")
+        main_lid.main(_args(corpus, port_dir) + ["--device", "cpu"])
+        jax_main_lid.main(_args(corpus, jax_dir))
+    finally:
+        mp.undo()
+    return port_dir, jax_dir
+
+
+def test_metrics_jsonl_has_the_jax_cli_lines(runs):
+    port_dir, jax_dir = runs
+    got, want = _lines(port_dir / "metrics.jsonl"), _lines(jax_dir / "metrics.jsonl")
+    assert [(r.get("step"), sorted(r)) for r in got] == [(r.get("step"), sorted(r)) for r in want]
+    assert got[0]["config"] == want[0]["config"]  # the task's hyper-parameters, as JSON
+    keys = set().union(*(set(r) for r in got))
+    assert {"loss", "lr", "avg_train_loss", "avg_val_loss", "val_acc", "val_wer", "eer",
+            "cavg", "eer_true", "cavg_true"} <= keys
+    assert all(np.isfinite(r["loss"]) for r in got if "loss" in r)
+
+
+def test_checkpoint_serves_and_stage_test_runs(runs, corpus, tmp_path, monkeypatch):
+    port_dir, _ = runs
+    ckpt = str(port_dir / "ckpt" / "last.ckpt")
+    assert os.path.exists(ckpt)
+    lid_fn, index2lang = build_lid_fn(ckpt, device="cpu")
+    assert index2lang == {0: "aa", 1: "bb"}
+    scores = lid_fn((0.1 * np.random.RandomState(1).randn(1, SR)).astype(np.float32), SR)
+    assert scores.shape == (1, 2) and np.isfinite(scores).all()
+
+    monkeypatch.setenv("SPEECHLID_CACHE_DIR", str(tmp_path / "cache"))
+    main_lid.main(_args(corpus, tmp_path / "test_exp", "stage=test",
+                        f"trainer.resume_from={ckpt}") + ["--device", "cpu"])
+    result = _lines(tmp_path / "test_exp" / "metrics.jsonl")[-1]
+    assert 0.0 <= result["val_acc"] <= 1.0 and np.isfinite(result["avg_val_loss"])
+
+
+@pytest.mark.parametrize("shard", [None, (1, 2)], ids=["one_process", "shard_1_of_2"])
+@pytest.mark.parametrize("val", [True, False], ids=["val_manifests", "no_val"])
+def test_build_data_feeder_and_task_equal_jax(corpus, tmp_path, monkeypatch, shard, val):
+    monkeypatch.setenv("SPEECHLID_CACHE_DIR", str(tmp_path / "cache"))
+    if shard:
+        monkeypatch.setenv("SPEECHLID_SHARD_ID", str(shard[0]))
+        monkeypatch.setenv("SPEECHLID_NUM_SHARDS", str(shard[1]))
+    overrides = _args(corpus, tmp_path, val=val)[4:]
+    conf = load_config("configs", "lid_supervised", overrides)
+    jconf = jax_load_config("configs", "lid_supervised", overrides)
+    data, jdata = main_lid.build_data(conf), jax_main_lid.build_data(jconf)
+    assert data["lang2index"] == jdata["lang2index"] == {"aa": 0, "bb": 1}
+    assert data["lang2vocab"] == jdata["lang2vocab"]
+    assert (data["val_dataset"] is None) == (jdata["val_dataset"] is None) == (not val)
+    for key in ("dataset", "val_dataset"):
+        if data[key] is None:
+            continue
+        feeder = main_lid.build_feeder(conf, data[key], seed=conf.seed, train=key == "dataset")
+        jfeeder = jax_main_lid.build_feeder(jconf, jdata[key], seed=jconf.seed,
+                                            train=key == "dataset")
+        for _ in range(2):
+            pairs = list(zip(feeder, jfeeder, strict=True))
+            assert pairs
+            for got, want in pairs:
+                assert set(got) == set(want)
+                for name in want:
+                    np.testing.assert_array_equal(got[name], want[name], err_msg=name)
+                    assert np.asarray(got[name]).dtype == np.asarray(want[name]).dtype
+    task = main_lid.build_task(conf, data, device="cpu")
+    jtask = jax_main_lid.build_task(jconf, jdata)
+    assert task.hyper_parameters == jtask.hyper_parameters
+
+
+@pytest.mark.parametrize("override", [
+    "module.task=lid_cross_entropy", "module.task=asr", "trainer.data_parallel=true",
+    "trainer.model_parallel=2", "trainer.use_swa=true",
+    "data.wav_augment={p_noise: 0.5}",
+])
+def test_unported_options_raise(corpus, tmp_path, monkeypatch, override):
+    monkeypatch.setenv("SPEECHLID_CACHE_DIR", str(tmp_path / "cache"))
+    with pytest.raises(NotImplementedError):
+        main_lid.main(_args(corpus, tmp_path, override) + ["--device", "cpu"])
+
+
+def test_device_defaults_to_the_card(corpus, tmp_path, monkeypatch):
+    """Without ``--device`` the task is built on ``cuda``: on a machine
+    without a card that fails, and nothing falls back to the CPU."""
+    import torch
+
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is usable")
+    monkeypatch.setenv("SPEECHLID_CACHE_DIR", str(tmp_path / "cache"))
+    with pytest.raises((AssertionError, RuntimeError)):
+        main_lid.main(_args(corpus, tmp_path / "exp"))
+    assert not (tmp_path / "exp" / "metrics.jsonl").exists()

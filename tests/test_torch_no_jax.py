@@ -1,5 +1,6 @@
 """The port stands alone: importing every module of ``speechlid_tpu_torch``
-and ``chip_smoke`` loads no JAX, flax or ``speechlid_tpu`` module.
+and ``chip_smoke`` loads no JAX, flax, PyYAML or ``speechlid_tpu`` module
+(the card's machine has no PyYAML: ``core/config.py`` reads YAML itself).
 
 It runs in a subprocess because this test process has JAX loaded already
 (tests/conftest.py imports it)."""
@@ -18,7 +19,7 @@ import importlib, sys
 for name in sys.argv[1:]:
     importlib.import_module(name)
 bad = sorted(m for m in sys.modules
-             if m.split(".")[0] in ("jax", "jaxlib", "flax") or m.split(".")[0] == "speechlid_tpu")
+             if m.split(".")[0] in ("jax", "jaxlib", "flax", "yaml", "speechlid_tpu"))
 assert not bad, bad
 print("imported", len(sys.argv) - 1, "modules")
 """
@@ -32,7 +33,9 @@ def test_port_imports_no_jax():
                  "core.callbacks.lr", "core.loggers", "tasks.lid_asr", "metrics.eer",
                  "metrics.cavg", "metrics.error_rate", "ops.specaugment", "ops.ctc",
                  "ops.frontend", "ops.cuda.depthwise_kernel", "models.conformer",
-                 "models.multilang", "convert"):
+                 "models.multilang", "convert", "cli.main_lid", "core.config", "core.cache",
+                 "core.profile", "core.callbacks.profiler", "data.audio_io", "data.tokenizer",
+                 "data.manifest", "data.datasets", "data.feeder", "models.init"):
         assert f"speechlid_tpu_torch.{name}" in modules, name
     result = subprocess.run(
         [sys.executable, "-c", CHECK, "chip_smoke", *modules],

@@ -111,6 +111,7 @@ def run_jax(jtask, variables, train, epochs=1, snapshot=None):
 
 
 def run_port(ptask, train, val=None, epochs=1, snapshot=None, **kw):
+    ptask.init_parameters = lambda generator: None  # keep the weights it was given
     rec = _Losses(snapshot)
     trainer = Trainer(total_epoch=epochs, use_progress_bar=False, device="cpu",
                       callbacks=[rec, *kw.pop("callbacks", [])], **kw)
