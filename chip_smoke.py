@@ -21,12 +21,18 @@ directory (``cli_corpus``): at full width from
 from the CLI's checkpoint (``cli_flagship``), and the round-5 accuracy gate,
 the 4 × 96-d round-5 config for 32 epochs, with whether the held-out
 ``val_acc`` reached 0.9 (``cli_gate``; ``--only cli_gate [--seed N]`` runs
-it alone).  Last it times the kernels, the model and the
-train step.  The fused modes are also timed against the unfused chain
-they replace (``chain_ms``), in turns chain, fused, fused, chain, and the
+it alone).  Then: a bare ``LidASRTask`` on the card switches TF32 off
+itself and agrees with the CPU (``tf32_entry``); the waveform ops of the
+eval and augmentation paths agree with the CPU (``eval_ops``); the eval CLI
+(``cli.test_lid``) scores both CLI checkpoints clean, over the SNR × noise
+grid with LM arbitration and into a CSV and a submission file
+(``cli_eval_flagship``, ``cli_eval_gate``); and the training CLI trains
+with the waveform augmentor (``cli_augment``).  Last it times the kernels,
+the model and the train step.  The fused modes are also timed against the
+unfused chain they replace (``chain_ms``), in turns chain, fused, fused, chain, and the
 profiler shows one device kernel between a conv module's two pointwise
-GEMMs.  Each phase prints one JSON line; any failure raises and exits
-non-zero.  The ``{"kernels": …}`` line lists every kernel and fused mode
+GEMMs.  Each phase prints one JSON line (the eval CLI prints its own
+result lines as well); any failure raises and exits non-zero.  The ``{"kernels": …}`` line lists every kernel and fused mode
 at the shape the served or the trained path gives it, with its launches as
 counted on that path, its error against its plain version at that shape
 and its times beside its bound.  The last line is
@@ -67,7 +73,12 @@ from speechlid_tpu_torch.core.callbacks import Callback, CkptCallback, ProfileCa
 from speechlid_tpu_torch.core.checkpoint import load_checkpoint
 from speechlid_tpu_torch.core.profile import _time_cost_recoder
 from speechlid_tpu_torch.core.trainer import Trainer
-from speechlid_tpu_torch.models.conformer import DepthwiseConv1d, MaskedBatchNorm
+from speechlid_tpu_torch.data.augmentor import WavAugmentor
+from speechlid_tpu_torch.models.conformer import (
+    ConformerConvModule,
+    DepthwiseConv1d,
+    MaskedBatchNorm,
+)
 from speechlid_tpu_torch.ops import frontend
 from speechlid_tpu_torch.ops.cuda import _build, fbank_kernel
 from speechlid_tpu_torch.ops.cuda.depthwise_kernel import (
@@ -171,6 +182,10 @@ SCORE_DW_SHAPE = (32, _encoder_frames(3.0), 2 * FLAGSHIP["encoder_dim"], 31)  # 
 # the round-5 gate model's conv modules (4 × 96-d, batches of 8 in the 3 s
 # bucket), in training and in eval
 GATE_DW_SHAPE = (8, _encoder_frames(3.0), 2 * 96, 31)
+# the eval CLI on the flagship checkpoint: batches of 8 val clips of the
+# round-5 corpus (every one under 2 s) in lid_supervised's 2 s bucket
+EVAL_SECONDS = 2.0
+EVAL_DW_SHAPE = (8, _encoder_frames(EVAL_SECONDS), 2 * FLAGSHIP["encoder_dim"], 31)
 
 
 def emit(obj) -> None:
@@ -256,8 +271,11 @@ def _wav(b: int, t: int, gen: torch.Generator) -> torch.Tensor:
     return frontend.normalize_wav(torch.randn(b, t, generator=gen)).cuda()
 
 
+# served, scored, long, trained and short clips, and the eval CLI's batches
+# on the flagship (2 s bucket) and the gate (3 s bucket) checkpoints
 FBANK_SHAPES = {"serve": (1, 3 * SR), "b32": (32, 3 * SR), "long": (1, 17 * SR),
-                "train": (TRAIN_B, int(TRAIN_SECONDS * SR)), "short": (1, 300)}
+                "train": (TRAIN_B, int(TRAIN_SECONDS * SR)), "short": (1, 300),
+                "eval": (8, int(EVAL_SECONDS * SR)), "gate_eval": (8, 3 * SR)}
 
 
 def _log_mel_float64(wav: torch.Tensor) -> torch.Tensor:
@@ -435,9 +453,10 @@ def phase_depthwise_bwd(gen: torch.Generator) -> dict:
 
 ACTS = ("swish", "double_swish")
 # the served, trained and scored conv shapes, then a short clip, channels
-# that take the kernel's scalar path (129) and an even kernel
+# that take the kernel's scalar path (129) and an even kernel, the gate
+# model's shape and the eval CLI's on the flagship
 FUSED_SHAPES = (SERVE_DW_SHAPE, TRAIN_DW_SHAPE, SCORE_DW_SHAPE, (1, 7, 64, 31),
-                (3, 100, 129, 15), (2, 50, 96, 4), GATE_DW_SHAPE)
+                (3, 100, 129, 15), (2, 50, 96, 4), GATE_DW_SHAPE, EVAL_DW_SHAPE)
 
 
 def fused_inputs(b: int, t: int, c: int, k: int, gen: torch.Generator):
@@ -989,6 +1008,17 @@ data:
 """
 
 
+def _synth_corpus():
+    """``scripts/synth_corpus.py`` as a module (it imports the JAX package
+    only inside the functions that write wavs, which this script never
+    calls)."""
+    spec = importlib.util.spec_from_file_location(
+        "synth_corpus", Path(__file__).resolve().parent / "scripts" / "synth_corpus.py")
+    synth = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(synth)
+    return synth
+
+
 def phase_cli_corpus(root: str) -> str:
     """Write the round-5 tone-code corpus under ``root``: 3 languages × 96
     train / 24 val clips, each language's train and val split from the seeds
@@ -997,10 +1027,7 @@ def phase_cli_corpus(root: str) -> str:
     with the JAX package's)."""
     from speechlid_tpu_torch.data.audio_io import write_wav
 
-    spec = importlib.util.spec_from_file_location(
-        "synth_corpus", Path(__file__).resolve().parent / "scripts" / "synth_corpus.py")
-    synth = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(synth)
+    synth = _synth_corpus()
     t0 = time.perf_counter()
     corpus = os.path.join(root, "corpus")
     seconds = []
@@ -1097,6 +1124,13 @@ def _cli_args(config_dir: str, name: str, *overrides: str) -> list:
     return ["--config-dir", config_dir, "--config-name", name, *overrides]
 
 
+def _langs_override(corpus: str) -> str:
+    """The ``data.langs=[…]`` override that points a config at the corpus."""
+    return "data.langs=[" + ", ".join(
+        f"{{manifest: {corpus}/{lang}/train.txt, val_manifest: {corpus}/{lang}/val.txt}}"
+        for lang in sorted(os.listdir(corpus))) + "]"
+
+
 def phase_cli_flagship(root: str, corpus: str) -> dict:
     """The port's training CLI at full width: ``configs/lid_supervised.yaml``
     (the 14 × 144-d flagship with time stretch, SpecAugment, dropout and
@@ -1105,11 +1139,8 @@ def phase_cli_flagship(root: str, corpus: str) -> dict:
     launches per train step and per eval batch, the metrics lines, the
     checkpoint, and one ``/lid`` answer from it.  Launch counts are set to 0
     just before each run and read just after."""
-    langs = "[" + ", ".join(
-        f"{{manifest: {corpus}/{lang}/train.txt, val_manifest: {corpus}/{lang}/val.txt}}"
-        for lang in sorted(os.listdir(corpus))) + "]"
     exp = os.path.join(root, "flagship")
-    base = [f"data.langs={langs}", f"exp_dir={exp}", "trainer.progress_bar=false",
+    base = [_langs_override(corpus), f"exp_dir={exp}", "trainer.progress_bar=false",
             f"trainer.train_data_factor={FLAGSHIP_DATA_FACTOR}"]
     last = os.path.join(exp, "ckpt", "last.ckpt")
     runs, counted = {}, {}
@@ -1157,7 +1188,7 @@ def phase_cli_flagship(root: str, corpus: str) -> dict:
     })
     if not all(checks.values()):
         raise AssertionError(f"CLI flagship phase failed: {checks}")
-    return {k: counted["fit"][k] + counted["resume"][k] for k in counted["fit"]}
+    return {k: counted["fit"][k] + counted["resume"][k] for k in counted["fit"]}, report
 
 
 def phase_cli_gate(root: str, corpus: str, smi: str, overrides=()) -> dict:
@@ -1217,6 +1248,379 @@ def phase_cli_gate(root: str, corpus: str, smi: str, overrides=()) -> dict:
               "launches": per_step == want_step and per_eval == want_eval}
     if not all(checks.values()):
         raise AssertionError(f"CLI gate phase failed: {checks}")
+    return report
+
+
+# ------------------------------------------- eval CLI and augmentation
+
+
+def _tf32() -> tuple:
+    return torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+
+
+def phase_tf32_entry(gen: torch.Generator) -> dict:
+    """A bare ``LidASRTask(device="cuda")``, built outside any trainer or
+    server with both TF32 flags at PyTorch's default (on), switches them
+    off itself, and its ``infer_fn`` agrees with the CPU from the same
+    weights.  The flags are put back as they were."""
+    saved = _tf32()
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = True
+    try:
+        task = LidASRTask(**FLAGSHIP, device="cuda")
+        flags = _tf32()
+        init_random_(task.model, gen)
+        cpu_task = LidASRTask(**FLAGSHIP, device="cpu")
+        cpu_task.model.load_state_dict(task.model.state_dict())
+        wavs = 0.1 * torch.randn(4, 3 * SR, generator=gen)
+        lengths = torch.tensor([3 * SR, 40000, 24000, 12000])
+        got = {k: v.cpu() for k, v in task.infer_fn()(wavs, lengths).items()}
+        ref = cpu_task.infer_fn()(wavs, lengths)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
+    err = (got["scores"] - ref["scores"]).abs().max().item()
+    report = {"phase": "tf32_entry", "flags_after_task": flags, "flags_restored": _tf32(),
+              "max_abs_err_scores": err, "tol": MODEL_TOL,
+              "pred_lang": got["pred_lang"].tolist(), "pred_lang_cpu": ref["pred_lang"].tolist()}
+    emit(report)
+    checks = {"tf32_off": flags == (False, False), "scores": err <= MODEL_TOL,
+              "pred_lang": torch.equal(got["pred_lang"], ref["pred_lang"]),
+              "restored": _tf32() == saved}
+    if not all(checks.values()):
+        raise AssertionError(f"tf32_entry failed: {checks}")
+    return report
+
+
+EVAL_OPS_TOL = 1e-4  # card vs CPU, absolute, on wavs of unit scale: convolutions in another order
+MIX_REL_TOL = 1e-5  # card vs CPU, relative to the largest sample
+MIX_SNR_DB_TOL = 0.01
+
+
+def phase_eval_ops(gen: torch.Generator) -> dict:
+    """The waveform ops of the eval and augmentation paths on the card
+    against the CPU, at the augmentor's batch (8, 64000): ``mix_at_snr``
+    (and the SNR it reaches), ``resample`` / ``speed_perturb``,
+    ``pitch_shift`` and ``fir_reverb`` with a 2048-tap RIR."""
+    from speechlid_tpu_torch.ops import augment, resample
+
+    x = frontend.normalize_wav(torch.randn(8, 4 * SR, generator=gen))
+    noise = torch.randn(8, 4 * SR, generator=gen)
+    lengths = torch.tensor([4 * SR, 60000, 52000, 48000, 40000, 32000, 24000, 16000])
+    xc, nc, lc = x.cuda(), noise.cuda(), lengths.cuda()
+    mix = {}
+    for snr in (0.0, 5.0, 10.0, 15.0):
+        got = augment.mix_at_snr(xc, nc, snr, lc).cpu()
+        want = augment.mix_at_snr(x, noise, snr, lengths)
+        added = got - x
+        achieved = [10 * np.log10((x[i, :n] ** 2).mean().item() / (added[i, :n] ** 2).mean().item())
+                    for i, n in enumerate(lengths.tolist())]
+        mix[snr] = {"max_rel_err": ((got - want).abs().max() / want.abs().max()).item(),
+                    "snr_db_worst_miss": max(abs(a - snr) for a in achieved)}
+    rir = augment.synthetic_rir(torch.Generator().manual_seed(1), SR)
+    ops = {
+        "resample_16000_to_22050": lambda v: resample.resample(v, 16000, 22050),
+        "speed_perturb_0.9": lambda v: resample.speed_perturb(v, SR, 0.9, v.shape[-1]),
+        "speed_perturb_1.1": lambda v: resample.speed_perturb(v, SR, 1.1, v.shape[-1]),
+        "pitch_shift_-80": lambda v: augment.pitch_shift(v, SR, -80.0),
+        "pitch_shift_20": lambda v: augment.pitch_shift(v, SR, 20.0),
+        "fir_reverb_2048": lambda v: augment.fir_reverb(v, rir.to(v.device)),
+    }
+    errs = {name: (fn(xc).cpu() - fn(x)).abs().max().item() for name, fn in ops.items()}
+    report = {"phase": "eval_ops", "shape": list(x.shape), "mix_at_snr": mix,
+              "max_abs_err": errs, "tol": EVAL_OPS_TOL, "mix_rel_tol": MIX_REL_TOL,
+              "mix_snr_db_tol": MIX_SNR_DB_TOL, "tf32": _tf32()}
+    emit(report)
+    checks = {"mix": all(m["max_rel_err"] <= MIX_REL_TOL and m["snr_db_worst_miss"] <= MIX_SNR_DB_TOL
+                         for m in mix.values()),
+              "ops": all(e <= EVAL_OPS_TOL for e in errs.values())}
+    if not all(checks.values()):
+        raise AssertionError(f"eval_ops failed: {checks}")
+    return report
+
+
+# the eval grid: clean, then three noises (factory2 is not written, so the
+# sweep skips it) at 0, 5, 10 and 15 dB; 9 batches of 8 of the 72 val clips
+EVAL_CELLS = 1 + 3 * 4
+EVAL_BATCHES = N_LANG * -(-CORPUS_VAL // 8)
+KENLM_THRESHOLD = 0.15
+
+
+def phase_eval_inputs(root: str) -> tuple:
+    """The noise recordings of ``scripts/synth_corpus.py`` ``write_noises``
+    (its arrays' recipe, seed 7, 4 s, written with the port's ``write_wav``:
+    ``write_noises`` writes with the JAX package's) and its per-language
+    word-unigram ARPAs (``write_lms``).  → (noise dir, LM dir)."""
+    from speechlid_tpu_torch.data.audio_io import write_wav
+
+    synth = _synth_corpus()
+    rng = np.random.RandomState(7)
+    t = np.arange(SR * 4) / SR
+    white = rng.randn(len(t)) * 0.3
+    babble = sum(
+        np.sin(2 * np.pi * f * t + rng.rand() * 6.28) * (0.5 + 0.5 * np.sin(2 * np.pi * r * t))
+        for f, r in [(170, 2.3), (220, 3.1), (310, 1.7), (450, 2.9)]
+    ) * 0.15 + 0.05 * rng.randn(len(t))
+    factory = (0.4 * np.sin(2 * np.pi * 50 * t) + 0.25 * np.sin(2 * np.pi * 120 * t)
+               + 0.2 * rng.randn(len(t)))
+    noise_dir, lm_dir = os.path.join(root, "noise"), os.path.join(root, "lms")
+    os.makedirs(noise_dir)
+    for name, wav in (("white", white), ("babble", babble), ("factory1", factory)):
+        write_wav(os.path.join(noise_dir, f"{name}.wav"), wav.astype(np.float32), SR)
+    synth.write_lms(lm_dir)
+    return noise_dir, lm_dir
+
+
+def run_test_lid(args: list) -> tuple:
+    """``cli.test_lid.main(args)`` in this process, its launches counted
+    from 0, and the shapes the kernels were called at: the fbank kernel's
+    wav (B, T) and each conv module's (B, T, C, k); → (its result, the
+    launches, wall seconds, {"fbank": shapes, "glu_bn_act": shapes})."""
+    from speechlid_tpu_torch.cli import test_lid
+
+    shapes = {"fbank": set(), "glu_bn_act": set()}
+    wav2mel = frontend.wav2mel  # hands its wav to the fbank kernel as it is
+
+    def wav2mel_seen(wav, *args, **kwargs):
+        shapes["fbank"].add(tuple(wav.shape))
+        return wav2mel(wav, *args, **kwargs)
+
+    def conv_seen(module, inputs, output):
+        if isinstance(module, ConformerConvModule):
+            k, c = module.depthwise.weight.shape
+            shapes["glu_bn_act"].add((*inputs[0].shape[:2], c, k))
+
+    frontend.wav2mel = wav2mel_seen
+    hook = torch.nn.modules.module.register_module_forward_hook(conv_seen)
+    try:
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        result = test_lid.main(args)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    finally:
+        frontend.wav2mel = wav2mel
+        hook.remove()
+    return result, launches(), seconds, shapes
+
+
+def _cell(row: dict, noise: str = "clean", snr=None) -> dict:
+    """A sweep row, or one cell's result with its ``noise`` and ``snr``."""
+    return {"noise": row.get("noise", noise), "snr": row.get("snr", snr),
+            **{k: row[k] for k in ("acc", "eer", "cavg", "eer_true", "cavg_true", "cer",
+                                   "lm_arbitrated", "n_utts")},
+            "ms_per_utt": row["avg_time_s"] * 1e3}
+
+
+def phase_cli_eval(name: str, root: str, ckpt: str, config: list, logged_val_acc: float,
+                   n_blocks: int, shapes: dict, inputs: tuple, smi: str,
+                   single_cell: bool) -> dict:
+    """The port's eval CLI (``cli.test_lid.main``) on a checkpoint the
+    training CLI wrote: (a) a clean run without LMs gives the ``val_acc``
+    the training CLI logged for it on the same 72 clips; (b) ``--sweep``
+    with the LMs at ``--kenlm-threshold`` 0.15 and the three noises gives
+    13 rows of 72 utterances; (c) each eval batch launches the fbank kernel
+    once and the fused eval conv kernel in every encoder and head block;
+    (d, ``single_cell``) one noisy cell with ``--csv`` and ``--submission``
+    writes 72 records and 72 lines; (e) the kernels ran at ``shapes``
+    alone ({"fbank": (B, T), "glu_bn_act": (B, T, C, k)}), shapes at which
+    the earlier phases held them against their plain versions."""
+    noise_dir, lm_dir = inputs
+    out_dir = os.path.join(root, f"eval_{name}")
+    os.makedirs(out_dir)
+    want_batch = launch_counts(fbank=1, glu_bn_act=n_blocks + N_LANG)
+    base = ["--ckpt", ckpt, *config]
+    clean, clean_launches, clean_s, clean_shapes = run_test_lid(base)
+    rows, sweep_launches, sweep_s, sweep_shapes = run_test_lid(
+        base + ["--sweep", "--lm-dir", lm_dir, "--kenlm-threshold", str(KENLM_THRESHOLD),
+                "--noise-dir", noise_dir, "--csv", os.path.join(out_dir, "sweep.jsonl")])
+    per_batch = {k: v / (EVAL_CELLS * EVAL_BATCHES) for k, v in sweep_launches.items()}
+    report = {
+        "phase": f"cli_eval_{name}", "nvidia_smi": smi, "checkpoint": os.path.relpath(ckpt, root),
+        "clean": _cell(clean), "logged_val_acc": logged_val_acc, "clean_seconds": clean_s,
+        "clean_launches_per_batch": {k: v / EVAL_BATCHES for k, v in clean_launches.items()},
+        "kenlm_threshold": KENLM_THRESHOLD, "sweep": [_cell(r) for r in rows],
+        "sweep_seconds": sweep_s, "sweep_launches": sweep_launches,
+        "sweep_launches_per_batch": per_batch, "batches_per_cell": EVAL_BATCHES,
+        "kernel_shapes": {k: sorted(v) for k, v in sweep_shapes.items()},
+    }
+    checks = {
+        "a_clean_acc": clean["acc"] == logged_val_acc and clean["n_utts"] == N_LANG * CORPUS_VAL,
+        "b_sweep": (len(rows) == EVAL_CELLS
+                    and all(r["n_utts"] == N_LANG * CORPUS_VAL for r in rows)
+                    and [r["noise"] for r in rows] == ["clean"] + [
+                        n for n in ("white", "factory1", "babble") for _ in range(4)]
+                    and all(np.isfinite(r[k]) for r in rows for k in ("eer", "cavg", "cer"))),
+        "c_launches": (per_batch == want_batch
+                       and {k: v / EVAL_BATCHES for k, v in clean_launches.items()} == want_batch),
+        "e_shapes": ({k: {v} for k, v in shapes.items()} == clean_shapes == sweep_shapes
+                     and shapes["fbank"] in FBANK_SHAPES.values()
+                     and shapes["glu_bn_act"] in FUSED_SHAPES),
+    }
+    if single_cell:
+        csv_path, sub_path = os.path.join(out_dir, "cell.csv"), os.path.join(out_dir, "cell.sub")
+        cell, _, _, _ = run_test_lid(base + ["--snr", "5", "--noise", "babble", "--noise-dir",
+                                          noise_dir, "--lm-dir", lm_dir, "--kenlm-threshold",
+                                          str(KENLM_THRESHOLD), "--csv", csv_path,
+                                          "--submission", sub_path])
+        with open(csv_path) as f:
+            n_records = len(f.read().strip().splitlines()) - 1  # a header line
+        with open(sub_path) as f:
+            n_lines = len(f.read().strip().splitlines())
+        report.update(single_cell=_cell(cell, "babble", 5.0), csv_records=n_records,
+                      submission_lines=n_lines)
+        checks["d_files"] = n_records == n_lines == N_LANG * CORPUS_VAL
+    report["checks"] = checks
+    emit(report)
+    if not all(checks.values()):
+        raise AssertionError(f"cli_eval_{name} failed: {checks}")
+    return report
+
+
+AUGMENT_CONF = "data.wav_augment={speed: true, pitch: true, reverb: true}"
+AUGMENT_EPOCHS = 3  # each run's first epoch is left out of the means
+AUGMENT_VARIANTS = {"speed": (0.9, 0, False), "pitch": (1.0, 40, False),
+                    "reverb": (1.0, 0, True)}  # (speed, cents, reverb)
+
+
+def augmentor_call_ms(device: str, reps: int) -> dict:
+    """Host-clock ms of the augmentor's chain at (8, 64000), dither and
+    preemphasis on, for each variant: ``WavAugmentor.apply`` with the wavs
+    moved to its device and back, as ``__call__`` moves them; the median of
+    ``reps`` after one warm-up."""
+    aug = WavAugmentor(sample_rate=SR, device=device)
+    wavs = torch.from_numpy((0.1 * np.random.RandomState(0).randn(8, 4 * SR)).astype(np.float32))
+    out = {}
+    for name, variant in AUGMENT_VARIANTS.items():
+        aug.apply(wavs.to(aug.device), *variant).cpu()
+        times = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            aug.apply(wavs.to(aug.device), *variant).cpu()
+            times.append((time.perf_counter() - t0) * 1e3)
+        out[name] = statistics.median(times)
+    return out
+
+
+class _AugmentorRecorder(WavAugmentor):
+    """The CLI's ``WavAugmentor``, counting its calls.  ``run_cli_feeders``
+    puts it in ``cli.main_lid``'s namespace, so the CLI builds it."""
+
+    built: list = []
+
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.calls = 0
+        _AugmentorRecorder.built.append(self)
+
+    def __call__(self, wavs, lengths):
+        self.calls += 1
+        return super().__call__(wavs, lengths)
+
+
+def run_cli_feeders(args: list) -> tuple:
+    """:func:`run_cli` with :class:`_AugmentorRecorder` as the CLI's
+    ``WavAugmentor`` and each feeder the CLI builds recorded with the
+    batches it assembled; → (the recorder, wall seconds, the augmentors
+    built, [(train, feeder, batches assembled)])."""
+    from speechlid_tpu_torch.cli import main_lid
+
+    saved = main_lid.WavAugmentor, main_lid.build_feeder
+    feeders = []
+
+    def build_feeder(conf, dataset, seed=0, train=True):
+        feeder = saved[1](conf, dataset, seed=seed, train=train)
+        entry = [train, feeder, 0]
+        assemble = feeder._assemble
+
+        def assemble_counted(idxs):
+            entry[2] += 1
+            return assemble(idxs)
+
+        feeder._assemble = assemble_counted
+        feeders.append(entry)
+        return feeder
+
+    main_lid.WavAugmentor, main_lid.build_feeder = _AugmentorRecorder, build_feeder
+    _AugmentorRecorder.built.clear()
+    before = set(threading.enumerate())
+    try:
+        recorder, seconds = run_cli(args)
+    finally:
+        main_lid.WavAugmentor, main_lid.build_feeder = saved
+    # an epoch cut short leaves its prefetch thread to finish the batch it
+    # is assembling: wait for it before the counts are read
+    for thread in set(threading.enumerate()) - before:
+        if thread.name.endswith("(worker)"):
+            thread.join(timeout=30)
+    return recorder, seconds, list(_AugmentorRecorder.built), feeders
+
+
+def _epoch_row(epoch: dict) -> dict:
+    host = epoch["host"]
+    return {"seconds": epoch["seconds"], "steps": epoch["steps"],
+            **{k: host.get(k, (0.0, 0))[0]
+               for k in ("get_batch", "batch_to_device", "train_step_dispatch")}}
+
+
+def phase_cli_augment(root: str, corpus: str) -> dict:
+    """The training CLI at full width (``configs/lid_supervised.yaml``, 9
+    steps an epoch, 3 epochs) without and with ``data.wav_augment={speed:
+    true, pitch: true, reverb: true}`` at its default ``device: cpu``, in
+    turns plain, augmented, augmented, plain.  Checks: every epoch takes its
+    9 steps; a train step launches what it does without augmentation (the
+    augmentor runs on the host); an augmented run builds one augmentor, for
+    the train feeder, which calls it once for every batch it assembles, and
+    the eval feeder has none; a plain run builds none.  Reports each
+    epoch's seconds and host-clock table (the feeder's wait ``get_batch``,
+    ``batch_to_device``, ``train_step_dispatch``), their means over the
+    epochs after each run's first by kind, and one call of the augmentor's
+    chain at (8, 64000) on the CPU and on the card by variant."""
+    runs, checks = [], {}
+    for i, augment in enumerate((False, True, True, False)):
+        exp = os.path.join(root, f"augment{i}")
+        torch.cuda.synchronize()
+        reset_launches()
+        recorder, seconds, built, feeders = run_cli_feeders(_cli_args(
+            "configs", "lid_supervised", _langs_override(corpus), f"exp_dir={exp}",
+            "trainer.progress_bar=false", f"trainer.train_data_factor={FLAGSHIP_DATA_FACTOR}",
+            f"trainer.total_epoch={AUGMENT_EPOCHS}", *([AUGMENT_CONF] if augment else [])))
+        per_step, per_eval = _per_step(recorder)
+        kind = "augment" if augment else "plain"
+        (train, train_feeder, assembled), (eval_train, eval_feeder, _) = feeders
+        calls = [aug.calls for aug in built]
+        runs.append({"kind": kind, "seconds": seconds,
+                     "epochs": [_epoch_row(e) for e in recorder.epochs],
+                     "augmentor_calls": calls, "train_batches_assembled": assembled,
+                     "launches_per_train_step": per_step, "launches_per_eval_batch": per_eval})
+        checks[f"{i}_{kind}_steps"] = ([e["steps"] for e in recorder.epochs]
+                                       == [FLAGSHIP_STEPS] * AUGMENT_EPOCHS)
+        checks[f"{i}_{kind}_launches"] = (per_step == TRAIN_STEP_LAUNCHES
+                                          and per_eval == PER_FORWARD_LAUNCHES)
+        checks[f"{i}_{kind}_feeders"] = train and not eval_train and eval_feeder.augmentor is None
+        if augment:
+            checks[f"{i}_augmentor"] = (len(built) == 1 and train_feeder.augmentor is built[0]
+                                        and calls[0] == assembled
+                                        and assembled >= FLAGSHIP_STEPS * AUGMENT_EPOCHS)
+        else:
+            checks[f"{i}_no_augmentor"] = not built and train_feeder.augmentor is None
+    means = {}
+    for kind in ("plain", "augment"):
+        rows = [e for r in runs if r["kind"] == kind for e in r["epochs"][1:]]
+        means[kind] = {k: statistics.fmean(e[k] for e in rows)
+                       for k in ("seconds", "get_batch", "batch_to_device", "train_step_dispatch")}
+    report = {
+        "phase": "cli_augment", "order": [r["kind"] for r in runs], "runs": runs,
+        "epoch_means_after_first": means,
+        "augment_minus_plain_s": {k: means["augment"][k] - means["plain"][k]
+                                  for k in means["plain"]},
+        "augmentor_call_ms": {"shape": [8, 4 * SR], "cpu": augmentor_call_ms("cpu", 3),
+                              "cuda": augmentor_call_ms("cuda", 5),
+                              "cpu_threads": torch.get_num_threads()},
+        "checks": checks,
+    }
+    emit(report)
+    if not all(checks.values()):
+        raise AssertionError(f"cli_augment failed: {checks}")
     return report
 
 
@@ -1326,8 +1730,8 @@ def conv_module_device_kernels(task: LidASRTask, gen: torch.Generator) -> dict:
 
 def fused_kernel_rows(gen: torch.Generator, errs: dict, counts: dict) -> list:
     """The ``kernels`` line's rows of the fused modes where a path calls
-    them: eval at the served and the scored shape, the training forward and
-    dX with the GLU backward at the train shape.  Each is timed against the
+    them: eval at the served, the scored and the eval CLI's shape, the
+    training forward and dX with the GLU backward at the train shape.  Each is timed against the
     unfused chain the conv module ran before (PyTorch GLU and mask, the
     plain-mode kernel, PyTorch BatchNorm and act) in turns chain, fused,
     fused, chain; against its plain version; and against a composite of
@@ -1360,7 +1764,8 @@ def fused_kernel_rows(gen: torch.Generator, errs: dict, counts: dict) -> list:
                         groups=c)
 
     for name, shape in (("depthwise_conv1d_fwd[glu_bn_act]", SERVE_DW_SHAPE),
-                        ("depthwise_conv1d_fwd[glu_bn_act]@b32", SCORE_DW_SHAPE)):
+                        ("depthwise_conv1d_fwd[glu_bn_act]@b32", SCORE_DW_SHAPE),
+                        ("depthwise_conv1d_fwd[glu_bn_act]@eval", EVAL_DW_SHAPE)):
         b, t, c, k = shape
         h, mask, w, bias, bn, _ = fused_inputs(b, t, c, k, gen)
 
@@ -1424,12 +1829,15 @@ def fused_kernel_rows(gen: torch.Generator, errs: dict, counts: dict) -> list:
 
 
 def phase_timings(task: LidASRTask, gen: torch.Generator, errs: dict, served: dict,
-                  serve_report: dict, trained: dict, training, cli: dict) -> None:
+                  serve_report: dict, trained: dict, training, cli: dict,
+                  cli_eval: dict) -> None:
     """Kernel, plain and library times at the main paths' shapes (serving:
-    B = 1, 3 s clip; training: B = 8, 4 s clips), their bounds, and the
-    model's throughput, latency and train-step time.  ``cli`` holds the
-    launches of the CLI flagship phase, which each row also reports
-    (``launches_cli``) for the counter it counts."""
+    B = 1, 3 s clip; training: B = 8, 4 s clips; the eval CLI: B = 8, 2 s
+    clips), their bounds, and the model's throughput, latency and
+    train-step time.  ``cli`` holds the launches of the CLI flagship phase,
+    which each row also reports (``launches_cli``) for the counter it
+    counts, and ``cli_eval`` the report of ``cli_eval_flagship``, whose
+    sweep's launches the ``@eval`` rows count."""
     n_req = serve_report["requests"]
     n_steps = TRAIN_EPOCHS * TRAIN_BATCHES
     kernels = []
@@ -1541,6 +1949,12 @@ def phase_timings(task: LidASRTask, gen: torch.Generator, errs: dict, served: di
     kernels.append(fbank_entry("fbank_log_mel@b32", "b32", infer_counts[32]["fbank"], {
         "launches_per_batch": infer_counts[32]["fbank"] / e2e["b32"]["calls"],
         "launches_counted_on": "the timed infer calls at B = 32 on 3 s clips"}))
+    eval_counted_on = (f"the eval CLI's --sweep on the flagship checkpoint: {EVAL_CELLS} "
+                       f"cells x {EVAL_BATCHES} batches")
+    eval_launches = cli_eval["sweep_launches"]
+    kernels.append(fbank_entry("fbank_log_mel@eval", "eval", eval_launches["fbank"], {
+        "launches_per_eval_batch": cli_eval["sweep_launches_per_batch"]["fbank"],
+        "launches_counted_on": eval_counted_on}))
 
     # kernel 2: depthwise at the encoder's 3 s shape (1, 74, 288), k = 31
     b, t, c, k = SERVE_DW_SHAPE
@@ -1685,21 +2099,28 @@ def phase_timings(task: LidASRTask, gen: torch.Generator, errs: dict, served: di
         "depthwise_conv1d_fwd[glu_bn_act]@b32": (infer_counts[32]["depthwise_glu_bn_act"], {
             "launches_per_batch": infer_counts[32]["depthwise_glu_bn_act"] / e2e["b32"]["calls"],
             "launches_counted_on": "the timed infer calls at B = 32 on 3 s clips"}),
+        "depthwise_conv1d_fwd[glu_bn_act]@eval": (eval_launches["depthwise_glu_bn_act"], {
+            "launches_per_eval_batch":
+                cli_eval["sweep_launches_per_batch"]["depthwise_glu_bn_act"],
+            "launches_counted_on": eval_counted_on}),
         "depthwise_conv1d_fwd[glu]@train": (trained["depthwise_glu"], {
             "launches_per_train_step": trained["depthwise_glu"] / n_steps}),
         "depthwise_conv1d_fwd[glu_dx]@train": (trained["depthwise_glu_dx"], {
             "launches_per_train_step": trained["depthwise_glu_dx"] / n_steps}),
     }))
+    def counted(name: str, counts: dict):
+        """The count of ``counts`` (:func:`launches`) for a row's kernel."""
+        if name.startswith("fbank_log_mel"):
+            return counts["fbank"]
+        if name.startswith("depthwise_conv1d_fwd["):
+            return counts["depthwise_" + name[len("depthwise_conv1d_fwd["):].split("]")[0]]
+        if name.startswith("depthwise_conv1d_fwd"):  # the kernel's launches in any mode
+            return counts["depthwise"] - counts["depthwise_dx"]
+        return counts[name.replace("_conv1d", "")]
+
     for entry in kernels:
         name = entry["name"]
-        if name.startswith("fbank_log_mel"):
-            entry["launches_cli"] = cli["fbank"]
-        elif name.startswith("depthwise_conv1d_fwd["):
-            entry["launches_cli"] = cli["depthwise_" + name[len("depthwise_conv1d_fwd["):].split("]")[0]]
-        elif name.startswith("depthwise_conv1d_fwd"):  # the kernel's launches in any mode
-            entry["launches_cli"] = cli["depthwise"] - cli["depthwise_dx"]
-        else:
-            entry["launches_cli"] = cli[name.replace("_conv1d", "")]
+        entry["launches_cli"] = counted(name, cli)
         if not (entry["launches"] > 0 and entry["launches_cli"] > 0):
             raise AssertionError(f"{name} was not launched on its main path")
 
@@ -1767,9 +2188,26 @@ def main(argv=None) -> int:
     with tempfile.TemporaryDirectory() as root:
         os.environ["SPEECHLID_CACHE_DIR"] = os.path.join(root, "cache")  # manifest scans
         corpus = phase_cli_corpus(root)
-        cli = phase_cli_flagship(root, corpus)
-        phase_cli_gate(root, corpus, smi)
-    phase_timings(task, gen, errs, served, serve_report, trained, training, cli)
+        cli, cli_report = phase_cli_flagship(root, corpus)
+        gate_report = phase_cli_gate(root, corpus, smi)
+        phase_tf32_entry(gen)
+        phase_eval_ops(gen)
+        inputs = phase_eval_inputs(root)
+        flagship_eval = phase_cli_eval(
+            "flagship", root, os.path.join(root, "flagship", "ckpt", "last.ckpt"),
+            _cli_args("configs", "lid_supervised", _langs_override(corpus)),
+            cli_report["evals"][-1]["val_acc"], N_BLOCKS,
+            {"fbank": FBANK_SHAPES["eval"], "glu_bn_act": EVAL_DW_SHAPE}, inputs, smi,
+            single_cell=True)
+        phase_cli_eval(
+            "gate", root, os.path.join(root, "gate", "ckpt", "last.ckpt"),
+            _cli_args(os.path.join(root, "conf"), "gate"),
+            gate_report["trajectory"][-1]["val_acc"], 4,
+            {"fbank": FBANK_SHAPES["gate_eval"], "glu_bn_act": GATE_DW_SHAPE}, inputs, smi,
+            single_cell=False)
+        phase_cli_augment(root, corpus)
+    phase_timings(task, gen, errs, served, serve_report, trained, training, cli,
+                  flagship_eval)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

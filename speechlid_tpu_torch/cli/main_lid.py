@@ -13,9 +13,10 @@ Usage:
 
 Not ported yet, and raising ``NotImplementedError``: ``module.task`` other
 than ``lid_asr`` (the cross-entropy and ASR tasks), ``trainer.data_parallel``
-and ``trainer.model_parallel`` > 1 (the mesh), ``trainer.use_swa`` (SWA) and
-``data.wav_augment`` (the waveform augmentor).  The JAX CLI's persistent
-compilation cache has no counterpart here.
+and ``trainer.model_parallel`` > 1 (the mesh) and ``trainer.use_swa`` (SWA).
+``data.wav_augment`` builds the train feeder's ``WavAugmentor`` from its
+keys (an unknown key raises ``TypeError``, as in the JAX CLI).  The JAX
+CLI's persistent compilation cache has no counterpart here.
 """
 
 from __future__ import annotations
@@ -36,6 +37,7 @@ from speechlid_tpu_torch.data import (
     MultiBatchSampler,
     RawManifest,
 )
+from speechlid_tpu_torch.data.augmentor import WavAugmentor
 
 
 def build_data(conf) -> Dict:
@@ -84,9 +86,6 @@ def build_data(conf) -> Dict:
 
 
 def build_feeder(conf, dataset, seed=0, train=True) -> BucketFeeder:
-    if train and conf.data.get("wav_augment"):
-        raise NotImplementedError(
-            "data.wav_augment: the waveform augmentor (data/augmentor.py) is not ported yet")
     sampler = MultiBatchSampler(
         dataset,
         batch_size=conf.data.get("batch_size", 8),
@@ -95,12 +94,20 @@ def build_feeder(conf, dataset, seed=0, train=True) -> BucketFeeder:
         shard_id=int(os.environ.get("SPEECHLID_SHARD_ID", 0)),
         num_shards=int(os.environ.get("SPEECHLID_NUM_SHARDS", 1)),
     )
+    augmentor = None
+    aug_conf = conf.data.get("wav_augment") if train else None
+    if aug_conf:
+        augmentor = WavAugmentor(
+            sample_rate=conf.data.get("sample_rate", 16000),
+            **(aug_conf.to_dict() if hasattr(aug_conf, "to_dict") else dict(aug_conf)),
+        )
     return BucketFeeder(
         dataset,
         sampler,
         sample_rate=conf.data.get("sample_rate", 16000),
         buckets_s=tuple(conf.data.get("buckets_s", [2.0, 4.0, 8.0, 13.0, 17.0])),
         max_text_len=conf.data.get("max_text_len", 256),
+        augmentor=augmentor,
     )
 
 

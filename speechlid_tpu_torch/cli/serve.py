@@ -184,22 +184,28 @@ def make_lid_fn(task) -> LidFn:
     return lid_fn
 
 
-def build_lid_fn(ckpt: str, device: str = "cuda"):
-    """Restore a checkpoint into the port: the task comes from the
-    checkpoint's ``hyper_parameters``; the weights of one written by the
-    port's trainer load as they are, those of a JAX checkpoint go through
-    ``convert``.  Returns (lid_fn, index2lang)."""
+def load_lid_weights(task, ckpt_data) -> None:
+    """The weights of a checkpoint (``core.checkpoint.load_checkpoint``)
+    into ``task``: those written by the port's trainer as they are, those of
+    a JAX checkpoint through ``convert``."""
     from speechlid_tpu_torch import convert
-    from speechlid_tpu_torch.core.checkpoint import load_checkpoint
-    from speechlid_tpu_torch.tasks.lid_asr import LidASRTask
 
-    ckpt_data = load_checkpoint(ckpt)
-    task = LidASRTask(**ckpt_data["hyper_parameters"], device=device)
     if "state" in ckpt_data:
         task.model.load_state_dict(ckpt_data["state"]["model"])
     else:
         convert.load_into(task.model, convert.lid_state(
             {"params": ckpt_data["params"], "batch_stats": ckpt_data["batch_stats"]}))
+
+
+def build_lid_fn(ckpt: str, device: str = "cuda"):
+    """Restore a checkpoint of either package into the port, the task from
+    its ``hyper_parameters``.  Returns (lid_fn, index2lang)."""
+    from speechlid_tpu_torch.core.checkpoint import load_checkpoint
+    from speechlid_tpu_torch.tasks.lid_asr import LidASRTask
+
+    ckpt_data = load_checkpoint(ckpt)
+    task = LidASRTask(**ckpt_data["hyper_parameters"], device=device)
+    load_lid_weights(task, ckpt_data)
     return make_lid_fn(task), task.index2lang
 
 
@@ -215,9 +221,6 @@ def main(argv=None) -> None:
                              "(default: 1,2,3,4,8,13,17)")
     args = parser.parse_args(argv)
     logging.basicConfig(level=logging.INFO, force=True)
-    # float32 means float32: cuDNN would run the Conv2d subsampling in TF32
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
 
     lid_fn, index2lang = build_lid_fn(args.ckpt, args.device)
     buckets = (tuple(float(b) for b in args.buckets.split(","))

@@ -1,0 +1,149 @@
+"""Offline LID evaluation CLI (port of ``speechlid_tpu/cli/test_lid.py``):
+one noise cell, the SNR × noise grid (``--sweep``) or the SE blend-factor
+sweep, with n-gram LM arbitration of close calls and a challenge submission
+file.  It runs on the card unless ``--device cpu`` asks for the CPU; it never
+moves to the CPU by itself.
+
+Usage:
+    python -m speechlid_tpu_torch.cli.test_lid --ckpt exp/.../last.ckpt \\
+        --config-dir configs --config-name lid_supervised \\
+        --snr 5 --noise white --noise-dir /path/to/noisex \\
+        [--lm-dir lms/ --kenlm-threshold 0.04] [--submission out.csv] \\
+        [--device cpu] [key=value ...]
+
+The checkpoint may be the port's or the JAX package's (``cli/serve.py``
+tells them apart); the task is built from its ``hyper_parameters`` under the
+config's ``module`` block, the tokenizers and the eval feeder from the
+config's data.  Not ported yet, and raising ``NotImplementedError``:
+``--quant int8`` (``ops/quant.py``) and ``--se-ckpt`` (``tasks/se.py``), so
+``--factor-sweep``, which needs ``--se-ckpt``, checks its arguments and then
+raises too.  The JAX CLI's persistent compilation cache has no counterpart.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import logging
+import os
+from typing import Dict, List, Union
+
+
+def write_submission(path: str, records, index2lang: Dict[int, str]) -> None:
+    """Challenge submission: one ``utt_id\\tlang`` line per record."""
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    with open(path, "w") as f:
+        for rec in records:
+            utt = os.path.basename(rec["path"])
+            f.write(f"{utt}\t{rec['pred_lang']}\n")
+
+
+def main(argv=None) -> Union[Dict, List[Dict]]:
+    """Run the CLI; prints, and returns, the result dict of one cell or the
+    rows of a sweep."""
+    parser = argparse.ArgumentParser(description=__doc__,
+                                     formatter_class=argparse.RawDescriptionHelpFormatter)
+    parser.add_argument("--ckpt", required=True)
+    parser.add_argument("--config-dir", default="configs")
+    parser.add_argument("--config-name", required=True)
+    parser.add_argument("--snr", type=float, default=None)
+    parser.add_argument("--noise", default=None)
+    parser.add_argument("--noise-dir", default=None,
+                        help="directory of <name>.wav noise recordings")
+    parser.add_argument("--factor", type=float, default=0.0,
+                        help="speech-enhancement blend factor")
+    parser.add_argument("--se-ckpt", default=None,
+                        help="SETask checkpoint for enhancement (not ported yet)")
+    parser.add_argument("--lm-dir", default=None,
+                        help="directory of <lang>.arpa models for arbitration")
+    parser.add_argument("--kenlm-threshold", type=float, default=0.04)
+    parser.add_argument("--csv", default=None)
+    parser.add_argument("--submission", default=None)
+    parser.add_argument("--sweep", action="store_true",
+                        help="run the full SNR x noise grid")
+    parser.add_argument("--factor-sweep", default=None,
+                        help="SE blend-factor sweep 'start:stop:step' at the fixed "
+                             "--snr/--noise cell; needs --se-ckpt")
+    parser.add_argument("--quant", default=None, choices=("int8",),
+                        help="evaluate through the dynamic int8 engine (not ported yet)")
+    parser.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    parser.add_argument("overrides", nargs="*")
+    args = parser.parse_args(argv)
+    if args.factor_sweep:
+        # the argument checks come before any load
+        try:
+            start, stop, step = (float(v) for v in args.factor_sweep.split(":"))
+        except ValueError:
+            parser.error("--factor-sweep must be start:stop:step")
+        if step == 0:
+            parser.error("--factor-sweep step must be nonzero")
+        if not args.se_ckpt:
+            parser.error("--factor-sweep needs --se-ckpt")
+    if args.quant:
+        raise NotImplementedError("--quant int8: the int8 engine (ops/quant.py) is not ported yet")
+    if args.se_ckpt:
+        raise NotImplementedError(
+            "--se-ckpt: speech enhancement (tasks/se.py) is not ported yet")
+    logging.basicConfig(level=logging.INFO, force=True)
+
+    from speechlid_tpu_torch.cli.main_lid import build_data, build_feeder
+    from speechlid_tpu_torch.cli.serve import load_lid_weights
+    from speechlid_tpu_torch.core.checkpoint import load_checkpoint
+    from speechlid_tpu_torch.core.config import load_config
+    from speechlid_tpu_torch.eval import LidEvaluator, NoiseBank, run_sweep
+    from speechlid_tpu_torch.tasks.lid_asr import LidASRTask
+
+    conf = load_config(args.config_dir, args.config_name, args.overrides)
+    data = build_data(conf)
+
+    ckpt_data = load_checkpoint(args.ckpt)
+    hparams = dict(ckpt_data["hyper_parameters"])
+    module_conf = conf.module.to_dict()
+    module_conf.pop("task", None)
+    hparams.update(module_conf)
+    task = LidASRTask(tokenizers=data["tokenizers"], device=args.device, **hparams)
+    load_lid_weights(task, ckpt_data)
+
+    noise_bank = None
+    if args.noise_dir:
+        noise_bank = NoiseBank({
+            os.path.splitext(f)[0]: os.path.join(args.noise_dir, f)
+            for f in os.listdir(args.noise_dir) if f.endswith(".wav")
+        })
+
+    lms = None
+    if args.lm_dir:
+        from speechlid_tpu_torch.decode import NgramLM
+
+        lms = {}
+        for lang in data["lang2index"]:
+            p = os.path.join(args.lm_dir, f"{lang}.arpa")
+            if os.path.exists(p):
+                lms[lang] = NgramLM(p)
+
+    evaluator = LidEvaluator(task, lms=lms, kenlm_threshold=args.kenlm_threshold,
+                             noise_bank=noise_bank, enhance_factor=args.factor)
+
+    def feeder_factory():
+        # train=False: offline eval never runs the training wav augmentation
+        f = build_feeder(conf, data["val_dataset"] or data["dataset"], train=False)
+        f.arrays_only = False
+        return f
+
+    if args.sweep:
+        rows = run_sweep(evaluator, feeder_factory, out_path=args.csv or "sweep_results.jsonl")
+        for row in rows:
+            print(json.dumps(row))
+        return rows
+
+    result = evaluator.evaluate(feeder_factory(), snr_db=args.snr, noise=args.noise,
+                                csv_path=args.csv)
+    print(json.dumps(result.as_dict()))
+    if args.submission:
+        write_submission(args.submission, result.records, task.index2lang)
+        logging.info("submission written: %s", args.submission)
+    return result.as_dict()
+
+
+if __name__ == "__main__":
+    main()

@@ -41,6 +41,7 @@ from speechlid_tpu_torch.core.callbacks.base import Callback
 from speechlid_tpu_torch.core.checkpoint import load_checkpoint
 from speechlid_tpu_torch.core.loggers import Logger
 from speechlid_tpu_torch.core.module import TaskModule
+from speechlid_tpu_torch.core.precision import strict_float32
 from speechlid_tpu_torch.core.profile import _time_cost_recoder
 from speechlid_tpu_torch.core.seed import seed_everything
 
@@ -112,11 +113,7 @@ class Trainer:
             )
         self.module = module
         module.trainer = self
-        if self.device.type == "cuda":
-            # float32 means float32: cuDNN would run the Conv2d subsampling,
-            # forward and backward, in TF32 (as cli/serve.main sets it)
-            torch.backends.cuda.matmul.allow_tf32 = False
-            torch.backends.cudnn.allow_tf32 = False
+        strict_float32(self.device)
         device_gen, host_gen = seed_everything(self.seed, self.device)
         self.generators = {"device": device_gen, "host": host_gen}
         module.set_generators(device_gen, host_gen)

@@ -4,11 +4,8 @@ The decoder is the repository's native ``csrc/wavio/wavio.cc`` (C++17,
 ``ctypes``), reused as it is: single-file decode plus a multithreaded
 padded-batch API (:func:`read_wav_batch`) that writes straight into the
 (N, T_max) float32 batch buffer with the GIL released.  It is built at
-first use with ``g++ -O3 -std=c++17 -fPIC -pthread -shared`` into
-``build/libwavio_<hash>.so`` at the root of the checkout, named by a hash
-of the source and flags like the CUDA kernels' library
-(``ops/cuda/_build.py``); ``csrc/`` is never written.  A failed build
-raises.
+first use into ``build/libwavio_<hash>.so`` (``core/native.py``); a failed
+build raises.
 
 The per-file scipy reader decodes what the native one cannot (an encoding
 it does not take) and gives the same float32 values; other codecs can be
@@ -19,10 +16,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-import hashlib
 import os
-import subprocess
-import tempfile
 import wave
 from pathlib import Path
 from typing import Callable, Dict, Optional, Sequence, Tuple
@@ -30,12 +24,12 @@ from typing import Callable, Dict, Optional, Sequence, Tuple
 import numpy as np
 from scipy.io import wavfile
 
+from speechlid_tpu_torch.core import native
+
 _READERS: Dict[str, Callable[[str], Tuple[np.ndarray, int]]] = {}
 
-_ROOT = Path(__file__).resolve().parents[2]
-WAVIO_SOURCE = _ROOT / "csrc" / "wavio" / "wavio.cc"
-BUILD_DIR = _ROOT / "build"
-CXX_FLAGS = ("-O3", "-std=c++17", "-fPIC", "-pthread", "-shared")
+WAVIO_SOURCE = native.ROOT / "csrc" / "wavio" / "wavio.cc"
+BUILD_DIR = native.BUILD_DIR
 
 
 def register_reader(ext: str, fn: Callable[[str], Tuple[np.ndarray, int]]):
@@ -64,33 +58,13 @@ def _read_wav_scipy(path: str) -> Tuple[np.ndarray, int]:
 
 def wavio_library_path() -> Path:
     """Where the library built from the current source lies."""
-    h = hashlib.sha256(" ".join(CXX_FLAGS).encode())
-    h.update(WAVIO_SOURCE.read_bytes())
-    return BUILD_DIR / f"libwavio_{h.hexdigest()[:16]}.so"
-
-
-def _build_wavio(target: Path) -> None:
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    cxx = os.environ.get("CXX", "g++")
-    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
-        tmp_so = Path(tmp) / target.name
-        try:
-            done = subprocess.run([cxx, *CXX_FLAGS, "-o", str(tmp_so), str(WAVIO_SOURCE)],
-                                  capture_output=True, text=True)
-        except FileNotFoundError as e:
-            raise RuntimeError(f"wavio build: no C++ compiler ({cxx})") from e
-        if done.returncode:
-            raise RuntimeError(f"wavio build failed:\n{done.stdout}{done.stderr}")
-        os.replace(tmp_so, target)  # atomic: a concurrent loader sees all or nothing
+    return native.library_path(WAVIO_SOURCE, "libwavio")
 
 
 @functools.lru_cache(maxsize=None)
 def wavio() -> ctypes.CDLL:
     """The native decoder, built first if its source changed."""
-    target = wavio_library_path()
-    if not target.exists():
-        _build_wavio(target)
-    lib = ctypes.CDLL(str(target))
+    lib = ctypes.CDLL(str(native.build_library(WAVIO_SOURCE, "libwavio")))
     lib.wavio_info.restype = ctypes.c_int
     lib.wavio_info.argtypes = [
         ctypes.c_char_p, ctypes.POINTER(ctypes.c_long),

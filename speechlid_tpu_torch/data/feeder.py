@@ -9,10 +9,9 @@ carries ``n_valid``.  The batches are the JAX feeder's, bit for bit.
 A daemon thread pre-assembles the next batches (the num_workers analog) so
 host file I/O overlaps device compute.  It touches numpy only: the task
 moves a batch to the card (``TaskModule.place_batch``) on the trainer's
-thread.
-
-The train-time waveform augmentor (``speechlid_tpu/data/augmentor.py``) is
-not ported yet: ``augmentor=`` raises.
+thread.  A train-time ``augmentor`` (``data/augmentor.py``) is applied to
+each assembled batch's wavs and lengths there, as the JAX feeder applies its
+own.
 """
 
 from __future__ import annotations
@@ -73,17 +72,13 @@ class BucketFeeder:
         pad_to_full: bool = True,
         prefetch: int = 2,
         arrays_only: bool = True,
-        augmentor=None,  # not ported yet: must be None
+        augmentor=None,  # data.augmentor.WavAugmentor (train-time waveform aug)
         native_batch_decode: bool = True,  # csrc/wavio multithreaded batch
         #   decode straight into the padded buffer (GIL released); falls
         #   back to per-item decode for non-wav paths / datasets without
         #   the meta() accessor.  Output is bit-identical either way
         #   (tests/test_wavio.py::test_feeder_native_batch_parity).
     ) -> None:
-        if augmentor is not None:
-            raise NotImplementedError(
-                "BucketFeeder(augmentor=…): the waveform augmentor "
-                "(data/augmentor.py) is not ported yet")
         self.dataset = dataset
         self.sampler = sampler
         self.sample_rate = sample_rate
@@ -92,6 +87,7 @@ class BucketFeeder:
         self.pad_to_full = pad_to_full
         self.prefetch = prefetch
         self.arrays_only = arrays_only
+        self.augmentor = augmentor
         self.native_batch_decode = native_batch_decode and hasattr(
             dataset, "meta"
         )
@@ -163,6 +159,8 @@ class BucketFeeder:
             text_lengths[i] = len(ids)
             langs[i] = it["lang_idx"]
             paths.append(it["path"])
+        if self.augmentor is not None:
+            wavs, wav_lengths = self.augmentor(wavs, wav_lengths)
         return Batch(
             wavs, wav_lengths, texts, text_lengths, langs, paths, n_valid
         )

@@ -53,6 +53,11 @@ def normalize_wav(
     return torch.where(valid, out, torch.zeros((), dtype=out.dtype, device=out.device))
 
 
+def preemphasis(wav: torch.Tensor, coeff: float = 0.97) -> torch.Tensor:
+    """y[0] = x[0]; y[t] = x[t] - coeff·x[t-1] along the last axis."""
+    return torch.cat([wav[..., :1], wav[..., 1:] - coeff * wav[..., :-1]], dim=-1)
+
+
 # ---------------------------------------------------------------------------
 # Window / DFT / mel bases (host-side numpy)
 # ---------------------------------------------------------------------------

@@ -35,6 +35,7 @@ import torch
 
 from speechlid_tpu_torch.core.module import TaskModule
 from speechlid_tpu_torch.core.optim import make_optimizer
+from speechlid_tpu_torch.core.precision import strict_float32
 from speechlid_tpu_torch.metrics import CAvg, CharErrorRate, EER, WordErrorRate
 from speechlid_tpu_torch.models.conformer import ConformerModel, set_generator
 from speechlid_tpu_torch.models.init import init_like_flax_
@@ -150,7 +151,9 @@ class LidASRTask(TaskModule):
         self.routed_optim = routed_optim
         self.freeze_featurizer_epoch = freeze_featurizer_epoch
         self.keep_train_lang = keep_train_lang
+        self.use_cer = use_cer
         self.device = torch.device(device)
+        strict_float32(self.device)  # before the model meets the card
         self._generator: Optional[torch.Generator] = None
         self._host_generator: Optional[torch.Generator] = None
 

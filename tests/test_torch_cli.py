@@ -8,6 +8,8 @@ the JAX package's, on a tiny 2-language corpus on the CPU.
 - the two CLIs' ``build_data`` / ``build_feeder`` give identical batches
   (one process and one shard of two), and ``build_task`` the same
   ``hyper_parameters``;
+- ``data.wav_augment`` trains through the augmentor and feeds the JAX CLI's
+  batch lengths, and an unknown key of it raises ``TypeError`` in both;
 - every option not ported yet raises ``NotImplementedError``, and without
   ``--device`` the CLI asks for the card."""
 
@@ -16,6 +18,7 @@ import os
 
 import numpy as np
 import pytest
+import torch
 
 from speechlid_tpu.cli import main_lid as jax_main_lid
 from speechlid_tpu.core.config import load_config as jax_load_config
@@ -149,12 +152,55 @@ def test_build_data_feeder_and_task_equal_jax(corpus, tmp_path, monkeypatch, sha
 @pytest.mark.parametrize("override", [
     "module.task=lid_cross_entropy", "module.task=asr", "trainer.data_parallel=true",
     "trainer.model_parallel=2", "trainer.use_swa=true",
-    "data.wav_augment={p_noise: 0.5}",
 ])
 def test_unported_options_raise(corpus, tmp_path, monkeypatch, override):
     monkeypatch.setenv("SPEECHLID_CACHE_DIR", str(tmp_path / "cache"))
     with pytest.raises(NotImplementedError):
         main_lid.main(_args(corpus, tmp_path, override) + ["--device", "cpu"])
+
+
+@pytest.mark.parametrize("cli", ["port", "jax"])
+def test_unknown_wav_augment_key_raises_type_error(corpus, tmp_path, monkeypatch, cli):
+    """``WavAugmentor`` has no ``p_noise``: both CLIs refuse it when they
+    build the train feeder."""
+    monkeypatch.setenv("SPEECHLID_CACHE_DIR", str(tmp_path / "cache"))
+    args = _args(corpus, tmp_path / "exp", "data.wav_augment={p_noise: 0.5}")
+    with pytest.raises(TypeError, match="p_noise"):
+        if cli == "port":
+            main_lid.main(args + ["--device", "cpu"])
+        else:
+            jax_main_lid.main(args)
+
+
+def test_wav_augment_trains_and_feeds_jax_lengths(corpus, tmp_path, monkeypatch):
+    """``data.wav_augment={speed: true}``: the port's CLI trains a step with
+    it on the CPU, and its train feeder gives the batch lengths of the JAX
+    CLI's, and its wavs up to the dither (the speed draws are the same; the
+    dither is each side's own)."""
+    monkeypatch.setenv("SPEECHLID_CACHE_DIR", str(tmp_path / "cache"))
+    aug = "data.wav_augment={speed: true}"
+    main_lid.main(_args(corpus, tmp_path / "exp", aug, "trainer.train_data_factor=0.25")
+                  + ["--device", "cpu"])
+    ckpt = torch.load(tmp_path / "exp" / "ckpt" / "last.ckpt", weights_only=True)
+    assert ckpt["meta"]["global_step"] == 1
+    assert all(np.isfinite(r["avg_val_loss"]) for r in _lines(tmp_path / "exp" / "metrics.jsonl")
+               if "avg_val_loss" in r)
+
+    overrides = _args(corpus, tmp_path, aug)[4:]
+    conf = load_config("configs", "lid_supervised", overrides)
+    jconf = jax_load_config("configs", "lid_supervised", overrides)
+    feeder = main_lid.build_feeder(conf, main_lid.build_data(conf)["dataset"], seed=conf.seed)
+    jfeeder = jax_main_lid.build_feeder(jconf, jax_main_lid.build_data(jconf)["dataset"],
+                                        seed=jconf.seed)
+    assert feeder.augmentor.speed and not feeder.augmentor.pitch
+    for _ in range(3):
+        for got, want in zip(feeder, jfeeder, strict=True):
+            np.testing.assert_array_equal(got["wav_lengths"], want["wav_lengths"])
+            np.testing.assert_array_equal(got["texts"], want["texts"])
+            # the same chain up to the dither, U[0, 1e-5) on each side
+            np.testing.assert_allclose(got["wavs"], want["wavs"], rtol=0, atol=1e-4)
+    val = main_lid.build_feeder(conf, main_lid.build_data(conf)["val_dataset"], train=False)
+    assert val.augmentor is None
 
 
 def test_device_defaults_to_the_card(corpus, tmp_path, monkeypatch):

@@ -245,9 +245,26 @@ def test_feeder_prefetch_thread_is_released_when_abandoned(corpus):
 
 
 def test_feeder_rejects_augmentor(corpus):
-    ds, _ = _datasets(corpus)
-    with pytest.raises(NotImplementedError, match="augmentor"):
-        BucketFeeder(ds, MultiBatchSampler(ds, batch_size=2), augmentor=object())
+    """The feeder applies its augmentor to every assembled batch, as the JAX
+    feeder does: the same stub in both gives the same batches and lengths
+    (the port raised here before it had an augmentor)."""
+    calls = []
+
+    def stub(wavs, lengths):
+        calls.append(wavs.shape)
+        return (0.5 * wavs[:, ::-1]).copy(), np.maximum(lengths - 100, 1).astype(np.int32)
+
+    ds, jds = _datasets(corpus)
+    args = dict(buckets_s=(0.5, 1.0), max_text_len=6, arrays_only=False, augmentor=stub)
+    port = BucketFeeder(ds, MultiBatchSampler(ds, batch_size=4, seed=3), **args)
+    jax_feeder = JaxBucketFeeder(jds, JaxMultiBatchSampler(jds, batch_size=4, seed=3), **args)
+    pairs = _two_epochs_equal(port, jax_feeder)
+    assert len(calls) == 2 * 2 * len(pairs)  # once a batch, in each feeder
+    plain, _ = _feeders(corpus)
+    list(plain)  # pairs hold the second epoch
+    for (got, _), clean in zip(pairs, plain, strict=True):
+        np.testing.assert_array_equal(got.wavs, 0.5 * clean.wavs[:, ::-1])
+        np.testing.assert_array_equal(got.wav_lengths, np.maximum(clean.wav_lengths - 100, 1))
 
 
 # -------------------------------------------------------------------- audio
