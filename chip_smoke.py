@@ -27,8 +27,16 @@ eval and augmentation paths agree with the CPU (``eval_ops``); the eval CLI
 (``cli.test_lid``) scores both CLI checkpoints clean, over the SNR × noise
 grid with LM arbitration and into a CSV and a submission file
 (``cli_eval_flagship``, ``cli_eval_gate``); and the training CLI trains
-with the waveform augmentor (``cli_augment``).  Last it times the kernels,
-the model and the train step.  The fused modes are also timed against the
+with the waveform augmentor (``cli_augment``).  Then the WavLM-Base+ joint
+model (12 × 768 with the gated relative position bias, three heads of 768
+whose conv modules run the depthwise kernel at C = 1536): card against CPU
+in inference (``wavlm_model_card_vs_cpu``) and for one deterministic train
+step (``wavlm_train_card_vs_cpu``), served on ``/lid`` (``wavlm_serve``),
+and through the training CLI on ``configs/lid_wavlm.yaml`` with the Base+
+``module.ssl_config`` across both freeze gates with span masking, a resume,
+a served request and ``cli.test_lid`` on its checkpoint (``cli_wavlm``).
+Last it times the kernels, the models and the train steps (the WavLM
+model's in ``wavlm_e2e``).  The fused modes are also timed against the
 unfused chain they replace (``chain_ms``), in turns chain, fused, fused, chain, and the
 profiler shows one device kernel between a conv module's two pointwise
 GEMMs.  Each phase prints one JSON line (the eval CLI prints its own
@@ -164,6 +172,10 @@ def launch_counts(fbank: int = 0, bwd_w: int = 0, **modes: int) -> dict:
 PER_FORWARD_LAUNCHES = launch_counts(fbank=1, glu_bn_act=DW_PER_FORWARD)
 TRAIN_STEP_LAUNCHES = launch_counts(fbank=1, bwd_w=DW_PER_TRAIN_STEP, glu=DW_PER_TRAIN_STEP,
                                     glu_dx=DW_PER_TRAIN_STEP)
+# the WavLM joint model has no fbank and no depthwise conv in its encoder:
+# one launch per head block (3 heads × 1) a forward, the own head's a step
+WAVLM_PER_FORWARD_LAUNCHES = launch_counts(glu_bn_act=len(FLAGSHIP["lang2vocab"]))
+WAVLM_TRAIN_STEP_LAUNCHES = launch_counts(bwd_w=1, glu=1, glu_dx=1)
 
 
 def _encoder_frames(seconds: float) -> int:
@@ -186,6 +198,49 @@ GATE_DW_SHAPE = (8, _encoder_frames(3.0), 2 * 96, 31)
 # round-5 corpus (every one under 2 s) in lid_supervised's 2 s bucket
 EVAL_SECONDS = 2.0
 EVAL_DW_SHAPE = (8, _encoder_frames(EVAL_SECONDS), 2 * FLAGSHIP["encoder_dim"], 31)
+
+# The WavLM-Base+ joint model (__graft_entry__.py _flagship_wavlm, the model
+# of BASELINE.json's headline): 12 layers of 768, FFN 3072, 12 heads, the
+# 7-conv extractor, gated relative position bias (320 buckets, max distance
+# 800), conv_pos 128 in 16 groups; three ConformerLinear heads of 768 (8
+# heads × 32) as configs/lid_wavlm.yaml builds them, whose optimizer it has.
+# The SSL config's own defaults stay: dropout 0.1 and span masking at 0.65
+# where training runs.
+WAVLM_BASE_PLUS = dict(encoder_layers=12, encoder_embed_dim=768, encoder_ffn_embed_dim=3072,
+                       encoder_attention_heads=12, relative_position_embedding=True,
+                       num_buckets=320, max_distance=800, gru_rel_pos=True)
+WAVLM = dict(
+    lang2vocab=FLAGSHIP["lang2vocab"], lang2index=FLAGSHIP["lang2index"], featurizer="wavlm",
+    ssl_config=WAVLM_BASE_PLUS, feature_selection="last_hidden_state",
+    head_type="conformer_linear", head_layers=1, head_dim_head=32, head_num_head=8,
+    lr=5e-5, optimizer="adam", clip_norm=20.0, schedule="tristage",
+    schedule_conf=dict(phase_ratio=[0.1, 0.4, 0.5], max_update=200000),
+)
+# one deterministic step: no dropout, span masking or layer drop
+WAVLM_DETERMINISTIC = dict(WAVLM, dropout=0.0, ssl_config=dict(
+    WAVLM_BASE_PLUS, dropout=0.0, attention_dropout=0.0, mask_prob=0.0, encoder_layerdrop=0.0))
+WAVLM_TRAIN_B, WAVLM_TRAIN_SECONDS = 8, 4.0
+
+
+def _wavlm_frames(seconds: float) -> int:
+    """Frames out of the WavLM conv extractor for a clip: 3 s → 149."""
+    t = int(seconds * SR)
+    for _, k, s in [(512, 10, 5)] + [(512, 3, 2)] * 4 + [(512, 2, 2)] * 2:
+        t = (t - k) // s + 1
+    return t
+
+
+# The heads' conv modules run the depthwise kernel at C = 2 · 768: their
+# pointwise GEMM makes 2 · 1536 channels, which the GLU halves.
+WAVLM_DW_C = 2 * WAVLM_BASE_PLUS["encoder_embed_dim"]
+WAVLM_SERVE_DW_SHAPE = (1, _wavlm_frames(3.0), WAVLM_DW_C, 31)  # a served 3 s clip
+WAVLM_SCORE_DW_SHAPE = (32, _wavlm_frames(3.0), WAVLM_DW_C, 31)  # the B = 32 scorer
+WAVLM_TRAIN_DW_SHAPE = (WAVLM_TRAIN_B, _wavlm_frames(WAVLM_TRAIN_SECONDS), WAVLM_DW_C, 31)
+WAVLM_STEP_DW_SHAPE = (2, _wavlm_frames(2.0), WAVLM_DW_C, 31)  # the card-vs-CPU step
+WAVLM_CLI_DW_SHAPE = (4, _wavlm_frames(2.0), WAVLM_DW_C, 31)  # lid_wavlm.yaml: 4 a batch, 2 s
+# C = 768 at the same frame counts: no path gives the kernel these shapes
+# (the heads' GLU gives it 1536 channels), held against plain all the same
+WAVLM_HALF_C_DW_SHAPES = ((1, 149, 768, 31), (32, 149, 768, 31), (8, 199, 768, 31))
 
 
 def emit(obj) -> None:
@@ -454,9 +509,13 @@ def phase_depthwise_bwd(gen: torch.Generator) -> dict:
 ACTS = ("swish", "double_swish")
 # the served, trained and scored conv shapes, then a short clip, channels
 # that take the kernel's scalar path (129) and an even kernel, the gate
-# model's shape and the eval CLI's on the flagship
+# model's shape and the eval CLI's on the flagship; then the WavLM heads'
+# shapes (served, scored, trained, the card-vs-CPU step, the CLI) and the
+# same frame counts at C = 768
 FUSED_SHAPES = (SERVE_DW_SHAPE, TRAIN_DW_SHAPE, SCORE_DW_SHAPE, (1, 7, 64, 31),
-                (3, 100, 129, 15), (2, 50, 96, 4), GATE_DW_SHAPE, EVAL_DW_SHAPE)
+                (3, 100, 129, 15), (2, 50, 96, 4), GATE_DW_SHAPE, EVAL_DW_SHAPE,
+                WAVLM_SERVE_DW_SHAPE, WAVLM_SCORE_DW_SHAPE, WAVLM_TRAIN_DW_SHAPE,
+                WAVLM_STEP_DW_SHAPE, WAVLM_CLI_DW_SHAPE, *WAVLM_HALF_C_DW_SHAPES)
 
 
 def fused_inputs(b: int, t: int, c: int, k: int, gen: torch.Generator):
@@ -651,9 +710,11 @@ def _get(url: str) -> dict:
         return json.loads(resp.read())
 
 
-def phase_serve(task: LidASRTask, gen: torch.Generator) -> dict:
+def phase_serve(task: LidASRTask, gen: torch.Generator, per_forward: dict = PER_FORWARD_LAUNCHES,
+                name: str = "serve") -> dict:
     """The main path: /lid served from a thread, requests of several
-    lengths; launch counts are read around exactly these requests."""
+    lengths; launch counts are read around exactly these requests, each
+    request's expected to be ``per_forward``."""
     state = InferenceState(make_lid_fn(task), task.index2lang)
     state.warmup()
     server = ThreadingHTTPServer(("127.0.0.1", 0), make_handler(state))
@@ -692,7 +753,7 @@ def phase_serve(task: LidASRTask, gen: torch.Generator) -> dict:
         got = np.array([body["scores"][task.index2lang[i]] for i in range(3)], np.float32)
         worst = max(worst, float(np.abs(got - direct).max()))
     report = {
-        "phase": "serve", "requests": n_req, "seconds": list(SERVE_SECONDS),
+        "phase": name, "requests": n_req, "seconds": list(SERVE_SECONDS),
         "rounds": SERVE_ROUNDS, "launches": served,
         "max_abs_diff_vs_direct_infer": worst,
         "client_p50_ms": statistics.median(client_ms),
@@ -701,9 +762,9 @@ def phase_serve(task: LidASRTask, gen: torch.Generator) -> dict:
     }
     emit(report)
     ok = (worst == 0.0 and health == {"status": "ok"} and not thread.is_alive()
-          and served == {k: n * n_req for k, n in PER_FORWARD_LAUNCHES.items()})
+          and served == {k: n * n_req for k, n in per_forward.items()})
     if not ok:
-        raise AssertionError("serving phase failed")
+        raise AssertionError(f"{name} phase failed")
     return report
 
 
@@ -1728,10 +1789,18 @@ def conv_module_device_kernels(task: LidASRTask, gen: torch.Generator) -> dict:
     return report
 
 
-def fused_kernel_rows(gen: torch.Generator, errs: dict, counts: dict) -> list:
+CONFORMER_EVAL_ROWS = (("depthwise_conv1d_fwd[glu_bn_act]", SERVE_DW_SHAPE),
+                       ("depthwise_conv1d_fwd[glu_bn_act]@b32", SCORE_DW_SHAPE),
+                       ("depthwise_conv1d_fwd[glu_bn_act]@eval", EVAL_DW_SHAPE))
+
+
+def fused_kernel_rows(gen: torch.Generator, errs: dict, counts: dict,
+                      eval_rows=CONFORMER_EVAL_ROWS, train_shape=TRAIN_DW_SHAPE,
+                      train_suffix: str = "@train") -> list:
     """The ``kernels`` line's rows of the fused modes where a path calls
-    them: eval at the served, the scored and the eval CLI's shape, the
-    training forward and dX with the GLU backward at the train shape.  Each is timed against the
+    them: eval at the ``eval_rows`` shapes (by default the served, the
+    scored and the eval CLI's), the training forward and dX with the GLU
+    backward at ``train_shape``.  Each is timed against the
     unfused chain the conv module ran before (PyTorch GLU and mask, the
     plain-mode kernel, PyTorch BatchNorm and act) in turns chain, fused,
     fused, chain; against its plain version; and against a composite of
@@ -1763,9 +1832,7 @@ def fused_kernel_rows(gen: torch.Generator, errs: dict, counts: dict) -> list:
         return F.conv1d(u.transpose(1, 2), w.t().unsqueeze(1), bias, padding=(k - 1) // 2,
                         groups=c)
 
-    for name, shape in (("depthwise_conv1d_fwd[glu_bn_act]", SERVE_DW_SHAPE),
-                        ("depthwise_conv1d_fwd[glu_bn_act]@b32", SCORE_DW_SHAPE),
-                        ("depthwise_conv1d_fwd[glu_bn_act]@eval", EVAL_DW_SHAPE)):
+    for name, shape in eval_rows:
         b, t, c, k = shape
         h, mask, w, bias, bn, _ = fused_inputs(b, t, c, k, gen)
 
@@ -1788,10 +1855,10 @@ def fused_kernel_rows(gen: torch.Generator, errs: dict, counts: dict) -> list:
             # 2k per output for the taps, about 12 for GLU, BatchNorm and Swish
             b * t * c * (2.0 * k + 12), "eval GLU + mask + conv + BN + Swish"))
 
-    b, t, c, k = TRAIN_DW_SHAPE
+    b, t, c, k = train_shape
     h, mask, w, bias, _, gy = fused_inputs(b, t, c, k, gen)
     rows.append(row(
-        "depthwise_conv1d_fwd[glu]@train", "glu", TRAIN_DW_SHAPE,
+        "depthwise_conv1d_fwd[glu]" + train_suffix, "glu", train_shape,
         lambda: glu_depthwise(h, mask, w, bias),
         lambda: depthwise_conv1d(glu_mask_chain(h, mask), w, bias),
         lambda: glu_depthwise_plain(h, mask, w, bias)[1],
@@ -1816,7 +1883,7 @@ def fused_kernel_rows(gen: torch.Generator, errs: dict, counts: dict) -> list:
         return torch.ops.aten.glu_backward(du.transpose(1, 2).masked_fill(keep, 0.0), h, -1)
 
     rows.append(row(
-        "depthwise_conv1d_fwd[glu_dx]@train", "glu_dx", TRAIN_DW_SHAPE,
+        "depthwise_conv1d_fwd[glu_dx]" + train_suffix, "glu_dx", train_shape,
         lambda: glu_depthwise_dx(gy, w, h, mask), dx_chain,
         lambda: glu_mask_bwd_plain(
             depthwise_conv1d_plain(gy, w, None, k - 1 - (k - 1) // 2, flip=True), h, mask),
@@ -1830,14 +1897,15 @@ def fused_kernel_rows(gen: torch.Generator, errs: dict, counts: dict) -> list:
 
 def phase_timings(task: LidASRTask, gen: torch.Generator, errs: dict, served: dict,
                   serve_report: dict, trained: dict, training, cli: dict,
-                  cli_eval: dict) -> None:
+                  cli_eval: dict) -> list:
     """Kernel, plain and library times at the main paths' shapes (serving:
     B = 1, 3 s clip; training: B = 8, 4 s clips; the eval CLI: B = 8, 2 s
     clips), their bounds, and the model's throughput, latency and
     train-step time.  ``cli`` holds the launches of the CLI flagship phase,
     which each row also reports (``launches_cli``) for the counter it
     counts, and ``cli_eval`` the report of ``cli_eval_flagship``, whose
-    sweep's launches the ``@eval`` rows count."""
+    sweep's launches the ``@eval`` rows count.  Returns the rows of the
+    ``kernels`` line."""
     n_req = serve_report["requests"]
     n_steps = TRAIN_EPOCHS * TRAIN_BATCHES
     kernels = []
@@ -2154,7 +2222,423 @@ def phase_timings(task: LidASRTask, gen: torch.Generator, errs: dict, served: di
         "depthwise_backward": backward_report,
         "conv_module_eval": conv_module_report,
     })
-    emit({"kernels": kernels})
+    return kernels
+
+
+# ------------------------------------------------ the WavLM-Base+ joint model
+
+
+def init_wavlm_(task: LidASRTask, gen: torch.Generator) -> None:
+    """The task's own fresh draw (flax's initializers) from a seed taken
+    from ``gen``, then the heads' BatchNorm running statistics away from the
+    identity (mean ≠ 0, var ≠ 1)."""
+    seed = int(torch.randint(0, 2 ** 31 - 1, (), generator=gen))
+    task.init_parameters(torch.Generator().manual_seed(seed))
+    with torch.no_grad():
+        for module in task.model.modules():
+            if isinstance(module, MaskedBatchNorm):
+                module.running_mean.copy_(0.2 * torch.randn(module.running_mean.shape,
+                                                            generator=gen))
+                module.running_var.copy_(0.5 + torch.rand(module.running_var.shape,
+                                                          generator=gen))
+
+
+def phase_wavlm_model(gen: torch.Generator) -> LidASRTask:
+    """The full-width WavLM-Base+ joint model on the card against the same
+    state_dict on the CPU, on a ragged batch of a 3 s and a 2 s clip:
+    scores within 1e-3, ``pred_lang`` equal, and the launches of one
+    forward (the fused eval conv in each head, no fbank)."""
+    task = LidASRTask(**WAVLM, device="cuda")
+    init_wavlm_(task, gen)
+    cpu_task = LidASRTask(**WAVLM, device="cpu")
+    cpu_task.model.load_state_dict(task.model.state_dict())
+    wavs = 0.1 * torch.randn(2, 3 * SR, generator=gen)
+    lengths = torch.tensor([3 * SR, 2 * SR])
+    infer = task.infer_fn()
+    infer(wavs, lengths)  # first call: cuBLAS / cuDNN set-up
+    torch.cuda.synchronize()
+    reset_launches()
+    out = infer(wavs, lengths)
+    torch.cuda.synchronize()
+    per_forward = launches()
+    t0 = time.perf_counter()
+    ref = cpu_task.infer_fn()(wavs, lengths)
+    cpu_s = time.perf_counter() - t0
+    got = {k: v.cpu() for k, v in out.items()}
+    neg = torch.finfo(torch.float32).min
+    live = ref["logits"] > neg
+    score_err = (got["scores"] - ref["scores"]).abs().max().item()
+    emit({
+        "phase": "wavlm_model_card_vs_cpu",
+        "config": "WavLM-Base+ 12x768 (gated rel-pos 320/800) + heads 3x(40,96,88) at 768",
+        "batch": [2, 3 * SR], "lengths": lengths.tolist(),
+        "params": sum(p.numel() for p in task.model.parameters()),
+        "logits_shape": list(got["logits"].shape),
+        "feat_lengths": got["feat_lengths"].tolist(),
+        "max_abs_err_logits": (got["logits"][live] - ref["logits"][live]).abs().max().item(),
+        "max_abs_err_scores": score_err,
+        "max_abs_err_mlp_scores": (got["mlp_scores"] - ref["mlp_scores"]).abs().max().item(),
+        "scores": got["scores"].tolist(), "pred_lang": got["pred_lang"].tolist(),
+        "pred_lang_cpu": ref["pred_lang"].tolist(), "tol": MODEL_TOL,
+        "cpu_forward_seconds": cpu_s, "launches_per_forward": per_forward,
+    })
+    checks = {
+        "finite": bool(torch.isfinite(got["logits"]).all() and torch.isfinite(got["scores"]).all()
+                       and torch.isfinite(got["mlp_scores"]).all()),
+        "feat_lengths": got["feat_lengths"].tolist() == [_wavlm_frames(3.0), _wavlm_frames(2.0)],
+        "scores": score_err <= MODEL_TOL,
+        "masked_slots": bool(torch.equal(got["logits"] == neg, ref["logits"] == neg)),
+        "pred_lang": torch.equal(got["pred_lang"], ref["pred_lang"]),
+        "launches": per_forward == WAVLM_PER_FORWARD_LAUNCHES,
+    }
+    if not all(checks.values()):
+        raise AssertionError(f"the WavLM model on the card failed: {checks}")
+    return task
+
+
+def phase_wavlm_train_card_vs_cpu(gen: torch.Generator) -> None:
+    """One deterministic full-width WavLM train step (no dropout, span
+    masking or layer drop) at B = 2 on 2 s clips, on the card and on the
+    CPU from the same state_dict: the loss within 1e-3 of its size, every
+    gradient within 1e-3 of its largest entry, and the launches of the
+    step.  Two leaves have a true gradient of zero, so both sides hold
+    rounding noise there, held against the largest gradient instead: the
+    heads' depthwise bias (a train-mode BatchNorm follows) and ``k_proj``'s
+    bias (the softmax cancels it)."""
+    card = LidASRTask(**WAVLM_DETERMINISTIC, device="cuda")
+    cpu = LidASRTask(**WAVLM_DETERMINISTIC, device="cpu")
+    init_wavlm_(card, gen)
+    cpu.model.load_state_dict(card.model.state_dict())
+    batch = synthetic_batch(np.random.RandomState(2), lang=1, b=2, seconds=2.0)
+    results = {}
+    for name, task in (("card", card), ("cpu", cpu)):
+        task.set_generators(torch.Generator(task.device).manual_seed(0),
+                            torch.Generator().manual_seed(0))
+        task.model.train()
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        loss, _ = task.train_loop(task.place_batch(batch))
+        loss.backward()
+        results[name] = (loss.item(), launches(), time.perf_counter() - t0,
+                         {k: p.grad.cpu() for k, p in task.model.named_parameters()
+                          if p.grad is not None})
+    (loss_card, counted, _, grads_card), (loss_cpu, _, cpu_s, grads_cpu) = (
+        results["card"], results["cpu"])
+    largest = max(float(g.abs().max()) for g in grads_cpu.values())
+    worst, worst_name = 0.0, ""
+    for name, g_cpu in grads_cpu.items():
+        if name.endswith(("depthwise.bias", "k_proj.bias")):
+            err = max(float(grads_card[name].abs().max()), float(g_cpu.abs().max())) / largest
+        else:
+            err = float((grads_card[name] - g_cpu).abs().max()) / max(float(g_cpu.abs().max()),
+                                                                      1e-6 * largest)
+        if err > worst:
+            worst, worst_name = err, name
+    loss_err = abs(loss_card - loss_cpu) / max(abs(loss_cpu), 1.0)
+    emit({"phase": "wavlm_train_card_vs_cpu", "batch": [2, 2 * SR], "loss_card": loss_card,
+          "loss_cpu": loss_cpu, "rel_err_loss": loss_err, "gradients": len(grads_cpu),
+          "max_rel_err_gradient": worst, "worst_gradient": worst_name,
+          "largest_gradient_entry": largest, "tol": TRAIN_TOL, "cpu_step_seconds": cpu_s,
+          "launches_per_train_step": counted})
+    ok = (set(grads_card) == set(grads_cpu) and loss_err <= TRAIN_TOL and worst <= TRAIN_TOL
+          and counted == WAVLM_TRAIN_STEP_LAUNCHES)
+    if not ok:
+        raise AssertionError("the WavLM train step on the card disagrees with the CPU")
+
+
+# lid_wavlm.yaml's batches of 4 give 3 × 24 steps an epoch on the corpus; the
+# factor cuts an epoch to 3 steps, and four epochs cross both freeze gates
+WAVLM_DATA_FACTOR = 0.05
+WAVLM_CLI_STEPS = int(N_LANG * CORPUS_TRAIN // 4 * WAVLM_DATA_FACTOR)
+WAVLM_EVAL_BATCHES = N_LANG * CORPUS_VAL // 4
+
+
+def ssl_config_override(conf: dict) -> str:
+    """``module.ssl_config={…}``: the override that sets ``conf`` in the CLI."""
+    def value(v):
+        return str(v).lower() if isinstance(v, bool) else f'"{v}"' if isinstance(v, str) else v
+    return "module.ssl_config={" + ", ".join(f"{k}: {value(v)}" for k, v in conf.items()) + "}"
+
+
+WAVLM_SSL_OVERRIDE = ssl_config_override(WAVLM_BASE_PLUS)
+# the parts of the SSL featurizer lid_wavlm.yaml's gates freeze by epoch
+# (freeze_featurizer_epoch 1, freeze_transformer_epoch 0)
+WAVLM_FROZEN = {0: {"feature_extractor", "post_extract_proj", "layers", "pos_conv",
+                    "encoder_layer_norm"},
+                1: {"feature_extractor", "post_extract_proj"}, 2: set(), 3: set()}
+
+
+def phase_cli_wavlm(root: str, corpus: str, smi: str) -> dict:
+    """The training CLI on ``configs/lid_wavlm.yaml`` with ``module.ssl_config``
+    set to the Base+ shape, on the corpus: three epochs of 3 steps (span
+    masking on; the config's gates freeze the extractor through epoch 1 and
+    the transformer through epoch 0), then a resume for a fourth, each
+    epoch followed by an eval of the 72 val clips; the frozen parts by
+    epoch, the launches per train step and eval batch and the conv shapes;
+    one ``/lid`` answer from its checkpoint through ``build_lid_fn``; and
+    ``cli.test_lid`` clean on that checkpoint, whose ``acc`` must be the
+    ``val_acc`` the training CLI logged last.  Launch counts are set to 0
+    just before each run and read just after."""
+    from speechlid_tpu_torch.cli import main_lid
+    from speechlid_tpu_torch.data.audio_io import read_wav
+
+    exp = os.path.join(root, "wavlm")
+    base = [_langs_override(corpus), f"exp_dir={exp}", "trainer.progress_bar=false",
+            f"trainer.train_data_factor={WAVLM_DATA_FACTOR}", WAVLM_SSL_OVERRIDE]
+    last = os.path.join(exp, "ckpt", "last.ckpt")
+    frozen, shapes = {}, set()
+    build_task = main_lid.build_task
+
+    def recording_build_task(conf, data, device="cuda"):
+        task = build_task(conf, data, device)
+        before = task.before_train_loop
+
+        def record(epoch):
+            before(epoch)
+            frozen[epoch] = sorted({n.split(".")[2] for n, p in task.model.named_parameters()
+                                    if not p.requires_grad})
+        task.before_train_loop = record
+        return task
+
+    def conv_seen(module, args, output):
+        if isinstance(module, ConformerConvModule):
+            k, c = module.depthwise.weight.shape
+            shapes.add((*args[0].shape[:2], c, k))
+
+    runs, counted = {}, {}
+    main_lid.build_task = recording_build_task
+    hook = torch.nn.modules.module.register_module_forward_hook(conv_seen)
+    try:
+        for name, extra in (("fit", ["trainer.total_epoch=3"]),
+                            ("resume", ["trainer.total_epoch=4", f"trainer.resume_from={last}"])):
+            torch.cuda.synchronize()
+            reset_launches()
+            runs[name] = run_cli(_cli_args("configs", "lid_wavlm", *base, *extra))
+            counted[name] = launches()
+    finally:
+        main_lid.build_task = build_task
+        hook.remove()
+    lines = _metrics_lines(os.path.join(exp, "metrics.jsonl"))
+    evals = [line for line in lines if CLI_EVAL_KEYS <= set(line)]
+    ckpt_meta = load_checkpoint(last)["meta"]
+    lid_fn, index2lang = build_lid_fn(last)
+    state = InferenceState(lid_fn, index2lang)
+    wav, _ = read_wav(os.path.join(corpus, "bb", "wav", "train", "val0.wav"))
+    reset_launches()
+    answer = state.lid(wav)
+    served = launches()
+    clean, clean_launches, clean_s, clean_shapes = run_test_lid(
+        ["--ckpt", last, *_cli_args("configs", "lid_wavlm", _langs_override(corpus),
+                                    WAVLM_SSL_OVERRIDE)])
+    report = {"phase": "cli_wavlm", "nvidia_smi": smi,
+              "config": "configs/lid_wavlm.yaml, module.ssl_config WavLM-Base+",
+              "steps_per_epoch": WAVLM_CLI_STEPS, "frozen_by_epoch": frozen, "runs": {},
+              "launches": counted, "evals": evals, "conv_shapes": sorted(shapes),
+              "ckpt_meta": {k: ckpt_meta[k] for k in ("epoch", "global_step")},
+              "served_from_cli_ckpt": answer, "served_launches": served,
+              "test_lid_clean": _cell(clean), "test_lid_seconds": clean_s,
+              "test_lid_launches_per_batch": {k: v / WAVLM_EVAL_BATCHES
+                                              for k, v in clean_launches.items()},
+              "test_lid_conv_shapes": sorted(clean_shapes["glu_bn_act"])}
+    checks = {}
+    for name, (recorder, seconds) in runs.items():
+        per_step, per_eval = _per_step(recorder)
+        report["runs"][name] = {"seconds": seconds, "epochs": recorder.epochs,
+                                "eval_batches": [e["batches"] for e in recorder.evals],
+                                "launches_per_train_step": per_step,
+                                "launches_per_eval_batch": per_eval}
+        checks[f"{name}_launches"] = (per_step == WAVLM_TRAIN_STEP_LAUNCHES
+                                      and per_eval == WAVLM_PER_FORWARD_LAUNCHES)
+        checks[f"{name}_steps"] = all(e["steps"] == WAVLM_CLI_STEPS for e in recorder.epochs)
+        checks[f"{name}_evals"] = [e["batches"] for e in recorder.evals] == \
+            [WAVLM_EVAL_BATCHES] * len(recorder.epochs)
+    checks.update({
+        "frozen": {e: set(v) for e, v in frozen.items()} == WAVLM_FROZEN,
+        "conv_shapes": shapes == {WAVLM_CLI_DW_SHAPE} and clean_shapes["glu_bn_act"] == {
+            WAVLM_CLI_DW_SHAPE} and not clean_shapes["fbank"],
+        "eval_lines": len(evals) == 4 and all(np.isfinite(e["avg_val_loss"]) for e in evals),
+        "ckpt": ckpt_meta["epoch"] == 3 and ckpt_meta["global_step"] == 4 * WAVLM_CLI_STEPS,
+        "served": set(answer) == {"lang", "scores"} and len(answer["scores"]) == N_LANG
+        and all(np.isfinite(v) for v in answer["scores"].values())
+        and served == WAVLM_PER_FORWARD_LAUNCHES,
+        "test_lid_acc": clean["acc"] == evals[-1]["val_acc"]
+        and clean["n_utts"] == N_LANG * CORPUS_VAL,
+        "test_lid_launches": report["test_lid_launches_per_batch"] == WAVLM_PER_FORWARD_LAUNCHES,
+    })
+    report["checks"] = checks
+    emit(report)
+    if not all(checks.values()):
+        raise AssertionError(f"CLI WavLM phase failed: {checks}")
+    return {k: counted["fit"][k] + counted["resume"][k] for k in counted["fit"]}
+
+
+def _wavlm_batches(seed: int, n: int) -> list:
+    rng = np.random.RandomState(seed)
+    return [synthetic_batch(rng, i % N_LANG, WAVLM_TRAIN_B, WAVLM_TRAIN_SECONDS)
+            for i in range(n)]
+
+
+def phase_wavlm_host_timings(task: LidASRTask, gen: torch.Generator) -> dict:
+    """Host-clock times of the WavLM joint model, before any use of the
+    profiler in this process: ``infer`` on 3 s clips at B = 1 and B = 32
+    (``BASELINE.json``'s headline metric is 3 s-clip utterances a second),
+    and the train step at B = 8 on 4 s clips with dropout and span masking
+    on, its peak memory; each with the launches counted over the timed
+    calls.  The model's weights then train on: nothing after reads them."""
+    infer = task.infer_fn()
+    out = {"infer_3s": {}, "launches": {}}
+    for batch, iters in ((1, 30), (32, 10)):
+        wavs = 0.1 * torch.randn(batch, 3 * SR, generator=gen)
+        lengths = torch.full((batch,), 3 * SR)
+        for _ in range(3):
+            infer(wavs, lengths)
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            result = infer(wavs, lengths)
+        result["scores"].cpu()
+        dt = (time.perf_counter() - t0) / iters
+        counted = launches()
+        out["launches"][f"b{batch}"] = counted
+        out["infer_3s"][f"b{batch}"] = {"ms_per_batch": dt * 1e3, "utt_per_s": batch / dt,
+                                        "calls": iters, "launches": counted}
+        if counted != {k: n * iters for k, n in WAVLM_PER_FORWARD_LAUNCHES.items()}:
+            raise AssertionError(f"WavLM infer at B = {batch}: launches {counted}")
+
+    task.init_parameters = lambda generator: None  # train on from these weights
+    trainer = Trainer(total_epoch=1, use_progress_bar=False, seed=0)
+    trainer.trainer_prepare(task)
+    train_batches = _wavlm_batches(3, 3)
+    for batch in train_batches:
+        trainer.train_step(batch)
+    timed_steps = 9
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    for i in range(timed_steps):
+        metrics = trainer.train_step(train_batches[i % len(train_batches)])
+    loss = float(metrics["loss"])
+    step_s = (time.perf_counter() - t0) / timed_steps
+    per_step = {k: n / timed_steps for k, n in launches().items()}
+    out["launches"]["train"] = {k: n * timed_steps for k, n in per_step.items()}
+    out["train_step_b8_4s"] = {
+        "batch": [WAVLM_TRAIN_B, int(WAVLM_TRAIN_SECONDS * SR)], "ms_per_step": step_s * 1e3,
+        "utt_per_s": WAVLM_TRAIN_B / step_s, "timed_steps": timed_steps,
+        "last_loss": loss, "launches_per_step": per_step,
+        "peak_memory_mb": torch.cuda.max_memory_allocated() / 2 ** 20}
+    if per_step != WAVLM_TRAIN_STEP_LAUNCHES or not np.isfinite(loss):
+        raise AssertionError(f"WavLM train step: launches {per_step}, loss {loss}")
+    out["trainer"], out["train_batches"] = trainer, train_batches
+    return out
+
+
+def phase_wavlm_timings(task: LidASRTask, gen: torch.Generator, errs: dict, host: dict,
+                        serve_report: dict, cli: dict) -> list:
+    """The WavLM line (host times from :func:`phase_wavlm_host_timings`,
+    ``/lid`` p50, one B = 1 forward and one train step under the profiler:
+    device busy share and the largest kernels; the grouped positional conv
+    alone, with cuDNN's default algorithm and with the one its search picks)
+    and the ``kernels`` line's
+    rows of the depthwise kernel at the WavLM heads' shapes: eval at the
+    served and the scored shape, the training forward, dX with the GLU
+    backward and dW/db at the train step's, each with its launches on its
+    path and on the CLI run."""
+    n_req = serve_report["requests"]
+    served, counts = serve_report["launches"], host["launches"]
+    trainer, train_batches = host["trainer"], host["train_batches"]
+    n_steps = host["train_step_b8_4s"]["timed_steps"]
+    rows = fused_kernel_rows(gen, errs["conv_fused"], {
+        "depthwise_conv1d_fwd[glu_bn_act]@wavlm": (served["depthwise_glu_bn_act"], {
+            "launches_per_request": served["depthwise_glu_bn_act"] / n_req,
+            "launches_counted_on": "the WavLM /lid requests"}),
+        "depthwise_conv1d_fwd[glu_bn_act]@wavlm_b32": (counts["b32"]["depthwise_glu_bn_act"], {
+            "launches_per_batch": counts["b32"]["depthwise_glu_bn_act"] / 10,
+            "launches_counted_on": "the timed WavLM infer calls at B = 32 on 3 s clips"}),
+        "depthwise_conv1d_fwd[glu]@wavlm_train": (counts["train"]["depthwise_glu"], {
+            "launches_per_train_step": counts["train"]["depthwise_glu"] / n_steps}),
+        "depthwise_conv1d_fwd[glu_dx]@wavlm_train": (counts["train"]["depthwise_glu_dx"], {
+            "launches_per_train_step": counts["train"]["depthwise_glu_dx"] / n_steps}),
+    }, eval_rows=(("depthwise_conv1d_fwd[glu_bn_act]@wavlm", WAVLM_SERVE_DW_SHAPE),
+                  ("depthwise_conv1d_fwd[glu_bn_act]@wavlm_b32", WAVLM_SCORE_DW_SHAPE)),
+        train_shape=WAVLM_TRAIN_DW_SHAPE, train_suffix="@wavlm_train")
+
+    # dW/db at the train step's shape: the saved u and the output gradient
+    b, t, c, k = WAVLM_TRAIN_DW_SHAPE
+    h, mask, _, _, _, gy = fused_inputs(b, t, c, k, gen)
+    u = glu_mask_chain(h, mask).contiguous()
+
+    def conv1d_weight_library():
+        dw = torch.nn.grad.conv1d_weight(u.transpose(1, 2), (c, 1, k), gy.transpose(1, 2),
+                                         padding=(k - 1) // 2, groups=c)
+        return dw[:, 0, :].t(), gy.sum(dim=(0, 1))
+
+    got_dw, got_db = depthwise_conv1d_bwd_w(u, gy, k)
+    lib_dw, lib_db = conv1d_weight_library()
+    flops, n_bytes = 2.0 * b * t * c * k, 4.0 * 2 * b * t * c
+    b_ms, b_by = bound_ms(n_bytes, flops)
+    k_ms = device_ms(lambda: depthwise_conv1d_bwd_w(u, gy, k))
+    rows.append({
+        "name": "depthwise_conv1d_bwd_w@wavlm_train", "route": "cuda",
+        "source": "speechlid_tpu_torch/csrc/depthwise.cu",
+        "replaces": "speechlid_tpu/ops/pallas/depthwise_kernel.py:78",
+        "launches": counts["train"]["depthwise_bwd_w"],
+        "launches_per_train_step": counts["train"]["depthwise_bwd_w"] / n_steps,
+        "max_abs_err": errs["conv_fused"][WAVLM_TRAIN_DW_SHAPE]["bwd_w"],
+        "ms": k_ms, "kernel_ms": k_ms,
+        "plain_ms": device_ms(lambda: depthwise_conv1d_bwd_w_plain(u, gy, k)),
+        "library_ms": device_ms(conv1d_weight_library),
+        "library_call": "torch.nn.grad.conv1d_weight(groups=C) + g.sum((0, 1))",
+        "library_max_abs_err": max((got_dw - lib_dw).abs().max().item(),
+                                   (got_db - lib_db).abs().max().item()),
+        "bound_ms": b_ms, "bound_us": b_ms * 1e3, "bound_by": b_by,
+        "shape": f"u, g ({b}, {t}, {c}) f32 -> dw ({k}, {c}), db ({c},)",
+        "flops": flops, "bytes": n_bytes,
+    })
+    for row in rows:
+        mode = row["name"].split("[")[1].split("]")[0] if "[" in row["name"] else "bwd_w"
+        row["launches_cli"] = cli["depthwise_" + mode]
+        row["launches_cli_are"] = "the cli_wavlm runs (lid_wavlm.yaml, 4 x 2 s clips)"
+        if not (row["launches"] > 0 and row["launches_cli"] > 0):
+            raise AssertionError(f"{row['name']} was not launched on its WavLM path")
+
+    pos_conv = task.model.featurizer.upstream.pos_conv
+    c_model, g = WAVLM_BASE_PLUS["encoder_embed_dim"], pos_conv.groups
+    pos_conv_times = {}
+    with torch.no_grad():
+        for batch in (1, 32):
+            t = _wavlm_frames(3.0)
+            x = torch.randn(batch, t, c_model, generator=gen).cuda()
+            flops = 2.0 * batch * t * c_model * (c_model // g) * pos_conv.kernel_size
+            b_ms, b_by = bound_ms(4.0 * (2 * x.numel() + pos_conv.weight_v.numel()), flops)
+            default_ms = device_ms(lambda: pos_conv(x))
+            torch.backends.cudnn.benchmark = True  # what cuDNN's own search would pick
+            try:
+                searched_ms = device_ms(lambda: pos_conv(x))
+            finally:
+                torch.backends.cudnn.benchmark = False
+            pos_conv_times[f"b{batch}_3s"] = {
+                "ms": default_ms, "ms_cudnn_benchmark": searched_ms, "bound_ms": b_ms,
+                "bound_by": b_by, "flops": flops,
+                "shape": f"x ({batch}, {t}, {c_model}), k {pos_conv.kernel_size}, {g} groups"}
+
+    wavs = 0.1 * torch.randn(1, 3 * SR, generator=gen)
+    lengths = torch.tensor([3 * SR])
+    infer = task.infer_fn()
+    infer_profile = _profile_device(lambda: infer(wavs, lengths)["scores"].cpu())
+    step_profile = _profile_device(lambda: float(trainer.train_step(train_batches[0])["loss"]))
+    emit({
+        "phase": "wavlm_e2e", "config": "WavLM-Base+ joint model, 3 heads",
+        "infer_3s": host["infer_3s"], "train_step_b8_4s": host["train_step_b8_4s"],
+        "lid_p50_ms_client": serve_report["client_p50_ms"],
+        "lid_p50_ms_handler": serve_report["stats"]["total"]["p50_ms"],
+        "lid_p50_ms_device": serve_report["stats"]["device"]["p50_ms"],
+        "profile_b1_3s": infer_profile, "profile_step_b8_4s": step_profile,
+        "pos_conv": pos_conv_times,
+    })
+    return rows
 
 
 def main(argv=None) -> int:
@@ -2206,8 +2690,16 @@ def main(argv=None) -> int:
             {"fbank": FBANK_SHAPES["gate_eval"], "glu_bn_act": GATE_DW_SHAPE}, inputs, smi,
             single_cell=False)
         phase_cli_augment(root, corpus)
-    phase_timings(task, gen, errs, served, serve_report, trained, training, cli,
-                  flagship_eval)
+        wavlm_task = phase_wavlm_model(gen)
+        wavlm_serve = phase_serve(wavlm_task, gen, WAVLM_PER_FORWARD_LAUNCHES, "wavlm_serve")
+        phase_wavlm_train_card_vs_cpu(gen)
+        wavlm_cli = phase_cli_wavlm(root, corpus, smi)
+    # host-clock loops first, the profiler's runs after (it slows what follows it)
+    wavlm_host = phase_wavlm_host_timings(wavlm_task, gen)
+    kernels = phase_timings(task, gen, errs, served, serve_report, trained, training, cli,
+                            flagship_eval)
+    kernels += phase_wavlm_timings(wavlm_task, gen, errs, wavlm_host, wavlm_serve, wavlm_cli)
+    emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -187,7 +187,8 @@ def make_lid_fn(task) -> LidFn:
 def load_lid_weights(task, ckpt_data) -> None:
     """The weights of a checkpoint (``core.checkpoint.load_checkpoint``)
     into ``task``: those written by the port's trainer as they are, those of
-    a JAX checkpoint through ``convert``."""
+    a JAX checkpoint through ``convert`` (a Conformer or an SSL featurizer,
+    its encoder unrolled or scanned)."""
     from speechlid_tpu_torch import convert
 
     if "state" in ckpt_data:

@@ -17,7 +17,13 @@ Layout changes, leaf by leaf:
 - the stacked heads ``heads/heads/…`` carry a leading language axis L:
   slice l goes to ``heads.heads.{l}``;
 - encoder blocks come unrolled (``block_i/``) or scanned
-  (``blocks/ConformerBlock_0/`` with a leading block axis N); both load.
+  (``blocks/ConformerBlock_0/`` with a leading block axis N); both load;
+- an SSL featurizer (``featurizer/upstream/…``, or ``featurizer/wavlm/…``
+  for ``WavLMModel``; ``featurizer/featurizer/layer_weights``): conv kernels
+  (k, in, out) → (out, in, k), the other leaves by name; its encoder layers
+  come unrolled (``layers_i/``) or scanned (``layers_0/`` and
+  ``layers_rest/WavLMEncoderLayer_0/`` with a leading axis N − 1); both
+  load.  It has no BatchNorm, so no ``featurizer`` batch statistics.
 
 :func:`lid_variables` is the reverse direction (``state_dict`` → flax-shaped
 numpy trees, unrolled ``block_i`` layout), so that parameters and BatchNorm
@@ -119,11 +125,75 @@ def conformer_state(params: Mapping, stats: Mapping, prefix: str = "") -> StateD
     return sd
 
 
+SSL_UPSTREAMS = ("upstream", "wavlm")  # SSLFeaturizerModel's, WavLMModel's
+
+
+def wavlm_layer_state(p: Mapping, prefix: str) -> StateDict:
+    """One JAX ``WavLMEncoderLayer`` (params ``p``)."""
+    attn = p["self_attn"]
+    sd: StateDict = {}
+    for proj in ("q_proj", "k_proj", "v_proj", "out_proj"):
+        sd.update(_dense(attn[proj], f"{prefix}self_attn.{proj}."))
+    if "relative_attention_bias" in attn:
+        sd[prefix + "self_attn.relative_attention_bias"] = _a(attn["relative_attention_bias"])
+    if "grep_linear" in attn:
+        sd.update(_dense(attn["grep_linear"], prefix + "self_attn.grep_linear."))
+        sd[prefix + "self_attn.grep_a"] = _a(attn["grep_a"])
+    for ln in ("self_attn_layer_norm", "final_layer_norm"):
+        sd.update(_norm(p[ln], f"{prefix}{ln}."))
+    for fc in ("fc1", "fc2"):
+        sd.update(_dense(p[fc], f"{prefix}{fc}."))
+    return sd
+
+
+def wavlm_state(params: Mapping, prefix: str = "") -> StateDict:
+    """JAX ``WavLM`` params → ``WavLM`` state_dict."""
+    sd: StateDict = {}
+    for name, node in params["feature_extractor"].items():
+        dst = f"{prefix}feature_extractor.{name}."
+        if name.startswith("conv_"):  # (k, in, out) → (out, in, k)
+            sd[dst + "weight"] = _a(node["kernel"]).transpose(2, 1, 0)
+            if "bias" in node:
+                sd[dst + "bias"] = _a(node["bias"])
+        else:  # gn_0, ln_i
+            sd.update(_norm(node, dst))
+    sd.update(_norm(params["layer_norm"], prefix + "layer_norm."))
+    if "post_extract_proj" in params:
+        sd.update(_dense(params["post_extract_proj"], prefix + "post_extract_proj."))
+    sd[prefix + "mask_emb"] = _a(params["mask_emb"])
+    for leaf in ("weight_v", "weight_g", "bias"):
+        sd[f"{prefix}pos_conv.{leaf}"] = _a(params["pos_conv"][leaf])
+    sd.update(_norm(params["encoder_layer_norm"], prefix + "encoder_layer_norm."))
+    if "layers_rest" in params:  # scanned: layer 0, then N − 1 stacked
+        rest = params["layers_rest"]["WavLMEncoderLayer_0"]
+        n_rest = _a(rest["fc2"]["bias"]).shape[0]
+        layers = [params["layers_0"]] + [_take(rest, i) for i in range(n_rest)]
+    else:
+        n_layers = sum(1 for k in params if k.startswith("layers_"))
+        layers = [params[f"layers_{i}"] for i in range(n_layers)]
+    for i, p in enumerate(layers):
+        sd.update(wavlm_layer_state(p, f"{prefix}layers.{i}."))
+    return sd
+
+
+def ssl_featurizer_state(params: Mapping, prefix: str = "") -> StateDict:
+    """JAX ``SSLFeaturizerModel`` (or ``WavLMModel``) params → its
+    state_dict."""
+    (upstream,) = [k for k in SSL_UPSTREAMS if k in params]
+    sd = wavlm_state(params[upstream], f"{prefix}{upstream}.")
+    if "featurizer" in params:
+        sd[prefix + "featurizer.layer_weights"] = _a(params["featurizer"]["layer_weights"])
+    return sd
+
+
 def lid_state(variables: Mapping) -> StateDict:
-    """JAX ``MutiLangModel`` (Conformer featurizer, Conformer heads)
+    """JAX ``MutiLangModel`` (Conformer or SSL featurizer, Conformer heads)
     variables → ``MutiLangModel`` state_dict."""
     params, stats = variables["params"], variables.get("batch_stats", {})
-    sd = conformer_state(params["featurizer"], stats.get("featurizer", {}), "featurizer.")
+    if "subsample" in params["featurizer"]:
+        sd = conformer_state(params["featurizer"], stats.get("featurizer", {}), "featurizer.")
+    else:
+        sd = ssl_featurizer_state(params["featurizer"], "featurizer.")
     heads_p, heads_s = params["heads"]["heads"], stats["heads"]["heads"]
     n_lang = _a(heads_p["Dense_0"]["bias"]).shape[0]
     n_layers = sum(1 for k in heads_p if k.startswith("block_"))
@@ -222,11 +292,70 @@ def conformer_variables(sd: Mapping, prefix: str = ""):
     return params, stats
 
 
+def wavlm_layer_variables(sd: Mapping, prefix: str) -> Dict:
+    """One ``WavLMEncoderLayer`` of a state_dict → its JAX params."""
+    attn = {proj: _dense_tree(sd, f"{prefix}self_attn.{proj}.")
+            for proj in ("q_proj", "k_proj", "v_proj", "out_proj")}
+    if prefix + "self_attn.relative_attention_bias" in sd:
+        attn["relative_attention_bias"] = _n(sd[prefix + "self_attn.relative_attention_bias"])
+    if prefix + "self_attn.grep_a" in sd:
+        attn["grep_linear"] = _dense_tree(sd, prefix + "self_attn.grep_linear.")
+        attn["grep_a"] = _n(sd[prefix + "self_attn.grep_a"])
+    params = {"self_attn": attn}
+    for ln in ("self_attn_layer_norm", "final_layer_norm"):
+        params[ln] = _norm_tree(sd, f"{prefix}{ln}.")
+    for fc in ("fc1", "fc2"):
+        params[fc] = _dense_tree(sd, f"{prefix}{fc}.")
+    return params
+
+
+def wavlm_variables(sd: Mapping, prefix: str = "") -> Dict:
+    """``WavLM`` entries of a state_dict → the JAX ``WavLM`` params
+    (unrolled ``layers_i``): the inverse of :func:`wavlm_state`."""
+    fe = prefix + "feature_extractor."
+    names = sorted({k[len(fe):].split(".")[0] for k in sd if k.startswith(fe)})
+    extractor = {}
+    for name in names:
+        if name.startswith("conv_"):
+            extractor[name] = {"kernel": _n(sd[f"{fe}{name}.weight"]).transpose(2, 1, 0)}
+            if f"{fe}{name}.bias" in sd:
+                extractor[name]["bias"] = _n(sd[f"{fe}{name}.bias"])
+        else:
+            extractor[name] = _norm_tree(sd, f"{fe}{name}.")
+    params = {
+        "feature_extractor": extractor,
+        "layer_norm": _norm_tree(sd, prefix + "layer_norm."),
+        "mask_emb": _n(sd[prefix + "mask_emb"]),
+        "pos_conv": {leaf: _n(sd[f"{prefix}pos_conv.{leaf}"])
+                     for leaf in ("weight_v", "weight_g", "bias")},
+        "encoder_layer_norm": _norm_tree(sd, prefix + "encoder_layer_norm."),
+    }
+    if prefix + "post_extract_proj.weight" in sd:
+        params["post_extract_proj"] = _dense_tree(sd, prefix + "post_extract_proj.")
+    for i in range(_count(sd, prefix + "layers.")):
+        params[f"layers_{i}"] = wavlm_layer_variables(sd, f"{prefix}layers.{i}.")
+    return params
+
+
+def ssl_featurizer_variables(sd: Mapping, prefix: str = "") -> Dict:
+    """``SSLFeaturizerModel`` (or ``WavLMModel``) entries of a state_dict →
+    its JAX params: the inverse of :func:`ssl_featurizer_state`."""
+    (upstream,) = [k for k in SSL_UPSTREAMS
+                   if any(n.startswith(f"{prefix}{k}.") for n in sd)]
+    params = {upstream: wavlm_variables(sd, f"{prefix}{upstream}.")}
+    if prefix + "featurizer.layer_weights" in sd:
+        params["featurizer"] = {"layer_weights": _n(sd[prefix + "featurizer.layer_weights"])}
+    return params
+
+
 def lid_variables(sd: Mapping) -> Dict[str, Dict]:
     """``MutiLangModel`` state_dict → ``{"params", "batch_stats"}`` of the JAX
-    ``MutiLangModel`` (unrolled encoder blocks, heads stacked on a leading
-    language axis): the inverse of :func:`lid_state`."""
-    feat_p, feat_s = conformer_variables(sd, "featurizer.")
+    ``MutiLangModel`` (unrolled encoder blocks or layers, heads stacked on a
+    leading language axis): the inverse of :func:`lid_state`."""
+    if "featurizer.subsample.out.weight" in sd:
+        feat_p, feat_s = conformer_variables(sd, "featurizer.")
+    else:  # an SSL featurizer: no BatchNorm
+        feat_p, feat_s = ssl_featurizer_variables(sd, "featurizer."), None
     heads_p, heads_s = [], []
     for lang in range(_count(sd, "heads.heads.")):
         prefix = f"heads.heads.{lang}."
@@ -243,7 +372,8 @@ def lid_variables(sd: Mapping) -> Dict[str, Dict]:
             "discriminator": {"Dense_0": _dense_tree(sd, "discriminator.fc1."),
                               "Dense_1": _dense_tree(sd, "discriminator.fc2.")},
         },
-        "batch_stats": {"featurizer": feat_s, "heads": {"heads": _stack(heads_s)}},
+        "batch_stats": {**({} if feat_s is None else {"featurizer": feat_s}),
+                        "heads": {"heads": _stack(heads_s)}},
     }
 
 

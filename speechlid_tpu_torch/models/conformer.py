@@ -77,10 +77,11 @@ class Dropout(nn.Module):
 
 
 def set_generator(module: nn.Module, generator: Optional[torch.Generator]) -> None:
-    """Give every random draw under ``module`` (dropout, stochastic depth)
-    the same explicit generator."""
+    """Give every random draw under ``module`` (dropout, stochastic depth,
+    an SSL encoder's span masks and layer drop: every module with a
+    ``generator`` attribute) the same explicit generator."""
     for m in module.modules():
-        if isinstance(m, (Dropout, ConformerModel)):
+        if hasattr(m, "generator"):
             m.generator = generator
 
 

@@ -12,9 +12,15 @@ JAX package's Conformer LID model draws:
   0.87962566103423978 (the truncation's own standard deviation), so the
   draw has variance 1/fan_in;
 - every bias: zeros;
-- LayerNorm and BatchNorm: scale 1, bias 0; BatchNorm running mean 0 and
-  running variance 1;
+- LayerNorm, GroupNorm and BatchNorm: scale 1, bias 0; BatchNorm running
+  mean 0 and running variance 1;
 - ``rel_pos_emb``: N(0, 1).
+
+The SSL featurizers (``models/wavlm.py``, ``models/wav2vec2.py``) add:
+``relative_attention_bias`` N(0, 1); ``grep_a`` ones; the positional conv's
+``weight_v`` N(0, √(4/(K·C))), ``weight_g`` ones and bias zeros;
+``mask_emb`` uniform on [0, 1); the Featurizer's ``layer_weights`` zeros.
+Their convs and Dense layers are ``lecun_normal`` like the rest.
 
 fan_in is the kernel's input width times its receptive field: ``in`` for a
 Linear (out, in), in·kh·kw for a Conv2d (out, in, kh, kw), in·k for a Conv1d,
@@ -39,6 +45,8 @@ from speechlid_tpu_torch.models.conformer import (
     MaskedBatchNorm,
     RelPosAttention,
 )
+from speechlid_tpu_torch.models.wav2vec2 import Featurizer
+from speechlid_tpu_torch.models.wavlm import RelPosMultiheadAttention, WavLM, _WeightNormConvPos
 
 # the standard deviation of a unit normal truncated to [-2, 2]
 TRUNCATED_NORMAL_STD = 0.87962566103423978
@@ -75,13 +83,28 @@ def init_like_flax_(module: nn.Module, generator: torch.Generator) -> None:
         elif isinstance(m, DepthwiseConv1d):
             k = m.weight.shape[0]
             draws["weight"] = lecun_normal(m.weight.shape, k, generator)
-        elif isinstance(m, (nn.LayerNorm, MaskedBatchNorm)):
+        elif isinstance(m, (nn.LayerNorm, nn.GroupNorm, MaskedBatchNorm)):
             draws["weight"] = torch.ones(m.weight.shape)
             if isinstance(m, MaskedBatchNorm):
                 m.running_mean.zero_()
                 m.running_var.fill_(1.0)
         elif isinstance(m, RelPosAttention):
             draws["rel_pos_emb"] = torch.randn(m.rel_pos_emb.shape, generator=generator)
+        elif isinstance(m, RelPosMultiheadAttention):
+            if m.relative_attention_bias is not None:
+                draws["relative_attention_bias"] = torch.randn(
+                    m.relative_attention_bias.shape, generator=generator)
+            if m.gru_rel_pos:
+                draws["grep_a"] = torch.ones(m.grep_a.shape)
+        elif isinstance(m, _WeightNormConvPos):
+            c, _, k = m.weight_v.shape
+            draws["weight_v"] = torch.randn(m.weight_v.shape, generator=generator) \
+                * math.sqrt(4.0 / (k * c))
+            draws["weight_g"] = torch.ones(m.weight_g.shape)
+        elif isinstance(m, WavLM):
+            draws["mask_emb"] = torch.rand(m.mask_emb.shape, generator=generator)
+        elif isinstance(m, Featurizer):
+            draws["layer_weights"] = torch.zeros(m.layer_weights.shape)
         if "bias" in own:
             draws["bias"] = torch.zeros(own["bias"].shape)
         missing = sorted(set(own) - set(draws))

@@ -1,32 +1,41 @@
 """Joint LID + per-language CTC-ASR task (port of
-``speechlid_tpu/tasks/lid_asr.py``), Conformer featurizer.
+``speechlid_tpu/tasks/lid_asr.py``): Conformer, WavLM or wav2vec2
+featurizer.
 
 Builds the same model from the same hyper-parameter names as the JAX
 ``LidASRTask``, so either package's checkpoint ``hyper_parameters``
 construct it.
 
 - train: language-homogeneous batches; fbank (+ time stretch, SpecAugment)
-  → Conformer featurizer → the batch's OWN language head → CTC loss with the
-  blank last, ``reduction="none"`` then a plain batch mean of the
+  → Conformer featurizer, or the normalised wave → SSL featurizer (span
+  masking on) → the batch's OWN language head → CTC loss with the blank
+  last, ``reduction="none"`` then a plain batch mean of the
   unnormalised NLLs.  Only the own head runs: the JAX task computes every
   head in one graph but takes the loss from the own head and commits only
   its BatchNorm statistics, so loss, gradients and state are the same.
 - val: all heads; CTC loss of each utterance's own head, greedy ids, and the
   all-head confidence scores; EER/Cavg accumulate on the
   ``-1/(s-1e-9)``-normalised probability vector, accuracy on its argmax.
-- freeze schedule: ``freeze_featurizer_epoch`` keeps the encoder frozen
-  through epoch N; ``keep_train_lang`` freezes every head but one.  Frozen
-  means ``requires_grad=False``.
+- freeze schedule, leaf for leaf as the JAX task's mask: through epoch N
+  of ``freeze_featurizer_epoch`` the whole Conformer featurizer, or an SSL
+  featurizer's conv extractor and ``post_extract_proj``; through epoch N of
+  ``freeze_transformer_epoch`` an SSL featurizer's encoder layers,
+  ``pos_conv`` and ``encoder_layer_norm``; ``keep_train_lang`` freezes
+  every head but one.  Frozen means ``requires_grad=False``.
+- SSL warm start: ``pt_path`` (a WavLM or fairseq wav2vec2 ``.pt``) loads
+  into the upstream when the task is built, and again after
+  :meth:`init_parameters`' fresh draw, as the JAX task replaces the
+  upstream after its init.
 
-Not ported yet, and raising: the SSL featurizers (wavlm, wav2vec2),
-``bilstm`` heads, ``dtype`` other than float32, ``quant_dot``.  Accepted and
-without effect here: ``remat`` and ``scan_blocks`` (they change how XLA
-compiles the same numbers), ``freeze_transformer_epoch`` and the SSL
-options (they name parts of an SSL featurizer).
+Not ported yet, and raising: ``bilstm`` heads, ``dtype`` other than
+float32, ``quant_dot``.  Accepted and without effect here: ``remat``,
+``scan_blocks`` (they change how XLA compiles the same numbers) and
+``ssl_conv_impl`` (two lowerings of the same conv in the JAX package).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import logging
 from typing import Any, Dict, List, Optional, Union
 
@@ -40,8 +49,20 @@ from speechlid_tpu_torch.metrics import CAvg, CharErrorRate, EER, WordErrorRate
 from speechlid_tpu_torch.models.conformer import ConformerModel, set_generator
 from speechlid_tpu_torch.models.init import init_like_flax_
 from speechlid_tpu_torch.models.multilang import MutiLangModel, lang_confidence_scores
+from speechlid_tpu_torch.models.wav2vec2 import (
+    SSLFeaturizerModel,
+    load_fairseq_wav2vec2_checkpoint,
+    wav2vec2_config,
+)
+from speechlid_tpu_torch.models.wavlm import WavLMConfig, load_wavlm_checkpoint
 from speechlid_tpu_torch.ops.ctc import ctc_loss
-from speechlid_tpu_torch.ops.frontend import fused_frontend
+from speechlid_tpu_torch.ops.frontend import fused_frontend, normalize_wav
+
+SSL_FEATURIZERS = ("wavlm", "wav2vec2")
+# parameter-name parts (under ``featurizer.``) of an SSL featurizer that
+# each freeze gate holds, as the JAX task's mask names them
+SSL_EXTRACTOR_PARTS = (".feature_extractor.", ".post_extract_proj.")
+SSL_TRANSFORMER_PARTS = (".layers.", ".pos_conv.", ".encoder_layer_norm.")
 
 
 def normalize_scores(scores: np.ndarray) -> np.ndarray:
@@ -105,8 +126,8 @@ class LidASRTask(TaskModule):
         device: Union[str, torch.device] = "cuda",
     ) -> None:
         super().__init__()
-        if featurizer != "conformer":
-            raise NotImplementedError(f"featurizer {featurizer!r} is not ported yet")
+        if featurizer not in ("conformer", *SSL_FEATURIZERS):
+            raise ValueError(f"unknown featurizer: {featurizer}")
         if head_type != "conformer_linear":
             raise NotImplementedError(f"head_type {head_type!r} is not ported yet")
         if dtype != "float32" or quant_dot:
@@ -150,6 +171,7 @@ class LidASRTask(TaskModule):
         self.clip_norm = clip_norm
         self.routed_optim = routed_optim
         self.freeze_featurizer_epoch = freeze_featurizer_epoch
+        self.freeze_transformer_epoch = freeze_transformer_epoch
         self.keep_train_lang = keep_train_lang
         self.use_cer = use_cer
         self.device = torch.device(device)
@@ -157,17 +179,34 @@ class LidASRTask(TaskModule):
         self._generator: Optional[torch.Generator] = None
         self._host_generator: Optional[torch.Generator] = None
 
-        featurizer_module = ConformerModel(
-            n_blocks=n_blocks, n_mels=n_mels, encoder_dim=encoder_dim, heads=heads,
-            dim_head=dim_head, sub_sampling=sub_sampling, use_double_swish=double_swish,
-            pos_dropout=pos_dropout, use_stochastic_depth=use_stochastic_depth,
-            stochastic_depth_p=stochastic_depth_p,
-        )
+        self.featurizer_kind = featurizer
+        self._ssl_state: Optional[Dict[str, torch.Tensor]] = None
+        if featurizer == "conformer":
+            featurizer_module = ConformerModel(
+                n_blocks=n_blocks, n_mels=n_mels, encoder_dim=encoder_dim, heads=heads,
+                dim_head=dim_head, sub_sampling=sub_sampling, use_double_swish=double_swish,
+                pos_dropout=pos_dropout, use_stochastic_depth=use_stochastic_depth,
+                stochastic_depth_p=stochastic_depth_p,
+            )
+        else:
+            if pt_path:
+                load = load_wavlm_checkpoint if featurizer == "wavlm" \
+                    else load_fairseq_wav2vec2_checkpoint
+                self._ssl_state, ssl_cfg = load(pt_path)
+            else:
+                conf = dict(ssl_config or {})
+                ssl_cfg = (WavLMConfig.from_dict(conf) if featurizer == "wavlm"
+                           else wav2vec2_config(**conf))
+            if ssl_conv_impl:
+                ssl_cfg = dataclasses.replace(ssl_cfg, conv_extractor_impl=ssl_conv_impl)
+            featurizer_module = SSLFeaturizerModel(ssl_cfg, feature_selection=feature_selection)
+            encoder_dim = ssl_cfg.encoder_embed_dim  # the heads' width
         self.model = MutiLangModel(
             featurizer_module, self.vocab_sizes, linear_dim=encoder_dim,
             num_layers=head_layers, dim_head=head_dim_head, num_head=head_num_head,
             use_double_swish=double_swish, dropout=dropout,
         ).to(self.device).eval()
+        self._load_ssl_state()
         self.eer = EER(num_class=self.n_lang)
         self.cavg = CAvg(num_class=self.n_lang)
         # against the true label, where the two above score against the
@@ -185,8 +224,14 @@ class LidASRTask(TaskModule):
 
     def init_parameters(self, generator: torch.Generator) -> None:
         """Every parameter as the JAX task's ``init_variables`` draws it
-        (flax's initializers, ``models/init.py``)."""
+        (flax's initializers, ``models/init.py``); then the ``pt_path``
+        upstream again, as the JAX task puts it over its fresh draw."""
         init_like_flax_(self.model, generator)
+        self._load_ssl_state()
+
+    def _load_ssl_state(self) -> None:
+        if self._ssl_state is not None:
+            self.model.featurizer.upstream.load_state_dict(self._ssl_state)
 
     def config_optim(self):
         optimizer, plateau = make_optimizer(
@@ -212,6 +257,17 @@ class LidASRTask(TaskModule):
         return out
 
     # -------------------------------------------------------------- frontend
+    def _model_inputs(self, wavs: torch.Tensor, wav_lengths: Optional[torch.Tensor],
+                      augment: bool = False):
+        """The featurizer's input and its lengths: fbank features for the
+        Conformer, the normalised wave for an SSL upstream (its conv
+        extractor is the frontend)."""
+        if self.featurizer_kind == "conformer":
+            return self._features(wavs, wav_lengths, augment)
+        if augment and self._generator is None:
+            raise RuntimeError("training needs set_generators() first (the Trainer calls it)")
+        return normalize_wav(wavs, wav_lengths), wav_lengths
+
     def _features(self, wavs: torch.Tensor, wav_lengths: Optional[torch.Tensor],
                   augment: bool = False):
         """((B, F, n_mels) features, frame lengths), without a graph: the
@@ -234,7 +290,8 @@ class LidASRTask(TaskModule):
         (1, B, T, V)); eval all heads."""
         langs = batch["langs"]  # on the host, see place_batch
         wavs = batch["wavs"].to(self.device, torch.float32)
-        feats, f_len = self._features(wavs, batch["wav_lengths"].to(self.device), augment=train)
+        feats, f_len = self._model_inputs(wavs, batch["wav_lengths"].to(self.device),
+                                          augment=train)
         if train:
             own_lang = int(langs[0])
             if bool((langs != own_lang).any()):
@@ -276,18 +333,29 @@ class LidASRTask(TaskModule):
         return out
 
     # ------------------------------------------------------------- host hooks
+    def frozen(self, name: str, epoch: int) -> bool:
+        """Whether parameter ``name`` stands still in ``epoch``: the JAX
+        task's freeze mask, leaf for leaf."""
+        if name.startswith("featurizer."):
+            ssl = self.featurizer_kind in SSL_FEATURIZERS
+            if epoch <= self.freeze_featurizer_epoch and (
+                    not ssl or any(part in name for part in SSL_EXTRACTOR_PARTS)):
+                return True
+            return epoch <= self.freeze_transformer_epoch and any(
+                part in name for part in SSL_TRANSFORMER_PARTS)
+        if self.keep_train_lang is not None and name.startswith("heads.heads."):
+            kept_head = f"heads.heads.{self.lang2index[self.keep_train_lang]}."
+            return not name.startswith(kept_head)
+        return False
+
     def before_train_loop(self, epoch: int) -> None:
-        freeze_feat = epoch <= self.freeze_featurizer_epoch
-        keep_idx = None if self.keep_train_lang is None else self.lang2index[self.keep_train_lang]
-        kept_head = f"heads.heads.{keep_idx}."
         for name, p in self.model.named_parameters():
-            frozen = (freeze_feat and name.startswith("featurizer.")) or (
-                keep_idx is not None and name.startswith("heads.heads.")
-                and not name.startswith(kept_head))
-            p.requires_grad_(not frozen)
-        if freeze_feat or keep_idx is not None:
-            logging.info("freeze schedule: featurizer_frozen=%s keep_train_lang=%s",
-                         freeze_feat, self.keep_train_lang)
+            p.requires_grad_(not self.frozen(name, epoch))
+        freeze_feat = epoch <= self.freeze_featurizer_epoch
+        freeze_trans = epoch <= self.freeze_transformer_epoch
+        if freeze_feat or freeze_trans or self.keep_train_lang is not None:
+            logging.info("freeze schedule: featurizer_frozen=%s transformer_frozen=%s "
+                         "keep_train_lang=%s", freeze_feat, freeze_trans, self.keep_train_lang)
 
     def val_loop_end(self, outputs: List[Dict]) -> Dict[str, float]:
         losses, correct, total = [], 0, 0
@@ -353,7 +421,7 @@ class LidASRTask(TaskModule):
             wavs = wavs.to(self.device, torch.float32)
             if wav_lengths is not None:
                 wav_lengths = wav_lengths.to(self.device)
-            feats, f_len = self._features(wavs, wav_lengths)
+            feats, f_len = self._model_inputs(wavs, wav_lengths)
             return self.model.infer(feats, f_len)
 
         return fn

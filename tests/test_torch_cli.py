@@ -11,7 +11,11 @@ the JAX package's, on a tiny 2-language corpus on the CPU.
 - ``data.wav_augment`` trains through the augmentor and feeds the JAX CLI's
   batch lengths, and an unknown key of it raises ``TypeError`` in both;
 - every option not ported yet raises ``NotImplementedError``, and without
-  ``--device`` the CLI asks for the card."""
+  ``--device`` the CLI asks for the card;
+- the SSL configs: ``lid_wavlm.yaml`` with a tiny ``module.ssl_config``
+  trains across both freeze gates and has the JAX CLI's hyper-parameters,
+  ``lid_wav2vec.yaml`` trains without its augmentor and raises the JAX
+  CLI's ``TypeError`` with it, the bf16 and int8 WavLM configs raise."""
 
 import json
 import os
@@ -214,3 +218,98 @@ def test_device_defaults_to_the_card(corpus, tmp_path, monkeypatch):
     with pytest.raises((AssertionError, RuntimeError)):
         main_lid.main(_args(corpus, tmp_path / "exp"))
     assert not (tmp_path / "exp" / "metrics.jsonl").exists()
+
+
+TINY_WAVLM = ("module.ssl_config={encoder_layers: 1, encoder_embed_dim: 32, "
+              "encoder_ffn_embed_dim: 64, encoder_attention_heads: 2, "
+              "conv_feature_layers: \"[(16,10,5)] + [(16,3,2)] * 2\", conv_pos: 16, "
+              "conv_pos_groups: 4, relative_position_embedding: true, num_buckets: 16, "
+              "max_distance: 64, gru_rel_pos: true}")
+
+
+def test_wavlm_config_trains_across_both_freeze_gates(corpus, tmp_path, monkeypatch):
+    """``configs/lid_wavlm.yaml`` with a tiny ``module.ssl_config`` trains
+    through the CLI for three epochs (its gates: extractor frozen through
+    epoch 1, the transformer through epoch 0), with span masking on; the
+    task has the JAX CLI's hyper-parameters, and the checkpoint serves."""
+    monkeypatch.setenv("SPEECHLID_CACHE_DIR", str(tmp_path / "cache"))
+    args = ["--config-dir", "configs", "--config-name", "lid_wavlm", _langs(corpus),
+            f"exp_dir={tmp_path / 'exp'}", TINY_WAVLM, "module.head_dim_head=8",
+            "module.head_num_head=2", "data.batch_size=3", "data.buckets_s=[0.5, 1.0]",
+            "trainer.total_epoch=3", "trainer.accum_grad=1", "trainer.progress_bar=false",
+            "module.schedule=null"]
+    frozen = {}
+    build_task = main_lid.build_task
+
+    def recording_build_task(conf, data, device="cuda"):
+        task = build_task(conf, data, device)
+        before = task.before_train_loop
+
+        def record(epoch):
+            before(epoch)
+            frozen[epoch] = {n.split(".")[2] for n, p in task.model.named_parameters()
+                             if not p.requires_grad}
+        task.before_train_loop = record
+        return task
+
+    monkeypatch.setattr(main_lid, "build_task", recording_build_task)
+    main_lid.main(args + ["--device", "cpu"])
+    assert frozen == {0: {"feature_extractor", "post_extract_proj", "layers", "pos_conv",
+                          "encoder_layer_norm"},
+                      1: {"feature_extractor", "post_extract_proj"}, 2: set()}
+    lines = _lines(tmp_path / "exp" / "metrics.jsonl")
+    assert sum("avg_val_loss" in r for r in lines) == 3
+    assert all(np.isfinite(r["loss"]) for r in lines if "loss" in r)
+    lid_fn, _ = build_lid_fn(str(tmp_path / "exp" / "ckpt" / "last.ckpt"), device="cpu")
+    scores = lid_fn((0.1 * np.random.RandomState(2).randn(1, SR)).astype(np.float32), SR)
+    assert scores.shape == (1, 2) and np.isfinite(scores).all()
+    conf = load_config("configs", "lid_wavlm", args[4:])
+    jconf = jax_load_config("configs", "lid_wavlm", args[4:])
+    data, jdata = main_lid.build_data(conf), jax_main_lid.build_data(jconf)
+    assert build_task(conf, data, device="cpu").hyper_parameters == \
+        jax_main_lid.build_task(jconf, jdata).hyper_parameters
+
+
+TINY_WAV2VEC = ("module.ssl_config={encoder_layers: 1, encoder_embed_dim: 32, "
+                "encoder_ffn_embed_dim: 64, encoder_attention_heads: 2, "
+                "conv_feature_layers: \"[(16,10,5)] + [(16,3,2)] * 2\", conv_pos: 16, "
+                "conv_pos_groups: 4, extractor_mode: layer_norm, layer_norm_first: true, "
+                "normalize: true, mask_prob: 0.15, mask_channel_prob: 0.15}")
+
+
+@pytest.mark.parametrize("cli", ["port", "jax"])
+def test_ssl_configs_that_raise_as_in_jax(corpus, tmp_path, monkeypatch, cli):
+    """``configs/lid_wav2vec.yaml``'s ``wav_augment`` (``speed_shift``)
+    raises ``TypeError`` in both CLIs when the train feeder is built; the
+    bf16 and int8 WavLM configs raise ``NotImplementedError`` in the port."""
+    monkeypatch.setenv("SPEECHLID_CACHE_DIR", str(tmp_path / "cache"))
+    args = ["--config-dir", "configs", "--config-name", "lid_wav2vec", _langs(corpus),
+            f"exp_dir={tmp_path / 'exp'}", TINY_WAV2VEC]
+    with pytest.raises(TypeError, match="speed_shift"):
+        if cli == "port":
+            main_lid.main(args + ["--device", "cpu"])
+        else:
+            jax_main_lid.main(args)
+    if cli == "port":
+        for name in ("lid_wavlm_bf16", "lid_wavlm_qat"):
+            with pytest.raises(NotImplementedError, match="float32"):
+                main_lid.main(["--config-dir", "configs", "--config-name", name, _langs(corpus),
+                               f"exp_dir={tmp_path / name}", "--device", "cpu"])
+
+
+def test_wav2vec_config_trains_without_its_augmentor(corpus, tmp_path, monkeypatch):
+    """``configs/lid_wav2vec.yaml`` (pre-LN, layer-norm extractor, wave
+    normalisation, span and channel masking) with a tiny ``ssl_config`` and
+    ``data.wav_augment`` taken out trains an epoch and serves."""
+    monkeypatch.setenv("SPEECHLID_CACHE_DIR", str(tmp_path / "cache"))
+    main_lid.main(["--config-dir", "configs", "--config-name", "lid_wav2vec", _langs(corpus),
+                   f"exp_dir={tmp_path / 'exp'}", TINY_WAV2VEC, "data.wav_augment=null",
+                   "module.head_dim_head=8", "module.head_num_head=2", "data.batch_size=3",
+                   "data.buckets_s=[0.5, 1.0]", "trainer.total_epoch=1",
+                   "trainer.progress_bar=false", "module.schedule=null", "--device", "cpu"])
+    lines = _lines(tmp_path / "exp" / "metrics.jsonl")
+    assert any("avg_val_loss" in r for r in lines)
+    assert all(np.isfinite(r["loss"]) for r in lines if "loss" in r)
+    lid_fn, _ = build_lid_fn(str(tmp_path / "exp" / "ckpt" / "last.ckpt"), device="cpu")
+    scores = lid_fn((0.1 * np.random.RandomState(3).randn(1, SR)).astype(np.float32), SR)
+    assert scores.shape == (1, 2) and np.isfinite(scores).all()

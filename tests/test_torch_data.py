@@ -328,6 +328,8 @@ def test_resample_linear_equals_jax():
 def test_ttl_cache_keys_expiry_and_namespace(tmp_path, monkeypatch):
     root = tmp_path / "ttl"
     monkeypatch.setenv("SPEECHLID_CACHE_DIR", str(root))
+    # other test files of a worker process set it and leave it set
+    monkeypatch.delenv("SPEECHLID_CACHE_DISABLE", raising=False)
     calls = []
 
     def scan(manifest_path=None, split="train"):

@@ -156,3 +156,70 @@ def test_unknown_parameter_kind_raises():
 
     with pytest.raises(TypeError, match="no flax initializer"):
         init_like_flax_(Odd(), torch.Generator().manual_seed(0))
+
+
+SSL_HPARAMS = dict(
+    lang2vocab={"aa": 5, "bb": 9}, lang2index={"aa": 0, "bb": 1}, head_dim_head=8,
+    head_num_head=4, schedule=None, feature_selection="hidden_states",
+    ssl_config=dict(encoder_layers=2, encoder_embed_dim=64, encoder_ffn_embed_dim=128,
+                    encoder_attention_heads=8, conv_feature_layers="[(32,10,5)] + [(32,3,2)] * 2",
+                    conv_pos=16, conv_pos_groups=4),
+)
+REL_POS = dict(relative_position_embedding=True, num_buckets=320, max_distance=800,
+               gru_rel_pos=True)
+
+
+@pytest.mark.parametrize("featurizer", ["wavlm", "wav2vec2"])
+def test_ssl_leaves_drawn_like_flax(featurizer):
+    """The SSL featurizers' leaves against the JAX task's ``init_variables``:
+    constants (biases, norms, ``grep_a``, ``weight_g``, ``layer_weights``)
+    exact; convs and Dense kernels ``lecun_normal``; ``relative_attention_bias``
+    N(0, 1); ``weight_v`` N(0, √(4/(K·C))); ``mask_emb`` uniform on [0, 1)."""
+    hp = dict(SSL_HPARAMS, featurizer=featurizer)
+    if featurizer == "wavlm":
+        hp["ssl_config"] = dict(hp["ssl_config"], **REL_POS)
+    jtask = JaxLidASRTask(**hp)
+    rng = np.random.RandomState(0)
+    sample = {"wavs": rng.randn(2, 3200).astype(np.float32),
+              "wav_lengths": np.array([3200, 2000], np.int32)}
+    want = jax.tree_util.tree_map(np.asarray, jtask.init_variables(jax.random.PRNGKey(0), sample))
+    task = LidASRTask(**hp, device="cpu")
+    task.init_parameters(torch.Generator().manual_seed(0))
+    got = convert.lid_variables(task.model.state_dict())
+    a = tree_leaves_with_names(got["params"]["featurizer"])
+    b = tree_leaves_with_names(want["params"]["featurizer"])
+    assert [n for n, _ in a] == [n for n, _ in b]
+    kinds = {"constant": 0, "truncated": 0, "normal": 0, "uniform": 0}
+    for (name, x), (_, y) in zip(a, b):
+        assert x.shape == y.shape and x.dtype == y.dtype == np.float32, name
+        if np.all(y == y.reshape(-1)[0]):
+            np.testing.assert_array_equal(x, y, err_msg=name)
+            kinds["constant"] += 1
+            continue
+        if name.endswith("mask_emb"):
+            for z in (x, y):
+                assert z.min() >= 0.0 and z.max() < 1.0 and abs(z.mean() - 0.5) < 0.15, name
+            kinds["uniform"] += 1
+            continue
+        if name.endswith("/kernel"):
+            fan_in = int(np.prod(y.shape[:-1]))
+            intended = np.sqrt(1.0 / fan_in)
+            sigma = intended / TRUNCATED_NORMAL_STD
+            for z in (x, y):
+                assert np.abs(z).max() <= 2 * sigma * (1 + 1e-6), name
+            kinds["truncated"] += 1
+        elif name.endswith("relative_attention_bias"):
+            intended = 1.0
+            kinds["normal"] += 1
+        else:
+            assert name.endswith("pos_conv/weight_v"), name
+            c, _, k = y.shape
+            intended = np.sqrt(4.0 / (k * c))
+            assert np.abs(x).max() > 2.5 * intended  # an untruncated normal
+            kinds["normal"] += 1
+        if x.size >= MIN_SIZE:
+            assert abs(x.std() / intended - 1) <= STD_TOL, (name, x.std(), intended)
+            assert abs(x.std() / y.std() - 1) <= STD_TOL, (name, x.std(), y.std())
+            assert abs(x.mean()) <= 0.1 * intended, name
+    assert kinds["constant"] > 15 and kinds["truncated"] > 10 and kinds["uniform"] == 1, kinds
+    assert kinds["normal"] == (2 if featurizer == "wavlm" else 1), kinds

@@ -38,7 +38,7 @@ def test_port_imports_no_jax():
                  "data.manifest", "data.datasets", "data.feeder", "models.init",
                  "cli.test_lid", "eval.harness", "eval.sweep", "decode.beam_search",
                  "ops.augment", "ops.resample", "data.augmentor", "core.precision",
-                 "core.native"):
+                 "core.native", "models.wavlm", "models.wav2vec2"):
         assert f"speechlid_tpu_torch.{name}" in modules, name
     result = subprocess.run(
         [sys.executable, "-c", CHECK, "chip_smoke", *modules],

@@ -376,7 +376,8 @@ def test_trainer_rejects_what_is_not_ported(tmp_path):
         Trainer(total_epoch=1, use_progress_bar=False, device="cpu").fit(task, [mixed])
     with pytest.raises(ValueError, match="lives on"):
         Trainer(device="meta").fit(task, [mixed])
-    for kw in (dict(featurizer="wavlm"), dict(head_type="bilstm"), dict(dtype="bfloat16")):
+    for kw in (dict(featurizer="wavlm", quant_dot="int8"), dict(head_type="bilstm"),
+               dict(dtype="bfloat16")):
         with pytest.raises(NotImplementedError):
             LidASRTask(**dict(HPARAMS, **kw), device="cpu")
     with pytest.raises(TypeError, match="mask_time"):  # a misspelt option is an error

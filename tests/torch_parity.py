@@ -2,11 +2,15 @@
 seed a JAX module or task, convert its variables, and hand back both sides
 with the same weights.  Everything random comes from a numpy seed."""
 
+import argparse
+
 import jax
 import numpy as np
 import pytest
 import torch
 
+from speechlid_tpu.models import wav2vec2 as jw2v
+from speechlid_tpu.models import wavlm as jwavlm
 from speechlid_tpu.tasks.lid_asr import LidASRTask as JaxLidASRTask
 from speechlid_tpu_torch import convert
 from speechlid_tpu_torch.tasks.lid_asr import LidASRTask
@@ -69,3 +73,97 @@ def tree_leaves_with_names(tree, prefix=""):
         else:
             out.append((name, np.asarray(value)))
     return out
+
+
+# ---------------------------------------------------------------------------
+# SSL featurizers: a tiny shape, and .pt checkpoints in the reference's names
+# ---------------------------------------------------------------------------
+
+# tests/test_ssl_tasks.py's TINY_SSL with the gated relative position bias on,
+# few buckets and a short positional conv
+TINY_SSL = dict(
+    encoder_layers=2, encoder_embed_dim=64, encoder_ffn_embed_dim=128,
+    encoder_attention_heads=4, conv_feature_layers="[(32,10,5)] + [(32,3,2)] * 2",
+    dropout=0.0, attention_dropout=0.0, mask_prob=0.5,
+    relative_position_embedding=True, num_buckets=16, max_distance=64, gru_rel_pos=True,
+    conv_pos=16, conv_pos_groups=4,
+)
+
+
+def reference_wavlm_state(params, cfg, pos_conv_spelling):
+    """flax WavLM params → a state_dict in the reference torch model's names
+    (the inverse of the JAX package's ``convert_wavlm_state``), with the
+    positional conv's weight norm under either spelling, plus keys the
+    loaders must ignore."""
+    sd = {}
+    for i, _ in enumerate(cfg.conv_layers):
+        p = params["feature_extractor"][f"conv_{i}"]
+        sd[f"feature_extractor.conv_layers.{i}.0.weight"] = np.transpose(p["kernel"], (2, 1, 0))
+        if "bias" in p:
+            sd[f"feature_extractor.conv_layers.{i}.0.bias"] = p["bias"]
+        if cfg.extractor_mode == "layer_norm":
+            ln = params["feature_extractor"][f"ln_{i}"]
+            sd[f"feature_extractor.conv_layers.{i}.2.1.weight"] = ln["scale"]
+            sd[f"feature_extractor.conv_layers.{i}.2.1.bias"] = ln["bias"]
+        elif i == 0:
+            sd["feature_extractor.conv_layers.0.2.weight"] = params["feature_extractor"]["gn_0"]["scale"]
+            sd["feature_extractor.conv_layers.0.2.bias"] = params["feature_extractor"]["gn_0"]["bias"]
+    sd["layer_norm.weight"], sd["layer_norm.bias"] = (params["layer_norm"]["scale"],
+                                                      params["layer_norm"]["bias"])
+    if "post_extract_proj" in params:
+        sd["post_extract_proj.weight"] = params["post_extract_proj"]["kernel"].T
+        sd["post_extract_proj.bias"] = params["post_extract_proj"]["bias"]
+    sd["mask_emb"] = params["mask_emb"]
+    g, v = params["pos_conv"]["weight_g"], params["pos_conv"]["weight_v"]
+    if pos_conv_spelling == "parametrizations":
+        sd["encoder.pos_conv.0.parametrizations.weight.original0"] = g
+        sd["encoder.pos_conv.0.parametrizations.weight.original1"] = v
+    else:
+        sd["encoder.pos_conv.0.weight_g"], sd["encoder.pos_conv.0.weight_v"] = g, v
+    sd["encoder.pos_conv.0.bias"] = params["pos_conv"]["bias"]
+    sd["encoder.layer_norm.weight"] = params["encoder_layer_norm"]["scale"]
+    sd["encoder.layer_norm.bias"] = params["encoder_layer_norm"]["bias"]
+    for i in range(cfg.encoder_layers):
+        lp, pre = params[f"layers_{i}"], f"encoder.layers.{i}."
+        attn = lp["self_attn"]
+        for proj in ("q_proj", "k_proj", "v_proj", "out_proj"):
+            sd[f"{pre}self_attn.{proj}.weight"] = attn[proj]["kernel"].T
+            sd[f"{pre}self_attn.{proj}.bias"] = attn[proj]["bias"]
+        if "relative_attention_bias" in attn:
+            sd[pre + "self_attn.relative_attention_bias.weight"] = attn["relative_attention_bias"]
+        if "grep_linear" in attn:
+            sd[pre + "self_attn.grep_linear.weight"] = attn["grep_linear"]["kernel"].T
+            sd[pre + "self_attn.grep_linear.bias"] = attn["grep_linear"]["bias"]
+            sd[pre + "self_attn.grep_a"] = attn["grep_a"]
+        for ln in ("self_attn_layer_norm", "final_layer_norm"):
+            sd[f"{pre}{ln}.weight"], sd[f"{pre}{ln}.bias"] = lp[ln]["scale"], lp[ln]["bias"]
+        for fc in ("fc1", "fc2"):
+            sd[f"{pre}{fc}.weight"], sd[f"{pre}{fc}.bias"] = lp[fc]["kernel"].T, lp[fc]["bias"]
+    sd["label_embs_concat"] = np.zeros((3, 4), np.float32)  # a pre-training leftover
+    return {k: torch.tensor(np.array(v)) for k, v in sd.items()}
+
+
+def write_wavlm_pt(path, params, cfg_dict, spelling="parametrizations"):
+    cfg = jwavlm.WavLMConfig.from_dict(cfg_dict)
+    torch.save({"cfg": dict(cfg_dict, unknown_key=1),
+                "model": reference_wavlm_state(params, cfg, spelling)}, path)
+
+
+def write_wav2vec2_pt(path, params, cfg_dict):
+    """A fairseq-style checkpoint: ``args`` a namespace, the pre-training
+    heads beside the encoder."""
+    cfg = jw2v.wav2vec2_config(**{k: v for k, v in cfg_dict.items()
+                                  if k in ("encoder_layers", "encoder_embed_dim",
+                                           "encoder_ffn_embed_dim", "encoder_attention_heads",
+                                           "conv_feature_layers")})
+    state = reference_wavlm_state(params, cfg, "weight_g")
+    state["quantizer.vars"] = torch.zeros(3)
+    state["project_q.weight"] = torch.zeros(4, 4)
+    state["final_proj.weight"] = torch.zeros(4, 4)
+    torch.save({"args": argparse.Namespace(**cfg_dict), "cfg": None, "model": state}, path)
+
+
+# the encoder shape of TINY_SSL, as a fairseq checkpoint's args give it
+W2V = {k: v for k, v in TINY_SSL.items() if k in (
+    "encoder_layers", "encoder_embed_dim", "encoder_ffn_embed_dim", "encoder_attention_heads",
+    "conv_feature_layers")}
