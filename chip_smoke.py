@@ -35,8 +35,15 @@ step (``wavlm_train_card_vs_cpu``), served on ``/lid`` (``wavlm_serve``),
 and through the training CLI on ``configs/lid_wavlm.yaml`` with the Base+
 ``module.ssl_config`` across both freeze gates with span masking, a resume,
 a served request and ``cli.test_lid`` on its checkpoint (``cli_wavlm``).
-Last it times the kernels, the models and the train steps (the WavLM
-model's in ``wavlm_e2e``).  The fused modes are also timed against the
+Then both models in bfloat16 (``dtype="bfloat16"``; WavLM's
+``ssl_config.dtype`` too): card against CPU in inference
+(``bf16_model_card_vs_cpu``, ``bf16_wavlm_model_card_vs_cpu``) and for a
+B = 8, 4 s step held against a float32 step on the card
+(``bf16_train_card_vs_cpu``), and ``configs/lid_wavlm_bf16.yaml`` through
+both CLIs (``cli_wavlm_bf16``); ``conv_fused`` holds every bfloat16 kernel
+mode against its bfloat16 plain version.  Last it times the kernels, the
+models and the train steps (the WavLM model's in ``wavlm_e2e``, bfloat16
+against float32 in turns in ``bf16_e2e``).  The fused modes are also timed against the
 unfused chain they replace (``chain_ms``), in turns chain, fused, fused, chain, and the
 profiler shows one device kernel between a conv module's two pointwise
 GEMMs.  Each phase prints one JSON line (the eval CLI prints its own
@@ -46,9 +53,10 @@ counted on that path, its error against its plain version at that shape
 and its times beside its bound.  The last line is
 ``{"ok": true, "device": …}``.
 
-float32 throughout, with TF32 off for matmuls and cuDNN convolutions
-(cuDNN would otherwise run the Conv2d subsampling in TF32).  Weights are
-random, from a seeded ``torch.Generator``.  Imports nothing of JAX.
+float32 with TF32 off for matmuls and cuDNN convolutions (cuDNN would
+otherwise run the Conv2d subsampling in TF32), and bfloat16 where a phase
+says so, with bf16 GEMMs summing in float32.  Weights are random, from a
+seeded ``torch.Generator``.  Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -126,6 +134,10 @@ FBANK_TOL = 1e-3  # dB, atol and rtol: the JAX package's fbank tolerance
 FBANK_MEAN_ERR_OVER_PLAIN = 1.25
 DW_TOL = 1e-5  # f32, atol and rtol (tests/test_pallas_depthwise.py)
 DW_BF16_TOL = (0.1, 0.15)  # rtol, atol of bf16 against the f32 result
+# the bf16 kernel against its bf16 plain version: both round where the JAX
+# module rounds, so they differ by flips of a float32 sum's rounding: at most
+# 2 bf16 ulps of the output's largest entry
+DW_BF16_ULPS = 2 * 2.0 ** -8
 DW_BF16_GRAD_TOL = 2e-2  # bf16 gradients: of the f32 gradient's largest entry
 DW_GRAD_TOL = 1e-4  # f32 gradients, atol and rtol (tests/test_pallas_depthwise.py)
 MODEL_TOL = 1e-3  # card vs CPU scores: 14 + 1 float32 blocks, sums in another order
@@ -156,12 +168,16 @@ N_BLOCKS, N_LANG = FLAGSHIP["n_blocks"], len(FLAGSHIP["lang2vocab"])
 DW_PER_TRAIN_STEP = N_BLOCKS + 1  # the encoder's blocks and the batch's own head
 
 
-def launch_counts(fbank: int = 0, bwd_w: int = 0, **modes: int) -> dict:
+def launch_counts(fbank: int = 0, bwd_w: int = 0, bf16: bool = False, **modes: int) -> dict:
     """The launch counts of :func:`launches` for the given fbank, dW/db and
-    forward-kernel launches by mode (``FWD_MODES``; absent modes are 0)."""
+    forward-kernel launches by mode (``FWD_MODES``; absent modes are 0),
+    every depthwise launch in bfloat16 with ``bf16`` and in float32
+    without."""
     modes = {m: modes.get(m, 0) for m in FWD_MODES}
-    return {"fbank": fbank, "depthwise": sum(modes.values()),
+    total = sum(modes.values())
+    return {"fbank": fbank, "depthwise": total,
             "depthwise_dx": modes["plain_dx"] + modes["glu_dx"], "depthwise_bwd_w": bwd_w,
+            "depthwise_bf16": total if bf16 else 0, "depthwise_bwd_w_bf16": bwd_w if bf16 else 0,
             **{f"depthwise_{m}": n for m, n in modes.items()}}
 
 
@@ -176,6 +192,15 @@ TRAIN_STEP_LAUNCHES = launch_counts(fbank=1, bwd_w=DW_PER_TRAIN_STEP, glu=DW_PER
 # one launch per head block (3 heads × 1) a forward, the own head's a step
 WAVLM_PER_FORWARD_LAUNCHES = launch_counts(glu_bn_act=len(FLAGSHIP["lang2vocab"]))
 WAVLM_TRAIN_STEP_LAUNCHES = launch_counts(bwd_w=1, glu=1, glu_dx=1)
+# the same paths in bfloat16: every depthwise launch is the kernel's
+# bfloat16 instantiation
+BF16_PER_FORWARD_LAUNCHES = launch_counts(fbank=1, glu_bn_act=DW_PER_FORWARD, bf16=True)
+BF16_TRAIN_STEP_LAUNCHES = launch_counts(fbank=1, bwd_w=DW_PER_TRAIN_STEP,
+                                         glu=DW_PER_TRAIN_STEP, glu_dx=DW_PER_TRAIN_STEP,
+                                         bf16=True)
+WAVLM_BF16_PER_FORWARD_LAUNCHES = launch_counts(glu_bn_act=len(FLAGSHIP["lang2vocab"]),
+                                                bf16=True)
+WAVLM_BF16_TRAIN_STEP_LAUNCHES = launch_counts(bwd_w=1, glu=1, glu_dx=1, bf16=True)
 
 
 def _encoder_frames(seconds: float) -> int:
@@ -238,6 +263,7 @@ WAVLM_SCORE_DW_SHAPE = (32, _wavlm_frames(3.0), WAVLM_DW_C, 31)  # the B = 32 sc
 WAVLM_TRAIN_DW_SHAPE = (WAVLM_TRAIN_B, _wavlm_frames(WAVLM_TRAIN_SECONDS), WAVLM_DW_C, 31)
 WAVLM_STEP_DW_SHAPE = (2, _wavlm_frames(2.0), WAVLM_DW_C, 31)  # the card-vs-CPU step
 WAVLM_CLI_DW_SHAPE = (4, _wavlm_frames(2.0), WAVLM_DW_C, 31)  # lid_wavlm.yaml: 4 a batch, 2 s
+WAVLM_BF16_CLI_DW_SHAPE = (8, _wavlm_frames(2.0), WAVLM_DW_C, 31)  # lid_wavlm_bf16.yaml: 8
 # C = 768 at the same frame counts: no path gives the kernel these shapes
 # (the heads' GLU gives it 1536 channels), held against plain all the same
 WAVLM_HALF_C_DW_SHAPES = ((1, 149, 768, 31), (32, 149, 768, 31), (8, 199, 768, 31))
@@ -301,6 +327,7 @@ def phase_build() -> str:
     print(smi, flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     t0 = time.perf_counter()
     path = _build.library_path()
     _build.lib()
@@ -515,7 +542,8 @@ ACTS = ("swish", "double_swish")
 FUSED_SHAPES = (SERVE_DW_SHAPE, TRAIN_DW_SHAPE, SCORE_DW_SHAPE, (1, 7, 64, 31),
                 (3, 100, 129, 15), (2, 50, 96, 4), GATE_DW_SHAPE, EVAL_DW_SHAPE,
                 WAVLM_SERVE_DW_SHAPE, WAVLM_SCORE_DW_SHAPE, WAVLM_TRAIN_DW_SHAPE,
-                WAVLM_STEP_DW_SHAPE, WAVLM_CLI_DW_SHAPE, *WAVLM_HALF_C_DW_SHAPES)
+                WAVLM_STEP_DW_SHAPE, WAVLM_CLI_DW_SHAPE, WAVLM_BF16_CLI_DW_SHAPE,
+                *WAVLM_HALF_C_DW_SHAPES)
 
 
 def fused_inputs(b: int, t: int, c: int, k: int, gen: torch.Generator):
@@ -540,18 +568,27 @@ def _bf16(*tensors):
     return [t.bfloat16() for t in tensors]
 
 
+def _bf16_gap(got: torch.Tensor, ref: torch.Tensor) -> tuple:
+    """(max|got − ref|, that over max|ref|) of two bfloat16 results."""
+    err = (got.float() - ref.float()).abs().max().item()
+    return err, err / max(ref.float().abs().max().item(), 1e-30)
+
+
 def phase_conv_fused(gen: torch.Generator) -> dict:
     """The fused modes of the forward kernel against their plain versions
     on the card, float32 and bfloat16, Swish and DoubleSwish, with a ragged
     mask (and without one in eval): the eval call; the training forward;
     ``GluDepthwiseFn``'s dh, dW and db against autograd through the plain
     chain, bit-equal on a second run, exact zeros at padded frames, and the
-    launches of one forward and backward.  Returns the f32 errors found at
-    each shape."""
+    launches of one forward and backward.  In bfloat16 each mode is held
+    against its bfloat16 plain version on the same inputs within 2 bf16
+    ulps of the largest entry (``DW_BF16_ULPS``), and against the float32
+    result at ``DW_BF16_TOL``.  Returns the errors against plain found at
+    each shape (``<mode>`` float32, ``<mode>_bf16`` bfloat16)."""
     found = {}
     for b, t, c, k in FUSED_SHAPES:
         h, mask, w, bias, bn, gy = fused_inputs(b, t, c, k, gen)
-        errs, errs16 = {}, {}
+        errs, errs16, gaps16 = {}, {}, {}
         ok = True
         with torch.no_grad():
             for act in ACTS:
@@ -565,10 +602,15 @@ def phase_conv_fused(gen: torch.Generator) -> dict:
                 errs16[f"eval_{act}"] = (got16.float() - ref).abs().max().item()
                 ok &= got16.dtype == torch.bfloat16 and torch.allclose(
                     got16.float(), ref, rtol=DW_BF16_TOL[0], atol=DW_BF16_TOL[1])
+                gaps16[f"eval_{act}"] = _bf16_gap(got16, glu_depthwise_bn_act_plain(
+                    *_bf16(h), mask, *_bf16(w, bias), bn, act))
             got = glu_depthwise(h, mask, w, bias)
             ref = glu_depthwise_plain(h, mask, w, bias)[1]
             errs["train_forward"] = (got - ref).abs().max().item()
             ok &= torch.allclose(got, ref, rtol=DW_TOL, atol=DW_TOL)
+            gaps16["train_forward"] = _bf16_gap(glu_depthwise(*_bf16(h), mask, *_bf16(w, bias)),
+                                                glu_depthwise_plain(*_bf16(h), mask,
+                                                                    *_bf16(w, bias))[1])
 
         def grads(fn, *inputs):
             leaves = [v.detach().clone().requires_grad_(True) for v in inputs]
@@ -581,6 +623,7 @@ def phase_conv_fused(gen: torch.Generator) -> dict:
         again = grads(glu_depthwise, h, w, bias)
         ref = grads(lambda *a: glu_depthwise_plain(*a)[1], h, w, bias)
         got16 = grads(glu_depthwise, *_bf16(h, w, bias))
+        ref16 = grads(lambda *a: glu_depthwise_plain(*a)[1], *_bf16(h, w, bias))
         # the GLU backward's formula on the plain dX, against the kernel's epilogue
         dh_formula = glu_mask_bwd_plain(
             depthwise_conv1d_plain(gy, w, None, k - 1 - (k - 1) // 2, flip=True), h, mask)
@@ -596,6 +639,8 @@ def phase_conv_fused(gen: torch.Generator) -> dict:
         ok &= all(a.dtype == torch.bfloat16 and torch.allclose(
             a.float(), r, rtol=DW_BF16_TOL[0], atol=DW_BF16_TOL[1]) for a, r in zip(got16, ref))
         ok &= max(rel16.values()) <= DW_BF16_GRAD_TOL
+        gaps16.update({f"grad_{n}": _bf16_gap(a, r) for n, a, r in zip(names, got16, ref16)})
+        ok &= all(rel <= DW_BF16_ULPS for _, rel in gaps16.values())
         same_bits = all(torch.equal(a, b2) for a, b2 in zip(got, again))
         padded_zero = bool((got[0][~mask] == 0).all()) and bool((got16[0][~mask] == 0).all())
         expect = launch_counts(glu=1, glu_dx=1, bwd_w=1)
@@ -605,6 +650,9 @@ def phase_conv_fused(gen: torch.Generator) -> dict:
               "max_abs_err_bf16_vs_f32": errs16, "tol_bf16": DW_BF16_TOL,
               "max_err_bf16_grad_over_largest_f32": rel16,
               "tol_bf16_grad_over_largest": DW_BF16_GRAD_TOL,
+              "bf16_vs_bf16_plain": {n: {"max_abs_err": e, "over_largest": r}
+                                     for n, (e, r) in gaps16.items()},
+              "tol_bf16_vs_bf16_plain_over_largest": DW_BF16_ULPS,
               "bit_equal_reruns": same_bits, "dh_zero_at_padded_frames": padded_zero,
               "launches_forward_backward": counted,
               "ok": bool(ok) and same_bits and padded_zero and counted == expect})
@@ -613,7 +661,10 @@ def phase_conv_fused(gen: torch.Generator) -> dict:
         found[(b, t, c, k)] = {
             "glu_bn_act": max(v for n, v in errs.items() if n.startswith("eval")),
             "glu": errs["train_forward"], "glu_dx": errs["grad_dh"],
-            "bwd_w": max(errs["grad_dw"], errs["grad_db"])}
+            "bwd_w": max(errs["grad_dw"], errs["grad_db"]),
+            "glu_bn_act_bf16": max(e for n, (e, _) in gaps16.items() if n.startswith("eval")),
+            "glu_bf16": gaps16["train_forward"][0], "glu_dx_bf16": gaps16["grad_dh"][0],
+            "bwd_w_bf16": max(gaps16["grad_dw"][0], gaps16["grad_db"][0])}
     return found
 
 
@@ -646,12 +697,41 @@ def reset_launches() -> None:
 
 def launches() -> dict:
     """The wrappers' counts; ``depthwise`` holds every launch of the forward
-    kernel, ``depthwise_dx`` the flipped ones among them, and
-    ``depthwise_<mode>`` each mode's (``FWD_MODES``)."""
+    kernel, ``depthwise_dx`` the flipped ones among them, ``depthwise_bf16``
+    its bfloat16 ones, and ``depthwise_<mode>`` each mode's
+    (``FWD_MODES``); ``depthwise_bwd_w_bf16`` the bfloat16 dW/db launches."""
     return {"fbank": log_mel.launches, "depthwise": depthwise_conv1d.launches,
             "depthwise_dx": depthwise_conv1d.dx_launches,
             "depthwise_bwd_w": depthwise_conv1d_bwd_w.launches,
+            "depthwise_bf16": depthwise_conv1d.bf16_launches,
+            "depthwise_bwd_w_bf16": depthwise_conv1d_bwd_w.bf16_launches,
             **{f"depthwise_{m}": n for m, n in depthwise_conv1d.mode_launches.items()}}
+
+
+def infer_card_vs_cpu(task: LidASRTask, cpu: LidASRTask, wavs: torch.Tensor,
+                      lengths: torch.Tensor) -> tuple:
+    """``infer`` of ``task`` on the card (after one call that sets cuBLAS
+    and cuDNN up) and of ``cpu``, which holds the same state_dict, on the
+    same batch; → (the card's outputs on the host, the CPU's, the launches
+    of the card's second call, the CPU call's seconds, the errors of the
+    logits (where not masked), scores and MLP scores)."""
+    infer = task.infer_fn()
+    infer(wavs, lengths)
+    torch.cuda.synchronize()
+    reset_launches()
+    out = infer(wavs, lengths)
+    torch.cuda.synchronize()
+    per_forward = launches()
+    t0 = time.perf_counter()
+    ref = cpu.infer_fn()(wavs, lengths)
+    cpu_s = time.perf_counter() - t0
+    got = {k: v.cpu() for k, v in out.items()}
+    live = ref["logits"] > torch.finfo(torch.float32).min
+    errs = {"max_abs_err_logits": (got["logits"][live] - ref["logits"][live]).abs().max().item(),
+            "max_abs_err_scores": (got["scores"] - ref["scores"]).abs().max().item(),
+            "max_abs_err_mlp_scores":
+                (got["mlp_scores"] - ref["mlp_scores"]).abs().max().item()}
+    return got, ref, per_forward, cpu_s, errs
 
 
 def phase_model(gen: torch.Generator) -> LidASRTask:
@@ -663,28 +743,14 @@ def phase_model(gen: torch.Generator) -> LidASRTask:
     cpu_task.model.load_state_dict(task.model.state_dict())
     wavs = 0.1 * torch.randn(2, 3 * SR, generator=gen)
     lengths = torch.tensor([3 * SR, 40000])
-
-    infer = task.infer_fn()
-    infer(wavs, lengths)  # first call: cuBLAS / cuDNN set-up
-    torch.cuda.synchronize()
-    reset_launches()
-    out = infer(wavs, lengths)
-    torch.cuda.synchronize()
-    per_forward = launches()
-    ref = cpu_task.infer_fn()(wavs, lengths)
-
-    got = {k: v.cpu() for k, v in out.items()}
+    got, ref, per_forward, _, errs = infer_card_vs_cpu(task, cpu_task, wavs, lengths)
     neg = torch.finfo(torch.float32).min
-    live = ref["logits"] > neg
-    score_err = (got["scores"] - ref["scores"]).abs().max().item()
+    score_err = errs["max_abs_err_scores"]
     report = {
         "phase": "model_card_vs_cpu", "config": "flagship 14x144, heads 3x(40,96,88)",
         "batch": [2, 3 * SR], "lengths": lengths.tolist(),
         "params": sum(p.numel() for p in task.model.parameters()),
-        "logits_shape": list(got["logits"].shape),
-        "max_abs_err_logits": (got["logits"][live] - ref["logits"][live]).abs().max().item(),
-        "max_abs_err_scores": score_err,
-        "max_abs_err_mlp_scores": (got["mlp_scores"] - ref["mlp_scores"]).abs().max().item(),
+        "logits_shape": list(got["logits"].shape), **errs,
         "scores": got["scores"].tolist(), "pred_lang": got["pred_lang"].tolist(),
         "pred_lang_cpu": ref["pred_lang"].tolist(), "tol": MODEL_TOL,
         "launches_per_forward": per_forward,
@@ -808,6 +874,125 @@ def pin_subsampling_relus(card_sub, cpu_sub) -> dict:
     return {"hooks": hooks, "differ": differ}
 
 
+MIN_LEAF = 1000  # entries of a leaf held alone in a bfloat16 step's check
+
+
+def step_card_vs_cpu(card: LidASRTask, cpu: LidASRTask, batch: dict, zero_grad_leaves=(),
+                     after_card=None, reference: LidASRTask = None, tol: float = 0.0) -> dict:
+    """One deterministic train step of ``card`` and of ``cpu`` (the same
+    state_dict) on ``batch``: the loss of each, the launches of the card's
+    step, the CPU's seconds, and the worst gradient's distance between the
+    two over its own largest entry.  Leaves named with a suffix of
+    ``zero_grad_leaves`` have a true gradient of 0, so both sides hold
+    rounding noise there: the noise is held against the largest gradient of
+    all.  ``after_card`` runs after the card's step.
+
+    With ``reference`` (the float32 task of the same weights, on the card)
+    its step runs too, and each side's distance from its gradients is
+    measured in relative L2 norm: bfloat16 rounding moves every leaf on
+    either side, and a leaf whose sum cancels moves far, so the card is
+    held to be as close to float32 as the CPU: over every gradient no
+    further than twice the CPU's distance plus 1e-3 (``rel_l2_*``), and in
+    each leaf of at least ``MIN_LEAF`` entries (not a zero-gradient one) no
+    further than ``tol`` or three times the CPU's distance, whichever is
+    larger (``max_card_over_bar``; a smaller leaf's norm is the noise of a
+    few sums and counts in the whole).  The leaves where either distance,
+    or the card's max-abs distance from the CPU, passes ``tol`` are
+    reported (``leaves_over_tol``)."""
+    results = {}
+    runs = (("card", card), ("cpu", cpu)) + ((("float32", reference),) if reference else ())
+    for name, task in runs:
+        task.set_generators(torch.Generator(task.device).manual_seed(0),
+                            torch.Generator().manual_seed(0))
+        task.model.train()
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        loss, _ = task.train_loop(task.place_batch(batch))
+        loss.backward()
+        if name == "card" and after_card is not None:
+            after_card()
+        results[name] = (loss.item(), launches(), time.perf_counter() - t0,
+                         {k: p.grad.cpu() for k, p in task.model.named_parameters()
+                          if p.grad is not None})
+    (loss_card, counted, _, grads_card), (loss_cpu, _, cpu_s, grads_cpu) = (
+        results["card"], results["cpu"])
+    largest = max(float(g.abs().max()) for g in grads_cpu.values())
+
+    def distance(name, a, b):
+        if name.endswith(tuple(zero_grad_leaves)):
+            return max(float(a.abs().max()), float(b.abs().max())) / largest
+        return float((a - b).abs().max()) / max(float(b.abs().max()), 1e-6 * largest)
+
+    def rel_l2(a, b):
+        return float((a.double() - b.double()).norm() / b.double().norm().clamp_min(1e-30))
+
+    worst, worst_name, over_bar, far = 0.0, "", 0.0, {}
+    for name, g_cpu in grads_cpu.items():
+        err = distance(name, grads_card[name], g_cpu)
+        if err > worst:
+            worst, worst_name = err, name
+        if reference is not None and not name.endswith(tuple(zero_grad_leaves)):
+            g32 = results["float32"][3][name]
+            own_cpu, own_card = rel_l2(g_cpu, g32), rel_l2(grads_card[name], g32)
+            if max(own_cpu, own_card, err) > tol:
+                far[name] = {"max_abs_card_vs_cpu": err, "rel_l2_cpu_vs_float32": own_cpu,
+                             "rel_l2_card_vs_float32": own_card, "entries": g_cpu.numel()}
+            if g_cpu.numel() >= MIN_LEAF:
+                over_bar = max(over_bar, own_card / max(tol, 3 * own_cpu))
+    out = {"loss_card": loss_card, "loss_cpu": loss_cpu,
+           "rel_err_loss": abs(loss_card - loss_cpu) / max(abs(loss_cpu), 1.0),
+           "gradients": len(grads_cpu), "same_leaves": set(grads_card) == set(grads_cpu),
+           "max_rel_err_gradient": worst, "worst_gradient": worst_name,
+           "largest_gradient_entry": largest, "cpu_step_seconds": cpu_s,
+           "launches_per_train_step": counted}
+    if reference is not None:
+        flat = {side: torch.cat([g.flatten() for _, g in sorted(grads.items())])
+                for side, grads in (("card", grads_card), ("cpu", grads_cpu),
+                                    ("float32", results["float32"][3]))}
+        out.update({"loss_float32": results["float32"][0], "max_card_over_bar": over_bar,
+                    "rel_l2_card_vs_cpu": rel_l2(flat["card"], flat["cpu"]),
+                    "rel_l2_card_vs_float32": rel_l2(flat["card"], flat["float32"]),
+                    "rel_l2_cpu_vs_float32": rel_l2(flat["cpu"], flat["float32"]),
+                    "leaves_over_tol": far})
+    return out
+
+
+# one deterministic Conformer step: no dropout, stochastic depth or augmentation
+CONFORMER_DETERMINISTIC = dict(FLAGSHIP, dropout=0.0, pos_dropout=0.0,
+                               use_stochastic_depth=False, mask_times=0, t_stretch=False)
+
+
+def conformer_step_card_vs_cpu(hp: dict, gen: torch.Generator, batch: dict,
+                               tol: float = 0.0) -> dict:
+    """:func:`step_card_vs_cpu` of the Conformer task ``hp`` with random
+    weights, the CPU side given the card's features and the card's
+    subsampling ReLU decisions (:func:`phase_train_card_vs_cpu` says why);
+    the depthwise bias's true gradient is zero (a train-mode BatchNorm
+    follows).  With ``tol``, a bfloat16 ``hp``'s leaves are held as
+    :func:`step_card_vs_cpu` holds them against a float32 reference."""
+    card, cpu = LidASRTask(**hp, device="cuda"), LidASRTask(**hp, device="cpu")
+    init_random_(card.model, gen)
+    cpu.model.load_state_dict(card.model.state_dict())
+    reference = None
+    if tol:
+        reference = LidASRTask(**as_float32(hp), device="cuda")
+        reference.model.load_state_dict(card.model.state_dict())
+    placed = card.place_batch(batch)
+    feats, f_len = card._features(placed["wavs"].float(), placed["wav_lengths"])
+    own_feats, _ = cpu._features(torch.from_numpy(batch["wavs"]),
+                                 torch.from_numpy(batch["wav_lengths"]))
+    feats_diff = (feats.cpu() - own_feats).abs().max().item()
+    cpu._features = lambda wavs, wav_lengths, augment=False: (feats.cpu(), f_len.cpu())
+    pinned = pin_subsampling_relus(card.model.featurizer.subsample, cpu.model.featurizer.subsample)
+    step = step_card_vs_cpu(card, cpu, batch, ("depthwise.bias",),
+                            after_card=lambda: [hook.remove() for hook in pinned["hooks"]],
+                            reference=reference, tol=tol)
+    return {"cpu_features": "the card's", "max_abs_diff_features_db": feats_diff,
+            "cpu_subsampling_relus": "the card's",
+            "relu_units_decided_otherwise": pinned["differ"], **step}
+
+
 def phase_train_card_vs_cpu(gen: torch.Generator) -> None:
     """One deterministic train step (no dropout, stochastic depth or
     augmentation) at full width on the card (kernels) and on the CPU (plain
@@ -829,56 +1014,12 @@ def phase_train_card_vs_cpu(gen: torch.Generator) -> None:
     takes the card's ReLU decisions there (:func:`pin_subsampling_relus`),
     and the units it would have decided otherwise are counted and reported
     (``relu_units_decided_otherwise``)."""
-    hp = dict(FLAGSHIP, dropout=0.0, pos_dropout=0.0, use_stochastic_depth=False,
-              mask_times=0, t_stretch=False)
-    card, cpu = LidASRTask(**hp, device="cuda"), LidASRTask(**hp, device="cpu")
-    init_random_(card.model, gen)
-    cpu.model.load_state_dict(card.model.state_dict())
     batch = synthetic_batch(np.random.RandomState(1), lang=1, b=2, seconds=3.0)
-    placed = card.place_batch(batch)
-    feats, f_len = card._features(placed["wavs"].float(), placed["wav_lengths"])
-    own_feats, _ = cpu._features(torch.from_numpy(batch["wavs"]),
-                                 torch.from_numpy(batch["wav_lengths"]))
-    feats_diff = (feats.cpu() - own_feats).abs().max().item()
-    cpu._features = lambda wavs, wav_lengths, augment=False: (feats.cpu(), f_len.cpu())
-    pinned = pin_subsampling_relus(card.model.featurizer.subsample, cpu.model.featurizer.subsample)
-    results = {}
-    for name, task in (("card", card), ("cpu", cpu)):
-        task.set_generators(torch.Generator(task.device).manual_seed(0),
-                            torch.Generator().manual_seed(0))
-        task.model.train()
-        reset_launches()
-        loss, _ = task.train_loop(task.place_batch(batch))
-        loss.backward()
-        if name == "card":
-            for hook in pinned["hooks"]:
-                hook.remove()
-        results[name] = (loss.item(), launches(),
-                         {k: p.grad.cpu() for k, p in task.model.named_parameters()
-                          if p.grad is not None})
-    (loss_card, counted, grads_card), (loss_cpu, _, grads_cpu) = results["card"], results["cpu"]
-    largest = max(float(g.abs().max()) for g in grads_cpu.values())
-    worst, worst_name = 0.0, ""
-    for name, g_cpu in grads_cpu.items():
-        if name.endswith("depthwise.bias"):
-            # a train-mode BatchNorm follows: the true gradient is zero and
-            # both sides hold rounding noise; hold the noise, not its ratio
-            err = max(float(grads_card[name].abs().max()), float(g_cpu.abs().max())) / largest
-        else:
-            err = float((grads_card[name] - g_cpu).abs().max()) / max(float(g_cpu.abs().max()),
-                                                                      1e-6 * largest)
-        if err > worst:
-            worst, worst_name = err, name
-    emit({"phase": "train_card_vs_cpu", "batch": [2, 3 * SR], "loss_card": loss_card,
-          "loss_cpu": loss_cpu, "gradients": len(grads_cpu),
-          "cpu_features": "the card's", "max_abs_diff_features_db": feats_diff,
-          "cpu_subsampling_relus": "the card's",
-          "relu_units_decided_otherwise": pinned["differ"],
-          "max_rel_err_gradient": worst, "worst_gradient": worst_name,
-          "largest_gradient_entry": largest, "tol": TRAIN_TOL,
-          "launches_per_train_step": counted})
-    ok = (set(grads_card) == set(grads_cpu) and abs(loss_card - loss_cpu) <= TRAIN_TOL
-          and worst <= TRAIN_TOL and counted == TRAIN_STEP_LAUNCHES)
+    step = conformer_step_card_vs_cpu(CONFORMER_DETERMINISTIC, gen, batch)
+    emit({"phase": "train_card_vs_cpu", "batch": [2, 3 * SR], "tol": TRAIN_TOL, **step})
+    ok = (step["same_leaves"] and abs(step["loss_card"] - step["loss_cpu"]) <= TRAIN_TOL
+          and step["max_rel_err_gradient"] <= TRAIN_TOL
+          and step["launches_per_train_step"] == TRAIN_STEP_LAUNCHES)
     if not ok:
         raise AssertionError("train step on the card disagrees with the CPU")
 
@@ -1796,7 +1937,7 @@ CONFORMER_EVAL_ROWS = (("depthwise_conv1d_fwd[glu_bn_act]", SERVE_DW_SHAPE),
 
 def fused_kernel_rows(gen: torch.Generator, errs: dict, counts: dict,
                       eval_rows=CONFORMER_EVAL_ROWS, train_shape=TRAIN_DW_SHAPE,
-                      train_suffix: str = "@train") -> list:
+                      train_suffix: str = "@train", dtype: torch.dtype = torch.float32) -> list:
     """The ``kernels`` line's rows of the fused modes where a path calls
     them: eval at the ``eval_rows`` shapes (by default the served, the
     scored and the eval CLI's), the training forward and dX with the GLU
@@ -1804,8 +1945,18 @@ def fused_kernel_rows(gen: torch.Generator, errs: dict, counts: dict,
     unfused chain the conv module ran before (PyTorch GLU and mask, the
     plain-mode kernel, PyTorch BatchNorm and act) in turns chain, fused,
     fused, chain; against its plain version; and against a composite of
-    library calls.  ``counts`` holds each row's launches on its path."""
+    library calls.  ``counts`` holds each row's launches on its path.  In
+    ``dtype`` bfloat16 h, the output, u, the gradients, the weights and
+    the bias are bfloat16 (2 bytes in the bounds), BatchNorm's statistics
+    float32, and the error is against the bfloat16 plain version."""
     rows = []
+    size = torch.finfo(dtype).bits // 8  # bytes of an activation, a weight
+    err_key = "" if dtype == torch.float32 else "_bf16"
+    type_name = str(dtype).replace("torch.", "")
+
+    def inputs(shape):
+        h, mask, w, bias, bn, gy = fused_inputs(*shape, gen)
+        return (h.to(dtype), mask, w.to(dtype), bias.to(dtype), bn, gy.to(dtype))
 
     def row(name, mode, shape, fused, chain, plain, library, library_call, n_bytes, flops,
             what):
@@ -1818,12 +1969,13 @@ def fused_kernel_rows(gen: torch.Generator, errs: dict, counts: dict,
                 "name": name, "route": "cuda", "source": "speechlid_tpu_torch/csrc/depthwise.cu",
                 "replaces": "speechlid_tpu/ops/pallas/depthwise_kernel.py:122",
                 "mode": mode, "launches": counts[name][0], **counts[name][1],
-                "max_abs_err": errs[shape][mode], "ms": k_ms, "kernel_ms": k_ms,
+                "max_abs_err": errs[shape][mode + err_key], "ms": k_ms, "kernel_ms": k_ms,
                 "chain_ms": chain_ms, "plain_ms": device_ms(plain),
                 "library_ms": device_ms(library), "library_call": library_call,
                 "library_max_abs_err": lib_err,
                 "bound_ms": b_ms, "bound_us": b_ms * 1e3, "bound_by": b_by,
-                "shape": f"h ({b}, {t}, {2 * c}) f32, mask ({b}, {t}), w ({k}, {c}): {what}",
+                "shape": f"h ({b}, {t}, {2 * c}) {type_name}, mask ({b}, {t}), w ({k}, {c}): "
+                         f"{what}",
                 "blocks": fwd_blocks(b, t, c), "flops": flops, "bytes": n_bytes,
             }
 
@@ -1834,7 +1986,7 @@ def fused_kernel_rows(gen: torch.Generator, errs: dict, counts: dict,
 
     for name, shape in eval_rows:
         b, t, c, k = shape
-        h, mask, w, bias, bn, _ = fused_inputs(b, t, c, k, gen)
+        h, mask, w, bias, bn, _ = inputs(shape)
 
         def library():  # row() calls it in this iteration
             u = F.glu(h, dim=-1).masked_fill(~mask[:, :, None], 0.0)
@@ -1850,13 +2002,13 @@ def fused_kernel_rows(gen: torch.Generator, errs: dict, counts: dict,
             lambda: glu_depthwise_bn_act_plain(h, mask, w, bias, bn, "swish"),
             library, "composite: F.glu -> masked_fill -> F.conv1d(groups=C) -> "
                      "F.batch_norm(eval) -> F.silu",
-            # read h and the mask, write y; weights and BatchNorm's five (C,) rows
-            4.0 * 3 * b * t * c + b * t + 4.0 * (k * c + 5 * c),
+            # read h and the mask, write y; weights, bias and BatchNorm's four (C,) rows
+            size * (3 * b * t * c + k * c + c) + b * t + 4.0 * 4 * c,
             # 2k per output for the taps, about 12 for GLU, BatchNorm and Swish
             b * t * c * (2.0 * k + 12), "eval GLU + mask + conv + BN + Swish"))
 
     b, t, c, k = train_shape
-    h, mask, w, bias, _, gy = fused_inputs(b, t, c, k, gen)
+    h, mask, w, bias, _, gy = inputs(train_shape)
     rows.append(row(
         "depthwise_conv1d_fwd[glu]" + train_suffix, "glu", train_shape,
         lambda: glu_depthwise(h, mask, w, bias),
@@ -1866,7 +2018,7 @@ def fused_kernel_rows(gen: torch.Generator, errs: dict, counts: dict,
                              k).transpose(1, 2),
         "composite: F.glu -> masked_fill -> F.conv1d(groups=C)",
         # read h and the mask, write u and y
-        4.0 * 4 * b * t * c + b * t + 4.0 * (k * c + c), b * t * c * (2.0 * k + 4),
+        size * (4 * b * t * c + k * c + c) + b * t, b * t * c * (2.0 * k + 4),
         "training GLU + mask + conv + bias, u written"))
 
     keep = ~mask[:, :, None]
@@ -1890,7 +2042,7 @@ def fused_kernel_rows(gen: torch.Generator, errs: dict, counts: dict,
         dx_library, "composite: torch.nn.grad.conv1d_input(groups=C) -> masked_fill -> "
                     "aten.glu_backward",
         # read the output gradient, h and the mask, write dh
-        4.0 * 5 * b * t * c + b * t + 4.0 * k * c, b * t * c * (2.0 * k + 8),
+        size * (5 * b * t * c + k * c) + b * t, b * t * c * (2.0 * k + 8),
         "dX (flipped taps) + GLU backward, dh written"))
     return rows
 
@@ -2254,30 +2406,16 @@ def phase_wavlm_model(gen: torch.Generator) -> LidASRTask:
     cpu_task.model.load_state_dict(task.model.state_dict())
     wavs = 0.1 * torch.randn(2, 3 * SR, generator=gen)
     lengths = torch.tensor([3 * SR, 2 * SR])
-    infer = task.infer_fn()
-    infer(wavs, lengths)  # first call: cuBLAS / cuDNN set-up
-    torch.cuda.synchronize()
-    reset_launches()
-    out = infer(wavs, lengths)
-    torch.cuda.synchronize()
-    per_forward = launches()
-    t0 = time.perf_counter()
-    ref = cpu_task.infer_fn()(wavs, lengths)
-    cpu_s = time.perf_counter() - t0
-    got = {k: v.cpu() for k, v in out.items()}
+    got, ref, per_forward, cpu_s, errs = infer_card_vs_cpu(task, cpu_task, wavs, lengths)
     neg = torch.finfo(torch.float32).min
-    live = ref["logits"] > neg
-    score_err = (got["scores"] - ref["scores"]).abs().max().item()
+    score_err = errs["max_abs_err_scores"]
     emit({
         "phase": "wavlm_model_card_vs_cpu",
         "config": "WavLM-Base+ 12x768 (gated rel-pos 320/800) + heads 3x(40,96,88) at 768",
         "batch": [2, 3 * SR], "lengths": lengths.tolist(),
         "params": sum(p.numel() for p in task.model.parameters()),
         "logits_shape": list(got["logits"].shape),
-        "feat_lengths": got["feat_lengths"].tolist(),
-        "max_abs_err_logits": (got["logits"][live] - ref["logits"][live]).abs().max().item(),
-        "max_abs_err_scores": score_err,
-        "max_abs_err_mlp_scores": (got["mlp_scores"] - ref["mlp_scores"]).abs().max().item(),
+        "feat_lengths": got["feat_lengths"].tolist(), **errs,
         "scores": got["scores"].tolist(), "pred_lang": got["pred_lang"].tolist(),
         "pred_lang_cpu": ref["pred_lang"].tolist(), "tol": MODEL_TOL,
         "cpu_forward_seconds": cpu_s, "launches_per_forward": per_forward,
@@ -2310,39 +2448,11 @@ def phase_wavlm_train_card_vs_cpu(gen: torch.Generator) -> None:
     init_wavlm_(card, gen)
     cpu.model.load_state_dict(card.model.state_dict())
     batch = synthetic_batch(np.random.RandomState(2), lang=1, b=2, seconds=2.0)
-    results = {}
-    for name, task in (("card", card), ("cpu", cpu)):
-        task.set_generators(torch.Generator(task.device).manual_seed(0),
-                            torch.Generator().manual_seed(0))
-        task.model.train()
-        torch.cuda.synchronize()
-        reset_launches()
-        t0 = time.perf_counter()
-        loss, _ = task.train_loop(task.place_batch(batch))
-        loss.backward()
-        results[name] = (loss.item(), launches(), time.perf_counter() - t0,
-                         {k: p.grad.cpu() for k, p in task.model.named_parameters()
-                          if p.grad is not None})
-    (loss_card, counted, _, grads_card), (loss_cpu, _, cpu_s, grads_cpu) = (
-        results["card"], results["cpu"])
-    largest = max(float(g.abs().max()) for g in grads_cpu.values())
-    worst, worst_name = 0.0, ""
-    for name, g_cpu in grads_cpu.items():
-        if name.endswith(("depthwise.bias", "k_proj.bias")):
-            err = max(float(grads_card[name].abs().max()), float(g_cpu.abs().max())) / largest
-        else:
-            err = float((grads_card[name] - g_cpu).abs().max()) / max(float(g_cpu.abs().max()),
-                                                                      1e-6 * largest)
-        if err > worst:
-            worst, worst_name = err, name
-    loss_err = abs(loss_card - loss_cpu) / max(abs(loss_cpu), 1.0)
-    emit({"phase": "wavlm_train_card_vs_cpu", "batch": [2, 2 * SR], "loss_card": loss_card,
-          "loss_cpu": loss_cpu, "rel_err_loss": loss_err, "gradients": len(grads_cpu),
-          "max_rel_err_gradient": worst, "worst_gradient": worst_name,
-          "largest_gradient_entry": largest, "tol": TRAIN_TOL, "cpu_step_seconds": cpu_s,
-          "launches_per_train_step": counted})
-    ok = (set(grads_card) == set(grads_cpu) and loss_err <= TRAIN_TOL and worst <= TRAIN_TOL
-          and counted == WAVLM_TRAIN_STEP_LAUNCHES)
+    step = step_card_vs_cpu(card, cpu, batch, ("depthwise.bias", "k_proj.bias"))
+    emit({"phase": "wavlm_train_card_vs_cpu", "batch": [2, 2 * SR], "tol": TRAIN_TOL, **step})
+    ok = (step["same_leaves"] and step["rel_err_loss"] <= TRAIN_TOL
+          and step["max_rel_err_gradient"] <= TRAIN_TOL
+          and step["launches_per_train_step"] == WAVLM_TRAIN_STEP_LAUNCHES)
     if not ok:
         raise AssertionError("the WavLM train step on the card disagrees with the CPU")
 
@@ -2363,29 +2473,44 @@ def ssl_config_override(conf: dict) -> str:
 
 WAVLM_SSL_OVERRIDE = ssl_config_override(WAVLM_BASE_PLUS)
 # the parts of the SSL featurizer lid_wavlm.yaml's gates freeze by epoch
-# (freeze_featurizer_epoch 1, freeze_transformer_epoch 0)
+# (freeze_featurizer_epoch 1, freeze_transformer_epoch 0; lid_wavlm_bf16.yaml's too)
 WAVLM_FROZEN = {0: {"feature_extractor", "post_extract_proj", "layers", "pos_conv",
                     "encoder_layer_norm"},
                 1: {"feature_extractor", "post_extract_proj"}, 2: set(), 3: set()}
+# cli_wavlm: lid_wavlm.yaml in float32
+WAVLM_CLI = dict(name="cli_wavlm", config="lid_wavlm", ssl_override=WAVLM_SSL_OVERRIDE,
+                 data_factor=WAVLM_DATA_FACTOR, steps=WAVLM_CLI_STEPS,
+                 eval_batches=WAVLM_EVAL_BATCHES, shape=WAVLM_CLI_DW_SHAPE,
+                 per_step=WAVLM_TRAIN_STEP_LAUNCHES, per_eval=WAVLM_PER_FORWARD_LAUNCHES)
+# cli_wavlm_bf16: lid_wavlm_bf16.yaml (module.dtype bfloat16, batches of 8, so
+# 3 × 12 steps an epoch, cut to 3) with the Base+ ssl_config and its dtype
+# bfloat16: the config's module.dtype alone would leave the encoder float32
+WAVLM_BF16_CLI = dict(
+    name="cli_wavlm_bf16", config="lid_wavlm_bf16",
+    ssl_override=ssl_config_override(dict(WAVLM_BASE_PLUS, dtype="bfloat16")),
+    data_factor=0.1, steps=int(N_LANG * CORPUS_TRAIN // 8 * 0.1),
+    eval_batches=N_LANG * CORPUS_VAL // 8, shape=WAVLM_BF16_CLI_DW_SHAPE,
+    per_step=WAVLM_BF16_TRAIN_STEP_LAUNCHES, per_eval=WAVLM_BF16_PER_FORWARD_LAUNCHES)
 
 
-def phase_cli_wavlm(root: str, corpus: str, smi: str) -> dict:
-    """The training CLI on ``configs/lid_wavlm.yaml`` with ``module.ssl_config``
-    set to the Base+ shape, on the corpus: three epochs of 3 steps (span
-    masking on; the config's gates freeze the extractor through epoch 1 and
-    the transformer through epoch 0), then a resume for a fourth, each
-    epoch followed by an eval of the 72 val clips; the frozen parts by
-    epoch, the launches per train step and eval batch and the conv shapes;
-    one ``/lid`` answer from its checkpoint through ``build_lid_fn``; and
-    ``cli.test_lid`` clean on that checkpoint, whose ``acc`` must be the
-    ``val_acc`` the training CLI logged last.  Launch counts are set to 0
-    just before each run and read just after."""
+def phase_cli_wavlm(root: str, corpus: str, smi: str, run: dict = WAVLM_CLI) -> dict:
+    """The training CLI on ``configs/lid_wavlm.yaml`` (``run``: or another
+    WavLM config, with its steps, shapes and launches) with
+    ``module.ssl_config`` set to the Base+ shape, on the corpus: three
+    epochs of 3 steps (span masking on; the config's gates freeze the
+    extractor through epoch 1 and the transformer through epoch 0), then a
+    resume for a fourth, each epoch followed by an eval of the 72 val clips;
+    the frozen parts by epoch, the launches per train step and eval batch
+    and the conv shapes; one ``/lid`` answer from its checkpoint through
+    ``build_lid_fn``; and ``cli.test_lid`` clean on that checkpoint, whose
+    ``acc`` must be the ``val_acc`` the training CLI logged last.  Launch
+    counts are set to 0 just before each run and read just after."""
     from speechlid_tpu_torch.cli import main_lid
     from speechlid_tpu_torch.data.audio_io import read_wav
 
-    exp = os.path.join(root, "wavlm")
+    exp = os.path.join(root, run["name"])
     base = [_langs_override(corpus), f"exp_dir={exp}", "trainer.progress_bar=false",
-            f"trainer.train_data_factor={WAVLM_DATA_FACTOR}", WAVLM_SSL_OVERRIDE]
+            f"trainer.train_data_factor={run['data_factor']}", run["ssl_override"]]
     last = os.path.join(exp, "ckpt", "last.ckpt")
     frozen, shapes = {}, set()
     build_task = main_lid.build_task
@@ -2414,14 +2539,15 @@ def phase_cli_wavlm(root: str, corpus: str, smi: str) -> dict:
                             ("resume", ["trainer.total_epoch=4", f"trainer.resume_from={last}"])):
             torch.cuda.synchronize()
             reset_launches()
-            runs[name] = run_cli(_cli_args("configs", "lid_wavlm", *base, *extra))
+            runs[name] = run_cli(_cli_args("configs", run["config"], *base, *extra))
             counted[name] = launches()
     finally:
         main_lid.build_task = build_task
         hook.remove()
     lines = _metrics_lines(os.path.join(exp, "metrics.jsonl"))
     evals = [line for line in lines if CLI_EVAL_KEYS <= set(line)]
-    ckpt_meta = load_checkpoint(last)["meta"]
+    ckpt = load_checkpoint(last)
+    ckpt_meta, ckpt_hparams = ckpt["meta"], ckpt["hyper_parameters"]
     lid_fn, index2lang = build_lid_fn(last)
     state = InferenceState(lid_fn, index2lang)
     wav, _ = read_wav(os.path.join(corpus, "bb", "wav", "train", "val0.wav"))
@@ -2429,16 +2555,18 @@ def phase_cli_wavlm(root: str, corpus: str, smi: str) -> dict:
     answer = state.lid(wav)
     served = launches()
     clean, clean_launches, clean_s, clean_shapes = run_test_lid(
-        ["--ckpt", last, *_cli_args("configs", "lid_wavlm", _langs_override(corpus),
-                                    WAVLM_SSL_OVERRIDE)])
-    report = {"phase": "cli_wavlm", "nvidia_smi": smi,
-              "config": "configs/lid_wavlm.yaml, module.ssl_config WavLM-Base+",
-              "steps_per_epoch": WAVLM_CLI_STEPS, "frozen_by_epoch": frozen, "runs": {},
+        ["--ckpt", last, *_cli_args("configs", run["config"], _langs_override(corpus),
+                                    run["ssl_override"])])
+    report = {"phase": run["name"], "nvidia_smi": smi,
+              "config": f"configs/{run['config']}.yaml, module.ssl_config WavLM-Base+",
+              "dtype": ckpt_hparams["dtype"],
+              "ssl_dtype": ckpt_hparams["ssl_config"].get("dtype", "float32"),
+              "steps_per_epoch": run["steps"], "frozen_by_epoch": frozen, "runs": {},
               "launches": counted, "evals": evals, "conv_shapes": sorted(shapes),
               "ckpt_meta": {k: ckpt_meta[k] for k in ("epoch", "global_step")},
               "served_from_cli_ckpt": answer, "served_launches": served,
               "test_lid_clean": _cell(clean), "test_lid_seconds": clean_s,
-              "test_lid_launches_per_batch": {k: v / WAVLM_EVAL_BATCHES
+              "test_lid_launches_per_batch": {k: v / run["eval_batches"]
                                               for k, v in clean_launches.items()},
               "test_lid_conv_shapes": sorted(clean_shapes["glu_bn_act"])}
     checks = {}
@@ -2448,28 +2576,28 @@ def phase_cli_wavlm(root: str, corpus: str, smi: str) -> dict:
                                 "eval_batches": [e["batches"] for e in recorder.evals],
                                 "launches_per_train_step": per_step,
                                 "launches_per_eval_batch": per_eval}
-        checks[f"{name}_launches"] = (per_step == WAVLM_TRAIN_STEP_LAUNCHES
-                                      and per_eval == WAVLM_PER_FORWARD_LAUNCHES)
-        checks[f"{name}_steps"] = all(e["steps"] == WAVLM_CLI_STEPS for e in recorder.epochs)
+        checks[f"{name}_launches"] = (per_step == run["per_step"]
+                                      and per_eval == run["per_eval"])
+        checks[f"{name}_steps"] = all(e["steps"] == run["steps"] for e in recorder.epochs)
         checks[f"{name}_evals"] = [e["batches"] for e in recorder.evals] == \
-            [WAVLM_EVAL_BATCHES] * len(recorder.epochs)
+            [run["eval_batches"]] * len(recorder.epochs)
     checks.update({
         "frozen": {e: set(v) for e, v in frozen.items()} == WAVLM_FROZEN,
-        "conv_shapes": shapes == {WAVLM_CLI_DW_SHAPE} and clean_shapes["glu_bn_act"] == {
-            WAVLM_CLI_DW_SHAPE} and not clean_shapes["fbank"],
+        "conv_shapes": shapes == {run["shape"]} and clean_shapes["glu_bn_act"] == {
+            run["shape"]} and not clean_shapes["fbank"],
         "eval_lines": len(evals) == 4 and all(np.isfinite(e["avg_val_loss"]) for e in evals),
-        "ckpt": ckpt_meta["epoch"] == 3 and ckpt_meta["global_step"] == 4 * WAVLM_CLI_STEPS,
+        "ckpt": ckpt_meta["epoch"] == 3 and ckpt_meta["global_step"] == 4 * run["steps"],
         "served": set(answer) == {"lang", "scores"} and len(answer["scores"]) == N_LANG
         and all(np.isfinite(v) for v in answer["scores"].values())
-        and served == WAVLM_PER_FORWARD_LAUNCHES,
+        and served == run["per_eval"],
         "test_lid_acc": clean["acc"] == evals[-1]["val_acc"]
         and clean["n_utts"] == N_LANG * CORPUS_VAL,
-        "test_lid_launches": report["test_lid_launches_per_batch"] == WAVLM_PER_FORWARD_LAUNCHES,
+        "test_lid_launches": report["test_lid_launches_per_batch"] == run["per_eval"],
     })
     report["checks"] = checks
     emit(report)
     if not all(checks.values()):
-        raise AssertionError(f"CLI WavLM phase failed: {checks}")
+        raise AssertionError(f"CLI phase {run['name']} failed: {checks}")
     return {k: counted["fit"][k] + counted["resume"][k] for k in counted["fit"]}
 
 
@@ -2535,6 +2663,45 @@ def phase_wavlm_host_timings(task: LidASRTask, gen: torch.Generator) -> dict:
     return out
 
 
+def bwd_w_row(gen: torch.Generator, errs: dict, shape: tuple, name: str, counted: dict,
+              n_steps: int, dtype: torch.dtype = torch.float32) -> dict:
+    """The ``kernels`` line's row of ``depthwise_conv1d_bwd_w`` at a train
+    step's ``shape`` in ``dtype``: the saved u and the output gradient,
+    with the launches ``counted`` over ``n_steps`` steps of its path."""
+    b, t, c, k = shape
+    h, mask, _, _, _, gy = fused_inputs(b, t, c, k, gen)
+    u, gy = glu_mask_chain(h, mask).contiguous().to(dtype), gy.to(dtype)
+
+    def conv1d_weight_library():
+        dw = torch.nn.grad.conv1d_weight(u.transpose(1, 2), (c, 1, k), gy.transpose(1, 2),
+                                         padding=(k - 1) // 2, groups=c)
+        return dw[:, 0, :].t(), gy.sum(dim=(0, 1))
+
+    got_dw, got_db = depthwise_conv1d_bwd_w(u, gy, k)
+    lib_dw, lib_db = conv1d_weight_library()
+    size = torch.finfo(dtype).bits // 8
+    flops, n_bytes = 2.0 * b * t * c * k, size * 2.0 * b * t * c
+    b_ms, b_by = bound_ms(n_bytes, flops)
+    k_ms = device_ms(lambda: depthwise_conv1d_bwd_w(u, gy, k))
+    return {
+        "name": name, "route": "cuda", "source": "speechlid_tpu_torch/csrc/depthwise.cu",
+        "replaces": "speechlid_tpu/ops/pallas/depthwise_kernel.py:78",
+        "launches": counted["depthwise_bwd_w"],
+        "launches_per_train_step": counted["depthwise_bwd_w"] / n_steps,
+        "max_abs_err": errs[shape]["bwd_w" + ("" if dtype == torch.float32 else "_bf16")],
+        "ms": k_ms, "kernel_ms": k_ms,
+        "plain_ms": device_ms(lambda: depthwise_conv1d_bwd_w_plain(u, gy, k)),
+        "library_ms": device_ms(conv1d_weight_library),
+        "library_call": "torch.nn.grad.conv1d_weight(groups=C) + g.sum((0, 1))",
+        "library_max_abs_err": max((got_dw - lib_dw).abs().max().item(),
+                                   (got_db - lib_db).abs().max().item()),
+        "bound_ms": b_ms, "bound_us": b_ms * 1e3, "bound_by": b_by,
+        "shape": f"u, g ({b}, {t}, {c}) {str(dtype).replace('torch.', '')} -> dw ({k}, {c}), "
+                 f"db ({c},)",
+        "flops": flops, "bytes": n_bytes,
+    }
+
+
 def phase_wavlm_timings(task: LidASRTask, gen: torch.Generator, errs: dict, host: dict,
                         serve_report: dict, cli: dict) -> list:
     """The WavLM line (host times from :func:`phase_wavlm_host_timings`,
@@ -2565,38 +2732,8 @@ def phase_wavlm_timings(task: LidASRTask, gen: torch.Generator, errs: dict, host
                   ("depthwise_conv1d_fwd[glu_bn_act]@wavlm_b32", WAVLM_SCORE_DW_SHAPE)),
         train_shape=WAVLM_TRAIN_DW_SHAPE, train_suffix="@wavlm_train")
 
-    # dW/db at the train step's shape: the saved u and the output gradient
-    b, t, c, k = WAVLM_TRAIN_DW_SHAPE
-    h, mask, _, _, _, gy = fused_inputs(b, t, c, k, gen)
-    u = glu_mask_chain(h, mask).contiguous()
-
-    def conv1d_weight_library():
-        dw = torch.nn.grad.conv1d_weight(u.transpose(1, 2), (c, 1, k), gy.transpose(1, 2),
-                                         padding=(k - 1) // 2, groups=c)
-        return dw[:, 0, :].t(), gy.sum(dim=(0, 1))
-
-    got_dw, got_db = depthwise_conv1d_bwd_w(u, gy, k)
-    lib_dw, lib_db = conv1d_weight_library()
-    flops, n_bytes = 2.0 * b * t * c * k, 4.0 * 2 * b * t * c
-    b_ms, b_by = bound_ms(n_bytes, flops)
-    k_ms = device_ms(lambda: depthwise_conv1d_bwd_w(u, gy, k))
-    rows.append({
-        "name": "depthwise_conv1d_bwd_w@wavlm_train", "route": "cuda",
-        "source": "speechlid_tpu_torch/csrc/depthwise.cu",
-        "replaces": "speechlid_tpu/ops/pallas/depthwise_kernel.py:78",
-        "launches": counts["train"]["depthwise_bwd_w"],
-        "launches_per_train_step": counts["train"]["depthwise_bwd_w"] / n_steps,
-        "max_abs_err": errs["conv_fused"][WAVLM_TRAIN_DW_SHAPE]["bwd_w"],
-        "ms": k_ms, "kernel_ms": k_ms,
-        "plain_ms": device_ms(lambda: depthwise_conv1d_bwd_w_plain(u, gy, k)),
-        "library_ms": device_ms(conv1d_weight_library),
-        "library_call": "torch.nn.grad.conv1d_weight(groups=C) + g.sum((0, 1))",
-        "library_max_abs_err": max((got_dw - lib_dw).abs().max().item(),
-                                   (got_db - lib_db).abs().max().item()),
-        "bound_ms": b_ms, "bound_us": b_ms * 1e3, "bound_by": b_by,
-        "shape": f"u, g ({b}, {t}, {c}) f32 -> dw ({k}, {c}), db ({c},)",
-        "flops": flops, "bytes": n_bytes,
-    })
+    rows.append(bwd_w_row(gen, errs["conv_fused"], WAVLM_TRAIN_DW_SHAPE,
+                          "depthwise_conv1d_bwd_w@wavlm_train", counts["train"], n_steps))
     for row in rows:
         mode = row["name"].split("[")[1].split("]")[0] if "[" in row["name"] else "bwd_w"
         row["launches_cli"] = cli["depthwise_" + mode]
@@ -2638,6 +2775,290 @@ def phase_wavlm_timings(task: LidASRTask, gen: torch.Generator, errs: dict, host
         "profile_b1_3s": infer_profile, "profile_step_b8_4s": step_profile,
         "pos_conv": pos_conv_times,
     })
+    return rows
+
+
+# ------------------------------------------------ bfloat16 compute
+
+
+# card against CPU in bfloat16: both sides round to bfloat16 at the same
+# points but sum their GEMMs and convolutions in other orders, so a score or
+# a gradient moves by a few bfloat16 roundings
+BF16_SCORE_TOL = 2e-2  # scores, of the largest score
+BF16_LOSS_TOL = 1e-2  # the train step's loss, of its size
+BF16_GRAD_TOL = 5e-2  # each gradient, of its largest entry
+WAVLM_BASE_PLUS_BF16 = dict(WAVLM_BASE_PLUS, dtype="bfloat16")
+# the two models with dtype="bfloat16" (WavLM: ssl_config's dtype too, which
+# the task's dtype does not reach), and what one forward and one train
+# step of each launch
+BF16_MODELS = {
+    "conformer": dict(hp=dict(FLAGSHIP, dtype="bfloat16"),
+                      deterministic=dict(CONFORMER_DETERMINISTIC, dtype="bfloat16"),
+                      train_hp=dict(FLAGSHIP, **TRAIN_HPARAMS),
+                      per_forward=BF16_PER_FORWARD_LAUNCHES,
+                      per_step=BF16_TRAIN_STEP_LAUNCHES,
+                      f32_per_forward=PER_FORWARD_LAUNCHES, f32_per_step=TRAIN_STEP_LAUNCHES,
+                      config="flagship 14x144, heads 3x(40,96,88), dtype bfloat16"),
+    "wavlm": dict(hp=dict(WAVLM, dtype="bfloat16", ssl_config=WAVLM_BASE_PLUS_BF16),
+                  deterministic=dict(WAVLM_DETERMINISTIC, dtype="bfloat16", ssl_config=dict(
+                      WAVLM_DETERMINISTIC["ssl_config"], dtype="bfloat16")),
+                  train_hp=WAVLM, per_forward=WAVLM_BF16_PER_FORWARD_LAUNCHES,
+                  per_step=WAVLM_BF16_TRAIN_STEP_LAUNCHES,
+                  f32_per_forward=WAVLM_PER_FORWARD_LAUNCHES,
+                  f32_per_step=WAVLM_TRAIN_STEP_LAUNCHES,
+                  config="WavLM-Base+ 12x768 + heads 3x(40,96,88) at 768, dtype and "
+                         "ssl_config.dtype bfloat16"),
+}
+
+
+def init_model_(model: str, task: LidASRTask, gen: torch.Generator) -> None:
+    """The random weights each model's float32 phases draw."""
+    if model == "conformer":
+        init_random_(task.model, gen)
+    else:
+        init_wavlm_(task, gen)
+
+
+def as_float32(hp: dict) -> dict:
+    """The same task options with every compute dtype float32."""
+    out = dict(hp, dtype="float32")
+    if "ssl_config" in hp:
+        out["ssl_config"] = dict(hp["ssl_config"], dtype="float32")
+    return out
+
+
+def phase_bf16_model(gen: torch.Generator, model: str) -> None:
+    """The full-width model in bfloat16 on the card (the depthwise kernel's
+    bfloat16 instantiation) against the same state_dict in bfloat16 on the
+    CPU (its plain versions), on a ragged batch of a 3 s and a 2 s clip:
+    float32 logits on both sides, scores within ``BF16_SCORE_TOL`` of the
+    largest score, ``pred_lang`` equal where the CPU's margin between the
+    two best languages exceeds twice the scores' distance, and the launches
+    of one forward, every depthwise launch in bfloat16."""
+    spec = BF16_MODELS[model]
+    task = LidASRTask(**spec["hp"], device="cuda")
+    init_model_(model, task, gen)
+    cpu = LidASRTask(**spec["hp"], device="cpu")
+    cpu.model.load_state_dict(task.model.state_dict())
+    wavs = 0.1 * torch.randn(2, 3 * SR, generator=gen)
+    lengths = torch.tensor([3 * SR, 2 * SR])
+    got, ref, per_forward, cpu_s, errs = infer_card_vs_cpu(task, cpu, wavs, lengths)
+    neg = torch.finfo(torch.float32).min
+    live = ref["logits"] > neg
+    largest = ref["scores"].abs().max().item()
+    score_err = errs["max_abs_err_scores"]
+    top2 = ref["scores"].sort(dim=-1).values[:, -2:]
+    clear = (top2[:, 1] - top2[:, 0]) > 2 * score_err
+    name = "bf16_model_card_vs_cpu" if model == "conformer" else "bf16_wavlm_model_card_vs_cpu"
+    emit({
+        "phase": name, "config": spec["config"], "batch": [2, 3 * SR],
+        "lengths": lengths.tolist(), "logits_dtype": str(got["logits"].dtype), **errs,
+        "largest_score": largest, "rel_err_scores": score_err / largest,
+        "tol_of_largest_score": BF16_SCORE_TOL,
+        "scores": got["scores"].tolist(), "scores_cpu": ref["scores"].tolist(),
+        "pred_lang": got["pred_lang"].tolist(), "pred_lang_cpu": ref["pred_lang"].tolist(),
+        "pred_lang_compared": clear.tolist(), "cpu_forward_seconds": cpu_s,
+        "cpu_depth": "full", "launches_per_forward": per_forward,
+    })
+    checks = {
+        "finite": bool(torch.isfinite(got["logits"][live]).all()
+                       and torch.isfinite(got["scores"]).all()),
+        "float32_logits": got["logits"].dtype == ref["logits"].dtype == torch.float32,
+        "scores": score_err <= BF16_SCORE_TOL * largest,
+        "masked_slots": bool(torch.equal(got["logits"] == neg, ref["logits"] == neg)),
+        "pred_lang": torch.equal(got["pred_lang"][clear], ref["pred_lang"][clear]),
+        "launches": per_forward == spec["per_forward"],
+    }
+    if not all(checks.values()):
+        raise AssertionError(f"{name} failed: {checks}")
+
+
+def phase_bf16_train_card_vs_cpu(gen: torch.Generator) -> None:
+    """One deterministic B = 8, 4 s train step of each model in bfloat16 on
+    the card and on the CPU from the same state_dict, and in float32 on the
+    card (:func:`step_card_vs_cpu`; the Conformer's CPU side takes the
+    card's features and subsampling ReLU decisions): the loss within
+    ``BF16_LOSS_TOL`` of its size, and the launches of the step.  The
+    gradients: bfloat16's rounding moves both sides' away from the float32
+    gradients of the same step by as much as they differ from each other
+    (tens of percent of a leaf whose sum cancels), so what the card must
+    show is that it computes them as exactly as the CPU's plain path, in
+    relative L2 norm: over every gradient no further from float32 than
+    twice the CPU's distance plus 1e-3, and in each leaf of at least
+    ``MIN_LEAF`` entries no further than ``BF16_GRAD_TOL`` or three times
+    the CPU's distance.  The leaves where a distance passes
+    ``BF16_GRAD_TOL`` are reported."""
+    for model, spec in BF16_MODELS.items():
+        batch = synthetic_batch(np.random.RandomState(4), lang=1, b=8, seconds=4.0)
+        if model == "conformer":
+            step = conformer_step_card_vs_cpu(spec["deterministic"], gen, batch, BF16_GRAD_TOL)
+        else:
+            card = LidASRTask(**spec["deterministic"], device="cuda")
+            cpu = LidASRTask(**spec["deterministic"], device="cpu")
+            reference = LidASRTask(**as_float32(spec["deterministic"]), device="cuda")
+            init_wavlm_(card, gen)
+            cpu.model.load_state_dict(card.model.state_dict())
+            reference.model.load_state_dict(card.model.state_dict())
+            step = step_card_vs_cpu(card, cpu, batch, ("depthwise.bias", "k_proj.bias"),
+                                    reference=reference, tol=BF16_GRAD_TOL)
+        emit({"phase": "bf16_train_card_vs_cpu", "model": model, "batch": [8, 4 * SR],
+              "tol_loss": BF16_LOSS_TOL, "tol_gradient": BF16_GRAD_TOL, **step})
+        ok = (step["same_leaves"] and step["rel_err_loss"] <= BF16_LOSS_TOL
+              and step["max_card_over_bar"] <= 1.0
+              and step["rel_l2_card_vs_float32"] <= 2 * step["rel_l2_cpu_vs_float32"] + 1e-3
+              and step["launches_per_train_step"] == spec["per_step"])
+        if not ok:
+            raise AssertionError(f"the bf16 {model} train step on the card disagrees with the CPU")
+
+
+BF16_TURNS = ("float32", "bfloat16", "bfloat16", "float32")
+
+
+def phase_bf16_host_timings(gen: torch.Generator) -> dict:
+    """bfloat16 against float32, in turns float32, bfloat16, bfloat16,
+    float32 within this call (host-bound times move by tens of percent
+    between calls), each model with the same weights in both: ``infer`` on
+    3 s clips at B = 1 and B = 32, 10 ``/lid`` requests, and the B = 8, 4 s
+    train step with everything random on and its peak memory; the launches
+    of every timed run, checked.  Before any use of the profiler in this
+    process.  Returns, per model, the times, the bfloat16 runs' launches
+    and the bfloat16 tasks, trainers and batches."""
+    out = {}
+    for model, spec in BF16_MODELS.items():
+        tasks, trainers = {}, {}
+        for dtype in ("float32", "bfloat16"):
+            hp = spec["train_hp"] if dtype == "float32" else dict(
+                spec["train_hp"], dtype="bfloat16",
+                **({"ssl_config": WAVLM_BASE_PLUS_BF16} if model == "wavlm" else {}))
+            tasks[dtype] = LidASRTask(**hp, device="cuda")
+        init_model_(model, tasks["float32"], gen)
+        tasks["bfloat16"].model.load_state_dict(tasks["float32"].model.state_dict())
+        expect = {"float32": (spec["f32_per_forward"], spec["f32_per_step"]),
+                  "bfloat16": (spec["per_forward"], spec["per_step"])}
+        times = {dtype: {"b1_ms": [], "b32_ms": [], "lid_p50_ms": [], "train_ms": [],
+                         "train_peak_mb": []} for dtype in tasks}
+        counts = {}
+        for batch, iters in ((1, 30), (32, 10)):
+            wavs = 0.1 * torch.randn(batch, 3 * SR, generator=gen)
+            lengths = torch.full((batch,), 3 * SR)
+            for task in tasks.values():
+                for _ in range(3):
+                    task.infer_fn()(wavs, lengths)
+            for dtype in BF16_TURNS:
+                infer = tasks[dtype].infer_fn()
+                torch.cuda.synchronize()
+                reset_launches()
+                t0 = time.perf_counter()
+                for _ in range(iters):
+                    result = infer(wavs, lengths)
+                result["scores"].cpu()
+                times[dtype][f"b{batch}_ms"].append((time.perf_counter() - t0) / iters * 1e3)
+                counted = launches()
+                if counted != {k: n * iters for k, n in expect[dtype][0].items()}:
+                    raise AssertionError(f"{model} {dtype} infer at B = {batch}: {counted}")
+                if dtype == "bfloat16":
+                    counts[f"b{batch}"] = counted
+        for dtype in BF16_TURNS:
+            report = phase_serve(tasks[dtype], gen, expect[dtype][0],
+                                 f"bf16_e2e_serve_{model}_{dtype}")
+            times[dtype]["lid_p50_ms"].append(report["client_p50_ms"])
+            if dtype == "bfloat16":
+                counts["serve"], counts["requests"] = report["launches"], report["requests"]
+        rng = np.random.RandomState(5)
+        batches = [synthetic_batch(rng, i % N_LANG, TRAIN_B, TRAIN_SECONDS) for i in range(3)]
+        for dtype, task in tasks.items():
+            task.init_parameters = lambda generator: None  # train on from these weights
+            trainers[dtype] = Trainer(total_epoch=1, use_progress_bar=False, seed=0)
+            trainers[dtype].trainer_prepare(task)
+            for batch in batches:
+                trainers[dtype].train_step(batch)
+        steps = 6
+        for dtype in BF16_TURNS:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset_launches()
+            t0 = time.perf_counter()
+            for i in range(steps):
+                metrics = trainers[dtype].train_step(batches[i % len(batches)])
+            loss = float(metrics["loss"])
+            times[dtype]["train_ms"].append((time.perf_counter() - t0) / steps * 1e3)
+            times[dtype]["train_peak_mb"].append(torch.cuda.max_memory_allocated() / 2 ** 20)
+            counted = launches()
+            if counted != {k: n * steps for k, n in expect[dtype][1].items()} \
+                    or not np.isfinite(loss):
+                raise AssertionError(f"{model} {dtype} train step: {counted}, loss {loss}")
+            if dtype == "bfloat16":
+                counts["train"], counts["train_steps"] = counted, steps
+        summary = {dtype: {k: statistics.mean(v) for k, v in t.items()}
+                   for dtype, t in times.items()}
+        for dtype in summary:
+            summary[dtype]["b1_utt_per_s"] = 1e3 / summary[dtype]["b1_ms"]
+            summary[dtype]["b32_utt_per_s"] = 32e3 / summary[dtype]["b32_ms"]
+            summary[dtype]["train_utt_per_s"] = TRAIN_B * 1e3 / summary[dtype]["train_ms"]
+        out[model] = {"readings": times, "mean": summary,
+                      "bf16_over_f32": {k: summary["bfloat16"][k] / summary["float32"][k]
+                                        for k in summary["float32"]},
+                      "counts": counts, "task": tasks["bfloat16"],
+                      "trainer": trainers["bfloat16"], "batches": batches}
+    return out
+
+
+def phase_bf16_timings(gen: torch.Generator, errs: dict, host: dict, cli: dict) -> list:
+    """The ``bf16_e2e`` line (:func:`phase_bf16_host_timings`' times, then
+    one bfloat16 B = 1 forward and one train step of each model under the
+    profiler: device kernels, busy share, the ten largest) and the
+    ``kernels`` line's bfloat16 rows: the depthwise kernel's bfloat16 modes
+    at the shapes the bfloat16 paths give it, with their launches there
+    (WavLM rows also on the ``cli_wavlm_bf16`` run)."""
+    rows = []
+    for model, eval_rows, train_shape in (
+            ("conformer", (("depthwise_conv1d_fwd[glu_bn_act]@bf16", SERVE_DW_SHAPE),
+                           ("depthwise_conv1d_fwd[glu_bn_act]@bf16_b32", SCORE_DW_SHAPE)),
+             TRAIN_DW_SHAPE),
+            ("wavlm", (("depthwise_conv1d_fwd[glu_bn_act]@wavlm_bf16", WAVLM_SERVE_DW_SHAPE),
+                       ("depthwise_conv1d_fwd[glu_bn_act]@wavlm_bf16_b32", WAVLM_SCORE_DW_SHAPE)),
+             WAVLM_TRAIN_DW_SHAPE)):
+        counts = host[model]["counts"]
+        n_req, n_steps = counts["requests"], counts["train_steps"]
+        suffix = "@bf16" if model == "conformer" else "@wavlm_bf16"
+        model_rows = fused_kernel_rows(gen, errs["conv_fused"], {
+            eval_rows[0][0]: (counts["serve"]["depthwise_glu_bn_act"], {
+                "launches_per_request": counts["serve"]["depthwise_glu_bn_act"] / n_req,
+                "launches_counted_on": f"the bfloat16 {model} /lid requests"}),
+            eval_rows[1][0]: (counts["b32"]["depthwise_glu_bn_act"], {
+                "launches_per_batch": counts["b32"]["depthwise_glu_bn_act"] / 10,
+                "launches_counted_on": f"the timed bfloat16 {model} infer calls at B = 32"}),
+            f"depthwise_conv1d_fwd[glu]{suffix}_train": (counts["train"]["depthwise_glu"], {
+                "launches_per_train_step": counts["train"]["depthwise_glu"] / n_steps}),
+            f"depthwise_conv1d_fwd[glu_dx]{suffix}_train": (counts["train"]["depthwise_glu_dx"], {
+                "launches_per_train_step": counts["train"]["depthwise_glu_dx"] / n_steps}),
+        }, eval_rows=eval_rows, train_shape=train_shape, train_suffix=f"{suffix}_train",
+            dtype=torch.bfloat16)
+        model_rows.append(bwd_w_row(gen, errs["conv_fused"], train_shape,
+                                    f"depthwise_conv1d_bwd_w{suffix}_train", counts["train"],
+                                    n_steps, torch.bfloat16))
+        for row in model_rows:
+            if model == "wavlm":
+                mode = row["name"].split("[")[1].split("]")[0] if "[" in row["name"] else "bwd_w"
+                row["launches_cli"] = cli["depthwise_" + mode]
+                row["launches_cli_are"] = ("the cli_wavlm_bf16 runs (lid_wavlm_bf16.yaml, "
+                                           "8 x 2 s clips)")
+            if not row["launches"] > 0:
+                raise AssertionError(f"{row['name']} was not launched on its bfloat16 path")
+        rows += model_rows
+    profiles = {}
+    for model in BF16_MODELS:
+        task, trainer = host[model]["task"], host[model]["trainer"]
+        infer = task.infer_fn()
+        wavs, lengths = 0.1 * torch.randn(1, 3 * SR, generator=gen), torch.tensor([3 * SR])
+        profiles[model] = {
+            "profile_b1_3s": _profile_device(lambda: infer(wavs, lengths)["scores"].cpu()),
+            "profile_step_b8_4s": _profile_device(
+                lambda: float(trainer.train_step(host[model]["batches"][0])["loss"]))}
+    emit({"phase": "bf16_e2e", "turns": list(BF16_TURNS),
+          **{model: {"times": host[model]["readings"], "mean": host[model]["mean"],
+                     "bf16_over_f32": host[model]["bf16_over_f32"], **profiles[model]}
+             for model in BF16_MODELS}})
     return rows
 
 
@@ -2694,11 +3115,17 @@ def main(argv=None) -> int:
         wavlm_serve = phase_serve(wavlm_task, gen, WAVLM_PER_FORWARD_LAUNCHES, "wavlm_serve")
         phase_wavlm_train_card_vs_cpu(gen)
         wavlm_cli = phase_cli_wavlm(root, corpus, smi)
+        phase_bf16_model(gen, "conformer")
+        phase_bf16_model(gen, "wavlm")
+        phase_bf16_train_card_vs_cpu(gen)
+        bf16_cli = phase_cli_wavlm(root, corpus, smi, WAVLM_BF16_CLI)
     # host-clock loops first, the profiler's runs after (it slows what follows it)
+    bf16_host = phase_bf16_host_timings(gen)
     wavlm_host = phase_wavlm_host_timings(wavlm_task, gen)
     kernels = phase_timings(task, gen, errs, served, serve_report, trained, training, cli,
                             flagship_eval)
     kernels += phase_wavlm_timings(wavlm_task, gen, errs, wavlm_host, wavlm_serve, wavlm_cli)
+    kernels += phase_bf16_timings(gen, errs, bf16_host, bf16_cli)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

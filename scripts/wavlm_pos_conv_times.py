@@ -8,8 +8,12 @@ WavLM-Base+ joint model on 3 s clips, timed four ways: CUDA-graph replay
 (``chip_smoke.device_ms``), CUDA events around eager calls, the summed
 device time of its kernels under ``torch.profiler``, and a whole B = 1
 forward with and without it (its output replaced by zeros) timed with CUDA
-events.  Prints one JSON line with the card's name and power limit.
-Imports nothing of JAX.
+events.  Then the same conv's forward and backward (the input's and the
+weights' gradients) at the train step's shape (8 × 4 s clips) in float32
+and in bfloat16 (``WavLMConfig.dtype``), between CUDA events, with cuDNN's
+default algorithms and with the ones its search picks, and the device time
+of the data gradient's kernels under ``torch.profiler``.  Prints one JSON
+line with the card's name and power limit.  Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -24,6 +28,7 @@ import torch
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
 import chip_smoke  # noqa: E402
+from speechlid_tpu_torch.models.wavlm import WavLMConfig, _WeightNormConvPos  # noqa: E402
 from speechlid_tpu_torch.tasks.lid_asr import LidASRTask  # noqa: E402
 
 SR = 16000
@@ -92,6 +97,29 @@ def main() -> int:
             pos_conv.forward = forward
         out[f"infer_b{batch}_3s"] = {"events_ms": with_conv, "events_ms_without_pos_conv": without,
                                      "profiled_convolve": profiled}
+    x = torch.randn(chip_smoke.WAVLM_TRAIN_B, chip_smoke._wavlm_frames(4.0), 768,
+                    generator=gen).cuda()
+    g = torch.randn(x.shape, generator=gen).cuda()
+    for dtype in ("float32", "bfloat16"):
+        conv = _WeightNormConvPos(WavLMConfig.from_dict(
+            dict(chip_smoke.WAVLM_BASE_PLUS, dtype=dtype))).cuda()
+        conv.load_state_dict(pos_conv.state_dict())
+        xin = x.to(conv.dtype).requires_grad_(True)
+        grad = g.to(conv.dtype)
+
+        def step():
+            return torch.autograd.grad(conv(xin), [xin, conv.weight_v], grad)
+
+        row = {"forward_backward_events_ms": event_ms(step),
+               "dgrad_profiled": profiled_us(step, "dgrad")}
+        with torch.no_grad():
+            row["forward_events_ms"] = event_ms(lambda: conv(xin))
+        torch.backends.cudnn.benchmark = True  # what cuDNN's own search would pick
+        try:
+            row["forward_backward_events_ms_cudnn_benchmark"] = event_ms(step)
+        finally:
+            torch.backends.cudnn.benchmark = False
+        out[f"pos_conv_train_b8_4s_{dtype}"] = row
     print(json.dumps(out), flush=True)
     return 0
 

@@ -34,6 +34,12 @@
 //                      conv gives du, and the kernel writes dh (B, T, 2C) =
 //                      mask·[du·σ(g), du·a·σ(g)·(1 − σ(g))] from the saved h.
 //
+// In bfloat16 everything is computed in float and rounded to bfloat16 where
+// the JAX package's bfloat16 conv module rounds: u before the conv (the u
+// written for dW is the one the conv read), the conv output before
+// BatchNorm, BatchNorm's output before the act, and the output; in the GLU
+// backward du (dX's output) before the product, and dh.
+//
 // In eval one launch replaces the 13 of GLU, mask, conv, BatchNorm and
 // Swish; in training the forward takes GLU and mask (5 launches become 1)
 // and dX takes the GLU backward (6 become 1).
@@ -361,8 +367,9 @@ __global__ void __launch_bounds__(kFwdThreads) depthwise_conv1d_kernel(const Fwd
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const float s = sigmoid(at(gv, e));
-          at(da, e) = at(v, e) * s;
-          at(dg, e) = at(v, e) * at(av, e) * s * (1.f - s);
+          const float du = in_type<T>(at(v, e));  // dX as a tensor of type T holds it
+          at(da, e) = du * s;
+          at(dg, e) = du * at(av, e) * s * (1.f - s);
         }
       }
       store4<T, kVec>(out, c, C, da);

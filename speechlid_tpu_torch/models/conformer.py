@@ -12,6 +12,15 @@ needs no transposes.  Parity details that differ from PyTorch's defaults:
   float32 softmax, so a fully padded query row comes out uniform;
 - the Conv2d subsampling flattens (B, T', F', C) frequency-major, as the
   NHWC JAX convolution does;
+- ``dtype`` is the compute dtype of flax's ``dtype=`` (``"float32"`` or
+  ``"bfloat16"``), not ``torch.autocast``: parameters stay float32 and are
+  cast per call (:class:`Linear`, :class:`Conv1d`, :class:`Conv2d`: input,
+  weight and bias in ``dtype``, the output in it); :class:`LayerNorm`
+  takes its statistics in float32 and returns ``dtype``; the attention
+  logits go to float32 before the mask and the softmax, the probabilities
+  back to ``dtype``; BatchNorm's statistics are float32, its output in
+  ``dtype``.  In bfloat16 the fbank features stay float32 up to the
+  subsampling's cast;
 - every ``ConformerConvModule`` runs everything between its two pointwise
   GEMMs through one kernel of ``ops/cuda/depthwise_kernel``: GLU, padding
   mask, depthwise conv, eval BatchNorm and activation in eval mode
@@ -34,12 +43,13 @@ needs no transposes.  Parity details that differ from PyTorch's defaults:
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Optional, Union
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from speechlid_tpu_torch.core.precision import compute_dtype
 from speechlid_tpu_torch.ops.cuda.depthwise_kernel import (
     ACTIVATIONS,
     BatchNormStats,
@@ -54,8 +64,66 @@ LN_EPS = 1e-6  # flax nn.LayerNorm default
 _NEG = torch.finfo(torch.float32).min
 
 
-def _layer_norm(dim: int) -> nn.LayerNorm:
-    return nn.LayerNorm(dim, eps=LN_EPS)
+def _cast_params(module: nn.Module, x: torch.Tensor):
+    """(x, weight, bias) of a Linear or Conv in its ``compute_dtype``."""
+    d = module.compute_dtype
+    bias = None if module.bias is None else module.bias.to(d)
+    return x.to(d), module.weight.to(d), bias
+
+
+class Linear(nn.Linear):
+    """``nn.Linear`` computed as flax's ``nn.Dense(dtype=compute_dtype)``:
+    input, weight and bias cast to ``compute_dtype``, the output in it.  The
+    float32 parameters get float32 gradients back through the casts."""
+
+    def __init__(self, in_features: int, out_features: int, bias: bool = True,
+                 compute_dtype: torch.dtype = torch.float32):
+        super().__init__(in_features, out_features, bias=bias)
+        self.compute_dtype = compute_dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.linear(*_cast_params(self, x))
+
+
+class Conv1d(nn.Conv1d):
+    """``nn.Conv1d`` computed in ``compute_dtype``, as :class:`Linear`."""
+
+    def __init__(self, *args, compute_dtype: torch.dtype = torch.float32, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.compute_dtype = compute_dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self._conv_forward(*_cast_params(self, x))
+
+
+class Conv2d(nn.Conv2d):
+    """``nn.Conv2d`` computed in ``compute_dtype``, as :class:`Linear`."""
+
+    def __init__(self, *args, compute_dtype: torch.dtype = torch.float32, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.compute_dtype = compute_dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self._conv_forward(*_cast_params(self, x))
+
+
+class LayerNorm(nn.LayerNorm):
+    """flax's ``nn.LayerNorm(dtype=compute_dtype)``: statistics, scale and
+    bias in float32 over the float32 input, the output in
+    ``compute_dtype`` (``torch.autocast`` would leave it float32)."""
+
+    def __init__(self, dim: int, eps: float = LN_EPS,
+                 compute_dtype: torch.dtype = torch.float32):
+        super().__init__(dim, eps=eps)
+        self.compute_dtype = compute_dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = F.layer_norm(x.float(), self.normalized_shape, self.weight, self.bias, self.eps)
+        return y.to(self.compute_dtype)
+
+
+def _layer_norm(dim: int, dtype: torch.dtype = torch.float32) -> LayerNorm:
+    return LayerNorm(dim, eps=LN_EPS, compute_dtype=dtype)
 
 
 class Dropout(nn.Module):
@@ -89,11 +157,11 @@ class FeedForward(nn.Module):
     """dim → dim·mult → dim with Swish."""
 
     def __init__(self, dim: int, mult: int = 4, use_double_swish: bool = False,
-                 dropout: float = 0.0):
+                 dropout: float = 0.0, dtype: torch.dtype = torch.float32):
         super().__init__()
         self.act = double_swish if use_double_swish else swish
-        self.fc1 = nn.Linear(dim, dim * mult)
-        self.fc2 = nn.Linear(dim * mult, dim)
+        self.fc1 = Linear(dim, dim * mult, compute_dtype=dtype)
+        self.fc2 = Linear(dim * mult, dim, compute_dtype=dtype)
         self.dropout = Dropout(dropout)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -105,17 +173,21 @@ class RelPosAttention(nn.Module):
     dots = q·kᵀ·scale + q·E[clip(i-j, ±max_pos)]·scale.
 
     Plain matmul and softmax (no fused attention): the JAX package computes
-    it outside any kernel, and parity is the point."""
+    it outside any kernel, and parity is the point.  In bfloat16 both score
+    matmuls and their sum are bfloat16; the logits go to float32 before the
+    mask (JAX's float32 fill value promotes them there) and the softmax."""
 
     def __init__(self, dim: int, heads: int = 8, dim_head: int = 64,
-                 max_pos_emb: int = 512, dropout: float = 0.0):
+                 max_pos_emb: int = 512, dropout: float = 0.0,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.heads, self.dim_head, self.max_pos_emb = heads, dim_head, max_pos_emb
+        self.dtype = dtype
         self.dropout = Dropout(dropout)
         inner = heads * dim_head
-        self.to_q = nn.Linear(dim, inner, bias=False)
-        self.to_kv = nn.Linear(dim, 2 * inner, bias=False)
-        self.to_out = nn.Linear(inner, dim)
+        self.to_q = Linear(dim, inner, bias=False, compute_dtype=dtype)
+        self.to_kv = Linear(dim, 2 * inner, bias=False, compute_dtype=dtype)
+        self.to_out = Linear(inner, dim, compute_dtype=dtype)
         self.rel_pos_emb = nn.Parameter(torch.randn(2 * max_pos_emb + 1, dim_head))
 
     def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -133,13 +205,13 @@ class RelPosAttention(nn.Module):
         seq = torch.arange(n, device=x.device)
         dist = (seq[:, None] - seq[None, :]).clamp(-self.max_pos_emb, self.max_pos_emb)
         dist = dist + self.max_pos_emb
-        pos_scores = (q @ self.rel_pos_emb.t()) * scale  # (b, h, n, 2P+1)
-        dots = dots + torch.gather(pos_scores, -1, dist.expand(b, h, n, n))
+        pos_scores = (q @ self.rel_pos_emb.to(q.dtype).t()) * scale  # (b, h, n, 2P+1)
+        dots = (dots + torch.gather(pos_scores, -1, dist.expand(b, h, n, n))).float()
 
         if mask is not None:
             pair = mask[:, None, :, None] & mask[:, None, None, :]
             dots = dots.masked_fill(~pair, _NEG)
-        attn = torch.softmax(dots.float(), dim=-1).to(x.dtype)
+        attn = torch.softmax(dots, dim=-1).to(self.dtype)
         out = (attn @ v).transpose(1, 2).reshape(b, n, h * d)
         return self.dropout(self.to_out(out))
 
@@ -208,20 +280,23 @@ class ConformerConvModule(nn.Module):
     """LN → pointwise(2·inner) → GLU → zero padded frames → depthwise →
     BN → Swish → pointwise.  What lies between the two pointwise GEMMs is
     one kernel in eval mode; in training mode the kernel takes GLU, mask
-    and conv, and BatchNorm (batch statistics) and act stay in PyTorch."""
+    and conv, and BatchNorm (batch statistics) and act stay in PyTorch.  In
+    bfloat16 the kernel takes bfloat16 h, weights and bias and sums in
+    float32."""
 
     def __init__(self, dim: int, expansion_factor: int = 2, kernel_size: int = 31,
-                 use_double_swish: bool = False, dropout: float = 0.0):
+                 use_double_swish: bool = False, dropout: float = 0.0,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         inner = dim * expansion_factor
         self.dropout = Dropout(dropout)
         self.act_name = "double_swish" if use_double_swish else "swish"
         self.act = ACTIVATIONS[self.act_name]
-        self.norm = _layer_norm(dim)
-        self.pointwise_in = nn.Linear(dim, 2 * inner)
+        self.norm = _layer_norm(dim, dtype)
+        self.pointwise_in = Linear(dim, 2 * inner, compute_dtype=dtype)
         self.depthwise = DepthwiseConv1d(inner, kernel_size)
         self.bn = MaskedBatchNorm(inner)
-        self.pointwise_out = nn.Linear(inner, dim)
+        self.pointwise_out = Linear(inner, dim, compute_dtype=dtype)
 
     def forward(self, x: torch.Tensor, pad_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         h = self.pointwise_in(self.norm(x))
@@ -239,18 +314,19 @@ class ConformerBlock(nn.Module):
     def __init__(self, dim: int, dim_head: int = 64, heads: int = 8, ff_mult: int = 4,
                  conv_expansion_factor: int = 2, conv_kernel_size: int = 31,
                  use_double_swish: bool = False, attn_dropout: float = 0.0,
-                 ff_dropout: float = 0.0, conv_dropout: float = 0.0):
+                 ff_dropout: float = 0.0, conv_dropout: float = 0.0,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.norm_ff1 = _layer_norm(dim)
-        self.ff1 = FeedForward(dim, ff_mult, use_double_swish, ff_dropout)
-        self.norm_attn = _layer_norm(dim)
-        self.attn = RelPosAttention(dim, heads, dim_head, dropout=attn_dropout)
+        self.norm_ff1 = _layer_norm(dim, dtype)
+        self.ff1 = FeedForward(dim, ff_mult, use_double_swish, ff_dropout, dtype)
+        self.norm_attn = _layer_norm(dim, dtype)
+        self.attn = RelPosAttention(dim, heads, dim_head, dropout=attn_dropout, dtype=dtype)
         self.conv = ConformerConvModule(dim, conv_expansion_factor, conv_kernel_size,
-                                        use_double_swish, conv_dropout)
-        self.norm_ff2 = _layer_norm(dim)
+                                        use_double_swish, conv_dropout, dtype)
+        self.norm_ff2 = _layer_norm(dim, dtype)
         # ff2 ignores use_double_swish, as the reference's second half-FFN does
-        self.ff2 = FeedForward(dim, ff_mult, False, ff_dropout)
-        self.post_norm = _layer_norm(dim)
+        self.ff2 = FeedForward(dim, ff_mult, False, ff_dropout, dtype)
+        self.post_norm = _layer_norm(dim, dtype)
 
     def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         x = 0.5 * self.ff1(self.norm_ff1(x)) + x
@@ -263,10 +339,10 @@ class ConformerBlock(nn.Module):
 class Conv1dSubSampling2(nn.Module):
     """conv1d k3 s2 p1 + ReLU + Linear: T → ⌊(T-1)/2⌋ + 1."""
 
-    def __init__(self, idim: int, odim: int):
+    def __init__(self, idim: int, odim: int, dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.conv = nn.Conv1d(idim, idim, 3, stride=2, padding=1)
-        self.out = nn.Linear(idim, odim)
+        self.conv = Conv1d(idim, idim, 3, stride=2, padding=1, compute_dtype=dtype)
+        self.out = Linear(idim, odim, compute_dtype=dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:  # (B, T, idim)
         y = F.relu(self.conv(x.transpose(1, 2))).transpose(1, 2)
@@ -281,12 +357,12 @@ class Conv2dSubsampling(nn.Module):
     """ESPnet 2D ×4 subsampling: two conv k3 s2 (valid) over (T, mel), then
     Linear over the (freq, channel) features flattened frequency-major."""
 
-    def __init__(self, idim: int, odim: int):
+    def __init__(self, idim: int, odim: int, dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.conv0 = nn.Conv2d(1, odim, 3, stride=2)
-        self.conv1 = nn.Conv2d(odim, odim, 3, stride=2)
+        self.conv0 = Conv2d(1, odim, 3, stride=2, compute_dtype=dtype)
+        self.conv1 = Conv2d(odim, odim, 3, stride=2, compute_dtype=dtype)
         f_out = ((idim - 1) // 2 - 1) // 2
-        self.out = nn.Linear(f_out * odim, odim)
+        self.out = Linear(f_out * odim, odim, compute_dtype=dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:  # (B, T, idim)
         y = F.relu(self.conv0(x[:, None]))  # (B, C, T, F): H = time, W = mel
@@ -303,7 +379,9 @@ class Conv2dSubsampling(nn.Module):
 
 class ConformerModel(nn.Module):
     """Subsample → ×√d → positional dropout → N ConformerBlocks over the
-    valid-frame mask, with linear stochastic depth in training mode."""
+    valid-frame mask, with linear stochastic depth in training mode; every
+    block and the subsampling compute in ``dtype`` (``"float32"`` or
+    ``"bfloat16"``), the output in it."""
 
     def __init__(self, n_blocks: int = 14, n_mels: int = 80, encoder_dim: int = 144,
                  dim_head: int = 64, heads: int = 4, ff_mult: int = 4,
@@ -311,8 +389,11 @@ class ConformerModel(nn.Module):
                  use_double_swish: bool = False, sub_sampling: int = 2,
                  attn_dropout: float = 0.0, ff_dropout: float = 0.0,
                  conv_dropout: float = 0.0, pos_dropout: float = 0.1,
-                 use_stochastic_depth: bool = True, stochastic_depth_p: float = 0.7):
+                 use_stochastic_depth: bool = True, stochastic_depth_p: float = 0.7,
+                 dtype: Union[str, torch.dtype] = torch.float32):
         super().__init__()
+        dtype = compute_dtype(dtype)
+        self.dtype = dtype
         self.encoder_dim = encoder_dim
         self.sub_sampling = sub_sampling
         self.pos_dropout = Dropout(pos_dropout)
@@ -321,13 +402,13 @@ class ConformerModel(nn.Module):
         survival = 1.0 - (torch.arange(1, n_blocks + 1) / n_blocks) * (1.0 - stochastic_depth_p)
         self.register_buffer("survival", survival, persistent=False)
         if sub_sampling == 4:
-            self.subsample = Conv2dSubsampling(n_mels, encoder_dim)
+            self.subsample = Conv2dSubsampling(n_mels, encoder_dim, dtype)
         else:
-            self.subsample = Conv1dSubSampling2(n_mels, encoder_dim)
+            self.subsample = Conv1dSubSampling2(n_mels, encoder_dim, dtype)
         self.blocks = nn.ModuleList(
             ConformerBlock(encoder_dim, dim_head, heads, ff_mult, conv_expansion_factor,
                            conv_kernel_size, use_double_swish, attn_dropout, ff_dropout,
-                           conv_dropout)
+                           conv_dropout, dtype)
             for _ in range(n_blocks)
         )
 

@@ -9,6 +9,12 @@ sizes padded to V_max+1, padded ids masked to ``finfo(float32).min``, the
 blank at index V_max for every language.  Each head's ConformerBlock runs
 its own depthwise kernel launch.
 
+``dtype`` (``"float32"`` or ``"bfloat16"``) is the heads' compute dtype,
+as the JAX package's ``MutiLangModel(dtype=...)``: each head's block and
+its ``Linear(V+1)`` compute in it, and the vocab mask promotes the logits
+to float32 (JAX's float32 fill value does), so the logits, the scores and
+the losses are float32 in either.  The discriminator computes in float32.
+
 Training runs one head, the batch's own (``only=``): the JAX task computes
 every head under ``vmap`` but takes the loss from the own head and commits
 only the own head's BatchNorm statistics, so loss, gradients and state are
@@ -20,13 +26,14 @@ returned logits are then absent: the result is (1, B, T, V_max+1).
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Sequence
+from typing import Dict, Optional, Sequence, Union
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from speechlid_tpu_torch.models.conformer import ConformerBlock, Dropout
+from speechlid_tpu_torch.core.precision import compute_dtype
+from speechlid_tpu_torch.models.conformer import ConformerBlock, Dropout, Linear
 
 _NEG = torch.finfo(torch.float32).min
 
@@ -36,15 +43,16 @@ class ConformerLinearHead(nn.Module):
 
     def __init__(self, vocab_size: int, linear_dim: int = 768, num_layers: int = 1,
                  dim_head: int = 32, num_head: int = 8, use_double_swish: bool = False,
-                 dropout: float = 0.0):
+                 dropout: float = 0.0, dtype: Union[str, torch.dtype] = torch.float32):
         super().__init__()
+        dtype = compute_dtype(dtype)
         self.dropout = Dropout(dropout)
         self.blocks = nn.ModuleList(
             ConformerBlock(linear_dim, dim_head=dim_head, heads=num_head,
-                           use_double_swish=use_double_swish)
+                           use_double_swish=use_double_swish, dtype=dtype)
             for _ in range(num_layers)
         )
-        self.out = nn.Linear(linear_dim, vocab_size + 1)
+        self.out = Linear(linear_dim, vocab_size + 1, compute_dtype=dtype)
 
     def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         for block in self.blocks:
@@ -53,18 +61,19 @@ class ConformerLinearHead(nn.Module):
 
 
 class MultiLangHeadStack(nn.Module):
-    """(B, T, D) → logits (L, B, T, V_max+1), padded vocab ids masked; with
-    ``only=l`` just head l, (1, B, T, V_max+1)."""
+    """(B, T, D) → float32 logits (L, B, T, V_max+1), padded vocab ids
+    masked; with ``only=l`` just head l, (1, B, T, V_max+1)."""
 
     def __init__(self, vocab_sizes: Sequence[int], linear_dim: int = 768,
                  num_layers: int = 1, dim_head: int = 32, num_head: int = 8,
-                 use_double_swish: bool = False, dropout: float = 0.0):
+                 use_double_swish: bool = False, dropout: float = 0.0,
+                 dtype: Union[str, torch.dtype] = torch.float32):
         super().__init__()
         self.vocab_sizes = tuple(int(v) for v in vocab_sizes)
         self.vocab_max = max(self.vocab_sizes)
         self.heads = nn.ModuleList(
             ConformerLinearHead(self.vocab_max, linear_dim, num_layers, dim_head,
-                                num_head, use_double_swish, dropout)
+                                num_head, use_double_swish, dropout, dtype)
             for _ in self.vocab_sizes
         )
         ids = torch.arange(self.vocab_max + 1)
@@ -78,9 +87,9 @@ class MultiLangHeadStack(nn.Module):
         if lengths is not None:
             mask = torch.arange(x.shape[1], device=x.device)[None, :] < lengths[:, None]
         if only is not None:
-            logits = self.heads[only](x, mask)[None]
+            logits = self.heads[only](x, mask)[None].float()
             return logits.masked_fill(~self.vocab_valid[only : only + 1], _NEG)
-        logits = torch.stack([head(x, mask) for head in self.heads])
+        logits = torch.stack([head(x, mask) for head in self.heads]).float()
         return logits.masked_fill(~self.vocab_valid, _NEG)
 
 
@@ -145,11 +154,11 @@ class MutiLangModel(nn.Module):
     def __init__(self, featurizer: nn.Module, vocab_sizes: Sequence[int],
                  linear_dim: int = 768, num_layers: int = 1, dim_head: int = 32,
                  num_head: int = 8, use_double_swish: bool = False, disc_hidden: int = 128,
-                 dropout: float = 0.0):
+                 dropout: float = 0.0, dtype: Union[str, torch.dtype] = torch.float32):
         super().__init__()
         self.featurizer = featurizer
         self.heads = MultiLangHeadStack(vocab_sizes, linear_dim, num_layers, dim_head,
-                                        num_head, use_double_swish, dropout)
+                                        num_head, use_double_swish, dropout, dtype)
         self.discriminator = LangDiscriminatorMLP(len(vocab_sizes), disc_hidden)
         self.register_buffer("vocab_sizes", torch.tensor(tuple(vocab_sizes)),
                              persistent=False)

@@ -69,7 +69,9 @@ class Wav2Vec2(nn.Module):
 class Featurizer(nn.Module):
     """Softmax-weighted sum of the hidden states (``layer_weights``, zeros at
     init, so a plain mean at first), or the last one
-    (``feature_selection="last_hidden_state"``, no parameter)."""
+    (``feature_selection="last_hidden_state"``, no parameter).  The sum is
+    float32 for bfloat16 states, as JAX's ``tensordot`` of the float32
+    weights promotes them."""
 
     def __init__(self, num_layers: int, feature_selection: str = "hidden_states"):
         super().__init__()
@@ -82,7 +84,8 @@ class Featurizer(nn.Module):
         if self.layer_weights is None:
             return layer_feats[-1]
         norm = torch.softmax(self.layer_weights, dim=0)
-        return torch.tensordot(norm, layer_feats, dims=([0], [0]))
+        feats = layer_feats.to(torch.promote_types(norm.dtype, layer_feats.dtype))
+        return torch.tensordot(norm, feats, dims=([0], [0]))
 
 
 class SSLFeaturizerModel(nn.Module):

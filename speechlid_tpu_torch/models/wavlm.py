@@ -28,8 +28,15 @@ set_generator``), dropout from its ``Dropout`` modules' generators.
 
 The attention is written out with ``torch.matmul`` (no fused attention):
 the JAX package computes it outside any kernel, and parity is the point.
-Only float32 is ported: ``dtype`` other than ``"float32"`` and
-``quant_dot`` raise.
+
+``WavLMConfig.dtype`` (``"float32"`` or ``"bfloat16"``) is the compute
+dtype of the JAX config, with its float32 islands: every conv and
+projection computes in it (parameters stay float32, cast per call); the
+LayerNorms and the extractor's GroupNorm compute and return float32; the
+attention logits are float32 (exact products of the ``dtype`` inputs,
+summed in float32, as JAX's ``preferred_element_type``), the softmax
+float32 and the probabilities ``dtype``.  So the Base+ encoder's residual
+stream is float32 between its post-LNs.  ``quant_dot`` raises.
 """
 
 from __future__ import annotations
@@ -45,7 +52,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from speechlid_tpu_torch.models.conformer import Dropout
+from speechlid_tpu_torch.core.precision import compute_dtype
+from speechlid_tpu_torch.models.conformer import Conv1d, Dropout, LayerNorm, Linear
 
 LN_EPS = 1e-5  # the reference's LayerNorm/GroupNorm eps (not flax's 1e-6)
 _NEG = torch.finfo(torch.float32).min
@@ -102,7 +110,7 @@ class WavLMConfig:
     num_buckets: int = 320
     max_distance: int = 1280
     gru_rel_pos: bool = False
-    dtype: str = "float32"  # only float32 is ported
+    dtype: str = "float32"  # the compute dtype: "float32" or "bfloat16"
     quant_dot: Optional[str] = None  # the int8 path is not ported: raises
     # 'conv' or 'matmul': in the JAX package two lowerings of the same
     # strided conv with the same parameters; here one conv serves both
@@ -135,19 +143,21 @@ class ConvFeatureExtractor(nn.Module):
 
     The JAX package's ``conv_extractor_impl="matmul"`` frames the same conv
     as one GEMM with the same parameters and the same numbers; one conv
-    serves both here."""
+    serves both here.  The convs compute in the config's dtype; the norms
+    are float32 islands, so a normalised layer's GELU runs in float32."""
 
     def __init__(self, config: WavLMConfig):
         super().__init__()
         self.mode = config.extractor_mode
         if self.mode not in ("default", "layer_norm"):
             raise ValueError(f"unknown extractor_mode {self.mode!r}")
+        dtype = compute_dtype(config.dtype)
         in_dim = 1
         for i, (dim, k, stride) in enumerate(config.conv_layers):
-            self.add_module(f"conv_{i}", nn.Conv1d(in_dim, dim, k, stride=stride,
-                                                   bias=config.conv_bias))
+            self.add_module(f"conv_{i}", Conv1d(in_dim, dim, k, stride=stride,
+                                                bias=config.conv_bias, compute_dtype=dtype))
             if self.mode == "layer_norm":
-                self.add_module(f"ln_{i}", nn.LayerNorm(dim, eps=LN_EPS))
+                self.add_module(f"ln_{i}", LayerNorm(dim, eps=LN_EPS))
             elif i == 0:
                 self.gn_0 = nn.GroupNorm(dim, dim, eps=LN_EPS)
             in_dim = dim
@@ -160,7 +170,8 @@ class ConvFeatureExtractor(nn.Module):
             if self.mode == "layer_norm":
                 y = getattr(self, f"ln_{i}")(y.transpose(1, 2)).transpose(1, 2)
             elif i == 0:
-                y = self.gn_0(y)
+                gn = self.gn_0
+                y = F.group_norm(y.float(), gn.num_groups, gn.weight, gn.bias, gn.eps)
             y = F.gelu(y)
         return y.transpose(1, 2)  # (B, T', C)
 
@@ -206,22 +217,24 @@ class RelPosMultiheadAttention(nn.Module):
 
     def __init__(self, embed_dim: int, num_heads: int, dropout: float = 0.0,
                  has_relative_attention_bias: bool = False, num_buckets: int = 320,
-                 max_distance: int = 1280, gru_rel_pos: bool = False):
+                 max_distance: int = 1280, gru_rel_pos: bool = False,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.num_heads = num_heads
         self.head_dim = embed_dim // num_heads
         self.num_buckets, self.max_distance = num_buckets, max_distance
         self.gru_rel_pos = gru_rel_pos
-        self.q_proj = nn.Linear(embed_dim, embed_dim)
-        self.k_proj = nn.Linear(embed_dim, embed_dim)
-        self.v_proj = nn.Linear(embed_dim, embed_dim)
-        self.out_proj = nn.Linear(embed_dim, embed_dim)
+        self.dtype = dtype
+        self.q_proj = Linear(embed_dim, embed_dim, compute_dtype=dtype)
+        self.k_proj = Linear(embed_dim, embed_dim, compute_dtype=dtype)
+        self.v_proj = Linear(embed_dim, embed_dim, compute_dtype=dtype)
+        self.out_proj = Linear(embed_dim, embed_dim, compute_dtype=dtype)
         self.dropout = Dropout(dropout)
         self.relative_attention_bias = None
         if has_relative_attention_bias:
             self.relative_attention_bias = nn.Parameter(torch.randn(num_buckets, num_heads))
         if gru_rel_pos:
-            self.grep_linear = nn.Linear(self.head_dim, 8)
+            self.grep_linear = Linear(self.head_dim, 8, compute_dtype=dtype)
             self.grep_a = nn.Parameter(torch.ones(1, num_heads, 1, 1))
 
     def forward(self, x: torch.Tensor, padding_mask: Optional[torch.Tensor] = None,
@@ -237,11 +250,14 @@ class RelPosMultiheadAttention(nn.Module):
             bucket = _bucket_table(t, self.num_buckets, self.max_distance, x.device)
             position_bias = self.relative_attention_bias[bucket].permute(2, 0, 1)  # (H, T, T)
 
-        weights = q @ k.transpose(-1, -2)  # (B, H, T, T)
+        # float32 logits of the compute-dtype q and k: their products are
+        # exact in float32, summed there (JAX's preferred_element_type)
+        weights = q.float() @ k.float().transpose(-1, -2)  # (B, H, T, T)
         if position_bias is not None:
             attn_bias = position_bias[None]
             if self.gru_rel_pos:
-                # the gate reads the PRE-projection input, split per head
+                # the gate reads the PRE-projection input, split per head;
+                # the float32 grep_a promotes it to float32
                 grep = self.grep_linear(x.view(b, t, h, d).transpose(1, 2))  # (B, H, T, 8)
                 gates = torch.sigmoid(grep.view(b, h, t, 2, 4).sum(-1))
                 gate_a, gate_b = gates[..., 0:1], gates[..., 1:2]
@@ -249,7 +265,7 @@ class RelPosMultiheadAttention(nn.Module):
             weights = weights + attn_bias
         if padding_mask is not None:
             weights = weights.masked_fill(padding_mask[:, None, None, :], _NEG)
-        probs = self.dropout(torch.softmax(weights.float(), dim=-1).to(q.dtype))
+        probs = self.dropout(torch.softmax(weights, dim=-1).to(self.dtype))
         out = (probs @ v).transpose(1, 2).reshape(b, t, c)
         return self.out_proj(out), position_bias
 
@@ -266,22 +282,24 @@ def _ffn_act(config: WavLMConfig, y: torch.Tensor, fc1: nn.Linear) -> torch.Tens
 
 class WavLMEncoderLayer(nn.Module):
     """Post-LN (``layer_norm_first=False``, Base+) or pre-LN transformer
-    layer; LayerNorm eps 1e-5."""
+    layer; LayerNorm eps 1e-5, its output float32 in any compute dtype."""
 
     def __init__(self, config: WavLMConfig, has_relative_attention_bias: bool = False):
         super().__init__()
         c = config.encoder_embed_dim
+        dtype = compute_dtype(config.dtype)
         self.layer_norm_first = config.layer_norm_first
         self.self_attn = RelPosMultiheadAttention(
             c, config.encoder_attention_heads, dropout=config.attention_dropout,
             has_relative_attention_bias=has_relative_attention_bias,
             num_buckets=config.num_buckets, max_distance=config.max_distance,
-            gru_rel_pos=config.gru_rel_pos)
-        self.self_attn_layer_norm = nn.LayerNorm(c, eps=LN_EPS)
+            gru_rel_pos=config.gru_rel_pos, dtype=dtype)
+        self.self_attn_layer_norm = LayerNorm(c, eps=LN_EPS)
         ffn = config.encoder_ffn_embed_dim
-        self.fc1 = nn.Linear(c, 2 * ffn if config.activation_fn == "glu" else ffn)
-        self.fc2 = nn.Linear(config.encoder_ffn_embed_dim, c)
-        self.final_layer_norm = nn.LayerNorm(c, eps=LN_EPS)
+        self.fc1 = Linear(c, 2 * ffn if config.activation_fn == "glu" else ffn,
+                          compute_dtype=dtype)
+        self.fc2 = Linear(config.encoder_ffn_embed_dim, c, compute_dtype=dtype)
+        self.final_layer_norm = LayerNorm(c, eps=LN_EPS)
         self.dropout = Dropout(config.dropout)
         self.activation_dropout = Dropout(config.activation_dropout)
         self.config = config
@@ -310,12 +328,14 @@ class _WeightNormConvPos(nn.Module):
     w = v / sqrt(Σ_(out, in) v² + 1e-12) · g, with ``weight_v`` (C, C/g, K),
     ``weight_g`` (1, 1, K) — the arithmetic written out, since it is not
     ``torch.nn.utils.weight_norm``'s.  Grouped conv with padding K//2, the
-    last frame dropped for an even K, then exact GELU."""
+    last frame dropped for an even K, then exact GELU; the conv and the GELU
+    in the config's dtype (the weight norm in float32)."""
 
     def __init__(self, config: WavLMConfig):
         super().__init__()
         c, k, g = config.encoder_embed_dim, config.conv_pos, config.conv_pos_groups
         self.kernel_size, self.groups = k, g
+        self.dtype = compute_dtype(config.dtype)
         self.weight_v = nn.Parameter(torch.randn(c, c // g, k) * math.sqrt(4.0 / (k * c)))
         self.weight_g = nn.Parameter(torch.ones(1, 1, k))
         self.bias = nn.Parameter(torch.zeros(c))
@@ -323,8 +343,9 @@ class _WeightNormConvPos(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:  # (B, T, C)
         v = self.weight_v
         w = v / torch.sqrt((v * v).sum(dim=(0, 1), keepdim=True) + 1e-12) * self.weight_g
-        y = F.conv1d(x.transpose(1, 2), w, self.bias, padding=self.kernel_size // 2,
-                     groups=self.groups)
+        d = self.dtype
+        y = F.conv1d(x.transpose(1, 2).to(d), w.to(d), self.bias.to(d),
+                     padding=self.kernel_size // 2, groups=self.groups)
         if self.kernel_size % 2 == 0:
             y = y[:, :, :-1]
         return F.gelu(y).transpose(1, 2)
@@ -372,20 +393,22 @@ class WavLM(nn.Module):
 
     def __init__(self, config: WavLMConfig, mask_attention: bool = False):
         super().__init__()
-        if config.dtype != "float32" or config.quant_dot:
-            raise NotImplementedError("WavLM: only float32 is ported yet")
+        if config.quant_dot:
+            raise NotImplementedError("WavLM: quant_dot (int8) is not ported yet")
+        dtype = compute_dtype(config.dtype)
         self.config = config
         self.mask_attention = mask_attention
         self.generator: Optional[torch.Generator] = None
         c = config.encoder_embed_dim
         self.feature_extractor = ConvFeatureExtractor(config)
         embed = config.conv_layers[-1][0]
-        self.layer_norm = nn.LayerNorm(embed, eps=LN_EPS)
-        self.post_extract_proj = nn.Linear(embed, c) if embed != c else None
+        self.layer_norm = LayerNorm(embed, eps=LN_EPS)
+        self.post_extract_proj = (Linear(embed, c, compute_dtype=dtype) if embed != c
+                                  else None)
         self.dropout_input = Dropout(config.dropout_input)
         self.mask_emb = nn.Parameter(torch.rand(c))
         self.pos_conv = _WeightNormConvPos(config)
-        self.encoder_layer_norm = nn.LayerNorm(c, eps=LN_EPS)
+        self.encoder_layer_norm = LayerNorm(c, eps=LN_EPS)
         self.dropout = Dropout(config.dropout)
         self.layers = nn.ModuleList(
             WavLMEncoderLayer(config, has_relative_attention_bias=(

@@ -26,6 +26,15 @@ the conv, and whole launches go:
   :func:`glu_mask_bwd_plain` is the formula), dW and db from
   ``depthwise_conv1d_bwd_w`` on u: two launches.
 
+In bfloat16 the kernels read and write bfloat16 and compute in float32,
+rounding to bfloat16 where the JAX package's bfloat16 conv module rounds:
+u = mask·GLU(h) before the conv (so the u written for dW is the u the conv
+read), the conv output before BatchNorm, BatchNorm's output before the
+act, and the act's output; in dX the conv's output du before the GLU
+backward, then dh.  The plain versions compute in float32 and round at the
+same points, so the two agree to rounding of float32 sums; for float32
+inputs they are the chains of PyTorch ops they always were.
+
 ``depthwise_conv1d_bwd_w`` is one launch of thread-block clusters, one
 cluster per 32 channels, whose blocks split the time chunks in index order
 (:func:`chunk_share`), slide a register window of x along the frames, keep
@@ -38,8 +47,10 @@ PyTorch.
 Every wrapper takes its plain version for tensors on the CPU and launches
 its kernel for tensors on the card; there is no other path.  Each launch of
 the forward kernel counts in ``depthwise_conv1d.launches`` (the flipped
-ones also in ``.dx_launches``) and in ``depthwise_conv1d.mode_launches``
-under its mode (:data:`FWD_MODES`).
+ones also in ``.dx_launches``, the bfloat16 ones also in
+``.bf16_launches``) and in ``depthwise_conv1d.mode_launches`` under its
+mode (:data:`FWD_MODES`); a bfloat16 launch of ``depthwise_conv1d_bwd_w``
+also in ``depthwise_conv1d_bwd_w.bf16_launches``.
 """
 
 from __future__ import annotations
@@ -134,13 +145,15 @@ def depthwise_conv1d_bwd_w_plain(
 
 def glu_mask_plain(h: torch.Tensor, mask: Optional[torch.Tensor]) -> torch.Tensor:
     """u = a·σ(g) for h = [a, g] (B, T, 2C), 0 at frames where ``mask``
-    (B, T) is False: the conv module's GLU and padding mask as it runs them."""
-    a, g = h.chunk(2, dim=-1)
+    (B, T) is False: the conv module's GLU and padding mask as it runs them,
+    in float32 (float64 for float64 inputs) and rounded once to h's dtype."""
+    acc = torch.promote_types(h.dtype, torch.float32)
+    a, g = h.to(acc).chunk(2, dim=-1)
     u = a * torch.sigmoid(g)
     if mask is not None:
         # padded frames must not leak into the depthwise conv
         u = u.masked_fill(~mask[:, :, None], 0.0)
-    return u
+    return u.to(h.dtype)
 
 
 def glu_depthwise_plain(
@@ -155,10 +168,12 @@ def glu_depthwise_plain(
 
 def batch_norm_act_plain(y: torch.Tensor, bn: BatchNormStats, act: str) -> torch.Tensor:
     """Eval BatchNorm in float32, (y - mean)·rsqrt(var + eps)·weight + bias,
-    back in y's dtype, then the activation: ``MaskedBatchNorm``'s eval
-    branch and the module's act."""
-    z = (y.float() - bn.mean) * torch.rsqrt(bn.var + bn.eps)
-    return ACTIVATIONS[act]((z * bn.weight + bn.bias).to(y.dtype))
+    rounded to y's dtype, then the activation in float32, rounded again:
+    ``MaskedBatchNorm``'s eval branch and the module's act."""
+    acc = torch.promote_types(y.dtype, torch.float32)
+    z = (y.to(acc) - bn.mean) * torch.rsqrt(bn.var + bn.eps)
+    z = (z * bn.weight + bn.bias).to(y.dtype)
+    return ACTIVATIONS[act](z.to(acc)).to(y.dtype)
 
 
 def glu_depthwise_bn_act_plain(
@@ -174,13 +189,16 @@ def glu_mask_bwd_plain(
     du: torch.Tensor, h: torch.Tensor, mask: Optional[torch.Tensor],
 ) -> torch.Tensor:
     """dh (B, T, 2C) of u = mask·a·σ(g) under the gradient ``du`` of u:
-    mask·[du·σ(g), du·a·σ(g)·(1 − σ(g))], exactly 0 at padded frames."""
-    a, g = h.chunk(2, dim=-1)
+    mask·[du·σ(g), du·a·σ(g)·(1 − σ(g))], exactly 0 at padded frames; in
+    float32 (float64 for float64 inputs), rounded once to du's dtype."""
+    acc = torch.promote_types(du.dtype, torch.float32)
+    a, g = h.to(acc).chunk(2, dim=-1)
     s = torch.sigmoid(g)
-    dh = torch.cat([du * s, du * a * s * (1.0 - s)], dim=-1)
+    d = du.to(acc)
+    dh = torch.cat([d * s, d * a * s * (1.0 - s)], dim=-1)
     if mask is not None:
         dh = dh.masked_fill(~mask[:, :, None], 0.0)
-    return dh
+    return dh.to(du.dtype)
 
 
 def n_time_chunks(b: int, t: int) -> int:
@@ -245,9 +263,10 @@ def _check_cuda(what: str, *tensors: torch.Tensor) -> None:
         raise ValueError(f"{what} kernel needs contiguous tensors")
 
 
-def _count(mode: str) -> None:
+def _count(mode: str, dtype: torch.dtype) -> None:
     depthwise_conv1d.launches += 1
     depthwise_conv1d.dx_launches += mode in ("plain_dx", "glu_dx")
+    depthwise_conv1d.bf16_launches += dtype == torch.bfloat16
     depthwise_conv1d.mode_launches[mode] += 1
 
 
@@ -269,7 +288,7 @@ def _launch_fwd(x: torch.Tensor, w: torch.Tensor, bias: Optional[torch.Tensor],
             y.data_ptr(), b, t, c, w.shape[0], pad_l, int(dx), _DTYPES[x.dtype], _stream(),
         )
     _build.check(err, "depthwise_conv1d_fwd")
-    _count("plain_dx" if dx else "plain")
+    _count("plain_dx" if dx else "plain", x.dtype)
     return y
 
 
@@ -333,9 +352,9 @@ def _launch_glu(h: torch.Tensor, mask: Optional[torch.Tensor], w: torch.Tensor,
         )
     _build.check(err, "depthwise_conv1d_glu_fwd")
     if bn is not None:
-        _count("glu_bn_act")
+        _count("glu_bn_act", h.dtype)
         return y
-    _count("glu")
+    _count("glu", h.dtype)
     return u, y
 
 
@@ -369,7 +388,7 @@ def glu_depthwise_dx(
             b, t, c, k, k - 1 - pad_l, _DTYPES[g.dtype], _stream(),
         )
     _build.check(err, "depthwise_conv1d_glu_bwd")
-    _count("glu_dx")
+    _count("glu_dx", g.dtype)
     return dh
 
 
@@ -430,6 +449,7 @@ def depthwise_conv1d_bwd_w(
         )
     _build.check(err, "depthwise_conv1d_bwd_w")
     depthwise_conv1d_bwd_w.launches += 1
+    depthwise_conv1d_bwd_w.bf16_launches += x.dtype == torch.bfloat16
     return dw, db
 
 
@@ -497,8 +517,10 @@ def reset_launch_counts() -> None:
     """Set every launch count of this module to 0."""
     depthwise_conv1d.launches = 0
     depthwise_conv1d.dx_launches = 0
+    depthwise_conv1d.bf16_launches = 0
     depthwise_conv1d.mode_launches = dict.fromkeys(FWD_MODES, 0)
     depthwise_conv1d_bwd_w.launches = 0
+    depthwise_conv1d_bwd_w.bf16_launches = 0
 
 
 class GluDepthwiseFn(torch.autograd.Function):

@@ -26,9 +26,15 @@ construct it.
   into the upstream when the task is built, and again after
   :meth:`init_parameters`' fresh draw, as the JAX task replaces the
   upstream after its init.
+- ``dtype``: ``"float32"`` or ``"bfloat16"``, the compute dtype of the
+  Conformer featurizer and of the heads, as the JAX task passes it; an SSL
+  encoder computes in its own ``ssl_config`` ``dtype`` (float32 unless
+  that says otherwise), which the task's ``dtype`` does not reach, as in
+  the JAX task.  Parameters, gradients and Adam's moments stay float32;
+  the logits, losses and scores are float32 in either; no loss scaling.
 
-Not ported yet, and raising: ``bilstm`` heads, ``dtype`` other than
-float32, ``quant_dot``.  Accepted and without effect here: ``remat``,
+Not ported yet, and raising: ``bilstm`` heads and ``quant_dot``.
+Accepted and without effect here: ``remat``,
 ``scan_blocks`` (they change how XLA compiles the same numbers) and
 ``ssl_conv_impl`` (two lowerings of the same conv in the JAX package).
 """
@@ -44,7 +50,7 @@ import torch
 
 from speechlid_tpu_torch.core.module import TaskModule
 from speechlid_tpu_torch.core.optim import make_optimizer
-from speechlid_tpu_torch.core.precision import strict_float32
+from speechlid_tpu_torch.core.precision import compute_dtype, strict_float32
 from speechlid_tpu_torch.metrics import CAvg, CharErrorRate, EER, WordErrorRate
 from speechlid_tpu_torch.models.conformer import ConformerModel, set_generator
 from speechlid_tpu_torch.models.init import init_like_flax_
@@ -130,8 +136,9 @@ class LidASRTask(TaskModule):
             raise ValueError(f"unknown featurizer: {featurizer}")
         if head_type != "conformer_linear":
             raise NotImplementedError(f"head_type {head_type!r} is not ported yet")
-        if dtype != "float32" or quant_dot:
-            raise NotImplementedError("only float32 is ported yet")
+        if quant_dot:
+            raise NotImplementedError(f"quant_dot={quant_dot!r} (int8) is not ported yet")
+        self.dtype = compute_dtype(dtype)
         self.save_hyper_parameters(
             featurizer=featurizer, pt_path=pt_path, feature_selection=feature_selection,
             ssl_config=ssl_config, lang2vocab=lang2vocab, lang2index=lang2index,
@@ -186,7 +193,7 @@ class LidASRTask(TaskModule):
                 n_blocks=n_blocks, n_mels=n_mels, encoder_dim=encoder_dim, heads=heads,
                 dim_head=dim_head, sub_sampling=sub_sampling, use_double_swish=double_swish,
                 pos_dropout=pos_dropout, use_stochastic_depth=use_stochastic_depth,
-                stochastic_depth_p=stochastic_depth_p,
+                stochastic_depth_p=stochastic_depth_p, dtype=self.dtype,
             )
         else:
             if pt_path:
@@ -197,6 +204,8 @@ class LidASRTask(TaskModule):
                 conf = dict(ssl_config or {})
                 ssl_cfg = (WavLMConfig.from_dict(conf) if featurizer == "wavlm"
                            else wav2vec2_config(**conf))
+            # the task's dtype does not reach the SSL config, as in the JAX
+            # task: ssl_config's own dtype sets the encoder's
             if ssl_conv_impl:
                 ssl_cfg = dataclasses.replace(ssl_cfg, conv_extractor_impl=ssl_conv_impl)
             featurizer_module = SSLFeaturizerModel(ssl_cfg, feature_selection=feature_selection)
@@ -204,7 +213,7 @@ class LidASRTask(TaskModule):
         self.model = MutiLangModel(
             featurizer_module, self.vocab_sizes, linear_dim=encoder_dim,
             num_layers=head_layers, dim_head=head_dim_head, num_head=head_num_head,
-            use_double_swish=double_swish, dropout=dropout,
+            use_double_swish=double_swish, dropout=dropout, dtype=self.dtype,
         ).to(self.device).eval()
         self._load_ssl_state()
         self.eer = EER(num_class=self.n_lang)

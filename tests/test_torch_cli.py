@@ -15,7 +15,10 @@ the JAX package's, on a tiny 2-language corpus on the CPU.
 - the SSL configs: ``lid_wavlm.yaml`` with a tiny ``module.ssl_config``
   trains across both freeze gates and has the JAX CLI's hyper-parameters,
   ``lid_wav2vec.yaml`` trains without its augmentor and raises the JAX
-  CLI's ``TypeError`` with it, the bf16 and int8 WavLM configs raise."""
+  CLI's ``TypeError`` with it, the int8 WavLM config raises, and the bf16
+  one builds the task the JAX CLI builds (bfloat16 heads over a float32
+  encoder, as its ``module.dtype`` alone gives) and infers; it trains in
+  ``tests/test_torch_bf16_cli.py``."""
 
 import json
 import os
@@ -281,7 +284,8 @@ TINY_WAV2VEC = ("module.ssl_config={encoder_layers: 1, encoder_embed_dim: 32, "
 def test_ssl_configs_that_raise_as_in_jax(corpus, tmp_path, monkeypatch, cli):
     """``configs/lid_wav2vec.yaml``'s ``wav_augment`` (``speed_shift``)
     raises ``TypeError`` in both CLIs when the train feeder is built; the
-    bf16 and int8 WavLM configs raise ``NotImplementedError`` in the port."""
+    int8 WavLM config raises ``NotImplementedError`` in the port, and the
+    bf16 one builds the task the JAX CLI builds and infers in bfloat16."""
     monkeypatch.setenv("SPEECHLID_CACHE_DIR", str(tmp_path / "cache"))
     args = ["--config-dir", "configs", "--config-name", "lid_wav2vec", _langs(corpus),
             f"exp_dir={tmp_path / 'exp'}", TINY_WAV2VEC]
@@ -291,10 +295,22 @@ def test_ssl_configs_that_raise_as_in_jax(corpus, tmp_path, monkeypatch, cli):
         else:
             jax_main_lid.main(args)
     if cli == "port":
-        for name in ("lid_wavlm_bf16", "lid_wavlm_qat"):
-            with pytest.raises(NotImplementedError, match="float32"):
-                main_lid.main(["--config-dir", "configs", "--config-name", name, _langs(corpus),
-                               f"exp_dir={tmp_path / name}", "--device", "cpu"])
+        with pytest.raises(NotImplementedError, match="int8"):
+            main_lid.main(["--config-dir", "configs", "--config-name", "lid_wavlm_qat",
+                           _langs(corpus), f"exp_dir={tmp_path / 'qat'}", "--device", "cpu"])
+        overrides = [_langs(corpus), TINY_WAVLM, "module.head_dim_head=8",
+                     "module.head_num_head=2"]
+        conf = load_config("configs", "lid_wavlm_bf16", overrides)
+        task = main_lid.build_task(conf, main_lid.build_data(conf), device="cpu")
+        jconf = jax_load_config("configs", "lid_wavlm_bf16", overrides)
+        assert task.hyper_parameters == jax_main_lid.build_task(
+            jconf, jax_main_lid.build_data(jconf)).hyper_parameters
+        assert task.dtype == torch.bfloat16
+        assert task.model.heads.heads[0].out.compute_dtype == torch.bfloat16
+        assert task.model.featurizer.upstream.layers[0].fc1.compute_dtype == torch.float32
+        wav = torch.from_numpy((0.1 * np.random.RandomState(4).randn(2, SR)).astype(np.float32))
+        out = task.infer_fn()(wav, torch.tensor([SR, SR // 2]))
+        assert out["logits"].dtype == torch.float32 and torch.isfinite(out["scores"]).all()
 
 
 def test_wav2vec_config_trains_without_its_augmentor(corpus, tmp_path, monkeypatch):

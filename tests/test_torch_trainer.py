@@ -377,8 +377,14 @@ def test_trainer_rejects_what_is_not_ported(tmp_path):
     with pytest.raises(ValueError, match="lives on"):
         Trainer(device="meta").fit(task, [mixed])
     for kw in (dict(featurizer="wavlm", quant_dot="int8"), dict(head_type="bilstm"),
-               dict(dtype="bfloat16")):
+               dict(dtype="float16")):
         with pytest.raises(NotImplementedError):
             LidASRTask(**dict(HPARAMS, **kw), device="cpu")
+    # bfloat16 compute trains: float32 parameters and Adam moments, finite
+    _, bf16 = run_port(LidASRTask(**dict(HPARAMS, dtype="bfloat16"), device="cpu"),
+                       batches(8, [0, 1]))
+    assert bf16.optimizer.count == 2
+    assert all(p.dtype == m.dtype == torch.float32 and torch.isfinite(p).all()
+               for p, m in zip(bf16.optimizer.params, bf16.optimizer.mu))
     with pytest.raises(TypeError, match="mask_time"):  # a misspelt option is an error
         LidASRTask(**dict(HPARAMS, mask_time=0), device="cpu")

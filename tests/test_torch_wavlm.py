@@ -497,6 +497,13 @@ def test_config_from_dict_and_conv_spec():
     np.testing.assert_array_equal(
         pwavlm.conv_out_lengths(torch.from_numpy(lens), pwavlm.WavLMConfig().conv_layers).numpy(),
         [149, 99, 199, 849])
+    # bfloat16 compute builds and runs (a post-LN encoder's output is
+    # float32, its last LayerNorm's); the int8 path still raises
+    bf16 = pwavlm.WavLM(pwavlm.WavLMConfig.from_dict(dict(TINY_SSL, dtype="bfloat16"))).eval()
+    with torch.no_grad():
+        out, _ = bf16(torch.from_numpy(_x((1, 3200), 4, 0.1)))
+    assert out.dtype == torch.float32 and torch.isfinite(out).all()
+    assert all(p.dtype == torch.float32 for p in bf16.parameters())
     with pytest.raises(NotImplementedError):
-        pwavlm.WavLM(pwavlm.WavLMConfig(encoder_layers=1, dtype="bfloat16"))
+        pwavlm.WavLM(pwavlm.WavLMConfig(encoder_layers=1, quant_dot="int8"))
     assert math.isclose(pwavlm.LN_EPS, 1e-5)

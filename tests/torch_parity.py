@@ -62,6 +62,37 @@ def lid_pair(hparams, seed=0, **port_kwargs):
     return jtask, variables, ptask
 
 
+def _f32(x):
+    if isinstance(x, torch.Tensor):
+        x = x.detach().float().cpu()
+    return np.asarray(x, np.float32)
+
+
+def assert_bf16_close(name, port_bf16, jax_bf16, jax_f32, tol, scale=None):
+    """The bfloat16 bars, stated against the float32 result of the same
+    weights, since eager PyTorch and XLA round bfloat16 at different points
+    (XLA computes a fused elementwise chain in float32 and rounds once):
+
+    (a) ``max|port_bf16 − jax_bf16| ≤ tol · scale``;
+    (b) ``max|port_bf16 − jax_f32| ≤ 2 · max|jax_bf16 − jax_f32| + 1e-3 · scale``,
+
+    ``scale`` being ``max|jax_f32|`` unless given.  The failure message
+    reports both distances beside their bars; returns them over ``scale``."""
+    port, j16, f32 = _f32(port_bf16), _f32(jax_bf16), _f32(jax_f32)
+    assert port.shape == j16.shape == f32.shape, (name, port.shape, j16.shape, f32.shape)
+    scale = float(np.abs(f32).max()) if scale is None else float(scale)
+    a = float(np.abs(port - j16).max())
+    b = float(np.abs(port - f32).max())
+    own = float(np.abs(j16 - f32).max())
+    bar_a, bar_b = tol * scale, 2.0 * own + 1e-3 * scale
+    assert np.isfinite(port).all(), f"{name}: the port's bfloat16 result is not finite"
+    assert a <= bar_a and b <= bar_b, (
+        f"{name}: (a) max|port_bf16 - jax_bf16| = {a:.4g} against {tol:g} x {scale:.4g} = "
+        f"{bar_a:.4g}; (b) max|port_bf16 - f32| = {b:.4g} against 2 x {own:.4g} + 1e-3 x "
+        f"{scale:.4g} = {bar_b:.4g}")
+    return a / scale, b / scale
+
+
 def tree_leaves_with_names(tree, prefix=""):
     """[(dotted name, leaf)] of a nested mapping, sorted by name."""
     out = []
