@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py        # from the root of a checkout, one H100
     python3 chip_smoke.py --only cli_gate [--seed N]   # the accuracy gate alone
+    python3 chip_smoke.py --only ce_asr   # the cross-entropy and ASR phases alone
 
 It builds the port's CUDA kernels from ``speechlid_tpu_torch/csrc`` (into
 ``build/``), holds each kernel, forward and backward, and each fused mode of
@@ -41,12 +42,22 @@ Then both models in bfloat16 (``dtype="bfloat16"``; WavLM's
 B = 8, 4 s step held against a float32 step on the card
 (``bf16_train_card_vs_cpu``), and ``configs/lid_wavlm_bf16.yaml`` through
 both CLIs (``cli_wavlm_bf16``); ``conv_fused`` holds every bfloat16 kernel
-mode against its bfloat16 plain version.  Last it times the kernels, the
+mode against its bfloat16 plain version.  Then the training CLI's two other
+tasks: the cross-entropy LID classifier, every back-end on fbank (the fbank
+kernel) and both SSL configs, card against CPU in inference
+(``ce_model_card_vs_cpu``) and for one deterministic train step of the
+x-vector and ResNet34 (``ce_train_card_vs_cpu``); ``configs/lid_cross.yaml``
+through the CLI for 4 epochs, a resume and ``stage=test``, held to learn as
+the JAX CLI does (``cli_cross``); ``configs/lid_cross_wavlm.yaml`` with its
+frozen upstream (``cli_cross_ssl``); and ``configs/asr.yaml`` for 6 steps and
+``stage=test`` with an ARPA LM, the card's greedy and LM CER equal to the
+CPU's on the same checkpoint (``cli_asr``); ``--only ce_asr`` runs these
+alone.  Last it times the kernels, the
 models and the train steps (the WavLM model's in ``wavlm_e2e``, bfloat16
 against float32 in turns in ``bf16_e2e``).  The fused modes are also timed against the
-unfused chain they replace (``chain_ms``), in turns chain, fused, fused, chain, and the
-profiler shows one device kernel between a conv module's two pointwise
-GEMMs.  Each phase prints one JSON line (the eval CLI prints its own
+unfused chain they replace (``chain_ms``), in turns chain, fused, fused, chain, and a
+CUDA graph capture shows one device kernel between a conv module's two
+pointwise GEMMs.  Each phase prints one JSON line (the eval CLI prints its own
 result lines as well); any failure raises and exits non-zero.  The ``{"kernels": …}`` line lists every kernel and fused mode
 at the shape the served or the trained path gives it, with its launches as
 counted on that path, its error against its plain version at that shape
@@ -62,6 +73,8 @@ seeded ``torch.Generator``.  Imports nothing of JAX.
 from __future__ import annotations
 
 import argparse
+import ctypes
+import gc
 import importlib.util
 import json
 import os
@@ -90,9 +103,12 @@ from speechlid_tpu_torch.core.checkpoint import load_checkpoint
 from speechlid_tpu_torch.core.profile import _time_cost_recoder
 from speechlid_tpu_torch.core.trainer import Trainer
 from speechlid_tpu_torch.data.augmentor import WavAugmentor
+from speechlid_tpu_torch.models.batchnorm import FlaxBatchNorm
+from speechlid_tpu_torch.models import resnet as presnet
 from speechlid_tpu_torch.models.conformer import (
     ConformerConvModule,
     DepthwiseConv1d,
+    Dropout,
     MaskedBatchNorm,
 )
 from speechlid_tpu_torch.ops import frontend
@@ -121,7 +137,9 @@ from speechlid_tpu_torch.ops.cuda.fbank_kernel import (
     log_mel_plain,
     log_mel_tiled_plain,
 )
+from speechlid_tpu_torch.tasks.asr import ASRTask
 from speechlid_tpu_torch.tasks.lid_asr import LidASRTask
+from speechlid_tpu_torch.tasks.lid_cross_entropy import LidCrossEntropyTask
 
 SR = 16000
 # H100 SXM data sheet, dense, at the 700 W limit: FP32 outside the tensor
@@ -357,7 +375,10 @@ def _wav(b: int, t: int, gen: torch.Generator) -> torch.Tensor:
 # on the flagship (2 s bucket) and the gate (3 s bucket) checkpoints
 FBANK_SHAPES = {"serve": (1, 3 * SR), "b32": (32, 3 * SR), "long": (1, 17 * SR),
                 "train": (TRAIN_B, int(TRAIN_SECONDS * SR)), "short": (1, 300),
-                "eval": (8, int(EVAL_SECONDS * SR)), "gate_eval": (8, 3 * SR)}
+                "eval": (8, int(EVAL_SECONDS * SR)), "gate_eval": (8, 3 * SR),
+                # lid_cross.yaml's batches of 16: the corpus's 2 s and 4 s
+                # buckets, and the config's largest, 13 s
+                "cross_2s": (16, 2 * SR), "cross_4s": (16, 4 * SR), "cross_13s": (16, 13 * SR)}
 
 
 def _log_mel_float64(wav: torch.Tensor) -> torch.Tensor:
@@ -1826,11 +1847,11 @@ def phase_cli_augment(root: str, corpus: str) -> dict:
     return report
 
 
-def _profile_device(fn, sequence: bool = False) -> dict:
+def _profile_device(fn) -> dict:
     """One ``fn()`` under torch.profiler: wall time, the summed device time
-    of its kernels, their ratio, the ten largest kernel rows and, with
-    ``sequence``, every device kernel's name in the order the card started
-    them."""
+    of its kernels, their ratio and the ten largest kernel rows.  Counts
+    here are reports only: a trace late in a long process can drop kernel
+    records (:func:`_graph_device_work` counts what a check needs)."""
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
@@ -1844,25 +1865,100 @@ def _profile_device(fn, sequence: bool = False) -> dict:
             rows.append((e.self_device_time_total, e.key, e.count))
     rows.sort(reverse=True)
     device_us = sum(r[0] for r in rows)
-    out = {"wall_us": wall_us, "device_us": device_us,
-           "device_busy_share": device_us / wall_us,
-           "device_kernels": sum(r[2] for r in rows),
-           "top": [{"kernel": key[:80], "us": dev, "count": n} for dev, key, n in rows[:10]]}
-    if sequence:
-        out["sequence"] = [name[:80] for _, name in sorted(
-            (e.time_range.start, e.name) for e in prof.events()
-            if e.device_type == torch.autograd.DeviceType.CUDA)]
-    return out
+    return {"wall_us": wall_us, "device_us": device_us,
+            "device_busy_share": device_us / wall_us,
+            "device_kernels": sum(r[2] for r in rows),
+            "top": [{"kernel": key[:80], "us": dev, "count": n} for dev, key, n in rows[:10]]}
+
+
+# CUgraphNodeType: the nodes that run work on the card
+_GRAPH_DEVICE_NODES = {0: "kernel", 1: "memcpy", 2: "memset"}
+
+
+class _KernelNodeParams(ctypes.Structure):  # CUDA_KERNEL_NODE_PARAMS_v2
+    _fields_ = [("func", ctypes.c_void_p), ("grid", ctypes.c_uint * 3),
+                ("block", ctypes.c_uint * 3), ("shared_mem_bytes", ctypes.c_uint),
+                ("kernel_params", ctypes.c_void_p), ("extra", ctypes.c_void_p),
+                ("kern", ctypes.c_void_p), ("ctx", ctypes.c_void_p)]
+
+
+def _cu(fn, *args) -> None:
+    rc = fn(*args)
+    if rc != 0:
+        raise RuntimeError(f"{fn.__name__} returned CUresult {rc}")
+
+
+def _graph_device_work(fn) -> list:
+    """The device work one ``fn()`` enqueues, in the order it runs: one
+    entry a kernel (its mangled name), memcpy or memset, read from the nodes
+    of a CUDA graph captured around the call (after one warm-up call on the
+    capture's side stream).  A capture records every launch on its stream
+    and nothing else, where a ``torch.profiler`` trace late in a long
+    process can drop kernel records."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph):
+        fn()
+    cu = ctypes.CDLL("libcuda.so.1")
+    handle = ctypes.c_void_p(graph.raw_cuda_graph())
+    n = ctypes.c_size_t(0)
+    _cu(cu.cuGraphGetNodes, handle, None, ctypes.byref(n))
+    nodes = (ctypes.c_void_p * n.value)()
+    _cu(cu.cuGraphGetNodes, handle, nodes, ctypes.byref(n))
+    e = ctypes.c_size_t(0)
+    _cu(cu.cuGraphGetEdges, handle, None, None, ctypes.byref(e))
+    src, dst = (ctypes.c_void_p * e.value)(), (ctypes.c_void_p * e.value)()
+    if e.value:  # libcuda refuses arrays for a graph of no edges
+        _cu(cu.cuGraphGetEdges, handle, src, dst, ctypes.byref(e))
+    index = {node: i for i, node in enumerate(nodes)}
+    preds = [0] * n.value
+    succs = [[] for _ in range(n.value)]
+    for a, b in zip(src, dst):
+        succs[index[a]].append(index[b])
+        preds[index[b]] += 1
+    ready, order = [i for i in range(n.value) if not preds[i]], []
+    while ready:  # one stream's capture is a chain; this reads its order
+        i = ready.pop(0)
+        order.append(i)
+        for j in succs[i]:
+            preds[j] -= 1
+            if not preds[j]:
+                ready.append(j)
+    work = []
+    for i in order:
+        kind = ctypes.c_int(-1)
+        _cu(cu.cuGraphNodeGetType, ctypes.c_void_p(nodes[i]), ctypes.byref(kind))
+        if kind.value not in _GRAPH_DEVICE_NODES:
+            continue
+        if kind.value:
+            work.append(_GRAPH_DEVICE_NODES[kind.value])
+            continue
+        params = _KernelNodeParams()
+        _cu(cu.cuGraphKernelNodeGetParams_v2, ctypes.c_void_p(nodes[i]), ctypes.byref(params))
+        name = ctypes.c_char_p()
+        if params.func:
+            _cu(cu.cuFuncGetName, ctypes.byref(name), ctypes.c_void_p(params.func))
+        else:
+            _cu(cu.cuKernelGetName, ctypes.byref(name), ctypes.c_void_p(params.kern))
+        work.append(name.value.decode())
+    del graph
+    return work
 
 
 def _backward_kernels(fn, leaves, g, what: str) -> dict:
-    """One backward of ``fn()`` under the profiler: two device kernels (dX,
-    dW/db) and nothing else."""
-    y = fn()
-    profile = _profile_device(lambda: torch.autograd.grad(y, leaves, g), sequence=True)
-    report = {"device_kernels": profile["device_kernels"], "expected": 2,
-              "kernel_names": profile["sequence"]}
-    if profile["device_kernels"] != 2:
+    """One backward of ``fn()``, read from a CUDA graph of the forward and
+    its backward less the forward's own: two device kernels (dX, dW/db) and
+    nothing else."""
+    forward = _graph_device_work(fn)
+    both = _graph_device_work(lambda: torch.autograd.grad(fn(), leaves, g))
+    backward = both[len(forward):]
+    report = {"device_kernels": len(backward), "expected": 2, "kernel_names": backward,
+              "forward": forward, "counted_by": "cuda_graph_capture"}
+    if both[:len(forward)] != forward or len(backward) != 2:
         raise AssertionError(f"one {what} backward ran {report}")
     return report
 
@@ -1894,8 +1990,9 @@ def glu_mask_chain(h: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
 
 def conv_module_device_kernels(task: LidASRTask, gen: torch.Generator) -> dict:
     """One eval ``ConformerConvModule.forward`` of the flagship's first
-    block with a ragged mask at the served shape, under the profiler, and
-    its two pointwise GEMMs (with the LayerNorm in front) alone: exactly one
+    block with a ragged mask at the served shape, and its two pointwise
+    GEMMs (with the LayerNorm in front) alone, each read from a CUDA graph
+    capture (:func:`_graph_device_work`): exactly one
     device kernel, the depthwise kernel, runs between them.  Also counts the
     device kernels of the unfused chain that ran there before (GLU and mask,
     the plain-mode kernel, BatchNorm and act in PyTorch)."""
@@ -1905,26 +2002,25 @@ def conv_module_device_kernels(task: LidASRTask, gen: torch.Generator) -> dict:
     mask = (torch.arange(t) < t - 9)[None].cuda()
     conv.eval()
     with torch.no_grad():
-        whole = _profile_device(lambda: conv(x, mask), sequence=True)
-        front = _profile_device(lambda: conv.pointwise_in(conv.norm(x)), sequence=True)
+        whole = _graph_device_work(lambda: conv(x, mask))
+        front = _graph_device_work(lambda: conv.pointwise_in(conv.norm(x)))
         y = torch.randn(b, t, conv.pointwise_out.in_features, generator=gen).cuda()
-        back = _profile_device(lambda: conv.pointwise_out(y), sequence=True)
+        back = _graph_device_work(lambda: conv.pointwise_out(y))
         h = conv.pointwise_in(conv.norm(x))
         w, bias = conv.depthwise.weight, conv.depthwise.bias
-        chain = _profile_device(lambda: batch_norm_act_plain(
+        chain = _graph_device_work(lambda: batch_norm_act_plain(
             depthwise_conv1d(glu_mask_chain(h, mask), w, bias), conv.bn.eval_stats(),
-            conv.act_name), sequence=True)
-    n_front, n_back = front["device_kernels"], back["device_kernels"]
-    between = whole["sequence"][n_front:len(whole["sequence"]) - n_back]
-    report = {"shape": [b, t, FLAGSHIP["encoder_dim"]], "device_kernels": whole["device_kernels"],
+            conv.act_name))
+    n_front, n_back = len(front), len(back)
+    between = whole[n_front:len(whole) - n_back]
+    report = {"shape": [b, t, FLAGSHIP["encoder_dim"]], "device_kernels": len(whole),
               "before": n_front, "after": n_back, "between": between,
-              "sequence": whole["sequence"], "expected_between": 1,
-              "unfused_chain_device_kernels": chain["device_kernels"],
-              "unfused_chain": chain["sequence"]}
-    ok = (whole["device_kernels"] == n_front + 1 + n_back and len(between) == 1
+              "sequence": whole, "expected_between": 1,
+              "unfused_chain_device_kernels": len(chain), "unfused_chain": chain,
+              "counted_by": "cuda_graph_capture"}
+    ok = (len(whole) == n_front + 1 + n_back and len(between) == 1
           and "depthwise" in between[0]
-          and whole["sequence"][:n_front] == front["sequence"]
-          and whole["sequence"][len(whole["sequence"]) - n_back:] == back["sequence"])
+          and whole[:n_front] == front and whole[len(whole) - n_back:] == back)
     if not ok:
         raise AssertionError(f"an eval conv module runs {report}")
     return report
@@ -2047,6 +2143,49 @@ def fused_kernel_rows(gen: torch.Generator, errs: dict, counts: dict,
     return rows
 
 
+def fbank_row(name: str, shape_key: str, gen: torch.Generator, errs: dict, count: int,
+              extra: dict) -> dict:
+    """The ``kernels`` line's row of the fbank kernel at ``FBANK_SHAPES[shape_key]``:
+    its error against plain there (``errs["fbank"]``, from :func:`phase_fbank`),
+    kernel, plain and ``torch.stft`` composite times, its bound, and ``count``
+    launches on the path it names (``extra``)."""
+    n_fft, win, hop, n_mels = 512, 400, 160, 80
+    bins = n_fft // 2 + 1
+    window = torch.hann_window(win, device="cuda")
+    fb = frontend.mel_bases(n_fft, win, n_mels, SR, "cuda")[1]
+    nb, nt = FBANK_SHAPES[shape_key]
+    wav = _wav(nb, nt, gen)
+    n_frames = 1 + nt // hop
+
+    def stft_composite():  # one torch.stft plus the mel projection and log
+        spec = torch.stft(wav, n_fft, hop, win, window, center=True, pad_mode="reflect",
+                          return_complex=True)
+        power = spec.real ** 2 + spec.imag ** 2  # (B, bins, F)
+        return 10.0 * torch.log10(
+            (power.transpose(1, 2) @ fb).clamp_min(1e-10)).transpose(1, 2)
+
+    lib_err = (stft_composite() - log_mel(wav)).abs().max().item()
+    flops = nb * (2.0 * n_frames * win * 2 * bins + 2.0 * n_frames * bins * n_mels)
+    n_bytes = 4.0 * (wav.numel() + win * 2 * bins + bins * n_mels + nb * n_frames * n_mels)
+    b_ms, b_by = bound_ms(n_bytes, flops)
+    k_ms = device_ms(lambda: log_mel(wav))
+    return {
+        "name": name, "route": "cuda",
+        "source": "speechlid_tpu_torch/csrc/fbank.cu",
+        "replaces": "speechlid_tpu/ops/pallas/fbank_kernel.py:87",
+        "launches": count, **extra,
+        "max_abs_err": errs["fbank"][shape_key], "ms": k_ms, "kernel_ms": k_ms,
+        "plain_ms": device_ms(lambda: log_mel_plain(wav)),
+        "library_ms": device_ms(stft_composite),
+        "library_call": "composite: torch.stft -> |.|^2 -> @ mel fb -> 10 log10",
+        "library_max_abs_err_db": lib_err,
+        "bound_ms": b_ms, "bound_us": b_ms * 1e3, "bound_by": b_by,
+        "shape": f"wav ({nb}, {nt}) f32 -> ({nb}, {n_mels}, {n_frames})",
+        "flops": flops, "bytes": n_bytes,
+        "ms_includes": "the wrapper call: one cluster kernel, no pad kernel",
+    }
+
+
 def phase_timings(task: LidASRTask, gen: torch.Generator, errs: dict, served: dict,
                   serve_report: dict, trained: dict, training, cli: dict,
                   cli_eval: dict) -> list:
@@ -2121,43 +2260,8 @@ def phase_timings(task: LidASRTask, gen: torch.Generator, errs: dict, served: di
 
     # kernel 1: fbank where the paths call it: a served 3 s clip, a train
     # batch of 8 × 4 s, a scored batch of 32 × 3 s
-    n_fft, win, hop, n_mels = 512, 400, 160, 80
-    bins = n_fft // 2 + 1
-    window = torch.hann_window(win, device="cuda")
-    fb = frontend.mel_bases(n_fft, win, n_mels, SR, "cuda")[1]
-
     def fbank_entry(name, shape_key, count, extra):
-        nb, nt = FBANK_SHAPES[shape_key]
-        wav = _wav(nb, nt, gen)
-        n_frames = 1 + nt // hop
-
-        def stft_composite():  # one torch.stft plus the mel projection and log
-            spec = torch.stft(wav, n_fft, hop, win, window, center=True, pad_mode="reflect",
-                              return_complex=True)
-            power = spec.real ** 2 + spec.imag ** 2  # (B, bins, F)
-            return 10.0 * torch.log10(
-                (power.transpose(1, 2) @ fb).clamp_min(1e-10)).transpose(1, 2)
-
-        lib_err = (stft_composite() - log_mel(wav)).abs().max().item()
-        flops = nb * (2.0 * n_frames * win * 2 * bins + 2.0 * n_frames * bins * n_mels)
-        n_bytes = 4.0 * (wav.numel() + win * 2 * bins + bins * n_mels + nb * n_frames * n_mels)
-        b_ms, b_by = bound_ms(n_bytes, flops)
-        k_ms = device_ms(lambda: log_mel(wav))
-        return {
-            "name": name, "route": "cuda",
-            "source": "speechlid_tpu_torch/csrc/fbank.cu",
-            "replaces": "speechlid_tpu/ops/pallas/fbank_kernel.py:87",
-            "launches": count, **extra,
-            "max_abs_err": errs["fbank"][shape_key], "ms": k_ms, "kernel_ms": k_ms,
-            "plain_ms": device_ms(lambda: log_mel_plain(wav)),
-            "library_ms": device_ms(stft_composite),
-            "library_call": "composite: torch.stft -> |.|^2 -> @ mel fb -> 10 log10",
-            "library_max_abs_err_db": lib_err,
-            "bound_ms": b_ms, "bound_us": b_ms * 1e3, "bound_by": b_by,
-            "shape": f"wav ({nb}, {nt}) f32 -> ({nb}, {n_mels}, {n_frames})",
-            "flops": flops, "bytes": n_bytes,
-            "ms_includes": "the wrapper call: one cluster kernel, no pad kernel",
-        }
+        return fbank_row(name, shape_key, gen, errs, count, extra)
 
     kernels.append(fbank_entry("fbank_log_mel", "serve", served["fbank"], {
         "launches_per_request": served["fbank"] / n_req,
@@ -2344,7 +2448,7 @@ def phase_timings(task: LidASRTask, gen: torch.Generator, errs: dict, served: di
         if not (entry["launches"] > 0 and entry["launches_cli"] > 0):
             raise AssertionError(f"{name} was not launched on its main path")
 
-    # under the profiler: one train step, one B=1 forward, one depthwise backward
+    # under the profiler: one train step; the depthwise backward from a CUDA graph
     torch.cuda.reset_peak_memory_stats()
     train_profile = _profile_device(lambda: trainer.train_step(train_batches[0]))
     train_e2e = {"batch": [TRAIN_B, int(TRAIN_SECONDS * SR)], "ms_per_step": step_s * 1e3,
@@ -3062,10 +3166,671 @@ def phase_bf16_timings(gen: torch.Generator, errs: dict, host: dict, cli: dict) 
     return rows
 
 
+# ----------------------------------- cross-entropy LID and standalone CTC ASR
+
+CE_BACKENDS = ("xvector", "linear", "resnet2", "resnet34", "resnet101", "xvector2")
+CE_SSL_CONFIGS = ("lid_cross_wavlm", "lid_cross_wav2vec")
+CE_CLASSES = 3
+CE_TOL = 1e-3  # card vs CPU logits, of the CPU's largest entry; the loss, gradients, statistics
+CE_B, CE_SECONDS = 4, 4.0  # the card-vs-CPU forward: a ragged batch of 4 s clips
+CE_TRAIN_B = 8  # the card-vs-CPU train step, 4 s clips
+CE_E2E_B = 16  # lid_cross.yaml's batch size: the timed train steps and the 13 s eval
+CE_TRAIN_BACKENDS = ("xvector", "resnet34")
+# lid_cross.yaml on the round-5 corpus: 3 languages x 96 clips in
+# language-homogeneous batches of 16 are 18 steps an epoch, 24 val clips a
+# language 6 eval batches (two of 16, the second padded)
+CROSS_BATCH = 16
+CROSS_EPOCH_STEPS = N_LANG * -(-CORPUS_TRAIN // CROSS_BATCH)
+CROSS_EVAL_BATCHES = N_LANG * -(-CORPUS_VAL // CROSS_BATCH)
+CROSS_EPOCHS = 4  # then a resume for a fifth
+# The JAX CLI on the CPU with the same config, corpus, epochs and overrides
+# (scripts/jax_cross_seeds.py, seeds 0-3) read held-out val_acc 0.33-0.67
+# after epoch 1, 0.67-1.0 after epoch 2 and 1.0 from epoch 3 on in every
+# seed (PERF.md §6).  The port's run must reach CROSS_LEARNED_ACC at
+# its best over its 5 epochs: 7 of the 72 clips may be wrong where every
+# JAX seed had none wrong for 3 epochs running, so a draw does not fail it.
+CROSS_LEARNED_ACC = 0.9
+# lid_cross_wavlm.yaml through the CLI: batches of 8, 3 steps an epoch (a
+# tenth of 36), 9 eval batches of the 72 val clips
+CROSS_SSL_DATA_FACTOR = 0.1
+CROSS_SSL_STEPS = int(N_LANG * CORPUS_TRAIN // 8 * CROSS_SSL_DATA_FACTOR)
+CROSS_SSL_EVAL_BATCHES = N_LANG * CORPUS_VAL // 8
+# asr.yaml (14 x 144 Conformer, one CTC head) on one language of the corpus:
+# batches of 8, 6 steps (half of an epoch of 12), 3 eval batches
+ASR_LANG = "aa"
+ASR_DATA_FACTOR = 0.5
+ASR_STEPS = int(CORPUS_TRAIN // 8 * ASR_DATA_FACTOR)
+ASR_EVAL_BATCHES = CORPUS_VAL // 8
+ASR_DW = N_BLOCKS + 1  # the encoder's blocks and the one head
+ASR_STEP_LAUNCHES = launch_counts(fbank=1, bwd_w=ASR_DW, glu=ASR_DW, glu_dx=ASR_DW)
+ASR_EVAL_LAUNCHES = launch_counts(fbank=1, glu_bn_act=ASR_DW)
+CE_FBANK_LAUNCHES = launch_counts(fbank=1)  # a train step or an eval batch on fbank
+NO_LAUNCHES = launch_counts()  # the SSL path: no fbank, no depthwise conv
+
+
+def config_module(name: str, *overrides: str) -> dict:
+    """The ``module`` block of ``configs/<name>.yaml`` as the CLI's
+    ``build_task`` passes it (``task`` taken out)."""
+    from speechlid_tpu_torch.core.config import load_config
+
+    module = load_config("configs", name, list(overrides)).module.to_dict()
+    module.pop("task")
+    return module
+
+
+def ce_model_configs() -> list:
+    """(name, hyper-parameters) of every cross-entropy model the phase
+    drives: each back-end on fbank (``lid_cross.yaml``), and the two SSL
+    configs as written (WavLM-Base+ shape with ``last_hidden_state``,
+    wav2vec2-Base with ``hidden_states``)."""
+    fbank = config_module("lid_cross")
+    models = [(f"fbank/{b}", dict(fbank, backend=b, num_classes=CE_CLASSES))
+              for b in CE_BACKENDS]
+    return models + [(name, dict(config_module(name), num_classes=CE_CLASSES))
+                     for name in CE_SSL_CONFIGS]
+
+
+def init_ce_(task: LidCrossEntropyTask, gen: torch.Generator) -> None:
+    """flax-like seeded weights (``init_parameters``), then every BatchNorm's
+    scale, bias and running statistics away from the identity."""
+    task.init_parameters(gen)
+    with torch.no_grad():
+        for m in task.model.modules():
+            if isinstance(m, FlaxBatchNorm):
+                n = m.running_mean.shape
+                m.running_mean.copy_(0.2 * torch.randn(n, generator=gen))
+                m.running_var.copy_(0.5 + torch.rand(n, generator=gen))
+                if m.weight is not None:
+                    m.weight.copy_(1.0 + 0.1 * torch.randn(n, generator=gen))
+                    m.bias.copy_(0.05 * torch.randn(n, generator=gen))
+
+
+def ce_pair(hp: dict, gen: torch.Generator) -> tuple:
+    card = LidCrossEntropyTask(**hp, device="cuda")
+    init_ce_(card, gen)
+    cpu = LidCrossEntropyTask(**hp, device="cpu")
+    cpu.model.load_state_dict(card.model.state_dict())
+    return card, cpu
+
+
+@torch.no_grad()
+def ce_logits(task: LidCrossEntropyTask, wavs: torch.Tensor, lengths: torch.Tensor):
+    """Eval logits of the task's model through its frontend."""
+    task.model.eval()
+    feats, f_len = task._model_inputs(wavs.to(task.device), lengths.to(task.device))
+    return task.model(feats, f_len)
+
+
+def ce_batch(rng: np.random.RandomState, b: int, seconds: float) -> dict:
+    """A host batch in the feeder's layout: ragged clips in the ``seconds``
+    bucket, mixed labels."""
+    t = int(seconds * SR)
+    return {"wavs": (0.1 * rng.randn(b, t)).astype(np.float32),
+            "wav_lengths": rng.randint(t // 3, t + 1, b).astype(np.int32),
+            "langs": rng.randint(0, CE_CLASSES, b).astype(np.int32), "n_valid": np.int32(0)}
+
+
+def phase_ce_model_card_vs_cpu(gen: torch.Generator) -> None:
+    """``LidCrossEntropyTask`` for every back-end on fbank (the fbank kernel
+    on the card) and for both SSL configs, each at full width with seeded
+    weights, on the card against the same state_dict on the CPU on a ragged
+    batch of 4 s clips: logits within ``CE_TOL`` of the CPU's largest entry,
+    the same argmax, and the launches of one forward."""
+    t = int(CE_SECONDS * SR)
+    wavs = 0.1 * torch.randn(CE_B, t, generator=gen)
+    lengths = torch.tensor([t, t - 12000, t - 27000, t - 43000])
+    rows, ok = {}, True
+    for name, hp in ce_model_configs():
+        card, cpu = ce_pair(hp, gen)
+        ce_logits(card, wavs, lengths)
+        torch.cuda.synchronize()
+        reset_launches()
+        got = ce_logits(card, wavs, lengths)
+        torch.cuda.synchronize()
+        counted = launches()
+        t0 = time.perf_counter()
+        ref = ce_logits(cpu, wavs, lengths)
+        cpu_s = time.perf_counter() - t0
+        got = got.cpu()
+        err = (got - ref).abs().max().item() / ref.abs().max().item()
+        want = CE_FBANK_LAUNCHES if name.startswith("fbank/") else NO_LAUNCHES
+        row = {"params": sum(p.numel() for p in card.model.parameters()),
+               "max_abs_err_over_largest": err, "argmax": got.argmax(-1).tolist(),
+               "argmax_cpu": ref.argmax(-1).tolist(), "cpu_seconds": cpu_s,
+               "launches_per_forward": {k: v for k, v in counted.items() if v}}
+        row["ok"] = (bool(torch.isfinite(got).all()) and err <= CE_TOL
+                     and row["argmax"] == row["argmax_cpu"] and counted == want)
+        ok &= row["ok"]
+        rows[name] = row
+        del card, cpu
+        torch.cuda.empty_cache()
+    emit({"phase": "ce_model_card_vs_cpu", "batch": [CE_B, t], "lengths": lengths.tolist(),
+          "classes": CE_CLASSES, "tol": CE_TOL, "models": rows, "ok": ok})
+    if not ok:
+        raise AssertionError("a cross-entropy model on the card disagrees with the CPU")
+
+
+def _ce_cpu_step(task: LidCrossEntropyTask, feats: torch.Tensor, f_len: torch.Tensor,
+                 langs: torch.Tensor, dtype: torch.dtype) -> tuple:
+    """One train-mode forward and backward of the CPU task's model on the
+    given features: (loss, gradients, BatchNorm running statistics)."""
+    task.model.train()
+    logits = task.model(feats.cpu().to(dtype), f_len.cpu())
+    loss = F.cross_entropy(logits, langs)
+    loss.backward()
+    grads = {k: p.grad.clone() for k, p in task.model.named_parameters()}
+    stats = {k: v.clone() for k, v in task.model.state_dict().items() if "running_" in k}
+    return loss.item(), grads, stats
+
+
+def pin_resnet_relus(on: bool, masks: list, differ: dict = None):
+    """Point ``models/resnet.relu`` (every ReLU of the ResNet, in the
+    forward's order) at a recorder of each decision into ``masks``, or with
+    ``differ`` at a replayer of the recorded decisions that counts in
+    ``differ["units"]`` the units it decides otherwise; ``on=False`` puts
+    ``torch.relu`` back."""
+    if not on:
+        presnet.relu = torch.relu
+        return
+    if differ is None:
+        def record(x):
+            y = torch.relu(x)
+            masks.append((y > 0).cpu())
+            return y
+        presnet.relu = record
+        return
+    calls = iter(range(len(masks)))
+
+    def replay(x):
+        keep = masks[next(calls)]
+        differ["units"] += int(((x > 0) != keep).sum())
+        return x * keep.to(x.dtype)
+    presnet.relu = replay
+
+
+def phase_ce_train_card_vs_cpu(gen: torch.Generator) -> None:
+    """One deterministic train step (dropout off on both sides, SpecAugment
+    off) of the x-vector and the ResNet34 back-ends at full width, B = 8,
+    4 s clips, on the card (the task's ``train_loop``: the fbank kernel,
+    cuDNN) and on the CPU from the same state_dict: the loss, every
+    gradient and the updated running statistics within ``CE_TOL``.
+
+    The CPU side is given the card's features, as ``train_card_vs_cpu``
+    gives its Conformer (the frontend has no parameters; the kernel is held
+    against plain at this shape in ``phase_fbank``).  Inside the ResNet,
+    cuDNN's convolutions and the CPU's round differently, and a ReLU unit
+    whose input lies within that rounding of 0 goes one way on the card and
+    the other on the CPU; through the train-mode BatchNorms of a batch of 8
+    such flips move a third of the gradients by 1–3 % of their largest
+    entry, on either float32 side against float64 (the first run of this
+    phase).  So the CPU side takes the card's 34 ReLU decisions
+    (:func:`pin_resnet_relus`), and the units it would have decided
+    otherwise are counted (``relu_units_decided_otherwise``), as
+    ``train_card_vs_cpu`` pins its subsampling's.  A leaf whose
+    card-vs-CPU distance still passes ``CE_TOL`` is held instead to be no
+    further from the CPU's float64 step (same decisions) than the CPU's
+    float32 step is (twice that distance plus 1e-4, both over the float64
+    leaf's largest entry); such leaves are listed
+    (``leaves_on_float64_bar``).  MHASTP's last biases ``att_b_1`` have a
+    true gradient of zero (they shift a softmax over time): both sides hold
+    rounding noise there, held to ``CE_TOL`` of the largest gradient of
+    all."""
+    rng = np.random.RandomState(11)
+    rows, ok = {}, True
+    for backend in CE_TRAIN_BACKENDS:
+        hp = dict(config_module("lid_cross"), backend=backend, num_classes=CE_CLASSES,
+                  mask_times=0)
+        card, cpu = ce_pair(hp, gen)
+        cpu64 = LidCrossEntropyTask(**hp, device="cpu")
+        cpu64.model.load_state_dict(card.model.state_dict())
+        cpu64.model.double()
+        for task in (card, cpu, cpu64):
+            for m in task.model.modules():
+                if isinstance(m, Dropout):
+                    m.p = 0.0
+        batch = ce_batch(rng, CE_TRAIN_B, CE_SECONDS)
+        placed = card.place_batch(batch)
+        feats, f_len = card._model_inputs(placed["wavs"], placed["wav_lengths"])
+        card.set_generators(torch.Generator("cuda").manual_seed(0),
+                            torch.Generator().manual_seed(0))
+        card.model.train()
+        resnet = backend.startswith("resnet")
+        masks, differ = [], {"units": 0}
+        pin_resnet_relus(resnet, masks)
+        try:
+            torch.cuda.synchronize()
+            reset_launches()
+            loss, _ = card.train_loop(placed)
+            loss.backward()
+            torch.cuda.synchronize()
+            counted = launches()
+            pin_resnet_relus(resnet, masks, differ)
+            langs = torch.from_numpy(batch["langs"]).long()
+            loss_cpu, g_cpu, s_cpu = _ce_cpu_step(cpu, feats, f_len, langs, torch.float32)
+        finally:
+            pin_resnet_relus(False, masks)
+        loss_card = loss.item()
+        g_card = {k: p.grad.cpu() for k, p in card.model.named_parameters()}
+        s_card = {k: v.cpu() for k, v in card.model.state_dict().items() if "running_" in k}
+        largest = max(float(g.abs().max()) for g in g_cpu.values())
+
+        def rel(a, b):
+            return float((a.double() - b.double()).abs().max() / b.double().abs().max()
+                         .clamp_min(1e-30))
+
+        errs = {name: (max(float(g_card[name].abs().max()), float(gc.abs().max())) / largest
+                       if name.endswith("att_b_1") else rel(g_card[name], gc))
+                for name, gc in g_cpu.items()}
+        loss_64, g_64 = None, {}
+        if max(errs.values()) > CE_TOL:  # the float64 step, for the leaves that need it
+            try:
+                pin_resnet_relus(resnet, masks, {"units": 0})
+                loss_64, g_64, _ = _ce_cpu_step(cpu64, feats, f_len, langs, torch.float64)
+            finally:
+                pin_resnet_relus(False, masks)
+        worst_name = max(errs, key=errs.get)
+        worst, on_float64, over = errs[worst_name], {}, []
+        for name, gc in g_cpu.items():
+            err = errs[name]
+            if err > CE_TOL:
+                d_card, d_cpu = rel(g_card[name], g_64[name]), rel(gc, g_64[name])
+                on_float64[name] = {"card_vs_cpu": err, "card_vs_float64": d_card,
+                                    "cpu_vs_float64": d_cpu}
+                if d_card > 2 * d_cpu + 1e-4:
+                    over.append(name)
+        stats_err = max((rel(s_card[k], v) for k, v in s_cpu.items()), default=0.0)
+        row = {"params": sum(p.numel() for p in card.model.parameters()),
+               "loss_card": loss_card, "loss_cpu": loss_cpu, "loss_float64": loss_64,
+               "rel_err_loss": abs(loss_card - loss_cpu) / max(abs(loss_cpu), 1.0),
+               "gradients": len(g_cpu), "max_rel_err_gradient": worst,
+               "worst_gradient": worst_name, "relu_calls_pinned": len(masks),
+               "relu_units_decided_otherwise": differ["units"],
+               "leaves_on_float64_bar": on_float64,
+               "leaves_over_float64_bar": over, "max_rel_err_running_stats": stats_err,
+               "launches_per_train_step": {k: v for k, v in counted.items() if v}}
+        row["ok"] = (set(g_card) == set(g_cpu) and row["rel_err_loss"] <= CE_TOL and not over
+                     and stats_err <= CE_TOL and counted == CE_FBANK_LAUNCHES
+                     and bool(np.isfinite(loss_card) and np.isfinite(loss_cpu)))
+        ok &= row["ok"]
+        rows[backend] = row
+        del card, cpu, cpu64
+        torch.cuda.empty_cache()
+    emit({"phase": "ce_train_card_vs_cpu", "batch": [CE_TRAIN_B, int(CE_SECONDS * SR)],
+          "dropout": 0.0, "cpu_features": "the card's", "tol": CE_TOL, "backends": rows,
+          "ok": ok})
+    if not ok:
+        raise AssertionError("a cross-entropy train step on the card disagrees with the CPU")
+
+
+def _count_fbank_shapes() -> tuple:
+    """Wrap ``frontend.wav2mel`` (which hands its wav to the fbank kernel as
+    it is) to count the (B, T) shapes it is called at; → (the counts, a
+    function that unwraps it)."""
+    wav2mel, shapes = frontend.wav2mel, {}
+
+    def wav2mel_seen(wav, *args, **kwargs):
+        key = tuple(wav.shape)
+        shapes[key] = shapes.get(key, 0) + 1
+        return wav2mel(wav, *args, **kwargs)
+
+    frontend.wav2mel = wav2mel_seen
+    return shapes, lambda: setattr(frontend, "wav2mel", wav2mel)
+
+
+def _lr_by_epoch(lines: list, steps: list) -> list:
+    """The ``lr`` line each train epoch ended with."""
+    lrs = {line["step"]: line["lr"] for line in lines if "lr" in line}
+    return [lrs.get(step) for step in steps]
+
+
+def phase_cli_cross(root: str, corpus: str, smi: str) -> dict:
+    """The training CLI on ``configs/lid_cross.yaml`` as written (the
+    x-vector back-end at 512 wide on 80 mels, batch 16, buckets 2/4/8/13 s,
+    Adam at 1e-3, the plateau lr on the eval loss) over the corpus: 4 epochs,
+    then a resume for a fifth, each followed by an eval over the 72 val
+    clips; then ``stage=test`` on the checkpoint.  Reports per epoch the
+    seconds, ``get_batch``, ``val_acc``, ``eer``, ``cavg`` and the lr; the
+    fbank launches a step and an eval batch, and the shapes the kernel was
+    called at.  Fails below ``CROSS_LEARNED_ACC`` at the best epoch, or
+    when steps, launches, checkpoint or the test's ``val_acc`` are not the
+    expected ones.  Launch counts are set to 0 just before each run and
+    read just after."""
+    exp = os.path.join(root, "cross")
+    base = [_langs_override(corpus), "trainer.progress_bar=false"]
+    last = os.path.join(exp, "ckpt", "last.ckpt")
+    runs, counted = {}, {}
+    shapes, unwrap = _count_fbank_shapes()
+    try:
+        for name, extra in (
+                ("fit", [f"exp_dir={exp}", f"trainer.total_epoch={CROSS_EPOCHS}"]),
+                ("resume", [f"exp_dir={exp}", f"trainer.total_epoch={CROSS_EPOCHS + 1}",
+                            f"trainer.resume_from={last}"]),
+                ("test", [f"exp_dir={os.path.join(root, 'cross_test')}", "stage=test",
+                          f"trainer.resume_from={last}"])):
+            torch.cuda.synchronize()
+            reset_launches()
+            runs[name] = run_cli(_cli_args("configs", "lid_cross", *base, *extra))
+            counted[name] = launches()
+    finally:
+        unwrap()
+    lines = _metrics_lines(os.path.join(exp, "metrics.jsonl"))
+    evals = [line for line in lines if "val_acc" in line]
+    test = _metrics_lines(os.path.join(root, "cross_test", "metrics.jsonl"))[-1]
+    epochs = runs["fit"][0].epochs + runs["resume"][0].epochs
+    steps = [e["steps"] for e in epochs]
+    lrs = _lr_by_epoch(lines, [int(n) for n in np.cumsum(steps)])
+    per_epoch = [{"epoch": e["epoch"], "seconds": e["seconds"], "steps": e["steps"],
+                  "get_batch_s": e["host"].get("get_batch", (None,))[0],
+                  "train_step_dispatch_s": e["host"].get("train_step_dispatch", (None,))[0],
+                  "lr": lr, **{k: ev[k] for k in ("val_acc", "eer", "cavg", "avg_val_loss")}}
+                 for e, ev, lr in zip(epochs, evals, lrs)]
+    best = max(e["val_acc"] for e in evals)
+    ckpt_meta = load_checkpoint(last)["meta"]
+    report = {"phase": "cli_cross", "nvidia_smi": smi,
+              "config": "configs/lid_cross.yaml (x-vector, 80 mels, batch 16, plateau lr)",
+              "per_epoch": per_epoch, "best_val_acc": best, "learned_floor": CROSS_LEARNED_ACC,
+              "test": {k: test[k] for k in ("val_acc", "eer", "cavg", "avg_val_loss")},
+              "launches": counted, "fbank_shapes": {str(k): v for k, v in shapes.items()},
+              "ckpt_meta": {k: ckpt_meta[k] for k in ("epoch", "global_step")}, "runs": {}}
+    checks = {}
+    for name, (recorder, seconds) in runs.items():
+        per_step, per_eval = _per_step(recorder)
+        report["runs"][name] = {"seconds": seconds, "eval_batches":
+                                [e["batches"] for e in recorder.evals],
+                                "launches_per_train_step": per_step,
+                                "launches_per_eval_batch": per_eval}
+        if name != "test":
+            checks[f"{name}_launches"] = (per_step == CE_FBANK_LAUNCHES
+                                          and per_eval == CE_FBANK_LAUNCHES)
+            checks[f"{name}_evals"] = [e["batches"] for e in recorder.evals] == \
+                [CROSS_EVAL_BATCHES] * len(recorder.epochs)
+    checks.update({
+        "learned": best >= CROSS_LEARNED_ACC,
+        "steps": steps == [CROSS_EPOCH_STEPS] * (CROSS_EPOCHS + 1),
+        "eval_lines": len(evals) == CROSS_EPOCHS + 1
+        and all(np.isfinite(e["avg_val_loss"]) and np.isfinite(e["eer"]) for e in evals),
+        "lr_lines": all(lr is not None for lr in lrs),
+        "resumed_at_last_epoch": [e["epoch"] for e in runs["resume"][0].epochs] == [CROSS_EPOCHS],
+        "ckpt": ckpt_meta["epoch"] == CROSS_EPOCHS
+        and ckpt_meta["global_step"] == (CROSS_EPOCHS + 1) * CROSS_EPOCH_STEPS,
+        "test_val_acc": test["val_acc"] == evals[-1]["val_acc"],
+        "test_launches": counted["test"] == {
+            k: v * CROSS_EVAL_BATCHES for k, v in CE_FBANK_LAUNCHES.items()},
+        "fbank_shapes": {b for b, _ in shapes} == {CROSS_BATCH}
+        and sum(shapes.values()) == sum(c["fbank"] for c in counted.values()),
+    })
+    report["checks"] = checks
+    emit(report)
+    if not all(checks.values()):
+        raise AssertionError(f"CLI cross-entropy phase failed: {checks}")
+    return report
+
+
+def phase_cli_cross_ssl(root: str, corpus: str, smi: str) -> dict:
+    """The training CLI on ``configs/lid_cross_wavlm.yaml`` as written
+    (WavLM-Base+ shape, ``last_hidden_state``, ``freeze_upstream``, span and
+    channel masking at 0.15, the x-vector back-end at 768 wide) over the
+    corpus: an epoch of 3 steps, then a resume for a second, each followed
+    by an eval of the 72 val clips.  With ``freeze_upstream`` every upstream
+    weight of the checkpoint is bit-equal to the fresh draw of the
+    trainer's seed, and every classifier weight has moved.  No kernel
+    launches on this path."""
+    exp = os.path.join(root, "cross_ssl")
+    base = [_langs_override(corpus), f"exp_dir={exp}", "trainer.progress_bar=false",
+            f"trainer.train_data_factor={CROSS_SSL_DATA_FACTOR}"]
+    last = os.path.join(exp, "ckpt", "last.ckpt")
+    runs, counted = {}, {}
+    for name, extra in (("fit", ["trainer.total_epoch=1"]),
+                        ("resume", ["trainer.total_epoch=2", f"trainer.resume_from={last}"])):
+        torch.cuda.synchronize()
+        reset_launches()
+        runs[name] = run_cli(_cli_args("configs", "lid_cross_wavlm", *base, *extra))
+        counted[name] = launches()
+    ckpt = load_checkpoint(last)
+    trained = ckpt["state"]["model"]
+    fresh = LidCrossEntropyTask(**ckpt["hyper_parameters"], device="cpu")
+    fresh.init_parameters(torch.Generator().manual_seed(0 + 2))  # the trainer's seed + 2
+    drawn = fresh.model.state_dict()
+    upstream = [k for k in drawn if k.startswith("upstream.")]
+    classifier = [k for k, _ in fresh.model.named_parameters() if k.startswith("classifier.")]
+    changed_upstream = [k for k in upstream if not torch.equal(trained[k].cpu(), drawn[k])]
+    unmoved = [k for k in classifier if torch.equal(trained[k].cpu(), drawn[k])]
+    lines = _metrics_lines(os.path.join(exp, "metrics.jsonl"))
+    evals = [line for line in lines if "val_acc" in line]
+    report = {"phase": "cli_cross_ssl", "nvidia_smi": smi,
+              "config": "configs/lid_cross_wavlm.yaml (WavLM-Base+ shape, freeze_upstream)",
+              "params": sum(v.numel() for v in drawn.values()),
+              "upstream_leaves": len(upstream), "upstream_leaves_changed": changed_upstream,
+              "classifier_leaves": len(classifier), "classifier_leaves_unmoved": unmoved,
+              "evals": evals, "launches": counted,
+              "ckpt_meta": {k: ckpt["meta"][k] for k in ("epoch", "global_step")}, "runs": {}}
+    checks = {}
+    for name, (recorder, seconds) in runs.items():
+        per_step, per_eval = _per_step(recorder)
+        report["runs"][name] = {"seconds": seconds, "epochs": recorder.epochs,
+                                "eval_batches": [e["batches"] for e in recorder.evals]}
+        checks[f"{name}_steps"] = [e["steps"] for e in recorder.epochs] == [CROSS_SSL_STEPS]
+        checks[f"{name}_evals"] = [e["batches"] for e in recorder.evals] == \
+            [CROSS_SSL_EVAL_BATCHES]
+        checks[f"{name}_launches"] = per_step == NO_LAUNCHES and per_eval == NO_LAUNCHES
+    checks.update({
+        "upstream_frozen": bool(upstream) and not changed_upstream,
+        "classifier_moved": bool(classifier) and not unmoved,
+        "eval_lines": len(evals) == 2 and all(np.isfinite(e["avg_val_loss"]) for e in evals),
+        "ckpt": ckpt["meta"]["epoch"] == 1 and ckpt["meta"]["global_step"] == 2 * CROSS_SSL_STEPS,
+    })
+    report["checks"] = checks
+    emit(report)
+    if not all(checks.values()):
+        raise AssertionError(f"CLI cross-entropy SSL phase failed: {checks}")
+    return report
+
+
+def phase_cli_asr(root: str, corpus: str, lm_dir: str, smi: str) -> dict:
+    """The training CLI on ``configs/asr.yaml`` as written (14 × 144
+    Conformer, one CTC head, Adam with the tristage schedule) on one
+    language of the corpus: 6 steps, an eval of its 24 val clips; then
+    ``stage=test`` on the checkpoint with ``module.lm_path`` that language's
+    ARPA (``synth_corpus.write_lms``): the greedy CER (``val_wer``, the
+    config's ``use_cer``) and ``test_cer_lm``.  The same checkpoint's
+    ``test_loop_end`` on the CPU over the same batches must give the same
+    greedy and LM CER.  The launches a step and an eval batch, and the conv
+    shapes, are counted on the path."""
+    from speechlid_tpu_torch.cli import main_lid
+    from speechlid_tpu_torch.core.config import load_config
+    from speechlid_tpu_torch.core.trainer import _to_host
+
+    langs = (f"data.langs=[{{manifest: {corpus}/{ASR_LANG}/train.txt, "
+             f"val_manifest: {corpus}/{ASR_LANG}/val.txt}}]")
+    exp = os.path.join(root, "asr")
+    last = os.path.join(exp, "ckpt", "last.ckpt")
+    arpa = os.path.join(lm_dir, f"{ASR_LANG}.arpa")
+    runs, counted, conv_shapes = {}, {}, {}
+
+    def conv_seen(module, args, output):
+        if isinstance(module, ConformerConvModule):
+            k, c = module.depthwise.weight.shape
+            key = str((*args[0].shape[:2], c, k))
+            conv_shapes[key] = conv_shapes.get(key, 0) + 1
+
+    hook = torch.nn.modules.module.register_module_forward_hook(conv_seen)
+    try:
+        for name, extra in (
+                ("fit", [f"exp_dir={exp}", "trainer.total_epoch=1",
+                         f"trainer.train_data_factor={ASR_DATA_FACTOR}"]),
+                ("test", [f"exp_dir={os.path.join(root, 'asr_test')}", "stage=test",
+                          f"trainer.resume_from={last}", f"module.lm_path={arpa}"])):
+            torch.cuda.synchronize()
+            reset_launches()
+            runs[name] = run_cli(_cli_args("configs", "asr", langs, "trainer.progress_bar=false",
+                                           *extra))
+            counted[name] = launches()
+    finally:
+        hook.remove()
+    evals = [line for line in _metrics_lines(os.path.join(exp, "metrics.jsonl"))
+             if "val_wer" in line]
+    test = _metrics_lines(os.path.join(root, "asr_test", "metrics.jsonl"))[-1]
+    # the same checkpoint on the CPU, over the val feeder's batches
+    conf = load_config("configs", "asr", [langs, f"module.lm_path={arpa}"])
+    data = main_lid.build_data(conf)
+    feeder = main_lid.build_feeder(conf, data["val_dataset"], seed=conf.get("seed", 0),
+                                   train=False)
+    cpu_task, _ = ASRTask.resume_from_checkpoint(last, device="cpu", lm_path=arpa)
+    cpu_task.model.eval()
+    t0 = time.perf_counter()
+    cpu = cpu_task.test_loop_end([_to_host(cpu_task.val_loop(cpu_task.place_batch(b)))
+                                  for b in feeder])
+    cpu_s = time.perf_counter() - t0
+    per_step, per_eval = _per_step(runs["fit"][0])
+    report = {"phase": "cli_asr", "nvidia_smi": smi,
+              "config": f"configs/asr.yaml (14 x 144-d, one CTC head), language {ASR_LANG}, "
+                        f"beam search with {ASR_LANG}.arpa",
+              "steps": [e["steps"] for e in runs["fit"][0].epochs],
+              "seconds": {k: v[1] for k, v in runs.items()},
+              "val_cer": evals[-1]["val_wer"] if evals else None,
+              "test": {k: test.get(k) for k in ("val_wer", "test_cer_lm", "avg_val_loss")},
+              "cpu_test": {k: cpu.get(k) for k in ("val_wer", "test_cer_lm", "avg_val_loss")},
+              "cpu_test_seconds": cpu_s, "launches": counted,
+              "launches_per_train_step": per_step, "launches_per_eval_batch": per_eval,
+              "conv_shapes": conv_shapes}
+    checks = {
+        "steps": report["steps"] == [ASR_STEPS],
+        "launches": per_step == ASR_STEP_LAUNCHES and per_eval == ASR_EVAL_LAUNCHES,
+        "test_launches": counted["test"] == {k: v * ASR_EVAL_BATCHES
+                                             for k, v in ASR_EVAL_LAUNCHES.items()},
+        "eval_line": len(evals) == 1 and bool(np.isfinite(evals[0]["avg_val_loss"])),
+        "test_greedy_is_the_eval": test["val_wer"] == evals[-1]["val_wer"],
+        "test_cer_lm": "test_cer_lm" in test and bool(np.isfinite(test["test_cer_lm"])),
+        "cpu_same_cer": cpu["val_wer"] == test["val_wer"]
+        and cpu.get("test_cer_lm") == test.get("test_cer_lm"),
+    }
+    report["checks"] = checks
+    emit(report)
+    if not all(checks.values()):
+        raise AssertionError(f"CLI ASR phase failed: {checks}")
+    return report
+
+
+def phase_ce_timings(gen: torch.Generator) -> dict:
+    """Host-clock times of the cross-entropy task on the card, before any
+    use of the profiler: the train step of the x-vector and the ResNet34
+    back-ends at B = 16 on 4 s clips (Adam, the trainer's step), its peak
+    memory and launches; and the x-vector's eval batch at (16, 13 s), the
+    largest bucket of ``lid_cross.yaml``, whose fbank launches the kernels
+    line counts."""
+    rng = np.random.RandomState(12)
+    out = {"train_step_b16_4s": {}}
+    for backend in CE_TRAIN_BACKENDS:
+        task = LidCrossEntropyTask(**dict(config_module("lid_cross"), backend=backend,
+                                          num_classes=CE_CLASSES), device="cuda")
+        trainer = Trainer(total_epoch=1, use_progress_bar=False, seed=0)
+        trainer.trainer_prepare(task)
+        task.before_train_loop(0)
+        batches = [ce_batch(rng, CE_E2E_B, CE_SECONDS) for _ in range(3)]
+        for batch in batches:
+            trainer.train_step(batch)
+        timed_steps = 9
+        torch.cuda.synchronize()
+        gc.collect()  # what earlier tasks left behind them (the trainer refers back to its task)
+        torch.cuda.reset_peak_memory_stats()
+        baseline = torch.cuda.memory_allocated()
+        reset_launches()
+        t0 = time.perf_counter()
+        for i in range(timed_steps):
+            metrics = trainer.train_step(batches[i % len(batches)])
+        loss = float(metrics["loss"])
+        step_s = (time.perf_counter() - t0) / timed_steps
+        per_step = {k: n / timed_steps for k, n in launches().items()}
+        out["train_step_b16_4s"][backend] = {
+            "params": sum(p.numel() for p in task.model.parameters()),
+            "ms_per_step": step_s * 1e3, "utt_per_s": CE_E2E_B / step_s,
+            "timed_steps": timed_steps, "last_loss": loss,
+            "peak_memory_mb": torch.cuda.max_memory_allocated() / 2 ** 20,
+            "memory_before_mb": baseline / 2 ** 20,
+            "launches_per_step": {k: v for k, v in per_step.items() if v}}
+        if per_step != CE_FBANK_LAUNCHES or not np.isfinite(loss):
+            raise AssertionError(f"{backend} train step: launches {per_step}, loss {loss}")
+        if backend == "xvector":
+            task.model.eval()
+            batch = task.place_batch(ce_batch(rng, CE_E2E_B, 13.0))
+            for _ in range(2):
+                task.val_loop(batch)
+            evals = 5
+            torch.cuda.synchronize()
+            reset_launches()
+            t0 = time.perf_counter()
+            for _ in range(evals):
+                result = task.val_loop(batch)
+            result["probs"].cpu()
+            counted = launches()
+            out["eval_b16_13s_xvector"] = {
+                "ms_per_batch": (time.perf_counter() - t0) / evals * 1e3, "batches": evals,
+                "launches": {k: v for k, v in counted.items() if v}}
+            if counted != {k: v * evals for k, v in CE_FBANK_LAUNCHES.items()}:
+                raise AssertionError(f"x-vector eval at 13 s: launches {counted}")
+        del task, trainer
+        torch.cuda.empty_cache()
+    emit({"phase": "ce_e2e", **out})
+    return out
+
+
+def phase_ce_asr(gen: torch.Generator, root: str, corpus: str, lm_dir: str, smi: str) -> tuple:
+    """The cross-entropy and ASR phases in order; → (``cli_cross``'s report,
+    ``cli_asr``'s)."""
+    phase_ce_model_card_vs_cpu(gen)
+    phase_ce_train_card_vs_cpu(gen)
+    cross = phase_cli_cross(root, corpus, smi)
+    phase_cli_cross_ssl(root, corpus, smi)
+    return cross, phase_cli_asr(root, corpus, lm_dir, smi)
+
+
+def ce_asr_kernel_rows(gen: torch.Generator, errs: dict, cross: dict, ce: dict,
+                       asr: dict) -> list:
+    """The ``kernels`` line's rows of the cross-entropy and ASR paths: the
+    fbank kernel at the CLI's two buckets (16 × 2 s and 16 × 4 s, launches
+    counted on ``cli_cross``) and at the largest bucket of ``lid_cross.yaml``
+    (16 × 13 s, launches counted on ``ce_e2e``'s eval batches); the
+    depthwise modes at the ASR path's 2 s shape with the launches of
+    ``cli_asr``."""
+    total = sum(c["fbank"] for c in cross["launches"].values())
+    on_cross = "cli_cross: lid_cross.yaml, 5 epochs of 18 steps and 6 eval batches, stage=test"
+    rows = [fbank_row(f"fbank_log_mel@cross_{key[6:]}", key, gen, errs, total, {
+        "launches_counted_on": on_cross,
+        "launches_at_this_shape": cross["fbank_shapes"].get(str(FBANK_SHAPES[key]), 0),
+        "launches_per_train_step": 1, "launches_per_eval_batch": 1})
+        for key in ("cross_2s", "cross_4s")]
+    evals = ce["eval_b16_13s_xvector"]
+    rows.append(fbank_row("fbank_log_mel@cross_13s", "cross_13s", gen, errs,
+                          evals["launches"]["fbank"], {
+                              "launches_counted_on": "ce_e2e: x-vector val_loop at (16, 13 s)",
+                              "launches_per_eval_batch": 1}))
+    fit, test = asr["launches"]["fit"], asr["launches"]["test"]
+    on_asr = (f"cli_asr: asr.yaml, {ASR_STEPS} steps, {ASR_EVAL_BATCHES} eval batches, "
+              "stage=test")
+    extra = {"launches_counted_on": on_asr, "conv_shapes_seen": asr["conv_shapes"]}
+    rows += fused_kernel_rows(gen, errs["conv_fused"], {
+        "depthwise_conv1d_fwd[glu_bn_act]@asr": (
+            fit["depthwise_glu_bn_act"] + test["depthwise_glu_bn_act"],
+            dict(extra, launches_per_eval_batch=ASR_DW)),
+        "depthwise_conv1d_fwd[glu]@asr": (fit["depthwise_glu"], dict(
+            extra, launches_per_train_step=ASR_DW)),
+        "depthwise_conv1d_fwd[glu_dx]@asr": (fit["depthwise_glu_dx"], dict(
+            extra, launches_per_train_step=ASR_DW)),
+    }, eval_rows=(("depthwise_conv1d_fwd[glu_bn_act]@asr", EVAL_DW_SHAPE),),
+        train_shape=EVAL_DW_SHAPE, train_suffix="@asr")
+    row = bwd_w_row(gen, errs["conv_fused"], EVAL_DW_SHAPE, "depthwise_conv1d_bwd_w@asr", fit,
+                    ASR_STEPS)
+    row.update(extra)
+    rows.append(row)
+    return rows
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description="Drive the PyTorch/CUDA port on one card.")
-    parser.add_argument("--only", choices=("cli_gate",),
-                        help="run this phase alone, after the build and the corpus")
+    parser.add_argument("--only", choices=("cli_gate", "ce_asr"),
+                        help="run this phase alone, after the build and the corpus "
+                             "(ce_asr: the cross-entropy and ASR phases, with the kernel "
+                             "checks and rows they need)")
     parser.add_argument("--seed", type=int, default=0,
                         help="the CLI's seed for --only cli_gate (the gate's own is 0)")
     args = parser.parse_args(argv)
@@ -3079,6 +3844,18 @@ def main(argv=None) -> int:
         with tempfile.TemporaryDirectory() as root:
             os.environ["SPEECHLID_CACHE_DIR"] = os.path.join(root, "cache")
             phase_cli_gate(root, phase_cli_corpus(root), smi, [f"seed={args.seed}"])
+        emit({"ok": True, "device": {"platform": "gpu",
+                                     "kind": torch.cuda.get_device_name(0),
+                                     "count": torch.cuda.device_count()}})
+        return 0
+    if args.only == "ce_asr":
+        errs = {"fbank": phase_fbank(gen), "conv_fused": phase_conv_fused(gen)}
+        with tempfile.TemporaryDirectory() as root:
+            os.environ["SPEECHLID_CACHE_DIR"] = os.path.join(root, "cache")
+            corpus = phase_cli_corpus(root)
+            cross_cli, asr_cli = phase_ce_asr(gen, root, corpus, phase_eval_inputs(root)[1], smi)
+        emit({"kernels": ce_asr_kernel_rows(gen, errs, cross_cli, phase_ce_timings(gen),
+                                            asr_cli)})
         emit({"ok": True, "device": {"platform": "gpu",
                                      "kind": torch.cuda.get_device_name(0),
                                      "count": torch.cuda.device_count()}})
@@ -3119,13 +3896,16 @@ def main(argv=None) -> int:
         phase_bf16_model(gen, "wavlm")
         phase_bf16_train_card_vs_cpu(gen)
         bf16_cli = phase_cli_wavlm(root, corpus, smi, WAVLM_BF16_CLI)
+        cross_cli, asr_cli = phase_ce_asr(gen, root, corpus, inputs[1], smi)
     # host-clock loops first, the profiler's runs after (it slows what follows it)
+    ce_host = phase_ce_timings(gen)
     bf16_host = phase_bf16_host_timings(gen)
     wavlm_host = phase_wavlm_host_timings(wavlm_task, gen)
     kernels = phase_timings(task, gen, errs, served, serve_report, trained, training, cli,
                             flagship_eval)
     kernels += phase_wavlm_timings(wavlm_task, gen, errs, wavlm_host, wavlm_serve, wavlm_cli)
     kernels += phase_bf16_timings(gen, errs, bf16_host, bf16_cli)
+    kernels += ce_asr_kernel_rows(gen, errs, cross_cli, ce_host, asr_cli)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -1,5 +1,8 @@
-"""Train / evaluate the joint LID+ASR model from a YAML config tree (port of
-``speechlid_tpu/cli/main_lid.py``).
+"""Train / evaluate a task from a YAML config tree (port of
+``speechlid_tpu/cli/main_lid.py``): ``module.task`` ``lid_asr`` (the joint
+LID+ASR model), ``lid_cross_entropy`` (the cross-entropy LID classifier on
+fbank or SSL features, ``configs/lid_cross*.yaml``) or ``asr`` (standalone
+CTC ASR on the first language's vocabulary, ``configs/asr.yaml``).
 
 The same config schema (trainer / module / data / logger / stage groups, the
 loader of ``core/config.py``), the same data pipeline (per-language
@@ -11,9 +14,9 @@ Usage:
     python -m speechlid_tpu_torch.cli.main_lid --config-dir configs \
         --config-name lid_supervised [trainer.total_epoch=10 ...] [--device cpu]
 
-Not ported yet, and raising ``NotImplementedError``: ``module.task`` other
-than ``lid_asr`` (the cross-entropy and ASR tasks), ``trainer.data_parallel``
-and ``trainer.model_parallel`` > 1 (the mesh) and ``trainer.use_swa`` (SWA).
+Not ported yet, and raising ``NotImplementedError``:
+``trainer.data_parallel`` and ``trainer.model_parallel`` > 1 (the mesh) and
+``trainer.use_swa`` (SWA).
 ``data.wav_augment`` builds the train feeder's ``WavAugmentor`` from its
 keys (an unknown key raises ``TypeError``, as in the JAX CLI).  The JAX
 CLI's persistent compilation cache has no counterpart here.
@@ -114,21 +117,28 @@ def build_feeder(conf, dataset, seed=0, train=True) -> BucketFeeder:
 def build_task(conf, data, device: str = "cuda"):
     module_conf = conf.module.to_dict() if hasattr(conf.module, "to_dict") else dict(conf.module)
     task_type = module_conf.pop("task", "lid_asr")
-    if task_type in ("lid_cross_entropy", "asr"):
-        raise NotImplementedError(
-            f"module.task={task_type}: only lid_asr is ported yet (the other tasks "
-            "are a later slice)")
-    if task_type != "lid_asr":
-        raise ValueError(f"unknown module.task: {task_type}")
-    from speechlid_tpu_torch.tasks.lid_asr import LidASRTask
+    if task_type == "lid_asr":
+        from speechlid_tpu_torch.tasks.lid_asr import LidASRTask
 
-    return LidASRTask(
-        lang2vocab=data["lang2vocab"],
-        lang2index=data["lang2index"],
-        tokenizers=data["tokenizers"],
-        device=device,
-        **module_conf,
-    )
+        return LidASRTask(
+            lang2vocab=data["lang2vocab"],
+            lang2index=data["lang2index"],
+            tokenizers=data["tokenizers"],
+            device=device,
+            **module_conf,
+        )
+    if task_type == "lid_cross_entropy":
+        from speechlid_tpu_torch.tasks.lid_cross_entropy import LidCrossEntropyTask
+
+        return LidCrossEntropyTask(num_classes=len(data["lang2index"]), device=device,
+                                   **module_conf)
+    if task_type == "asr":
+        from speechlid_tpu_torch.tasks.asr import ASRTask
+
+        lang = next(iter(data["tokenizers"]))
+        return ASRTask(vocab=data["tokenizers"][lang].export_vocab(), device=device,
+                       **module_conf)
+    raise ValueError(f"unknown module.task: {task_type}")
 
 
 def main(argv: List[str] | None = None) -> None:

@@ -31,6 +31,17 @@ statistics after N training steps can be compared leaf by leaf.
 
 The Conv2d subsampling's Dense needs no permutation: the port flattens its
 (T', F', C) features frequency-major, as the JAX NHWC convolution does.
+
+The cross-entropy classifier zoo (``models/classifier.py`` and what it
+builds) converts by one rule for every back-end (:func:`classifier_state`,
+:func:`classifier_variables`): a node with a ``kernel`` is a Dense or a
+Conv by the kernel's rank; a node with running statistics is a BatchNorm
+(its ``scale``/``bias`` only where it has them); MHASTP's ``att_w_i`` /
+``att_b_i`` keep their layout; flax's automatic names become the port's
+attributes (``Conv_0`` → ``conv``, ``BatchNorm_0`` → ``bn``, ``Dense_0`` →
+``fc``, ``ResNet_0`` → ``resnet``).  The task (:func:`lid_ce_state`) nests
+an SSL upstream's parameters at ``upstream/upstream`` and the back-end at
+``classifier``.
 """
 
 from __future__ import annotations
@@ -375,6 +386,113 @@ def lid_variables(sd: Mapping) -> Dict[str, Dict]:
         "batch_stats": {**({} if feat_s is None else {"featurizer": feat_s}),
                         "heads": {"heads": _stack(heads_s)}},
     }
+
+
+# ---------------------------------------------------------------------------
+# The cross-entropy classifier zoo, both directions
+# ---------------------------------------------------------------------------
+
+# flax's automatic module names → the port's attributes
+ZOO_NAMES = {"Conv_0": "conv", "BatchNorm_0": "bn", "Dense_0": "fc", "ResNet_0": "resnet"}
+ZOO_FLAX_NAMES = {v: k for k, v in ZOO_NAMES.items()}
+
+
+def _kernel_to_weight(kernel: np.ndarray) -> np.ndarray:
+    """Dense (in, out), Conv1d (k, in, out) or Conv2d (kh, kw, in, out) →
+    the port's (out, in[, k[, kw]])."""
+    return kernel.transpose({2: (1, 0), 3: (2, 1, 0), 4: (3, 2, 0, 1)}[kernel.ndim])
+
+
+def _weight_to_kernel(weight: np.ndarray) -> np.ndarray:
+    """The inverse of :func:`_kernel_to_weight`."""
+    return weight.transpose({2: (1, 0), 3: (2, 1, 0), 4: (2, 3, 1, 0)}[weight.ndim])
+
+
+def classifier_state(params: Mapping, batch_stats: Mapping, prefix: str = "") -> StateDict:
+    """A JAX classifier-zoo module's variables (``LidClassifier`` or any
+    module under it) → the port module's state_dict entries under
+    ``prefix``."""
+    sd: StateDict = {}
+    for key in sorted(set(params) | set(batch_stats)):
+        p, s = params.get(key, {}), batch_stats.get(key, {})
+        if not isinstance(p, Mapping):  # MHASTP's att_w_i / att_b_i
+            sd[prefix + key] = _a(p)
+            continue
+        name = prefix + ZOO_NAMES.get(key, key) + "."
+        if "kernel" in p:
+            sd[name + "weight"] = _kernel_to_weight(_a(p["kernel"]))
+            if "bias" in p:
+                sd[name + "bias"] = _a(p["bias"])
+        elif "mean" in s:
+            if "scale" in p:
+                sd[name + "weight"] = _a(p["scale"])
+            if "bias" in p:
+                sd[name + "bias"] = _a(p["bias"])
+            sd[name + "running_mean"] = _a(s["mean"])
+            sd[name + "running_var"] = _a(s["var"])
+        else:
+            sd.update(classifier_state(p, s, name))
+    return sd
+
+
+def _insert(tree: Dict, path, value) -> None:
+    for part in path[:-1]:
+        tree = tree.setdefault(part, {})
+    tree[path[-1]] = value
+
+
+def classifier_variables(sd: Mapping, prefix: str = ""):
+    """The port's classifier-zoo entries of a state_dict under ``prefix`` →
+    (params, batch_stats) of the JAX module: the inverse of
+    :func:`classifier_state`."""
+    leaves: Dict[str, Dict[str, np.ndarray]] = {}
+    for key, value in sd.items():
+        if key.startswith(prefix):
+            module, _, leaf = key[len(prefix):].rpartition(".")
+            leaves.setdefault(module, {})[leaf] = _n(value)
+    params: Dict = {}
+    stats: Dict = {}
+    for module, own in leaves.items():
+        path = [ZOO_FLAX_NAMES.get(part, part) for part in module.split(".") if part]
+        if "running_mean" in own:
+            _insert(stats, path, {"mean": own["running_mean"], "var": own["running_var"]})
+            norm = {k: own[v] for k, v in (("scale", "weight"), ("bias", "bias")) if v in own}
+            if norm:
+                _insert(params, path, norm)
+        elif "weight" in own:
+            node = {"kernel": _weight_to_kernel(own["weight"])}
+            if "bias" in own:
+                node["bias"] = own["bias"]
+            _insert(params, path, node)
+        else:  # MHASTP's att_w_i / att_b_i
+            for leaf, value in own.items():
+                _insert(params, path + [leaf], value)
+    return params, stats
+
+
+def lid_ce_state(variables: Mapping) -> StateDict:
+    """JAX ``LidCrossEntropyTask`` variables (a ``LidClassifier``, or a
+    ``PretrainLidClassifier`` with ``upstream`` and ``classifier``) → the
+    state_dict of the port task's model."""
+    params, stats = variables["params"], variables.get("batch_stats", {})
+    if "upstream" not in params:
+        return classifier_state(params, stats)
+    sd = ssl_featurizer_state(params["upstream"], "upstream.")
+    sd.update(classifier_state(params["classifier"], stats.get("classifier", {}),
+                               "classifier."))
+    return sd
+
+
+def lid_ce_variables(sd: Mapping) -> Dict[str, Dict]:
+    """The port task's model state_dict → ``{"params", "batch_stats"}`` of
+    the JAX ``LidCrossEntropyTask``: the inverse of :func:`lid_ce_state`."""
+    if not any(k.startswith("upstream.") for k in sd):
+        params, stats = classifier_variables(sd)
+        return {"params": params, "batch_stats": stats}
+    params, stats = classifier_variables(sd, "classifier.")
+    return {"params": {"upstream": ssl_featurizer_variables(sd, "upstream."),
+                       "classifier": params},
+            "batch_stats": {"classifier": stats} if stats else {}}
 
 
 def load_into(module: torch.nn.Module, state: StateDict) -> None:

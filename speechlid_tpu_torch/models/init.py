@@ -22,6 +22,14 @@ The SSL featurizers (``models/wavlm.py``, ``models/wav2vec2.py``) add:
 ``mask_emb`` uniform on [0, 1); the Featurizer's ``layer_weights`` zeros.
 Their convs and Dense layers are ``lecun_normal`` like the rest.
 
+The classifier zoo (``models/{classifier,resnet,xvector,pooling}.py``) adds:
+dilated Conv1d and bias-free Conv2d kernels (``lecun_normal``); MHASTP's
+per-head kernels ``att_w_i`` (H, D_in, D_out), ``lecun_normal`` with the
+leading head axis in the receptive field as flax counts it, so fan_in is
+H·D_in, and its biases ``att_b_i`` zeros; flax-semantics BatchNorms
+(``models/batchnorm.py``) scale 1 and bias 0 where they have them, and
+running mean 0 and variance 1 in every one, the affine-free ones too.
+
 fan_in is the kernel's input width times its receptive field: ``in`` for a
 Linear (out, in), in·kh·kw for a Conv2d (out, in, kh, kw), in·k for a Conv1d,
 and k for the depthwise weight (k, C) (JAX shape (k, 1, C)).
@@ -40,11 +48,13 @@ import math
 import torch
 import torch.nn as nn
 
+from speechlid_tpu_torch.models.batchnorm import FlaxBatchNorm
 from speechlid_tpu_torch.models.conformer import (
     DepthwiseConv1d,
     MaskedBatchNorm,
     RelPosAttention,
 )
+from speechlid_tpu_torch.models.pooling import MHASTP
 from speechlid_tpu_torch.models.wav2vec2 import Featurizer
 from speechlid_tpu_torch.models.wavlm import RelPosMultiheadAttention, WavLM, _WeightNormConvPos
 
@@ -73,6 +83,9 @@ def init_like_flax_(module: nn.Module, generator: torch.Generator) -> None:
     the BatchNorm running statistics.  A parameter of a kind not listed in
     the module docstring raises."""
     for name, m in module.named_modules():
+        if isinstance(m, (MaskedBatchNorm, FlaxBatchNorm)):
+            m.running_mean.zero_()
+            m.running_var.fill_(1.0)
         own = dict(m.named_parameters(recurse=False))
         if not own:
             continue
@@ -83,11 +96,14 @@ def init_like_flax_(module: nn.Module, generator: torch.Generator) -> None:
         elif isinstance(m, DepthwiseConv1d):
             k = m.weight.shape[0]
             draws["weight"] = lecun_normal(m.weight.shape, k, generator)
-        elif isinstance(m, (nn.LayerNorm, nn.GroupNorm, MaskedBatchNorm)):
-            draws["weight"] = torch.ones(m.weight.shape)
-            if isinstance(m, MaskedBatchNorm):
-                m.running_mean.zero_()
-                m.running_var.fill_(1.0)
+        elif isinstance(m, (nn.LayerNorm, nn.GroupNorm, MaskedBatchNorm, FlaxBatchNorm)):
+            if m.weight is not None:
+                draws["weight"] = torch.ones(m.weight.shape)
+        elif isinstance(m, MHASTP):
+            for i in range(m.layer_num):
+                w = own[f"att_w_{i}"]
+                draws[f"att_w_{i}"] = lecun_normal(w.shape, w.shape[0] * w.shape[1], generator)
+                draws[f"att_b_{i}"] = torch.zeros(own[f"att_b_{i}"].shape)
         elif isinstance(m, RelPosAttention):
             draws["rel_pos_emb"] = torch.randn(m.rel_pos_emb.shape, generator=generator)
         elif isinstance(m, RelPosMultiheadAttention):

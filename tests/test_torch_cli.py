@@ -12,6 +12,12 @@ the JAX package's, on a tiny 2-language corpus on the CPU.
   batch lengths, and an unknown key of it raises ``TypeError`` in both;
 - every option not ported yet raises ``NotImplementedError``, and without
   ``--device`` the CLI asks for the card;
+- the other two tasks: ``lid_cross.yaml`` (the ``xvector`` and ``linear``
+  back-ends on fbank), ``lid_cross_wavlm.yaml`` and ``lid_cross_wav2vec.yaml``
+  (tiny ``module.ssl_config``) and ``asr.yaml`` (one language) train an
+  epoch on the CPU, write a checkpoint and finite metrics, run
+  ``stage=test`` from it, and build the JAX CLI's task
+  ``hyper_parameters``;
 - the SSL configs: ``lid_wavlm.yaml`` with a tiny ``module.ssl_config``
   trains across both freeze gates and has the JAX CLI's hyper-parameters,
   ``lid_wav2vec.yaml`` trains without its augmentor and raises the JAX
@@ -157,8 +163,7 @@ def test_build_data_feeder_and_task_equal_jax(corpus, tmp_path, monkeypatch, sha
 
 
 @pytest.mark.parametrize("override", [
-    "module.task=lid_cross_entropy", "module.task=asr", "trainer.data_parallel=true",
-    "trainer.model_parallel=2", "trainer.use_swa=true",
+    "trainer.data_parallel=true", "trainer.model_parallel=2", "trainer.use_swa=true",
 ])
 def test_unported_options_raise(corpus, tmp_path, monkeypatch, override):
     monkeypatch.setenv("SPEECHLID_CACHE_DIR", str(tmp_path / "cache"))
@@ -329,3 +334,88 @@ def test_wav2vec_config_trains_without_its_augmentor(corpus, tmp_path, monkeypat
     lid_fn, _ = build_lid_fn(str(tmp_path / "exp" / "ckpt" / "last.ckpt"), device="cpu")
     scores = lid_fn((0.1 * np.random.RandomState(3).randn(1, SR)).astype(np.float32), SR)
     assert scores.shape == (1, 2) and np.isfinite(scores).all()
+
+
+TINY_CROSS_SSL = {
+    "lid_cross_wavlm": TINY_WAVLM,
+    "lid_cross_wav2vec": ("module.ssl_config={encoder_layers: 1, encoder_embed_dim: 32, "
+                          "encoder_ffn_embed_dim: 64, encoder_attention_heads: 2, "
+                          "conv_feature_layers: \"[(16,10,5)] + [(16,3,2)] * 2\", "
+                          "conv_pos: 16, conv_pos_groups: 4}"),
+}
+CROSS_RUNS = {
+    "lid_cross_xvector": ("lid_cross", ["module.backend=xvector"]),
+    "lid_cross_linear": ("lid_cross", ["module.backend=linear"]),
+    "lid_cross_wavlm": ("lid_cross_wavlm", [TINY_CROSS_SSL["lid_cross_wavlm"]]),
+    "lid_cross_wav2vec": ("lid_cross_wav2vec", [TINY_CROSS_SSL["lid_cross_wav2vec"]]),
+}
+SHORT_CLIPS = ["data.batch_size=3", "data.buckets_s=[0.5, 1.0]", "trainer.total_epoch=1",
+               "trainer.progress_bar=false"]
+
+
+def _build_both(name, overrides):
+    """The task the port's ``build_task`` builds on the CPU and the JAX
+    CLI's, from the same config and overrides."""
+    conf, jconf = load_config("configs", name, overrides), jax_load_config("configs", name,
+                                                                         overrides)
+    return (main_lid.build_task(conf, main_lid.build_data(conf), device="cpu"),
+            jax_main_lid.build_task(jconf, jax_main_lid.build_data(jconf)))
+
+
+@pytest.mark.parametrize("run", CROSS_RUNS)
+def test_cross_entropy_configs_train_test_and_match_jax(corpus, tmp_path, monkeypatch, run):
+    """A ``module.task: lid_cross_entropy`` config trains an epoch on the
+    CPU (its plateau lr or tristage schedule, ``val_acc`` the monitor),
+    writes a checkpoint and finite metrics, and runs ``stage=test`` from the
+    checkpoint; its task has the JAX CLI's hyper-parameters."""
+    monkeypatch.setenv("SPEECHLID_CACHE_DIR", str(tmp_path / "cache"))
+    name, extra = CROSS_RUNS[run]
+    overrides = [_langs(corpus), f"exp_dir={tmp_path / 'exp'}", *SHORT_CLIPS, *extra]
+    main_lid.main(["--config-dir", "configs", "--config-name", name, *overrides,
+                   "--device", "cpu"])
+    ckpt = tmp_path / "exp" / "ckpt" / "last.ckpt"
+    saved = torch.load(ckpt, weights_only=True)
+    assert saved["meta"]["global_step"] > 0
+    lines = _lines(tmp_path / "exp" / "metrics.jsonl")
+    evals = [r for r in lines if "val_acc" in r]
+    assert len(evals) == 1 and {"avg_val_loss", "eer", "cavg"} <= set(evals[0])
+    assert all(np.isfinite(evals[0][k]) for k in ("avg_val_loss", "val_acc", "eer", "cavg"))
+    assert all(np.isfinite(r["loss"]) and 0.0 <= r["acc"] <= 1.0 for r in lines if "loss" in r)
+    main_lid.main(["--config-dir", "configs", "--config-name", name, *overrides[:1],
+                   f"exp_dir={tmp_path / 'test'}", *SHORT_CLIPS, *extra, "stage=test",
+                   f"trainer.resume_from={ckpt}", "--device", "cpu"])
+    result = _lines(tmp_path / "test" / "metrics.jsonl")[-1]
+    assert result["val_acc"] == evals[0]["val_acc"]
+    task, jtask = _build_both(name, overrides)
+    assert task.hyper_parameters == jtask.hyper_parameters
+    assert task.hyper_parameters["num_classes"] == 2
+
+
+def test_asr_config_trains_tests_and_matches_jax(corpus, tmp_path, monkeypatch):
+    """``configs/asr.yaml`` on one language (its vocabulary the task's)
+    trains an epoch on the CPU, writes a checkpoint and finite metrics, and
+    runs ``stage=test`` from it; its task has the JAX CLI's
+    hyper-parameters."""
+    monkeypatch.setenv("SPEECHLID_CACHE_DIR", str(tmp_path / "cache"))
+    one_lang = (f"data.langs=[{{manifest: {corpus / 'aa' / 'train.txt'}, "
+                f"val_manifest: {corpus / 'aa' / 'val.txt'}}}]")
+    overrides = [one_lang, f"exp_dir={tmp_path / 'exp'}", *SHORT_CLIPS, "module.n_blocks=1",
+                 "module.encoder_dim=32", "module.heads=2", "module.dim_head=16",
+                 "module.head_dim_head=8", "module.head_num_head=2", "module.schedule=null"]
+    main_lid.main(["--config-dir", "configs", "--config-name", "asr", *overrides,
+                   "--device", "cpu"])
+    ckpt = tmp_path / "exp" / "ckpt" / "last.ckpt"
+    assert torch.load(ckpt, weights_only=True)["meta"]["global_step"] > 0
+    lines = _lines(tmp_path / "exp" / "metrics.jsonl")
+    evals = [r for r in lines if "val_wer" in r]
+    assert len(evals) == 1 and np.isfinite(evals[0]["avg_val_loss"])
+    assert 0.0 <= evals[0]["val_wer"] and all(np.isfinite(r["loss"]) for r in lines
+                                              if "loss" in r)
+    main_lid.main(["--config-dir", "configs", "--config-name", "asr", *overrides[:1],
+                   f"exp_dir={tmp_path / 'test'}", *overrides[2:], "stage=test",
+                   f"trainer.resume_from={ckpt}", "--device", "cpu"])
+    result = _lines(tmp_path / "test" / "metrics.jsonl")[-1]
+    assert result["val_wer"] == evals[0]["val_wer"]
+    task, jtask = _build_both("asr", overrides)
+    assert task.hyper_parameters == jtask.hyper_parameters
+    assert task.hyper_parameters["vocab"] == task.tokenizer.export_vocab()

@@ -38,7 +38,9 @@ def test_port_imports_no_jax():
                  "data.manifest", "data.datasets", "data.feeder", "models.init",
                  "cli.test_lid", "eval.harness", "eval.sweep", "decode.beam_search",
                  "ops.augment", "ops.resample", "data.augmentor", "core.precision",
-                 "core.native", "models.wavlm", "models.wav2vec2"):
+                 "core.native", "models.wavlm", "models.wav2vec2", "models.batchnorm",
+                 "models.pooling", "models.xvector", "models.resnet", "models.classifier",
+                 "tasks.lid_cross_entropy", "tasks.asr", "tasks"):
         assert f"speechlid_tpu_torch.{name}" in modules, name
     result = subprocess.run(
         [sys.executable, "-c", CHECK, "chip_smoke", *modules],
