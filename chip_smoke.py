@@ -4,6 +4,7 @@
     python3 chip_smoke.py        # from the root of a checkout, one H100
     python3 chip_smoke.py --only cli_gate [--seed N]   # the accuracy gate alone
     python3 chip_smoke.py --only ce_asr   # the cross-entropy and ASR phases alone
+    python3 chip_smoke.py --only se   # the speech enhancement and bilstm phases alone
 
 It builds the port's CUDA kernels from ``speechlid_tpu_torch/csrc`` (into
 ``build/``), holds each kernel, forward and backward, and each fused mode of
@@ -52,7 +53,18 @@ the JAX CLI does (``cli_cross``); ``configs/lid_cross_wavlm.yaml`` with its
 frozen upstream (``cli_cross_ssl``); and ``configs/asr.yaml`` for 6 steps and
 ``stage=test`` with an ARPA LM, the card's greedy and LM CER equal to the
 CPU's on the same checkpoint (``cli_asr``); ``--only ce_asr`` runs these
-alone.  Last it times the kernels, the
+alone.  Then speech enhancement and the bilstm heads: the DPRNN, FaSNet-TAC
+(4 mics, a batch of valid mic counts) and FaSNet-Origin on the card
+against the CPU, the output and one train step (``se_card_vs_cpu``);
+``main_extras se`` trains the DPRNN on a tones-under-noise ``.npz`` to an
+SI-SNR above the noisy input's with a checkpoint (``cli_se``); the eval CLI
+scores ``cli_flagship``'s checkpoint with that SE model blended in at
+``--factor 0.5`` and over ``--factor-sweep 0:1:0.5``, factor 0 equal to the
+run without SE (``cli_eval_se``); one server answers ``/lid`` and ``/se``
+from four threads (``serve_se``); ``LidASRTask(head_type="bilstm")`` at the
+flagship's width on the card against the CPU, inference and a step
+(``bilstm_card_vs_cpu``); and their times (``se_e2e``); ``--only se`` runs
+these alone.  Last it times the kernels, the
 models and the train steps (the WavLM model's in ``wavlm_e2e``, bfloat16
 against float32 in turns in ``bf16_e2e``).  The fused modes are also timed against the
 unfused chain they replace (``chain_ms``), in turns chain, fused, fused, chain, and a
@@ -95,6 +107,7 @@ import torch.nn.functional as F
 from speechlid_tpu_torch.cli.serve import (
     InferenceState,
     build_lid_fn,
+    build_se_fn,
     make_handler,
     make_lid_fn,
 )
@@ -105,6 +118,9 @@ from speechlid_tpu_torch.core.trainer import Trainer
 from speechlid_tpu_torch.data.augmentor import WavAugmentor
 from speechlid_tpu_torch.models.batchnorm import FlaxBatchNorm
 from speechlid_tpu_torch.models import resnet as presnet
+from speechlid_tpu_torch.models.fasnet import FaSNetOrigin, FaSNetTAC
+from speechlid_tpu_torch.models.init import init_like_flax_
+from speechlid_tpu_torch.models.se import DPRNNEnhancer, si_snr
 from speechlid_tpu_torch.models.conformer import (
     ConformerConvModule,
     DepthwiseConv1d,
@@ -140,6 +156,7 @@ from speechlid_tpu_torch.ops.cuda.fbank_kernel import (
 from speechlid_tpu_torch.tasks.asr import ASRTask
 from speechlid_tpu_torch.tasks.lid_asr import LidASRTask
 from speechlid_tpu_torch.tasks.lid_cross_entropy import LidCrossEntropyTask
+from speechlid_tpu_torch.tasks.se import SETask
 
 SR = 16000
 # H100 SXM data sheet, dense, at the 700 W limit: FP32 outside the tensor
@@ -3825,12 +3842,531 @@ def ce_asr_kernel_rows(gen: torch.Generator, errs: dict, cross: dict, ce: dict,
     return rows
 
 
+# ------------------------------------------------ speech enhancement and bilstm heads
+#
+# The SE task's three models at the repository's widths: the DPRNN at
+# SETask's defaults (what main_extras se trains: 64-d encoder, 16-sample
+# windows, chunks of 100, 2 blocks, hidden 64) and FaSNet-TAC and
+# FaSNet-Origin at their class defaults (the reference's FaSNet_TAC width:
+# 64 / 64 / 128, 4 or 6 layers, segments of 50, 4 ms windows with 16 ms of
+# context, 513-tap filters).  They run no hand kernel: cuDNN's LSTMs, cuFFT
+# and cuBLAS.  The eval CLI scores the enhanced and blended batches through
+# both kernels, and the bilstm joint model runs the encoder's.
+
+SE_MODELS = ("dprnn", "fasnet_tac", "fasnet_origin")
+SE_B, SE_SECONDS, SE_MICS = 4, 4.0, 4
+SE_NUM_MIC = (4, 3, 2, 4)  # FaSNet-TAC's batch of valid mic counts
+SE_TOL = 1e-3  # card vs CPU: the output of its largest entry, the loss, each gradient of its leaf's
+# a gradient leaf past SE_TOL, card (cuDNN's float32 LSTM) against the CPU's
+# float64 step in relative L2: up to 3.5e-3 seen, and TF32 in cuDNN misses it
+SE_CUDNN_TOL = 1e-2
+SE_ZERO_GRAD_LEAVES = {"dprnn": ("decoder.bias",)}  # SI-SNR removes the mean: true gradient 0
+CLI_SE_CLIPS, CLI_SE_SECONDS, CLI_SE_EPOCHS, CLI_SE_BATCH, CLI_SE_LR = 80, 1.0, 10, 8, 2e-3
+SE_FACTOR_SWEEP = "0:1:0.5"
+SE_TIMED_SECONDS = (2.0, 4.0)
+BILSTM = dict(FLAGSHIP, head_type="bilstm")
+BILSTM_PER_FORWARD_LAUNCHES = launch_counts(fbank=1, glu_bn_act=N_BLOCKS)  # no conv in the heads
+BILSTM_TRAIN_STEP_LAUNCHES = launch_counts(fbank=1, bwd_w=N_BLOCKS, glu=N_BLOCKS, glu_dx=N_BLOCKS)
+
+
+def se_tones(rng: np.random.RandomState, n: int, t: int, mics: int = 0) -> tuple:
+    """(noisy, clean) float32: each clip a sum of two tones under white
+    noise at about 1 dB, as the JAX SE tests make them.  With ``mics``,
+    noisy is (n, mics, t): mic m hears the clean wave m samples late with
+    noise of its own."""
+    time_s = np.arange(t) / SR
+    f = rng.uniform(150, 900, (n, 2))
+    clean = 0.35 * (np.sin(2 * np.pi * f[:, :1] * time_s) + np.sin(2 * np.pi * f[:, 1:] * time_s))
+    if not mics:
+        return (clean + 0.3 * rng.randn(n, t)).astype(np.float32), clean.astype(np.float32)
+    noisy = np.stack([np.roll(clean, m, axis=-1) for m in range(mics)], axis=1)
+    return (noisy + 0.3 * rng.randn(n, mics, t)).astype(np.float32), clean.astype(np.float32)
+
+
+def se_model(kind: str) -> torch.nn.Module:
+    """One of ``SE_MODELS`` at its width (on the CPU)."""
+    return {"dprnn": DPRNNEnhancer, "fasnet_tac": FaSNetTAC, "fasnet_origin": FaSNetOrigin}[kind]()
+
+
+def init_se_(model: torch.nn.Module, gen: torch.Generator) -> None:
+    """flax's initial distributions (``init_like_flax_``), then every bias,
+    norm and slope moved off its constant by N(0, 0.05²)."""
+    init_like_flax_(model, gen)
+    with torch.no_grad():
+        for p in model.parameters():
+            if p.dim() <= 1:
+                p.add_(0.05 * torch.randn(p.shape, generator=gen).to(p.device))
+
+
+def se_forward(kind: str, model: torch.nn.Module, noisy: torch.Tensor, num_mic=None):
+    """→ (B, T): the DPRNN's output, or a FaSNet's first speaker."""
+    return model(noisy) if kind == "dprnn" else model(noisy, num_mic)[:, 0]
+
+
+def _se_step_grads(kind: str, model: torch.nn.Module, noisy, clean, num_mic,
+                   dtype: torch.dtype = torch.float32) -> dict:
+    """The gradients of :func:`phase_se_card_vs_cpu`'s step on a copy of
+    ``model`` (whose own gradients stay) in ``dtype``, on its device."""
+    import copy
+
+    model = copy.deepcopy(model).to(dtype=dtype).train()
+    for m in model.modules():  # the DPRNN's flax-semantics LayerNorms
+        if hasattr(m, "compute_dtype"):
+            m.compute_dtype = dtype
+    model.zero_grad()
+    dev = next(model.parameters()).device
+    nm = None if num_mic is None else num_mic.to(dev)
+    est = se_forward(kind, model, torch.from_numpy(noisy).to(dev, dtype), nm)
+    (-si_snr(est, torch.from_numpy(clean).to(dev, dtype)).mean()).backward()
+    return {n: p.grad.cpu().double() for n, p in model.named_parameters()}
+
+
+def phase_se_card_vs_cpu(gen: torch.Generator) -> dict:
+    """Each SE model on the card against the same weights on the CPU, on
+    B = 4 clips of 4 s (FaSNet: 4 mics, FaSNet-TAC with a batch of valid
+    mic counts): the output, and one train step's SI-SNR loss and every
+    gradient, within ``SE_TOL``.  The recurrences run 100-step (DPRNN) or
+    50- and 81-step (FaSNet) chunks in cuDNN and on the CPU in another
+    order of sums; the errors seen stand beside the bars in the line.
+
+    cuDNN's float32 LSTM (TF32 off) is less exact than the CPU's and
+    PyTorch's own CUDA LSTM: one FaSNet BiLSTM's output lies 5.7e-6 from
+    float64, theirs 1.7e-7 and 1.8e-7, on NVIDIA H100 80GB HBM3
+    (``scripts/fasnet_lstm_precision.py``).  FaSNet's deep stacks at random
+    weights, where SI-SNR's gradient is ill-conditioned (the estimate is
+    nearly orthogonal to the clean wave), carry that to about 2e-3 of a
+    gradient leaf, while the CPU's float32 step lies up to 7.3e-4 from
+    float64 in some draws.  So a gradient leaf past ``SE_TOL`` from the CPU
+    is held instead to the CPU's float64 step, in relative L2 norm, within
+    ``SE_CUDNN_TOL`` or three times the CPU's float32 distance
+    (``leaves_held_to_float64``, max-abs distances reported beside).  Up to
+    3.5e-3 was seen there; with TF32 on in cuDNN (one BiLSTM 3.7e-4 from
+    float64) the phase fails."""
+    rng = np.random.RandomState(11)
+    t = int(SE_SECONDS * SR)
+    report, ok = {}, True
+    for kind in SE_MODELS:
+        card = se_model(kind).cuda()
+        init_se_(card, gen)
+        cpu = se_model(kind)
+        cpu.load_state_dict(card.state_dict())
+        noisy, clean = se_tones(rng, SE_B, t, 0 if kind == "dprnn" else SE_MICS)
+        num_mic = torch.tensor(SE_NUM_MIC) if kind == "fasnet_tac" else None
+        sides = {}
+        for side, model, dev in (("card", card, "cuda"), ("cpu", cpu, "cpu")):
+            model.train()  # cuDNN's LSTM keeps what its backward needs in training mode only
+            x, c = torch.from_numpy(noisy).to(dev), torch.from_numpy(clean).to(dev)
+            nm = None if num_mic is None else num_mic.to(dev)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            est = se_forward(kind, model, x, nm)
+            loss = -si_snr(est, c).mean()
+            loss.backward()
+            torch.cuda.synchronize()
+            sides[side] = (est.detach().cpu(), loss.item(), time.perf_counter() - t0,
+                           {n: p.grad.cpu() for n, p in model.named_parameters()})
+        (est_card, loss_card, card_s, g_card), (est_cpu, loss_cpu, cpu_s, g_cpu) = (
+            sides["card"], sides["cpu"])
+        largest = max(float(g.abs().max()) for g in g_cpu.values())
+        zero = SE_ZERO_GRAD_LEAVES.get(kind, ())
+        worst, worst_name, over, zero_ok = 0.0, "", {}, True
+        for name, g in g_cpu.items():
+            if name in zero:  # rounding noise on both sides, held to the largest gradient
+                err = max(float(g.abs().max()), float(g_card[name].abs().max())) / largest
+                zero_ok &= err <= SE_TOL
+            else:
+                err = float((g_card[name] - g).abs().max()) / max(float(g.abs().max()), 1e-30)
+                if err > SE_TOL:
+                    over[name] = err
+            if err > worst:
+                worst, worst_name = err, name
+        held_to_float64 = {}
+        if over:  # held to the CPU's float64 step instead
+            g64 = _se_step_grads(kind, cpu, noisy, clean, num_mic, torch.float64)
+            for name in over:
+                ref = g64[name]
+                scale, norm = max(float(ref.abs().max()), 1e-30), max(float(ref.norm()), 1e-30)
+                d = {side: g[name].double() - ref for side, g in (("card", g_card), ("cpu", g_cpu))}
+                l2 = {side: float(v.norm()) / norm for side, v in d.items()}
+                held_to_float64[name] = {
+                    "card_vs_cpu": over[name],
+                    **{f"max_abs_{side}_vs_float64": float(v.abs().max()) / scale
+                       for side, v in d.items()},
+                    **{f"rel_l2_{side}_vs_float64": v for side, v in l2.items()},
+                    "bar": max(SE_CUDNN_TOL, 3 * l2["cpu"])}
+        grads_ok = zero_ok and all(v["rel_l2_card_vs_float64"] <= v["bar"]
+                                   for v in held_to_float64.values())
+        worst64 = max((v["rel_l2_card_vs_float64"] for v in held_to_float64.values()),
+                      default=None)
+        out_err = float((est_card - est_cpu).abs().max()) / float(est_cpu.abs().max())
+        loss_err = abs(loss_card - loss_cpu) / max(abs(loss_cpu), 1.0)
+        report[kind] = {
+            "input": list(noisy.shape), "num_mic": None if num_mic is None else list(SE_NUM_MIC),
+            "params": sum(p.numel() for p in card.parameters()),
+            "max_err_output_over_largest": out_err, "loss_card": loss_card,
+            "loss_cpu": loss_cpu, "rel_err_loss": loss_err, "gradients": len(g_cpu),
+            "max_rel_err_gradient": worst, "worst_gradient": worst_name,
+            "zero_gradient_leaves": list(zero), "leaves_held_to_float64": held_to_float64,
+            "max_rel_l2_card_vs_float64": worst64,
+            "card_step_seconds": card_s,
+            "cpu_step_seconds": cpu_s, "finite": bool(torch.isfinite(est_card).all()),
+        }
+        ok &= (out_err <= SE_TOL and loss_err <= SE_TOL and grads_ok
+               and report[kind]["finite"] and set(g_card) == set(g_cpu))
+        del card, cpu
+    emit({"phase": "se_card_vs_cpu", "tol": SE_TOL, "tol_cudnn_vs_float64": SE_CUDNN_TOL,
+          "seconds": SE_SECONDS, **report})
+    if not ok:
+        raise AssertionError("an SE model on the card disagrees with the CPU")
+    return report
+
+
+def phase_cli_se(root: str, smi: str) -> dict:
+    """``main_extras se`` trains the DPRNN at SETask's defaults on a
+    noisy/clean ``.npz`` this phase writes (80 one-second clips: 72 train,
+    8 validate) for 10 epochs with a checkpoint; the validation clips'
+    SI-SNR after enhancement must exceed the noisy input's.  The SE model
+    launches no hand kernel."""
+    from speechlid_tpu_torch.cli import main_extras
+
+    noisy, clean = se_tones(np.random.RandomState(12), CLI_SE_CLIPS, int(CLI_SE_SECONDS * SR))
+    exp = os.path.join(root, "se")
+    os.makedirs(exp)
+    data = os.path.join(exp, "pairs.npz")
+    np.savez(data, noisy=noisy, clean=clean)
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    trainer = main_extras.main(["se", "--data", data, "--epochs", str(CLI_SE_EPOCHS),
+                                "--batch-size", str(CLI_SE_BATCH), "--lr", str(CLI_SE_LR),
+                                "--no-progress", "--ckpt-dir", os.path.join(exp, "ckpt")])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counted = launches()
+    ckpt = os.path.join(exp, "ckpt", "last.ckpt")
+    task, meta = SETask.resume_from_checkpoint(ckpt)
+    split = int(CLI_SE_CLIPS * 0.9)
+    with torch.no_grad():
+        val_noisy = torch.from_numpy(noisy[split:]).cuda()
+        val_clean = torch.from_numpy(clean[split:]).cuda()
+        enhanced = si_snr(task._apply(val_noisy), val_clean).mean().item()
+        before = si_snr(val_noisy, val_clean).mean().item()
+    report = {"phase": "cli_se", "nvidia_smi": smi, "clips": CLI_SE_CLIPS,
+              "clip_seconds": CLI_SE_SECONDS, "train_clips": split, "epochs": CLI_SE_EPOCHS,
+              "batch": CLI_SE_BATCH, "lr": CLI_SE_LR, "steps": trainer.global_step,
+              "seconds": seconds, "seconds_per_epoch": seconds / CLI_SE_EPOCHS,
+              "val_si_snr_noisy_db": before, "val_si_snr_enhanced_db": enhanced,
+              "ckpt_files": sorted(os.listdir(os.path.join(exp, "ckpt"))),
+              "ckpt_epoch": meta["meta"].get("epoch"), "launches": counted,
+              "hyper_parameters": task.hyper_parameters}
+    emit(report)
+    checks = {"learned": enhanced > before, "ckpt": os.path.exists(ckpt),
+              "steps": trainer.global_step == CLI_SE_EPOCHS * -(-split // CLI_SE_BATCH),
+              "no_hand_kernel": counted == launch_counts()}
+    if not all(checks.values()):
+        raise AssertionError(f"cli_se failed: {checks}")
+    report["ckpt"] = ckpt
+    return report
+
+
+def phase_cli_eval_se(root: str, corpus: str, lid_ckpt: str, se_ckpt: str, inputs: tuple,
+                      smi: str) -> dict:
+    """``cli.test_lid`` on ``cli_flagship``'s checkpoint with ``--se-ckpt``
+    from ``cli_se`` at one noise cell (white, 5 dB): without SE, at
+    ``--factor 0.5``, and with ``--factor-sweep 0:1:0.5``.  Factor 0 scores
+    as the run without SE (the sweep's first cell draws the same noise; a
+    later cell draws on from the noise bank's generator, as in the JAX
+    CLI); every eval batch launches the fbank kernel once and
+    the fused eval conv kernel in each of the 14 encoder and 3 head blocks,
+    at the shapes ``phase_fbank`` and ``phase_conv_fused`` hold against
+    plain; the enhancement runs once for each utterance of a blended cell."""
+    noise_dir, _ = inputs
+    base = ["--ckpt", lid_ckpt, *_cli_args("configs", "lid_supervised", _langs_override(corpus)),
+            "--snr", "5", "--noise", "white", "--noise-dir", noise_dir]
+    want_batch = launch_counts(fbank=1, glu_bn_act=N_BLOCKS + N_LANG)
+    want_shapes = {"fbank": {FBANK_SHAPES["eval"]}, "glu_bn_act": {EVAL_DW_SHAPE}}
+    plain, plain_launches, plain_s, plain_shapes = run_test_lid(base)
+    half, half_launches, half_s, half_shapes = run_test_lid(
+        base + ["--se-ckpt", se_ckpt, "--factor", "0.5"])
+    rows, sweep_launches, sweep_s, sweep_shapes = run_test_lid(
+        base + ["--se-ckpt", se_ckpt, "--factor-sweep", SE_FACTOR_SWEEP,
+                "--csv", os.path.join(root, "se", "factor_sweep.jsonl")])
+    n_utts = N_LANG * CORPUS_VAL
+    keys = ("acc", "eer", "cavg", "eer_true", "cavg_true", "cer", "n_utts")
+    per_batch = {name: {k: v / (cells * EVAL_BATCHES) for k, v in counted.items()}
+                 for name, counted, cells in (("plain", plain_launches, 1),
+                                              ("factor_0.5", half_launches, 1),
+                                              ("sweep", sweep_launches, len(rows)))}
+    report = {
+        "phase": "cli_eval_se", "nvidia_smi": smi, "cell": "white, 5 dB",
+        "no_se": _cell(plain, "white", 5.0), "factor_0.5": _cell(half, "white", 5.0),
+        "sweep": [dict(_cell(r), factor=r["factor"]) for r in rows],
+        "seconds": {"no_se": plain_s, "factor_0.5": half_s, "sweep": sweep_s},
+        "eval_batch_ms": {"no_se": plain_s / EVAL_BATCHES * 1e3,
+                          "factor_0.5": half_s / EVAL_BATCHES * 1e3},
+        "ms_per_utt": {"no_se": plain["avg_time_s"] * 1e3,
+                       "factor_0.5": half["avg_time_s"] * 1e3},
+        "launches": {"no_se": plain_launches, "factor_0.5": half_launches,
+                     "sweep": sweep_launches},
+        "launches_per_eval_batch": per_batch, "batches_per_cell": EVAL_BATCHES,
+        "kernel_shapes": {k: sorted(v) for k, v in sweep_shapes.items()},
+    }
+    checks = {
+        "factors": [r["factor"] for r in rows] == [0.0, 0.5, 1.0],
+        "factor_0_is_no_se": all(rows[0][k] == plain[k] for k in keys),
+        "n_utts": all(r["n_utts"] == n_utts for r in (plain, half, *rows)),
+        "finite": all(np.isfinite(r[k]) for r in (plain, half, *rows) for k in keys),
+        "launches": all(v == want_batch for v in per_batch.values()),
+        "shapes": plain_shapes == half_shapes == sweep_shapes == want_shapes,
+    }
+    report["checks"] = checks
+    emit(report)
+    if not all(checks.values()):
+        raise AssertionError(f"cli_eval_se failed: {checks}")
+    return report
+
+
+def phase_serve_se(lid_ckpt: str, se_ckpt: str, gen: torch.Generator) -> dict:
+    """One server with both checkpoints answers ``/lid`` and ``/se`` from
+    four client threads at once: every ``/se`` answer has the request's
+    length and equals the enhance hook on the request padded to its bucket
+    (dither included) and trimmed; every ``/lid`` answer equals the direct
+    call; the hand kernels launch for the ``/lid`` requests alone."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    lid_fn, index2lang = build_lid_fn(lid_ckpt)
+    se_fn = build_se_fn(se_ckpt)
+    state = InferenceState(lid_fn, index2lang, se_fn=se_fn)
+    state.warmup()
+    server = ThreadingHTTPServer(("127.0.0.1", 0), make_handler(state))
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    url = f"http://127.0.0.1:{server.server_address[1]}"
+    wavs = [(0.1 * torch.randn(int(s * SR), generator=gen)).numpy() for s in SERVE_SECONDS]
+    jobs = [(path, wav) for _ in range(SERVE_ROUNDS) for wav in wavs for path in ("/lid", "/se")]
+
+    def post(job):
+        path, wav = job
+        t0 = time.perf_counter()
+        req = urllib.request.Request(url + path, data=wav.tobytes(), method="POST")
+        with urllib.request.urlopen(req, timeout=300) as resp:
+            body = resp.read()
+        return path, wav, resp.status, body, (time.perf_counter() - t0) * 1e3
+
+    try:
+        torch.cuda.synchronize()
+        reset_launches()
+        with ThreadPoolExecutor(max_workers=4) as pool:
+            answers = list(pool.map(post, jobs))
+        served = launches()
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=30)
+    worst_se, worst_lid, lengths_ok = 0.0, 0.0, True
+    ms = {"/lid": [], "/se": []}
+    for path, wav, status, body, client_ms in answers:
+        if status != 200:
+            raise AssertionError(f"{path}: status {status}")
+        ms[path].append(client_ms)
+        padded, n = state.pad(wav)
+        if path == "/se":
+            out = np.frombuffer(body, np.float32)
+            lengths_ok &= out.shape == wav.shape
+            direct = np.asarray(se_fn(padded[0]), np.float32)[:n]
+            worst_se = max(worst_se, float(np.abs(out - direct).max()))
+        else:
+            scores = json.loads(body)["scores"]
+            got = np.array([scores[index2lang[i]] for i in range(N_LANG)], np.float32)
+            worst_lid = max(worst_lid, float(np.abs(got - lid_fn(padded, n)[0]).max()))
+    n_lid = len(ms["/lid"])
+    report = {"phase": "serve_se", "requests": {k: len(v) for k, v in ms.items()},
+              "client_threads": 4, "seconds": list(SERVE_SECONDS),
+              "se_p50_ms": statistics.median(ms["/se"]), "lid_p50_ms": statistics.median(ms["/lid"]),
+              "se_ms": ms["/se"], "lid_ms": ms["/lid"],
+              "max_abs_diff_se_vs_direct": worst_se, "max_abs_diff_lid_vs_direct": worst_lid,
+              "launches": served}
+    emit(report)
+    ok = (lengths_ok and worst_se == 0.0 and worst_lid == 0.0 and not thread.is_alive()
+          and served == {k: v * n_lid for k, v in PER_FORWARD_LAUNCHES.items()})
+    if not ok:
+        raise AssertionError("serve_se failed")
+    return report
+
+
+def phase_bilstm_card_vs_cpu(gen: torch.Generator) -> dict:
+    """``LidASRTask(head_type="bilstm")`` at the flagship's width (14 ×
+    144-d Conformer; per language a bidirectional LSTM of 72 a direction
+    and a Linear) on ragged B = 8, 4 s clips: ``infer`` on the card against
+    the CPU (the packed LSTMs leave zeros at padded frames on both), and
+    one deterministic train step with the CPU given the card's features and
+    subsampling ReLU decisions (``pin_subsampling_relus``).  The heads have
+    no conv module: 14 conv kernels a forward, 14 of each training mode a
+    step."""
+    task = LidASRTask(**BILSTM, device="cuda")
+    init_random_(task.model, gen)
+    cpu = LidASRTask(**BILSTM, device="cpu")
+    cpu.model.load_state_dict(task.model.state_dict())
+    batch = synthetic_batch(np.random.RandomState(2), lang=1, b=TRAIN_B, seconds=TRAIN_SECONDS)
+    wavs, lengths = torch.from_numpy(batch["wavs"]), torch.from_numpy(batch["wav_lengths"])
+    got, ref, per_forward, _, errs = infer_card_vs_cpu(task, cpu, wavs, lengths)
+    del task, cpu
+    step = conformer_step_card_vs_cpu(dict(CONFORMER_DETERMINISTIC, head_type="bilstm"), gen,
+                                      batch)
+    report = {"phase": "bilstm_card_vs_cpu", "config": "flagship 14x144, bilstm heads 3x72x2",
+              "batch": [TRAIN_B, int(TRAIN_SECONDS * SR)], "lengths": lengths.tolist(),
+              **errs, "pred_lang": got["pred_lang"].tolist(),
+              "pred_lang_cpu": ref["pred_lang"].tolist(), "tol": MODEL_TOL,
+              "launches_per_forward": per_forward, "train_tol": TRAIN_TOL, "step": step}
+    emit(report)
+    checks = {
+        "scores": errs["max_abs_err_scores"] <= MODEL_TOL,
+        "pred_lang": torch.equal(got["pred_lang"], ref["pred_lang"]),
+        "finite": bool(torch.isfinite(got["scores"]).all()),
+        "forward_launches": per_forward == BILSTM_PER_FORWARD_LAUNCHES,
+        "step": (step["same_leaves"] and abs(step["loss_card"] - step["loss_cpu"]) <= TRAIN_TOL
+                 and step["max_rel_err_gradient"] <= TRAIN_TOL),
+        "step_launches": step["launches_per_train_step"] == BILSTM_TRAIN_STEP_LAUNCHES,
+    }
+    if not all(checks.values()):
+        raise AssertionError(f"bilstm_card_vs_cpu failed: {checks}")
+    return report
+
+
+def _host_ms(fn, reps: int = 10) -> float:
+    """Median wall milliseconds of ``fn()`` after two warm-up calls, the
+    card synchronised after each."""
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def phase_se_e2e(gen: torch.Generator, smi: str, serve_report: dict, eval_report: dict) -> dict:
+    """Host-clock times of the SE paths: the enhance hook per utterance at
+    2 s and 4 s for each model (the DPRNN and FaSNet-TAC through
+    ``SETask.make_enhance_fn``, one mic; FaSNet-Origin, which no task
+    builds, as a forward of a 4-mic clip); ``/se`` p50 and an eval batch
+    with SE at factor 0.5 against without (from ``serve_se`` and
+    ``cli_eval_se``); a DPRNN train step at B = 8, 4 s; and the device
+    kernels of a DPRNN forward, read from a CUDA graph capture."""
+    rng = np.random.RandomState(13)
+    enhance = {}
+    for kind in SE_MODELS:
+        if kind == "fasnet_origin":
+            model = se_model(kind).cuda().eval()
+            init_se_(model, gen)
+        else:
+            task = SETask(model_type=kind, device="cuda")
+            init_se_(task.model, gen)
+            fn = task.make_enhance_fn()
+        for seconds in SE_TIMED_SECONDS:
+            noisy, _ = se_tones(rng, 1, int(seconds * SR), SE_MICS if kind == "fasnet_origin"
+                                else 0)
+            if kind == "fasnet_origin":
+                x = torch.from_numpy(noisy)
+
+                def call():
+                    with torch.inference_mode():
+                        return model(x.cuda())[0, 0].cpu().numpy()
+            else:
+                def call():
+                    return fn(noisy[0])
+            enhance[f"{kind}@{seconds:g}s"] = _host_ms(call)
+    task = SETask(device="cuda")
+    init_se_(task.model, gen)
+    optimizer, _ = task.config_optim()
+    noisy, clean = se_tones(rng, 8, int(4 * SR))
+    batch = task.place_batch({"noisy": noisy, "clean": clean})
+    task.model.train()
+
+    def step():
+        loss, _ = task.train_loop(batch)
+        loss.backward()
+        optimizer.step()
+        optimizer.zero_grad()
+
+    step_ms = _host_ms(step)
+    task.model.eval()
+    x = torch.from_numpy(noisy[:1, : 2 * SR]).cuda()
+    with torch.no_grad():
+        work = _graph_device_work(lambda: task.model(x))
+    report = {
+        "phase": "se_e2e", "nvidia_smi": smi, "enhance_ms_per_utterance": enhance,
+        "se_p50_ms": serve_report["se_p50_ms"], "lid_p50_ms_beside_se": serve_report["lid_p50_ms"],
+        "eval_batch_ms": eval_report["eval_batch_ms"],
+        "eval_ms_per_utt": eval_report["ms_per_utt"],
+        "dprnn_train_step_ms_b8_4s": step_ms,
+        "dprnn_forward_device_work_1x2s": len(work),
+        "dprnn_forward_kernels_1x2s": sum(1 for w in work if w not in ("memcpy", "memset")),
+        "dprnn_forward_top_kernels": sorted({w[:60] for w in work})[:12],
+        "counted_by": "cuda_graph_capture",
+    }
+    emit(report)
+    return report
+
+
+def phase_se(gen: torch.Generator, root: str, corpus: str, inputs: tuple, smi: str) -> tuple:
+    """The SE and bilstm phases in order, on ``cli_flagship``'s checkpoint;
+    → (``cli_eval_se``'s report, ``serve_se``'s, ``bilstm_card_vs_cpu``'s)."""
+    lid_ckpt = os.path.join(root, "flagship", "ckpt", "last.ckpt")
+    phase_se_card_vs_cpu(gen)
+    se_ckpt = phase_cli_se(root, smi)["ckpt"]
+    eval_se = phase_cli_eval_se(root, corpus, lid_ckpt, se_ckpt, inputs, smi)
+    serve_se = phase_serve_se(lid_ckpt, se_ckpt, gen)
+    return eval_se, serve_se, phase_bilstm_card_vs_cpu(gen)
+
+
+def se_bilstm_kernel_rows(gen: torch.Generator, errs: dict, eval_se: dict,
+                          bilstm: dict) -> list:
+    """The ``kernels`` line's rows of the SE eval path (the eval CLI's
+    batches after the blend, launches counted on ``cli_eval_se``'s three
+    runs) and of the bilstm joint model (launches counted on
+    ``bilstm_card_vs_cpu``'s forward and step), at the shapes they ran."""
+    total = {k: sum(c[k] for c in eval_se["launches"].values())
+             for k in eval_se["launches"]["no_se"]}
+    on_eval = ("cli_eval_se: lid_supervised.yaml checkpoint, white 5 dB, no SE, --factor 0.5 "
+               f"and --factor-sweep {SE_FACTOR_SWEEP}: 5 cells of {EVAL_BATCHES} batches")
+    rows = [fbank_row("fbank_log_mel@eval_se", "eval", gen, errs, total["fbank"], {
+        "launches_counted_on": on_eval, "launches_per_eval_batch": 1})]
+    forward, step = bilstm["launches_per_forward"], bilstm["step"]["launches_per_train_step"]
+    on_bilstm = "bilstm_card_vs_cpu: one infer and one train step at (8, 4 s)"
+    rows.append(fbank_row("fbank_log_mel@bilstm", "train", gen, errs,
+                          forward["fbank"] + step["fbank"], {
+                              "launches_counted_on": on_bilstm,
+                              "launches_per_forward": 1, "launches_per_train_step": 1}))
+    rows += fused_kernel_rows(gen, errs["conv_fused"], {
+        "depthwise_conv1d_fwd[glu_bn_act]@eval_se": (total["depthwise_glu_bn_act"], {
+            "launches_counted_on": on_eval, "launches_per_eval_batch": N_BLOCKS + N_LANG}),
+        "depthwise_conv1d_fwd[glu_bn_act]@bilstm": (forward["depthwise_glu_bn_act"], {
+            "launches_counted_on": on_bilstm, "launches_per_forward": N_BLOCKS}),
+        "depthwise_conv1d_fwd[glu]@bilstm": (step["depthwise_glu"], {
+            "launches_counted_on": on_bilstm, "launches_per_train_step": N_BLOCKS}),
+        "depthwise_conv1d_fwd[glu_dx]@bilstm": (step["depthwise_glu_dx"], {
+            "launches_counted_on": on_bilstm, "launches_per_train_step": N_BLOCKS}),
+    }, eval_rows=(("depthwise_conv1d_fwd[glu_bn_act]@eval_se", EVAL_DW_SHAPE),
+                  ("depthwise_conv1d_fwd[glu_bn_act]@bilstm", TRAIN_DW_SHAPE)),
+        train_shape=TRAIN_DW_SHAPE, train_suffix="@bilstm")
+    row = bwd_w_row(gen, errs["conv_fused"], TRAIN_DW_SHAPE, "depthwise_conv1d_bwd_w@bilstm",
+                    step, 1)
+    row["launches_counted_on"] = on_bilstm
+    rows.append(row)
+    return rows
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description="Drive the PyTorch/CUDA port on one card.")
-    parser.add_argument("--only", choices=("cli_gate", "ce_asr"),
+    parser.add_argument("--only", choices=("cli_gate", "ce_asr", "se"),
                         help="run this phase alone, after the build and the corpus "
-                             "(ce_asr: the cross-entropy and ASR phases, with the kernel "
-                             "checks and rows they need)")
+                             "(ce_asr: the cross-entropy and ASR phases; se: the speech "
+                             "enhancement and bilstm phases on cli_flagship's checkpoint; "
+                             "each with the kernel checks and rows they need)")
     parser.add_argument("--seed", type=int, default=0,
                         help="the CLI's seed for --only cli_gate (the gate's own is 0)")
     args = parser.parse_args(argv)
@@ -3856,6 +4392,19 @@ def main(argv=None) -> int:
             cross_cli, asr_cli = phase_ce_asr(gen, root, corpus, phase_eval_inputs(root)[1], smi)
         emit({"kernels": ce_asr_kernel_rows(gen, errs, cross_cli, phase_ce_timings(gen),
                                             asr_cli)})
+        emit({"ok": True, "device": {"platform": "gpu",
+                                     "kind": torch.cuda.get_device_name(0),
+                                     "count": torch.cuda.device_count()}})
+        return 0
+    if args.only == "se":
+        errs = {"fbank": phase_fbank(gen), "conv_fused": phase_conv_fused(gen)}
+        with tempfile.TemporaryDirectory() as root:
+            os.environ["SPEECHLID_CACHE_DIR"] = os.path.join(root, "cache")
+            corpus = phase_cli_corpus(root)
+            phase_cli_flagship(root, corpus)
+            eval_se, serve_se, bilstm = phase_se(gen, root, corpus, phase_eval_inputs(root), smi)
+        phase_se_e2e(gen, smi, serve_se, eval_se)
+        emit({"kernels": se_bilstm_kernel_rows(gen, errs, eval_se, bilstm)})
         emit({"ok": True, "device": {"platform": "gpu",
                                      "kind": torch.cuda.get_device_name(0),
                                      "count": torch.cuda.device_count()}})
@@ -3897,7 +4446,9 @@ def main(argv=None) -> int:
         phase_bf16_train_card_vs_cpu(gen)
         bf16_cli = phase_cli_wavlm(root, corpus, smi, WAVLM_BF16_CLI)
         cross_cli, asr_cli = phase_ce_asr(gen, root, corpus, inputs[1], smi)
+        eval_se, serve_se, bilstm = phase_se(gen, root, corpus, inputs, smi)
     # host-clock loops first, the profiler's runs after (it slows what follows it)
+    phase_se_e2e(gen, smi, serve_se, eval_se)
     ce_host = phase_ce_timings(gen)
     bf16_host = phase_bf16_host_timings(gen)
     wavlm_host = phase_wavlm_host_timings(wavlm_task, gen)
@@ -3906,6 +4457,7 @@ def main(argv=None) -> int:
     kernels += phase_wavlm_timings(wavlm_task, gen, errs, wavlm_host, wavlm_serve, wavlm_cli)
     kernels += phase_bf16_timings(gen, errs, bf16_host, bf16_cli)
     kernels += ce_asr_kernel_rows(gen, errs, cross_cli, ce_host, asr_cli)
+    kernels += se_bilstm_kernel_rows(gen, errs, eval_se, bilstm)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

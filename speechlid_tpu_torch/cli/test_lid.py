@@ -9,15 +9,19 @@ Usage:
         --config-dir configs --config-name lid_supervised \\
         --snr 5 --noise white --noise-dir /path/to/noisex \\
         [--lm-dir lms/ --kenlm-threshold 0.04] [--submission out.csv] \\
+        [--se-ckpt exp/se/last.ckpt --factor 0.5 | --factor-sweep 0:1:0.05] \\
         [--device cpu] [key=value ...]
 
 The checkpoint may be the port's or the JAX package's (``cli/serve.py``
 tells them apart); the task is built from its ``hyper_parameters`` under the
 config's ``module`` block, the tokenizers and the eval feeder from the
-config's data.  Not ported yet, and raising ``NotImplementedError``:
-``--quant int8`` (``ops/quant.py``) and ``--se-ckpt`` (``tasks/se.py``), so
-``--factor-sweep``, which needs ``--se-ckpt``, checks its arguments and then
-raises too.  The JAX CLI's persistent compilation cache has no counterpart.
+config's data.  ``--se-ckpt`` (an ``SETask`` checkpoint of either package)
+enhances every utterance of a batch on the task's device, and the model
+hears ``factor·enhanced + (1 − factor)·noisy``; ``--factor-sweep
+start:stop:step`` scores each factor at the ``--snr``/``--noise`` cell.
+Not ported yet, and raising ``NotImplementedError``: ``--quant int8``
+(``ops/quant.py``).  The JAX CLI's persistent compilation cache has no
+counterpart.
 """
 
 from __future__ import annotations
@@ -53,7 +57,7 @@ def main(argv=None) -> Union[Dict, List[Dict]]:
     parser.add_argument("--factor", type=float, default=0.0,
                         help="speech-enhancement blend factor")
     parser.add_argument("--se-ckpt", default=None,
-                        help="SETask checkpoint for enhancement (not ported yet)")
+                        help="SETask checkpoint for enhancement")
     parser.add_argument("--lm-dir", default=None,
                         help="directory of <lang>.arpa models for arbitration")
     parser.add_argument("--kenlm-threshold", type=float, default=0.04)
@@ -69,6 +73,7 @@ def main(argv=None) -> Union[Dict, List[Dict]]:
     parser.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     parser.add_argument("overrides", nargs="*")
     args = parser.parse_args(argv)
+    factors = None
     if args.factor_sweep:
         # the argument checks come before any load
         try:
@@ -79,19 +84,19 @@ def main(argv=None) -> Union[Dict, List[Dict]]:
             parser.error("--factor-sweep step must be nonzero")
         if not args.se_ckpt:
             parser.error("--factor-sweep needs --se-ckpt")
+        n = int(round((stop - start) / step)) + 1
+        factors = [round(start + i * step, 6) for i in range(max(n, 0))]
     if args.quant:
         raise NotImplementedError("--quant int8: the int8 engine (ops/quant.py) is not ported yet")
-    if args.se_ckpt:
-        raise NotImplementedError(
-            "--se-ckpt: speech enhancement (tasks/se.py) is not ported yet")
     logging.basicConfig(level=logging.INFO, force=True)
 
     from speechlid_tpu_torch.cli.main_lid import build_data, build_feeder
     from speechlid_tpu_torch.cli.serve import load_lid_weights
     from speechlid_tpu_torch.core.checkpoint import load_checkpoint
     from speechlid_tpu_torch.core.config import load_config
-    from speechlid_tpu_torch.eval import LidEvaluator, NoiseBank, run_sweep
+    from speechlid_tpu_torch.eval import LidEvaluator, NoiseBank, run_factor_sweep, run_sweep
     from speechlid_tpu_torch.tasks.lid_asr import LidASRTask
+    from speechlid_tpu_torch.tasks.se import SETask
 
     conf = load_config(args.config_dir, args.config_name, args.overrides)
     data = build_data(conf)
@@ -121,8 +126,14 @@ def main(argv=None) -> Union[Dict, List[Dict]]:
             if os.path.exists(p):
                 lms[lang] = NgramLM(p)
 
+    enhance_fn = None
+    if args.se_ckpt:
+        se_task, _ = SETask.resume_from_checkpoint(args.se_ckpt, device=args.device)
+        enhance_fn = se_task.make_enhance_fn()
+
     evaluator = LidEvaluator(task, lms=lms, kenlm_threshold=args.kenlm_threshold,
-                             noise_bank=noise_bank, enhance_factor=args.factor)
+                             noise_bank=noise_bank, enhance_fn=enhance_fn,
+                             enhance_factor=args.factor)
 
     def feeder_factory():
         # train=False: offline eval never runs the training wav augmentation
@@ -132,6 +143,14 @@ def main(argv=None) -> Union[Dict, List[Dict]]:
 
     if args.sweep:
         rows = run_sweep(evaluator, feeder_factory, out_path=args.csv or "sweep_results.jsonl")
+        for row in rows:
+            print(json.dumps(row))
+        return rows
+
+    if factors is not None:
+        rows = run_factor_sweep(evaluator, feeder_factory, factors, snr=args.snr,
+                                noise=args.noise,
+                                out_path=args.csv or "factor_sweep_results.jsonl")
         for row in rows:
             print(json.dumps(row))
         return rows

@@ -15,7 +15,11 @@ Layout changes, leaf by leaf:
 - ``LayerNorm``/BN ``scale`` → ``weight``; ``batch_stats`` mean/var →
   ``running_mean``/``running_var``;
 - the stacked heads ``heads/heads/…`` carry a leading language axis L:
-  slice l goes to ``heads.heads.{l}``;
+  slice l goes to ``heads.heads.{l}``; ``bilstm`` heads hold flax
+  ``OptimizedLSTMCell``s (:func:`lstm_state`: the eight per-gate kernels
+  and biases of a direction stacked into torch's ``weight_ih``,
+  ``weight_hh`` and one ``bias``), layer j's forward cell
+  ``OptimizedLSTMCell_{2j}`` and backward ``_{2j+1}``;
 - encoder blocks come unrolled (``block_i/``) or scanned
   (``blocks/ConformerBlock_0/`` with a leading block axis N); both load;
 - an SSL featurizer (``featurizer/upstream/…``, or ``featurizer/wavlm/…``
@@ -31,6 +35,14 @@ statistics after N training steps can be compared leaf by leaf.
 
 The Conv2d subsampling's Dense needs no permutation: the port flattens its
 (T', F', C) features frequency-major, as the JAX NHWC convolution does.
+
+The speech-enhancement models (``DPRNNEnhancer``, ``FaSNetTAC``,
+``FaSNetOrigin``; :func:`se_state`, :func:`se_variables`) convert by a list
+of leaf specs that serves both directions.  flax's ``ConvTranspose`` does
+not flip its taps where ``F.conv_transpose1d`` does, so the decoder's
+kernel (k, in, out) becomes (in, out, k) with the taps reversed;
+``GlobalLayerNorm``'s (1, C, 1…) scale and bias become (C,); flax's
+``PReLU_j`` slopes take the port's names.
 
 The cross-entropy classifier zoo (``models/classifier.py`` and what it
 builds) converts by one rule for every back-end (:func:`classifier_state`,
@@ -198,21 +210,26 @@ def ssl_featurizer_state(params: Mapping, prefix: str = "") -> StateDict:
 
 
 def lid_state(variables: Mapping) -> StateDict:
-    """JAX ``MutiLangModel`` (Conformer or SSL featurizer, Conformer heads)
-    variables → ``MutiLangModel`` state_dict."""
+    """JAX ``MutiLangModel`` (Conformer or SSL featurizer; Conformer or
+    ``bilstm`` heads) variables → ``MutiLangModel`` state_dict."""
     params, stats = variables["params"], variables.get("batch_stats", {})
     if "subsample" in params["featurizer"]:
         sd = conformer_state(params["featurizer"], stats.get("featurizer", {}), "featurizer.")
     else:
         sd = ssl_featurizer_state(params["featurizer"], "featurizer.")
-    heads_p, heads_s = params["heads"]["heads"], stats["heads"]["heads"]
+    heads_p = params["heads"]["heads"]
+    heads_s = stats.get("heads", {}).get("heads", {})  # bilstm heads have no BatchNorm
     n_lang = _a(heads_p["Dense_0"]["bias"]).shape[0]
     n_layers = sum(1 for k in heads_p if k.startswith("block_"))
+    n_rnns = sum(1 for k in heads_p if k.startswith("OptimizedLSTMCell_")) // 2
     for lang in range(n_lang):
         p, s = _take(heads_p, lang), _take(heads_s, lang)
         prefix = f"heads.heads.{lang}."
         for j in range(n_layers):
             sd.update(block_state(p[f"block_{j}"], s[f"block_{j}"], f"{prefix}blocks.{j}."))
+        for j in range(n_rnns):
+            sd.update(_spec_state(("lstm", tuple((c,) for c in _cells(2 * j)),
+                                   f"{prefix}rnns.{j}."), p))
         sd.update(_dense(p["Dense_0"], prefix + "out."))
     disc = params["discriminator"]
     sd.update(_dense(disc["Dense_0"], "discriminator.fc1."))
@@ -373,9 +390,15 @@ def lid_variables(sd: Mapping) -> Dict[str, Dict]:
         p, s = {}, {}
         for j in range(_count(sd, prefix + "blocks.")):
             p[f"block_{j}"], s[f"block_{j}"] = block_variables(sd, f"{prefix}blocks.{j}.")
+        for j in range(_count(sd, prefix + "rnns.")):
+            _spec_variables(("lstm", tuple((c,) for c in _cells(2 * j)), f"{prefix}rnns.{j}."),
+                            sd, p)
         p["Dense_0"] = _dense_tree(sd, prefix + "out.")
         heads_p.append(p)
         heads_s.append(s)
+    stats = {} if feat_s is None else {"featurizer": feat_s}
+    if heads_s[0]:  # Conformer heads' BatchNorm statistics
+        stats["heads"] = {"heads": _stack(heads_s)}
     return {
         "params": {
             "featurizer": feat_p,
@@ -383,8 +406,7 @@ def lid_variables(sd: Mapping) -> Dict[str, Dict]:
             "discriminator": {"Dense_0": _dense_tree(sd, "discriminator.fc1."),
                               "Dense_1": _dense_tree(sd, "discriminator.fc2.")},
         },
-        "batch_stats": {**({} if feat_s is None else {"featurizer": feat_s}),
-                        "heads": {"heads": _stack(heads_s)}},
+        "batch_stats": stats,
     }
 
 
@@ -502,3 +524,177 @@ def load_into(module: torch.nn.Module, state: StateDict) -> None:
         {k: torch.tensor(v) for k, v in state.items()},
         strict=True,
     )
+
+
+# ---------------------------------------------------------------------------
+# flax's bidirectional OptimizedLSTMCell, the SE models and the bilstm heads
+# ---------------------------------------------------------------------------
+
+LSTM_GATES = ("i", "f", "g", "o")  # flax's and torch's order of the stacked gates
+
+
+def lstm_state(cell: Mapping, prefix: str) -> StateDict:
+    """One flax ``OptimizedLSTMCell`` (input kernels ``ii/if/ig/io`` (D, H),
+    recurrent kernels ``hi/hf/hg/ho`` (H, H) with biases) → a
+    ``models/rnn.LSTMDirection`` (``weight_ih`` (4H, D), ``weight_hh``
+    (4H, H), ``bias`` (4H,))."""
+    return {
+        prefix + "weight_ih": np.concatenate([_a(cell["i" + g]["kernel"]).T for g in LSTM_GATES]),
+        prefix + "weight_hh": np.concatenate([_a(cell["h" + g]["kernel"]).T for g in LSTM_GATES]),
+        prefix + "bias": np.concatenate([_a(cell["h" + g]["bias"]) for g in LSTM_GATES]),
+    }
+
+
+def lstm_variables(sd: Mapping, prefix: str) -> Dict:
+    """The inverse of :func:`lstm_state`."""
+    w_ih, w_hh, bias = (_n(sd[prefix + k]) for k in ("weight_ih", "weight_hh", "bias"))
+    h = w_hh.shape[1]
+    cell = {}
+    for j, g in enumerate(LSTM_GATES):
+        rows = slice(j * h, (j + 1) * h)
+        cell["i" + g] = {"kernel": w_ih[rows].T}
+        cell["h" + g] = {"kernel": w_hh[rows].T, "bias": bias[rows]}
+    return cell
+
+
+def _cells(first: int):
+    """The flax names of a bidirectional LSTM's two cells (forward first):
+    flax names the cells after the module that builds them, in order."""
+    return (f"OptimizedLSTMCell_{first}", f"OptimizedLSTMCell_{first + 1}")
+
+
+def _dprnn_specs(n_blocks: int) -> list:
+    specs = [("conv", ("encoder",), "encoder."), ("convT", ("decoder",), "decoder."),
+             ("dense", ("mask_proj",), "mask_proj.")]
+    for i in range(n_blocks):
+        src, dst = (f"dp_{i}",), f"blocks.{i}."
+        for j, part in enumerate(("intra", "inter")):
+            specs += [("lstm", tuple(src + (c,) for c in _cells(2 * j)), f"{dst}{part}_rnn."),
+                      ("dense", src + (f"{part}_proj",), f"{dst}{part}_proj."),
+                      ("norm", src + (f"{part}_ln",), f"{dst}{part}_ln.")]
+    return specs
+
+
+def _bf_specs(src: tuple, dst: str, n_layers: int, use_tac: bool) -> list:
+    d = src + ("dprnn",)
+    specs = [("dense", src + (name,), f"{dst}{name}.") for name in ("bottleneck", "out", "gate")]
+    specs += [("prelu", d + ("PReLU_0",), f"{dst}dprnn.act."),
+              ("dense", d + ("output",), f"{dst}dprnn.output.")]
+    for i in range(n_layers):
+        for part in ("row", "col"):
+            lstm = d + (f"{part}_{i}",)
+            specs += [("lstm", tuple(lstm + (c,) for c in _cells(0)), f"{dst}dprnn.{part}.{i}.rnn."),
+                      ("dense", lstm + ("proj",), f"{dst}dprnn.{part}.{i}.proj."),
+                      ("gln", d + (f"{part}_norm_{i}",), f"{dst}dprnn.{part}_norm.{i}.", 4)]
+        if use_tac:
+            tac, tdst = d + (f"tac_{i}",), f"{dst}dprnn.tac.{i}."
+            for j, name in enumerate(("transform", "average", "concat")):
+                specs += [("dense", tac + (name,), f"{tdst}{name}."),
+                          ("prelu", tac + (f"PReLU_{j}",), f"{tdst}{name}_act.")]
+            specs.append(("gln", tac + ("norm",), f"{tdst}norm.", 4))
+    return specs
+
+
+def _fasnet_specs(stages, n_layers: int, use_tac: bool) -> list:
+    specs = [("dense", ("encoder",), "encoder."), ("gln", ("enc_norm",), "enc_norm.", 3)]
+    for stage in stages:
+        specs += _bf_specs((stage,), f"{stage}.", n_layers, use_tac)
+    return specs
+
+
+def _se_specs(kind: str, n: int, use_tac: bool = True) -> list:
+    if kind == "dprnn":
+        return _dprnn_specs(n)
+    return _fasnet_specs(("bf",) if kind == "fasnet_tac" else ("ref_bf", "other_bf"), n, use_tac)
+
+
+def _get(tree: Mapping, path):
+    for part in path:
+        tree = tree[part]
+    return tree
+
+
+def _spec_state(spec, params: Mapping) -> StateDict:
+    kind, path, prefix = spec[:3]
+    if kind == "lstm":
+        return {**lstm_state(_get(params, path[0]), prefix + "fwd."),
+                **lstm_state(_get(params, path[1]), prefix + "bwd.")}
+    p = _get(params, path)
+    if kind == "dense":
+        return _dense(p, prefix)
+    if kind == "norm":
+        return _norm(p, prefix)
+    if kind == "prelu":
+        return {prefix + "negative_slope": _a(p["negative_slope"])}
+    if kind == "gln":
+        return {prefix + "weight": _a(p["scale"]).reshape(-1),
+                prefix + "bias": _a(p["bias"]).reshape(-1)}
+    kernel = _a(p["kernel"])
+    # conv (k, in, out) → (out, in, k); flax's ConvTranspose (k, in, out) does
+    # not flip its taps, F.conv_transpose1d does: (in, out, k) reversed
+    weight = kernel.transpose(2, 1, 0) if kind == "conv" else kernel.transpose(1, 2, 0)[..., ::-1]
+    return {prefix + "weight": np.ascontiguousarray(weight), prefix + "bias": _a(p["bias"])}
+
+
+def _spec_variables(spec, sd: Mapping, params: Dict) -> None:
+    kind, path, prefix = spec[:3]
+    if kind == "lstm":
+        _insert(params, path[0], lstm_variables(sd, prefix + "fwd."))
+        _insert(params, path[1], lstm_variables(sd, prefix + "bwd."))
+        return
+    if kind == "dense":
+        node = _dense_tree(sd, prefix)
+    elif kind == "norm":
+        node = _norm_tree(sd, prefix)
+    elif kind == "prelu":
+        node = {"negative_slope": _n(sd[prefix + "negative_slope"])}
+    elif kind == "gln":
+        shape = (1, -1) + (1,) * (spec[3] - 2)
+        node = {"scale": _n(sd[prefix + "weight"]).reshape(shape),
+                "bias": _n(sd[prefix + "bias"]).reshape(shape)}
+    else:
+        weight = _n(sd[prefix + "weight"])
+        kernel = weight.transpose(2, 1, 0) if kind == "conv" else weight[..., ::-1].transpose(2, 0, 1)
+        node = {"kernel": np.ascontiguousarray(kernel), "bias": _n(sd[prefix + "bias"])}
+    _insert(params, path, node)
+
+
+def se_kind(params: Mapping) -> str:
+    """The SE model a flax params tree holds: ``dprnn``, ``fasnet_tac`` or
+    ``fasnet_origin``."""
+    if "decoder" in params:
+        return "dprnn"
+    return "fasnet_tac" if "bf" in params else "fasnet_origin"
+
+
+def se_state(variables: Mapping) -> StateDict:
+    """JAX ``DPRNNEnhancer``, ``FaSNetTAC`` or ``FaSNetOrigin`` variables →
+    the port model's state_dict."""
+    params = variables["params"]
+    kind = se_kind(params)
+    if kind == "dprnn":
+        specs = _se_specs(kind, sum(1 for k in params if k.startswith("dp_")))
+    else:
+        dprnn = params["bf" if kind == "fasnet_tac" else "ref_bf"]["dprnn"]
+        specs = _se_specs(kind, sum(1 for k in dprnn if k.startswith("col_norm_")),
+                          "tac_0" in dprnn)
+    sd: StateDict = {}
+    for spec in specs:
+        sd.update(_spec_state(spec, params))
+    return sd
+
+
+def se_variables(sd: Mapping) -> Dict[str, Dict]:
+    """The port SE model's state_dict → ``{"params"}`` of the JAX model: the
+    inverse of :func:`se_state`."""
+    if "decoder.weight" in sd:
+        specs = _se_specs("dprnn", _count(sd, "blocks."))
+    else:
+        kind = "fasnet_tac" if "bf.out.weight" in sd else "fasnet_origin"
+        stage = "bf." if kind == "fasnet_tac" else "ref_bf."
+        specs = _se_specs(kind, _count(sd, stage + "dprnn.row."),
+                          any(k.startswith(stage + "dprnn.tac.") for k in sd))
+    params: Dict = {}
+    for spec in specs:
+        _spec_variables(spec, sd, params)
+    return {"params": params}

@@ -118,7 +118,8 @@ class LayerNorm(nn.LayerNorm):
         self.compute_dtype = compute_dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = F.layer_norm(x.float(), self.normalized_shape, self.weight, self.bias, self.eps)
+        x = x.to(torch.promote_types(x.dtype, self.weight.dtype))  # bfloat16 → float32
+        y = F.layer_norm(x, self.normalized_shape, self.weight, self.bias, self.eps)
         return y.to(self.compute_dtype)
 
 

@@ -30,9 +30,20 @@ H·D_in, and its biases ``att_b_i`` zeros; flax-semantics BatchNorms
 (``models/batchnorm.py``) scale 1 and bias 0 where they have them, and
 running mean 0 and variance 1 in every one, the affine-free ones too.
 
+The speech-enhancement models (``models/{se,fasnet,rnn}.py``) and the
+``bilstm`` heads add flax's ``OptimizedLSTMCell``: input kernels
+``lecun_normal`` with fan_in D for each gate's (D, H) block, recurrent
+kernels ``orthogonal`` for each gate's (H, H) block (a normal matrix's QR
+factor Q with its columns signed by diag(R), as ``jax.nn.initializers.
+orthogonal``; no draw can match JAX's bits, only the law), biases zeros;
+the ``ConvTranspose`` decoder ``lecun_normal`` with fan_in in·k; flax's
+``nn.PReLU`` one slope of 0.01 (torch's default is 0.25);
+``GlobalLayerNorm`` scale 1 and bias 0.
+
 fan_in is the kernel's input width times its receptive field: ``in`` for a
-Linear (out, in), in·kh·kw for a Conv2d (out, in, kh, kw), in·k for a Conv1d,
-and k for the depthwise weight (k, C) (JAX shape (k, 1, C)).
+Linear (out, in), in·kh·kw for a Conv2d (out, in, kh, kw), in·k for a Conv1d
+and for a ConvTranspose1d (in, out, k), and k for the depthwise weight
+(k, C) (JAX shape (k, 1, C)).
 
 Every draw is made on the CPU, in the order of ``module.named_modules()``,
 and copied to the parameter's device: the same generator state gives the
@@ -49,12 +60,14 @@ import torch
 import torch.nn as nn
 
 from speechlid_tpu_torch.models.batchnorm import FlaxBatchNorm
+from speechlid_tpu_torch.models.fasnet import GlobalLayerNorm, PReLU
 from speechlid_tpu_torch.models.conformer import (
     DepthwiseConv1d,
     MaskedBatchNorm,
     RelPosAttention,
 )
 from speechlid_tpu_torch.models.pooling import MHASTP
+from speechlid_tpu_torch.models.rnn import LSTMDirection
 from speechlid_tpu_torch.models.wav2vec2 import Featurizer
 from speechlid_tpu_torch.models.wavlm import RelPosMultiheadAttention, WavLM, _WeightNormConvPos
 
@@ -76,6 +89,13 @@ def lecun_normal(shape, fan_in: int, generator: torch.Generator) -> torch.Tensor
     return truncated_normal(shape, generator) * sigma
 
 
+def orthogonal(n: int, generator: torch.Generator) -> torch.Tensor:
+    """flax's ``orthogonal()`` kernel (n, n): Q of the QR factorisation of a
+    standard normal matrix, each column times the sign of R's diagonal."""
+    q, r = torch.linalg.qr(torch.randn(n, n, generator=generator, dtype=torch.float64))
+    return (q * torch.sign(torch.diagonal(r))).float()
+
+
 @torch.no_grad()
 def init_like_flax_(module: nn.Module, generator: torch.Generator) -> None:
     """Draw every parameter of ``module`` (the port's Conformer LID model or
@@ -93,6 +113,18 @@ def init_like_flax_(module: nn.Module, generator: torch.Generator) -> None:
         if isinstance(m, (nn.Linear, nn.Conv1d, nn.Conv2d)):
             w = m.weight
             draws["weight"] = lecun_normal(w.shape, w[0].numel(), generator)
+        elif isinstance(m, nn.ConvTranspose1d):
+            w = m.weight  # (in, out, k)
+            draws["weight"] = lecun_normal(w.shape, w.shape[0] * w.shape[2], generator)
+        elif isinstance(m, LSTMDirection):
+            h, d = m.hidden, m.weight_ih.shape[1]
+            draws["weight_ih"] = lecun_normal(m.weight_ih.shape, d, generator)
+            # each gate's flax kernel (H, H) is orthogonal; torch holds its transpose
+            draws["weight_hh"] = torch.cat([orthogonal(h, generator).t() for _ in range(4)])
+        elif isinstance(m, PReLU):
+            draws["negative_slope"] = torch.tensor(0.01)
+        elif isinstance(m, GlobalLayerNorm):
+            draws["weight"] = torch.ones(m.weight.shape)
         elif isinstance(m, DepthwiseConv1d):
             k = m.weight.shape[0]
             draws["weight"] = lecun_normal(m.weight.shape, k, generator)

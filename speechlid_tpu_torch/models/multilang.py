@@ -1,5 +1,5 @@
 """Per-language CTC heads and language discriminator (port of
-``speechlid_tpu/models/multilang.py``, Conformer heads).
+``speechlid_tpu/models/multilang.py``): Conformer heads or BiLSTM heads.
 
 The JAX package stacks the L heads' weights on a leading language axis and
 runs them under ``nn.vmap``.  Here ``MultiLangHeadStack.heads[l]`` is head
@@ -21,7 +21,13 @@ only the own head's BatchNorm statistics, so loss, gradients and state are
 the same and two head passes are saved.  The other languages' rows of the
 returned logits are then absent: the result is (1, B, T, V_max+1).
 
-``BiLSTMLinearHead`` is not ported yet.
+``head_type="bilstm"`` builds ``BiLSTMLinearHead``s: flax's bidirectional
+``OptimizedLSTMCell`` (``models/rnn.py``, hidden ``linear_dim // 2`` a
+direction) over the valid frames (packed by ``lengths``), dropout, then
+``Linear(V+1)``.  flax's cell has no ``dtype`` there, so the recurrence is
+float32 in a bfloat16 task too and only the last ``Linear`` computes in
+``dtype``.  Padded frames come out as zeros where flax leaves values;
+everything downstream (CTC, the scores) reads the valid frames only.
 """
 
 from __future__ import annotations
@@ -34,6 +40,7 @@ import torch.nn.functional as F
 
 from speechlid_tpu_torch.core.precision import compute_dtype
 from speechlid_tpu_torch.models.conformer import ConformerBlock, Dropout, Linear
+from speechlid_tpu_torch.models.rnn import BiLSTM
 
 _NEG = torch.finfo(torch.float32).min
 
@@ -60,6 +67,25 @@ class ConformerLinearHead(nn.Module):
         return self.out(self.dropout(x))
 
 
+class BiLSTMLinearHead(nn.Module):
+    """N bidirectional LSTMs (hidden ``linear_dim // 2`` a direction) →
+    dropout → Linear(V+1)."""
+
+    def __init__(self, vocab_size: int, linear_dim: int = 768, num_layers: int = 1,
+                 dropout: float = 0.0, dtype: Union[str, torch.dtype] = torch.float32):
+        super().__init__()
+        hidden = linear_dim // 2
+        self.dropout = Dropout(dropout)
+        self.rnns = nn.ModuleList(
+            BiLSTM(linear_dim if i == 0 else 2 * hidden, hidden) for i in range(num_layers))
+        self.out = Linear(2 * hidden, vocab_size + 1, compute_dtype=compute_dtype(dtype))
+
+    def forward(self, x: torch.Tensor, lengths: Optional[torch.Tensor] = None) -> torch.Tensor:
+        for rnn in self.rnns:
+            x = rnn(x, lengths)
+        return self.out(self.dropout(x))
+
+
 class MultiLangHeadStack(nn.Module):
     """(B, T, D) → float32 logits (L, B, T, V_max+1), padded vocab ids
     masked; with ``only=l`` just head l, (1, B, T, V_max+1)."""
@@ -67,11 +93,17 @@ class MultiLangHeadStack(nn.Module):
     def __init__(self, vocab_sizes: Sequence[int], linear_dim: int = 768,
                  num_layers: int = 1, dim_head: int = 32, num_head: int = 8,
                  use_double_swish: bool = False, dropout: float = 0.0,
-                 dtype: Union[str, torch.dtype] = torch.float32):
+                 dtype: Union[str, torch.dtype] = torch.float32,
+                 head_type: str = "conformer_linear"):
         super().__init__()
+        if head_type not in ("conformer_linear", "bilstm"):
+            raise ValueError(f"unknown head_type: {head_type}")
         self.vocab_sizes = tuple(int(v) for v in vocab_sizes)
         self.vocab_max = max(self.vocab_sizes)
+        self.head_type = head_type
         self.heads = nn.ModuleList(
+            BiLSTMLinearHead(self.vocab_max, linear_dim, num_layers, dropout, dtype)
+            if head_type == "bilstm" else
             ConformerLinearHead(self.vocab_max, linear_dim, num_layers, dim_head,
                                 num_head, use_double_swish, dropout, dtype)
             for _ in self.vocab_sizes
@@ -83,13 +115,14 @@ class MultiLangHeadStack(nn.Module):
 
     def forward(self, x: torch.Tensor, lengths: Optional[torch.Tensor] = None,
                 only: Optional[int] = None) -> torch.Tensor:
-        mask = None
-        if lengths is not None:
-            mask = torch.arange(x.shape[1], device=x.device)[None, :] < lengths[:, None]
+        # what a head takes besides x: the lengths (packed LSTMs) or the padding mask
+        valid = lengths
+        if self.head_type != "bilstm" and lengths is not None:
+            valid = torch.arange(x.shape[1], device=x.device)[None, :] < lengths[:, None]
         if only is not None:
-            logits = self.heads[only](x, mask)[None].float()
+            logits = self.heads[only](x, valid)[None].float()
             return logits.masked_fill(~self.vocab_valid[only : only + 1], _NEG)
-        logits = torch.stack([head(x, mask) for head in self.heads]).float()
+        logits = torch.stack([head(x, valid) for head in self.heads]).float()
         return logits.masked_fill(~self.vocab_valid, _NEG)
 
 
@@ -154,11 +187,12 @@ class MutiLangModel(nn.Module):
     def __init__(self, featurizer: nn.Module, vocab_sizes: Sequence[int],
                  linear_dim: int = 768, num_layers: int = 1, dim_head: int = 32,
                  num_head: int = 8, use_double_swish: bool = False, disc_hidden: int = 128,
-                 dropout: float = 0.0, dtype: Union[str, torch.dtype] = torch.float32):
+                 dropout: float = 0.0, dtype: Union[str, torch.dtype] = torch.float32,
+                 head_type: str = "conformer_linear"):
         super().__init__()
         self.featurizer = featurizer
         self.heads = MultiLangHeadStack(vocab_sizes, linear_dim, num_layers, dim_head,
-                                        num_head, use_double_swish, dropout, dtype)
+                                        num_head, use_double_swish, dropout, dtype, head_type)
         self.discriminator = LangDiscriminatorMLP(len(vocab_sizes), disc_hidden)
         self.register_buffer("vocab_sizes", torch.tensor(tuple(vocab_sizes)),
                              persistent=False)

@@ -3,3 +3,4 @@
 
 from speechlid_tpu_torch.tasks.lid_asr import LidASRTask
 from speechlid_tpu_torch.tasks.lid_cross_entropy import LidCrossEntropyTask
+from speechlid_tpu_torch.tasks.se import SETask

@@ -33,7 +33,10 @@ construct it.
   the JAX task.  Parameters, gradients and Adam's moments stay float32;
   the logits, losses and scores are float32 in either; no loss scaling.
 
-Not ported yet, and raising: ``bilstm`` heads and ``quant_dot``.
+``head_type``: ``"conformer_linear"`` or ``"bilstm"`` (flax's bidirectional
+LSTM over the valid frames, ``models/multilang.BiLSTMLinearHead``).
+
+Not ported yet, and raising: ``quant_dot``.
 Accepted and without effect here: ``remat``,
 ``scan_blocks`` (they change how XLA compiles the same numbers) and
 ``ssl_conv_impl`` (two lowerings of the same conv in the JAX package).
@@ -134,8 +137,6 @@ class LidASRTask(TaskModule):
         super().__init__()
         if featurizer not in ("conformer", *SSL_FEATURIZERS):
             raise ValueError(f"unknown featurizer: {featurizer}")
-        if head_type != "conformer_linear":
-            raise NotImplementedError(f"head_type {head_type!r} is not ported yet")
         if quant_dot:
             raise NotImplementedError(f"quant_dot={quant_dot!r} (int8) is not ported yet")
         self.dtype = compute_dtype(dtype)
@@ -214,6 +215,7 @@ class LidASRTask(TaskModule):
             featurizer_module, self.vocab_sizes, linear_dim=encoder_dim,
             num_layers=head_layers, dim_head=head_dim_head, num_head=head_num_head,
             use_double_swish=double_swish, dropout=dropout, dtype=self.dtype,
+            head_type=head_type,
         ).to(self.device).eval()
         self._load_ssl_state()
         self.eer = EER(num_class=self.n_lang)

@@ -40,7 +40,8 @@ def test_port_imports_no_jax():
                  "ops.augment", "ops.resample", "data.augmentor", "core.precision",
                  "core.native", "models.wavlm", "models.wav2vec2", "models.batchnorm",
                  "models.pooling", "models.xvector", "models.resnet", "models.classifier",
-                 "tasks.lid_cross_entropy", "tasks.asr", "tasks"):
+                 "tasks.lid_cross_entropy", "tasks.asr", "tasks", "models.rnn", "models.se",
+                 "models.fasnet", "tasks.se", "cli.main_extras"):
         assert f"speechlid_tpu_torch.{name}" in modules, name
     result = subprocess.run(
         [sys.executable, "-c", CHECK, "chip_smoke", *modules],

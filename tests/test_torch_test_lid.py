@@ -11,9 +11,10 @@ BatchNorm statistics, 1 block × 32-d).
 - with ``--lm-dir``, ``--kenlm-threshold`` is taken from the JAX CLI's
   margins of every cell, in a gap that leaves each at least 1e-3 away (see
   ``tests/test_torch_eval.py``), and the gap is asserted;
-- ``--quant int8`` and ``--se-ckpt`` raise ``NotImplementedError``, a bad
+- ``--quant int8`` raises ``NotImplementedError``, a bad
   ``--factor-sweep`` exits in argparse, and without ``--device`` on a
-  machine with no card the run fails and writes nothing."""
+  machine with no card the run fails and writes nothing; ``--se-ckpt`` and
+  the factor sweep are held in ``tests/test_torch_se.py``."""
 
 import contextlib
 import csv
@@ -187,9 +188,7 @@ def test_cell_result_records_and_submission_equal_jax(runs):
     assert len(got["submission"].splitlines()) == 12
 
 
-@pytest.mark.parametrize("extra", [["--quant", "int8"], ["--se-ckpt", "se.ckpt"],
-                                   ["--se-ckpt", "se.ckpt", "--factor-sweep", "0:1:0.5"]],
-                         ids=["quant", "se_ckpt", "factor_sweep"])
+@pytest.mark.parametrize("extra", [["--quant", "int8"]], ids=["quant"])
 def test_unported_options_raise(world, extra):
     with pytest.raises(NotImplementedError, match="not ported yet"):
         test_lid.main(_base(world, *extra, "--device", "cpu"))

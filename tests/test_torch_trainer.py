@@ -376,10 +376,15 @@ def test_trainer_rejects_what_is_not_ported(tmp_path):
         Trainer(total_epoch=1, use_progress_bar=False, device="cpu").fit(task, [mixed])
     with pytest.raises(ValueError, match="lives on"):
         Trainer(device="meta").fit(task, [mixed])
-    for kw in (dict(featurizer="wavlm", quant_dot="int8"), dict(head_type="bilstm"),
-               dict(dtype="float16")):
+    for kw in (dict(featurizer="wavlm", quant_dot="int8"), dict(dtype="float16")):
         with pytest.raises(NotImplementedError):
             LidASRTask(**dict(HPARAMS, **kw), device="cpu")
+    with pytest.raises(ValueError, match="head_type"):
+        LidASRTask(**dict(HPARAMS, head_type="lstm"), device="cpu")
+    # bilstm heads train (tests/test_torch_bilstm_head.py holds them against JAX)
+    _, bilstm = run_port(LidASRTask(**dict(HPARAMS, head_type="bilstm"), device="cpu"),
+                         batches(8, [0, 1]))
+    assert bilstm.optimizer.count == 2
     # bfloat16 compute trains: float32 parameters and Adam moments, finite
     _, bf16 = run_port(LidASRTask(**dict(HPARAMS, dtype="bfloat16"), device="cpu"),
                        batches(8, [0, 1]))

@@ -13,6 +13,7 @@ from speechlid_tpu.models import wav2vec2 as jw2v
 from speechlid_tpu.models import wavlm as jwavlm
 from speechlid_tpu.tasks.lid_asr import LidASRTask as JaxLidASRTask
 from speechlid_tpu_torch import convert
+from speechlid_tpu_torch.models.init import init_like_flax_
 from speechlid_tpu_torch.tasks.lid_asr import LidASRTask
 
 
@@ -94,7 +95,9 @@ def assert_bf16_close(name, port_bf16, jax_bf16, jax_f32, tol, scale=None):
 
 
 def tree_leaves_with_names(tree, prefix=""):
-    """[(dotted name, leaf)] of a nested mapping, sorted by name."""
+    """[(dotted name, leaf)] of a nested mapping, sorted by name; leaves as
+    numpy arrays, but ``jax.ShapeDtypeStruct``s (``jax.eval_shape``) as
+    they are."""
     out = []
     for key in sorted(tree):
         value = tree[key]
@@ -102,7 +105,8 @@ def tree_leaves_with_names(tree, prefix=""):
         if hasattr(value, "keys"):
             out.extend(tree_leaves_with_names(value, name + "/"))
         else:
-            out.append((name, np.asarray(value)))
+            out.append((name, value if isinstance(value, jax.ShapeDtypeStruct)
+                        else np.asarray(value)))
     return out
 
 
@@ -198,3 +202,73 @@ def write_wav2vec2_pt(path, params, cfg_dict):
 W2V = {k: v for k, v in TINY_SSL.items() if k in (
     "encoder_layers", "encoder_embed_dim", "encoder_ffn_embed_dim", "encoder_attention_heads",
     "conv_feature_layers")}
+
+
+def perturbed(variables, seed, scale=0.05):
+    """A numpy copy of flax ``variables`` with every leaf moved by
+    N(0, scale²): biases, norms and slopes leave their initial constants, so
+    that a wrong conversion of any leaf shows."""
+    rng = np.random.RandomState(seed)
+    return jax.tree_util.tree_map(
+        lambda a: np.asarray(a, np.float32)
+        + np.float32(scale) * np.asarray(rng.randn(*np.shape(a)), np.float32), dict(variables))
+
+
+def port_drawn(model, seed, to_variables, to_state, adjust=perturbed):
+    """flax variables drawn on the port's side, which spares a test the JAX
+    init's compile: ``init_like_flax_(model)`` from ``seed``, converted by
+    ``to_variables``, moved by ``adjust(variables, seed)`` (``perturbed`` or
+    ``random_batch_stats``) and loaded back into ``model`` by ``to_state``.
+    → the numpy variables.  A flax ``apply`` on them checks that no leaf is
+    missing or misshapen; the round-trip tests compare their tree with
+    ``jax.eval_shape`` of the JAX init, so that none is extra."""
+    init_like_flax_(model, torch.Generator().manual_seed(seed))
+    variables = jax.tree_util.tree_map(np.asarray, to_variables(model.state_dict()))
+    variables = adjust(variables, seed)
+    convert.load_into(model, to_state(variables))
+    return variables
+
+
+def assert_same_tree(got, want):
+    """The same leaf names and shapes (``want`` may hold
+    ``jax.ShapeDtypeStruct``s)."""
+    a, b = tree_leaves_with_names(got), tree_leaves_with_names(want)
+    assert [n for n, _ in a] == [n for n, _ in b]
+    for (name, x), (_, y) in zip(a, b):
+        assert np.shape(x) == tuple(y.shape), name
+
+
+@pytest.fixture
+def jax_zero_window_cosine(monkeypatch):
+    """The JAX FaSNet's ``sliding_cosine`` with the port's rule at an
+    all-zero window or target: cosine 0, the exact correlation's value.  The
+    JAX function returns its FFT's rounding noise scaled by 1/eps there
+    (anything in [-1, 1], different on every FFT library), so no two
+    implementations agree on it."""
+    import jax.numpy as jnp
+
+    import speechlid_tpu.models.fasnet as jfasnet
+
+    original = jfasnet.sliding_cosine
+
+    def zero_window_cosine(ref, target, eps=1e-8):
+        zero = ((jfasnet.sliding_sumsq(ref, target.shape[-1]) == 0)
+                | (jnp.linalg.norm(target, axis=-1, keepdims=True) == 0))
+        return jnp.where(zero, 0.0, original(ref, target, eps))
+
+    monkeypatch.setattr(jfasnet, "sliding_cosine", zero_window_cosine)
+
+
+def assert_leaves_close(got, want, rel, what=""):
+    """Each leaf of ``got`` (name → tensor or array) within ``rel`` of the
+    largest entry of the same leaf of ``want``; → the worst ratio."""
+    assert sorted(got) == sorted(want), (what, sorted(set(got) ^ set(want)))
+    worst = 0.0
+    for name, w in want.items():
+        g, w = _f32(got[name]), _f32(w)
+        assert g.shape == w.shape, (what, name, g.shape, w.shape)
+        scale = max(float(np.abs(w).max()), 1e-30)
+        err = float(np.abs(g - w).max()) / scale
+        assert err <= rel, (what, name, err, rel)
+        worst = max(worst, err)
+    return worst
