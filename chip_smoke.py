@@ -5,6 +5,7 @@
     python3 chip_smoke.py --only cli_gate [--seed N]   # the accuracy gate alone
     python3 chip_smoke.py --only ce_asr   # the cross-entropy and ASR phases alone
     python3 chip_smoke.py --only se   # the speech enhancement and bilstm phases alone
+    python3 chip_smoke.py --only quant   # the int8, SWA and Novograd phases alone
 
 It builds the port's CUDA kernels from ``speechlid_tpu_torch/csrc`` (into
 ``build/``), holds each kernel, forward and backward, and each fused mode of
@@ -64,7 +65,20 @@ run without SE (``cli_eval_se``); one server answers ``/lid`` and ``/se``
 from four threads (``serve_se``); ``LidASRTask(head_type="bilstm")`` at the
 flagship's width on the card against the CPU, inference and a step
 (``bilstm_card_vs_cpu``); and their times (``se_e2e``); ``--only se`` runs
-these alone.  Last it times the kernels, the
+these alone.  Then the int8 engine (``ops/quant.py``), SWA and Novograd:
+every quantized Linear shape of both flagship paths, the card's codes and
+``_int_mm``'s int32 sums against the CPU's and a float64 oracle, timed
+against ``F.linear`` in float32 and bfloat16 (``quant_dense``); ``serve
+--quant int8`` on a checkpoint of each model, its scores against the CPU's
+int8 scores (``quant_serve``); ``configs/lid_wavlm_qat.yaml`` through the
+training CLI at the Base+ width, and one QAT step card against CPU
+(``cli_qat``); ``test_lid --quant int8`` on ``cli_flagship``'s checkpoint
+(``cli_eval_quant``); the flagship through the CLI with
+``trainer.use_swa=true`` (``cli_swa``: the average and the re-estimated
+statistics in ``swa_final.ckpt``) and with ``module.optimizer=novograd``
+(``cli_novograd``); and ``infer`` utt/s in float32, bfloat16, int8 and
+bfloat16 + int8 (``quant_e2e``); ``--only quant`` runs these alone.  Last
+it times the kernels, the
 models and the train steps (the WavLM model's in ``wavlm_e2e``, bfloat16
 against float32 in turns in ``bf16_e2e``).  The fused modes are also timed against the
 unfused chain they replace (``chain_ms``), in turns chain, fused, fused, chain, and a
@@ -112,7 +126,8 @@ from speechlid_tpu_torch.cli.serve import (
     make_lid_fn,
 )
 from speechlid_tpu_torch.core.callbacks import Callback, CkptCallback, ProfileCallback
-from speechlid_tpu_torch.core.checkpoint import load_checkpoint
+from speechlid_tpu_torch.core.checkpoint import load_checkpoint, save_checkpoint
+from speechlid_tpu_torch.core.precision import strict_float32
 from speechlid_tpu_torch.core.profile import _time_cost_recoder
 from speechlid_tpu_torch.core.trainer import Trainer
 from speechlid_tpu_torch.data.augmentor import WavAugmentor
@@ -127,7 +142,7 @@ from speechlid_tpu_torch.models.conformer import (
     Dropout,
     MaskedBatchNorm,
 )
-from speechlid_tpu_torch.ops import frontend
+from speechlid_tpu_torch.ops import frontend, quant
 from speechlid_tpu_torch.ops.cuda import _build, fbank_kernel
 from speechlid_tpu_torch.ops.cuda.depthwise_kernel import (
     FWD_MODES,
@@ -1329,13 +1344,14 @@ class _CliRecorder(ProfileCallback):
                            "launches": {k: now[k] - self._mark[k] for k in now}})
 
 
-def run_cli(args: list) -> tuple:
+def run_cli(args: list, recorder_class: type = None) -> tuple:
     """``cli.main_lid.main(args)`` in this process, with :class:`_CliRecorder`
-    as its ``ProfileCallback``; → (the recorder, wall seconds)."""
+    (or its subclass ``recorder_class``) as its ``ProfileCallback``; → (the
+    recorder, wall seconds)."""
     from speechlid_tpu_torch.cli import main_lid
 
     saved = main_lid.ProfileCallback
-    main_lid.ProfileCallback = _CliRecorder
+    main_lid.ProfileCallback = recorder_class or _CliRecorder
     _CliRecorder.runs.clear()
     t0 = time.perf_counter()
     try:
@@ -4360,12 +4376,729 @@ def se_bilstm_kernel_rows(gen: torch.Generator, errs: dict, eval_se: dict,
     return rows
 
 
+# --------------------------------------------- the int8 engine, SWA and Novograd
+# The int8 W8A8 engine (ops/quant.py) is torch._int_mm (cuBLASLt) between a
+# quantize and a rescale in PyTorch: the JAX package computes it in XLA, in
+# no Pallas kernel, so it has no hand kernel of its own.  Its paths run both
+# hand kernels: the Conformer's fbank and conv modules, the WavLM heads'
+# conv modules (bfloat16 under the QAT config).  SWA and Novograd train the
+# flagship through the CLI, which runs the kernels' training modes.
+
+INT8_PEAK_OPS = 1979e12  # H100 SXM dense int8 tensor-core rate, at 700 W
+# the rescale float(out32) · (row · col): three float32 roundings of half an
+# ulp each (out32 passes 2^24 at K = 3072) against its float64 value
+RESCALE_ULPS = 1.5
+V_OUT = max(FLAGSHIP["lang2vocab"].values()) + 1  # a head's Linear(V + 1)
+# every quantized Linear shape (K → N) of the two flagship paths, the
+# projections that share one named together
+QUANT_DENSE_SHAPES = {
+    "conformer": ((144, 576, "FFN fc1, conv pointwise_in"), (576, 144, "FFN fc2"),
+                  (144, 256, "to_q"), (144, 512, "to_kv"), (256, 144, "to_out"),
+                  (288, 144, "conv pointwise_out"), (144, V_OUT, "head out")),
+    "wavlm": ((768, 768, "q/k/v/out_proj"), (768, 3072, "fc1; head FFN fc1, pointwise_in"),
+              (3072, 768, "head FFN fc2"), (768, 256, "head to_q"), (768, 512, "head to_kv"),
+              (256, 768, "head to_out"), (1536, 768, "head pointwise_out"),
+              (768, V_OUT, "head out")),
+    # the framed extractor GEMMs (k · Cin → 512) of conv_extractor_impl="matmul"
+    "wavlm_extractor": ((10, 512, "conv_0 (10, 5) framed"),
+                        (1536, 512, "conv_1..4 (3, 2) framed"),
+                        (1024, 512, "conv_5..6 (2, 2) framed")),
+}
+
+
+def _extractor_frames(seconds: float) -> list:
+    """Frames out of each layer of the WavLM extractor for a clip."""
+    t, out = int(seconds * SR), []
+    for _, k, s in [(512, 10, 5)] + [(512, 3, 2)] * 4 + [(512, 2, 2)] * 2:
+        t = (t - k) // s + 1
+        out.append(t)
+    return out
+
+
+# rows of each shape: a B = 1 request of 0.7 s, and B = 32 clips of 3 s
+QUANT_DENSE_ROWS = {
+    "conformer": (_encoder_frames(0.7), 32 * _encoder_frames(3.0)),
+    "wavlm": (_wavlm_frames(0.7), 32 * _wavlm_frames(3.0)),
+    "wavlm_extractor": {10: (_extractor_frames(0.7)[0], 32 * _extractor_frames(3.0)[0]),
+                        1536: (_extractor_frames(0.7)[1], 32 * _extractor_frames(3.0)[1]),
+                        1024: (_extractor_frames(0.7)[5], 32 * _extractor_frames(3.0)[5])},
+}
+# shapes given to torch._int_mm unpadded, to find what it refuses on the card
+INT_MM_PROBES = ((16, 16, 16), (17, 16, 16), (24, 16, 16), (33, 16, 16), (17, 10, 16),
+                 (17, 12, 16), (17, 16, 97), (17, 16, 12), (1, 768, 768), (2368, 144, 576))
+
+QUANT_MODELS = {
+    "conformer": dict(hp=FLAGSHIP, per_forward=PER_FORWARD_LAUNCHES, base_tol=MODEL_TOL,
+                      config="flagship 14x144, heads 3x(40,96,88), float32"),
+    "wavlm_bf16": dict(hp=dict(WAVLM, dtype="bfloat16", ssl_config=WAVLM_BASE_PLUS_BF16),
+                       per_forward=WAVLM_BF16_PER_FORWARD_LAUNCHES, base_tol=BF16_SCORE_TOL,
+                       config="WavLM-Base+ 12x768 + heads 3x(40,96,88) at 768, bfloat16"),
+}
+# card against CPU int8 scores: the bar is the larger of the model's own
+# card-vs-CPU bar (exact engine) and QUANT_SPREAD times the CPU's own int8
+# spread, its scores moved by a one-ulp nudge of the request's wave (a code
+# at a rounding boundary flips on an ulp upstream, and a flipped code moves
+# its output by a step of its scale: the tests measured the port against
+# JAX at 0.85-1.0 times JAX's own one-ulp flips, tests/test_torch_quant_task.py)
+QUANT_SPREAD = 3.0
+QUANT_SETTINGS = ("float32", "bfloat16", "int8", "bfloat16+int8")
+# the QAT config at the Base+ width: 2 epochs (the first with the encoder
+# frozen, its freeze gates at 0) of 3 steps of 8 clips, each with an eval
+QAT_DATA_FACTOR = 0.1
+QAT_STEPS = int(N_LANG * CORPUS_TRAIN // 8 * QAT_DATA_FACTOR)
+QAT_FROZEN = {0: {"feature_extractor", "post_extract_proj", "layers", "pos_conv",
+                  "encoder_layer_norm"}, 1: set()}
+QAT_STEP_HP = dict(WAVLM_DETERMINISTIC, dtype="bfloat16", quant_dot="int8_ste",
+                   ssl_conv_impl="matmul")
+# SWA: the flagship through the CLI for 4 epochs of 9 steps; int(4 · 0.7) = 2,
+# so epochs 2 and 3 are averaged; then BatchNorm passes over the 36 train
+# batches until 0.9^seed < 5e-3: two passes
+SWA_EPOCHS, SWA_START = 4, 2
+SWA_BN_BATCHES = 2 * CLI_EPOCH_STEPS
+SWA_BN_LAUNCHES = launch_counts(fbank=1, glu=DW_PER_TRAIN_STEP)  # a train-mode forward
+NOVOGRAD_EPOCHS = 3
+
+
+class CountIntMM:
+    """Counts the ``torch._int_mm`` calls made inside the ``with`` block
+    (``ops/quant.py`` looks it up at every call)."""
+
+    def __enter__(self):
+        self.calls, self._int_mm = 0, torch._int_mm
+
+        def counted(*args, **kwargs):
+            self.calls += 1
+            return self._int_mm(*args, **kwargs)
+
+        torch._int_mm = counted
+        return self
+
+    def __exit__(self, *exc):
+        torch._int_mm = self._int_mm
+
+
+def int_mm_per_forward(model: torch.nn.Module, heads: int = None) -> int:
+    """``_int_mm`` calls of one forward of ``model``: its int8 Linears (of
+    the featurizer and of ``heads`` heads, all by default) and its framed
+    extractor layers."""
+    from speechlid_tpu_torch.models.conformer import Linear
+
+    n = 0
+    for name, m in model.named_modules():
+        if isinstance(m, Linear) and m.dot is not None:
+            head = name.split(".")[2] if name.startswith("heads.heads.") else None
+            n += head is None or heads is None or int(head) < heads
+        n += getattr(m, "framed_dot", None) is not None and m.n_layers
+    return n
+
+
+def quant_dense_case(x: torch.Tensor, w: torch.Tensor, timed: bool) -> dict:
+    """One quantized product on the card: codes against the CPU's on the
+    same float input, ``_int_mm``'s int32 sums against the float64 oracle,
+    the output against the exact rescale of those sums; with ``timed`` the
+    times of it, of ``F.linear`` in float32 and bfloat16, and its split."""
+    row, col = quant.scales(x), quant.scales(w)
+    xq, wq = quant.quantize(x, row), quant.quantize(w, col)
+    xc, wc = x.cpu(), w.cpu()
+    codes_equal = (torch.equal(xq.cpu(), quant.quantize(xc, quant.scales(xc)))
+                   and torch.equal(wq.cpu(), quant.quantize(wc, quant.scales(wc))))
+    out32 = quant.int8_matmul(xq, wq)
+    int32_equal = torch.equal(out32, quant.int8_matmul_reference(xq, wq))
+    y = quant.int8_dot(x, w)
+    exact = out32.double() * (row.double() * col.double()[:, 0])
+    ulps = ((y.double() - exact).abs() / torch.finfo(torch.float32).eps
+            / exact.abs().clamp_min(torch.finfo(torch.float32).tiny)).max().item()
+    out = {"codes_equal_cpu": codes_equal, "int32_equal_reference": int32_equal,
+           "max_rescale_error_ulps": ulps, "equal_reference_dot": torch.equal(
+               y, quant.int8_linear_reference(x, w))}
+    if timed:
+        (m, k), n = x.shape, w.shape[0]
+        xb, wb = x.bfloat16(), w.bfloat16()
+        col_row = col[:, 0]
+        b_ms, b_by = bound_ms(4.0 * (m * k + n * k + m * n), 0.0)
+        ops_ms = 2.0 * m * k * n / INT8_PEAK_OPS * 1e3
+        out.update({
+            "ms_f32_linear": device_ms(lambda: F.linear(x, w)),
+            "ms_bf16_linear": device_ms(lambda: F.linear(xb, wb)),
+            "ms_int8": device_ms(lambda: quant.int8_dot(x, w)),
+            "ms_int8_bf16": device_ms(lambda: quant.int8_dot(xb, wb)),
+            "ms_quantize": device_ms(lambda: (quant.quantize(x, quant.scales(x)),
+                                              quant.quantize(w, quant.scales(w)))),
+            "ms_int_mm": device_ms(lambda: quant.int8_matmul(xq, wq)),
+            "ms_rescale": device_ms(lambda: out32.float() * (row * col_row)),
+            "bound_ms_int8": max(b_ms, ops_ms),
+            "bound_by_int8": b_by if b_ms >= ops_ms else "operations"})
+    return out
+
+
+def int_mm_limits() -> dict:
+    """What ``torch._int_mm`` takes on the card unpadded: (rows, K, N) →
+    "ok" or its error's first line; both weight layouts at one shape."""
+    out = {}
+    for m, k, n in INT_MM_PROBES:
+        a = torch.ones(m, k, dtype=torch.int8, device="cuda")
+        for layout, b in (("column-major", torch.ones(n, k, dtype=torch.int8,
+                                                      device="cuda").t()),
+                          ("row-major", torch.ones(k, n, dtype=torch.int8, device="cuda"))):
+            if layout == "row-major" and (m, k, n) != (17, 16, 16):
+                continue
+            try:
+                got = torch._int_mm(a, b)
+                torch.cuda.synchronize()
+                out[f"{m}x{k}x{n} {layout}"] = "ok" if int(got[0, 0]) == k else "wrong"
+            except RuntimeError as e:
+                out[f"{m}x{k}x{n} {layout}"] = str(e).splitlines()[0][:160]
+    return out
+
+
+def phase_quant_dense(gen: torch.Generator, smi: str) -> dict:
+    """Every quantized Linear shape of the two flagship paths (and the
+    framed extractor's), at the rows of a B = 1 request of 0.7 s and of
+    B = 32 clips of 3 s: the card's codes equal the CPU's, ``_int_mm``'s
+    int32 sums equal the float64 oracle's bit for bit, the output lies
+    within the rescale's rounding (``RESCALE_ULPS``) and equals the
+    oracle's product;
+    at B = 32 (and B = 1 for the encoder shapes) the times against
+    ``F.linear`` in float32 and bfloat16, and the quantize / ``_int_mm`` /
+    rescale split.  Also what ``_int_mm`` refuses unpadded."""
+    strict_float32(torch.device("cuda"))
+    cases, ok = [], True
+    for path, shapes in QUANT_DENSE_SHAPES.items():
+        for k, n, what in shapes:
+            rows = (QUANT_DENSE_ROWS[path][k] if path == "wavlm_extractor"
+                    else QUANT_DENSE_ROWS[path])
+            w = (k ** -0.5 * torch.randn(n, k, generator=gen)).cuda()
+            for i, m in enumerate(rows):
+                x = torch.randn(m, k, generator=gen).cuda()
+                case = {"path": path, "layers": what, "m": m, "k": k, "n": n,
+                        "padded_to": list(quant.int_mm_shape(m, k, n)),
+                        **quant_dense_case(x, w, timed=i == 1 or path != "wavlm_extractor")}
+                ok &= (case["codes_equal_cpu"] and case["int32_equal_reference"]
+                       and case["max_rescale_error_ulps"] <= RESCALE_ULPS
+                       and case["equal_reference_dot"])
+                cases.append(case)
+                del x
+            torch.cuda.empty_cache()
+    limits = int_mm_limits()
+    report = {"phase": "quant_dense", "nvidia_smi": smi, "cases": cases,
+              "int_mm_unpadded": limits, "ok": bool(ok)}
+    emit(report)
+    if not ok:
+        raise AssertionError("the int8 products on the card disagree with their oracles")
+    return report
+
+
+def _serve_cli(argv: list) -> tuple:
+    """``cli.serve.main(argv)`` in a thread, as a user starts it; → (its
+    URL, the server, the thread) once it listens (after its warm-up)."""
+    from speechlid_tpu_torch.cli import serve as serve_cli
+
+    servers = []
+
+    class Listening(ThreadingHTTPServer):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            servers.append(self)
+
+    thread = threading.Thread(target=serve_cli.main, args=(argv,), daemon=True)
+    serve_cli.ThreadingHTTPServer = Listening
+    try:
+        thread.start()
+        deadline = time.monotonic() + 600
+        while not servers and thread.is_alive() and time.monotonic() < deadline:
+            time.sleep(0.05)
+    finally:
+        serve_cli.ThreadingHTTPServer = ThreadingHTTPServer
+    if not servers:
+        raise AssertionError(f"serve {' '.join(argv)} did not start")
+    return f"http://127.0.0.1:{servers[0].server_address[1]}", servers[0], thread
+
+
+def phase_quant_serve(root: str, gen: torch.Generator, smi: str) -> dict:
+    """``serve --quant int8`` (``cli.serve.main`` in a thread) on a
+    checkpoint of each model with seeded random weights: the 10 ``/lid``
+    requests of ``serve``; the launches and ``_int_mm`` calls of exactly
+    those requests; ``/stats`` naming the engine; the card's int8 scores
+    against the CPU's int8 scores on the same padded requests, within the
+    larger of the model's card-vs-CPU bar and ``QUANT_SPREAD`` times the
+    CPU's one-ulp spread; and the card's int8 scores against its exact
+    ones of the same weights (their distance and ``pred_lang``
+    agreement)."""
+    out = {}
+    for model, spec in QUANT_MODELS.items():
+        task = LidASRTask(**spec["hp"], device="cuda")
+        init_model_("conformer" if model == "conformer" else "wavlm", task, gen)
+        ckpt = os.path.join(root, f"quant_{model}.ckpt")
+        save_checkpoint(ckpt, {"model": task.model.state_dict()},
+                        {"hyper_parameters": task.hyper_parameters})
+        exact_fn = make_lid_fn(task)
+        url, server, thread = _serve_cli(["--ckpt", ckpt, "--quant", "int8", "--port", "0"])
+        wavs = [(0.1 * torch.randn(int(s * SR), generator=gen)).numpy() for s in SERVE_SECONDS]
+        answers, client_ms = [], []
+        try:
+            torch.cuda.synchronize()
+            reset_launches()
+            with CountIntMM() as mm:
+                for _ in range(SERVE_ROUNDS):
+                    for i, wav in enumerate(wavs):
+                        t0 = time.perf_counter()
+                        req = urllib.request.Request(url + "/lid", data=wav.tobytes(),
+                                                     method="POST")
+                        with urllib.request.urlopen(req, timeout=300) as resp:
+                            body = json.loads(resp.read())
+                        client_ms.append((time.perf_counter() - t0) * 1e3)
+                        answers.append((i, body))
+            served = launches()
+            stats = _get(url + "/stats")
+        finally:
+            server.shutdown()
+            thread.join(timeout=60)
+        cpu_fn, index2lang = build_lid_fn(ckpt, "cpu", "int8")
+        pad = InferenceState(None, index2lang).pad
+        per_wav = []
+        t0 = time.perf_counter()
+        for wav in wavs:
+            padded, n = pad(wav)
+            nudged, _ = pad(np.nextafter(wav, np.float32(np.inf)).astype(np.float32))
+            per_wav.append({"cpu": cpu_fn(padded, n)[0], "cpu_nudged": cpu_fn(nudged, n)[0],
+                            "card_exact": exact_fn(padded, n)[0]})
+        cpu_s = time.perf_counter() - t0
+        langs = [index2lang[i] for i in range(N_LANG)]
+        card = [np.array([body["scores"][lang] for lang in langs]) for _, body in answers]
+        largest = max(float(np.abs(p["cpu"]).max()) for p in per_wav)
+        spread = max(float(np.abs(p["cpu"] - p["cpu_nudged"]).max()) for p in per_wav)
+        base = spec["base_tol"] * (largest if model != "conformer" else 1.0)
+        bar = max(base, QUANT_SPREAD * spread)
+        err = max(float(np.abs(c - per_wav[i]["cpu"]).max())
+                  for c, (i, _) in zip(card, answers))
+        to_exact = max(float(np.abs(c - per_wav[i]["card_exact"]).max())
+                       for c, (i, _) in zip(card, answers))
+        agree = [int(np.argmax(c)) == int(np.argmax(per_wav[i]["card_exact"]))
+                 for c, (i, _) in zip(card, answers)]
+        n_req = len(answers)
+        mm_per_forward = int_mm_per_forward(build_int8_model(spec["hp"]))
+        report = {
+            "phase": f"quant_serve_{model}", "nvidia_smi": smi, "config": spec["config"],
+            "argv": "serve --ckpt ... --quant int8", "requests": n_req,
+            "seconds": list(SERVE_SECONDS), "launches": served, "int_mm_calls": mm.calls,
+            "int_mm_per_request": mm.calls / n_req, "int_mm_per_forward": mm_per_forward,
+            "stats_engine": stats.get("engine"), "stats": stats,
+            "client_p50_ms": statistics.median(client_ms), "client_ms": client_ms,
+            "max_abs_err_scores_vs_cpu_int8": err, "largest_score": largest,
+            "cpu_one_ulp_spread": spread, "bar": bar, "bar_rule": (
+                f"max({spec['base_tol']}{' x largest' if model != 'conformer' else ''}, "
+                f"{QUANT_SPREAD} x cpu_one_ulp_spread)"),
+            "max_abs_diff_int8_vs_exact_on_card": to_exact,
+            "pred_lang_agree_int8_vs_exact": sum(agree) / len(agree),
+            "scores_card_int8": [c.tolist() for c in card[:len(wavs)]],
+            "scores_card_exact": [p["card_exact"].tolist() for p in per_wav],
+            "cpu_seconds": cpu_s,
+        }
+        emit(report)
+        checks = {
+            "answers": all(set(b) == {"lang", "scores"} for _, b in answers)
+            and all(np.isfinite(c).all() for c in card),
+            "repeatable": all(np.array_equal(card[j], card[j + len(wavs)])
+                              for j in range(len(wavs))),
+            "scores_vs_cpu": err <= bar,
+            "launches": served == {k: v * n_req for k, v in spec["per_forward"].items()},
+            "int_mm": mm.calls == mm_per_forward * n_req,
+            "engine": stats.get("engine") == "int8" and not thread.is_alive(),
+        }
+        if not all(checks.values()):
+            raise AssertionError(f"quant_serve_{model} failed: {checks}")
+        out[model] = report
+        del task
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def build_int8_model(hp: dict) -> torch.nn.Module:
+    """The model of ``hp`` under ``quant_dot="int8"`` on the CPU (its
+    structure only: for counting its int8 products)."""
+    return LidASRTask(**dict(hp, quant_dot="int8"), device="cpu").model
+
+
+def _setting_hp(model: str, setting: str) -> dict:
+    hp = dict(FLAGSHIP if model == "conformer" else WAVLM)
+    if setting.startswith("bfloat16"):
+        hp["dtype"] = "bfloat16"
+        if model == "wavlm":
+            hp["ssl_config"] = WAVLM_BASE_PLUS_BF16
+    if setting.endswith("int8"):
+        hp["quant_dot"] = "int8"
+    return hp
+
+
+def phase_quant_e2e(gen: torch.Generator, smi: str) -> dict:
+    """``infer`` utt/s on 3 s clips at B = 1 and B = 32, both models, in the
+    four settings float32, bfloat16, int8 and bfloat16 + int8 (the same
+    weights; int8 as ``serve --quant int8`` builds it from a checkpoint,
+    so WavLM's extractor stays the conv), in turns forward then backward
+    through the settings within this call; the launches of every timed
+    run, checked.  Host clock, before any use of the profiler."""
+    out = {}
+    for model in ("conformer", "wavlm"):
+        tasks = {s: LidASRTask(**_setting_hp(model, s), device="cuda") for s in QUANT_SETTINGS}
+        init_model_(model, tasks["float32"], gen)
+        for s in QUANT_SETTINGS[1:]:
+            tasks[s].model.load_state_dict(tasks["float32"].model.state_dict())
+        expect = {s: (PER_FORWARD_LAUNCHES if model == "conformer" else
+                      WAVLM_PER_FORWARD_LAUNCHES) for s in QUANT_SETTINGS}
+        for s in ("bfloat16", "bfloat16+int8"):
+            expect[s] = (BF16_PER_FORWARD_LAUNCHES if model == "conformer"
+                         else WAVLM_BF16_PER_FORWARD_LAUNCHES)
+        readings = {s: {"b1_ms": [], "b32_ms": []} for s in QUANT_SETTINGS}
+        for batch, iters in ((1, 30), (32, 10)):
+            wavs = 0.1 * torch.randn(batch, 3 * SR, generator=gen)
+            lengths = torch.full((batch,), 3 * SR)
+            for task in tasks.values():
+                for _ in range(3):
+                    task.infer_fn()(wavs, lengths)
+            for s in QUANT_SETTINGS + QUANT_SETTINGS[::-1]:
+                infer = tasks[s].infer_fn()
+                torch.cuda.synchronize()
+                reset_launches()
+                t0 = time.perf_counter()
+                for _ in range(iters):
+                    result = infer(wavs, lengths)
+                result["scores"].cpu()
+                readings[s][f"b{batch}_ms"].append((time.perf_counter() - t0) / iters * 1e3)
+                if launches() != {k: v * iters for k, v in expect[s].items()}:
+                    raise AssertionError(f"quant_e2e {model} {s} B = {batch}: {launches()}")
+        mean = {s: {k: statistics.mean(v) for k, v in r.items()} for s, r in readings.items()}
+        for s in mean:
+            mean[s]["b1_utt_per_s"] = 1e3 / mean[s]["b1_ms"]
+            mean[s]["b32_utt_per_s"] = 32e3 / mean[s]["b32_ms"]
+        out[model] = {"readings": readings, "mean": mean}
+        del tasks
+        gc.collect()
+        torch.cuda.empty_cache()
+    emit({"phase": "quant_e2e", "nvidia_smi": smi, "settings": list(QUANT_SETTINGS),
+          "turns": "each setting in order, then in reverse", **out})
+    return out
+
+
+def phase_cli_qat(root: str, corpus: str, smi: str) -> dict:
+    """The training CLI on ``configs/lid_wavlm_qat.yaml`` (bfloat16 heads,
+    ``int8_ste``, the framed extractor) with ``module.ssl_config`` at the
+    Base+ shape, on the corpus: two epochs of 3 steps (the first with the
+    encoder frozen by the config's gates at 0), each with an eval of the 72
+    val clips; the launches per train step and eval batch, every depthwise
+    launch in bfloat16, the conv shapes, the ``_int_mm`` calls of every
+    step and eval batch (the encoder's, the framed extractor's and the
+    heads' int8 products), finite losses.  Then one deterministic QAT step
+    (B = 2, 2 s) on the card against the same step on the CPU and a
+    float32 ``int8_ste`` step on the card: the bfloat16 step's bars
+    (:func:`phase_bf16_train_card_vs_cpu`)."""
+    from speechlid_tpu_torch.cli import main_lid
+
+    exp = os.path.join(root, "qat")
+    args = _cli_args("configs", "lid_wavlm_qat", _langs_override(corpus), f"exp_dir={exp}",
+                     "trainer.progress_bar=false", f"trainer.train_data_factor={QAT_DATA_FACTOR}",
+                     "trainer.total_epoch=2", WAVLM_SSL_OVERRIDE)
+    frozen, shapes, built = {}, set(), []
+    build_task = main_lid.build_task
+
+    def recording_build_task(conf, data, device="cuda"):
+        task = build_task(conf, data, device)
+        built.append(task)
+        before = task.before_train_loop
+
+        def record(epoch):
+            before(epoch)
+            frozen[epoch] = sorted({n.split(".")[2] for n, p in task.model.named_parameters()
+                                    if not p.requires_grad})
+        task.before_train_loop = record
+        return task
+
+    def conv_seen(module, inputs, output):
+        if isinstance(module, ConformerConvModule):
+            k, c = module.depthwise.weight.shape
+            shapes.add((*inputs[0].shape[:2], c, k))
+
+    main_lid.build_task = recording_build_task
+    hook = torch.nn.modules.module.register_module_forward_hook(conv_seen)
+    try:
+        torch.cuda.synchronize()
+        reset_launches()
+        with CountIntMM() as mm:
+            recorder, seconds = run_cli(args)
+        counted = launches()
+    finally:
+        main_lid.build_task = build_task
+        hook.remove()
+    (task,) = built
+    per_step, per_eval = _per_step(recorder)
+    steps = sum(e["steps"] for e in recorder.epochs)
+    evals = sum(e["batches"] for e in recorder.evals)
+    mm_train = int_mm_per_forward(task.model, heads=1)  # the batch's own head
+    mm_eval = int_mm_per_forward(task.model)
+    lines = _metrics_lines(os.path.join(exp, "metrics.jsonl"))
+    losses = [line["loss"] for line in lines if "loss" in line]
+    eval_lines = [line for line in lines if CLI_EVAL_KEYS <= set(line)]
+
+    card = LidASRTask(**QAT_STEP_HP, device="cuda")
+    cpu = LidASRTask(**QAT_STEP_HP, device="cpu")
+    reference = LidASRTask(**as_float32(QAT_STEP_HP), device="cuda")
+    init_wavlm_(card, torch.Generator().manual_seed(11))
+    cpu.model.load_state_dict(card.model.state_dict())
+    reference.model.load_state_dict(card.model.state_dict())
+    batch = synthetic_batch(np.random.RandomState(6), lang=1, b=2, seconds=2.0)
+    step = step_card_vs_cpu(card, cpu, batch, ("depthwise.bias", "k_proj.bias"),
+                            reference=reference, tol=BF16_GRAD_TOL)
+    report = {
+        "phase": "cli_qat", "nvidia_smi": smi,
+        "config": "configs/lid_wavlm_qat.yaml, module.ssl_config WavLM-Base+",
+        "seconds": seconds, "epochs": recorder.epochs,
+        "seconds_per_epoch": [e["seconds"] for e in recorder.epochs],
+        "eval_batches": [e["batches"] for e in recorder.evals], "frozen_by_epoch": frozen,
+        "launches": counted, "launches_per_train_step": per_step,
+        "launches_per_eval_batch": per_eval, "conv_shapes": sorted(shapes),
+        "int_mm_calls": mm.calls, "int_mm_per_train_forward": mm_train,
+        "int_mm_per_eval_forward": mm_eval, "losses": losses, "evals": eval_lines,
+        "step_card_vs_cpu": {"batch": [2, 2 * SR], "tol_loss": BF16_LOSS_TOL,
+                             "tol_gradient": BF16_GRAD_TOL, **step}}
+    emit(report)
+    checks = {
+        "steps": [e["steps"] for e in recorder.epochs] == [QAT_STEPS] * 2,
+        "evals": len(eval_lines) == 2 and all(np.isfinite(e["avg_val_loss"]) for e in eval_lines),
+        "losses": len(losses) > 0 and bool(np.isfinite(losses).all()),
+        "frozen": {e: set(v) for e, v in frozen.items()} == QAT_FROZEN,
+        "launches": per_step == WAVLM_BF16_TRAIN_STEP_LAUNCHES
+        and per_eval == WAVLM_BF16_PER_FORWARD_LAUNCHES,
+        "conv_shapes": shapes == {WAVLM_BF16_CLI_DW_SHAPE},
+        "int_mm": mm.calls == steps * mm_train + evals * mm_eval and mm_train > 0,
+        "step": step["same_leaves"] and step["rel_err_loss"] <= BF16_LOSS_TOL
+        and step["max_card_over_bar"] <= 1.0
+        and step["rel_l2_card_vs_float32"] <= 2 * step["rel_l2_cpu_vs_float32"] + 1e-3
+        and step["launches_per_train_step"] == WAVLM_BF16_TRAIN_STEP_LAUNCHES,
+    }
+    if not all(checks.values()):
+        raise AssertionError(f"cli_qat failed: {checks}")
+    report["_counted"] = counted
+    return report
+
+
+def phase_cli_eval_quant(root: str, corpus: str, ckpt: str, smi: str) -> dict:
+    """``test_lid --quant int8`` on ``cli_flagship``'s checkpoint, clean,
+    beside the same run without ``--quant``: both score the 72 val clips,
+    each eval batch launches the fbank kernel once and the fused eval conv
+    kernel in every block, the int8 run makes every block's and head's
+    ``_int_mm`` calls, at the eval shapes held against plain."""
+    base = ["--ckpt", ckpt, *_cli_args("configs", "lid_supervised", _langs_override(corpus))]
+    exact, exact_launches, exact_s, _ = run_test_lid(base)
+    with CountIntMM() as mm:
+        quant_run, counted, quant_s, shapes = run_test_lid(base + ["--quant", "int8"])
+    want = launch_counts(fbank=1, glu_bn_act=DW_PER_FORWARD)
+    mm_per_batch = int_mm_per_forward(build_int8_model(FLAGSHIP))
+    report = {"phase": "cli_eval_quant", "nvidia_smi": smi,
+              "checkpoint": os.path.relpath(ckpt, root), "exact": _cell(exact),
+              "int8": _cell(quant_run), "exact_seconds": exact_s, "int8_seconds": quant_s,
+              "launches_per_batch": {k: v / EVAL_BATCHES for k, v in counted.items()},
+              "int_mm_calls": mm.calls, "int_mm_per_batch": mm.calls / EVAL_BATCHES,
+              "kernel_shapes": {k: sorted(v) for k, v in shapes.items()}, "_counted": counted}
+    emit({k: v for k, v in report.items() if not k.startswith("_")})
+    checks = {
+        "utts": exact["n_utts"] == quant_run["n_utts"] == N_LANG * CORPUS_VAL,
+        "finite": all(np.isfinite(quant_run[k]) for k in ("eer", "cavg", "cer")),
+        "launches": {k: v / EVAL_BATCHES for k, v in counted.items()} == want
+        and {k: v / EVAL_BATCHES for k, v in exact_launches.items()} == want,
+        "int_mm": mm.calls == mm_per_batch * EVAL_BATCHES,
+        "shapes": shapes == {"fbank": {FBANK_SHAPES["eval"]}, "glu_bn_act": {EVAL_DW_SHAPE}},
+    }
+    if not all(checks.values()):
+        raise AssertionError(f"cli_eval_quant failed: {checks}")
+    return report
+
+
+class _SnapshotRecorder(_CliRecorder):
+    """:class:`_CliRecorder` that also keeps, after each train epoch, the
+    model's parameters and buffers on the host, and the optimizer's name
+    and second-moment keys."""
+
+    def after_train_epoch(self, epoch, metrics):
+        self.epochs_state = getattr(self, "epochs_state", [])
+        self.epochs_state.append({k: v.detach().cpu().clone()
+                                  for k, v in self.trainer.module.model.state_dict().items()})
+        opt = self.trainer.optimizer
+        self.optimizer_info = {"name": opt.name, "tensors": len(opt.names),
+                               "second_moments": len(getattr(opt, "nu_names", opt.names))}
+        super().after_train_epoch(epoch, metrics)
+
+
+def _run_flagship_cli(root: str, corpus: str, name: str, *overrides: str) -> tuple:
+    """``lid_supervised.yaml`` (the flagship) through the CLI on the corpus
+    with 9 steps an epoch, the launches counted from 0; → (recorder,
+    seconds, launches, metrics lines, experiment dir)."""
+    exp = os.path.join(root, name)
+    args = _cli_args("configs", "lid_supervised", _langs_override(corpus), f"exp_dir={exp}",
+                     "trainer.progress_bar=false",
+                     f"trainer.train_data_factor={FLAGSHIP_DATA_FACTOR}", *overrides)
+    torch.cuda.synchronize()
+    reset_launches()
+    recorder, seconds = run_cli(args, _SnapshotRecorder)
+    return (recorder, seconds, launches(), _metrics_lines(os.path.join(exp, "metrics.jsonl")),
+            exp)
+
+
+def phase_cli_swa(root: str, corpus: str, smi: str) -> dict:
+    """``main_lid`` on the flagship with ``trainer.use_swa=true`` for 4
+    epochs: ``swa_final.ckpt`` exists, its parameters are the mean of
+    epochs 2 and 3's, its BatchNorm running statistics were re-estimated
+    (apart from the last epoch's), and the launches: per train step and
+    eval batch as ``cli_flagship``'s, and the re-estimation's 72
+    train-mode forwards (two passes over the 36 train batches)."""
+    recorder, seconds, counted, lines, exp = _run_flagship_cli(
+        root, corpus, "swa", f"trainer.total_epoch={SWA_EPOCHS}", "trainer.use_swa=true")
+    swa = torch.load(os.path.join(exp, "ckpt", "swa_final.ckpt"), map_location="cpu",
+                     weights_only=True)["state"]
+    p2, p3 = recorder.epochs_state[SWA_START], recorder.epochs_state[SWA_START + 1]
+    params = list(swa["swa"]["params"])
+    mean_err = max(float((swa["model"][n] - (p2[n] + p3[n]) / 2).abs().max()
+                         / max(float(p3[n].abs().max()), 1e-30)) for n in params)
+    stats = [n for n in p3 if n.endswith(("running_mean", "running_var"))]
+    moved = max(float((swa["model"][n] - p3[n]).abs().max()) for n in stats)
+    per_step, per_eval = _per_step(recorder)
+    in_epochs = {k: sum(e["launches"][k] for e in recorder.epochs + recorder.evals)
+                 for k in counted}
+    bn = {k: counted[k] - in_epochs[k] for k in counted}
+    report = {"phase": "cli_swa", "nvidia_smi": smi, "seconds": seconds,
+              "seconds_per_epoch": [e["seconds"] for e in recorder.epochs],
+              "swa_count": swa["swa"]["count"], "max_rel_err_params_vs_mean_of_epochs_2_3":
+              mean_err, "max_abs_running_stat_moved_by_reestimation": moved,
+              "launches": counted, "launches_per_train_step": per_step,
+              "launches_per_eval_batch": per_eval, "launches_bn_reestimation": bn,
+              "_counted": counted}
+    emit({k: v for k, v in report.items() if not k.startswith("_")})
+    checks = {
+        "epochs": [e["steps"] for e in recorder.epochs] == [FLAGSHIP_STEPS] * SWA_EPOCHS,
+        "count": swa["swa"]["count"] == SWA_EPOCHS - SWA_START,
+        "mean": mean_err <= 1e-5, "reestimated": moved > 1e-4,
+        "launches": per_step == TRAIN_STEP_LAUNCHES and per_eval == PER_FORWARD_LAUNCHES,
+        "bn_launches": bn == {k: v * SWA_BN_BATCHES for k, v in SWA_BN_LAUNCHES.items()},
+        "lines": all(np.isfinite(line["loss"]) for line in lines if "loss" in line),
+    }
+    if not all(checks.values()):
+        raise AssertionError(f"cli_swa failed: {checks}")
+    return report
+
+
+def phase_cli_novograd(root: str, corpus: str, smi: str) -> dict:
+    """``main_lid`` on the flagship with ``module.optimizer=novograd`` (and
+    a constant lr: the config's tristage warm-up would hold the lr near 0
+    over these steps) for 3 epochs of 9 steps: the optimizer is Novograd
+    with one second moment a flax leaf (the heads' stacked), the mean train
+    loss drops from the first epoch to the last, and the launches per step
+    and eval batch are ``cli_flagship``'s."""
+    recorder, seconds, counted, lines, _ = _run_flagship_cli(
+        root, corpus, "novograd", f"trainer.total_epoch={NOVOGRAD_EPOCHS}",
+        "module.optimizer=novograd", "module.schedule=null")
+    epoch_loss = [line["avg_train_loss"] for line in lines if "avg_train_loss" in line]
+    per_step, per_eval = _per_step(recorder)
+    report = {"phase": "cli_novograd", "nvidia_smi": smi, "seconds": seconds,
+              "seconds_per_epoch": [e["seconds"] for e in recorder.epochs],
+              "avg_train_loss_by_epoch": epoch_loss, "optimizer": recorder.optimizer_info,
+              "launches": counted, "launches_per_train_step": per_step,
+              "launches_per_eval_batch": per_eval, "_counted": counted}
+    emit({k: v for k, v in report.items() if not k.startswith("_")})
+    info = recorder.optimizer_info
+    checks = {
+        "novograd": info["name"] == "novograd" and info["second_moments"] < info["tensors"],
+        "loss_drops": len(epoch_loss) == NOVOGRAD_EPOCHS and epoch_loss[-1] < epoch_loss[0],
+        "launches": per_step == TRAIN_STEP_LAUNCHES and per_eval == PER_FORWARD_LAUNCHES,
+    }
+    if not all(checks.values()):
+        raise AssertionError(f"cli_novograd failed: {checks}")
+    return report
+
+
+def phase_quant(gen: torch.Generator, root: str, corpus: str, smi: str) -> dict:
+    """The int8, SWA and Novograd phases in order, on ``cli_flagship``'s
+    checkpoint; → their reports."""
+    return {"dense": phase_quant_dense(gen, smi), "serve": phase_quant_serve(root, gen, smi),
+            "qat": phase_cli_qat(root, corpus, smi),
+            "eval": phase_cli_eval_quant(root, corpus, os.path.join(
+                root, "flagship", "ckpt", "last.ckpt"), smi),
+            "swa": phase_cli_swa(root, corpus, smi),
+            "novograd": phase_cli_novograd(root, corpus, smi)}
+
+
+def quant_kernel_rows(gen: torch.Generator, errs: dict, reports: dict) -> list:
+    """The ``kernels`` line's rows of the paths this section drives, with
+    the launches counted on them: int8 serving (the Conformer's fbank and
+    eval conv; the bfloat16 WavLM heads' eval conv), the int8 eval CLI, the
+    QAT CLI (bfloat16 heads at C = 1536: training forward, dX, dW/db) and
+    the SWA and Novograd CLI runs (float32 C = 288, their shape in the
+    unstretched 2 s bucket)."""
+    serve_c = reports["serve"]["conformer"]["launches"]
+    serve_w = reports["serve"]["wavlm_bf16"]["launches"]
+    evalq, qat = reports["eval"]["_counted"], reports["qat"]["_counted"]
+    cli = {k: reports["swa"]["_counted"][k] + reports["novograd"]["_counted"][k]
+           for k in evalq}
+    on_serve = "quant_serve: serve --quant int8, 10 /lid requests"
+    on_eval = f"cli_eval_quant: test_lid --quant int8, {EVAL_BATCHES} batches"
+    on_cli = ("cli_swa and cli_novograd: lid_supervised.yaml, train steps, evals and SWA's "
+              "BatchNorm passes")
+    on_qat = "cli_qat: lid_wavlm_qat.yaml, Base+ ssl_config, 2 epochs and evals"
+    rows = [fbank_row("fbank_log_mel@quant_serve", "serve", gen, errs, serve_c["fbank"],
+                      {"launches_counted_on": on_serve, "launches_per_request": 1}),
+            fbank_row("fbank_log_mel@eval_quant", "eval", gen, errs, evalq["fbank"],
+                      {"launches_counted_on": on_eval, "launches_per_eval_batch": 1}),
+            fbank_row("fbank_log_mel@swa_novograd", "eval", gen, errs, cli["fbank"],
+                      {"launches_counted_on": on_cli})]
+    rows += fused_kernel_rows(gen, errs["conv_fused"], {
+        "depthwise_conv1d_fwd[glu_bn_act]@quant_serve": (serve_c["depthwise_glu_bn_act"], {
+            "launches_counted_on": on_serve, "launches_per_request": DW_PER_FORWARD}),
+        "depthwise_conv1d_fwd[glu_bn_act]@eval_quant": (evalq["depthwise_glu_bn_act"], {
+            "launches_counted_on": on_eval, "launches_per_eval_batch": DW_PER_FORWARD}),
+        "depthwise_conv1d_fwd[glu_bn_act]@swa_novograd_eval": (cli["depthwise_glu_bn_act"], {
+            "launches_counted_on": on_cli, "launches_per_eval_batch": DW_PER_FORWARD}),
+        "depthwise_conv1d_fwd[glu]@swa_novograd": (cli["depthwise_glu"], {
+            "launches_counted_on": on_cli}),
+        "depthwise_conv1d_fwd[glu_dx]@swa_novograd": (cli["depthwise_glu_dx"], {
+            "launches_counted_on": on_cli}),
+    }, eval_rows=(("depthwise_conv1d_fwd[glu_bn_act]@quant_serve", SERVE_DW_SHAPE),
+                  ("depthwise_conv1d_fwd[glu_bn_act]@eval_quant", EVAL_DW_SHAPE),
+                  ("depthwise_conv1d_fwd[glu_bn_act]@swa_novograd_eval", EVAL_DW_SHAPE)),
+        train_shape=EVAL_DW_SHAPE, train_suffix="@swa_novograd")
+    row = bwd_w_row(gen, errs["conv_fused"], EVAL_DW_SHAPE, "depthwise_conv1d_bwd_w@swa_novograd",
+                    cli, 1)
+    row.pop("launches_per_train_step")
+    row["launches_counted_on"] = on_cli
+    rows.append(row)
+    rows += fused_kernel_rows(gen, errs["conv_fused"], {
+        "depthwise_conv1d_fwd[glu_bn_act]@quant_serve_wavlm_bf16": (
+            serve_w["depthwise_glu_bn_act"], {"launches_counted_on": on_serve,
+                                              "launches_per_request": N_LANG}),
+        "depthwise_conv1d_fwd[glu_bn_act]@qat_eval": (qat["depthwise_glu_bn_act"], {
+            "launches_counted_on": on_qat, "launches_per_eval_batch": N_LANG}),
+        "depthwise_conv1d_fwd[glu]@qat": (qat["depthwise_glu"], {
+            "launches_counted_on": on_qat, "launches_per_train_step": 1}),
+        "depthwise_conv1d_fwd[glu_dx]@qat": (qat["depthwise_glu_dx"], {
+            "launches_counted_on": on_qat, "launches_per_train_step": 1}),
+    }, eval_rows=(("depthwise_conv1d_fwd[glu_bn_act]@quant_serve_wavlm_bf16",
+                   WAVLM_SERVE_DW_SHAPE),
+                  ("depthwise_conv1d_fwd[glu_bn_act]@qat_eval", WAVLM_BF16_CLI_DW_SHAPE)),
+        train_shape=WAVLM_BF16_CLI_DW_SHAPE, train_suffix="@qat", dtype=torch.bfloat16)
+    row = bwd_w_row(gen, errs["conv_fused"], WAVLM_BF16_CLI_DW_SHAPE,
+                    "depthwise_conv1d_bwd_w@qat", qat, QAT_STEPS * 2, torch.bfloat16)
+    row["launches_counted_on"] = on_qat
+    rows.append(row)
+    for row in rows:
+        if not row["launches"] > 0:
+            raise AssertionError(f"{row['name']} was not launched on its path")
+    return rows
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description="Drive the PyTorch/CUDA port on one card.")
-    parser.add_argument("--only", choices=("cli_gate", "ce_asr", "se"),
+    parser.add_argument("--only", choices=("cli_gate", "ce_asr", "se", "quant"),
                         help="run this phase alone, after the build and the corpus "
                              "(ce_asr: the cross-entropy and ASR phases; se: the speech "
                              "enhancement and bilstm phases on cli_flagship's checkpoint; "
+                             "quant: the int8, SWA and Novograd phases, on it too; "
                              "each with the kernel checks and rows they need)")
     parser.add_argument("--seed", type=int, default=0,
                         help="the CLI's seed for --only cli_gate (the gate's own is 0)")
@@ -4409,6 +5142,19 @@ def main(argv=None) -> int:
                                      "kind": torch.cuda.get_device_name(0),
                                      "count": torch.cuda.device_count()}})
         return 0
+    if args.only == "quant":
+        errs = {"fbank": phase_fbank(gen), "conv_fused": phase_conv_fused(gen)}
+        with tempfile.TemporaryDirectory() as root:
+            os.environ["SPEECHLID_CACHE_DIR"] = os.path.join(root, "cache")
+            corpus = phase_cli_corpus(root)
+            phase_cli_flagship(root, corpus)
+            reports = phase_quant(gen, root, corpus, smi)
+        phase_quant_e2e(gen, smi)
+        emit({"kernels": quant_kernel_rows(gen, errs, reports)})
+        emit({"ok": True, "device": {"platform": "gpu",
+                                     "kind": torch.cuda.get_device_name(0),
+                                     "count": torch.cuda.device_count()}})
+        return 0
     errs = {"fbank": phase_fbank(gen), "depthwise": phase_depthwise(gen),
             "depthwise_bwd": phase_depthwise_bwd(gen), "conv_fused": phase_conv_fused(gen)}
     task = phase_model(gen)
@@ -4447,8 +5193,10 @@ def main(argv=None) -> int:
         bf16_cli = phase_cli_wavlm(root, corpus, smi, WAVLM_BF16_CLI)
         cross_cli, asr_cli = phase_ce_asr(gen, root, corpus, inputs[1], smi)
         eval_se, serve_se, bilstm = phase_se(gen, root, corpus, inputs, smi)
+        quant_reports = phase_quant(gen, root, corpus, smi)
     # host-clock loops first, the profiler's runs after (it slows what follows it)
     phase_se_e2e(gen, smi, serve_se, eval_se)
+    phase_quant_e2e(gen, smi)
     ce_host = phase_ce_timings(gen)
     bf16_host = phase_bf16_host_timings(gen)
     wavlm_host = phase_wavlm_host_timings(wavlm_task, gen)
@@ -4458,6 +5206,7 @@ def main(argv=None) -> int:
     kernels += phase_bf16_timings(gen, errs, bf16_host, bf16_cli)
     kernels += ce_asr_kernel_rows(gen, errs, cross_cli, ce_host, asr_cli)
     kernels += se_bilstm_kernel_rows(gen, errs, eval_se, bilstm)
+    kernels += quant_kernel_rows(gen, errs, quant_reports)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -14,9 +14,11 @@ Usage:
     python -m speechlid_tpu_torch.cli.main_lid --config-dir configs \
         --config-name lid_supervised [trainer.total_epoch=10 ...] [--device cpu]
 
-Not ported yet, and raising ``NotImplementedError``:
-``trainer.data_parallel`` and ``trainer.model_parallel`` > 1 (the mesh) and
-``trainer.use_swa`` (SWA).
+``trainer.use_swa`` / ``swa_start_ratio`` average the weights (SWA, with
+the BatchNorm re-estimation, ``core/trainer.py``); ``module.optimizer:
+novograd`` is Novograd.  Not ported yet, and raising
+``NotImplementedError``: ``trainer.data_parallel`` and
+``trainer.model_parallel`` > 1 (the mesh).
 ``data.wav_augment`` builds the train feeder's ``WavAugmentor`` from its
 keys (an unknown key raises ``TypeError``, as in the JAX CLI).  The JAX
 CLI's persistent compilation cache has no counterpart here.
@@ -157,9 +159,8 @@ def main(argv: List[str] | None = None) -> None:
         force=True,
     )
     logging.info("config: %s", conf.to_dict())
-    for key, what in (("data_parallel", "a mesh"), ("use_swa", "SWA")):
-        if conf.trainer.get(key, False):
-            raise NotImplementedError(f"trainer.{key}: {what} is not ported yet")
+    if conf.trainer.get("data_parallel", False):
+        raise NotImplementedError("trainer.data_parallel: a mesh is not ported yet")
     if int(conf.trainer.get("model_parallel", 1)) > 1:
         raise NotImplementedError("trainer.model_parallel > 1: a mesh is not ported yet")
 
@@ -187,6 +188,8 @@ def main(argv: List[str] | None = None) -> None:
         accum_grad=conf.trainer.get("accum_grad", 1),
         eval_interval=conf.trainer.get("eval_interval", 1),
         train_data_factor=conf.trainer.get("train_data_factor", 1.0),
+        use_swa=conf.trainer.get("use_swa", False),
+        swa_start_ratio=conf.trainer.get("swa_start_ratio", 0.7),
         lr_exec_mode=conf.trainer.get("lr_exec_mode", "step"),
         seed=conf.get("seed", 0),
         callbacks=callbacks,

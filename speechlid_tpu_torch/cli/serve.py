@@ -21,9 +21,14 @@ crashed on device work from other threads, and every host↔device transfer
 there was its own network round trip.  A CUDA device takes work from any
 thread, and a transfer is a local copy.
 
+``--quant int8`` serves ``/lid`` through the dynamic int8 engine
+(``ops/quant.py``) from the same checkpoint: ``quant_dot`` is set in the
+task's hyper-parameters before the build, as in the JAX server; ``/stats``
+and the startup log name the engine.
+
 Usage:
     python -m speechlid_tpu_torch.cli.serve --ckpt exp/.../last.ckpt \\
-        [--se-ckpt exp/se/last.ckpt] [--device cpu] --port 8080
+        [--se-ckpt exp/se/last.ckpt] [--quant int8] [--device cpu] --port 8080
 """
 
 from __future__ import annotations
@@ -52,8 +57,9 @@ SeFn = Callable[[np.ndarray], np.ndarray]  # wav (T,) → enhanced (T,)
 class InferenceState:
     def __init__(self, lid_fn: Optional[LidFn], index2lang: Optional[Dict[int, str]] = None,
                  sample_rate: int = 16000, buckets_s: Sequence[float] = BUCKETS_S,
-                 se_fn: Optional[SeFn] = None):
+                 se_fn: Optional[SeFn] = None, engine: str = "exact"):
         self.lid_fn = lid_fn
+        self.engine = engine  # the dense products of /lid: "exact" or "int8"
         self.se_fn = se_fn
         self.index2lang = index2lang or {}
         self.sample_rate = sample_rate
@@ -87,6 +93,7 @@ class InferenceState:
                               "p95_ms": float(np.percentile(a, 95)), "n": int(a.size)}
             out["bucket_hits"] = {f"{t / self.sample_rate:g}s": c
                                   for t, c in sorted(self._bucket_hits.items())}
+            out["engine"] = self.engine
             return out
 
     def warmup(self) -> None:
@@ -221,14 +228,20 @@ def load_lid_weights(task, ckpt_data) -> None:
             {"params": ckpt_data["params"], "batch_stats": ckpt_data["batch_stats"]}))
 
 
-def build_lid_fn(ckpt: str, device: str = "cuda"):
+def build_lid_fn(ckpt: str, device: str = "cuda", quant: Optional[str] = None):
     """Restore a checkpoint of either package into the port, the task from
-    its ``hyper_parameters``.  Returns (lid_fn, index2lang)."""
+    its ``hyper_parameters``; ``quant="int8"`` builds it with that
+    ``quant_dot`` (the same weights).  Returns (lid_fn, index2lang)."""
     from speechlid_tpu_torch.core.checkpoint import load_checkpoint
     from speechlid_tpu_torch.tasks.lid_asr import LidASRTask
 
     ckpt_data = load_checkpoint(ckpt)
-    task = LidASRTask(**ckpt_data["hyper_parameters"], device=device)
+    hparams = dict(ckpt_data["hyper_parameters"])
+    if quant:
+        # int8 serving: same checkpoint, quantized dense projections
+        hparams["quant_dot"] = quant
+        hparams.setdefault("ssl_conv_impl", "matmul")
+    task = LidASRTask(**hparams, device=device)
     load_lid_weights(task, ckpt_data)
     return make_lid_fn(task), task.index2lang
 
@@ -266,6 +279,9 @@ def main(argv=None) -> None:
     parser.add_argument("--host", default="127.0.0.1")
     parser.add_argument("--port", type=int, default=8080)
     parser.add_argument("--device", default="cuda")
+    parser.add_argument("--quant", default=None, choices=("int8",),
+                        help="serve the LID model with dynamic int8 dense projections "
+                             "(ops/quant.py; the same checkpoint)")
     parser.add_argument("--buckets", default=None,
                         help="comma-separated bucket durations in seconds "
                              "(default: 1,2,3,4,8,13,17)")
@@ -274,16 +290,18 @@ def main(argv=None) -> None:
         parser.error("give --ckpt, --se-ckpt or both")
     logging.basicConfig(level=logging.INFO, force=True)
 
-    lid_fn, index2lang = build_lid_fn(args.ckpt, args.device) if args.ckpt else (None, None)
+    lid_fn, index2lang = (build_lid_fn(args.ckpt, args.device, args.quant) if args.ckpt
+                          else (None, None))
     se_fn = build_se_fn(args.se_ckpt, args.device) if args.se_ckpt else None
     buckets = (tuple(float(b) for b in args.buckets.split(","))
                if args.buckets else BUCKETS_S)
-    state = InferenceState(lid_fn, index2lang, buckets_s=buckets, se_fn=se_fn)
+    engine = args.quant or "exact"
+    state = InferenceState(lid_fn, index2lang, buckets_s=buckets, se_fn=se_fn, engine=engine)
     logging.info("warming up buckets %s ...", buckets)
     state.warmup()
     server = ThreadingHTTPServer((args.host, args.port), make_handler(state))
-    logging.info("serving on %s:%d (lid=%s se=%s)", args.host, server.server_address[1],
-                 lid_fn is not None, se_fn is not None)
+    logging.info("serving on %s:%d (lid=%s se=%s engine=%s)", args.host,
+                 server.server_address[1], lid_fn is not None, se_fn is not None, engine)
     try:
         server.serve_forever()
     finally:

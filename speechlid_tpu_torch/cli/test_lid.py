@@ -19,9 +19,11 @@ config's data.  ``--se-ckpt`` (an ``SETask`` checkpoint of either package)
 enhances every utterance of a batch on the task's device, and the model
 hears ``factor·enhanced + (1 − factor)·noisy``; ``--factor-sweep
 start:stop:step`` scores each factor at the ``--snr``/``--noise`` cell.
-Not ported yet, and raising ``NotImplementedError``: ``--quant int8``
-(``ops/quant.py``).  The JAX CLI's persistent compilation cache has no
-counterpart.
+``--quant int8`` scores through the dynamic int8 engine (``ops/quant.py``):
+it sets the task's ``quant_dot`` before the build, as the JAX CLI does, with
+``setdefault("ssl_conv_impl", "matmul")``, which leaves a checkpoint's own
+``ssl_conv_impl`` (``None`` unless it was trained with one) as it is there
+too.  The JAX CLI's persistent compilation cache has no counterpart.
 """
 
 from __future__ import annotations
@@ -69,7 +71,8 @@ def main(argv=None) -> Union[Dict, List[Dict]]:
                         help="SE blend-factor sweep 'start:stop:step' at the fixed "
                              "--snr/--noise cell; needs --se-ckpt")
     parser.add_argument("--quant", default=None, choices=("int8",),
-                        help="evaluate through the dynamic int8 engine (not ported yet)")
+                        help="evaluate through the dynamic int8 engine (ops/quant.py; the "
+                             "same checkpoint)")
     parser.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     parser.add_argument("overrides", nargs="*")
     args = parser.parse_args(argv)
@@ -86,8 +89,6 @@ def main(argv=None) -> Union[Dict, List[Dict]]:
             parser.error("--factor-sweep needs --se-ckpt")
         n = int(round((stop - start) / step)) + 1
         factors = [round(start + i * step, 6) for i in range(max(n, 0))]
-    if args.quant:
-        raise NotImplementedError("--quant int8: the int8 engine (ops/quant.py) is not ported yet")
     logging.basicConfig(level=logging.INFO, force=True)
 
     from speechlid_tpu_torch.cli.main_lid import build_data, build_feeder
@@ -106,6 +107,9 @@ def main(argv=None) -> Union[Dict, List[Dict]]:
     module_conf = conf.module.to_dict()
     module_conf.pop("task", None)
     hparams.update(module_conf)
+    if args.quant:
+        hparams["quant_dot"] = args.quant
+        hparams.setdefault("ssl_conv_impl", "matmul")
     task = LidASRTask(tokenizers=data["tokenizers"], device=args.device, **hparams)
     load_lid_weights(task, ckpt_data)
 

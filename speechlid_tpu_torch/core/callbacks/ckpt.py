@@ -5,8 +5,8 @@ After each eval epoch: ``last.ckpt`` always; keep the top-k checkpoints by a
 monitored metric (min or max mode, priority-queue retention); filenames
 embed epoch + metric (``epoch_21_avg_val_loss_19.43.ckpt``).  Writes are
 synchronous: the JAX package's background writer hid a device fetch over a
-network, which a local ``torch.save`` does not have.  The SWA checkpoint
-waits for the SWA slice.
+network, which a local ``torch.save`` does not have.  ``save_swa`` writes
+``swa_final.ckpt`` once SWA's average is in the model.
 """
 
 from __future__ import annotations
@@ -105,6 +105,14 @@ class CkptCallback(Callback):
             save_checkpoint(self._fname(epoch, value), state, meta)
             if os.path.exists(worst_path):
                 os.remove(worst_path)
+
+    def save_swa(self, epoch: int, metrics: Dict) -> None:
+        if self.trainer is None:
+            return
+        os.makedirs(self.ckpt_path, exist_ok=True)
+        save_checkpoint(os.path.join(self.ckpt_path, "swa_final.ckpt"),
+                        self.trainer.checkpoint_state(),
+                        self.trainer.checkpoint_meta(epoch, metrics))
 
     @property
     def best_path(self) -> Optional[str]:

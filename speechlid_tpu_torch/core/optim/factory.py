@@ -2,7 +2,7 @@
 (port of ``speechlid_tpu/core/optim/factory.py`` and ``routed.py``).
 
 The JAX package builds an optax chain (clip by global norm → [L2] → Adam /
-AdamW / SGD → schedule).  :class:`Optimizer` is that chain written out over
+AdamW / SGD / Novograd (``core/optim/novograd.py``) → schedule).  :class:`Optimizer` is that chain written out over
 the model's tensors with ``torch._foreach`` operations, because three of
 optax's conventions differ from ``torch.optim`` and a step-exact port needs
 them:
@@ -28,6 +28,7 @@ from typing import Any, Dict, Iterable, List, Optional, Tuple
 
 import torch
 
+from speechlid_tpu_torch.core.optim.novograd import leaf_name, novograd_conf, novograd_step
 from speechlid_tpu_torch.core.optim.schedules import (
     ReduceLROnPlateau,
     Schedule,
@@ -37,11 +38,16 @@ from speechlid_tpu_torch.core.optim.schedules import (
 
 
 class Optimizer:
-    """Clip → [L2] → Adam / AdamW / SGD → lr, over named parameters.
+    """Clip → [L2] → Adam / AdamW / SGD / Novograd → lr, over named
+    parameters.
 
     ``step()`` reads each parameter's ``.grad``; ``lr_fn`` is the schedule
     (``None``: the constant ``lr``, or the plateau scheduler's current lr).
-    ``b1``, ``b2`` and ``eps`` are optax's Adam defaults."""
+    ``b1``, ``b2`` and ``eps`` are optax's Adam defaults; ``optim_conf``
+    holds Novograd's options (``core/optim/novograd.py``), whose
+    ``weight_decay`` acts after the normalisation, and Novograd's second
+    moment is one float32 scalar a flax leaf (``novograd.leaf_name``: the
+    language heads' tensors share theirs)."""
 
     b1, b2, eps = 0.9, 0.999, 1e-8
 
@@ -55,9 +61,12 @@ class Optimizer:
         lr_fn: Optional[Schedule] = None,
         plateau: Optional[ReduceLROnPlateau] = None,
         routed: bool = False,
+        optim_conf: Optional[Dict[str, Any]] = None,
     ) -> None:
-        if name not in ("adam", "adamw", "sgd"):
+        if name not in ("adam", "adamw", "sgd", "novograd"):
             raise ValueError(f"unknown optimizer: {name}")
+        if optim_conf and name != "novograd":
+            raise NotImplementedError(f"optim_conf for {name} is not ported")
         self.names, self.params = map(list, zip(*named_params))
         self.name, self.lr, self.weight_decay = name, float(lr), float(weight_decay)
         self.clip_norm, self.lr_fn, self.plateau, self.routed = clip_norm, lr_fn, plateau, routed
@@ -65,9 +74,20 @@ class Optimizer:
         self.counts = [0] * len(self.params)  # routed: steps each parameter took part in
         self.mu: List[torch.Tensor] = []
         self.nu: List[torch.Tensor] = []
-        if name != "sgd":
+        self.nu_max: Optional[List[torch.Tensor]] = None
+        self.novograd = novograd_conf(**(optim_conf or {})) if name == "novograd" else None
+        self.nu_names = self.names  # what nu is keyed by in a state dict
+        if name in ("adam", "adamw"):
             self.mu = [torch.zeros_like(p) for p in self.params]
             self.nu = [torch.zeros_like(p) for p in self.params]
+        elif name == "novograd":
+            self.nu_names = list(dict.fromkeys(leaf_name(n) for n in self.names))
+            self.leaf_of = [self.nu_names.index(leaf_name(n)) for n in self.names]
+            self.mu = [torch.zeros_like(p, dtype=torch.float32) for p in self.params]
+            device = self.params[0].device
+            self.nu = [torch.zeros((), device=device) for _ in self.nu_names]
+            if self.novograd["amsgrad"]:
+                self.nu_max = [torch.zeros((), device=device) for _ in self.nu_names]
 
     def lr_at(self, count: int) -> float:
         """The learning rate of the step taken after ``count`` steps."""
@@ -109,6 +129,14 @@ class Optimizer:
             torch._foreach_add_(params, grads, alpha=-lr)
             return
         mu = [self.mu[i] for i in idx]
+        if self.name == "novograd":
+            leaves: Dict[int, List[int]] = {}  # leaf → positions in this step's lists
+            for pos, i in enumerate(idx):
+                leaves.setdefault(self.leaf_of[i], []).append(pos)
+            nu_max = None if self.nu_max is None else [self.nu_max[j] for j in leaves]
+            novograd_step(list(leaves.values()), params, grads, mu, [self.nu[j] for j in leaves],
+                          nu_max, lr, self.weight_decay, **self.novograd)
+            return
         nu = [self.nu[i] for i in idx]
         torch._foreach_mul_(mu, self.b1)
         torch._foreach_add_(mu, grads, alpha=1.0 - self.b1)
@@ -129,16 +157,22 @@ class Optimizer:
                                 scalars=[-lr / (1.0 - self.b1 ** c) for c in counts])
 
     def state_dict(self) -> Dict[str, Any]:
-        return {
+        state = {
             "count": self.count, "counts": dict(zip(self.names, self.counts)),
-            "mu": dict(zip(self.names, self.mu)), "nu": dict(zip(self.names, self.nu)),
+            "mu": dict(zip(self.names, self.mu)), "nu": dict(zip(self.nu_names, self.nu)),
         }
+        if self.nu_max is not None:
+            state["nu_max"] = dict(zip(self.nu_names, self.nu_max))
+        return state
 
     def load_state_dict(self, state: Dict[str, Any]) -> None:
         self.count = int(state["count"])
         self.counts = [int(state["counts"][n]) for n in self.names]
-        for mine, theirs in ((self.mu, state["mu"]), (self.nu, state["nu"])):
-            for n, t in zip(self.names, mine):
+        moments = [(self.names, self.mu, state["mu"]), (self.nu_names, self.nu, state["nu"])]
+        if self.nu_max is not None:
+            moments.append((self.nu_names, self.nu_max, state["nu_max"]))
+        for names, mine, theirs in moments:
+            for n, t in zip(names, mine):
                 t.copy_(theirs[n])
 
 
@@ -151,17 +185,18 @@ def make_optimizer(
     schedule: Optional[str] = None,
     schedule_conf: Optional[Dict[str, Any]] = None,
     routed: bool = False,
+    optim_conf: Optional[Dict[str, Any]] = None,
 ) -> Tuple[Optimizer, Optional[ReduceLROnPlateau]]:
     """Returns (optimizer, plateau_or_None).
 
     schedule: None | 'tristage' | 'cosine' | 'plateau'.  For 'plateau' the
     trainer feeds the returned scheduler after each eval epoch and the
     optimizer reads its current lr.  ``routed=True`` (adam only) is the
-    routing-aware Adam of the module docstring."""
+    routing-aware Adam of the module docstring.  ``optim_conf``: Novograd's
+    options (``beta1``, ``beta2``, ``eps``, ``grad_averaging``,
+    ``amsgrad``, ``luc``, ``luc_trust``, ``luc_eps``)."""
     lr = float(lr)  # guard against YAML "2e-3"-style string floats
     schedule_conf = dict(schedule_conf or {})
-    if name == "novograd":
-        raise NotImplementedError("novograd is not ported yet: it comes with a later slice")
     if routed:
         if name != "adam":
             raise ValueError("routed mode currently supports adam only")
@@ -179,5 +214,6 @@ def make_optimizer(
         plateau = ReduceLROnPlateau(lr=lr, **schedule_conf)
     elif schedule is not None:
         raise ValueError(f"unknown schedule: {schedule}")
-    optimizer = Optimizer(named_params, name, lr, weight_decay, clip_norm, lr_fn, plateau, routed)
+    optimizer = Optimizer(named_params, name, lr, weight_decay, clip_norm, lr_fn, plateau, routed,
+                          optim_conf)
     return optimizer, plateau

@@ -25,7 +25,12 @@ needs no transposes.  Parity details that differ from PyTorch's defaults:
   GEMMs through one kernel of ``ops/cuda/depthwise_kernel``: GLU, padding
   mask, depthwise conv, eval BatchNorm and activation in eval mode
   (``glu_depthwise_bn_act``); GLU, mask and conv in training mode
-  (``glu_depthwise``), whose backward is two kernels.
+  (``glu_depthwise``), whose backward is two kernels;
+- ``quant_dot`` (``"int8"``, ``"int8_ste"``; ``ops/quant.py``) quantizes the
+  projections JAX quantizes: the FFN's two, the attention's ``to_q``,
+  ``to_kv`` and ``to_out``, and the conv module's two pointwise GEMMs; the
+  subsampling's output projection stays exact, as in JAX.  The port fuses
+  no projection, so each has JAX's scales.
 
 ``nn.Module.training`` selects the mode.  In training mode:
 
@@ -59,6 +64,7 @@ from speechlid_tpu_torch.ops.cuda.depthwise_kernel import (
     glu_depthwise_bn_act,
     swish,
 )
+from speechlid_tpu_torch.ops.quant import quant_dot_general
 
 LN_EPS = 1e-6  # flax nn.LayerNorm default
 _NEG = torch.finfo(torch.float32).min
@@ -72,17 +78,27 @@ def _cast_params(module: nn.Module, x: torch.Tensor):
 
 
 class Linear(nn.Linear):
-    """``nn.Linear`` computed as flax's ``nn.Dense(dtype=compute_dtype)``:
-    input, weight and bias cast to ``compute_dtype``, the output in it.  The
-    float32 parameters get float32 gradients back through the casts."""
+    """``nn.Linear`` computed as flax's ``nn.Dense(dtype=compute_dtype,
+    dot_general=quant_dot_general(quant_dot))``: input, weight and bias cast
+    to ``compute_dtype``, the product of input and weight (exact, or
+    ``quant_dot``'s int8 one over the cast operands), then the bias added in
+    ``compute_dtype``.  The float32 parameters get float32 gradients back
+    through the casts."""
 
     def __init__(self, in_features: int, out_features: int, bias: bool = True,
-                 compute_dtype: torch.dtype = torch.float32):
+                 compute_dtype: torch.dtype = torch.float32,
+                 quant_dot: Optional[str] = None):
         super().__init__(in_features, out_features, bias=bias)
         self.compute_dtype = compute_dtype
+        self.quant_dot = quant_dot
+        self.dot = quant_dot_general(quant_dot)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.linear(*_cast_params(self, x))
+        x, weight, bias = _cast_params(self, x)
+        if self.dot is None:
+            return F.linear(x, weight, bias)
+        y = self.dot(x, weight)
+        return y if bias is None else y + bias
 
 
 class Conv1d(nn.Conv1d):
@@ -158,11 +174,12 @@ class FeedForward(nn.Module):
     """dim → dim·mult → dim with Swish."""
 
     def __init__(self, dim: int, mult: int = 4, use_double_swish: bool = False,
-                 dropout: float = 0.0, dtype: torch.dtype = torch.float32):
+                 dropout: float = 0.0, dtype: torch.dtype = torch.float32,
+                 quant_dot: Optional[str] = None):
         super().__init__()
         self.act = double_swish if use_double_swish else swish
-        self.fc1 = Linear(dim, dim * mult, compute_dtype=dtype)
-        self.fc2 = Linear(dim * mult, dim, compute_dtype=dtype)
+        self.fc1 = Linear(dim, dim * mult, compute_dtype=dtype, quant_dot=quant_dot)
+        self.fc2 = Linear(dim * mult, dim, compute_dtype=dtype, quant_dot=quant_dot)
         self.dropout = Dropout(dropout)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -180,15 +197,15 @@ class RelPosAttention(nn.Module):
 
     def __init__(self, dim: int, heads: int = 8, dim_head: int = 64,
                  max_pos_emb: int = 512, dropout: float = 0.0,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, quant_dot: Optional[str] = None):
         super().__init__()
         self.heads, self.dim_head, self.max_pos_emb = heads, dim_head, max_pos_emb
         self.dtype = dtype
         self.dropout = Dropout(dropout)
         inner = heads * dim_head
-        self.to_q = Linear(dim, inner, bias=False, compute_dtype=dtype)
-        self.to_kv = Linear(dim, 2 * inner, bias=False, compute_dtype=dtype)
-        self.to_out = Linear(inner, dim, compute_dtype=dtype)
+        self.to_q = Linear(dim, inner, bias=False, compute_dtype=dtype, quant_dot=quant_dot)
+        self.to_kv = Linear(dim, 2 * inner, bias=False, compute_dtype=dtype, quant_dot=quant_dot)
+        self.to_out = Linear(inner, dim, compute_dtype=dtype, quant_dot=quant_dot)
         self.rel_pos_emb = nn.Parameter(torch.randn(2 * max_pos_emb + 1, dim_head))
 
     def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -287,17 +304,17 @@ class ConformerConvModule(nn.Module):
 
     def __init__(self, dim: int, expansion_factor: int = 2, kernel_size: int = 31,
                  use_double_swish: bool = False, dropout: float = 0.0,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, quant_dot: Optional[str] = None):
         super().__init__()
         inner = dim * expansion_factor
         self.dropout = Dropout(dropout)
         self.act_name = "double_swish" if use_double_swish else "swish"
         self.act = ACTIVATIONS[self.act_name]
         self.norm = _layer_norm(dim, dtype)
-        self.pointwise_in = Linear(dim, 2 * inner, compute_dtype=dtype)
+        self.pointwise_in = Linear(dim, 2 * inner, compute_dtype=dtype, quant_dot=quant_dot)
         self.depthwise = DepthwiseConv1d(inner, kernel_size)
         self.bn = MaskedBatchNorm(inner)
-        self.pointwise_out = Linear(inner, dim, compute_dtype=dtype)
+        self.pointwise_out = Linear(inner, dim, compute_dtype=dtype, quant_dot=quant_dot)
 
     def forward(self, x: torch.Tensor, pad_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         h = self.pointwise_in(self.norm(x))
@@ -316,17 +333,18 @@ class ConformerBlock(nn.Module):
                  conv_expansion_factor: int = 2, conv_kernel_size: int = 31,
                  use_double_swish: bool = False, attn_dropout: float = 0.0,
                  ff_dropout: float = 0.0, conv_dropout: float = 0.0,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, quant_dot: Optional[str] = None):
         super().__init__()
         self.norm_ff1 = _layer_norm(dim, dtype)
-        self.ff1 = FeedForward(dim, ff_mult, use_double_swish, ff_dropout, dtype)
+        self.ff1 = FeedForward(dim, ff_mult, use_double_swish, ff_dropout, dtype, quant_dot)
         self.norm_attn = _layer_norm(dim, dtype)
-        self.attn = RelPosAttention(dim, heads, dim_head, dropout=attn_dropout, dtype=dtype)
+        self.attn = RelPosAttention(dim, heads, dim_head, dropout=attn_dropout, dtype=dtype,
+                                    quant_dot=quant_dot)
         self.conv = ConformerConvModule(dim, conv_expansion_factor, conv_kernel_size,
-                                        use_double_swish, conv_dropout, dtype)
+                                        use_double_swish, conv_dropout, dtype, quant_dot)
         self.norm_ff2 = _layer_norm(dim, dtype)
         # ff2 ignores use_double_swish, as the reference's second half-FFN does
-        self.ff2 = FeedForward(dim, ff_mult, False, ff_dropout, dtype)
+        self.ff2 = FeedForward(dim, ff_mult, False, ff_dropout, dtype, quant_dot)
         self.post_norm = _layer_norm(dim, dtype)
 
     def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -382,7 +400,8 @@ class ConformerModel(nn.Module):
     """Subsample → ×√d → positional dropout → N ConformerBlocks over the
     valid-frame mask, with linear stochastic depth in training mode; every
     block and the subsampling compute in ``dtype`` (``"float32"`` or
-    ``"bfloat16"``), the output in it."""
+    ``"bfloat16"``), the output in it; the blocks' projections take
+    ``quant_dot``."""
 
     def __init__(self, n_blocks: int = 14, n_mels: int = 80, encoder_dim: int = 144,
                  dim_head: int = 64, heads: int = 4, ff_mult: int = 4,
@@ -391,7 +410,8 @@ class ConformerModel(nn.Module):
                  attn_dropout: float = 0.0, ff_dropout: float = 0.0,
                  conv_dropout: float = 0.0, pos_dropout: float = 0.1,
                  use_stochastic_depth: bool = True, stochastic_depth_p: float = 0.7,
-                 dtype: Union[str, torch.dtype] = torch.float32):
+                 dtype: Union[str, torch.dtype] = torch.float32,
+                 quant_dot: Optional[str] = None):
         super().__init__()
         dtype = compute_dtype(dtype)
         self.dtype = dtype
@@ -409,7 +429,7 @@ class ConformerModel(nn.Module):
         self.blocks = nn.ModuleList(
             ConformerBlock(encoder_dim, dim_head, heads, ff_mult, conv_expansion_factor,
                            conv_kernel_size, use_double_swish, attn_dropout, ff_dropout,
-                           conv_dropout, dtype)
+                           conv_dropout, dtype, quant_dot)
             for _ in range(n_blocks)
         )
 

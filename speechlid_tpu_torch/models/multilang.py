@@ -21,6 +21,10 @@ only the own head's BatchNorm statistics, so loss, gradients and state are
 the same and two head passes are saved.  The other languages' rows of the
 returned logits are then absent: the result is (1, B, T, V_max+1).
 
+``quant_dot`` (``ops/quant.py``) reaches a Conformer head's blocks and its
+``Linear(V+1)``, as in JAX; a BiLSTM head's ``Linear`` and the
+discriminator stay exact, as they do there.
+
 ``head_type="bilstm"`` builds ``BiLSTMLinearHead``s: flax's bidirectional
 ``OptimizedLSTMCell`` (``models/rnn.py``, hidden ``linear_dim // 2`` a
 direction) over the valid frames (packed by ``lengths``), dropout, then
@@ -50,16 +54,17 @@ class ConformerLinearHead(nn.Module):
 
     def __init__(self, vocab_size: int, linear_dim: int = 768, num_layers: int = 1,
                  dim_head: int = 32, num_head: int = 8, use_double_swish: bool = False,
-                 dropout: float = 0.0, dtype: Union[str, torch.dtype] = torch.float32):
+                 dropout: float = 0.0, dtype: Union[str, torch.dtype] = torch.float32,
+                 quant_dot: Optional[str] = None):
         super().__init__()
         dtype = compute_dtype(dtype)
         self.dropout = Dropout(dropout)
         self.blocks = nn.ModuleList(
             ConformerBlock(linear_dim, dim_head=dim_head, heads=num_head,
-                           use_double_swish=use_double_swish, dtype=dtype)
+                           use_double_swish=use_double_swish, dtype=dtype, quant_dot=quant_dot)
             for _ in range(num_layers)
         )
-        self.out = Linear(linear_dim, vocab_size + 1, compute_dtype=dtype)
+        self.out = Linear(linear_dim, vocab_size + 1, compute_dtype=dtype, quant_dot=quant_dot)
 
     def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         for block in self.blocks:
@@ -94,7 +99,7 @@ class MultiLangHeadStack(nn.Module):
                  num_layers: int = 1, dim_head: int = 32, num_head: int = 8,
                  use_double_swish: bool = False, dropout: float = 0.0,
                  dtype: Union[str, torch.dtype] = torch.float32,
-                 head_type: str = "conformer_linear"):
+                 head_type: str = "conformer_linear", quant_dot: Optional[str] = None):
         super().__init__()
         if head_type not in ("conformer_linear", "bilstm"):
             raise ValueError(f"unknown head_type: {head_type}")
@@ -105,7 +110,7 @@ class MultiLangHeadStack(nn.Module):
             BiLSTMLinearHead(self.vocab_max, linear_dim, num_layers, dropout, dtype)
             if head_type == "bilstm" else
             ConformerLinearHead(self.vocab_max, linear_dim, num_layers, dim_head,
-                                num_head, use_double_swish, dropout, dtype)
+                                num_head, use_double_swish, dropout, dtype, quant_dot)
             for _ in self.vocab_sizes
         )
         ids = torch.arange(self.vocab_max + 1)
@@ -188,11 +193,12 @@ class MutiLangModel(nn.Module):
                  linear_dim: int = 768, num_layers: int = 1, dim_head: int = 32,
                  num_head: int = 8, use_double_swish: bool = False, disc_hidden: int = 128,
                  dropout: float = 0.0, dtype: Union[str, torch.dtype] = torch.float32,
-                 head_type: str = "conformer_linear"):
+                 head_type: str = "conformer_linear", quant_dot: Optional[str] = None):
         super().__init__()
         self.featurizer = featurizer
         self.heads = MultiLangHeadStack(vocab_sizes, linear_dim, num_layers, dim_head,
-                                        num_head, use_double_swish, dropout, dtype, head_type)
+                                        num_head, use_double_swish, dropout, dtype, head_type,
+                                        quant_dot)
         self.discriminator = LangDiscriminatorMLP(len(vocab_sizes), disc_hidden)
         self.register_buffer("vocab_sizes", torch.tensor(tuple(vocab_sizes)),
                              persistent=False)

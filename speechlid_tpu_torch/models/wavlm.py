@@ -36,7 +36,15 @@ LayerNorms and the extractor's GroupNorm compute and return float32; the
 attention logits are float32 (exact products of the ``dtype`` inputs,
 summed in float32, as JAX's ``preferred_element_type``), the softmax
 float32 and the probabilities ``dtype``.  So the Base+ encoder's residual
-stream is float32 between its post-LNs.  ``quant_dot`` raises.
+stream is float32 between its post-LNs.
+
+``WavLMConfig.quant_dot`` (``"int8"``, ``"int8_ste"``; ``ops/quant.py``)
+quantizes what the JAX code quantizes: ``q_proj``, ``k_proj``, ``v_proj``,
+``out_proj`` and ``fc1``.  ``fc2``, ``grep_linear`` and
+``post_extract_proj`` stay exact, as they do in the JAX code (whose config
+comment names fc2 too).  With ``conv_extractor_impl="matmul"`` the
+extractor's convs run as JAX's framed GEMM through the int8 product
+(:func:`framed_conv`).
 """
 
 from __future__ import annotations
@@ -54,6 +62,7 @@ import torch.nn.functional as F
 
 from speechlid_tpu_torch.core.precision import compute_dtype
 from speechlid_tpu_torch.models.conformer import Conv1d, Dropout, LayerNorm, Linear
+from speechlid_tpu_torch.ops.quant import Dot, quant_dot_general
 
 LN_EPS = 1e-5  # the reference's LayerNorm/GroupNorm eps (not flax's 1e-6)
 _NEG = torch.finfo(torch.float32).min
@@ -111,9 +120,10 @@ class WavLMConfig:
     max_distance: int = 1280
     gru_rel_pos: bool = False
     dtype: str = "float32"  # the compute dtype: "float32" or "bfloat16"
-    quant_dot: Optional[str] = None  # the int8 path is not ported: raises
-    # 'conv' or 'matmul': in the JAX package two lowerings of the same
-    # strided conv with the same parameters; here one conv serves both
+    # the int8 projections (ops/quant.py): q/k/v/out and fc1
+    quant_dot: Optional[str] = None
+    # 'conv' or 'matmul': two lowerings of the same strided conv with the
+    # same parameters; 'matmul' is the framed GEMM, which takes quant_dot
     conv_extractor_impl: str = "conv"
 
     @property
@@ -135,6 +145,26 @@ def conv_out_lengths(lengths: torch.Tensor,
     return lengths
 
 
+def framed_conv(y: torch.Tensor, conv: Conv1d, dot: Dot) -> torch.Tensor:
+    """A VALID strided conv1d as JAX's ``_FramedConv``: (B, T, Cin) →
+    (B, T2, Cout), the k strided slices of ``y`` concatenated tap-major
+    (a reshape when k == stride) times the weight as a (k·Cin, Cout)
+    matrix, so each int8 row scale covers one k·Cin window; in the conv's
+    ``compute_dtype``, its bias added after."""
+    b, t, cin = y.shape
+    cout, _, k = conv.weight.shape
+    s = conv.stride[0]
+    t2 = (t - k) // s + 1
+    if k == s:
+        win = y[:, : t2 * s].reshape(b, t2, k * cin)
+    else:
+        win = torch.cat([y[:, i : i + (t2 - 1) * s + 1 : s] for i in range(k)], dim=-1)
+    d = conv.compute_dtype
+    w = conv.weight.permute(0, 2, 1).reshape(cout, k * cin).to(d)  # [o, i·Cin + c]
+    out = dot(win.to(d), w)
+    return out if conv.bias is None else out + conv.bias.to(d)
+
+
 class ConvFeatureExtractor(nn.Module):
     """Waveform (B, T) → (B, T', C): VALID strided convs, each followed by
     exact GELU; ``default`` mode normalises after conv 0 with
@@ -143,8 +173,10 @@ class ConvFeatureExtractor(nn.Module):
 
     The JAX package's ``conv_extractor_impl="matmul"`` frames the same conv
     as one GEMM with the same parameters and the same numbers; one conv
-    serves both here.  The convs compute in the config's dtype; the norms
-    are float32 islands, so a normalised layer's GELU runs in float32."""
+    serves both here, except under ``quant_dot``, where the framed GEMM
+    (:func:`framed_conv`) takes the int8 product.  The convs compute in the
+    config's dtype; the norms are float32 islands, so a normalised layer's
+    GELU runs in float32."""
 
     def __init__(self, config: WavLMConfig):
         super().__init__()
@@ -162,11 +194,17 @@ class ConvFeatureExtractor(nn.Module):
                 self.gn_0 = nn.GroupNorm(dim, dim, eps=LN_EPS)
             in_dim = dim
         self.n_layers = len(config.conv_layers)
+        self.framed_dot = (quant_dot_general(config.quant_dot)
+                           if config.conv_extractor_impl == "matmul" else None)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = x[:, None, :]  # (B, 1, T): channels first for Conv1d
         for i in range(self.n_layers):
-            y = getattr(self, f"conv_{i}")(y)
+            conv = getattr(self, f"conv_{i}")
+            if self.framed_dot is None:
+                y = conv(y)
+            else:
+                y = framed_conv(y.transpose(1, 2), conv, self.framed_dot).transpose(1, 2)
             if self.mode == "layer_norm":
                 y = getattr(self, f"ln_{i}")(y.transpose(1, 2)).transpose(1, 2)
             elif i == 0:
@@ -218,17 +256,18 @@ class RelPosMultiheadAttention(nn.Module):
     def __init__(self, embed_dim: int, num_heads: int, dropout: float = 0.0,
                  has_relative_attention_bias: bool = False, num_buckets: int = 320,
                  max_distance: int = 1280, gru_rel_pos: bool = False,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, quant_dot: Optional[str] = None):
         super().__init__()
         self.num_heads = num_heads
         self.head_dim = embed_dim // num_heads
         self.num_buckets, self.max_distance = num_buckets, max_distance
         self.gru_rel_pos = gru_rel_pos
         self.dtype = dtype
-        self.q_proj = Linear(embed_dim, embed_dim, compute_dtype=dtype)
-        self.k_proj = Linear(embed_dim, embed_dim, compute_dtype=dtype)
-        self.v_proj = Linear(embed_dim, embed_dim, compute_dtype=dtype)
-        self.out_proj = Linear(embed_dim, embed_dim, compute_dtype=dtype)
+        proj = dict(compute_dtype=dtype, quant_dot=quant_dot)
+        self.q_proj = Linear(embed_dim, embed_dim, **proj)
+        self.k_proj = Linear(embed_dim, embed_dim, **proj)
+        self.v_proj = Linear(embed_dim, embed_dim, **proj)
+        self.out_proj = Linear(embed_dim, embed_dim, **proj)
         self.dropout = Dropout(dropout)
         self.relative_attention_bias = None
         if has_relative_attention_bias:
@@ -293,11 +332,12 @@ class WavLMEncoderLayer(nn.Module):
             c, config.encoder_attention_heads, dropout=config.attention_dropout,
             has_relative_attention_bias=has_relative_attention_bias,
             num_buckets=config.num_buckets, max_distance=config.max_distance,
-            gru_rel_pos=config.gru_rel_pos, dtype=dtype)
+            gru_rel_pos=config.gru_rel_pos, dtype=dtype, quant_dot=config.quant_dot)
         self.self_attn_layer_norm = LayerNorm(c, eps=LN_EPS)
         ffn = config.encoder_ffn_embed_dim
         self.fc1 = Linear(c, 2 * ffn if config.activation_fn == "glu" else ffn,
-                          compute_dtype=dtype)
+                          compute_dtype=dtype, quant_dot=config.quant_dot)
+        # exact under quant_dot, as the JAX layer's fc2 is
         self.fc2 = Linear(config.encoder_ffn_embed_dim, c, compute_dtype=dtype)
         self.final_layer_norm = LayerNorm(c, eps=LN_EPS)
         self.dropout = Dropout(config.dropout)
@@ -393,8 +433,6 @@ class WavLM(nn.Module):
 
     def __init__(self, config: WavLMConfig, mask_attention: bool = False):
         super().__init__()
-        if config.quant_dot:
-            raise NotImplementedError("WavLM: quant_dot (int8) is not ported yet")
         dtype = compute_dtype(config.dtype)
         self.config = config
         self.mask_attention = mask_attention

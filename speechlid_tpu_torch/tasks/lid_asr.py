@@ -36,10 +36,18 @@ construct it.
 ``head_type``: ``"conformer_linear"`` or ``"bilstm"`` (flax's bidirectional
 LSTM over the valid frames, ``models/multilang.BiLSTMLinearHead``).
 
-Not ported yet, and raising: ``quant_dot``.
-Accepted and without effect here: ``remat``,
-``scan_blocks`` (they change how XLA compiles the same numbers) and
-``ssl_conv_impl`` (two lowerings of the same conv in the JAX package).
+``quant_dot``: ``"int8"`` (serving) or ``"int8_ste"`` (quantization-aware
+training), the dynamic int8 products of ``ops/quant.py`` in the Conformer's
+blocks, the Conformer heads and an SSL encoder's projections; with
+``ssl_conv_impl="matmul"`` an SSL extractor's convs too.  Both reach the SSL
+config as the JAX task passes them.  Checkpoints are unchanged: the same
+file serves exact or int8.
+
+``bn_update_loop`` re-estimates the BatchNorm statistics after SWA's swap
+(``core/trainer.py``).
+
+Accepted and without effect here: ``remat`` and ``scan_blocks`` (they
+change how XLA compiles the same numbers).
 """
 
 from __future__ import annotations
@@ -66,6 +74,7 @@ from speechlid_tpu_torch.models.wav2vec2 import (
 from speechlid_tpu_torch.models.wavlm import WavLMConfig, load_wavlm_checkpoint
 from speechlid_tpu_torch.ops.ctc import ctc_loss
 from speechlid_tpu_torch.ops.frontend import fused_frontend, normalize_wav
+from speechlid_tpu_torch.ops.quant import quant_dot_general
 
 SSL_FEATURIZERS = ("wavlm", "wav2vec2")
 # parameter-name parts (under ``featurizer.``) of an SSL featurizer that
@@ -137,8 +146,7 @@ class LidASRTask(TaskModule):
         super().__init__()
         if featurizer not in ("conformer", *SSL_FEATURIZERS):
             raise ValueError(f"unknown featurizer: {featurizer}")
-        if quant_dot:
-            raise NotImplementedError(f"quant_dot={quant_dot!r} (int8) is not ported yet")
+        quant_dot_general(quant_dot)  # an unknown name raises before anything is built
         self.dtype = compute_dtype(dtype)
         self.save_hyper_parameters(
             featurizer=featurizer, pt_path=pt_path, feature_selection=feature_selection,
@@ -194,7 +202,7 @@ class LidASRTask(TaskModule):
                 n_blocks=n_blocks, n_mels=n_mels, encoder_dim=encoder_dim, heads=heads,
                 dim_head=dim_head, sub_sampling=sub_sampling, use_double_swish=double_swish,
                 pos_dropout=pos_dropout, use_stochastic_depth=use_stochastic_depth,
-                stochastic_depth_p=stochastic_depth_p, dtype=self.dtype,
+                stochastic_depth_p=stochastic_depth_p, dtype=self.dtype, quant_dot=quant_dot,
             )
         else:
             if pt_path:
@@ -207,15 +215,17 @@ class LidASRTask(TaskModule):
                            else wav2vec2_config(**conf))
             # the task's dtype does not reach the SSL config, as in the JAX
             # task: ssl_config's own dtype sets the encoder's
-            if ssl_conv_impl:
-                ssl_cfg = dataclasses.replace(ssl_cfg, conv_extractor_impl=ssl_conv_impl)
+            if quant_dot or ssl_conv_impl:
+                ssl_cfg = dataclasses.replace(
+                    ssl_cfg, quant_dot=quant_dot,
+                    conv_extractor_impl=ssl_conv_impl or ssl_cfg.conv_extractor_impl)
             featurizer_module = SSLFeaturizerModel(ssl_cfg, feature_selection=feature_selection)
             encoder_dim = ssl_cfg.encoder_embed_dim  # the heads' width
         self.model = MutiLangModel(
             featurizer_module, self.vocab_sizes, linear_dim=encoder_dim,
             num_layers=head_layers, dim_head=head_dim_head, num_head=head_num_head,
             use_double_swish=double_swish, dropout=dropout, dtype=self.dtype,
-            head_type=head_type,
+            head_type=head_type, quant_dot=quant_dot,
         ).to(self.device).eval()
         self._load_ssl_state()
         self.eer = EER(num_class=self.n_lang)
@@ -325,6 +335,23 @@ class LidASRTask(TaskModule):
     def train_loop(self, batch: Dict[str, Any]):
         loss, _, _, _ = self._forward_ctc(batch, train=True)
         return loss, {}
+
+    @torch.no_grad()
+    def bn_update_loop(self, batch: Dict[str, Any], seed: int = 0) -> None:
+        """SWA's BatchNorm re-estimation hook (``Trainer``'s final swap):
+        one train-mode forward of a placed batch, which moves only the
+        running statistics (the encoder's and the batch's own head's, as the
+        JAX hook commits them); its dropout, stochastic depth, masking and
+        augmentation draw from generators seeded with ``seed``, a new one a
+        batch.  The trainer's own generators are left where they were."""
+        saved = (self._generator, self._host_generator)
+        self.set_generators(torch.Generator(device=self.device).manual_seed(seed),
+                            torch.Generator().manual_seed(seed))
+        self.model.train()
+        try:
+            self._forward_ctc(batch, train=True)
+        finally:
+            self.set_generators(*saved)
 
     @torch.no_grad()
     def val_loop(self, batch: Dict[str, Any]) -> Dict[str, Any]:

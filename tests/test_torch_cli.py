@@ -11,7 +11,8 @@ the JAX package's, on a tiny 2-language corpus on the CPU.
 - ``data.wav_augment`` trains through the augmentor and feeds the JAX CLI's
   batch lengths, and an unknown key of it raises ``TypeError`` in both;
 - every option not ported yet raises ``NotImplementedError``, and without
-  ``--device`` the CLI asks for the card;
+  ``--device`` the CLI asks for the card; ``trainer.use_swa=true``, ported,
+  trains and writes ``swa_final.ckpt``;
 - the other two tasks: ``lid_cross.yaml`` (the ``xvector`` and ``linear``
   back-ends on fbank), ``lid_cross_wavlm.yaml`` and ``lid_cross_wav2vec.yaml``
   (tiny ``module.ssl_config``) and ``asr.yaml`` (one language) train an
@@ -21,8 +22,9 @@ the JAX package's, on a tiny 2-language corpus on the CPU.
 - the SSL configs: ``lid_wavlm.yaml`` with a tiny ``module.ssl_config``
   trains across both freeze gates and has the JAX CLI's hyper-parameters,
   ``lid_wav2vec.yaml`` trains without its augmentor and raises the JAX
-  CLI's ``TypeError`` with it, the int8 WavLM config raises, and the bf16
-  one builds the task the JAX CLI builds (bfloat16 heads over a float32
+  CLI's ``TypeError`` with it, the int8 WavLM config
+  (``lid_wavlm_qat.yaml``: bf16, ``int8_ste``, the framed extractor) trains
+  an epoch and builds the JAX CLI's task, and the bf16 one builds the task the JAX CLI builds (bfloat16 heads over a float32
   encoder, as its ``module.dtype`` alone gives) and infers; it trains in
   ``tests/test_torch_bf16_cli.py``."""
 
@@ -167,6 +169,14 @@ def test_build_data_feeder_and_task_equal_jax(corpus, tmp_path, monkeypatch, sha
 ])
 def test_unported_options_raise(corpus, tmp_path, monkeypatch, override):
     monkeypatch.setenv("SPEECHLID_CACHE_DIR", str(tmp_path / "cache"))
+    if override == "trainer.use_swa=true":  # ported: SWA trains and saves its average
+        main_lid.main(_args(corpus, tmp_path, override, "trainer.total_epoch=2")
+                      + ["--device", "cpu"])
+        swa = torch.load(tmp_path / "ckpt" / "swa_final.ckpt", weights_only=True)
+        assert swa["state"]["swa"]["count"] == 1  # epoch 1 of 2: int(2 · 0.7) = 1
+        for name, avg in swa["state"]["swa"]["params"].items():
+            assert torch.equal(swa["state"]["model"][name], avg), name
+        return
     with pytest.raises(NotImplementedError):
         main_lid.main(_args(corpus, tmp_path, override) + ["--device", "cpu"])
 
@@ -289,8 +299,9 @@ TINY_WAV2VEC = ("module.ssl_config={encoder_layers: 1, encoder_embed_dim: 32, "
 def test_ssl_configs_that_raise_as_in_jax(corpus, tmp_path, monkeypatch, cli):
     """``configs/lid_wav2vec.yaml``'s ``wav_augment`` (``speed_shift``)
     raises ``TypeError`` in both CLIs when the train feeder is built; the
-    int8 WavLM config raises ``NotImplementedError`` in the port, and the
-    bf16 one builds the task the JAX CLI builds and infers in bfloat16."""
+    int8 WavLM config trains an epoch in the port with a tiny
+    ``module.ssl_config`` and builds the JAX CLI's task, and the bf16 one
+    builds the task the JAX CLI builds and infers in bfloat16."""
     monkeypatch.setenv("SPEECHLID_CACHE_DIR", str(tmp_path / "cache"))
     args = ["--config-dir", "configs", "--config-name", "lid_wav2vec", _langs(corpus),
             f"exp_dir={tmp_path / 'exp'}", TINY_WAV2VEC]
@@ -300,9 +311,23 @@ def test_ssl_configs_that_raise_as_in_jax(corpus, tmp_path, monkeypatch, cli):
         else:
             jax_main_lid.main(args)
     if cli == "port":
-        with pytest.raises(NotImplementedError, match="int8"):
-            main_lid.main(["--config-dir", "configs", "--config-name", "lid_wavlm_qat",
-                           _langs(corpus), f"exp_dir={tmp_path / 'qat'}", "--device", "cpu"])
+        qat = [_langs(corpus), f"exp_dir={tmp_path / 'qat'}", TINY_WAVLM,
+               "module.head_dim_head=8", "module.head_num_head=2", "data.batch_size=3",
+               "data.buckets_s=[0.5, 1.0]", "trainer.total_epoch=1",
+               "trainer.progress_bar=false"]
+        main_lid.main(["--config-dir", "configs", "--config-name", "lid_wavlm_qat", *qat,
+                       "--device", "cpu"])
+        lines = _lines(tmp_path / "qat" / "metrics.jsonl")
+        assert any("avg_val_loss" in r for r in lines)
+        assert all(np.isfinite(r["loss"]) for r in lines if "loss" in r)
+        conf = load_config("configs", "lid_wavlm_qat", qat)
+        task = main_lid.build_task(conf, main_lid.build_data(conf), device="cpu")
+        jconf = jax_load_config("configs", "lid_wavlm_qat", qat)
+        assert task.hyper_parameters == jax_main_lid.build_task(
+            jconf, jax_main_lid.build_data(jconf)).hyper_parameters
+        upstream = task.model.featurizer.upstream
+        assert upstream.layers[0].fc1.quant_dot == "int8_ste"
+        assert upstream.feature_extractor.framed_dot is not None
         overrides = [_langs(corpus), TINY_WAVLM, "module.head_dim_head=8",
                      "module.head_num_head=2"]
         conf = load_config("configs", "lid_wavlm_bf16", overrides)

@@ -41,7 +41,8 @@ def test_port_imports_no_jax():
                  "core.native", "models.wavlm", "models.wav2vec2", "models.batchnorm",
                  "models.pooling", "models.xvector", "models.resnet", "models.classifier",
                  "tasks.lid_cross_entropy", "tasks.asr", "tasks", "models.rnn", "models.se",
-                 "models.fasnet", "tasks.se", "cli.main_extras"):
+                 "models.fasnet", "tasks.se", "cli.main_extras", "ops.quant",
+                 "core.optim.novograd"):
         assert f"speechlid_tpu_torch.{name}" in modules, name
     result = subprocess.run(
         [sys.executable, "-c", CHECK, "chip_smoke", *modules],

@@ -324,15 +324,19 @@ def test_port_checkpoint_serves_and_resumes(tmp_path):
 
 def test_ssl_options_that_still_raise():
     # bfloat16 heads over the float32 encoder (the task's dtype alone) infer,
-    # with float32 logits; the int8 path still raises
+    # with float32 logits; the int8 path (ported) quantizes what JAX does
     bf16 = LidASRTask(**hparams("wavlm", dtype="bfloat16"), device="cpu")
     s = sample(5)
     out = port_infer(bf16, s["wavs"], s["wav_lengths"])
     assert out["logits"].dtype == np.float32 and np.isfinite(out["scores"]).all()
     assert bf16.model.heads.heads[0].out.compute_dtype == torch.bfloat16
     assert bf16.model.featurizer.upstream.layers[0].fc1.compute_dtype == torch.float32
-    with pytest.raises(NotImplementedError):
-        LidASRTask(**hparams("wavlm", quant_dot="int8"), device="cpu")
+    int8 = LidASRTask(**hparams("wavlm", quant_dot="int8"), device="cpu")
+    layer = int8.model.featurizer.upstream.layers[0]
+    assert layer.self_attn.v_proj.quant_dot == layer.fc1.quant_dot == "int8"
+    assert layer.fc2.dot is None and int8.model.heads.heads[0].out.quant_dot == "int8"
+    out = port_infer(int8, s["wavs"], s["wav_lengths"])
+    assert np.isfinite(out["scores"]).all()
     with pytest.raises(ValueError, match="unknown featurizer"):
         LidASRTask(**hparams("hubert"), device="cpu")
     with pytest.raises(TypeError):  # wav2vec2_config takes known fields only

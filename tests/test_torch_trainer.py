@@ -365,10 +365,12 @@ def test_accum_grad_steps_every_second_batch():
 
 
 def test_trainer_rejects_what_is_not_ported(tmp_path):
-    for kw in (dict(use_swa=True), dict(mesh=object()), dict(param_rules=[("a", None)]),
-               dict(profile_dir="x")):
+    for kw in (dict(mesh=object()), dict(param_rules=[("a", None)]), dict(profile_dir="x")):
         with pytest.raises(NotImplementedError):
             Trainer(device="cpu", **kw)
+    # SWA and quant_dot are ported (tests/test_torch_swa.py, test_torch_quant*.py)
+    swa = Trainer(device="cpu", use_swa=True)
+    assert swa.use_swa and swa.swa_start_ratio == 0.7
     task = LidASRTask(**HPARAMS, device="cpu")
     mixed = batches(7, [0])[0]
     mixed["langs"] = np.array([0, 1, 0], np.int32)
@@ -376,9 +378,16 @@ def test_trainer_rejects_what_is_not_ported(tmp_path):
         Trainer(total_epoch=1, use_progress_bar=False, device="cpu").fit(task, [mixed])
     with pytest.raises(ValueError, match="lives on"):
         Trainer(device="meta").fit(task, [mixed])
-    for kw in (dict(featurizer="wavlm", quant_dot="int8"), dict(dtype="float16")):
-        with pytest.raises(NotImplementedError):
-            LidASRTask(**dict(HPARAMS, **kw), device="cpu")
+    with pytest.raises(NotImplementedError):
+        LidASRTask(**dict(HPARAMS, dtype="float16"), device="cpu")
+    tiny_wavlm = dict(encoder_layers=1, encoder_embed_dim=32, encoder_ffn_embed_dim=64,
+                      encoder_attention_heads=2, conv_feature_layers="[(16,10,5)]",
+                      conv_pos=16, conv_pos_groups=4)
+    quant = LidASRTask(**dict(HPARAMS, featurizer="wavlm", quant_dot="int8",
+                              ssl_config=tiny_wavlm), device="cpu")
+    assert quant.model.featurizer.upstream.layers[0].self_attn.q_proj.quant_dot == "int8"
+    with pytest.raises(ValueError, match="quant_dot"):
+        LidASRTask(**dict(HPARAMS, quant_dot="int4"), device="cpu")
     with pytest.raises(ValueError, match="head_type"):
         LidASRTask(**dict(HPARAMS, head_type="lstm"), device="cpu")
     # bilstm heads train (tests/test_torch_bilstm_head.py holds them against JAX)

@@ -498,12 +498,15 @@ def test_config_from_dict_and_conv_spec():
         pwavlm.conv_out_lengths(torch.from_numpy(lens), pwavlm.WavLMConfig().conv_layers).numpy(),
         [149, 99, 199, 849])
     # bfloat16 compute builds and runs (a post-LN encoder's output is
-    # float32, its last LayerNorm's); the int8 path still raises
+    # float32, its last LayerNorm's); the int8 path (ported) builds, and an
+    # unknown engine raises
     bf16 = pwavlm.WavLM(pwavlm.WavLMConfig.from_dict(dict(TINY_SSL, dtype="bfloat16"))).eval()
     with torch.no_grad():
         out, _ = bf16(torch.from_numpy(_x((1, 3200), 4, 0.1)))
     assert out.dtype == torch.float32 and torch.isfinite(out).all()
     assert all(p.dtype == torch.float32 for p in bf16.parameters())
-    with pytest.raises(NotImplementedError):
-        pwavlm.WavLM(pwavlm.WavLMConfig(encoder_layers=1, quant_dot="int8"))
+    int8 = pwavlm.WavLM(pwavlm.WavLMConfig(encoder_layers=1, quant_dot="int8"))
+    assert int8.layers[0].self_attn.q_proj.quant_dot == "int8" and int8.layers[0].fc2.dot is None
+    with pytest.raises(ValueError, match="quant_dot"):
+        pwavlm.WavLM(pwavlm.WavLMConfig(encoder_layers=1, quant_dot="int4"))
     assert math.isclose(pwavlm.LN_EPS, 1e-5)
