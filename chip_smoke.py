@@ -6,6 +6,7 @@
     python3 chip_smoke.py --only ce_asr   # the cross-entropy and ASR phases alone
     python3 chip_smoke.py --only se   # the speech enhancement and bilstm phases alone
     python3 chip_smoke.py --only quant   # the int8, SWA and Novograd phases alone
+    python3 chip_smoke.py --only extras  # kaldi, the extras tasks, the sweep, the trace alone
 
 It builds the port's CUDA kernels from ``speechlid_tpu_torch/csrc`` (into
 ``build/``), holds each kernel, forward and backward, and each fused mode of
@@ -77,7 +78,18 @@ training CLI at the Base+ width, and one QAT step card against CPU
 ``trainer.use_swa=true`` (``cli_swa``: the average and the re-estimated
 statistics in ``swa_final.ckpt``) and with ``module.optimizer=novograd``
 (``cli_novograd``); and ``infer`` utt/s in float32, bfloat16, int8 and
-bfloat16 + int8 (``quant_e2e``); ``--only quant`` runs these alone.  Last
+bfloat16 + int8 (``quant_e2e``); ``--only quant`` runs these alone.  Then kaldi fbank and
+``FBankLayer`` on a padded (8, 64000) batch with a row shorter than the
+kaldi window, card against the CPU's float64 (``kaldi_card_vs_cpu``); every
+model of ``models/extras.py`` at ``main_extras``' default widths, card
+against CPU in inference and for one step, and each task's step timed
+(``extras_card_vs_cpu``); ``main_extras lm | rml | spec_pred | image`` on
+data ``prepare_text`` and ``prepare_spectrum`` prepared, two epochs each
+with the training loss falling (``cli_extras``); the port's ``sweep`` on
+``configs/sweep_lid.yaml``'s bayes spec over ``main_lid`` at full width, on
+manifests ``prepare_manifest`` wrote, every trial launching the kernels
+(``cli_sweep``); and ``Trainer(profile_dir=…)`` writing a trace with kernel
+records (``profile_trace``); ``--only extras`` runs these alone.  Last
 it times the kernels, the
 models and the train steps (the WavLM model's in ``wavlm_e2e``, bfloat16
 against float32 in turns in ``bf16_e2e``).  The fused modes are also timed against the
@@ -118,6 +130,13 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from speechlid_tpu_torch.cli import (
+    main_extras,
+    prepare_manifest,
+    prepare_spectrum,
+    prepare_text,
+)
+from speechlid_tpu_torch.cli import sweep as sweep_cli
 from speechlid_tpu_torch.cli.serve import (
     InferenceState,
     build_lid_fn,
@@ -132,6 +151,7 @@ from speechlid_tpu_torch.core.profile import _time_cost_recoder
 from speechlid_tpu_torch.core.trainer import Trainer
 from speechlid_tpu_torch.data.augmentor import WavAugmentor
 from speechlid_tpu_torch.models.batchnorm import FlaxBatchNorm
+from speechlid_tpu_torch.models import extras as extras_models
 from speechlid_tpu_torch.models import resnet as presnet
 from speechlid_tpu_torch.models.fasnet import FaSNetOrigin, FaSNetTAC
 from speechlid_tpu_torch.models.init import init_like_flax_
@@ -140,6 +160,7 @@ from speechlid_tpu_torch.models.conformer import (
     ConformerConvModule,
     DepthwiseConv1d,
     Dropout,
+    FBankLayer,
     MaskedBatchNorm,
 )
 from speechlid_tpu_torch.ops import frontend, quant
@@ -169,6 +190,12 @@ from speechlid_tpu_torch.ops.cuda.fbank_kernel import (
     log_mel_tiled_plain,
 )
 from speechlid_tpu_torch.tasks.asr import ASRTask
+from speechlid_tpu_torch.tasks.extras import (
+    ImageClassificationTask,
+    LMTask,
+    RMLTask,
+    SpecPredTask,
+)
 from speechlid_tpu_torch.tasks.lid_asr import LidASRTask
 from speechlid_tpu_torch.tasks.lid_cross_entropy import LidCrossEntropyTask
 from speechlid_tpu_torch.tasks.se import SETask
@@ -273,6 +300,11 @@ GATE_DW_SHAPE = (8, _encoder_frames(3.0), 2 * 96, 31)
 # round-5 corpus (every one under 2 s) in lid_supervised's 2 s bucket
 EVAL_SECONDS = 2.0
 EVAL_DW_SHAPE = (8, _encoder_frames(EVAL_SECONDS), 2 * FLAGSHIP["encoder_dim"], 31)
+# the sweep's trials (cli_sweep): the tone-code clips in lid_supervised's 2 s
+# bucket at the batch size a trial draws (8 or 16), in training and eval;
+# by batch size, the FBANK_SHAPES key and the conv shape
+SWEEP_DW_SHAPE = (16, _encoder_frames(2.0), 2 * FLAGSHIP["encoder_dim"], 31)
+SWEEP_SHAPES = {8: ("eval", EVAL_DW_SHAPE), 16: ("cross_2s", SWEEP_DW_SHAPE)}
 
 # The WavLM-Base+ joint model (__graft_entry__.py _flagship_wavlm, the model
 # of BASELINE.json's headline): 12 layers of 768, FFN 3072, 12 heads, the
@@ -589,11 +621,11 @@ def phase_depthwise_bwd(gen: torch.Generator) -> dict:
 ACTS = ("swish", "double_swish")
 # the served, trained and scored conv shapes, then a short clip, channels
 # that take the kernel's scalar path (129) and an even kernel, the gate
-# model's shape and the eval CLI's on the flagship; then the WavLM heads'
-# shapes (served, scored, trained, the card-vs-CPU step, the CLI) and the
-# same frame counts at C = 768
+# model's shape, the eval CLI's on the flagship and the sweep's; then the
+# WavLM heads' shapes (served, scored, trained, the card-vs-CPU step, the
+# CLI) and the same frame counts at C = 768
 FUSED_SHAPES = (SERVE_DW_SHAPE, TRAIN_DW_SHAPE, SCORE_DW_SHAPE, (1, 7, 64, 31),
-                (3, 100, 129, 15), (2, 50, 96, 4), GATE_DW_SHAPE, EVAL_DW_SHAPE,
+                (3, 100, 129, 15), (2, 50, 96, 4), GATE_DW_SHAPE, EVAL_DW_SHAPE, SWEEP_DW_SHAPE,
                 WAVLM_SERVE_DW_SHAPE, WAVLM_SCORE_DW_SHAPE, WAVLM_TRAIN_DW_SHAPE,
                 WAVLM_STEP_DW_SHAPE, WAVLM_CLI_DW_SHAPE, WAVLM_BF16_CLI_DW_SHAPE,
                 *WAVLM_HALF_C_DW_SHAPES)
@@ -1821,8 +1853,9 @@ def _epoch_row(epoch: dict) -> dict:
 def phase_cli_augment(root: str, corpus: str) -> dict:
     """The training CLI at full width (``configs/lid_supervised.yaml``, 9
     steps an epoch, 3 epochs) without and with ``data.wav_augment={speed:
-    true, pitch: true, reverb: true}`` at its default ``device: cpu``, in
-    turns plain, augmented, augmented, plain.  Checks: every epoch takes its
+    true, pitch: true, reverb: true}`` at its default ``device: cpu``: one
+    plain run, then one augmented run (one of each holds every check below;
+    the times are a report).  Checks: every epoch takes its
     9 steps; a train step launches what it does without augmentation (the
     augmentor runs on the host); an augmented run builds one augmentor, for
     the train feeder, which calls it once for every batch it assembles, and
@@ -1832,7 +1865,7 @@ def phase_cli_augment(root: str, corpus: str) -> dict:
     epochs after each run's first by kind, and one call of the augmentor's
     chain at (8, 64000) on the CPU and on the card by variant."""
     runs, checks = [], {}
-    for i, augment in enumerate((False, True, True, False)):
+    for i, augment in enumerate((False, True)):
         exp = os.path.join(root, f"augment{i}")
         torch.cuda.synchronize()
         reset_launches()
@@ -2627,7 +2660,8 @@ WAVLM_BF16_CLI = dict(
     ssl_override=ssl_config_override(dict(WAVLM_BASE_PLUS, dtype="bfloat16")),
     data_factor=0.1, steps=int(N_LANG * CORPUS_TRAIN // 8 * 0.1),
     eval_batches=N_LANG * CORPUS_VAL // 8, shape=WAVLM_BF16_CLI_DW_SHAPE,
-    per_step=WAVLM_BF16_TRAIN_STEP_LAUNCHES, per_eval=WAVLM_BF16_PER_FORWARD_LAUNCHES)
+    per_step=WAVLM_BF16_TRAIN_STEP_LAUNCHES, per_eval=WAVLM_BF16_PER_FORWARD_LAUNCHES,
+    resume=False)  # cli_wavlm holds the resume
 
 
 def phase_cli_wavlm(root: str, corpus: str, smi: str, run: dict = WAVLM_CLI) -> dict:
@@ -2636,7 +2670,8 @@ def phase_cli_wavlm(root: str, corpus: str, smi: str, run: dict = WAVLM_CLI) -> 
     ``module.ssl_config`` set to the Base+ shape, on the corpus: three
     epochs of 3 steps (span masking on; the config's gates freeze the
     extractor through epoch 1 and the transformer through epoch 0), then a
-    resume for a fourth, each epoch followed by an eval of the 72 val clips;
+    resume for a fourth (unless ``run["resume"]`` is false), each epoch
+    followed by an eval of the 72 val clips;
     the frozen parts by epoch, the launches per train step and eval batch
     and the conv shapes; one ``/lid`` answer from its checkpoint through
     ``build_lid_fn``; and ``cli.test_lid`` clean on that checkpoint, whose
@@ -2672,8 +2707,10 @@ def phase_cli_wavlm(root: str, corpus: str, smi: str, run: dict = WAVLM_CLI) -> 
     main_lid.build_task = recording_build_task
     hook = torch.nn.modules.module.register_module_forward_hook(conv_seen)
     try:
-        for name, extra in (("fit", ["trainer.total_epoch=3"]),
-                            ("resume", ["trainer.total_epoch=4", f"trainer.resume_from={last}"])):
+        legs = [("fit", ["trainer.total_epoch=3"])]
+        if run.get("resume", True):
+            legs.append(("resume", ["trainer.total_epoch=4", f"trainer.resume_from={last}"]))
+        for name, extra in legs:
             torch.cuda.synchronize()
             reset_launches()
             runs[name] = run_cli(_cli_args("configs", run["config"], *base, *extra))
@@ -2718,12 +2755,16 @@ def phase_cli_wavlm(root: str, corpus: str, smi: str, run: dict = WAVLM_CLI) -> 
         checks[f"{name}_steps"] = all(e["steps"] == run["steps"] for e in recorder.epochs)
         checks[f"{name}_evals"] = [e["batches"] for e in recorder.evals] == \
             [run["eval_batches"]] * len(recorder.epochs)
+    n_epochs = 3 + len(runs) - 1
     checks.update({
-        "frozen": {e: set(v) for e, v in frozen.items()} == WAVLM_FROZEN,
+        "frozen": {e: set(v) for e, v in frozen.items()} == {
+            e: v for e, v in WAVLM_FROZEN.items() if e < n_epochs},
         "conv_shapes": shapes == {run["shape"]} and clean_shapes["glu_bn_act"] == {
             run["shape"]} and not clean_shapes["fbank"],
-        "eval_lines": len(evals) == 4 and all(np.isfinite(e["avg_val_loss"]) for e in evals),
-        "ckpt": ckpt_meta["epoch"] == 3 and ckpt_meta["global_step"] == 4 * run["steps"],
+        "eval_lines": len(evals) == n_epochs
+        and all(np.isfinite(e["avg_val_loss"]) for e in evals),
+        "ckpt": ckpt_meta["epoch"] == n_epochs - 1
+        and ckpt_meta["global_step"] == n_epochs * run["steps"],
         "served": set(answer) == {"lang", "scores"} and len(answer["scores"]) == N_LANG
         and all(np.isfinite(v) for v in answer["scores"].values())
         and served == run["per_eval"],
@@ -2735,7 +2776,7 @@ def phase_cli_wavlm(root: str, corpus: str, smi: str, run: dict = WAVLM_CLI) -> 
     emit(report)
     if not all(checks.values()):
         raise AssertionError(f"CLI phase {run['name']} failed: {checks}")
-    return {k: counted["fit"][k] + counted["resume"][k] for k in counted["fit"]}
+    return {k: sum(c[k] for c in counted.values()) for k in counted["fit"]}
 
 
 def _wavlm_batches(seed: int, n: int) -> list:
@@ -3356,21 +3397,22 @@ def _ce_cpu_step(task: LidCrossEntropyTask, feats: torch.Tensor, f_len: torch.Te
     return loss.item(), grads, stats
 
 
-def pin_resnet_relus(on: bool, masks: list, differ: dict = None):
-    """Point ``models/resnet.relu`` (every ReLU of the ResNet, in the
-    forward's order) at a recorder of each decision into ``masks``, or with
+def pin_resnet_relus(on: bool, masks: list, differ: dict = None, module=presnet):
+    """Point ``module.relu`` (``models/resnet.relu`` by default: every ReLU
+    of the ResNet, in the forward's order; ``models/extras.relu`` for the
+    extras zoo) at a recorder of each decision into ``masks``, or with
     ``differ`` at a replayer of the recorded decisions that counts in
     ``differ["units"]`` the units it decides otherwise; ``on=False`` puts
     ``torch.relu`` back."""
     if not on:
-        presnet.relu = torch.relu
+        module.relu = torch.relu
         return
     if differ is None:
         def record(x):
             y = torch.relu(x)
             masks.append((y > 0).cpu())
             return y
-        presnet.relu = record
+        module.relu = record
         return
     calls = iter(range(len(masks)))
 
@@ -3378,7 +3420,7 @@ def pin_resnet_relus(on: bool, masks: list, differ: dict = None):
         keep = masks[next(calls)]
         differ["units"] += int(((x > 0) != keep).sum())
         return x * keep.to(x.dtype)
-    presnet.relu = replay
+    module.relu = replay
 
 
 def phase_ce_train_card_vs_cpu(gen: torch.Generator) -> None:
@@ -4558,9 +4600,10 @@ def phase_quant_dense(gen: torch.Generator, smi: str) -> dict:
     int32 sums equal the float64 oracle's bit for bit, the output lies
     within the rescale's rounding (``RESCALE_ULPS``) and equals the
     oracle's product;
-    at B = 32 (and B = 1 for the encoder shapes) the times against
-    ``F.linear`` in float32 and bfloat16, and the quantize / ``_int_mm`` /
-    rescale split.  Also what ``_int_mm`` refuses unpadded."""
+    at B = 32 the times against ``F.linear`` in float32 and bfloat16, and
+    the quantize / ``_int_mm`` / rescale split (B = 1 is checked, not timed:
+    its times were launch-bound noise).  Also what ``_int_mm`` refuses
+    unpadded."""
     strict_float32(torch.device("cuda"))
     cases, ok = [], True
     for path, shapes in QUANT_DENSE_SHAPES.items():
@@ -4572,7 +4615,7 @@ def phase_quant_dense(gen: torch.Generator, smi: str) -> dict:
                 x = torch.randn(m, k, generator=gen).cuda()
                 case = {"path": path, "layers": what, "m": m, "k": k, "n": n,
                         "padded_to": list(quant.int_mm_shape(m, k, n)),
-                        **quant_dense_case(x, w, timed=i == 1 or path != "wavlm_extractor")}
+                        **quant_dense_case(x, w, timed=i == 1)}
                 ok &= (case["codes_equal_cpu"] and case["int32_equal_reference"]
                        and case["max_rescale_error_ulps"] <= RESCALE_ULPS
                        and case["equal_reference_dot"])
@@ -5092,13 +5135,715 @@ def quant_kernel_rows(gen: torch.Generator, errs: dict, reports: dict) -> list:
     return rows
 
 
+# ------------------------ kaldi fbank, FBankLayer, the extras tasks, the sweep and the trace
+
+KALDI_LENGTHS = (64000, 61000, 52000, 40000, 33000, 20000, 8000, 300)  # 300: no kaldi frame
+KALDI_SHAPE = (len(KALDI_LENGTHS), 4 * SR)  # (8, 64000)
+# kaldi's natural-log mel on the card against the CPU's float64 on valid
+# frames: within KALDI_TOL, or KALDI_SPREAD times the CPU's own float32
+# distance (low-energy bins are ill-conditioned in float32: the CPU tests
+# saw JAX's float32 up to 1.5e-4 and the port's up to 2.6e-4 from float64)
+KALDI_TOL, KALDI_FFT_TOL, KALDI_SPREAD = 1e-4, 1e-3, 2.0
+FBANK_LAYER_CALLS = 2  # one eval and one training forward of FBankLayer
+# the extras models at main_extras' default widths, B = 32
+EXTRAS_B = 32
+LM_VOCAB, LM_T = 10000, 128  # a word vocabulary cut to 10k; --max-len 128
+RML_T, RML_CLASSES = 128, 11  # RadioML 2016.10a: 2 x 128 IQ, 11 modulations
+SPEC_D, SPEC_WIN = 64, 32  # SpecPredTask's feat_dim and --win-len defaults
+EXTRAS_TOL = 1e-3  # card vs CPU: the output and each gradient of its leaf's largest entry
+EXTRAS_CUDNN_TOL = 1e-2  # a leaf past EXTRAS_TOL: to the CPU's float64 step, as se_card_vs_cpu
+EXTRAS_MODELS = {
+    # name: (model, input kind, the task and its keyword arguments for the timed step)
+    "base_cnn": (lambda: extras_models.BaseCNN(10), "image",
+                 (ImageClassificationTask, dict(num_classes=10))),
+    "lstm_lm": (lambda: extras_models.LSTMLM(LM_VOCAB, 128, 256), "ids",
+                (LMTask, dict(vocab_size=LM_VOCAB))),
+    "resnet1d": (lambda: extras_models.ResNet1D(RML_CLASSES, 32, 16, 6), "iq",
+                 (RMLTask, dict(n_classes=RML_CLASSES))),
+    "resnet1d_rnn_snr": (lambda: extras_models.ResNet1D(RML_CLASSES, 32, 16, 6, use_rnn=True,
+                                                        use_snr_head=True), "iq",
+                         (RMLTask, dict(n_classes=RML_CLASSES, use_rnn=True,
+                                        use_snr_info=True))),
+    **{name: (lambda name=name: extras_models.FORECAST_MODELS[name](
+        out_dim=SPEC_D, in_dim=SPEC_D, win_len=SPEC_WIN),
+              "window", (SpecPredTask, dict(model_name=name, feat_dim=SPEC_D,
+                                            win_len=SPEC_WIN)))
+       for name in ("mlp", "lstm", "cnn_lstm", "causal_conv", "transformer")},
+}
+EXTRAS_EPOCHS = 2
+# the sweep: configs/sweep_lid.yaml's method and parameters on lid_supervised
+# at full width, cut to 3 trials (2 random), one epoch each, on 3 languages of
+# 10 tone-code clips (8 train, 2 dev: one eval batch a language)
+SWEEP_TRIALS, SWEEP_STARTUP, SWEEP_CLIPS, SWEEP_DEV_RATIO = 3, 2, 10, 0.2
+
+
+def _kaldi_batch(gen: torch.Generator) -> tuple:
+    lengths = torch.tensor(KALDI_LENGTHS)
+    wav = frontend.normalize_wav(0.1 * torch.randn(*KALDI_SHAPE, generator=gen), lengths)
+    return wav, lengths
+
+
+def phase_kaldi_card_vs_cpu(gen: torch.Generator, smi: str) -> dict:
+    """Kaldi fbank (plain PyTorch on every device, as XLA in the JAX package)
+    and ``FBankLayer`` (the fbank kernel) on a padded (8, 64000) batch whose
+    last row has 300 samples, fewer than kaldi's 400-sample window:
+    ``kaldi_fbank`` (``dft_conv`` and ``fft``), ``wav2mel(use_kaldi=True)`` and
+    ``fused_frontend(use_kaldi=True)`` on the card against the CPU's float64
+    on valid frames; the snip-edges frame counts exact (0 for the short
+    row); ``FBankLayer`` in eval, and in training with the same stretch
+    generator state on both sides and the card's SpecAugment spans handed to
+    the CPU, against the CPU within ``FBANK_TOL``; its fbank launches
+    counted; the kaldi frontend timed against the fbank kernel."""
+    from speechlid_tpu_torch.ops import specaugment
+
+    wav, lengths = _kaldi_batch(gen)
+    card_wav, card_len = wav.cuda(), lengths.cuda()
+    f_len = frontend.frame_lengths(lengths, 160, center=False, win_length=400)
+    exact = frontend.kaldi_fbank(wav.double())
+    valid = (torch.arange(exact.shape[1])[None, :] < f_len[:, None])[..., None]
+
+    def dist(x) -> float:
+        return float(((x.cpu().double() - exact).abs() * valid).max())
+
+    own = dist(frontend.kaldi_fbank(wav))
+    errs = {m: dist(frontend.kaldi_fbank(card_wav, method=m)) for m in ("dft_conv", "fft")}
+    bars = {"dft_conv": max(KALDI_TOL, KALDI_SPREAD * own),
+            "fft": max(KALDI_FFT_TOL, KALDI_SPREAD * own)}
+    w2m = frontend.wav2mel(card_wav, use_kaldi=True)
+    feats, fused_len = frontend.fused_frontend(card_wav, card_len, use_kaldi=True,
+                                               normalize=False)
+    checks = {
+        **{f"kaldi_{m}": errs[m] <= bars[m] for m in errs},
+        "wav2mel_is_kaldi_transposed": torch.equal(w2m.transpose(1, 2),
+                                                   frontend.kaldi_fbank(card_wav)),
+        "fused_frontend": dist(feats) <= bars["dft_conv"],
+        "frame_lengths": torch.equal(fused_len.cpu(), f_len) and int(f_len[-1]) == 0
+        and torch.equal(frontend.frame_lengths(card_len, 160, center=False).cpu(), f_len),
+    }
+    # FBankLayer: eval, then training (time stretch and SpecAugment)
+    layer = FBankLayer(t_stretch=True)
+    spans = []
+    draw = specaugment.draw_axis_spans
+
+    def recording(*args, **kwargs):
+        out = draw(*args, **kwargs)
+        spans.append(out)
+        return out
+
+    torch.cuda.synchronize()
+    reset_launches()
+    eval_card = layer.eval()(card_wav, card_len)
+    specaugment.draw_axis_spans = recording
+    try:
+        train_card = layer.train()(card_wav, card_len, torch.Generator("cuda").manual_seed(3),
+                                   torch.Generator().manual_seed(4))
+        torch.cuda.synchronize()
+        counted = launches()
+        specaugment.draw_axis_spans = lambda *a, **k: tuple(x.cpu() for x in spans.pop(0))
+        train_cpu = layer(wav, lengths, torch.Generator().manual_seed(3),
+                          torch.Generator().manual_seed(4))
+    finally:
+        specaugment.draw_axis_spans = draw
+    eval_cpu = layer.eval()(wav, lengths)
+    layer_errs = {}
+    for name, card, cpu in (("eval", eval_card, eval_cpu), ("train", train_card, train_cpu)):
+        (fc, lc), (fp, lp) = card, cpu
+        frames = (torch.arange(fp.shape[1])[None, :] < lp[:, None])[..., None]
+        gap = ((fc.cpu() - fp).abs() - FBANK_TOL * fp.abs()) * frames
+        layer_errs[name] = float(((fc.cpu() - fp).abs() * frames).max())
+        checks[f"fbank_layer_{name}"] = (torch.equal(lc.cpu(), lp) and fc.shape == fp.shape
+                                         and float(gap.max()) <= FBANK_TOL)
+    checks["fbank_layer_launches"] = counted == launch_counts(fbank=FBANK_LAYER_CALLS)
+    checks["spans_replayed"] = not spans
+    times = {"kaldi_dft_conv_ms": device_ms(lambda: frontend.kaldi_fbank(card_wav)),
+             "kaldi_fft_ms": device_ms(lambda: frontend.kaldi_fbank(card_wav, method="fft")),
+             "fbank_kernel_ms": device_ms(lambda: log_mel(card_wav)),
+             "wav2mel_fbank_ms": device_ms(lambda: frontend.wav2mel(card_wav, lengths=card_len)),
+             "fbank_layer_eval_ms": device_ms(lambda: layer.eval()(card_wav, card_len))}
+    report = {"phase": "kaldi_card_vs_cpu", "nvidia_smi": smi, "shape": list(KALDI_SHAPE),
+              "lengths": list(KALDI_LENGTHS), "kaldi_frames": f_len.tolist(),
+              "max_abs_err_vs_float64": errs, "cpu_float32_vs_float64": own, "bars": bars,
+              "fbank_layer_max_abs_err_db": layer_errs, "fbank_layer_tol": FBANK_TOL,
+              "fbank_layer_launches": counted["fbank"], "times": times, "checks": checks}
+    emit(report)
+    if not all(checks.values()):
+        raise AssertionError(f"kaldi_card_vs_cpu failed: {checks}")
+    return report
+
+
+def _extras_inputs(kind: str, rng: np.random.RandomState) -> tuple:
+    b = EXTRAS_B
+    if kind == "image":
+        return (torch.from_numpy(rng.rand(b, 8, 8, 1).astype(np.float32)),)
+    if kind == "ids":
+        lengths = np.sort(rng.randint(8, LM_T + 1, b))[::-1].copy()
+        lengths[0] = LM_T
+        ids = rng.randint(0, LM_VOCAB, (b, LM_T))
+        ids[np.arange(LM_T)[None, :] >= lengths[:, None]] = 0
+        return torch.from_numpy(ids), torch.from_numpy(lengths)
+    if kind == "iq":
+        return (torch.from_numpy(rng.randn(b, RML_T, 2).astype(np.float32)),)
+    return (torch.from_numpy(rng.randn(b, SPEC_WIN, SPEC_D).astype(np.float32)),)
+
+
+def _outs(out) -> list:
+    return list(out) if isinstance(out, tuple) else [out]
+
+
+def _extras_grads(model, inputs, cots, dtype) -> tuple:
+    """(outputs, {name: gradient}) of Σ out·cot in training mode, on the
+    model's device, in ``dtype``."""
+    dev = next(model.parameters()).device
+    args = [x.to(dev) if not x.is_floating_point() else x.to(dev, dtype) for x in inputs]
+    model.train().zero_grad()
+    outs = _outs(model(*args))
+    sum((o * c.to(dev, dtype)).sum() for o, c in zip(outs, cots)).backward()
+    return ([o.detach().cpu().double() for o in outs],
+            {n: p.grad.cpu().double() for n, p in model.named_parameters()})
+
+
+def _extras_zero_grad(name: str, model) -> set:
+    """The leaves whose true gradient is 0: ResNet1D's conv biases reach the
+    loss only through train-mode BatchNorms (tests/test_torch_extras_models.py);
+    the Transformer's key bias adds q·b to every logit of a query's row,
+    which the softmax removes."""
+    if name.startswith("resnet1d"):
+        return {"stem.bias"} | {f"blocks.{i}.conv{j}.bias" for i in range(len(model.blocks))
+                                for j in (1, 2)}
+    if name == "transformer":
+        return {f"layers.{i}.attn.key.bias" for i in range(len(model.layers))}
+    return set()
+
+
+def _extras_step_ms(name: str) -> dict:
+    """A train step of the model's task on the card at B = 32 (forward,
+    backward, Adam with the clip): ``_host_ms``, and the hand-kernel
+    launches of its 12 steps."""
+    make, kind, (task_cls, kwargs) = EXTRAS_MODELS[name]
+    task = task_cls(**kwargs, device="cuda")
+    trainer = Trainer(total_epoch=1, use_progress_bar=False, device="cuda")
+    trainer.trainer_prepare(task)
+    rng = np.random.RandomState(5)
+    inputs = _extras_inputs(kind, rng)
+    if kind == "image":
+        batch = (inputs[0].numpy(), rng.randint(0, 10, EXTRAS_B))
+    elif kind == "ids":
+        batch = {"ids": inputs[0].numpy(), "lengths": inputs[1].numpy()}
+    elif kind == "iq":
+        batch = {"iq": inputs[0].numpy(), "label": rng.randint(0, RML_CLASSES, EXTRAS_B),
+                 "snr": rng.uniform(-10, 18, EXTRAS_B).astype(np.float32)}
+    else:
+        batch = {"x": inputs[0].numpy(), "y": rng.randn(EXTRAS_B, SPEC_D).astype(np.float32)}
+    reset_launches()
+    ms = _host_ms(lambda: float(trainer.train_step(batch)["loss"]))
+    return {"step_ms": ms, "launches": launches()}
+
+
+def phase_extras_card_vs_cpu(gen: torch.Generator, smi: str) -> dict:
+    """Every model of ``models/extras.py`` at ``main_extras``' default widths
+    (B = 32): the card against the same weights on the CPU (flax's fresh
+    draw, converted state loaded on both sides), the eval forward and one
+    training step's gradients of Σ out·c (dropout off on both sides, the
+    card's ReLU decisions handed to the CPU: a unit within rounding of 0
+    flips otherwise, and a flip moved ResNet1D's gradients by 1–7 %),
+    within ``EXTRAS_TOL`` of the CPU leaf's largest entry.  A leaf past it (cuDNN's
+    float32 LSTM and GRU are less exact than the CPU's, ROADMAP §3) is held
+    to the CPU's float64 step in relative L2, within ``EXTRAS_CUDNN_TOL`` or
+    three times the CPU's float32 distance, as ``se_card_vs_cpu``; the
+    readings are printed.  Then each task's train step on the card, timed."""
+    rng = np.random.RandomState(21)
+    report, ok = {}, True
+    for name, (make, kind, _) in EXTRAS_MODELS.items():
+        card = make().cuda()
+        init_like_flax_(card, gen)
+        cpu = make()
+        cpu.load_state_dict(card.state_dict())
+        cpu64 = make().double()
+        cpu64.load_state_dict(card.state_dict())
+        for m in (*card.modules(), *cpu.modules(), *cpu64.modules()):
+            if isinstance(m, Dropout):
+                m.p = 0.0
+        inputs = _extras_inputs(kind, rng)
+        with torch.no_grad():
+            eval_card = _outs(card.eval()(*[x.cuda() for x in inputs]))
+            eval_cpu = _outs(cpu.eval()(*inputs))
+        fwd_err = max(float((c.cpu() - p).abs().max()) / float(p.abs().max())
+                      for c, p in zip(eval_card, eval_cpu))
+        cots = [torch.from_numpy(rng.randn(*o.shape).astype(np.float32)) for o in eval_cpu]
+        # the card's ReLU decisions, handed to both CPU steps (as ce_train_card_vs_cpu)
+        masks, flipped = [], {}
+        pin_resnet_relus(True, masks, module=extras_models)
+        try:
+            out_card, g_card = _extras_grads(card, inputs, cots, torch.float32)
+            runs = {}
+            for side, model, dtype in (("cpu", cpu, torch.float32),
+                                       ("cpu_float64", cpu64, torch.float64)):
+                differ = {"units": 0}
+                pin_resnet_relus(True, masks, differ, module=extras_models)
+                runs[side] = _extras_grads(model, inputs, cots, dtype)
+                flipped[side] = differ["units"]
+        finally:
+            pin_resnet_relus(False, masks, module=extras_models)
+        (out_cpu, g_cpu), (out64, g64) = runs["cpu"], runs["cpu_float64"]
+        train_err = max(float((c - p).abs().max()) / float(p.abs().max())
+                        for c, p in zip(out_card, out_cpu))
+        zero = _extras_zero_grad(name, card)
+        largest = max(float(g.abs().max()) for g in g_cpu.values())
+        worst, held, leaves_ok = 0.0, {}, True
+        for leaf, g in g_cpu.items():
+            if leaf in zero:
+                err = max(float(g.abs().max()), float(g_card[leaf].abs().max())) / largest
+                leaves_ok &= err <= EXTRAS_TOL
+                continue
+            err = float((g_card[leaf] - g).abs().max()) / max(float(g.abs().max()), 1e-30)
+            worst = max(worst, err)
+            if err > EXTRAS_TOL:
+                ref = g64[leaf]
+                norm = max(float(ref.norm()), 1e-30)
+                l2 = {side: float((gs[leaf] - ref).norm()) / norm
+                      for side, gs in (("card", g_card), ("cpu", g_cpu))}
+                bar = max(EXTRAS_CUDNN_TOL, 3 * l2["cpu"])
+                held[leaf] = {"card_vs_cpu": err, **{f"rel_l2_{k}_vs_float64": v
+                                                      for k, v in l2.items()}, "bar": bar}
+                leaves_ok &= l2["card"] <= bar
+        stats_err = 0.0
+        for (key, a), (_, b) in zip(card.state_dict().items(), cpu.state_dict().items()):
+            if key.endswith(("running_mean", "running_var")):
+                stats_err = max(stats_err, float((a.cpu() - b).abs().max())
+                                / max(float(b.abs().max()), 1e-30))
+        out64_err = max(float((c - p).abs().max()) / float(p.abs().max())
+                        for c, p in zip(out_card, out64))
+        step = _extras_step_ms(name)
+        report[name] = {
+            "input": [list(x.shape) for x in inputs],
+            "params": sum(p.numel() for p in card.parameters()),
+            "max_err_eval_over_largest": fwd_err, "max_err_train_out_over_largest": train_err,
+            "train_out_card_vs_float64": out64_err, "max_rel_err_gradient": worst,
+            "gradients": len(g_cpu), "zero_gradient_leaves": sorted(zero),
+            "relus": sum(int(m.numel()) for m in masks), "relus_pinned_that_differed": flipped,
+            "leaves_held_to_float64": held, "max_rel_err_bn_stats": stats_err,
+            "train_step_ms_b32": step["step_ms"], "train_step_launches": step["launches"]}
+        ok &= (fwd_err <= EXTRAS_TOL and (train_err <= EXTRAS_TOL or out64_err <= EXTRAS_TOL)
+               and leaves_ok and stats_err <= EXTRAS_TOL and set(g_card) == set(g_cpu)
+               and step["launches"] == launch_counts())
+        del card, cpu, cpu64
+    emit({"phase": "extras_card_vs_cpu", "nvidia_smi": smi, "tol": EXTRAS_TOL,
+          "tol_cudnn_vs_float64": EXTRAS_CUDNN_TOL, "batch": EXTRAS_B, **report})
+    if not ok:
+        raise AssertionError("an extras model on the card disagrees with the CPU")
+    return report
+
+
+class _EpochLosses(Callback):
+    """Each train epoch's ``avg_train_loss`` and steps."""
+
+    def __init__(self):
+        super().__init__()
+        self.losses, self.steps = [], []
+        self._start = 0
+
+    def before_train_epoch(self, epoch):
+        self._start = self.trainer.global_step
+
+    def after_train_epoch(self, epoch, metrics):
+        self.losses.append(float(metrics["avg_train_loss"]))
+        self.steps.append(self.trainer.global_step - self._start)
+
+
+def _markov_text(path: str, n: int, rng: np.random.RandomState) -> None:
+    """A wikitext-style file of ``n`` sentences from a first-order Markov
+    chain over 400 words (each word has 4 likely successors), with headers
+    and blank lines: text an LSTM LM can learn in an epoch or two."""
+    words = [f"w{i}" for i in range(400)]
+    nexts = rng.randint(0, len(words), (len(words), 4))
+    lines = [" = Corpus = ", ""]
+    for i in range(n):
+        w = rng.randint(len(words))
+        sentence = []
+        for _ in range(rng.randint(6, 20)):
+            sentence.append(words[w])
+            w = nexts[w, rng.randint(4)] if rng.rand() < 0.9 else rng.randint(len(words))
+        lines.append(" ".join(sentence))
+        if i % 100 == 99:
+            lines += ["", f" = Section {i} = ", ""]
+    with open(path, "w") as f:
+        f.write("\n".join(lines) + "\n")
+
+
+def _rml_npz(path: str, n: int, rng: np.random.RandomState) -> None:
+    """``n`` IQ frames (2 × 128) of 11 classes, a carrier per class with its
+    own frequency and phase step, under noise at an SNR in [-4, 18] dB."""
+    t = np.arange(RML_T)
+    label = rng.randint(0, RML_CLASSES, n)
+    snr = rng.choice(np.arange(-4, 20, 2), n).astype(np.float32)
+    freq = 0.02 + 0.03 * label
+    step = np.pi / 2 * (label % 3)
+    phase = 2 * np.pi * freq[:, None] * t[None, :] + step[:, None] * (t[None, :] // 16)
+    amp = 10.0 ** (snr[:, None] / 20.0)
+    iq = np.stack([amp * np.cos(phase), amp * np.sin(phase)], axis=-1)
+    iq += rng.randn(*iq.shape)
+    np.savez(path, iq=(iq / amp.max()).astype(np.float32), label=label, snr=snr)
+
+
+def _spectrum_jsonl(path: str, rows: int, rng: np.random.RandomState) -> None:
+    """A spectrum monitor's dump: ``rows`` records of 64 dB levels with a
+    date, a few carriers drifting slowly over a noise floor."""
+    bins = np.arange(SPEC_D)
+    with open(path, "w") as f:
+        for i in range(rows):
+            level = -100.0 + 3.0 * rng.randn(SPEC_D)
+            for c, (center, period) in enumerate(((10, 200), (30, 90), (50, 333))):
+                pos = center + 4 * np.sin(2 * np.pi * i / period)
+                level += (40 - 8 * c) * np.exp(-0.5 * ((bins - pos) / 1.5) ** 2)
+            f.write(json.dumps({"data": np.round(level).astype(int).tolist(),
+                                "date": f"t{i:05d}"}) + "\n")
+
+
+def _digits_like(n: int, rng: np.random.RandomState) -> tuple:
+    """Seeded 8 × 8 × 1 images of 10 classes: a class pattern plus noise."""
+    patterns = rng.rand(10, 8, 8, 1).astype(np.float32)
+    y = rng.randint(0, 10, n).astype(np.int32)
+    x = np.clip(patterns[y] + 0.3 * rng.randn(n, 8, 8, 1), 0, 1).astype(np.float32)
+    return x, y
+
+
+def phase_cli_extras(root: str, smi: str) -> dict:
+    """``main_extras`` on the card, each for two epochs with ``--ckpt-dir``:
+    ``lm`` on a text corpus ``prepare_text`` prepared from generated
+    sentences, ``rml`` (``--use-rnn --use-snr``) on a generated IQ ``.npz``
+    with ``snr``, ``spec_pred`` (``--model lstm``) on a ``.npy`` that
+    ``prepare_spectrum convert`` packed from a generated ``.jsonl``, and
+    ``image`` on scikit-learn's digits where it imports (else
+    ``ImageClassificationTask`` through ``Trainer.fit`` on seeded 8 × 8 × 1
+    arrays after ``main_extras image`` raised ``ImportError``, and the line
+    says which ran).  The second epoch's mean train
+    loss must be below the first's, and the checkpoint must rebuild the
+    task.  None of these paths launches a hand kernel."""
+    rng = np.random.RandomState(31)
+    exp = os.path.join(root, "extras")
+    raw, text = os.path.join(exp, "raw"), os.path.join(exp, "text")
+    os.makedirs(raw)
+    _markov_text(os.path.join(raw, "wiki.train.raw"), 1500, rng)
+    _markov_text(os.path.join(raw, "wiki.valid.raw"), 100, rng)
+    prepare_text.main(["--root", raw, "--out", text])
+    _rml_npz(os.path.join(exp, "rml.npz"), 1600, rng)
+    _spectrum_jsonl(os.path.join(exp, "spec.jsonl"), 1200, rng)
+    prepare_spectrum.main(["convert", os.path.join(exp, "spec.jsonl"),
+                           os.path.join(exp, "spec.npy")])
+    try:
+        import sklearn  # noqa: F401
+        image = ["image"]
+    except ImportError:
+        image = None
+    runs = {"lm": (["lm", "--data", os.path.join(text, "train.txt")], LMTask),
+            "rml": (["rml", "--data", os.path.join(exp, "rml.npz"), "--use-rnn", "--use-snr"],
+                    RMLTask),
+            "spec_pred": (["spec_pred", "--data", os.path.join(exp, "spec.npy"),
+                           "--model", "lstm"], SpecPredTask)}
+    if image:
+        runs["image"] = (image, ImageClassificationTask)
+    saved = main_extras._trainer
+    report, checks = {"phase": "cli_extras", "nvidia_smi": smi, "epochs": EXTRAS_EPOCHS,
+                      "image_ran": "main_extras image (scikit-learn digits)" if image else
+                      "ImageClassificationTask via Trainer.fit on seeded 8x8x1 arrays "
+                      "(no scikit-learn)"}, {}
+    for name, (argv, task_cls) in runs.items():
+        recorder = _EpochLosses()
+
+        def recording_trainer(args, **kw):
+            trainer = saved(args, **kw)
+            trainer.callbacks.append(recorder)
+            return trainer
+
+        ckpt = os.path.join(exp, name)
+        main_extras._trainer = recording_trainer
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        try:
+            trainer = main_extras.main([*argv, "--epochs", str(EXTRAS_EPOCHS), "--no-progress",
+                                        "--ckpt-dir", ckpt])
+        finally:
+            main_extras._trainer = saved
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counted = launches()
+        task, _ = task_cls.resume_from_checkpoint(os.path.join(ckpt, "last.ckpt"))
+        same = all(torch.equal(p, task.model.state_dict()[k])
+                   for k, p in trainer.module.model.state_dict().items())
+        report[name] = {"seconds": seconds, "steps_per_epoch": recorder.steps,
+                        "avg_train_loss": recorder.losses, "launches": counted,
+                        "hyper_parameters": task.hyper_parameters}
+        checks[name] = (len(recorder.losses) == EXTRAS_EPOCHS
+                        and recorder.losses[1] < recorder.losses[0] and same
+                        and counted == launch_counts())
+    if not image:  # main_extras image raises there, as the JAX CLI does
+        try:
+            main_extras.main(["image", "--epochs", "1", "--no-progress"])
+            checks["image_raises_without_sklearn"] = False
+        except ImportError:
+            checks["image_raises_without_sklearn"] = True
+        x, y = _digits_like(1800, rng)
+        recorder = _EpochLosses()
+        task = ImageClassificationTask(num_classes=10)
+        trainer = Trainer(total_epoch=EXTRAS_EPOCHS, use_progress_bar=False, callbacks=[recorder])
+        t0 = time.perf_counter()
+        trainer.fit(task, [(x[i:i + 32], y[i:i + 32]) for i in range(0, 1620, 32)],
+                    [(x[i:i + 32], y[i:i + 32]) for i in range(1620, 1800, 32)])
+        report["image"] = {"seconds": time.perf_counter() - t0, "steps_per_epoch": recorder.steps,
+                           "avg_train_loss": recorder.losses}
+        checks["image"] = recorder.losses[1] < recorder.losses[0]
+    report["checks"] = checks
+    emit(report)
+    if not all(checks.values()):
+        raise AssertionError(f"cli_extras failed: {checks}")
+    return report
+
+
+def _sweep_corpus(root: str) -> str:
+    """A LibriSpeech-layout tree of the tone-code languages
+    (``<lang>/<speaker>/<chapter>/<utt>.wav`` and ``<speaker>-<chapter>.trans.txt``),
+    ``SWEEP_CLIPS`` clips a language."""
+    from speechlid_tpu_torch.data.audio_io import write_wav
+
+    synth = _synth_corpus()
+    tree = os.path.join(root, "librispeech")
+    for li, lang in enumerate(sorted(synth.LANG_CHARS)):
+        chapter = os.path.join(tree, lang, "19", "198")
+        os.makedirs(chapter)
+        rng = np.random.RandomState(300 + li)
+        lines = []
+        for i in range(SWEEP_CLIPS):
+            text = synth.make_text(lang, rng)
+            utt = f"19-198-{i:04d}"
+            write_wav(os.path.join(chapter, f"{utt}.wav"), synth.synth_utterance(lang, text, rng),
+                      synth.SR)
+            lines.append(f"{utt} {text}")
+        with open(os.path.join(chapter, "19-198.trans.txt"), "w") as f:
+            f.write("\n".join(lines))
+    return tree
+
+
+def phase_cli_sweep(root: str, smi: str) -> dict:
+    """``prepare_manifest`` builds the manifests of a LibriSpeech-layout tree;
+    the port's ``sweep`` runs ``configs/sweep_lid.yaml``'s bayes spec (lr,
+    dropout, ``n_blocks`` ∈ {8, 14}, ``batch_size`` ∈ {8, 16}) on
+    ``lid_supervised`` at full width through ``main_lid`` on the card, cut to
+    ``SWEEP_TRIALS`` trials (``SWEEP_STARTUP`` random) of one epoch.  Checks:
+    every trial returns a value; ``results.jsonl`` holds the trials; the
+    third trial's suggestion is what ``TPESampler`` on the CPU suggests from
+    the same seed and history; every trial launches ``fbank_log_mel`` and
+    the training and eval depthwise modes.  Each trial's launches are
+    counted apart (``main_lid.main`` wrapped: counts set to 0 before, read
+    after) with its wall time."""
+    import random
+
+    from speechlid_tpu_torch.cli import main_lid
+    from speechlid_tpu_torch.core.config import safe_load
+
+    tree = _sweep_corpus(root)
+    manifests = os.path.join(root, "sweep_manifests")
+    prepare_manifest.main(["--root", tree, "--out", manifests,
+                           "--dev-ratio", str(SWEEP_DEV_RATIO)])
+    langs = ", ".join(
+        "{manifest: %s, val_manifest: %s}" % (os.path.join(manifests, lang, "train.txt"),
+                                            os.path.join(manifests, lang, "dev.txt"))
+        for lang in sorted(os.listdir(manifests)))
+    with open("configs/sweep_lid.yaml") as f:
+        body = f.read()
+    spec = safe_load(body)
+    body = (body.replace(f"trials: {spec['trials']}", f"trials: {SWEEP_TRIALS}")
+            .replace(f"n_startup: {spec['n_startup']}", f"n_startup: {SWEEP_STARTUP}")
+            .replace("trainer.total_epoch=10", "trainer.total_epoch=1")
+            .replace("  - trainer.progress_bar=false",
+                     f'  - trainer.progress_bar=false\n  - "data.langs=[{langs}]"'))
+    spec_path = os.path.join(root, "sweep_lid_cut.yaml")
+    with open(spec_path, "w") as f:
+        f.write(body)
+    cut = safe_load(body)
+    out = os.path.join(root, "sweep")
+    trials, train_main = [], main_lid.main
+    fbank_shapes, conv_shapes = set(), set()
+    wav2mel = frontend.wav2mel  # hands its wav to the fbank kernel as it is
+
+    def counted_main(argv):
+        sampled = dict(a.split("=", 1) for a in argv if a.split("=")[0] in cut["parameters"])
+        torch.cuda.synchronize()
+        reset_launches()
+        fbank_shapes.clear()
+        conv_shapes.clear()
+        t0 = time.perf_counter()
+        try:
+            train_main(argv)
+        finally:
+            torch.cuda.synchronize()
+            trials.append({"seconds": time.perf_counter() - t0, "launches": launches(),
+                           "sampled": sampled, "fbank_shapes": sorted(fbank_shapes),
+                           "conv_shapes": sorted(conv_shapes)})
+
+    def wav2mel_seen(wav, *args, **kwargs):
+        fbank_shapes.add(tuple(wav.shape))
+        return wav2mel(wav, *args, **kwargs)
+
+    def conv_seen(module, inputs, output):
+        if isinstance(module, ConformerConvModule):
+            k, c = module.depthwise.weight.shape
+            conv_shapes.add((*inputs[0].shape[:2], c, k))
+
+    main_lid.main, frontend.wav2mel = counted_main, wav2mel_seen
+    hook = torch.nn.modules.module.register_module_forward_hook(conv_seen)
+    t0 = time.perf_counter()
+    try:
+        results = sweep_cli.main([spec_path, "--out", out])
+    finally:
+        main_lid.main, frontend.wav2mel = train_main, wav2mel
+        hook.remove()
+    seconds = time.perf_counter() - t0
+    with open(os.path.join(out, "results.jsonl")) as f:
+        written = [json.loads(line) for line in f]
+    metric = cut["metric"]["name"]
+    by_trial = sorted(written, key=lambda r: r["trial"])
+    sampler = sweep_cli.TPESampler(cut["parameters"], random.Random(cut.get("seed", 0)),
+                                   n_startup=int(cut["n_startup"]),
+                                   gamma=float(cut.get("gamma", 0.25)))
+    replay = [sampler.suggest(by_trial[:i], metric, cut["metric"]["goal"])
+              for i in range(SWEEP_TRIALS)]
+    suggested = [{k: r[k] for k in cut["parameters"]} for r in by_trial]
+    dw_modes = ("depthwise_glu", "depthwise_glu_dx", "depthwise_bwd_w", "depthwise_glu_bn_act")
+    checks = {
+        "trials": len(results) == SWEEP_TRIALS == len(trials),
+        "every_value": all(r[metric] is not None and np.isfinite(r[metric]) for r in results),
+        "results_jsonl": len(written) == SWEEP_TRIALS,
+        "third_is_cpu_tpe": replay[2] == suggested[2],
+        "replayed_trials": replay == suggested,
+        "kernels_every_trial": all(t["launches"]["fbank"] > 0
+                                   and all(t["launches"][m] > 0 for m in dw_modes)
+                                   for t in trials),
+        "kernel_shapes": all(
+            t["fbank_shapes"] == [FBANK_SHAPES[SWEEP_SHAPES[int(t["sampled"]["data.batch_size"])][0]]]
+            and t["conv_shapes"] == [SWEEP_SHAPES[int(t["sampled"]["data.batch_size"])][1]]
+            for t in trials),
+    }
+    report = {"phase": "cli_sweep", "nvidia_smi": smi, "seconds": seconds,
+              "spec": {k: cut[k] for k in ("method", "trials", "n_startup", "metric",
+                                          "parameters")},
+              "reduced": [f"trials {spec['trials']} -> {SWEEP_TRIALS}",
+                          f"n_startup {spec['n_startup']} -> {SWEEP_STARTUP}",
+                          "trainer.total_epoch 10 -> 1",
+                          f"corpus: 3 languages x {SWEEP_CLIPS} tone-code clips, dev ratio "
+                          f"{SWEEP_DEV_RATIO}: one eval batch a language"],
+              "results": by_trial, "trials": trials, "checks": checks}
+    emit(report)
+    if not all(checks.values()):
+        raise AssertionError(f"cli_sweep failed: {checks}")
+    return report
+
+
+def profile_child(trace_dir: str) -> None:
+    """The ``profile_trace`` phase's own process: ``Trainer.fit`` of the
+    flagship task for one epoch of 3 train steps (B = 8, 4 s) with
+    ``profile_dir`` set."""
+    strict_float32(torch.device("cuda"))
+    task = LidASRTask(**FLAGSHIP, **TRAIN_HPARAMS, device="cuda")
+    rng = np.random.RandomState(41)
+    batches = [synthetic_batch(rng, i % N_LANG, TRAIN_B, TRAIN_SECONDS) for i in range(3)]
+    Trainer(total_epoch=1, use_progress_bar=False, profile_dir=trace_dir,
+            device="cuda").fit(task, batches)
+
+
+def phase_profile_trace(root: str, smi: str) -> dict:
+    """``Trainer(profile_dir=…)`` in a process of its own: one trace file for
+    the one profiled epoch, holding at least one ``fbank_log_mel`` and one
+    depthwise kernel record.  The counts are a report (the profiler drops
+    records late in a long process, ROADMAP §3)."""
+    trace_dir = os.path.join(root, "trace")
+    t0 = time.perf_counter()
+    child = subprocess.run(
+        [sys.executable, "-c", f"import chip_smoke; chip_smoke.profile_child({trace_dir!r})"],
+        cwd=str(Path(__file__).resolve().parent), capture_output=True, text=True, timeout=600)
+    seconds = time.perf_counter() - t0
+    if child.returncode != 0:
+        print(child.stderr[-4000:], file=sys.stderr)
+        raise AssertionError(f"profile_trace's process failed ({child.returncode})")
+    files = sorted(os.listdir(trace_dir))
+    counts, n_kernels = {"fbank_log_mel": 0, "depthwise": 0}, 0
+    for name in files:
+        with open(os.path.join(trace_dir, name)) as f:
+            events = json.load(f)["traceEvents"]
+        for e in events:
+            if e.get("cat") != "kernel":
+                continue
+            n_kernels += 1
+            for key in counts:
+                counts[key] += key in e.get("name", "")
+    checks = {"one_file_per_epoch": files == ["epoch_0.pt.trace.json"],
+              "fbank_record": counts["fbank_log_mel"] >= 1, "depthwise_record": counts["depthwise"] >= 1}
+    report = {"phase": "profile_trace", "nvidia_smi": smi, "seconds": seconds, "files": files,
+              "bytes": [os.path.getsize(os.path.join(trace_dir, n)) for n in files],
+              "kernel_records": n_kernels, "records": counts,
+              "records_are": "a report: torch.profiler may drop records", "checks": checks}
+    emit(report)
+    if not all(checks.values()):
+        raise AssertionError(f"profile_trace failed: {checks}")
+    return report
+
+
+def phase_extras(gen: torch.Generator, root: str, smi: str) -> dict:
+    """This slice's phases in order; → their reports."""
+    return {"kaldi": phase_kaldi_card_vs_cpu(gen, smi),
+            "models": phase_extras_card_vs_cpu(gen, smi),
+            "cli": phase_cli_extras(root, smi), "sweep": phase_cli_sweep(root, smi),
+            "trace": phase_profile_trace(root, smi)}
+
+
+def extras_kernel_rows(gen: torch.Generator, errs: dict, reports: dict) -> list:
+    """The ``kernels`` line's rows of this slice's paths: ``FBankLayer`` at
+    (8, 64000), and every kernel the sweep's trials launched, at the shapes
+    of each batch size the trials drew (``SWEEP_SHAPES``), with the launches
+    of the trials of that batch size."""
+    rows = [fbank_row("fbank_log_mel@fbank_layer", "train", gen, errs,
+                      reports["kaldi"]["fbank_layer_launches"],
+                      {"launches_counted_on": "kaldi_card_vs_cpu: FBankLayer eval and training",
+                       "launches_per_forward": 1})]
+    trials = reports["sweep"]["trials"]
+    for b in sorted({int(t["sampled"]["data.batch_size"]) for t in trials}):
+        mine = [t for t in trials if int(t["sampled"]["data.batch_size"]) == b]
+        counts = {k: sum(t["launches"][k] for t in mine) for k in mine[0]["launches"]}
+        on = (f"cli_sweep: the {len(mine)} of {len(trials)} trials of lid_supervised at "
+              f"data.batch_size={b}, their train steps and evals")
+        fbank_key, dw_shape = SWEEP_SHAPES[b]
+        suffix = f"@cli_sweep_b{b}"
+        rows.append(fbank_row("fbank_log_mel" + suffix, fbank_key, gen, errs, counts["fbank"],
+                              {"launches_counted_on": on}))
+        rows += fused_kernel_rows(gen, errs["conv_fused"], {
+            f"depthwise_conv1d_fwd[glu_bn_act]{suffix}_eval": (
+                counts["depthwise_glu_bn_act"], {"launches_counted_on": on}),
+            f"depthwise_conv1d_fwd[glu]{suffix}": (counts["depthwise_glu"], {
+                "launches_counted_on": on}),
+            f"depthwise_conv1d_fwd[glu_dx]{suffix}": (counts["depthwise_glu_dx"], {
+                "launches_counted_on": on}),
+        }, eval_rows=((f"depthwise_conv1d_fwd[glu_bn_act]{suffix}_eval", dw_shape),),
+            train_shape=dw_shape, train_suffix=suffix)
+        row = bwd_w_row(gen, errs["conv_fused"], dw_shape, "depthwise_conv1d_bwd_w" + suffix,
+                        counts, 1)
+        row.pop("launches_per_train_step")
+        row["launches_counted_on"] = on
+        rows.append(row)
+    for row in rows:
+        if not row["launches"] > 0:
+            raise AssertionError(f"{row['name']} was not launched on its path")
+    return rows
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description="Drive the PyTorch/CUDA port on one card.")
-    parser.add_argument("--only", choices=("cli_gate", "ce_asr", "se", "quant"),
+    parser.add_argument("--only", choices=("cli_gate", "ce_asr", "se", "quant", "extras"),
                         help="run this phase alone, after the build and the corpus "
                              "(ce_asr: the cross-entropy and ASR phases; se: the speech "
                              "enhancement and bilstm phases on cli_flagship's checkpoint; "
                              "quant: the int8, SWA and Novograd phases, on it too; "
+                             "extras: kaldi fbank, FBankLayer, the extras tasks, the sweep "
+                             "and the trainer's trace; "
                              "each with the kernel checks and rows they need)")
     parser.add_argument("--seed", type=int, default=0,
                         help="the CLI's seed for --only cli_gate (the gate's own is 0)")
@@ -5155,6 +5900,16 @@ def main(argv=None) -> int:
                                      "kind": torch.cuda.get_device_name(0),
                                      "count": torch.cuda.device_count()}})
         return 0
+    if args.only == "extras":
+        errs = {"fbank": phase_fbank(gen), "conv_fused": phase_conv_fused(gen)}
+        with tempfile.TemporaryDirectory() as root:
+            os.environ["SPEECHLID_CACHE_DIR"] = os.path.join(root, "cache")
+            reports = phase_extras(gen, root, smi)
+        emit({"kernels": extras_kernel_rows(gen, errs, reports)})
+        emit({"ok": True, "device": {"platform": "gpu",
+                                     "kind": torch.cuda.get_device_name(0),
+                                     "count": torch.cuda.device_count()}})
+        return 0
     errs = {"fbank": phase_fbank(gen), "depthwise": phase_depthwise(gen),
             "depthwise_bwd": phase_depthwise_bwd(gen), "conv_fused": phase_conv_fused(gen)}
     task = phase_model(gen)
@@ -5194,6 +5949,7 @@ def main(argv=None) -> int:
         cross_cli, asr_cli = phase_ce_asr(gen, root, corpus, inputs[1], smi)
         eval_se, serve_se, bilstm = phase_se(gen, root, corpus, inputs, smi)
         quant_reports = phase_quant(gen, root, corpus, smi)
+        extras_reports = phase_extras(gen, root, smi)
     # host-clock loops first, the profiler's runs after (it slows what follows it)
     phase_se_e2e(gen, smi, serve_se, eval_se)
     phase_quant_e2e(gen, smi)
@@ -5207,6 +5963,7 @@ def main(argv=None) -> int:
     kernels += ce_asr_kernel_rows(gen, errs, cross_cli, ce_host, asr_cli)
     kernels += se_bilstm_kernel_rows(gen, errs, eval_se, bilstm)
     kernels += quant_kernel_rows(gen, errs, quant_reports)
+    kernels += extras_kernel_rows(gen, errs, extras_reports)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -698,3 +698,202 @@ def se_variables(sd: Mapping) -> Dict[str, Dict]:
     for spec in specs:
         _spec_variables(spec, sd, params)
     return {"params": params}
+
+
+# ---------------------------------------------------------------------------
+# flax's GRUCell, and the secondary tasks' model zoo (models/extras.py)
+# ---------------------------------------------------------------------------
+
+GRU_GATES = ("r", "z", "n")  # flax's and torch's order of the stacked gates
+
+
+def gru_state(cell: Mapping, prefix: str) -> StateDict:
+    """One flax ``GRUCell`` (input kernels ``ir/iz/in`` (D, H) with biases,
+    recurrent kernels ``hr/hz`` (H, H) without and ``hn`` with one) → a
+    ``models/rnn.GRUDirection`` (``weight_ih`` (3H, D), ``weight_hh`` (3H, H),
+    ``bias_ih`` (3H,), ``bias_hn`` (H,))."""
+    return {
+        prefix + "weight_ih": np.concatenate([_a(cell["i" + g]["kernel"]).T for g in GRU_GATES]),
+        prefix + "weight_hh": np.concatenate([_a(cell["h" + g]["kernel"]).T for g in GRU_GATES]),
+        prefix + "bias_ih": np.concatenate([_a(cell["i" + g]["bias"]) for g in GRU_GATES]),
+        prefix + "bias_hn": _a(cell["hn"]["bias"]),
+    }
+
+
+def gru_variables(sd: Mapping, prefix: str) -> Dict:
+    """The inverse of :func:`gru_state`."""
+    w_ih, w_hh, b_ih = (_n(sd[prefix + k]) for k in ("weight_ih", "weight_hh", "bias_ih"))
+    h = w_hh.shape[1]
+    cell = {}
+    for j, g in enumerate(GRU_GATES):
+        rows = slice(j * h, (j + 1) * h)
+        cell["i" + g] = {"kernel": w_ih[rows].T, "bias": b_ih[rows]}
+        cell["h" + g] = {"kernel": w_hh[rows].T}
+    cell["hn"]["bias"] = _n(sd[prefix + "bias_hn"])
+    return cell
+
+
+def _extras_specs(model: torch.nn.Module) -> list:
+    """(kind, flax path, port prefix) of every leaf group of a
+    ``models/extras.py`` model.  flax names the cells that ``nn.RNN`` wraps
+    after their class, at the level of the module that builds them
+    (``OptimizedLSTMCell_j``, ``GRUCell_0``), and unnamed Dense / Conv
+    layers in the order they are built."""
+    from speechlid_tpu_torch.models import extras as mx
+
+    def dense(flax: str, port: str):
+        return ("dense", (flax,), port + ".")
+
+    if isinstance(model, mx.BaseCNN):
+        return [("conv", ("Conv_0",), "conv1."), ("conv", ("Conv_1",), "conv2."),
+                dense("Dense_0", "fc1"), dense("Dense_1", "fc2")]
+    if isinstance(model, mx.LSTMLM):
+        specs = [("embed", ("Embed_0",), "embed.")]
+        for i in range(len(model.rnn)):
+            if model.bidirectional:
+                specs.append(("lstm", ((f"OptimizedLSTMCell_{2 * i}",),
+                                       (f"OptimizedLSTMCell_{2 * i + 1}",)), f"rnn.{i}."))
+            else:
+                specs.append(("lstm1", (f"OptimizedLSTMCell_{i}",), f"rnn.{i}.cell."))
+        return specs + [dense("Dense_0", "out")]
+    if isinstance(model, mx.ResNet1D):
+        specs = [("conv", ("stem",), "stem.")]
+        for i in range(len(model.blocks)):
+            for part in ("bn1", "conv1", "bn2", "conv2"):
+                specs.append(("bn" if part.startswith("bn") else "conv", (f"block_{i}", part),
+                              f"blocks.{i}.{part}."))
+        specs += [("bn", ("bn_final",), "bn_final."), ("dense", ("cls",), "cls.")]
+        if model.gru is not None:
+            specs.append(("gru", ("GRUCell_0",), "gru.cell."))
+        if model.snr is not None:
+            specs.append(("dense", ("snr",), "snr."))
+        return specs
+    if isinstance(model, mx.ForecastMLP):
+        return [dense("Dense_0", "fc1"), dense("Dense_1", "fc2"), dense("Dense_2", "out")]
+    if isinstance(model, mx.ForecastLSTM):
+        return [("lstm1", (f"OptimizedLSTMCell_{i}",), f"lstm.{i}.cell.")
+                for i in range(len(model.lstm))] + [dense("Dense_0", "out")]
+    if isinstance(model, mx.ForecastCnnLSTM):
+        return [("conv", ("Conv_0",), "conv1."), ("conv", ("Conv_1",), "conv2."),
+                ("lstm1", ("OptimizedLSTMCell_0",), "lstm.cell."), dense("Dense_0", "out")]
+    if isinstance(model, mx.ForecastTCN):
+        specs = []
+        for i, block in enumerate(model.tcn):
+            specs += [("conv", (f"tcn_{i}", "conv1"), f"tcn.{i}.conv1."),
+                      ("conv", (f"tcn_{i}", "conv2"), f"tcn.{i}.conv2.")]
+            if block.proj is not None:
+                specs.append(("dense", (f"tcn_{i}", "proj"), f"tcn.{i}.proj."))
+        return specs + [dense("Dense_0", "out")]
+    if isinstance(model, mx.ForecastTransformer):
+        n = len(model.layers)
+        specs = [dense("Dense_0", "proj"), ("param", ("pos_emb",), "pos_emb")]
+        for i in range(n):
+            pre = f"layers.{i}."
+            specs += [("norm", (f"ln1_{i}",), pre + "ln1."), ("attn", (f"attn_{i}",), pre + "attn."),
+                      ("norm", (f"ln2_{i}",), pre + "ln2."),
+                      dense(f"Dense_{1 + 2 * i}", pre + "ff1"),
+                      dense(f"Dense_{2 + 2 * i}", pre + "ff2")]
+        return specs + [dense(f"Dense_{2 * n + 1}", "out")]
+    raise TypeError(f"not a model of models/extras.py: {type(model).__name__}")
+
+
+ATTN_PROJECTIONS = ("query", "key", "value")
+
+
+def _extras_leaf_state(kind: str, path, prefix: str, params: Mapping,
+                       stats: Mapping) -> StateDict:
+    if kind == "lstm":
+        return {**lstm_state(_get(params, path[0]), prefix + "fwd."),
+                **lstm_state(_get(params, path[1]), prefix + "bwd.")}
+    p = _get(params, path)
+    if kind == "lstm1":
+        return lstm_state(p, prefix)
+    if kind == "gru":
+        return gru_state(p, prefix)
+    if kind == "dense":
+        return _dense(p, prefix)
+    if kind == "norm":
+        return _norm(p, prefix)
+    if kind == "embed":
+        return {prefix + "weight": _a(p["embedding"])}
+    if kind == "param":
+        return {prefix: _a(p)}
+    if kind == "conv":
+        return {prefix + "weight": np.ascontiguousarray(_kernel_to_weight(_a(p["kernel"]))),
+                prefix + "bias": _a(p["bias"])}
+    if kind == "bn":
+        s = _get(stats, path)
+        return {**_norm(p, prefix), prefix + "running_mean": _a(s["mean"]),
+                prefix + "running_var": _a(s["var"])}
+    # attn: DenseGeneral q/k/v (d, heads, d/heads) and out (heads, d/heads, d)
+    sd: StateDict = {}
+    for name in ATTN_PROJECTIONS:
+        kernel = _a(p[name]["kernel"])
+        sd[f"{prefix}{name}.weight"] = kernel.reshape(kernel.shape[0], -1).T
+        sd[f"{prefix}{name}.bias"] = _a(p[name]["bias"]).reshape(-1)
+    kernel = _a(p["out"]["kernel"])
+    sd[prefix + "out.weight"] = kernel.reshape(-1, kernel.shape[-1]).T
+    sd[prefix + "out.bias"] = _a(p["out"]["bias"])
+    return sd
+
+
+def _extras_leaf_variables(kind: str, path, prefix: str, sd: Mapping, params: Dict,
+                           stats: Dict, heads: int = 0) -> None:
+    if kind == "lstm":
+        _insert(params, path[0], lstm_variables(sd, prefix + "fwd."))
+        _insert(params, path[1], lstm_variables(sd, prefix + "bwd."))
+        return
+    if kind == "lstm1":
+        node = lstm_variables(sd, prefix)
+    elif kind == "gru":
+        node = gru_variables(sd, prefix)
+    elif kind == "dense":
+        node = _dense_tree(sd, prefix)
+    elif kind == "norm":
+        node = _norm_tree(sd, prefix)
+    elif kind == "embed":
+        node = {"embedding": _n(sd[prefix + "weight"])}
+    elif kind == "param":
+        node = _n(sd[prefix])
+    elif kind == "conv":
+        node = {"kernel": np.ascontiguousarray(_weight_to_kernel(_n(sd[prefix + "weight"]))),
+                "bias": _n(sd[prefix + "bias"])}
+    elif kind == "bn":
+        node = _norm_tree(sd, prefix)
+        _insert(stats, path, {"mean": _n(sd[prefix + "running_mean"]),
+                              "var": _n(sd[prefix + "running_var"])})
+    else:  # attn
+        node = {}
+        for name in ATTN_PROJECTIONS:
+            weight = _n(sd[f"{prefix}{name}.weight"])  # (heads·hd, d)
+            d = weight.shape[1]
+            node[name] = {"kernel": weight.T.reshape(d, heads, -1),
+                          "bias": _n(sd[f"{prefix}{name}.bias"]).reshape(heads, -1)}
+        weight = _n(sd[prefix + "out.weight"])  # (d, heads·hd)
+        node["out"] = {"kernel": weight.T.reshape(heads, -1, weight.shape[0]),
+                       "bias": _n(sd[prefix + "out.bias"])}
+    _insert(params, path, node)
+
+
+def extras_state(variables: Mapping, model: torch.nn.Module) -> StateDict:
+    """JAX ``models/extras.py`` variables (``params`` and, for ``ResNet1D``,
+    ``batch_stats``) → the state_dict of the port's ``model`` of the same
+    kind and shape."""
+    params, stats = variables["params"], variables.get("batch_stats", {})
+    sd: StateDict = {}
+    for kind, path, prefix in _extras_specs(model):
+        sd.update(_extras_leaf_state(kind, path, prefix, params, stats))
+    return sd
+
+
+def extras_variables(sd: Mapping, model: torch.nn.Module) -> Dict[str, Dict]:
+    """The port ``model``'s state_dict → ``{"params"[, "batch_stats"]}`` of
+    the JAX model: the inverse of :func:`extras_state`."""
+    params: Dict = {}
+    stats: Dict = {}
+    for kind, path, prefix in _extras_specs(model):
+        heads = 0
+        if kind == "attn":
+            heads = model.get_submodule(prefix.rstrip(".")).heads
+        _extras_leaf_variables(kind, path, prefix, sd, params, stats, heads)
+    return {"params": params, "batch_stats": stats} if stats else {"params": params}

@@ -3,10 +3,12 @@
 ``TimeCostRecoder``, ccml/utils/profile.py:8-68): accumulates wall time and
 call counts per key, with a decorator for instrumenting hot host functions.
 
-The wall-clock table only.  The JAX package's ``device_trace`` (a
-``jax.profiler`` trace around a region) has no counterpart here yet; a
-device trace of the port is taken with ``torch.profiler`` around the region
-(as ``chip_smoke.py`` does).
+:func:`device_trace` is the JAX package's ``device_trace`` (a
+``jax.profiler`` trace around a region) over ``torch.profiler``: the host's
+and, on the card, CUDA's activity, written as one Chrome trace
+(``<log_dir>/<name>.pt.trace.json``, viewable in Perfetto or
+``chrome://tracing``).  ``torch.profiler`` may drop kernel records late in
+a long process, so a trace is a report, not a count.
 
 Device time is *not* measured here: CUDA launches return before the card
 finishes, so a caller that times device work synchronises first.
@@ -15,6 +17,7 @@ finishes, so a caller that times device work synchronises first.
 from __future__ import annotations
 
 import contextlib
+import os
 import threading
 import time
 from functools import wraps
@@ -101,3 +104,23 @@ def register_cost_statistic(need_return: bool = True) -> Callable:
         return wrapper
 
     return decorate
+
+
+@contextlib.contextmanager
+def device_trace(log_dir: Optional[str] = None, name: str = "trace", cuda: bool = False):
+    """Profile the region with ``torch.profiler`` (the CPU, and CUDA when
+    ``cuda``) and write ``<log_dir>/<name>.pt.trace.json``; with no
+    ``log_dir``, run no profiler at all.  Yields the profiler or None."""
+    if log_dir is None:
+        yield None
+        return
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
+    os.makedirs(log_dir, exist_ok=True)
+    with profile(activities=activities) as prof:
+        yield prof
+        if cuda:
+            torch.cuda.synchronize()  # the region's kernels end inside the trace
+    prof.export_chrome_trace(os.path.join(log_dir, f"{name}.pt.trace.json"))

@@ -64,6 +64,7 @@ from speechlid_tpu_torch.ops.cuda.depthwise_kernel import (
     glu_depthwise_bn_act,
     swish,
 )
+from speechlid_tpu_torch.ops.frontend import fused_frontend
 from speechlid_tpu_torch.ops.quant import quant_dot_general
 
 LN_EPS = 1e-6  # flax nn.LayerNorm default
@@ -459,3 +460,45 @@ class ConformerModel(nn.Module):
             # a dropped block still ran: its BatchNorm statistics have moved
             x = y if keep is None else torch.where(keep[i], y, x)
         return x  # (B, T', encoder_dim)
+
+
+class FBankLayer(nn.Module):
+    """The in-model feature layer: wav → dB mel (the fbank kernel on the
+    card), with time stretch and SpecAugment in training.  Returns
+    ((B, T, n_mels) features, frame lengths or None): the stretch rescales
+    the lengths.  ``ops/frontend.fused_frontend`` with ``normalize=False``
+    (the reference layer gets normalised waves).
+
+    In training mode (with ``mask_times > 0`` or ``t_stretch``) the masks
+    draw from ``generator`` (on the wave's device; ``self.generator``,
+    which ``set_generator`` sets, if none is passed) and the stretch rate
+    from ``stretch_generator`` (a CPU generator; ``generator`` if none);
+    without a generator it raises, as the JAX layer does without its
+    ``specaug`` stream.  The features carry no gradient (the fbank kernel
+    has no backward)."""
+
+    def __init__(self, sample_rate: int = 16000, win_len: float = 0.025,
+                 hop_length: float = 0.01, n_mels: int = 80, t_mask_prob: float = 0.05,
+                 f_mask: int = 27, mask_times: int = 2, t_stretch: bool = False):
+        super().__init__()
+        self.sample_rate, self.win_len, self.hop_length = sample_rate, win_len, hop_length
+        self.n_mels, self.t_mask_prob, self.f_mask = n_mels, t_mask_prob, f_mask
+        self.mask_times, self.t_stretch = mask_times, t_stretch
+        self.generator: Optional[torch.Generator] = None
+
+    @torch.no_grad()
+    def forward(self, wav: torch.Tensor, lengths: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None,
+                stretch_generator: Optional[torch.Generator] = None):
+        augment = self.training and (self.mask_times > 0 or self.t_stretch)
+        generator = generator or self.generator
+        if augment and generator is None:
+            raise ValueError("FBankLayer draws its training augmentation from a generator: "
+                             "pass one or set it with set_generator")
+        return fused_frontend(
+            wav, lengths, sample_rate=self.sample_rate, n_mels=self.n_mels,
+            win_length=self.win_len, hop_length=self.hop_length, normalize=False,
+            generator=generator if augment else None, t_stretch=self.t_stretch,
+            stretch_generator=stretch_generator, mask_times=self.mask_times,
+            t_mask_ratio=self.t_mask_prob, f_mask=self.f_mask,
+        )

@@ -40,6 +40,16 @@ the ``ConvTranspose`` decoder ``lecun_normal`` with fan_in in·k; flax's
 ``nn.PReLU`` one slope of 0.01 (torch's default is 0.25);
 ``GlobalLayerNorm`` scale 1 and bias 0.
 
+The secondary tasks' models (``models/extras.py``) add: flax's ``Embed``,
+a normal (not truncated) with variance 1/features (``variance_scaling(1,
+"fan_in", "normal", out_axis=0)``, whose fan_in is the embedding width);
+the ``GRUCell`` of ``models/rnn.GRUDirection``, input kernels ``lecun_normal``
+with fan_in D, recurrent kernels ``orthogonal`` per gate, biases zeros;
+``ForecastTransformer``'s ``pos_emb`` N(0, 0.02²); and its attention's
+``DenseGeneral`` q/k/v/out, ``lecun_normal`` with fan_in the input
+features (d for each: the port holds them as (d, d) ``Linear``s, so the
+``Linear`` rule draws them).
+
 fan_in is the kernel's input width times its receptive field: ``in`` for a
 Linear (out, in), in·kh·kw for a Conv2d (out, in, kh, kw), in·k for a Conv1d
 and for a ConvTranspose1d (in, out, k), and k for the depthwise weight
@@ -60,6 +70,7 @@ import torch
 import torch.nn as nn
 
 from speechlid_tpu_torch.models.batchnorm import FlaxBatchNorm
+from speechlid_tpu_torch.models.extras import ForecastTransformer
 from speechlid_tpu_torch.models.fasnet import GlobalLayerNorm, PReLU
 from speechlid_tpu_torch.models.conformer import (
     DepthwiseConv1d,
@@ -67,7 +78,7 @@ from speechlid_tpu_torch.models.conformer import (
     RelPosAttention,
 )
 from speechlid_tpu_torch.models.pooling import MHASTP
-from speechlid_tpu_torch.models.rnn import LSTMDirection
+from speechlid_tpu_torch.models.rnn import GRUDirection, LSTMDirection
 from speechlid_tpu_torch.models.wav2vec2 import Featurizer
 from speechlid_tpu_torch.models.wavlm import RelPosMultiheadAttention, WavLM, _WeightNormConvPos
 
@@ -121,6 +132,17 @@ def init_like_flax_(module: nn.Module, generator: torch.Generator) -> None:
             draws["weight_ih"] = lecun_normal(m.weight_ih.shape, d, generator)
             # each gate's flax kernel (H, H) is orthogonal; torch holds its transpose
             draws["weight_hh"] = torch.cat([orthogonal(h, generator).t() for _ in range(4)])
+        elif isinstance(m, GRUDirection):
+            h, d = m.hidden, m.weight_ih.shape[1]
+            draws["weight_ih"] = lecun_normal(m.weight_ih.shape, d, generator)
+            draws["weight_hh"] = torch.cat([orthogonal(h, generator).t() for _ in range(3)])
+            draws["bias_ih"] = torch.zeros(m.bias_ih.shape)
+            draws["bias_hn"] = torch.zeros(m.bias_hn.shape)
+        elif isinstance(m, nn.Embedding):
+            draws["weight"] = torch.randn(m.weight.shape, generator=generator) \
+                * math.sqrt(1.0 / m.weight.shape[1])
+        elif isinstance(m, ForecastTransformer):
+            draws["pos_emb"] = 0.02 * torch.randn(m.pos_emb.shape, generator=generator)
         elif isinstance(m, PReLU):
             draws["negative_slope"] = torch.tensor(0.01)
         elif isinstance(m, GlobalLayerNorm):

@@ -1,7 +1,10 @@
-"""The bidirectional LSTM of the JAX package's speech-enhancement models and
-``bilstm`` heads: flax's
+"""The recurrent layers of the JAX package: flax's
 ``nn.Bidirectional(nn.RNN(nn.OptimizedLSTMCell(H)), nn.RNN(nn.OptimizedLSTMCell(H)))``
-over ``torch.lstm`` (cuDNN on the card).
+of the speech-enhancement models, the ``bilstm`` heads and the
+bidirectional ``LSTMLM`` (:class:`BiLSTM`), one ``nn.RNN(nn.OptimizedLSTMCell(H))``
+direction of the LM and forecasting models (:class:`LSTM`), over
+``torch.lstm``, and one ``nn.RNN(nn.GRUCell(H))`` direction of ``ResNet1D``'s
+head (:class:`GRU`) over ``torch.gru`` (cuDNN on the card for both).
 
 flax's cell keeps eight leaves a direction: input kernels ``ii/if/ig/io``
 (D, H) without a bias and recurrent kernels ``hi/hf/hg/ho`` (H, H) with one.
@@ -18,6 +21,19 @@ valid frame), as flax's ``seq_lengths`` does, and padded frames come out
 as zeros where flax leaves non-zero values; callers read the valid frames
 only.  Without ``lengths`` every frame is valid (the SE models run over
 their own zero padding, as the JAX models do).
+
+A single direction (:class:`LSTM`, :class:`GRU`) runs over every frame, as
+flax's ``nn.RNN`` does: its outputs at the valid frames do not depend on the
+padding behind them, and at padded frames they are flax's values too.
+
+flax's ``GRUCell`` keeps input kernels ``ir/iz/in`` (D, H) with biases and
+recurrent kernels ``hr/hz`` (H, H) without one and ``hn`` with one, and
+computes ``r = σ(ir·x + hr·h)``, ``z = σ(iz·x + hz·h)``,
+``n = tanh(in·x + r ⊙ hn·h)``, ``h' = (1 − z) ⊙ n + z ⊙ h``: torch's gate order
+r, z, n and its formula, with ``b_ih`` the three input biases and ``b_hh``
+= ``[0, 0, b_hn]``.  So a :class:`GRUDirection` holds ``weight_ih`` (3H, D),
+``weight_hh`` (3H, H), ``bias_ih`` (3H,) and ``bias_hn`` (H,), and the two
+zero blocks of ``b_hh`` are a buffer.
 
 The recurrence computes in its parameters' dtype (float32) whatever the
 input's: flax's cell is built without a ``dtype`` in every JAX model that
@@ -76,4 +92,56 @@ class BiLSTM(nn.Module):
             PackedSequence(data, packed.batch_sizes, packed.sorted_indices,
                            packed.unsorted_indices),
             batch_first=True, total_length=t)
+        return out
+
+
+class LSTM(nn.Module):
+    """(B, T, D) → (B, T, H): one forward direction over every frame."""
+
+    def __init__(self, input_size: int, hidden: int):
+        super().__init__()
+        self.hidden = hidden
+        self.cell = LSTMDirection(input_size, hidden)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x.to(self.cell.weight_ih.dtype)
+        h0 = x.new_zeros(1, x.shape[0], self.hidden)
+        out, _, _ = torch.lstm(x, (h0, h0), self.cell.flat_weights(), True, 1, 0.0,
+                               self.training, False, True)
+        return out
+
+
+class GRUDirection(nn.Module):
+    """One flax ``GRUCell``'s parameters in torch's stacked-gate layout."""
+
+    def __init__(self, input_size: int, hidden: int):
+        super().__init__()
+        self.hidden = hidden
+        # torch.nn.GRU's constructor draw; init_like_flax_ draws flax's
+        bound = hidden ** -0.5
+        self.weight_ih = nn.Parameter(torch.empty(3 * hidden, input_size).uniform_(-bound, bound))
+        self.weight_hh = nn.Parameter(torch.empty(3 * hidden, hidden).uniform_(-bound, bound))
+        self.bias_ih = nn.Parameter(torch.zeros(3 * hidden))
+        self.bias_hn = nn.Parameter(torch.zeros(hidden))
+        self.register_buffer("bias_hrz", torch.zeros(2 * hidden), persistent=False)
+
+    def flat_weights(self):
+        return [self.weight_ih, self.weight_hh, self.bias_ih,
+                torch.cat([self.bias_hrz, self.bias_hn])]
+
+
+class GRU(nn.Module):
+    """(B, T, D) → (B, T, H): one forward ``GRUCell`` direction over every
+    frame, the carry starting at zeros."""
+
+    def __init__(self, input_size: int, hidden: int):
+        super().__init__()
+        self.hidden = hidden
+        self.cell = GRUDirection(input_size, hidden)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x.to(self.cell.weight_ih.dtype)
+        h0 = x.new_zeros(1, x.shape[0], self.hidden)
+        out, _ = torch.gru(x, h0, self.cell.flat_weights(), True, 1, 0.0, self.training,
+                           False, True)
         return out

@@ -9,9 +9,19 @@ stands alone.
 (``ops/cuda/fbank_kernel.log_mel``): the CUDA kernel for a tensor on the
 card, the plain :func:`mel_spectrogram` formulation for one on the CPU.
 In training :func:`fused_frontend` adds the time stretch and SpecAugment of
-``ops/specaugment.py``.  Kaldi fbank is not ported yet.  The fbank kernel
-has no backward (neither has the TPU kernel): call the frontend under
-``torch.no_grad``.
+``ops/specaugment.py``.  The fbank kernel has no backward (neither has the
+TPU kernel): call the frontend under ``torch.no_grad``.
+
+Kaldi fbank (:func:`kaldi_fbank`, ``wav2mel(use_kaldi=True)``,
+``fused_frontend(use_kaldi=True)``) is plain PyTorch on every device, as it
+is XLA in the JAX package (which sends kaldi to its ``dft_conv``
+formulation even where the Pallas kernel runs): ``frames @ basis``
+(``method="dft_conv"``) or ``torch.fft.rfft`` (``method="fft"``).  It keeps
+kaldi's semantics as the JAX function does: snip-edges framing, per-frame
+DC removal, preemphasis with the first sample duplicated, the povey window,
+zero padding on the right to the next power of two, no Nyquist bin, the
+natural log floored at float32's eps.  It computes in float64 for a float64
+wave, in float32 otherwise.
 """
 
 from __future__ import annotations
@@ -71,6 +81,15 @@ def _hann_window(win_length: int) -> np.ndarray:
 
 
 @functools.lru_cache(maxsize=None)
+def _povey_window(win_length: int, dtype=np.float32) -> np.ndarray:
+    # kaldi's default window: hann^0.85 with denominator N-1 (symmetric)
+    n = np.arange(win_length)
+    return (
+        (0.5 - 0.5 * np.cos(2.0 * np.pi * n / (win_length - 1))) ** 0.85
+    ).astype(dtype)
+
+
+@functools.lru_cache(maxsize=None)
 def _dft_basis(n_fft: int) -> Tuple[np.ndarray, np.ndarray]:
     """Real/imag rows of the onesided DFT: each (n_fft//2+1, n_fft) f32."""
     k = np.arange(n_fft // 2 + 1)[:, None]
@@ -107,6 +126,43 @@ def mel_filterbank(
     up = slopes[:, 2:] / f_diff[1:]
     fb = np.maximum(0.0, np.minimum(down, up))
     return fb.astype(np.float32)
+
+
+@functools.lru_cache(maxsize=None)
+def _kaldi_mel_banks(
+    n_mels: int,
+    padded_window_size: int,
+    sample_rate: int,
+    low_freq: float = 20.0,
+    high_freq: float = 0.0,
+    dtype=np.float32,
+) -> np.ndarray:
+    """Kaldi-style mel banks, (n_mels, n_fft//2): kaldi drops the Nyquist
+    bin.  torchaudio.compliance.kaldi.get_mel_banks: mel scale
+    1127·ln(1 + f/700), triangles in the mel domain over the FFT bins."""
+    num_fft_bins = padded_window_size // 2
+    nyquist = 0.5 * sample_rate
+    if high_freq <= 0.0:
+        high_freq = nyquist + high_freq
+
+    def hz2mel(f):
+        return 1127.0 * np.log(1.0 + np.asarray(f, dtype=np.float64) / 700.0)
+
+    fft_bin_width = sample_rate / padded_window_size
+    mel_low = hz2mel(low_freq)
+    mel_high = hz2mel(high_freq)
+    mel_delta = (mel_high - mel_low) / (n_mels + 1)
+
+    bins = np.arange(n_mels)[:, None]
+    left_mel = mel_low + bins * mel_delta
+    center_mel = mel_low + (bins + 1.0) * mel_delta
+    right_mel = mel_low + (bins + 2.0) * mel_delta
+
+    mel = hz2mel(fft_bin_width * np.arange(num_fft_bins))[None, :]
+    up_slope = (mel - left_mel) / (center_mel - left_mel)
+    down_slope = (right_mel - mel) / (right_mel - center_mel)
+    fb = np.maximum(0.0, np.minimum(up_slope, down_slope))
+    return fb.astype(dtype)
 
 
 @functools.lru_cache(maxsize=None)
@@ -199,18 +255,28 @@ def amplitude_to_db(
 def wav2mel(
     wav: torch.Tensor,
     sample_rate: int = 16000,
+    use_kaldi: bool = False,
     win_length: float = 0.025,
     hop_length: float = 0.01,
     n_mels: int = 80,
     n_fft: int = 512,
     lengths: Optional[torch.Tensor] = None,
+    method: str = "dft_conv",
 ) -> torch.Tensor:
     """(B, T) → (B, n_mels, F) dB mel with the per-utterance top_db=80
     clamp over valid frames.  The log-mel itself is the fbank kernel on the
-    card and its plain version on the CPU."""
+    card and its plain version on the CPU.  ``use_kaldi``: the kaldi fbank
+    of :func:`kaldi_fbank` (``method`` its formulation), transposed, with no
+    clamp (``lengths`` unused, as in the JAX function)."""
     # lazy import: fbank_kernel imports this module for its bases
     from speechlid_tpu_torch.ops.cuda.fbank_kernel import log_mel
 
+    if use_kaldi:
+        feats = kaldi_fbank(
+            wav, sample_rate=sample_rate, frame_length_ms=win_length * 1000.0,
+            frame_shift_ms=hop_length * 1000.0, n_mels=n_mels, method=method,
+        )
+        return feats.transpose(1, 2)
     win = int(sample_rate * win_length)
     hop = int(sample_rate * hop_length)
     mel_db = log_mel(
@@ -229,6 +295,7 @@ def fused_frontend(
     n_mels: int = 80,
     win_length: float = 0.025,
     hop_length: float = 0.01,
+    use_kaldi: bool = False,
     normalize: bool = True,
     generator: Optional[torch.Generator] = None,
     t_stretch: bool = False,
@@ -237,8 +304,9 @@ def fused_frontend(
     t_mask_ratio: float = 0.05,
     f_mask: int = 27,
 ):
-    """normalize → dB mel → [time stretch] → [SpecAugment] → transpose.
-    Returns ((B, F, n_mels) features, frame lengths or None).
+    """normalize → dB mel (or kaldi fbank, ``use_kaldi``) → [time stretch]
+    → [SpecAugment] → transpose.  Returns ((B, F, n_mels) features, frame
+    lengths or None; kaldi counts snip-edges frames).
 
     ``generator=None`` is the eval frontend.  Given a generator (on the
     wav's device; it takes the place of the JAX function's ``key``) the
@@ -253,11 +321,12 @@ def fused_frontend(
     if normalize:
         wav = normalize_wav(wav, lengths)
     mel = wav2mel(
-        wav, sample_rate=sample_rate, win_length=win_length,
+        wav, sample_rate=sample_rate, use_kaldi=use_kaldi, win_length=win_length,
         hop_length=hop_length, n_mels=n_mels, lengths=lengths,
     )  # (B, n_mels, F)
     hop = int(sample_rate * hop_length)
-    f_len = None if lengths is None else frame_lengths(lengths, hop)
+    f_len = None if lengths is None else frame_lengths(
+        lengths, hop, center=not use_kaldi, win_length=int(sample_rate * win_length))
     if generator is not None and t_stretch:
         mel, new_len = random_time_stretch(stretch_generator or generator, mel,
                                            lengths=f_len)
@@ -271,12 +340,88 @@ def fused_frontend(
 
 
 # ---------------------------------------------------------------------------
+# Kaldi-compliance fbank (torchaudio.compliance.kaldi.fbank with dither 0 and
+# preemphasis_coefficient 1.0)
+# ---------------------------------------------------------------------------
+
+
+@functools.lru_cache(maxsize=None)
+def kaldi_bases(win_length: int, n_fft: int, n_mels: int, sample_rate: int, low_freq: float,
+                high_freq: float, dtype: torch.dtype, device: torch.device):
+    """The povey window (win,), the onesided DFT basis without the Nyquist
+    bin (n_fft, 2·(n_fft//2)) ``[cos | sin]`` and the mel banks transposed
+    (n_fft//2, n_mels), as ``dtype`` tensors on ``device``, made once per
+    device: in float32 the JAX function's float32 bases, in float64 the
+    same sums in float64."""
+    np_dtype = np.float64 if dtype == torch.float64 else np.float32
+    half = n_fft // 2
+    k = np.arange(half)[:, None]
+    n = np.arange(n_fft)[None, :]
+    ang = -2.0 * np.pi * k * n / n_fft
+    basis = np.concatenate([np.cos(ang), np.sin(ang)], axis=0).T.astype(np_dtype)
+    fb = _kaldi_mel_banks(n_mels, n_fft, sample_rate, low_freq, high_freq, np_dtype).T
+    return (torch.from_numpy(_povey_window(win_length, np_dtype)).to(device),
+            torch.from_numpy(np.ascontiguousarray(basis)).to(device),
+            torch.from_numpy(np.ascontiguousarray(fb)).to(device))
+
+
+def kaldi_fbank(
+    wav: torch.Tensor,
+    sample_rate: int = 16000,
+    frame_length_ms: float = 25.0,
+    frame_shift_ms: float = 10.0,
+    n_mels: int = 80,
+    preemphasis_coefficient: float = 1.0,
+    remove_dc_offset: bool = True,
+    low_freq: float = 20.0,
+    high_freq: float = 0.0,
+    method: str = "dft_conv",
+) -> torch.Tensor:
+    """(B, T) → (B, F, n_mels) natural-log mel with kaldi's semantics (module
+    docstring); F = 1 + (T − win) // hop, 0 when T < win."""
+    if method not in ("dft_conv", "fft"):
+        raise ValueError(f"unknown kaldi fbank method: {method}")
+    win = int(sample_rate * frame_length_ms / 1000.0)
+    hop = int(sample_rate * frame_shift_ms / 1000.0)
+    n_fft = 1 << (win - 1).bit_length()  # round up to a power of two
+    dtype = torch.float64 if wav.dtype == torch.float64 else torch.float32
+    window, basis, fb = kaldi_bases(win, n_fft, n_mels, sample_rate, low_freq, high_freq, dtype,
+                                    wav.device)
+    wav = wav.to(dtype)
+    if wav.shape[-1] >= win:
+        frames = wav.unfold(-1, win, hop)  # (B, F, win): snip_edges
+    else:
+        frames = wav.new_zeros(wav.shape[0], 0, win)
+    if remove_dc_offset:
+        frames = frames - frames.mean(dim=-1, keepdim=True)
+    if preemphasis_coefficient != 0.0:
+        first = frames[..., :1]
+        frames = torch.cat([first - preemphasis_coefficient * first,
+                            frames[..., 1:] - preemphasis_coefficient * frames[..., :-1]],
+                           dim=-1)
+    frames = F.pad(frames * window, (0, n_fft - win))  # zero-pad on the right
+    half = n_fft // 2
+    if method == "fft":
+        pow_spec = torch.fft.rfft(frames, dim=-1).abs().square()[..., :half]  # no Nyquist
+    else:
+        proj = frames @ basis
+        re, im = proj[..., :half], proj[..., half:]
+        pow_spec = re * re + im * im
+    mel = pow_spec @ fb
+    return torch.log(mel.clamp_min(float(np.finfo(np.float32).eps)))
+
+
+# ---------------------------------------------------------------------------
 # Length bookkeeping
 # ---------------------------------------------------------------------------
 
 
-def frame_lengths(sample_lengths: torch.Tensor, hop_length: int) -> torch.Tensor:
-    """Samples → frames of a centred STFT (torch.stft): 1 + len // hop.
-    (The kaldi snip_edges count, ``center=False`` in the JAX package, comes
-    with the kaldi frontend.)"""
-    return 1 + torch.div(sample_lengths, hop_length, rounding_mode="floor")
+def frame_lengths(sample_lengths: torch.Tensor, hop_length: int, center: bool = True,
+                  win_length: int = 400) -> torch.Tensor:
+    """Samples → frames.  ``center=True`` (torch.stft): 1 + len // hop;
+    ``center=False`` (kaldi snip_edges): 1 + (len − win) // hop, and 0 for
+    a wave shorter than the window."""
+    if center:
+        return 1 + torch.div(sample_lengths, hop_length, rounding_mode="floor")
+    snipped = 1 + torch.div(sample_lengths - win_length, hop_length, rounding_mode="floor")
+    return torch.where(sample_lengths < win_length, torch.zeros_like(snipped), snipped)

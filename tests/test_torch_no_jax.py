@@ -42,7 +42,9 @@ def test_port_imports_no_jax():
                  "models.pooling", "models.xvector", "models.resnet", "models.classifier",
                  "tasks.lid_cross_entropy", "tasks.asr", "tasks", "models.rnn", "models.se",
                  "models.fasnet", "tasks.se", "cli.main_extras", "ops.quant",
-                 "core.optim.novograd"):
+                 "core.optim.novograd", "cli.sweep", "cli.prepare_manifest",
+                 "cli.prepare_text", "cli.prepare_spectrum", "data.text", "models.extras",
+                 "tasks.extras"):
         assert f"speechlid_tpu_torch.{name}" in modules, name
     result = subprocess.run(
         [sys.executable, "-c", CHECK, "chip_smoke", *modules],

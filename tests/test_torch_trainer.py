@@ -365,9 +365,12 @@ def test_accum_grad_steps_every_second_batch():
 
 
 def test_trainer_rejects_what_is_not_ported(tmp_path):
-    for kw in (dict(mesh=object()), dict(param_rules=[("a", None)]), dict(profile_dir="x")):
+    for kw in (dict(mesh=object()), dict(param_rules=[("a", None)])):
         with pytest.raises(NotImplementedError):
             Trainer(device="cpu", **kw)
+    # the profile_dir trace is ported (tests/test_torch_profile.py)
+    traced = Trainer(device="cpu", profile_dir=str(tmp_path / "trace"))
+    assert traced.profile_dir == str(tmp_path / "trace") and traced.profile_epochs == 1
     # SWA and quant_dot are ported (tests/test_torch_swa.py, test_torch_quant*.py)
     swa = Trainer(device="cpu", use_swa=True)
     assert swa.use_swa and swa.swa_start_ratio == 0.7
