@@ -7,6 +7,7 @@
     python3 chip_smoke.py --only se   # the speech enhancement and bilstm phases alone
     python3 chip_smoke.py --only quant   # the int8, SWA and Novograd phases alone
     python3 chip_smoke.py --only extras  # kaldi, the extras tasks, the sweep, the trace alone
+    python3 chip_smoke.py --only dist  # data-parallel training and SELDNet alone
 
 It builds the port's CUDA kernels from ``speechlid_tpu_torch/csrc`` (into
 ``build/``), holds each kernel, forward and backward, and each fused mode of
@@ -89,7 +90,16 @@ with the training loss falling (``cli_extras``); the port's ``sweep`` on
 ``configs/sweep_lid.yaml``'s bayes spec over ``main_lid`` at full width, on
 manifests ``prepare_manifest`` wrote, every trial launching the kernels
 (``cli_sweep``); and ``Trainer(profile_dir=…)`` writing a trace with kernel
-records (``profile_trace``); ``--only extras`` runs these alone.  Last
+records (``profile_trace``); ``--only extras`` runs these alone.  Then data
+parallelism: two ranks of ``Trainer.fit`` on the card (processes of their
+own over gloo, B = 8 × 4 s a rank) against one process on the 16-row global
+batch, the first step's gradients and the state after three Adam steps,
+the ranks bit-equal and each rank's launches a step, then two steps with
+every random draw on (``dp_card_vs_single``); ``main_lid`` with
+``trainer.data_parallel=true`` under ``python -m torch.distributed.run``
+over nccl at world size 1, beside the same run without it
+(``cli_dp``); and both SELDNet presets card against CPU
+(``seldnet_card_vs_cpu``); ``--only dist`` runs these alone.  Last
 it times the kernels, the
 models and the train steps (the WavLM model's in ``wavlm_e2e``, bfloat16
 against float32 in turns in ``bf16_e2e``).  The fused modes are also timed against the
@@ -153,9 +163,11 @@ from speechlid_tpu_torch.data.augmentor import WavAugmentor
 from speechlid_tpu_torch.models.batchnorm import FlaxBatchNorm
 from speechlid_tpu_torch.models import extras as extras_models
 from speechlid_tpu_torch.models import resnet as presnet
+from speechlid_tpu_torch.models import seldnet as seldnet_models
 from speechlid_tpu_torch.models.fasnet import FaSNetOrigin, FaSNetTAC
 from speechlid_tpu_torch.models.init import init_like_flax_
 from speechlid_tpu_torch.models.se import DPRNNEnhancer, si_snr
+from speechlid_tpu_torch.models.seldnet import seldnet_augmented, seldnet_vanilla
 from speechlid_tpu_torch.models.conformer import (
     ConformerConvModule,
     DepthwiseConv1d,
@@ -5835,15 +5847,466 @@ def extras_kernel_rows(gen: torch.Generator, errs: dict, reports: dict) -> list:
     return rows
 
 
+# ---------------------------------------------------------------------------
+# data-parallel training and SELDNet
+# ---------------------------------------------------------------------------
+
+DP_WORLD = 2  # ranks, both on cuda:0 over gloo (nccl refuses two ranks on one card)
+DP_B, DP_SECONDS = TRAIN_B, TRAIN_SECONDS  # per rank: the flagship's (8, 64000) train batch
+DP_STEPS, DP_RANDOM_STEPS = 3, 2
+DP_TIMEOUT_S = 120  # the group's: a hung collective fails the phase
+# the flagship with Adam + tristage + clip 20 (TRAIN_HPARAMS), deterministic,
+# then with dropout, stochastic depth, SpecAugment and time stretch on
+DP_OPTIM = {k: v for k, v in TRAIN_HPARAMS.items() if k != "t_stretch"}
+DP_HP = dict(CONFORMER_DETERMINISTIC, **DP_OPTIM)
+DP_RANDOM_HP = dict(FLAGSHIP, **TRAIN_HPARAMS)
+# one process on the 16-row global batch against rank 0: the first step's
+# gradients (rank 0's after the all-reduce) within TRAIN_TOL of each leaf's
+# largest entry, the flagship's card-against-CPU step bar (a depthwise bias,
+# true gradient 0 before a train-mode BatchNorm, against the largest of all);
+# and the parameters and statistics after the steps within TRAIN_TOL of the
+# leaf's largest entry, as tests/test_torch_trainer.py holds the CPU
+# trainers under Adam: a depthwise bias and the BatchNorm running means that
+# carry it within 2 Σ lr, and in any other leaf at most 1 % of the elements
+# past the bar, they too within 2 Σ lr.  Adam moves an element by at most
+# Σ lr over the steps, so two runs that take a gradient of rounding size
+# with opposite signs (the card's CTC and gather backwards sum with atomics,
+# ROADMAP §3) part by at most 2 Σ lr there
+DP_BAND_LEAVES = ("depthwise.bias", "bn.running_mean")
+SELD_B, SELD_T = 16, 128
+SELD_PRESETS = {"vanilla": (seldnet_vanilla, 8), "augmented": (seldnet_augmented, 4)}
+
+
+class _LossRecorder(Callback):
+    def __init__(self):
+        super().__init__()
+        self.losses = []
+
+    def after_train_loop(self, step, metrics):
+        self.losses.append(metrics["loss"])
+
+
+class _CountedTrainer(Trainer):
+    """``Trainer`` that reads the launch counters and the host clock (the
+    card synchronised) around each train step, and keeps the gradients the
+    optimizer's first step takes."""
+
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.step_launches, self.step_ms, self.first_grads = [], [], None
+
+    def trainer_prepare(self, module):
+        super().trainer_prepare(module)
+        step = self.optimizer.step
+
+        def recorded_step():
+            if self.first_grads is None:
+                self.first_grads = {n: p.grad.detach().cpu().clone()
+                                    for n, p in module.model.named_parameters()
+                                    if p.grad is not None}
+            step()
+
+        self.optimizer.step = recorded_step
+
+    def train_step(self, batch):
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        out = super().train_step(batch)
+        torch.cuda.synchronize()
+        self.step_ms.append((time.perf_counter() - t0) * 1e3)
+        self.step_launches.append(launches())
+        return out
+
+
+def _dp_fit(hp: dict, state: dict, batches: list, mesh=None) -> dict:
+    """``Trainer.fit`` of the flagship task ``hp`` from ``state`` on
+    ``batches``; → the final state on the host, the first step's gradients,
+    the step losses, each step's launches and stretch rates."""
+    from speechlid_tpu_torch.ops import specaugment
+
+    task = LidASRTask(**hp, device="cuda")
+    task.model.load_state_dict(state)
+    task.init_parameters = lambda generator: None  # keep the weights it was given
+    rates, draw = [], specaugment.draw_stretch_rate
+
+    def recorded_draw(*args, **kwargs):
+        rates.append(float(draw(*args, **kwargs)))
+        return rates[-1]
+
+    losses = _LossRecorder()
+    trainer = _CountedTrainer(total_epoch=1, use_progress_bar=False, device="cuda",
+                              callbacks=[losses], mesh=mesh)
+    specaugment.draw_stretch_rate = recorded_draw
+    try:
+        trainer.fit(task, batches)
+    finally:
+        specaugment.draw_stretch_rate = draw
+    opt = trainer.optimizer
+    return {"state": {k: v.cpu() for k, v in task.model.state_dict().items()},
+            "first_grads": trainer.first_grads, "losses": losses.losses,
+            "step_launches": trainer.step_launches, "step_ms": trainer.step_ms,
+            "stretch_rates": rates,
+            "lr_sum": sum(opt.lr_at(i) for i in range(opt.count))}
+
+
+def dp_child(root: str, rank: int) -> None:
+    """A rank of ``dp_card_vs_single``: joins the gloo group on cuda:0, trains
+    its rows of every global batch deterministically, then with randomness
+    on, and writes what it saw to ``<root>/rank<r>.pt``."""
+    from datetime import timedelta
+
+    from speechlid_tpu_torch.parallel import initialize_multihost, make_mesh, shutdown
+
+    strict_float32(torch.device("cuda"))
+    inputs = torch.load(os.path.join(root, "inputs.pt"), weights_only=False)
+    initialize_multihost(f"file://{os.path.join(root, 'pg')}", DP_WORLD, rank,
+                         device="cuda:0", backend="gloo",
+                         timeout=timedelta(seconds=DP_TIMEOUT_S))
+    try:
+        rows = slice(rank * DP_B, (rank + 1) * DP_B)
+        mine = [{k: (v[rows] if np.ndim(v) else v) for k, v in b.items()}
+                for b in inputs["batches"]]
+        mesh = make_mesh()
+        out = {"deterministic": _dp_fit(DP_HP, inputs["state"], mine[:DP_STEPS], mesh),
+               "random": _dp_fit(DP_RANDOM_HP, inputs["state"], mine[DP_STEPS:], mesh)}
+    finally:
+        shutdown()
+    torch.save(out, os.path.join(root, f"rank{rank}.pt"))
+
+
+def _dp_grads_close(got: dict, want: dict) -> dict:
+    """The first step's gradients as ``step_card_vs_cpu`` holds them: each
+    leaf's worst distance over its largest entry, a depthwise bias's over
+    the largest entry of all."""
+    largest = max(float(g.abs().max()) for g in want.values())
+    worst, worst_name = 0.0, ""
+    for name, w in want.items():
+        diff = float((got[name] - w).abs().max())
+        err = diff / largest if name.endswith("depthwise.bias") else \
+            diff / max(float(w.abs().max()), 1e-6 * largest)
+        if err > worst:
+            worst, worst_name = err, name
+    same = set(got) == set(want)
+    return {"max_rel_err_gradient": worst, "worst_gradient": worst_name, "same_leaves": same,
+            "ok": worst <= TRAIN_TOL and same}
+
+
+def _dp_close(got: dict, want: dict, lr_sum: float) -> dict:
+    """Each leaf of ``got`` against ``want`` as ``DP_BAND_LEAVES`` says: the
+    worst distance over the leaf's largest entry outside the band leaves,
+    the largest absolute difference, the elements past the bar, and whether
+    all holds."""
+    band = 2.0 * lr_sum
+    worst, worst_name, largest_diff, past, ok = 0.0, "", 0.0, {}, True
+    for name, w in want.items():
+        if not w.is_floating_point():
+            continue
+        bar = TRAIN_TOL * max(float(w.abs().max()), 1e-12)
+        diff = (got[name] - w).abs()
+        largest_diff = max(largest_diff, float(diff.max()))
+        if name.endswith(DP_BAND_LEAVES):
+            ok &= float(diff.max()) <= band + bar
+            continue
+        err = float(diff.max()) / max(float(w.abs().max()), 1e-12)
+        if err > worst:
+            worst, worst_name = err, name
+        n_past = int((diff > bar).sum())
+        if n_past:
+            past[name] = n_past
+            ok &= n_past <= max(1, int(0.01 * w.numel())) and float(diff.max()) <= band + bar
+    return {"max_rel_err": worst, "worst_leaf": worst_name, "max_abs_diff": largest_diff,
+            "band_2_lr_sum": band, "elements_past_bar": past, "ok": ok}
+
+
+def phase_dp_card_vs_single(gen: torch.Generator, smi: str) -> dict:
+    """Data-parallel training at the flagship's width: two ranks on the card
+    (processes of their own over gloo, each B = 8 ragged 4 s clips a step)
+    against one process on the card that takes the 16-row global batch in
+    the same row order, for ``DP_STEPS`` deterministic Adam steps: the
+    ranks' parameters and statistics bit-equal, the first step's gradients
+    and rank 0's state after the steps within the step bar of the single
+    process's (``_dp_grads_close``, ``_dp_close``), the step losses' mean over
+    the ranks within ``TRAIN_TOL`` of the single process's, and every rank's
+    launches a step exactly ``TRAIN_STEP_LAUNCHES`` (read from the launch
+    counters around each step).  Then ``DP_RANDOM_STEPS`` steps with dropout,
+    stochastic depth, SpecAugment and time stretch on: the ranks stay
+    bit-equal, they draw the same stretch rates, the losses are finite."""
+    rng = np.random.RandomState(61)
+    n_batches = DP_STEPS + DP_RANDOM_STEPS
+    batches = [synthetic_batch(rng, i % N_LANG, DP_WORLD * DP_B, DP_SECONDS)
+               for i in range(n_batches)]
+    init = LidASRTask(**DP_HP, device="cuda")
+    init_random_(init.model, gen)
+    state = {k: v.cpu() for k, v in init.model.state_dict().items()}
+    del init
+    with tempfile.TemporaryDirectory() as root:
+        torch.save({"state": state, "batches": batches}, os.path.join(root, "inputs.pt"))
+        env = {k: v for k, v in os.environ.items()
+               if k not in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT")}
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen(
+            [sys.executable, "-c", f"import chip_smoke; chip_smoke.dp_child({root!r}, {r})"],
+            cwd=str(Path(__file__).resolve().parent), env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True) for r in range(DP_WORLD)]
+        try:
+            single = _dp_fit(DP_HP, state, batches[:DP_STEPS])
+            outs = [p.communicate(timeout=600)[0] for p in procs]
+        finally:
+            for p in procs:
+                p.kill()
+        seconds = time.perf_counter() - t0
+        for r, (p, out) in enumerate(zip(procs, outs)):
+            if p.returncode != 0:
+                print(out[-4000:], file=sys.stderr)
+                raise AssertionError(f"dp_card_vs_single: rank {r} failed ({p.returncode})")
+        ranks = [torch.load(os.path.join(root, f"rank{r}.pt"), weights_only=False)
+                 for r in range(DP_WORLD)]
+    det = [r["deterministic"] for r in ranks]
+    rnd = [r["random"] for r in ranks]
+
+    def bit_equal(a, b):
+        return all(torch.equal(a[k], b[k]) for k in a)
+
+    close = _dp_close(det[0]["state"], single["state"], single["lr_sum"])
+    grads = _dp_grads_close(det[0]["first_grads"], single["first_grads"])
+    loss_gap = max(abs(float(np.mean([d["losses"][i] for d in det])) - single["losses"][i])
+                   for i in range(DP_STEPS))
+    counted = {k: sum(s[k] for d in det for s in d["step_launches"])
+               for k in TRAIN_STEP_LAUNCHES}
+    checks = {
+        "ranks_bit_equal": bit_equal(det[0]["state"], det[1]["state"]),
+        "first_step_gradients": grads["ok"],
+        "vs_single_process": close["ok"],
+        "losses": loss_gap <= TRAIN_TOL,
+        "steps": all(len(d["step_launches"]) == DP_STEPS for d in det),
+        "launches_per_rank_step": all(s == TRAIN_STEP_LAUNCHES for d in det
+                                      for s in d["step_launches"]),
+        "random_ranks_bit_equal": bit_equal(rnd[0]["state"], rnd[1]["state"]),
+        "random_stretch_rates_agree": rnd[0]["stretch_rates"] == rnd[1]["stretch_rates"]
+        and len(rnd[0]["stretch_rates"]) == DP_RANDOM_STEPS,
+        "random_losses_finite": all(np.isfinite(x) for r in rnd for x in r["losses"]),
+        "random_launches": all(s["fbank"] == 1 and s["depthwise_bwd_w"] == DW_PER_TRAIN_STEP
+                               for r in rnd for s in r["step_launches"]),
+    }
+    report = {"phase": "dp_card_vs_single", "nvidia_smi": smi, "world": DP_WORLD,
+              "backend": "gloo, both ranks on cuda:0",
+              "batch_per_rank": [DP_B, int(DP_SECONDS * SR)], "steps": DP_STEPS,
+              "tol": TRAIN_TOL, "seconds": seconds,
+              "single_losses": single["losses"], "rank_losses": [d["losses"] for d in det],
+              "max_loss_gap": loss_gap, **{k: v for k, v in grads.items() if k != "ok"},
+              **{k: v for k, v in close.items() if k != "ok"},
+              "lr_sum": single["lr_sum"], "launches_per_rank_step": det[0]["step_launches"][0],
+              # host clock, the card synchronised around each step; the
+              # first step holds the warm-up
+              "step_ms_single": single["step_ms"], "step_ms_ranks": [d["step_ms"] for d in det],
+              "launches": counted, "random_stretch_rates": [r["stretch_rates"] for r in rnd],
+              "random_losses": [r["losses"] for r in rnd], "checks": checks}
+    emit(report)
+    if not all(checks.values()):
+        raise AssertionError(f"dp_card_vs_single failed: {checks}")
+    return report
+
+
+def _epoch_seconds(metrics_path: str) -> list:
+    """Seconds between the eval lines of ``metrics.jsonl`` (an epoch's train
+    steps, eval and checkpoint)."""
+    ts = [line["ts"] for line in _metrics_lines(metrics_path) if CLI_EVAL_KEYS <= set(line)]
+    return [b - a for a, b in zip(ts, ts[1:])]
+
+
+def phase_cli_dp(root: str, corpus: str, smi: str) -> dict:
+    """``main_lid`` with ``trainer.data_parallel=true`` at world size 1 over
+    nccl, launched by ``python -m torch.distributed.run --standalone
+    --nproc-per-node 1`` on the corpus, 2 epochs of ``FLAGSHIP_STEPS`` steps
+    at full width: it trains and validates (EER, Cavg and accuracy logged),
+    and rank 0 writes the checkpoint, with one device generator.  The same
+    run without ``data_parallel``, in a process of its own too, gives the
+    collectives' cost at world size 1 (the second epoch's seconds of each)."""
+    base = [_langs_override(corpus), "trainer.progress_bar=false", "trainer.total_epoch=2",
+            f"trainer.train_data_factor={FLAGSHIP_DATA_FACTOR}"]
+    here = str(Path(__file__).resolve().parent)
+    runs = {}
+    for name, launcher, extra in (
+            ("data_parallel", ["-m", "torch.distributed.run", "--standalone",
+                               "--nproc-per-node", "1"], ["trainer.data_parallel=true"]),
+            ("plain", [], [])):
+        exp = os.path.join(root, f"cli_dp_{name}")
+        t0 = time.perf_counter()
+        child = subprocess.run(
+            [sys.executable, *launcher, "-m", "speechlid_tpu_torch.cli.main_lid",
+             *_cli_args("configs", "lid_supervised", *base, f"exp_dir={exp}", *extra)],
+            cwd=here, capture_output=True, text=True, timeout=600)
+        if child.returncode != 0:
+            print(child.stderr[-4000:], file=sys.stderr)
+            raise AssertionError(f"cli_dp's {name} run failed ({child.returncode})")
+        lines = _metrics_lines(os.path.join(exp, "metrics.jsonl"))
+        runs[name] = {"seconds": time.perf_counter() - t0,
+                      "epoch_seconds": _epoch_seconds(os.path.join(exp, "metrics.jsonl")),
+                      "evals": [line for line in lines if CLI_EVAL_KEYS <= set(line)],
+                      "ckpt": load_checkpoint(os.path.join(exp, "ckpt", "last.ckpt"))}
+    dp, plain = runs["data_parallel"], runs["plain"]
+    state = dp.pop("ckpt")["state"]
+    plain.pop("ckpt")
+    checks = {
+        "validated": len(dp["evals"]) == 2 and all(
+            np.isfinite(e[k]) for e in dp["evals"] for k in ("avg_val_loss", "val_acc")),
+        "eer_cavg_acc_logged": all({"eer", "cavg", "val_acc"} <= set(e) for e in dp["evals"]),
+        "rank0_ckpt": len(state["device_generators"]) == 1,
+    }
+    report = {"phase": "cli_dp", "nvidia_smi": smi,
+              "launcher": "python -m torch.distributed.run --standalone --nproc-per-node 1",
+              "backend": "nccl", "config": "configs/lid_supervised.yaml (14 x 144-d)",
+              "steps_per_epoch": FLAGSHIP_STEPS, "runs": runs,
+              "second_epoch_seconds": {k: r["epoch_seconds"][-1] for k, r in runs.items()},
+              "checks": checks}
+    emit(report)
+    if not all(checks.values()):
+        raise AssertionError(f"cli_dp failed: {checks}")
+    return report
+
+
+def phase_seldnet_card_vs_cpu(gen: torch.Generator, smi: str) -> dict:
+    """Both SELDNet presets at their JAX defaults (freq 256; 8 and 4 input
+    channels), B = 16, 128 frames: the card against the same weights on the
+    CPU (flax's fresh draw), the eval forward, the train-mode forward and
+    the gradients of Σ sed·c₁ + Σ doa·c₂ (a check's loss) with dropout off
+    and the card's ReLU decisions handed to the CPU, held as
+    ``extras_card_vs_cpu`` holds cuDNN's recurrences: within ``EXTRAS_TOL``
+    of the CPU leaf's largest entry, or a leaf past it within
+    ``EXTRAS_CUDNN_TOL`` (or three times the CPU's distance) of the CPU's
+    float64 step in relative L2.  The conv biases feed train-mode
+    BatchNorms (true gradient 0): held against the largest gradient.  And
+    the eval forward's milliseconds on the card (``_host_ms``)."""
+    report, ok = {}, True
+    for name, (make, channels) in SELD_PRESETS.items():
+        card = make().cuda()
+        init_like_flax_(card, gen)
+        cpu, cpu64 = make(), make().double()
+        cpu.load_state_dict(card.state_dict())
+        cpu64.load_state_dict(card.state_dict())
+        for m in (*card.modules(), *cpu.modules(), *cpu64.modules()):
+            if isinstance(m, Dropout):
+                m.p = 0.0
+        rng = np.random.RandomState(71)
+        x = torch.from_numpy(rng.randn(SELD_B, channels, 256, SELD_T).astype(np.float32))
+        with torch.no_grad():
+            eval_card = _outs(card.eval()(x.cuda()))
+            eval_cpu = _outs(cpu.eval()(x))
+        fwd_err = max(float((c.cpu() - p).abs().max()) / float(p.abs().max())
+                      for c, p in zip(eval_card, eval_cpu))
+        cots = [torch.from_numpy(rng.randn(*o.shape).astype(np.float32)) for o in eval_cpu]
+        masks, flipped = [], {}
+        pin_resnet_relus(True, masks, module=seldnet_models)
+        try:
+            out_card, g_card = _extras_grads(card, [x], cots, torch.float32)
+            runs = {}
+            for side, model, dtype in (("cpu", cpu, torch.float32),
+                                       ("cpu_float64", cpu64, torch.float64)):
+                differ = {"units": 0}
+                pin_resnet_relus(True, masks, differ, module=seldnet_models)
+                runs[side] = _extras_grads(model, [x], cots, dtype)
+                flipped[side] = differ["units"]
+        finally:
+            pin_resnet_relus(False, masks, module=seldnet_models)
+        (out_cpu, g_cpu), (_, g64) = runs["cpu"], runs["cpu_float64"]
+        train_err = max(float((c - p).abs().max()) / float(p.abs().max())
+                        for c, p in zip(out_card, out_cpu))
+        zero = {f"convs.{i}.bias" for i in range(len(card.convs))}
+        largest = max(float(g.abs().max()) for g in g_cpu.values())
+        worst, held, leaves_ok = 0.0, {}, True
+        for leaf, g in g_cpu.items():
+            if leaf in zero:
+                leaves_ok &= max(float(g.abs().max()),
+                                 float(g_card[leaf].abs().max())) / largest <= EXTRAS_TOL
+                continue
+            err = float((g_card[leaf] - g).abs().max()) / max(float(g.abs().max()), 1e-30)
+            worst = max(worst, err)
+            if err > EXTRAS_TOL:
+                ref = g64[leaf]
+                norm = max(float(ref.norm()), 1e-30)
+                l2 = {side: float((gs[leaf] - ref).norm()) / norm
+                      for side, gs in (("card", g_card), ("cpu", g_cpu))}
+                bar = max(EXTRAS_CUDNN_TOL, 3 * l2["cpu"])
+                held[leaf] = {"card_vs_cpu": err, **{f"rel_l2_{k}_vs_float64": v
+                                                      for k, v in l2.items()}, "bar": bar}
+                leaves_ok &= l2["card"] <= bar
+        stats_err = max(float((a.cpu() - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+                        for (k, a), (_, b) in zip(card.state_dict().items(),
+                                                  cpu.state_dict().items())
+                        if k.endswith(("running_mean", "running_var")))
+        xc = x.cuda()
+        card.eval()
+        with torch.no_grad():
+            forward_ms = _host_ms(lambda: card(xc))
+        report[name] = {
+            "input": [SELD_B, channels, 256, SELD_T],
+            "params": sum(p.numel() for p in card.parameters()),
+            "max_err_eval_over_largest": fwd_err, "max_err_train_out_over_largest": train_err,
+            "max_rel_err_gradient": worst, "gradients": len(g_cpu),
+            "zero_gradient_leaves": sorted(zero), "relus": sum(int(m.numel()) for m in masks),
+            "relus_pinned_that_differed": flipped, "leaves_held_to_float64": held,
+            "max_rel_err_bn_stats": stats_err, "forward_ms_b16": forward_ms}
+        ok &= (fwd_err <= EXTRAS_TOL and train_err <= EXTRAS_TOL and leaves_ok
+               and stats_err <= EXTRAS_TOL and set(g_card) == set(g_cpu))
+        del card, cpu, cpu64
+    emit({"phase": "seldnet_card_vs_cpu", "nvidia_smi": smi, "tol": EXTRAS_TOL,
+          "tol_cudnn_vs_float64": EXTRAS_CUDNN_TOL, "batch": SELD_B, **report})
+    if not ok:
+        raise AssertionError("a SELDNet preset on the card disagrees with the CPU")
+    return report
+
+
+def phase_dist(gen: torch.Generator, root: str, corpus: str, smi: str) -> dict:
+    """This slice's phases in order; → their reports."""
+    return {"dp": phase_dp_card_vs_single(gen, smi), "cli": phase_cli_dp(root, corpus, smi),
+            "seldnet": phase_seldnet_card_vs_cpu(gen, smi)}
+
+
+def dist_kernel_rows(gen: torch.Generator, errs: dict, reports: dict) -> list:
+    """The ``kernels`` line's rows of the data-parallel path: every kernel a
+    rank's train step launches, at its (8, 64000) / (8, 99, 288) shapes, with
+    the launches of both ranks' ``DP_STEPS`` deterministic steps in
+    ``dp_card_vs_single``."""
+    dp = reports["dp"]
+    counts = dp["launches"]
+    on = (f"dp_card_vs_single: {DP_WORLD} ranks x {DP_STEPS} deterministic train steps of "
+          f"B = {DP_B} a rank")
+    n_steps = DP_WORLD * DP_STEPS
+    rows = [fbank_row("fbank_log_mel@dp", "train", gen, errs, counts["fbank"],
+                      {"launches_counted_on": on,
+                       "launches_per_rank_step": counts["fbank"] / n_steps})]
+    rows += fused_kernel_rows(gen, errs["conv_fused"], {
+        "depthwise_conv1d_fwd[glu]@dp": (counts["depthwise_glu"], {
+            "launches_counted_on": on,
+            "launches_per_rank_step": counts["depthwise_glu"] / n_steps}),
+        "depthwise_conv1d_fwd[glu_dx]@dp": (counts["depthwise_glu_dx"], {
+            "launches_counted_on": on,
+            "launches_per_rank_step": counts["depthwise_glu_dx"] / n_steps}),
+    }, eval_rows=(), train_shape=TRAIN_DW_SHAPE, train_suffix="@dp")
+    row = bwd_w_row(gen, errs["conv_fused"], TRAIN_DW_SHAPE, "depthwise_conv1d_bwd_w@dp",
+                    counts, n_steps)
+    row["launches_per_rank_step"] = row.pop("launches_per_train_step")
+    row["launches_counted_on"] = on
+    rows.append(row)
+    for row in rows:
+        if not row["launches"] > 0:
+            raise AssertionError(f"{row['name']} was not launched on its path")
+    return rows
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description="Drive the PyTorch/CUDA port on one card.")
-    parser.add_argument("--only", choices=("cli_gate", "ce_asr", "se", "quant", "extras"),
+    parser.add_argument("--only", choices=("cli_gate", "ce_asr", "se", "quant", "extras",
+                                           "dist"),
                         help="run this phase alone, after the build and the corpus "
                              "(ce_asr: the cross-entropy and ASR phases; se: the speech "
                              "enhancement and bilstm phases on cli_flagship's checkpoint; "
                              "quant: the int8, SWA and Novograd phases, on it too; "
                              "extras: kaldi fbank, FBankLayer, the extras tasks, the sweep "
                              "and the trainer's trace; "
+                             "dist: data-parallel training on two ranks and through the CLI, "
+                             "and SELDNet; "
                              "each with the kernel checks and rows they need)")
     parser.add_argument("--seed", type=int, default=0,
                         help="the CLI's seed for --only cli_gate (the gate's own is 0)")
@@ -5910,6 +6373,16 @@ def main(argv=None) -> int:
                                      "kind": torch.cuda.get_device_name(0),
                                      "count": torch.cuda.device_count()}})
         return 0
+    if args.only == "dist":
+        errs = {"fbank": phase_fbank(gen), "conv_fused": phase_conv_fused(gen)}
+        with tempfile.TemporaryDirectory() as root:
+            os.environ["SPEECHLID_CACHE_DIR"] = os.path.join(root, "cache")
+            reports = phase_dist(gen, root, phase_cli_corpus(root), smi)
+        emit({"kernels": dist_kernel_rows(gen, errs, reports)})
+        emit({"ok": True, "device": {"platform": "gpu",
+                                     "kind": torch.cuda.get_device_name(0),
+                                     "count": torch.cuda.device_count()}})
+        return 0
     errs = {"fbank": phase_fbank(gen), "depthwise": phase_depthwise(gen),
             "depthwise_bwd": phase_depthwise_bwd(gen), "conv_fused": phase_conv_fused(gen)}
     task = phase_model(gen)
@@ -5950,6 +6423,7 @@ def main(argv=None) -> int:
         eval_se, serve_se, bilstm = phase_se(gen, root, corpus, inputs, smi)
         quant_reports = phase_quant(gen, root, corpus, smi)
         extras_reports = phase_extras(gen, root, smi)
+        dist_reports = phase_dist(gen, root, corpus, smi)
     # host-clock loops first, the profiler's runs after (it slows what follows it)
     phase_se_e2e(gen, smi, serve_se, eval_se)
     phase_quant_e2e(gen, smi)
@@ -5964,6 +6438,7 @@ def main(argv=None) -> int:
     kernels += se_bilstm_kernel_rows(gen, errs, eval_se, bilstm)
     kernels += quant_kernel_rows(gen, errs, quant_reports)
     kernels += extras_kernel_rows(gen, errs, extras_reports)
+    kernels += dist_kernel_rows(gen, errs, dist_reports)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -33,4 +33,7 @@ augmentation, and its offline evaluation under noise):
 - ``eval``    — the noisy evaluator (noise bank, LM arbitration) and its sweeps
 - ``decode``  — the native CTC beam search and n-gram LM (``csrc/ctc_decoder``)
 - ``cli``     — the ``/lid`` HTTP server, the training CLI and the eval CLI
+- ``parallel`` — data parallelism over ``torch.distributed``: the process
+  group, the data mesh, rank-0 state broadcast (the gradient all-reduce is
+  the trainer's, the global BatchNorm statistics the models')
 """

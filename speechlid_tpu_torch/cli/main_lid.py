@@ -16,9 +16,23 @@ Usage:
 
 ``trainer.use_swa`` / ``swa_start_ratio`` average the weights (SWA, with
 the BatchNorm re-estimation, ``core/trainer.py``); ``module.optimizer:
-novograd`` is Novograd.  Not ported yet, and raising
-``NotImplementedError``: ``trainer.data_parallel`` and
-``trainer.model_parallel`` > 1 (the mesh).
+novograd`` is Novograd.
+
+``trainer.data_parallel=true`` trains data-parallel, one process per card:
+
+    python -m torch.distributed.run --nproc-per-node N \
+        -m speechlid_tpu_torch.cli.main_lid --config-dir configs \
+        --config-name lid_supervised trainer.data_parallel=true
+
+Each process joins the group from the launcher's environment (nccl on the
+card, gloo with ``--device cpu``; without a launcher a group of one), runs
+on ``cuda:LOCAL_RANK`` unless ``--device`` says otherwise, and feeds its
+own sampler shard of ``data.batch_size`` rows, so the global batch is N ×
+``data.batch_size`` (a JAX process splits ``batch_size`` over its local
+devices instead).  ``SPEECHLID_SHARD_ID`` / ``SPEECHLID_NUM_SHARDS``, where
+set, must agree with the rank and the world size.  Not ported yet, and
+raising ``NotImplementedError``: ``trainer.model_parallel`` > 1 (tensor and
+expert layouts).
 ``data.wav_augment`` builds the train feeder's ``WavAugmentor`` from its
 keys (an unknown key raises ``TypeError``, as in the JAX CLI).  The JAX
 CLI's persistent compilation cache has no counterpart here.
@@ -43,6 +57,14 @@ from speechlid_tpu_torch.data import (
     RawManifest,
 )
 from speechlid_tpu_torch.data.augmentor import WavAugmentor
+from speechlid_tpu_torch.parallel import (
+    initialize_multihost,
+    initialized,
+    make_mesh,
+    process_count,
+    process_index,
+    shutdown,
+)
 
 
 def build_data(conf) -> Dict:
@@ -90,14 +112,19 @@ def build_data(conf) -> Dict:
     }
 
 
-def build_feeder(conf, dataset, seed=0, train=True) -> BucketFeeder:
+def build_feeder(conf, dataset, seed=0, train=True, shard_id=None,
+                 num_shards=None) -> BucketFeeder:
+    """The bucketed feeder of ``dataset``'s shard ``shard_id`` of
+    ``num_shards`` (default: ``SPEECHLID_SHARD_ID`` / ``SPEECHLID_NUM_SHARDS``,
+    else the whole set)."""
     sampler = MultiBatchSampler(
         dataset,
         batch_size=conf.data.get("batch_size", 8),
         drop_last=conf.data.get("drop_last", False),
         seed=seed,
-        shard_id=int(os.environ.get("SPEECHLID_SHARD_ID", 0)),
-        num_shards=int(os.environ.get("SPEECHLID_NUM_SHARDS", 1)),
+        shard_id=int(os.environ.get("SPEECHLID_SHARD_ID", 0)) if shard_id is None else shard_id,
+        num_shards=(int(os.environ.get("SPEECHLID_NUM_SHARDS", 1)) if num_shards is None
+                    else num_shards),
     )
     augmentor = None
     aug_conf = conf.data.get("wav_augment") if train else None
@@ -148,7 +175,8 @@ def main(argv: List[str] | None = None) -> None:
                                      formatter_class=argparse.RawDescriptionHelpFormatter)
     parser.add_argument("--config-dir", default="configs")
     parser.add_argument("--config-name", required=True)
-    parser.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    parser.add_argument("--device", default=None,
+                        help="cuda (default; cuda:LOCAL_RANK under trainer.data_parallel) or cpu")
     parser.add_argument("overrides", nargs="*", help="key=value overrides")
     args = parser.parse_args(argv)
 
@@ -159,13 +187,40 @@ def main(argv: List[str] | None = None) -> None:
         force=True,
     )
     logging.info("config: %s", conf.to_dict())
-    if conf.trainer.get("data_parallel", False):
-        raise NotImplementedError("trainer.data_parallel: a mesh is not ported yet")
     if int(conf.trainer.get("model_parallel", 1)) > 1:
-        raise NotImplementedError("trainer.model_parallel > 1: a mesh is not ported yet")
+        raise NotImplementedError(
+            "trainer.model_parallel > 1: tensor and expert layouts come with the next slice")
+    if not conf.trainer.get("data_parallel", False):
+        run(conf, args.device or "cuda")
+        return
+    device = args.device or f"cuda:{int(os.environ.get('LOCAL_RANK', 0))}"
+    joined = not initialized()  # a caller's own group stays the caller's
+    initialize_multihost(device=device)
+    try:
+        run(conf, device, mesh=make_mesh())
+    finally:
+        if joined:
+            shutdown()
 
+
+def _shard(mesh) -> dict:
+    """This rank's sampler shard; the environment's, where set, must agree."""
+    if mesh is None:
+        return {}
+    shard = {"shard_id": process_index(), "num_shards": process_count()}
+    for key, env in (("shard_id", "SPEECHLID_SHARD_ID"), ("num_shards", "SPEECHLID_NUM_SHARDS")):
+        if env in os.environ and int(os.environ[env]) != shard[key]:
+            raise ValueError(f"{env}={os.environ[env]} disagrees with the process group's "
+                             f"{key} {shard[key]}")
+    return shard
+
+
+def run(conf, device: str, mesh=None) -> None:
+    """Train or test one task from ``conf`` on ``device`` (over ``mesh``'s
+    ranks where given)."""
+    shard = _shard(mesh)
     data = build_data(conf)
-    task = build_task(conf, data, device=args.device)
+    task = build_task(conf, data, device=device)
 
     exp_dir = conf.get("exp_dir", "exp/default")
     callbacks = [
@@ -194,16 +249,17 @@ def main(argv: List[str] | None = None) -> None:
         seed=conf.get("seed", 0),
         callbacks=callbacks,
         loggers=logger,
+        mesh=mesh,
         checkpoint_path=conf.trainer.get("resume_from") or None,
         use_progress_bar=conf.trainer.get("progress_bar", True),
-        device=args.device,
+        device=device,
     )
 
     stage = conf.get("stage", "train")
-    train_feeder = build_feeder(conf, data["dataset"], seed=conf.get("seed", 0))
+    train_feeder = build_feeder(conf, data["dataset"], seed=conf.get("seed", 0), **shard)
     val_feeder = (
         build_feeder(conf, data["val_dataset"], seed=conf.get("seed", 0),
-                     train=False)
+                     train=False, **shard)
         if data["val_dataset"] is not None
         else train_feeder
     )

@@ -54,6 +54,11 @@ attributes (``Conv_0`` → ``conv``, ``BatchNorm_0`` → ``bn``, ``Dense_0`` →
 ``fc``, ``ResNet_0`` → ``resnet``).  The task (:func:`lid_ce_state`) nests
 an SSL upstream's parameters at ``upstream/upstream`` and the back-end at
 ``classifier``.
+
+``SELDNet`` (:func:`seldnet_state`, :func:`seldnet_variables`) converts by
+the extras zoo's leaf kinds: its 3 × 3 convolutions, flax BatchNorms, Dense
+heads, and bidirectional GRU layer i's cells ``GRUCell_{2i}`` (forward) and
+``GRUCell_{2i+1}`` (backward) into ``rnns.i.fwd`` / ``rnns.i.bwd``.
 """
 
 from __future__ import annotations
@@ -897,3 +902,46 @@ def extras_variables(sd: Mapping, model: torch.nn.Module) -> Dict[str, Dict]:
             heads = model.get_submodule(prefix.rstrip(".")).heads
         _extras_leaf_variables(kind, path, prefix, sd, params, stats, heads)
     return {"params": params, "batch_stats": stats} if stats else {"params": params}
+
+
+# ---------------------------------------------------------------------------
+# SELDNet (models/seldnet.py)
+# ---------------------------------------------------------------------------
+
+
+def _seldnet_specs(model: torch.nn.Module) -> list:
+    """(kind, flax path, port prefix) of every leaf group of a
+    ``models/seldnet.SELDNet``.  flax names the GRU cells that
+    ``nn.Bidirectional(nn.RNN(…), nn.RNN(…))`` wraps at SELDNet's level, in
+    the order they are built: layer i's forward cell ``GRUCell_{2i}``, its
+    backward cell ``GRUCell_{2i+1}``."""
+    specs = []
+    for i in range(len(model.convs)):
+        specs += [("conv", (f"conv_{i}",), f"convs.{i}."), ("bn", (f"bn_{i}",), f"bns.{i}.")]
+    for i in range(len(model.rnns)):
+        specs += [("gru", (f"GRUCell_{2 * i}",), f"rnns.{i}.fwd."),
+                  ("gru", (f"GRUCell_{2 * i + 1}",), f"rnns.{i}.bwd.")]
+    for head in ("sed", "doa"):
+        specs += [("dense", (f"{head}_fc{j}",), f"{head}.fc.{j}.")
+                  for j in range(len(getattr(model, head).fc))]
+        specs.append(("dense", (f"{head}_out",), f"{head}.out."))
+    return specs
+
+
+def seldnet_state(variables: Mapping, model: torch.nn.Module) -> StateDict:
+    """JAX ``SELDNet`` variables (``params``, ``batch_stats``) → the
+    state_dict of the port's ``model`` of the same preset and shape."""
+    params, stats = variables["params"], variables["batch_stats"]
+    sd: StateDict = {}
+    for kind, path, prefix in _seldnet_specs(model):
+        sd.update(_extras_leaf_state(kind, path, prefix, params, stats))
+    return sd
+
+
+def seldnet_variables(sd: Mapping, model: torch.nn.Module) -> Dict[str, Dict]:
+    """The inverse of :func:`seldnet_state`."""
+    params: Dict = {}
+    stats: Dict = {}
+    for kind, path, prefix in _seldnet_specs(model):
+        _extras_leaf_variables(kind, path, prefix, sd, params, stats)
+    return {"params": params, "batch_stats": stats}

@@ -6,7 +6,10 @@ monitored metric (min or max mode, priority-queue retention); filenames
 embed epoch + metric (``epoch_21_avg_val_loss_19.43.ckpt``).  Writes are
 synchronous: the JAX package's background writer hid a device fetch over a
 network, which a local ``torch.save`` does not have.  ``save_swa`` writes
-``swa_final.ckpt`` once SWA's average is in the model.
+``swa_final.ckpt`` once SWA's average is in the model.  Under data
+parallelism every rank gathers the checkpoint's state (it holds every
+rank's device generator), rank 0 alone writes, and every rank waits at a
+barrier until the files are there.
 """
 
 from __future__ import annotations
@@ -19,6 +22,7 @@ from typing import Dict, List, Optional, Tuple
 
 from speechlid_tpu_torch.core.callbacks.base import Callback
 from speechlid_tpu_torch.core.checkpoint import save_checkpoint
+from speechlid_tpu_torch.parallel.mesh import barrier, process_index
 
 
 class CkptCallback(Callback):
@@ -78,10 +82,15 @@ class CkptCallback(Callback):
             return
         if self.trainer is None:
             return
+        state = self.trainer.checkpoint_state()
+        if process_index() == 0:
+            self._save(epoch, metrics, state)
+        barrier()
+
+    def _save(self, epoch: int, metrics: Dict, state: Dict) -> None:
         if not self._scanned:
             self._rescan()
         os.makedirs(self.ckpt_path, exist_ok=True)
-        state = self.trainer.checkpoint_state()
         meta = self.trainer.checkpoint_meta(epoch, metrics)
         save_checkpoint(os.path.join(self.ckpt_path, "last.ckpt"), state, meta)
 
@@ -109,10 +118,12 @@ class CkptCallback(Callback):
     def save_swa(self, epoch: int, metrics: Dict) -> None:
         if self.trainer is None:
             return
-        os.makedirs(self.ckpt_path, exist_ok=True)
-        save_checkpoint(os.path.join(self.ckpt_path, "swa_final.ckpt"),
-                        self.trainer.checkpoint_state(),
-                        self.trainer.checkpoint_meta(epoch, metrics))
+        state = self.trainer.checkpoint_state()
+        if process_index() == 0:
+            os.makedirs(self.ckpt_path, exist_ok=True)
+            save_checkpoint(os.path.join(self.ckpt_path, "swa_final.ckpt"), state,
+                            self.trainer.checkpoint_meta(epoch, metrics))
+        barrier()
 
     @property
     def best_path(self) -> Optional[str]:

@@ -1,7 +1,8 @@
 """Metric logging (port of ``speechlid_tpu/core/loggers``): the backend
-interface, the multiplexer with train-interval throttling and checkpointable
-per-key counters, and the two backends that need no extra package.
-Tensorboard, wandb and comet backends are not ported."""
+interface, the multiplexer with train-interval throttling, checkpointable
+per-key counters and the rank-0 gate, the two backends that need no extra
+package, and ``TensorboardLogger`` (``backends.py``).  The wandb and comet
+backends are not ported (their packages are not installed)."""
 
 from __future__ import annotations
 
@@ -10,6 +11,8 @@ import logging
 import os
 import time
 from typing import Any, Dict, List, Optional, Sequence
+
+from speechlid_tpu_torch.parallel.mesh import process_index
 
 
 class BaseLogger:
@@ -27,19 +30,26 @@ class BaseLogger:
 
 
 class Logger:
-    """Fans metric dicts out to N backends.  One process: the JAX package's
-    rank-0 gate comes back with the multi-process slice."""
+    """Fans metric dicts out to N backends; with ``rank0_only`` (the default)
+    only process 0 of a process group logs, as in the JAX package."""
 
     def __init__(
         self,
         backends: Optional[Sequence[BaseLogger]] = None,
         train_interval: int = 1,
+        rank0_only: bool = True,
     ) -> None:
         self.backends: List[BaseLogger] = list(backends or [])
         self.train_interval = train_interval
+        self.rank0_only = rank0_only
         self._counts: Dict[str, int] = {}  # per-key log-call counters
 
+    def _gated(self) -> bool:
+        return self.rank0_only and process_index() != 0
+
     def init(self, run_name: str, config: Optional[Dict] = None) -> None:
+        if self._gated():
+            return
         for b in self.backends:
             b.init(run_name, config)
 
@@ -47,7 +57,7 @@ class Logger:
         self, data: Dict[str, Any], step: int, is_train: bool = False
     ) -> None:
         """Throttle train-time keys to every ``train_interval`` calls."""
-        if not data:
+        if self._gated() or not data:
             return
         out = {}
         for k, v in data.items():
@@ -124,3 +134,6 @@ class JsonlLogger(BaseLogger):
         if self._fh:
             self._fh.close()
             self._fh = None
+
+
+from speechlid_tpu_torch.core.loggers.backends import TensorboardLogger  # noqa: E402

@@ -7,8 +7,8 @@ threshold plus (1-p_target)/(L-1)-weighted false alarms per non-target
 language at/above threshold; report the minimum over thresholds, rounded to
 4 decimals.
 
-One pass over a (trial, threshold) boolean matrix.  The multi-process
-``sync`` waits for the distributed slice.
+One pass over a (trial, threshold) boolean matrix.  Under data parallelism
+``sync`` gathers every rank's trials before ``compute``.
 """
 
 from __future__ import annotations
@@ -16,6 +16,8 @@ from __future__ import annotations
 from typing import List, Sequence, Tuple
 
 import numpy as np
+
+from speechlid_tpu_torch.metrics.dist import allgather_rows
 
 
 def compute_cavg(
@@ -81,6 +83,19 @@ class CAvg:
             for j, s in enumerate(row):
                 self._pairs.append((j, int(tgt), float(s)))
 
+    def merge_state(self, pairs: Sequence[Tuple[int, int, float]]) -> None:
+        """Fold another rank's trials in."""
+        self._pairs.extend((int(a), int(b), float(c)) for a, b, c in pairs)
+
+    def sync(self) -> None:
+        """Replace the local trials with every rank's, in rank order.  One
+        process: a no-op.  Call once an eval round, before ``compute``."""
+        g = allgather_rows(self.state, n_cols=3)
+        self._pairs = [(int(a), int(b), float(c)) for a, b, c in g]
+
+    @property
+    def state(self) -> np.ndarray:
+        return np.asarray(self._pairs, dtype=np.float64).reshape(-1, 3)
 
     def compute(self) -> float:
         return compute_cavg(self._pairs, self.num_class, self.bins, self.p_target)

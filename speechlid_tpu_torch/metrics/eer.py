@@ -4,8 +4,8 @@ numpy only).
 EER is the root of ``1 - x - tpr(x)`` on the piecewise-linear ROC
 interpolant (sklearn's ``roc_curve`` with ``drop_intermediate``, found by
 bisection).  Scoring convention: the caller pushes one score *per language*
-per utterance; the positive label marks the target language.  The
-multi-process ``sync`` waits for the distributed slice.
+per utterance; the positive label marks the target language.  Under data
+parallelism ``sync`` gathers every rank's trials before ``compute``.
 """
 
 from __future__ import annotations
@@ -13,6 +13,8 @@ from __future__ import annotations
 from typing import List, Sequence, Tuple
 
 import numpy as np
+
+from speechlid_tpu_torch.metrics.dist import allgather_rows
 
 
 def roc_curve(
@@ -100,6 +102,24 @@ class EER:
                 self._scores.append(float(s))
                 self._labels.append(int(j == tgt))
 
+    def merge_state(self, labels: Sequence[int], scores: Sequence[float]) -> None:
+        """Fold another rank's trials in."""
+        self._labels.extend(int(x) for x in labels)
+        self._scores.extend(float(x) for x in scores)
+
+    def sync(self) -> None:
+        """Replace the local trials with every rank's, in rank order (the
+        reference's ``dist_reduce_fx="cat"``).  One process: a no-op.  Call
+        once an eval round, right before ``compute``."""
+        rows = np.column_stack([np.asarray(self._labels, np.float64),
+                                np.asarray(self._scores, np.float64)])
+        g = allgather_rows(rows, n_cols=2)
+        self._labels = [int(x) for x in g[:, 0]]
+        self._scores = [float(x) for x in g[:, 1]]
+
+    @property
+    def state(self) -> Tuple[np.ndarray, np.ndarray]:
+        return np.asarray(self._labels), np.asarray(self._scores)
 
     def compute(self) -> float:
         return compute_eer(self._labels, self._scores)

@@ -2,8 +2,8 @@
 ``speechlid_tpu/metrics/error_rate.py``, numpy only).
 
 Corpus-level torchmetrics semantics: sum of edit distances / sum of
-reference lengths — NOT a mean of per-utterance rates.  The multi-process
-``sync`` waits for the distributed slice.
+reference lengths — NOT a mean of per-utterance rates.  Under data
+parallelism ``sync`` sums every rank's counts before ``compute``.
 """
 
 from __future__ import annotations
@@ -11,6 +11,8 @@ from __future__ import annotations
 from typing import Sequence
 
 import numpy as np
+
+from speechlid_tpu_torch.metrics.dist import allreduce_sum_counts
 
 
 def edit_distance(ref: Sequence, hyp: Sequence) -> int:
@@ -52,6 +54,13 @@ class _ErrorRate:
             self.errors += edit_distance(tt, pt)
             self.total += len(tt)
 
+    def merge_state(self, errors: int, total: int) -> None:
+        self.errors += int(errors)
+        self.total += int(total)
+
+    def sync(self) -> None:
+        """Sum the counts over the ranks.  Call once before ``compute``."""
+        self.errors, self.total = (int(x) for x in allreduce_sum_counts(self.errors, self.total))
 
     def compute(self) -> float:
         return self.errors / self.total if self.total else 0.0
@@ -83,6 +92,14 @@ class Accuracy:
         self.correct += int((preds == targets).sum())
         self.total += int(targets.size)
 
+    def merge_state(self, correct: int, total: int) -> None:
+        self.correct += int(correct)
+        self.total += int(total)
+
+    def sync(self) -> None:
+        """Sum the counts over the ranks.  Call once before ``compute``."""
+        self.correct, self.total = (int(x) for x in
+                                    allreduce_sum_counts(self.correct, self.total))
 
     def compute(self) -> float:
         return self.correct / self.total if self.total else 0.0

@@ -18,6 +18,12 @@ output is (x − mean) · (rsqrt(var + eps) · scale) + bias, in flax's order;
 ``scale`` and ``bias`` are optional (``use_scale=False, use_bias=False`` is
 affine-free).  Statistics are taken in at least float32, as flax takes
 them; buffers and parameters are float32.
+
+Under data parallelism (a process group of more than one rank) a training
+batch's statistics are the global batch's, as flax's over the mesh's global
+array: Σx, Σx² and the count are all-reduced in float32 through the
+differentiable all-reduce (``parallel.all_reduce``), so the gradients through
+them span the ranks.  One process keeps the local path.
 """
 
 from __future__ import annotations
@@ -26,6 +32,8 @@ from typing import Optional
 
 import torch
 import torch.nn as nn
+
+from speechlid_tpu_torch.parallel.mesh import all_reduce, data_parallel
 
 
 def flax_batch_norm(x: torch.Tensor, running_mean: torch.Tensor, running_var: torch.Tensor,
@@ -40,9 +48,16 @@ def flax_batch_norm(x: torch.Tensor, running_mean: torch.Tensor, running_var: to
     shape = [1] * x.ndim
     shape[dim] = x.shape[dim]
     xf = x.to(torch.promote_types(x.dtype, torch.float32))  # at least float32, as flax
-    if training:
+    if training and data_parallel():
+        c = x.shape[dim]
+        count = xf.new_full((1,), float(xf.numel() // c))
+        sums = all_reduce(torch.cat([xf.sum(dim=axes), xf.square().sum(dim=axes), count]))
+        mean = sums[:c] / sums[-1]
+        var = (sums[c:2 * c] / sums[-1] - mean.square()).clamp_min(0.0)
+    elif training:
         mean = xf.mean(dim=axes)
         var = (xf.square().mean(dim=axes) - mean.square()).clamp_min(0.0)
+    if training:
         with torch.no_grad():
             running_mean.mul_(momentum).add_((1.0 - momentum) * mean)
             running_var.mul_(momentum).add_((1.0 - momentum) * var)

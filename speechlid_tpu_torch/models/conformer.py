@@ -66,6 +66,7 @@ from speechlid_tpu_torch.ops.cuda.depthwise_kernel import (
 )
 from speechlid_tpu_torch.ops.frontend import fused_frontend
 from speechlid_tpu_torch.ops.quant import quant_dot_general
+from speechlid_tpu_torch.parallel.mesh import all_reduce, data_parallel
 
 LN_EPS = 1e-6  # flax nn.LayerNorm default
 _NEG = torch.finfo(torch.float32).min
@@ -251,13 +252,40 @@ class DepthwiseConv1d(nn.Module):
                                 self.bias.to(x.dtype))
 
 
+def _global_moments(xf: torch.Tensor, mask: Optional[torch.Tensor]):
+    """(mean, biased variance, n) of (B, T, C) float32 ``xf`` over the valid
+    frames of every rank's batch."""
+    if mask is None:
+        sums = all_reduce(torch.cat([xf.sum(dim=(0, 1)),
+                                     xf.new_full((1,), float(xf.shape[0] * xf.shape[1]))]))
+        n = sums[-1]
+        mean = sums[:-1] / n
+        var = all_reduce((xf - mean).square().sum(dim=(0, 1))) / n
+        return mean, var, n
+    m = mask[..., None].float()
+    c = xf.shape[-1]
+    sums = all_reduce(torch.cat([(xf * m).sum(dim=(0, 1)), (xf.square() * m).sum(dim=(0, 1)),
+                                 m.sum(dim=(0, 1))]))
+    n = sums[2 * c:].clamp_min(1.0)
+    mean = sums[:c] / n
+    return mean, sums[c:2 * c] / n - mean.square(), n
+
+
 class MaskedBatchNorm(nn.Module):
     """BatchNorm over (B, T, C), (x - mean)·rsqrt(var + eps)·weight + bias in
     float32.  Eval mode uses the running statistics.  Training mode uses the
     statistics of the valid frames (``mask`` (B, T), True = valid; all
     frames without one): n = max(Σmask, 1), var = E[x²] − mean², biased for
     the normalisation, and moves the running statistics by ``momentum``
-    towards the batch mean and the unbiased variance var·n/max(n − 1, 1)."""
+    towards the batch mean and the unbiased variance var·n/max(n − 1, 1).
+
+    Under data parallelism (a process group of more than one rank) the
+    training statistics are the global batch's, as the JAX module's over
+    the mesh's global array: Σx·m, Σx²·m and n (without a mask Σx and n,
+    then Σ(x − mean)²) are all-reduced in float32 through the
+    differentiable all-reduce, so the gradients through mean and variance
+    span the ranks too, and the unbiased factor takes the global n.  One
+    process keeps the local path."""
 
     def __init__(self, channels: int, eps: float = 1e-5, momentum: float = 0.1):
         super().__init__()
@@ -275,7 +303,13 @@ class MaskedBatchNorm(nn.Module):
 
     def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         xf = x.float()
-        if self.training:
+        if self.training and data_parallel():
+            mean, var, n = _global_moments(xf, mask)
+            with torch.no_grad():
+                unbiased = var * (n / (n - 1.0).clamp_min(1.0))
+                self.running_mean.lerp_(mean, self.momentum)
+                self.running_var.lerp_(unbiased, self.momentum)
+        elif self.training:
             if mask is None:
                 n = torch.tensor(float(x.shape[0] * x.shape[1]), device=x.device)
                 mean = xf.mean(dim=(0, 1))

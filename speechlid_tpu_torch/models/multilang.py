@@ -32,12 +32,18 @@ direction) over the valid frames (packed by ``lengths``), dropout, then
 float32 in a bfloat16 task too and only the last ``Linear`` computes in
 ``dtype``.  Padded frames come out as zeros where flax leaves values;
 everything downstream (CTC, the scores) reads the valid frames only.
+
+:func:`convert_joint_wavlm_lid_state` reads the reference's joint WavLM LID
+model (``WavLMMutiLangModel``'s state dict) into this package's joint task
+with a WavLM featurizer, as the JAX package's converter of the same name
+reads it into flax.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Sequence, Union
+from typing import Any, Dict, Optional, Sequence, Union
 
+import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
@@ -45,6 +51,7 @@ import torch.nn.functional as F
 from speechlid_tpu_torch.core.precision import compute_dtype
 from speechlid_tpu_torch.models.conformer import ConformerBlock, Dropout, Linear
 from speechlid_tpu_torch.models.rnn import BiLSTM
+from speechlid_tpu_torch.models.wavlm import WavLMConfig, convert_wavlm_state
 
 _NEG = torch.finfo(torch.float32).min
 
@@ -222,3 +229,92 @@ class MutiLangModel(nn.Module):
             "mlp_scores": self.discriminator(scores),
             "pred_lang": scores.argmax(dim=-1),
         }
+
+
+# ---------------------------------------------------------------------------
+# the reference's joint WavLM LID checkpoint
+# ---------------------------------------------------------------------------
+
+# a reference ConformerBlock's leaves (lid/conformer.py, under its
+# PreNorm/Scale wrappers) → this package's ConformerBlock's, torch to torch
+_REFERENCE_BLOCK = {
+    "ff1.fn.norm": "norm_ff1", "ff1.fn.fn.net.0": "ff1.fc1", "ff1.fn.fn.net.3": "ff1.fc2",
+    "attn.norm": "norm_attn", "attn.fn.to_q": "attn.to_q", "attn.fn.to_kv": "attn.to_kv",
+    "attn.fn.to_out": "attn.to_out", "conv.net.0": "conv.norm", "conv.net.5": "conv.bn",
+    "ff2.fn.norm": "norm_ff2", "ff2.fn.fn.net.0": "ff2.fc1", "ff2.fn.fn.net.3": "ff2.fc2",
+    "post_norm": "post_norm",
+}
+_BLOCK_LEAVES = ("weight", "bias", "running_mean", "running_var")
+
+
+def _convert_reference_block(sd: Dict[str, np.ndarray], src: str, dst: str
+                             ) -> Dict[str, np.ndarray]:
+    """One reference ``ConformerBlock`` under ``src`` → this package's under
+    ``dst``: Linears and norms leaf for leaf, the pointwise Conv1d (O, I, 1)
+    → (O, I), the depthwise (C, 1, K) → the (K, C) the kernel takes."""
+    out = {}
+    for ref, ours in _REFERENCE_BLOCK.items():
+        for leaf in _BLOCK_LEAVES:
+            if f"{src}{ref}.{leaf}" in sd:
+                out[f"{dst}{ours}.{leaf}"] = sd[f"{src}{ref}.{leaf}"]
+    out[dst + "attn.rel_pos_emb"] = sd[src + "attn.fn.rel_pos_emb.weight"]
+    for ref, ours in (("conv.net.2", "conv.pointwise_in"), ("conv.net.7", "conv.pointwise_out")):
+        out[f"{dst}{ours}.weight"] = sd[f"{src}{ref}.weight"][:, :, 0]
+        out[f"{dst}{ours}.bias"] = sd[f"{src}{ref}.bias"]
+    out[dst + "conv.depthwise.weight"] = np.ascontiguousarray(
+        sd[src + "conv.net.4.conv.weight"][:, 0, :].T)
+    out[dst + "conv.depthwise.bias"] = sd[src + "conv.net.4.conv.bias"]
+    return out
+
+
+def convert_reference_heads(sd: Dict[str, np.ndarray], langs: Sequence[str],
+                            lang2vocab: Dict[str, int], head_layers: int = 1
+                            ) -> Dict[str, np.ndarray]:
+    """The reference's per-language ``ConformerLinear`` heads
+    (``model.last_projects.<lang>``) and language discriminator → this
+    package's ``heads.heads.<l>`` and ``discriminator`` leaves (the JAX
+    package's ``_convert_stacked_heads`` / ``_convert_discriminator``).
+    Each ``Linear(D, V_l + 1)`` (blank at V_l) becomes the (V_max + 1)-row
+    output every head has: character rows keep their index, the blank row
+    goes to the shared last index V_max, the padded rows are zeros.  Every
+    head layer reads the reference's one ``block``, as the JAX converter
+    does."""
+    vmax = max(lang2vocab[lg] for lg in langs)
+    out: Dict[str, np.ndarray] = {}
+    for li, lg in enumerate(langs):
+        src, dst = f"model.last_projects.{lg}.", f"heads.heads.{li}."
+        for i in range(head_layers):
+            out.update(_convert_reference_block(sd, src + "block.", f"{dst}blocks.{i}."))
+        w, b = sd[src + "linear.weight"], sd[src + "linear.bias"]  # (V_l + 1, D)
+        v_l = w.shape[0] - 1
+        weight = np.zeros((vmax + 1, w.shape[1]), np.float32)
+        bias = np.zeros((vmax + 1,), np.float32)
+        weight[:v_l], weight[vmax] = w[:v_l], w[v_l]
+        bias[:v_l], bias[vmax] = b[:v_l], b[v_l]
+        out[dst + "out.weight"], out[dst + "out.bias"] = weight, bias
+    for ref, ours in (("0", "fc1"), ("2", "fc2")):
+        for leaf in ("weight", "bias"):
+            out[f"discriminator.{ours}.{leaf}"] = sd[f"lang_discriminator.linear.{ref}.{leaf}"]
+    return out
+
+
+def convert_joint_wavlm_lid_state(torch_state: Dict[str, Any], langs: Sequence[str],
+                                  lang2vocab: Dict[str, int], wavlm_cfg: WavLMConfig,
+                                  head_layers: int = 1) -> Dict[str, np.ndarray]:
+    """The reference's ``WavLMMutiLangModel`` state dict (tensors or numpy)
+    → the state dict of this package's ``MutiLangModel`` with a WavLM
+    featurizer (``LidASRTask(featurizer="wavlm",
+    feature_selection="last_hidden_state")``, the reference's
+    ``only_last=True`` path): the upstream under ``featurizer.upstream.``
+    through :func:`models.wavlm.convert_wavlm_state`, the heads and the
+    discriminator through :func:`convert_reference_heads`.  → numpy float32
+    arrays (the WavLM trunk has no BatchNorm)."""
+    sd = {k: np.array(torch.as_tensor(v).detach().float().cpu().numpy())
+          for k, v in torch_state.items()}
+    prefix = "model.featurizer.model."
+    upstream = convert_wavlm_state({k[len(prefix):]: v for k, v in sd.items()
+                                    if k.startswith(prefix)}, wavlm_cfg,
+                                   prefix="featurizer.upstream.")
+    out = {k: v.numpy() for k, v in upstream.items()}
+    out.update(convert_reference_heads(sd, langs, lang2vocab, head_layers))
+    return out

@@ -3,8 +3,10 @@
 of the speech-enhancement models, the ``bilstm`` heads and the
 bidirectional ``LSTMLM`` (:class:`BiLSTM`), one ``nn.RNN(nn.OptimizedLSTMCell(H))``
 direction of the LM and forecasting models (:class:`LSTM`), over
-``torch.lstm``, and one ``nn.RNN(nn.GRUCell(H))`` direction of ``ResNet1D``'s
-head (:class:`GRU`) over ``torch.gru`` (cuDNN on the card for both).
+``torch.lstm``, one ``nn.RNN(nn.GRUCell(H))`` direction of ``ResNet1D``'s
+head (:class:`GRU`) and SELDNet's ``nn.Bidirectional(nn.RNN(nn.GRUCell(H)),
+nn.RNN(nn.GRUCell(H)))`` (:class:`BiGRU`) over ``torch.gru`` (cuDNN on the
+card for all of them).
 
 flax's cell keeps eight leaves a direction: input kernels ``ii/if/ig/io``
 (D, H) without a bias and recurrent kernels ``hi/hf/hg/ho`` (H, H) with one.
@@ -33,7 +35,11 @@ computes ``r = σ(ir·x + hr·h)``, ``z = σ(iz·x + hz·h)``,
 r, z, n and its formula, with ``b_ih`` the three input biases and ``b_hh``
 = ``[0, 0, b_hn]``.  So a :class:`GRUDirection` holds ``weight_ih`` (3H, D),
 ``weight_hh`` (3H, H), ``bias_ih`` (3H,) and ``bias_hn`` (H,), and the two
-zero blocks of ``b_hh`` are a buffer.
+zero blocks of ``b_hh`` are a buffer.  :class:`BiGRU` packs two of them as
+:class:`BiLSTM` packs its LSTM: flax's backward direction reads the
+reversed sequence and its outputs come back in the input's order, behind
+the forward direction's in the last axis, which is ``torch.gru``'s
+bidirectional layout.  It runs over every frame (SELDNet has no lengths).
 
 The recurrence computes in its parameters' dtype (float32) whatever the
 input's: flax's cell is built without a ``dtype`` in every JAX model that
@@ -144,4 +150,22 @@ class GRU(nn.Module):
         h0 = x.new_zeros(1, x.shape[0], self.hidden)
         out, _ = torch.gru(x, h0, self.cell.flat_weights(), True, 1, 0.0, self.training,
                            False, True)
+        return out
+
+
+class BiGRU(nn.Module):
+    """(B, T, D) → (B, T, 2H): the forward ‖ backward ``GRUCell`` states
+    over every frame, each carry starting at zeros."""
+
+    def __init__(self, input_size: int, hidden: int):
+        super().__init__()
+        self.hidden = hidden
+        self.fwd = GRUDirection(input_size, hidden)
+        self.bwd = GRUDirection(input_size, hidden)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x.to(self.fwd.weight_ih.dtype)
+        h0 = x.new_zeros(2, x.shape[0], self.hidden)
+        out, _ = torch.gru(x, h0, self.fwd.flat_weights() + self.bwd.flat_weights(), True, 1,
+                           0.0, self.training, True, True)
         return out

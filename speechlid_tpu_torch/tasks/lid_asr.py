@@ -63,6 +63,7 @@ from speechlid_tpu_torch.core.module import TaskModule
 from speechlid_tpu_torch.core.optim import make_optimizer
 from speechlid_tpu_torch.core.precision import compute_dtype, strict_float32
 from speechlid_tpu_torch.metrics import CAvg, CharErrorRate, EER, WordErrorRate
+from speechlid_tpu_torch.metrics.dist import allreduce_sum_counts
 from speechlid_tpu_torch.models.conformer import ConformerModel, set_generator
 from speechlid_tpu_torch.models.init import init_like_flax_
 from speechlid_tpu_torch.models.multilang import MutiLangModel, lang_confidence_scores
@@ -75,6 +76,7 @@ from speechlid_tpu_torch.models.wavlm import WavLMConfig, load_wavlm_checkpoint
 from speechlid_tpu_torch.ops.ctc import ctc_loss
 from speechlid_tpu_torch.ops.frontend import fused_frontend, normalize_wav
 from speechlid_tpu_torch.ops.quant import quant_dot_general
+from speechlid_tpu_torch.parallel.mesh import process_count
 
 SSL_FEATURIZERS = ("wavlm", "wav2vec2")
 # parameter-name parts (under ``featurizer.``) of an SSL featurizer that
@@ -432,6 +434,15 @@ class LidASRTask(TaskModule):
                     )[0]
                     ref = tok.decoder(texts[i : i + 1], [int(text_lens[i])])[0]
                     self.err_fn.update([hyp], [ref])
+        if process_count() > 1:
+            # data parallelism: every rank's trials and counts before compute;
+            # the loss is the checkpoint's monitor, so it is the global mean
+            for metric in (self.eer, self.cavg, self.eer_true, self.cavg_true, self.err_fn):
+                metric.sync()
+            loss_sum, loss_n, correct, total = allreduce_sum_counts(
+                float(np.sum(losses)), len(losses), correct, total)
+            losses = [loss_sum / loss_n] if loss_n else []
+            correct, total = int(correct), int(total)
         multi = self.n_lang > 1  # LID metrics degenerate for pure ASR
         nan = float("nan")
         result = {

@@ -40,6 +40,7 @@ from speechlid_tpu_torch.core.module import TaskModule
 from speechlid_tpu_torch.core.optim import make_optimizer
 from speechlid_tpu_torch.core.precision import strict_float32
 from speechlid_tpu_torch.metrics import Accuracy, CAvg, EER
+from speechlid_tpu_torch.metrics.dist import allreduce_sum_counts
 from speechlid_tpu_torch.models.classifier import LidClassifier, PretrainLidClassifier
 from speechlid_tpu_torch.models.conformer import set_generator
 from speechlid_tpu_torch.models.init import init_like_flax_
@@ -50,6 +51,7 @@ from speechlid_tpu_torch.models.wav2vec2 import (
 )
 from speechlid_tpu_torch.models.wavlm import WavLMConfig, load_wavlm_checkpoint
 from speechlid_tpu_torch.ops.frontend import fused_frontend, normalize_wav
+from speechlid_tpu_torch.parallel.mesh import process_count
 
 SSL_FEATURIZERS = ("wavlm", "wav2vec2")
 # the keys of a batch the task reads
@@ -233,6 +235,13 @@ class LidCrossEntropyTask(TaskModule):
             self.eer.update(probs, langs)
             self.cavg.update(probs, langs)
             self.acc.update(probs, langs)
+        if process_count() > 1:
+            # data parallelism: every rank's trials and counts, the global-mean
+            # loss (the checkpoint's monitor)
+            for metric in (self.eer, self.cavg, self.acc):
+                metric.sync()
+            loss_sum, loss_n = allreduce_sum_counts(float(np.sum(losses)), len(losses))
+            losses = [loss_sum / loss_n] if loss_n else []
         nan = float("nan")
         result = {
             "avg_val_loss": float(np.mean(losses)) if losses else nan,

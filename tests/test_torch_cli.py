@@ -12,7 +12,9 @@ the JAX package's, on a tiny 2-language corpus on the CPU.
   batch lengths, and an unknown key of it raises ``TypeError`` in both;
 - every option not ported yet raises ``NotImplementedError``, and without
   ``--device`` the CLI asks for the card; ``trainer.use_swa=true``, ported,
-  trains and writes ``swa_final.ckpt``;
+  trains and writes ``swa_final.ckpt``; ``trainer.data_parallel=true``,
+  ported, trains in a process group of one, bit-equal to the run without
+  it (two ranks: ``tests/test_torch_dist.py``);
 - the other two tasks: ``lid_cross.yaml`` (the ``xvector`` and ``linear``
   back-ends on fbank), ``lid_cross_wavlm.yaml`` and ``lid_cross_wav2vec.yaml``
   (tiny ``module.ssl_config``) and ``asr.yaml`` (one language) train an
@@ -169,6 +171,25 @@ def test_build_data_feeder_and_task_equal_jax(corpus, tmp_path, monkeypatch, sha
 ])
 def test_unported_options_raise(corpus, tmp_path, monkeypatch, override):
     monkeypatch.setenv("SPEECHLID_CACHE_DIR", str(tmp_path / "cache"))
+    if override == "trainer.data_parallel=true":  # ported: a group of one, the same bits
+        for env in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "SPEECHLID_SHARD_ID",
+                    "SPEECHLID_NUM_SHARDS"):
+            monkeypatch.delenv(env, raising=False)
+        main_lid.main(_args(corpus, tmp_path, override) + ["--device", "cpu"])
+        assert not torch.distributed.is_initialized()  # the CLI left its group
+        port_dir = tmp_path / "plain"
+        main_lid.main(_args(corpus, port_dir) + ["--device", "cpu"])
+        got = torch.load(tmp_path / "ckpt" / "last.ckpt", weights_only=True)["state"]
+        want = torch.load(port_dir / "ckpt" / "last.ckpt", weights_only=True)["state"]
+        assert got["model"].keys() == want["model"].keys()
+        for name, value in want["model"].items():
+            assert torch.equal(got["model"][name], value), name
+        assert len(got["device_generators"]) == 1
+        assert torch.equal(got["device_generators"][0], want["generators"]["device"])
+        strip = lambda rows: [{k: v for k, v in r.items() if k != "ts"} for r in rows]  # noqa: E731
+        assert strip(_lines(tmp_path / "metrics.jsonl")) == strip(
+            _lines(port_dir / "metrics.jsonl"))
+        return
     if override == "trainer.use_swa=true":  # ported: SWA trains and saves its average
         main_lid.main(_args(corpus, tmp_path, override, "trainer.total_epoch=2")
                       + ["--device", "cpu"])

@@ -44,7 +44,8 @@ def test_port_imports_no_jax():
                  "models.fasnet", "tasks.se", "cli.main_extras", "ops.quant",
                  "core.optim.novograd", "cli.sweep", "cli.prepare_manifest",
                  "cli.prepare_text", "cli.prepare_spectrum", "data.text", "models.extras",
-                 "tasks.extras"):
+                 "tasks.extras", "parallel", "parallel.mesh", "metrics.dist",
+                 "models.seldnet", "core.loggers.backends"):
         assert f"speechlid_tpu_torch.{name}" in modules, name
     result = subprocess.run(
         [sys.executable, "-c", CHECK, "chip_smoke", *modules],

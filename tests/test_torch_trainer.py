@@ -45,6 +45,7 @@ from speechlid_tpu_torch.core.callbacks import Callback, CkptCallback, LrCallbac
 from speechlid_tpu_torch.core.checkpoint import load_checkpoint
 from speechlid_tpu_torch.core.loggers import JsonlLogger, Logger
 from speechlid_tpu_torch.core.trainer import Trainer
+from speechlid_tpu_torch.parallel import make_mesh
 from speechlid_tpu_torch.tasks.lid_asr import LidASRTask
 from tests.torch_parity import lid_pair, one_thread, tree_leaves_with_names  # noqa: F401
 
@@ -365,9 +366,15 @@ def test_accum_grad_steps_every_second_batch():
 
 
 def test_trainer_rejects_what_is_not_ported(tmp_path):
-    for kw in (dict(mesh=object()), dict(param_rules=[("a", None)])):
-        with pytest.raises(NotImplementedError):
-            Trainer(device="cpu", **kw)
+    with pytest.raises(NotImplementedError):
+        Trainer(device="cpu", param_rules=[("a", None)])
+    # the data-parallel mesh is ported (tests/test_torch_dist.py): one process
+    # is a mesh of one, which trains; a mesh not from make_mesh is refused
+    with pytest.raises(TypeError, match="make_mesh"):
+        Trainer(device="cpu", mesh=object())
+    _, meshed = run_port(LidASRTask(**HPARAMS, device="cpu"), batches(8, [0, 1]),
+                         mesh=make_mesh())
+    assert meshed.mesh.shape == {"data": 1, "model": 1} and meshed.optimizer.count == 2
     # the profile_dir trace is ported (tests/test_torch_profile.py)
     traced = Trainer(device="cpu", profile_dir=str(tmp_path / "trace"))
     assert traced.profile_dir == str(tmp_path / "trace") and traced.profile_epochs == 1
