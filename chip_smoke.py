@@ -281,6 +281,16 @@ TRAIN_STEP_LAUNCHES = launch_counts(fbank=1, bwd_w=DW_PER_TRAIN_STEP, glu=DW_PER
 # one launch per head block (3 heads × 1) a forward, the own head's a step
 WAVLM_PER_FORWARD_LAUNCHES = launch_counts(glu_bn_act=len(FLAGSHIP["lang2vocab"]))
 WAVLM_TRAIN_STEP_LAUNCHES = launch_counts(bwd_w=1, glu=1, glu_dx=1)
+SP_SEQ = 2  # the sequence-parallel frontend's seq ranks
+
+
+def _sp_span(b: int, t: int) -> tuple:
+    """The wave span the first of ``SP_SEQ`` seq ranks hands the fbank
+    kernel (``parallel.sp_wav2mel``: its frames and a halo of 2)."""
+    frames = 1 + t // 160
+    return (b, min(t, (frames // SP_SEQ + 2) * 160))
+
+
 # the same paths in bfloat16: every depthwise launch is the kernel's
 # bfloat16 instantiation
 BF16_PER_FORWARD_LAUNCHES = launch_counts(fbank=1, glu_bn_act=DW_PER_FORWARD, bf16=True)
@@ -316,6 +326,8 @@ EVAL_DW_SHAPE = (8, _encoder_frames(EVAL_SECONDS), 2 * FLAGSHIP["encoder_dim"], 
 # bucket at the batch size a trial draws (8 or 16), in training and eval;
 # by batch size, the FBANK_SHAPES key and the conv shape
 SWEEP_DW_SHAPE = (16, _encoder_frames(2.0), 2 * FLAGSHIP["encoder_dim"], 31)
+# a model rank's half of the train step's channels under tensor parallelism
+TP_DW_SHAPE = (TRAIN_B, _encoder_frames(TRAIN_SECONDS), FLAGSHIP["encoder_dim"], 31)
 SWEEP_SHAPES = {8: ("eval", EVAL_DW_SHAPE), 16: ("cross_2s", SWEEP_DW_SHAPE)}
 
 # The WavLM-Base+ joint model (__graft_entry__.py _flagship_wavlm, the model
@@ -454,7 +466,9 @@ FBANK_SHAPES = {"serve": (1, 3 * SR), "b32": (32, 3 * SR), "long": (1, 17 * SR),
                 "eval": (8, int(EVAL_SECONDS * SR)), "gate_eval": (8, 3 * SR),
                 # lid_cross.yaml's batches of 16: the corpus's 2 s and 4 s
                 # buckets, and the config's largest, 13 s
-                "cross_2s": (16, 2 * SR), "cross_4s": (16, 4 * SR), "cross_13s": (16, 13 * SR)}
+                "cross_2s": (16, 2 * SR), "cross_4s": (16, 4 * SR), "cross_13s": (16, 13 * SR),
+                # a seq rank's span of the train batch (tensor-parallel slice)
+                "sp_span": _sp_span(TRAIN_B, int(TRAIN_SECONDS * SR))}
 
 
 def _log_mel_float64(wav: torch.Tensor) -> torch.Tensor:
@@ -640,7 +654,7 @@ FUSED_SHAPES = (SERVE_DW_SHAPE, TRAIN_DW_SHAPE, SCORE_DW_SHAPE, (1, 7, 64, 31),
                 (3, 100, 129, 15), (2, 50, 96, 4), GATE_DW_SHAPE, EVAL_DW_SHAPE, SWEEP_DW_SHAPE,
                 WAVLM_SERVE_DW_SHAPE, WAVLM_SCORE_DW_SHAPE, WAVLM_TRAIN_DW_SHAPE,
                 WAVLM_STEP_DW_SHAPE, WAVLM_CLI_DW_SHAPE, WAVLM_BF16_CLI_DW_SHAPE,
-                *WAVLM_HALF_C_DW_SHAPES)
+                *WAVLM_HALF_C_DW_SHAPES, TP_DW_SHAPE)
 
 
 def fused_inputs(b: int, t: int, c: int, k: int, gen: torch.Generator):
@@ -5854,7 +5868,7 @@ def extras_kernel_rows(gen: torch.Generator, errs: dict, reports: dict) -> list:
 DP_WORLD = 2  # ranks, both on cuda:0 over gloo (nccl refuses two ranks on one card)
 DP_B, DP_SECONDS = TRAIN_B, TRAIN_SECONDS  # per rank: the flagship's (8, 64000) train batch
 DP_STEPS, DP_RANDOM_STEPS = 3, 2
-DP_TIMEOUT_S = 120  # the group's: a hung collective fails the phase
+RANK_TIMEOUT_S = 180  # the groups': a hung collective fails the phase
 # the flagship with Adam + tristage + clip 20 (TRAIN_HPARAMS), deterministic,
 # then with dropout, stochastic depth, SpecAugment and time stretch on
 DP_OPTIM = {k: v for k, v in TRAIN_HPARAMS.items() if k != "t_stretch"}
@@ -5886,24 +5900,33 @@ class _LossRecorder(Callback):
         self.losses.append(metrics["loss"])
 
 
+def width_launches() -> dict:
+    """The depthwise wrappers' counts by mode and channel count C, as they
+    launch their kernels (``"glu@144"``, ``"glu_dx@144"``, ``"bwd_w@144"``)."""
+    return {**depthwise_conv1d.width_launches, **depthwise_conv1d_bwd_w.width_launches}
+
+
 class _CountedTrainer(Trainer):
-    """``Trainer`` that reads the launch counters and the host clock (the
-    card synchronised) around each train step, and keeps the gradients the
-    optimizer's first step takes."""
+    """``Trainer`` that reads the launch counters, also by channel count,
+    and the host clock (the card synchronised) around each train step, and
+    keeps the gradients the optimizer's first step takes."""
 
     def __init__(self, *args, **kwargs):
         super().__init__(*args, **kwargs)
         self.step_launches, self.step_ms, self.first_grads = [], [], None
+        self.step_widths = []
 
     def trainer_prepare(self, module):
         super().trainer_prepare(module)
         step = self.optimizer.step
 
         def recorded_step():
-            if self.first_grads is None:
-                self.first_grads = {n: p.grad.detach().cpu().clone()
-                                    for n, p in module.model.named_parameters()
-                                    if p.grad is not None}
+            if self.first_grads is None:  # whole, gathered over a layout's model group
+                grads = {n: p.grad.detach() for n, p in module.model.named_parameters()
+                         if p.grad is not None}
+                if self.layout is not None:
+                    grads = self.layout.full_state(grads, params_only=True)
+                self.first_grads = {n: g.cpu().clone() for n, g in grads.items()}
             step()
 
         self.optimizer.step = recorded_step
@@ -5916,13 +5939,18 @@ class _CountedTrainer(Trainer):
         torch.cuda.synchronize()
         self.step_ms.append((time.perf_counter() - t0) * 1e3)
         self.step_launches.append(launches())
+        self.step_widths.append(width_launches())
         return out
 
 
-def _dp_fit(hp: dict, state: dict, batches: list, mesh=None) -> dict:
+def _dp_fit(hp: dict, state: dict, batches: list, mesh=None, rules=None, val=None,
+            epochs: int = 1, callbacks=(), after=None) -> dict:
     """``Trainer.fit`` of the flagship task ``hp`` from ``state`` on
-    ``batches``; → the final state on the host, the first step's gradients,
-    the step losses, each step's launches and stretch rates."""
+    ``batches`` (over ``mesh``, laid out by ``rules``); → the final state on
+    the host (whole: gathered over a layout's model group), the first
+    step's gradients, the step losses, each step's launches and stretch
+    rates, and ``after(task)`` where given."""
+    from speechlid_tpu_torch import convert
     from speechlid_tpu_torch.ops import specaugment
 
     task = LidASRTask(**hp, device="cuda")
@@ -5935,44 +5963,86 @@ def _dp_fit(hp: dict, state: dict, batches: list, mesh=None) -> dict:
         return rates[-1]
 
     losses = _LossRecorder()
-    trainer = _CountedTrainer(total_epoch=1, use_progress_bar=False, device="cuda",
-                              callbacks=[losses], mesh=mesh)
+    trainer = _CountedTrainer(total_epoch=epochs, use_progress_bar=False, device="cuda",
+                              callbacks=[losses, *callbacks], mesh=mesh, param_rules=rules)
     specaugment.draw_stretch_rate = recorded_draw
     try:
-        trainer.fit(task, batches)
+        trainer.fit(task, batches, val)
     finally:
         specaugment.draw_stretch_rate = draw
     opt = trainer.optimizer
-    return {"state": {k: v.cpu() for k, v in task.model.state_dict().items()},
-            "first_grads": trainer.first_grads, "losses": losses.losses,
-            "step_launches": trainer.step_launches, "step_ms": trainer.step_ms,
-            "stretch_rates": rates,
-            "lr_sum": sum(opt.lr_at(i) for i in range(opt.count))}
+    out = {"state": {k: v.cpu() for k, v in convert.full_state(task.model).items()},
+           "first_grads": trainer.first_grads, "losses": losses.losses,
+           "step_launches": trainer.step_launches, "step_ms": trainer.step_ms,
+           "step_widths": trainer.step_widths, "stretch_rates": rates,
+           "lr_sum": sum(opt.lr_at(i) for i in range(opt.count))}
+    if after is not None:
+        out["after"] = after(task)
+    return out
 
 
-def dp_child(root: str, rank: int) -> None:
-    """A rank of ``dp_card_vs_single``: joins the gloo group on cuda:0, trains
-    its rows of every global batch deterministically, then with randomness
-    on, and writes what it saw to ``<root>/rank<r>.pt``."""
+def _rank_job_dp(inputs: dict, rank: int, world: int) -> dict:
+    """A rank of ``dp_card_vs_single``: its rows of every global batch,
+    trained deterministically, then with randomness on."""
+    from speechlid_tpu_torch.parallel import make_mesh, shard_batch
+
+    mesh = make_mesh()
+    mine = [shard_batch(mesh, b) for b in inputs["batches"]]
+    return {"deterministic": _dp_fit(DP_HP, inputs["state"], mine[:DP_STEPS], mesh),
+            "random": _dp_fit(DP_RANDOM_HP, inputs["state"], mine[DP_STEPS:], mesh)}
+
+
+def rank_child(root: str, job: str, rank: int, world: int) -> None:
+    """A rank of a multi-rank phase: joins the gloo group on cuda:0 (nccl
+    takes no two ranks on one card), runs ``RANK_JOBS[job]`` and writes what
+    it saw to ``<root>/rank<r>.pt``."""
     from datetime import timedelta
 
-    from speechlid_tpu_torch.parallel import initialize_multihost, make_mesh, shutdown
+    from speechlid_tpu_torch.parallel import initialize_multihost, shutdown
 
     strict_float32(torch.device("cuda"))
     inputs = torch.load(os.path.join(root, "inputs.pt"), weights_only=False)
-    initialize_multihost(f"file://{os.path.join(root, 'pg')}", DP_WORLD, rank,
-                         device="cuda:0", backend="gloo",
-                         timeout=timedelta(seconds=DP_TIMEOUT_S))
+    initialize_multihost(f"file://{os.path.join(root, 'pg')}", world, rank, device="cuda:0",
+                         backend="gloo", timeout=timedelta(seconds=RANK_TIMEOUT_S))
     try:
-        rows = slice(rank * DP_B, (rank + 1) * DP_B)
-        mine = [{k: (v[rows] if np.ndim(v) else v) for k, v in b.items()}
-                for b in inputs["batches"]]
-        mesh = make_mesh()
-        out = {"deterministic": _dp_fit(DP_HP, inputs["state"], mine[:DP_STEPS], mesh),
-               "random": _dp_fit(DP_RANDOM_HP, inputs["state"], mine[DP_STEPS:], mesh)}
+        out = RANK_JOBS[job](inputs, rank, world)
     finally:
         shutdown()
     torch.save(out, os.path.join(root, f"rank{rank}.pt"))
+
+
+def run_ranks(job: str, inputs: dict, world: int, local=None) -> tuple:
+    """``world`` ranks of ``job``, each a process of its own on cuda:0, while
+    ``local()`` (the one-process run it is held to) runs here.  → (the
+    ranks' outputs, ``local()``'s, the seconds until all ended)."""
+    with tempfile.TemporaryDirectory() as root:
+        torch.save(inputs, os.path.join(root, "inputs.pt"))
+        env = {k: v for k, v in os.environ.items()
+               if k not in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT")}
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen(
+            [sys.executable, "-c",
+             f"import chip_smoke; chip_smoke.rank_child({root!r}, {job!r}, {r}, {world})"],
+            cwd=str(Path(__file__).resolve().parent), env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True) for r in range(world)]
+        try:
+            mine = local() if local is not None else None
+            outs = [p.communicate(timeout=900)[0] for p in procs]
+        finally:
+            for p in procs:
+                p.kill()
+        seconds = time.perf_counter() - t0
+        for r, (p, out) in enumerate(zip(procs, outs)):
+            if p.returncode != 0:
+                print(out[-4000:], file=sys.stderr)
+                raise AssertionError(f"{job}: rank {r} failed ({p.returncode})")
+        ranks = [torch.load(os.path.join(root, f"rank{r}.pt"), weights_only=False)
+                 for r in range(world)]
+    return ranks, mine, seconds
+
+
+def bit_equal(a: dict, b: dict) -> bool:
+    return a.keys() == b.keys() and all(torch.equal(a[k], b[k]) for k in a)
 
 
 def _dp_grads_close(got: dict, want: dict) -> dict:
@@ -6040,34 +6110,10 @@ def phase_dp_card_vs_single(gen: torch.Generator, smi: str) -> dict:
     init_random_(init.model, gen)
     state = {k: v.cpu() for k, v in init.model.state_dict().items()}
     del init
-    with tempfile.TemporaryDirectory() as root:
-        torch.save({"state": state, "batches": batches}, os.path.join(root, "inputs.pt"))
-        env = {k: v for k, v in os.environ.items()
-               if k not in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT")}
-        t0 = time.perf_counter()
-        procs = [subprocess.Popen(
-            [sys.executable, "-c", f"import chip_smoke; chip_smoke.dp_child({root!r}, {r})"],
-            cwd=str(Path(__file__).resolve().parent), env=env, stdout=subprocess.PIPE,
-            stderr=subprocess.STDOUT, text=True) for r in range(DP_WORLD)]
-        try:
-            single = _dp_fit(DP_HP, state, batches[:DP_STEPS])
-            outs = [p.communicate(timeout=600)[0] for p in procs]
-        finally:
-            for p in procs:
-                p.kill()
-        seconds = time.perf_counter() - t0
-        for r, (p, out) in enumerate(zip(procs, outs)):
-            if p.returncode != 0:
-                print(out[-4000:], file=sys.stderr)
-                raise AssertionError(f"dp_card_vs_single: rank {r} failed ({p.returncode})")
-        ranks = [torch.load(os.path.join(root, f"rank{r}.pt"), weights_only=False)
-                 for r in range(DP_WORLD)]
+    ranks, single, seconds = run_ranks("dp", {"state": state, "batches": batches}, DP_WORLD,
+                                       lambda: _dp_fit(DP_HP, state, batches[:DP_STEPS]))
     det = [r["deterministic"] for r in ranks]
     rnd = [r["random"] for r in ranks]
-
-    def bit_equal(a, b):
-        return all(torch.equal(a[k], b[k]) for k in a)
-
     close = _dp_close(det[0]["state"], single["state"], single["lr_sum"])
     grads = _dp_grads_close(det[0]["first_grads"], single["first_grads"])
     loss_gap = max(abs(float(np.mean([d["losses"][i] for d in det])) - single["losses"][i])
@@ -6295,10 +6341,546 @@ def dist_kernel_rows(gen: torch.Generator, errs: dict, reports: dict) -> list:
     return rows
 
 
+# ---------------------------------------------------------------------------
+# tensor, expert, pipeline and sequence parallelism
+# ---------------------------------------------------------------------------
+
+# __graft_entry__._flagship(n_lang=4): the flagship with a fourth head, so
+# that its four languages split two heads a rank over a model axis of 2
+MP_FLAGSHIP = dict(FLAGSHIP, lang2vocab={"lang0": 40, "lang1": 96, "lang2": 88, "lang3": 64},
+                   lang2index={"lang0": 0, "lang1": 1, "lang2": 2, "lang3": 3})
+MP_HP = dict(MP_FLAGSHIP, dropout=0.0, pos_dropout=0.0, use_stochastic_depth=False,
+             mask_times=0, t_stretch=False, **DP_OPTIM)
+MP_RANDOM_HP = dict(MP_FLAGSHIP, **TRAIN_HPARAMS)  # every draw on
+MP_MODEL = 2  # the model axis
+TP_STEPS, TP_RANDOM_STEPS = 3, 2
+DP_TP_WORLD = 4  # data 2 × model 2
+DP_TP_BLOCKS = 4  # its encoder's depth, cut from 14 for the script's time (full width)
+DP_TP_HP = dict(MP_HP, n_blocks=DP_TP_BLOCKS)
+PP_STAGES, PP_MICROBATCHES = 4, (4, 8)
+PP_FWD_TOL, PP_GRAD_TOL = 2e-5, 5e-5  # tests/test_pipeline.py's bars, atol and rtol
+# tests/test_multihost.py's bar for a sharded run's losses (and a restored
+# one's): after an Adam step the states part within Adam's band, so the
+# losses that read them are held relative to their size (near 250)
+LOSS_RTOL, LOSS_ATOL = 2e-4, 1e-5
+CLI_TP_LOSS_RTOL = 1e-4
+MP_ENCODER_C = FLAGSHIP["encoder_dim"]  # a model rank's conv channels: 288 over 2
+
+
+def _mp_rules():
+    from speechlid_tpu_torch.parallel import CONFORMER_TP_RULES, EP_RULES
+
+    return EP_RULES + CONFORMER_TP_RULES
+
+
+def mp_batch(rng: np.random.RandomState, lang: int, b: int, seconds: float) -> dict:
+    """:func:`synthetic_batch` over the four-language flagship's vocabularies."""
+    batch = synthetic_batch(rng, 0, b, seconds)
+    vocab = list(MP_FLAGSHIP["lang2vocab"].values())[lang]
+    batch["texts"] = rng.randint(0, vocab, batch["texts"].shape).astype(np.int32)
+    batch["langs"] = np.full(b, lang, np.int32)
+    return batch
+
+
+def _random_state(hp: dict, gen: torch.Generator) -> dict:
+    init = LidASRTask(**hp, device="cuda")
+    init_random_(init.model, gen)
+    return {k: v.cpu() for k, v in init.model.state_dict().items()}
+
+
+def _local_replicated(model: torch.nn.Module) -> dict:
+    """This rank's tensors that its layout holds whole."""
+    layout = getattr(model, "layout", None)
+    pieces = layout.pieces if layout is not None else {}
+    return {k: v.cpu() for k, v in model.state_dict().items() if k not in pieces}
+
+
+def _tp_eval(task: LidASRTask) -> dict:
+    """One eval forward of every head (after a warm-up): its launches, also
+    by channel count, the scores, and this rank's replicated tensors."""
+    batch = mp_batch(np.random.RandomState(67), 0, TRAIN_B, TRAIN_SECONDS)
+    wavs, lengths = torch.from_numpy(batch["wavs"]), torch.from_numpy(batch["wav_lengths"])
+    infer = task.infer_fn()
+    infer(wavs, lengths)
+    torch.cuda.synchronize()
+    reset_launches()
+    out = infer(wavs, lengths)
+    torch.cuda.synchronize()
+    return {"launches": launches(), "widths": width_launches(),
+            "scores": out["scores"].cpu(), "replicated": _local_replicated(task.model)}
+
+
+def _replicated_after(task: LidASRTask) -> dict:
+    return {"replicated": _local_replicated(task.model)}
+
+
+def _mp_job_tp(inputs: dict, rank: int, world: int) -> dict:
+    from speechlid_tpu_torch.parallel import make_mesh
+
+    mesh = make_mesh(model=world)
+    batches = inputs["batches"]
+    return {"deterministic": _dp_fit(MP_HP, inputs["state"], batches[:TP_STEPS], mesh,
+                                     rules=_mp_rules(), after=_tp_eval),
+            "random": _dp_fit(MP_RANDOM_HP, inputs["state"], batches[TP_STEPS:], mesh,
+                              rules=_mp_rules(), after=_replicated_after),
+            "model_index": mesh.index("model")}
+
+
+def _mp_job_dp_tp(inputs: dict, rank: int, world: int) -> dict:
+    from speechlid_tpu_torch.parallel import make_mesh, shard_batch
+
+    mesh = make_mesh(model=MP_MODEL)
+    mine = lambda batches: [shard_batch(mesh, b) for b in batches]  # noqa: E731
+    fit = _dp_fit(DP_TP_HP, inputs["state"], mine(inputs["train"]), mesh, rules=_mp_rules(),
+                  val=mine(inputs["val"]), epochs=2, after=_replicated_after,
+                  callbacks=(CkptCallback(inputs["ckpt_dir"], save_topk=3),))
+    return {"fit": fit, "index": {"data": mesh.index("data"), "model": mesh.index("model")}}
+
+
+def _mp_job_cli(inputs: dict, rank: int, world: int) -> dict:
+    from speechlid_tpu_torch.cli import main_lid
+
+    t0 = time.perf_counter()
+    main_lid.main(inputs["args"])
+    return {"seconds": time.perf_counter() - t0}
+
+
+def _pp_block(state: dict = None) -> torch.nn.Module:
+    """A flagship encoder block on the card in eval mode (BatchNorm on its
+    running statistics, as JAX's pipeline trains it), holding ``state``."""
+    from speechlid_tpu_torch.models.conformer import ConformerBlock
+
+    block = ConformerBlock(FLAGSHIP["encoder_dim"], dim_head=FLAGSHIP["dim_head"],
+                           heads=FLAGSHIP["heads"]).cuda()
+    if state is not None:
+        block.load_state_dict(state)
+    return block.eval()
+
+
+def _mp_job_pp(inputs: dict, rank: int, world: int) -> dict:
+    from speechlid_tpu_torch.parallel import make_mesh, pipeline_apply
+
+    mesh = make_mesh(stage=world)
+    s = mesh.index("stage")
+    block = _pp_block(inputs["states"][s])
+    x = inputs["x"].cuda()
+    out = {"stage": s}
+    for key, m in (("warmup", PP_MICROBATCHES[0]),) + tuple(zip(PP_MICROBATCHES,
+                                                                PP_MICROBATCHES)):
+        block.zero_grad()
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        y = pipeline_apply(block, x, mesh, n_microbatch=m)
+        (y ** 2).mean().backward()
+        torch.cuda.synchronize()
+        out[key] = {"seconds": time.perf_counter() - t0, "launches": launches(),
+                    "y": y.detach().cpu(),
+                    "grads": {n: p.grad.cpu() for n, p in block.named_parameters()}}
+    out["sp"] = _sp_mel(make_mesh(data=world // SP_SEQ, seq=SP_SEQ), inputs)
+    return out
+
+
+def _sp_mel(mesh, inputs: dict) -> dict:
+    """``sp_wav2mel`` of the whole wave over ``mesh``'s seq axis, gathered,
+    with the fbank kernel's launches (its wrapper's count) and the span each
+    read."""
+    from speechlid_tpu_torch.parallel import gather_time, sp_wav2mel
+
+    spans, real = [], fbank_kernel.log_mel
+
+    def seen(wav, *args, **kwargs):
+        spans.append(list(wav.shape))
+        # the wrapper counts in ``log_mel.launches`` at its module's name:
+        # bound to it while it runs, the count lands on its own counter
+        fbank_kernel.log_mel = real
+        try:
+            return real(wav, *args, **kwargs)
+        finally:
+            fbank_kernel.log_mel = seen
+
+    wavs, lengths = inputs["wavs"].cuda(), inputs["lengths"].cuda()
+    fbank_kernel.log_mel = seen
+    try:
+        sp_wav2mel(wavs, lengths, mesh)  # a warm-up
+        spans.clear()
+        torch.cuda.synchronize()
+        reset_launches()
+        local = sp_wav2mel(wavs, lengths, mesh)
+        torch.cuda.synchronize()
+        fbank_launches = launches()["fbank"]
+    finally:
+        fbank_kernel.log_mel = real
+    full = gather_time(local, mesh, time_dim=2, size=1 + wavs.shape[1] // 160)
+    return {"mel": full.cpu(), "local": list(local.shape), "spans": spans,
+            "fbank_launches": fbank_launches}
+
+
+RANK_JOBS = {"dp": _rank_job_dp, "tp": _mp_job_tp, "dp_tp": _mp_job_dp_tp, "cli": _mp_job_cli,
+             "pp": _mp_job_pp}
+
+
+def _owner(lang: int) -> int:
+    return lang // (len(MP_FLAGSHIP["lang2vocab"]) // MP_MODEL)
+
+
+def _tp_step_expect(owner: bool) -> tuple:
+    """A model rank's launches a train step, in all and by channel count:
+    the encoder's 14 blocks at C = 144, and the own head's block at 288 on
+    the rank that owns it."""
+    n = N_BLOCKS + int(owner)
+    widths = {f"{k}@{MP_ENCODER_C}": N_BLOCKS for k in ("glu", "glu_dx", "bwd_w")}
+    if owner:
+        widths.update({f"{k}@{2 * MP_ENCODER_C}": 1 for k in ("glu", "glu_dx", "bwd_w")})
+    return launch_counts(fbank=1, glu=n, glu_dx=n, bwd_w=n), widths
+
+
+
+def phase_tp_card_vs_single(gen: torch.Generator, smi: str) -> dict:
+    """Tensor and expert parallelism at the flagship's width: two ranks on
+    the card (data 1 × model 2, ``EP_RULES + CONFORMER_TP_RULES``), the
+    four-language flagship of ``__graft_entry__._flagship(n_lang=4)`` (two
+    heads a rank), B = 8 ragged 4 s clips a step, against one process on
+    the card on the same batches: ``TP_STEPS`` deterministic Adam steps,
+    the first step's gradients and the state after them within the
+    flagship's step bar (``_dp_grads_close``, ``_dp_close``), the losses
+    within ``LOSS_RTOL`` / ``LOSS_ATOL``; each rank's launches and conv widths a step
+    exact (``_tp_step_expect``); an eval forward of every head (14 conv
+    launches at C = 144 and 2 at 288 a rank) whose scores are within
+    ``MODEL_TOL`` of one process's; then ``TP_RANDOM_STEPS`` steps with every
+    draw on, held to one process at the same seed by the same bars (the
+    ranks draw one process's masks).  The two ranks' replicated tensors are
+    bit-equal, and so are the whole states they gather."""
+    rng = np.random.RandomState(71)
+    n_lang = len(MP_FLAGSHIP["lang2vocab"])
+    batches = [mp_batch(rng, i % n_lang, TRAIN_B, TRAIN_SECONDS)
+               for i in range(TP_STEPS + TP_RANDOM_STEPS)]
+    state = _random_state(MP_HP, gen)
+    ranks, single, seconds = run_ranks(
+        "tp", {"state": state, "batches": batches}, MP_MODEL,
+        lambda: {"deterministic": _dp_fit(MP_HP, state, batches[:TP_STEPS], after=_tp_eval),
+                 "random": _dp_fit(MP_RANDOM_HP, state, batches[TP_STEPS:])})
+    det = [r["deterministic"] for r in ranks]
+    rnd = [r["random"] for r in ranks]
+    one_det, one_rnd = single["deterministic"], single["random"]
+    langs = [int(b["langs"][0]) for b in batches]
+    steps_ok = True
+    for r, fit in zip(ranks, det):
+        for lang, launched, widths in zip(langs, fit["step_launches"], fit["step_widths"]):
+            want_l, want_w = _tp_step_expect(_owner(lang) == r["model_index"])
+            steps_ok &= launched == want_l and widths == want_w
+    ev = [d["after"] for d in det]
+    eval_widths = {f"glu_bn_act@{MP_ENCODER_C}": N_BLOCKS,
+                   f"glu_bn_act@{2 * MP_ENCODER_C}": n_lang // MP_MODEL}
+    score_gap = max(float((e["scores"] - one_det["after"]["scores"]).abs().max()) for e in ev)
+    score_scale = float(one_det["after"]["scores"].abs().max())
+    close = _dp_close(det[0]["state"], one_det["state"], one_det["lr_sum"])
+    grads = _dp_grads_close(det[0]["first_grads"], one_det["first_grads"])
+    rclose = _dp_close(rnd[0]["state"], one_rnd["state"], one_rnd["lr_sum"])
+    rgrads = _dp_grads_close(rnd[0]["first_grads"], one_rnd["first_grads"])
+    loss_gap = max(abs(a - b) for d in det for a, b in zip(d["losses"], one_det["losses"]))
+    rloss_gap = max(abs(a - b) for d in rnd for a, b in zip(d["losses"], one_rnd["losses"]))
+    close_losses = lambda fits, one: all(  # noqa: E731
+        np.allclose(f["losses"], one["losses"], rtol=LOSS_RTOL, atol=LOSS_ATOL) for f in fits)
+    checks = {
+        "whole_states_bit_equal": bit_equal(det[0]["state"], det[1]["state"])
+        and bit_equal(rnd[0]["state"], rnd[1]["state"]),
+        "replicated_bit_equal": bit_equal(ev[0]["replicated"], ev[1]["replicated"])
+        and bit_equal(rnd[0]["after"]["replicated"], rnd[1]["after"]["replicated"]),
+        "first_step_gradients": grads["ok"], "vs_single_process": close["ok"],
+        "losses": close_losses(det, one_det),
+        "launches_and_widths_per_rank_step": steps_ok,
+        "eval_launches": all(e["launches"] == launch_counts(
+            fbank=1, glu_bn_act=N_BLOCKS + n_lang // MP_MODEL) and e["widths"] == eval_widths
+            for e in ev),
+        "eval_scores": score_gap <= MODEL_TOL * max(score_scale, 1.0),
+        "random_first_step_gradients": rgrads["ok"], "random_vs_single_process": rclose["ok"],
+        "random_losses": close_losses(rnd, one_rnd)
+        and all(np.isfinite(x) for d in rnd for x in d["losses"]),
+        "random_stretch_rates": all(d["stretch_rates"] == one_rnd["stretch_rates"] for d in rnd),
+    }
+    report = {"phase": "tp_card_vs_single", "nvidia_smi": smi, "mesh": {"data": 1, "model": 2},
+              "backend": "gloo, both ranks on cuda:0", "model": "14 x 144, 4 heads of 144",
+              "batch": [TRAIN_B, int(TRAIN_SECONDS * SR)], "steps": TP_STEPS,
+              "random_steps": TP_RANDOM_STEPS, "seconds": seconds, "tol": TRAIN_TOL,
+              "loss_tol": [LOSS_RTOL, LOSS_ATOL],
+              "langs": langs, "single_losses": one_det["losses"],
+              "rank_losses": [d["losses"] for d in det], "max_loss_gap": loss_gap,
+              **{k: v for k, v in grads.items() if k != "ok"},
+              **{k: v for k, v in close.items() if k != "ok"},
+              "random": {"max_loss_gap": rloss_gap, "single_losses": one_rnd["losses"],
+                         **{k: v for k, v in rgrads.items() if k != "ok"},
+                         **{k: v for k, v in rclose.items() if k != "ok"}},
+              "step_launches": [d["step_launches"] for d in det],
+              "step_widths": [d["step_widths"] for d in det],
+              "eval_launches": [e["launches"] for e in ev], "eval_widths": [e["widths"] for e in ev],
+              "eval_max_score_gap": score_gap,
+              # host clock, the card synchronised around each step; both ranks
+              # share the one card, so a rank's step holds the other's work
+              "step_ms_single": one_det["step_ms"], "step_ms_ranks": [d["step_ms"] for d in det],
+              "checks": checks}
+    emit(report)
+    if not all(checks.values()):
+        raise AssertionError(f"tp_card_vs_single failed: {checks}")
+    return report
+
+
+def phase_dp_tp_card(gen: torch.Generator, smi: str) -> dict:
+    """Data × tensor × expert parallelism: four ranks on the card (data 2 ×
+    model 2, full width, ``DP_TP_BLOCKS`` encoder blocks), each data index
+    8 of the 16 rows of every batch, two epochs of two Adam steps with a
+    validation and a checkpoint after each, against one process on the
+    16-row batches: the first step's gradients within the step bar, the
+    losses of the first epoch within ``LOSS_RTOL`` / ``LOSS_ATOL``, the
+    first epoch's checkpoint within the step bar of one process's state (it
+    holds the whole state, written by rank 0); the four ranks' whole states
+    bit-equal and a model group's replicated tensors bit-equal.  One process
+    resumes the first epoch's checkpoint and takes the second epoch: its
+    losses within the same bar of the four ranks'."""
+    rng = np.random.RandomState(73)
+    train = [mp_batch(rng, lang, 2 * TRAIN_B, TRAIN_SECONDS) for lang in (1, 2)]
+    val = [mp_batch(rng, 3, 2 * TRAIN_B, TRAIN_SECONDS)]
+    state = _random_state(DP_TP_HP, gen)
+    with tempfile.TemporaryDirectory() as ckpt_dir:
+        ranks, single, seconds = run_ranks(
+            "dp_tp", {"state": state, "train": train, "val": val, "ckpt_dir": ckpt_dir},
+            DP_TP_WORLD, lambda: _dp_fit(DP_TP_HP, state, train))
+        (first,) = [f for f in os.listdir(ckpt_dir) if f.startswith("epoch_0_")]
+        saved = load_checkpoint(os.path.join(ckpt_dir, first))["state"]
+        task = LidASRTask(**DP_TP_HP, device="cuda")
+        losses = _LossRecorder()
+        resumed = Trainer(total_epoch=2, use_progress_bar=False, device="cuda",
+                          callbacks=[losses], checkpoint_path=os.path.join(ckpt_dir, first))
+        resumed.fit(task, train, val)
+    fits = [r["fit"] for r in ranks]
+    ckpt_state = {k: v.cpu() for k, v in saved["model"].items()}
+    close = _dp_close(ckpt_state, single["state"], single["lr_sum"])
+    grads = _dp_grads_close(fits[0]["first_grads"], single["first_grads"])
+    loss_gap = max(abs(a - b) for f in fits for a, b in zip(f["losses"][:2], single["losses"]))
+    by_model = {}
+    for r, f in zip(ranks, fits):
+        by_model.setdefault(r["index"]["data"], []).append(f["after"]["replicated"])
+    checks = {
+        "whole_states_bit_equal": all(bit_equal(f["state"], fits[0]["state"]) for f in fits),
+        "model_group_replicated_bit_equal": all(bit_equal(a, b) for a, b in by_model.values()),
+        "first_step_gradients": grads["ok"], "checkpoint_vs_single_process": close["ok"],
+        "losses": all(np.allclose(f["losses"][:2], single["losses"], rtol=LOSS_RTOL,
+                                  atol=LOSS_ATOL) for f in fits),
+        "checkpoint_whole": ckpt_state.keys() == state.keys(),
+        "resumed_losses": bool(np.allclose(losses.losses, fits[0]["losses"][2:],
+                                           rtol=LOSS_RTOL, atol=LOSS_ATOL))
+        and len(losses.losses) == 2 and resumed.start_epoch == 1,
+    }
+    report = {"phase": "dp_tp_card", "nvidia_smi": smi, "mesh": {"data": 2, "model": 2},
+              "backend": "gloo, four ranks on cuda:0",
+              "model": f"{DP_TP_BLOCKS} x 144 (depth cut from 14), 4 heads of 144",
+              "global_batch": [2 * TRAIN_B, int(TRAIN_SECONDS * SR)], "seconds": seconds,
+              "single_losses": single["losses"], "rank_losses": [f["losses"] for f in fits],
+              "resumed_losses": losses.losses, "max_loss_gap": loss_gap,
+              **{k: v for k, v in grads.items() if k != "ok"},
+              **{k: v for k, v in close.items() if k != "ok"},
+              "step_ms_ranks": [f["step_ms"] for f in fits], "checks": checks}
+    emit(report)
+    if not all(checks.values()):
+        raise AssertionError(f"dp_tp_card failed: {checks}")
+    return report
+
+
+def phase_cli_tp(root: str, corpus: str, smi: str) -> dict:
+    """``main_lid`` with ``trainer.model_parallel=2`` (``lid_supervised``:
+    three languages, so the heads stay whole) on the corpus for one epoch of
+    ``FLAGSHIP_STEPS`` steps, two processes that join a gloo group on
+    cuda:0 before they call ``main_lid.main``: it trains and validates (EER,
+    Cavg and accuracy logged), rank 0 writes the checkpoint, and that
+    checkpoint's validation loss in one process is the logged one within
+    ``CLI_TP_LOSS_RTOL``."""
+    from speechlid_tpu_torch.cli import main_lid
+    from speechlid_tpu_torch.core.config import load_config
+
+    exp = os.path.join(root, "cli_tp")
+    overrides = [_langs_override(corpus), "trainer.progress_bar=false",
+                 "trainer.total_epoch=1", f"trainer.train_data_factor={FLAGSHIP_DATA_FACTOR}",
+                 f"exp_dir={exp}", "trainer.model_parallel=2"]
+    ranks, _, seconds = run_ranks("cli", {"args": _cli_args("configs", "lid_supervised",
+                                                         *overrides)}, MP_MODEL)
+    evals = [line for line in _metrics_lines(os.path.join(exp, "metrics.jsonl"))
+             if CLI_EVAL_KEYS <= set(line)]
+    ckpt = os.path.join(exp, "ckpt", "last.ckpt")
+    conf = load_config("configs", "lid_supervised", overrides)
+    data = main_lid.build_data(conf)
+    task = main_lid.build_task(conf, data, device="cuda")
+    trainer = Trainer(use_progress_bar=False, device="cuda", checkpoint_path=ckpt)
+    trainer.trainer_prepare(task)
+    again = trainer._run_eval_epoch(main_lid.build_feeder(conf, data["val_dataset"],
+                                                          seed=conf.get("seed", 0), train=False))
+    logged = evals[-1]["avg_val_loss"] if evals else float("nan")
+    gap = abs(again["avg_val_loss"] - logged)
+    saved = load_checkpoint(ckpt)["state"]
+    checks = {
+        "validated": len(evals) == 1 and all(np.isfinite(evals[0][k])
+                                             for k in ("avg_val_loss", "val_acc")),
+        "eer_cavg_acc_logged": all({"eer", "cavg", "val_acc"} <= set(e) for e in evals),
+        "rank0_ckpt": len(saved["device_generators"]) == MP_MODEL
+        and saved["model"].keys() == task.model.state_dict().keys(),
+        "one_process_val_loss": gap <= CLI_TP_LOSS_RTOL * max(abs(logged), 1.0),
+    }
+    report = {"phase": "cli_tp", "nvidia_smi": smi, "config": "configs/lid_supervised.yaml",
+              "overrides": ["trainer.model_parallel=2", f"train_data_factor "
+                            f"{FLAGSHIP_DATA_FACTOR}", "1 epoch"],
+              "steps": FLAGSHIP_STEPS, "seconds": seconds,
+              "rank_seconds": [r["seconds"] for r in ranks], "evals": evals,
+              "one_process_avg_val_loss": again["avg_val_loss"], "val_loss_gap": gap,
+              "checks": checks}
+    emit(report)
+    if not all(checks.values()):
+        raise AssertionError(f"cli_tp failed: {checks}")
+    return report
+
+
+def phase_pp_card(gen: torch.Generator, smi: str) -> dict:
+    """Pipeline parallelism at the flagship's width: a 4-stage
+    ``ConformerBlock(144, heads 4 × 64)`` trunk in eval mode (BatchNorm on
+    random running statistics), one stage a rank on the card (data 1 ×
+    stage 4), on x (8, 99, 144) with M = 4 and M = 8, against the sequential
+    trunk in one process: the output within 2e-5 and each stage's parameter
+    gradients of mean(y²) within 5e-5 (atol and rtol); each stage launches
+    ``glu``, ``glu_dx`` and ``bwd_w`` once a microbatch.  Then the same
+    ranks as data 2 × seq ``SP_SEQ``: ``sp_wav2mel`` at (8, 64000),
+    gathered, against the one-process mel within ``FBANK_TOL``, with the
+    span each rank's one fbank launch read."""
+    states = []
+    for _ in range(PP_STAGES):
+        block = _pp_block()
+        init_random_(block, gen)
+        states.append({k: v.cpu() for k, v in block.state_dict().items()})
+    x = torch.randn(TRAIN_B, _encoder_frames(TRAIN_SECONDS), FLAGSHIP["encoder_dim"],
+                    generator=gen)
+
+    b, t = TRAIN_B, int(TRAIN_SECONDS * SR)
+    wavs = 0.1 * torch.randn(b, t, generator=gen)
+    lengths = torch.tensor([t - i * 1000 for i in range(b)])
+
+    def sequential():
+        blocks = [_pp_block(s) for s in states]
+        y = x.cuda()
+        for block in blocks:
+            y = block(y)
+        (y ** 2).mean().backward()
+        w, n = wavs.cuda(), lengths.cuda()
+        return {"y": y.detach().cpu(),
+                "grads": [{n: p.grad.cpu() for n, p in b.named_parameters()} for b in blocks],
+                "mel": frontend.wav2mel(frontend.normalize_wav(w, n), lengths=n).cpu()}
+
+    ranks, one, seconds = run_ranks("pp", {"states": states, "x": x, "wavs": wavs,
+                                        "lengths": lengths}, PP_STAGES, sequential)
+    worst_y, worst_g, fwd_ok, grad_ok, launches_ok = 0.0, 0.0, True, True, True
+    for out in ranks:
+        for m in PP_MICROBATCHES:
+            got = out[m]
+            worst_y = max(worst_y, float((got["y"] - one["y"]).abs().max()))
+            fwd_ok &= torch.allclose(got["y"], one["y"], rtol=PP_FWD_TOL, atol=PP_FWD_TOL)
+            for n, g in got["grads"].items():
+                want = one["grads"][out["stage"]][n]
+                worst_g = max(worst_g, float((g - want).abs().max()))
+                grad_ok &= torch.allclose(g, want, rtol=PP_GRAD_TOL, atol=PP_GRAD_TOL)
+            launches_ok &= got["launches"] == launch_counts(glu=m, glu_dx=m, bwd_w=m)
+    sp = [o["sp"] for o in ranks]
+    sp_err = max(float((r["mel"] - one["mel"]).abs().max()) for r in sp)
+    checks = {"forward": fwd_ok, "gradients": grad_ok, "launches_per_stage": launches_ok,
+              "stages": sorted(o["stage"] for o in ranks) == list(range(PP_STAGES)),
+              "sp_mel": all(torch.allclose(r["mel"], one["mel"], rtol=FBANK_TOL, atol=FBANK_TOL)
+                            for r in sp),
+              "sp_one_fbank_launch_a_rank": all(r["fbank_launches"] == 1 for r in sp),
+              "sp_spans": all(r["spans"] == [list(FBANK_SHAPES["sp_span"])] for r in sp)}
+    report = {"phase": "pp_card", "nvidia_smi": smi, "mesh": {"data": 1, "stage": PP_STAGES},
+              "backend": "gloo, four ranks on cuda:0", "x": list(x.shape),
+              "microbatches": list(PP_MICROBATCHES), "tol": [PP_FWD_TOL, PP_GRAD_TOL],
+              "max_abs_err_y": worst_y, "max_abs_err_grad": worst_g, "seconds": seconds,
+              # host clock around a forward and backward on each stage rank; the
+              # four ranks share the one card
+              "step_seconds": {m: [o[m]["seconds"] for o in ranks] for m in PP_MICROBATCHES},
+              "launches": {m: [o[m]["launches"] for o in ranks] for m in PP_MICROBATCHES},
+              "sp_mesh": {"data": PP_STAGES // SP_SEQ, "seq": SP_SEQ}, "sp_wav": [b, t],
+              "sp_max_abs_err_db": sp_err, "sp_tol_db": FBANK_TOL,
+              "sp_local_mel": [r["local"] for r in sp], "sp_fbank_spans": [r["spans"] for r in sp],
+              "sp_fbank_launches": [r["fbank_launches"] for r in sp],
+              "checks": checks}
+    emit(report)
+    if not all(checks.values()):
+        raise AssertionError(f"pp_card failed: {checks}")
+    return report
+
+
+def phase_dryrun_card(smi: str) -> dict:
+    """``parallel.dryrun.dryrun_multichip(4, "cuda")``: the tiny flagship's
+    step on 1 × 2 × 2 data × seq × model and the 4-stage trunk on 1 × 4,
+    each held to one process (``sp_wav2mel`` at the flagship's shape runs
+    in ``pp_card``)."""
+    from speechlid_tpu_torch.parallel.dryrun import dryrun_multichip
+
+    t0 = time.perf_counter()
+    dry = dryrun_multichip(4, "cuda")
+    checks = {"dryrun": all(dry["checks"].values())}
+    report = {"phase": "dryrun_card", "nvidia_smi": smi, "dryrun": dry,
+              "seconds": time.perf_counter() - t0, "checks": checks}
+    emit(report)
+    if not all(checks.values()):
+        raise AssertionError(f"dryrun_card failed: {checks}")
+    return report
+
+
+def phase_mp(gen: torch.Generator, root: str, corpus: str, smi: str) -> dict:
+    """This slice's phases in order; → their reports."""
+    return {"tp": phase_tp_card_vs_single(gen, smi), "dp_tp": phase_dp_tp_card(gen, smi),
+            "cli": phase_cli_tp(root, corpus, smi), "pp": phase_pp_card(gen, smi),
+            "dryrun": phase_dryrun_card(smi)}
+
+
+def mp_kernel_rows(gen: torch.Generator, errs: dict, reports: dict) -> list:
+    """The ``kernels`` line's rows of the model-parallel paths: the conv
+    kernel's modes at a model rank's C = 144 (the train step's ``glu``,
+    ``glu_dx`` and ``bwd_w``, the eval forward's ``glu_bn_act``, with the
+    launches the wrappers counted at that width over both ranks in
+    ``tp_card_vs_single``), and the fbank kernel on a seq rank's wave span
+    in ``pp_card`` (every rank's launches, as its wrapper counted them)."""
+    tp = reports["tp"]
+    n_steps = MP_MODEL * TP_STEPS
+    at = {k: sum(w.get(f"{k}@{MP_ENCODER_C}", 0) for r in tp["step_widths"] for w in r)
+          for k in ("glu", "glu_dx", "bwd_w")}
+    evaluated = sum(w.get(f"glu_bn_act@{MP_ENCODER_C}", 0) for w in tp["eval_widths"])
+    on = (f"tp_card_vs_single: {MP_MODEL} model ranks x {TP_STEPS} deterministic train steps "
+          f"of B = {TRAIN_B}, launches at C = {MP_ENCODER_C}")
+    per = {k: {"launches_counted_on": on, "launches_per_rank_step": n / n_steps}
+           for k, n in at.items()}
+    rows = fused_kernel_rows(gen, errs["conv_fused"], {
+        "depthwise_conv1d_fwd[glu_bn_act]@tp": (evaluated, {
+            "launches_counted_on": f"tp_card_vs_single: one eval forward on each of "
+                                   f"{MP_MODEL} model ranks, launches at C = {MP_ENCODER_C}"}),
+        "depthwise_conv1d_fwd[glu]@tp": (at["glu"], per["glu"]),
+        "depthwise_conv1d_fwd[glu_dx]@tp": (at["glu_dx"], per["glu_dx"]),
+    }, eval_rows=(("depthwise_conv1d_fwd[glu_bn_act]@tp", TP_DW_SHAPE),),
+        train_shape=TP_DW_SHAPE, train_suffix="@tp")
+    row = bwd_w_row(gen, errs["conv_fused"], TP_DW_SHAPE, "depthwise_conv1d_bwd_w@tp",
+                    {"depthwise_bwd_w": at["bwd_w"]}, n_steps)
+    row["launches_per_rank_step"] = row.pop("launches_per_train_step")
+    row["launches_counted_on"] = on
+    rows.append(row)
+    sp = reports["pp"]
+    rows.append(fbank_row("fbank_log_mel@sp", "sp_span", gen, errs,
+                          sum(sp["sp_fbank_launches"]), {
+        "launches_counted_on": f"pp_card: sp_wav2mel of ({TRAIN_B}, {int(TRAIN_SECONDS * SR)}) "
+                               f"on data {PP_STAGES // SP_SEQ} x seq {SP_SEQ} ranks",
+        "spans": sp["sp_fbank_spans"]}))
+    for row in rows:
+        if not row["launches"] > 0:
+            raise AssertionError(f"{row['name']} was not launched on its path")
+    return rows
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description="Drive the PyTorch/CUDA port on one card.")
     parser.add_argument("--only", choices=("cli_gate", "ce_asr", "se", "quant", "extras",
-                                           "dist"),
+                                           "dist", "mp"),
                         help="run this phase alone, after the build and the corpus "
                              "(ce_asr: the cross-entropy and ASR phases; se: the speech "
                              "enhancement and bilstm phases on cli_flagship's checkpoint; "
@@ -6307,6 +6889,8 @@ def main(argv=None) -> int:
                              "and the trainer's trace; "
                              "dist: data-parallel training on two ranks and through the CLI, "
                              "and SELDNet; "
+                             "mp: tensor, expert, pipeline and sequence parallelism, the "
+                             "model-parallel CLI and the dryrun; "
                              "each with the kernel checks and rows they need)")
     parser.add_argument("--seed", type=int, default=0,
                         help="the CLI's seed for --only cli_gate (the gate's own is 0)")
@@ -6383,6 +6967,16 @@ def main(argv=None) -> int:
                                      "kind": torch.cuda.get_device_name(0),
                                      "count": torch.cuda.device_count()}})
         return 0
+    if args.only == "mp":
+        errs = {"fbank": phase_fbank(gen), "conv_fused": phase_conv_fused(gen)}
+        with tempfile.TemporaryDirectory() as root:
+            os.environ["SPEECHLID_CACHE_DIR"] = os.path.join(root, "cache")
+            reports = phase_mp(gen, root, phase_cli_corpus(root), smi)
+        emit({"kernels": mp_kernel_rows(gen, errs, reports)})
+        emit({"ok": True, "device": {"platform": "gpu",
+                                     "kind": torch.cuda.get_device_name(0),
+                                     "count": torch.cuda.device_count()}})
+        return 0
     errs = {"fbank": phase_fbank(gen), "depthwise": phase_depthwise(gen),
             "depthwise_bwd": phase_depthwise_bwd(gen), "conv_fused": phase_conv_fused(gen)}
     task = phase_model(gen)
@@ -6424,6 +7018,7 @@ def main(argv=None) -> int:
         quant_reports = phase_quant(gen, root, corpus, smi)
         extras_reports = phase_extras(gen, root, smi)
         dist_reports = phase_dist(gen, root, corpus, smi)
+        mp_reports = phase_mp(gen, root, corpus, smi)
     # host-clock loops first, the profiler's runs after (it slows what follows it)
     phase_se_e2e(gen, smi, serve_se, eval_se)
     phase_quant_e2e(gen, smi)
@@ -6439,6 +7034,7 @@ def main(argv=None) -> int:
     kernels += quant_kernel_rows(gen, errs, quant_reports)
     kernels += extras_kernel_rows(gen, errs, extras_reports)
     kernels += dist_kernel_rows(gen, errs, dist_reports)
+    kernels += mp_kernel_rows(gen, errs, mp_reports)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -30,9 +30,18 @@ on ``cuda:LOCAL_RANK`` unless ``--device`` says otherwise, and feeds its
 own sampler shard of ``data.batch_size`` rows, so the global batch is N ×
 ``data.batch_size`` (a JAX process splits ``batch_size`` over its local
 devices instead).  ``SPEECHLID_SHARD_ID`` / ``SPEECHLID_NUM_SHARDS``, where
-set, must agree with the rank and the world size.  Not ported yet, and
-raising ``NotImplementedError``: ``trainer.model_parallel`` > 1 (tensor and
-expert layouts).
+set, must agree with the data index and the number of data indices.
+
+``trainer.model_parallel=N`` (N > 1) lays the model out over a model axis
+of N ranks (tensor and expert parallelism, ``parallel/sharding.py``), with
+or without ``trainer.data_parallel``, as the JAX CLI builds its mesh either
+way: the group is joined from the environment, the mesh is
+``make_mesh(model=N)`` (the world a multiple of N), the rules
+``EP_RULES + CONFORMER_TP_RULES + WAVLM_TP_RULES``, and the sampler is
+sharded by data index (``shard_id = rank // N``, ``num_shards = world //
+N``): the ranks of a model group take the same rows.  With a task whose
+modules no rule splits the model is replicated over the model group and
+trains as a data-parallel run does.
 ``data.wav_augment`` builds the train feeder's ``WavAugmentor`` from its
 keys (an unknown key raises ``TypeError``, as in the JAX CLI).  The JAX
 CLI's persistent compilation cache has no counterpart here.
@@ -58,11 +67,13 @@ from speechlid_tpu_torch.data import (
 )
 from speechlid_tpu_torch.data.augmentor import WavAugmentor
 from speechlid_tpu_torch.parallel import (
+    CONFORMER_TP_RULES,
+    EP_RULES,
+    WAVLM_TP_RULES,
     initialize_multihost,
     initialized,
     make_mesh,
     process_count,
-    process_index,
     shutdown,
 )
 
@@ -187,27 +198,31 @@ def main(argv: List[str] | None = None) -> None:
         force=True,
     )
     logging.info("config: %s", conf.to_dict())
-    if int(conf.trainer.get("model_parallel", 1)) > 1:
-        raise NotImplementedError(
-            "trainer.model_parallel > 1: tensor and expert layouts come with the next slice")
-    if not conf.trainer.get("data_parallel", False):
+    model_parallel = int(conf.trainer.get("model_parallel", 1))
+    if not conf.trainer.get("data_parallel", False) and model_parallel <= 1:
         run(conf, args.device or "cuda")
         return
     device = args.device or f"cuda:{int(os.environ.get('LOCAL_RANK', 0))}"
     joined = not initialized()  # a caller's own group stays the caller's
     initialize_multihost(device=device)
     try:
-        run(conf, device, mesh=make_mesh())
+        if model_parallel > 1 and process_count() % model_parallel:
+            raise ValueError(f"trainer.model_parallel={model_parallel} needs a multiple of "
+                             f"{model_parallel} processes, the group has {process_count()}")
+        mesh = make_mesh(model=max(model_parallel, 1))
+        rules = EP_RULES + CONFORMER_TP_RULES + WAVLM_TP_RULES if model_parallel > 1 else None
+        run(conf, device, mesh=mesh, param_rules=rules)
     finally:
         if joined:
             shutdown()
 
 
 def _shard(mesh) -> dict:
-    """This rank's sampler shard; the environment's, where set, must agree."""
+    """This rank's sampler shard, by data index; the environment's, where
+    set, must agree."""
     if mesh is None:
         return {}
-    shard = {"shard_id": process_index(), "num_shards": process_count()}
+    shard = {"shard_id": mesh.index("data"), "num_shards": mesh.data}
     for key, env in (("shard_id", "SPEECHLID_SHARD_ID"), ("num_shards", "SPEECHLID_NUM_SHARDS")):
         if env in os.environ and int(os.environ[env]) != shard[key]:
             raise ValueError(f"{env}={os.environ[env]} disagrees with the process group's "
@@ -215,9 +230,9 @@ def _shard(mesh) -> dict:
     return shard
 
 
-def run(conf, device: str, mesh=None) -> None:
+def run(conf, device: str, mesh=None, param_rules=None) -> None:
     """Train or test one task from ``conf`` on ``device`` (over ``mesh``'s
-    ranks where given)."""
+    ranks where given, laid out by ``param_rules``)."""
     shard = _shard(mesh)
     data = build_data(conf)
     task = build_task(conf, data, device=device)
@@ -250,6 +265,7 @@ def run(conf, device: str, mesh=None) -> None:
         callbacks=callbacks,
         loggers=logger,
         mesh=mesh,
+        param_rules=param_rules,
         checkpoint_path=conf.trainer.get("resume_from") or None,
         use_progress_bar=conf.trainer.get("progress_bar", True),
         device=device,

@@ -532,6 +532,49 @@ def load_into(module: torch.nn.Module, state: StateDict) -> None:
 
 
 # ---------------------------------------------------------------------------
+# laid-out models (tensor, expert and pipeline parallelism): through the
+# unsharded state
+# ---------------------------------------------------------------------------
+
+
+def full_state(model: torch.nn.Module) -> Dict[str, torch.Tensor]:
+    """``model``'s whole (unsharded) state dict: gathered over the model
+    group where ``parallel/sharding.py`` laid it out (a collective: every
+    rank of the group calls it), else its own.  ``lid_variables`` of it is
+    the flax tree."""
+    layout = getattr(model, "layout", None)
+    state = model.state_dict()
+    return state if layout is None else layout.full_state(state)
+
+
+def load_full_state(model: torch.nn.Module, state: StateDict) -> None:
+    """Load a whole state (``lid_state`` of a flax tree, or a checkpoint's)
+    into ``model``, each tensor sliced as its layout holds it."""
+    layout = getattr(model, "layout", None)
+    state = {k: torch.as_tensor(np.asarray(v)) for k, v in state.items()}
+    load_into(model, state if layout is None else layout.local_state(state))
+
+
+def trunk_variables(stacked: Mapping) -> Dict[str, Dict]:
+    """A pipeline trunk's stacked state (``parallel.stack_stage_params`` of
+    the stages' ``ConformerBlock`` state dicts, or
+    ``parallel.pipeline.gather_stages``) → the JAX trunk's variables, every
+    leaf with the leading stage axis (``stack_stage_params`` of the stages'
+    ``{"params", "batch_stats"}``)."""
+    n = len(next(iter(stacked.values())))
+    stages = [block_variables({k: v[i] for k, v in stacked.items()}, "") for i in range(n)]
+    return {"params": _stack([p for p, _ in stages]),
+            "batch_stats": _stack([s for _, s in stages])}
+
+
+def trunk_state(variables: Mapping, stage: int) -> StateDict:
+    """Stage ``stage`` of the JAX trunk's stacked variables → that stage's
+    ``ConformerBlock`` state dict."""
+    return block_state(_take(variables["params"], stage),
+                       _take(variables["batch_stats"], stage), "")
+
+
+# ---------------------------------------------------------------------------
 # flax's bidirectional OptimizedLSTMCell, the SE models and the bilstm heads
 # ---------------------------------------------------------------------------
 

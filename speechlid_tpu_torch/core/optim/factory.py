@@ -20,6 +20,12 @@ them:
 
 A frozen parameter (``requires_grad=False``) keeps its moments exactly in
 both modes.  The update is in place.
+
+Under a tensor or expert layout (``parallel/sharding.py`` marks each
+parameter it slices or owns with ``sharded_over``, the model group) the
+global-norm clip sums ‖g‖² over the replicated parameters once and the
+split ones' local ‖g‖² over the model group, and Novograd sums each split
+leaf's norms over it; Adam, AdamW and SGD are elementwise and stay local.
 """
 
 from __future__ import annotations
@@ -35,6 +41,7 @@ from speechlid_tpu_torch.core.optim.schedules import (
     cosine_annealing_warmup_restarts,
     tristage_schedule,
 )
+from speechlid_tpu_torch.parallel.mesh import all_reduce_
 
 
 class Optimizer:
@@ -70,6 +77,9 @@ class Optimizer:
         self.names, self.params = map(list, zip(*named_params))
         self.name, self.lr, self.weight_decay = name, float(lr), float(weight_decay)
         self.clip_norm, self.lr_fn, self.plateau, self.routed = clip_norm, lr_fn, plateau, routed
+        # the model group of the parameters a layout split (None: all whole)
+        self.split = [getattr(p, "sharded_over", None) for p in self.params]
+        self.group = next((g for g in self.split if g is not None and g.size > 1), None)
         self.count = 0  # steps taken
         self.counts = [0] * len(self.params)  # routed: steps each parameter took part in
         self.mu: List[torch.Tensor] = []
@@ -83,6 +93,11 @@ class Optimizer:
         elif name == "novograd":
             self.nu_names = list(dict.fromkeys(leaf_name(n) for n in self.names))
             self.leaf_of = [self.nu_names.index(leaf_name(n)) for n in self.names]
+            # the model group each leaf is split over (None: whole)
+            self.leaf_groups = [None] * len(self.nu_names)
+            for i, g in enumerate(self.split):
+                if g is not None:
+                    self.leaf_groups[self.leaf_of[i]] = g
             self.mu = [torch.zeros_like(p, dtype=torch.float32) for p in self.params]
             device = self.params[0].device
             self.nu = [torch.zeros((), device=device) for _ in self.nu_names]
@@ -115,7 +130,13 @@ class Optimizer:
             return
         params = [self.params[i] for i in idx]
         if self.clip_norm:
-            norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+            norms = torch.stack(torch._foreach_norm(grads))
+            if self.group is None:
+                norm = torch.linalg.vector_norm(norms)
+            else:  # the split leaves' ‖g‖² over the model group, the rest once
+                split = torch.tensor([self.split[i] is not None for i in idx], device=norms.device)
+                sq = norms.float().square()
+                norm = (sq[~split].sum() + all_reduce_(sq[split].sum(), self.group)).sqrt()
             if self.routed:
                 scale = (self.clip_norm / norm.clamp_min(1e-12)).clamp_max(1.0)
             else:
@@ -131,11 +152,15 @@ class Optimizer:
         mu = [self.mu[i] for i in idx]
         if self.name == "novograd":
             leaves: Dict[int, List[int]] = {}  # leaf → positions in this step's lists
+            if self.group is not None:  # every split leaf joins its collectives
+                leaves = {j: [] for j, g in enumerate(self.leaf_groups) if g is not None}
             for pos, i in enumerate(idx):
                 leaves.setdefault(self.leaf_of[i], []).append(pos)
+            leaves = dict(sorted(leaves.items()))
+            groups = [self.leaf_groups[j] for j in leaves]
             nu_max = None if self.nu_max is None else [self.nu_max[j] for j in leaves]
             novograd_step(list(leaves.values()), params, grads, mu, [self.nu[j] for j in leaves],
-                          nu_max, lr, self.weight_decay, **self.novograd)
+                          nu_max, lr, self.weight_decay, groups=groups, **self.novograd)
             return
         nu = [self.nu[i] for i in idx]
         torch._foreach_mul_(mu, self.b1)

@@ -19,11 +19,12 @@ output is (x − mean) · (rsqrt(var + eps) · scale) + bias, in flax's order;
 affine-free).  Statistics are taken in at least float32, as flax takes
 them; buffers and parameters are float32.
 
-Under data parallelism (a process group of more than one rank) a training
+Under data parallelism (a data group of more than one rank) a training
 batch's statistics are the global batch's, as flax's over the mesh's global
-array: Σx, Σx² and the count are all-reduced in float32 through the
-differentiable all-reduce (``parallel.all_reduce``), so the gradients through
-them span the ranks.  One process keeps the local path.
+array: Σx, Σx² and the count are all-reduced over the data group in float32
+through the differentiable all-reduce (``parallel.all_reduce``), so the
+gradients through them span the ranks; the model group's ranks hold the same
+rows and take no part.  One process keeps the local path.
 """
 
 from __future__ import annotations
@@ -33,7 +34,7 @@ from typing import Optional
 import torch
 import torch.nn as nn
 
-from speechlid_tpu_torch.parallel.mesh import all_reduce, data_parallel
+from speechlid_tpu_torch.parallel.mesh import all_reduce, data_group, data_parallel
 
 
 def flax_batch_norm(x: torch.Tensor, running_mean: torch.Tensor, running_var: torch.Tensor,
@@ -51,7 +52,8 @@ def flax_batch_norm(x: torch.Tensor, running_mean: torch.Tensor, running_var: to
     if training and data_parallel():
         c = x.shape[dim]
         count = xf.new_full((1,), float(xf.numel() // c))
-        sums = all_reduce(torch.cat([xf.sum(dim=axes), xf.square().sum(dim=axes), count]))
+        sums = all_reduce(torch.cat([xf.sum(dim=axes), xf.square().sum(dim=axes), count]),
+                          data_group())
         mean = sums[:c] / sums[-1]
         var = (sums[c:2 * c] / sums[-1] - mean.square()).clamp_min(0.0)
     elif training:

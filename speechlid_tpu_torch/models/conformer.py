@@ -65,8 +65,14 @@ from speechlid_tpu_torch.ops.cuda.depthwise_kernel import (
     swish,
 )
 from speechlid_tpu_torch.ops.frontend import fused_frontend
-from speechlid_tpu_torch.ops.quant import quant_dot_general
-from speechlid_tpu_torch.parallel.mesh import all_reduce, data_parallel
+from speechlid_tpu_torch.ops.quant import quant_dot_general, row_parallel_int8
+from speechlid_tpu_torch.parallel.mesh import (
+    all_reduce,
+    copy_to_group,
+    data_group,
+    data_parallel,
+    reduce_from_group,
+)
 
 LN_EPS = 1e-6  # flax nn.LayerNorm default
 _NEG = torch.finfo(torch.float32).min
@@ -85,7 +91,19 @@ class Linear(nn.Linear):
     to ``compute_dtype``, the product of input and weight (exact, or
     ``quant_dot``'s int8 one over the cast operands), then the bias added in
     ``compute_dtype``.  The float32 parameters get float32 gradients back
-    through the casts."""
+    through the casts.
+
+    Under tensor parallelism (``parallel/sharding.py`` sets ``tp`` and
+    ``tp_group``) a ``"col"`` Linear holds its output features' slice and
+    takes its input through ``copy_to_group`` (the input gradient summed
+    over the group); a ``"row"`` one holds its input features' slice, sums
+    the partial products over the group (``reduce_from_group``, or the int8
+    engine's row-parallel product) and adds the bias once, after; a
+    ``"shared"`` one is whole but used by this rank's share of the work (a
+    gate shared by the heads), so its gradient is summed over the group."""
+
+    tp: Optional[str] = None  # None | "col" | "row" | "shared"
+    tp_group = None
 
     def __init__(self, in_features: int, out_features: int, bias: bool = True,
                  compute_dtype: torch.dtype = torch.float32,
@@ -96,7 +114,18 @@ class Linear(nn.Linear):
         self.dot = quant_dot_general(quant_dot)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.tp == "col":
+            x = copy_to_group(x, self.tp_group)
         x, weight, bias = _cast_params(self, x)
+        if self.tp == "shared":  # whole, used by a rank's share of the work
+            weight = copy_to_group(weight, self.tp_group)
+            bias = None if bias is None else copy_to_group(bias, self.tp_group)
+        if self.tp == "row":
+            if self.dot is None:
+                y = reduce_from_group(F.linear(x, weight), self.tp_group)
+            else:
+                y = row_parallel_int8(x, weight, self.tp_group, self.quant_dot)
+            return y if bias is None else y + bias
         if self.dot is None:
             return F.linear(x, weight, bias)
         y = self.dot(x, weight)
@@ -147,7 +176,12 @@ def _layer_norm(dim: int, dtype: torch.dtype = torch.float32) -> LayerNorm:
 
 class Dropout(nn.Module):
     """Inverted dropout in training mode, drawn from ``self.generator`` (a
-    ``torch.Generator`` on the input's device; ``None`` is the global one)."""
+    ``torch.Generator`` on the input's device; ``None`` is the global one).
+
+    ``shard=(index, full)``: ``x`` holds positions ``index`` of a dim
+    ``dim`` that is ``full`` wide in the whole activation (a tensor-parallel
+    slice); the mask is drawn full width and sliced, so the generator moves
+    as in one process and the kept elements are one process's."""
 
     def __init__(self, p: float = 0.0):
         super().__init__()
@@ -156,10 +190,16 @@ class Dropout(nn.Module):
         self.p = p
         self.generator: Optional[torch.Generator] = None
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, shard: Optional[tuple] = None,
+                dim: int = -1) -> torch.Tensor:
         if not self.training or self.p == 0.0:
             return x
-        keep = torch.rand(x.shape, generator=self.generator, device=x.device) >= self.p
+        shape = list(x.shape)
+        if shard is not None:
+            shape[dim] = shard[1]
+        keep = torch.rand(shape, generator=self.generator, device=x.device) >= self.p
+        if shard is not None:
+            keep = keep.index_select(dim, shard[0].to(x.device))
         return x * keep.to(x.dtype) / (1.0 - self.p)
 
 
@@ -173,7 +213,10 @@ def set_generator(module: nn.Module, generator: Optional[torch.Generator]) -> No
 
 
 class FeedForward(nn.Module):
-    """dim → dim·mult → dim with Swish."""
+    """dim → dim·mult → dim with Swish.  ``hidden_shard``: the tensor-parallel
+    slice ``(index, dim·mult)`` of the hidden features this rank holds."""
+
+    hidden_shard: Optional[tuple] = None
 
     def __init__(self, dim: int, mult: int = 4, use_double_swish: bool = False,
                  dropout: float = 0.0, dtype: torch.dtype = torch.float32,
@@ -185,7 +228,8 @@ class FeedForward(nn.Module):
         self.dropout = Dropout(dropout)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.dropout(self.fc2(self.dropout(self.act(self.fc1(x)))))
+        hidden = self.dropout(self.act(self.fc1(x)), self.hidden_shard)
+        return self.dropout(self.fc2(hidden))
 
 
 class RelPosAttention(nn.Module):
@@ -195,7 +239,13 @@ class RelPosAttention(nn.Module):
     Plain matmul and softmax (no fused attention): the JAX package computes
     it outside any kernel, and parity is the point.  In bfloat16 both score
     matmuls and their sum are bfloat16; the logits go to float32 before the
-    mask (JAX's float32 fill value promotes them there) and the softmax."""
+    mask (JAX's float32 fill value promotes them there) and the softmax.
+
+    Under tensor parallelism ``heads`` is this rank's number of heads and
+    ``tp_group`` is set: the table ``rel_pos_emb``, shared by the heads,
+    stays whole and sums its gradient over the group."""
+
+    tp_group = None
 
     def __init__(self, dim: int, heads: int = 8, dim_head: int = 64,
                  max_pos_emb: int = 512, dropout: float = 0.0,
@@ -225,7 +275,9 @@ class RelPosAttention(nn.Module):
         seq = torch.arange(n, device=x.device)
         dist = (seq[:, None] - seq[None, :]).clamp(-self.max_pos_emb, self.max_pos_emb)
         dist = dist + self.max_pos_emb
-        pos_scores = (q @ self.rel_pos_emb.to(q.dtype).t()) * scale  # (b, h, n, 2P+1)
+        table = self.rel_pos_emb if self.tp_group is None else \
+            copy_to_group(self.rel_pos_emb, self.tp_group)
+        pos_scores = (q @ table.to(q.dtype).t()) * scale  # (b, h, n, 2P+1)
         dots = (dots + torch.gather(pos_scores, -1, dist.expand(b, h, n, n))).float()
 
         if mask is not None:
@@ -254,18 +306,20 @@ class DepthwiseConv1d(nn.Module):
 
 def _global_moments(xf: torch.Tensor, mask: Optional[torch.Tensor]):
     """(mean, biased variance, n) of (B, T, C) float32 ``xf`` over the valid
-    frames of every rank's batch."""
+    frames of every batch of the data group."""
+    group = data_group()
     if mask is None:
         sums = all_reduce(torch.cat([xf.sum(dim=(0, 1)),
-                                     xf.new_full((1,), float(xf.shape[0] * xf.shape[1]))]))
+                                     xf.new_full((1,), float(xf.shape[0] * xf.shape[1]))]),
+                          group)
         n = sums[-1]
         mean = sums[:-1] / n
-        var = all_reduce((xf - mean).square().sum(dim=(0, 1))) / n
+        var = all_reduce((xf - mean).square().sum(dim=(0, 1)), group) / n
         return mean, var, n
     m = mask[..., None].float()
     c = xf.shape[-1]
     sums = all_reduce(torch.cat([(xf * m).sum(dim=(0, 1)), (xf.square() * m).sum(dim=(0, 1)),
-                                 m.sum(dim=(0, 1))]))
+                                 m.sum(dim=(0, 1))]), group)
     n = sums[2 * c:].clamp_min(1.0)
     mean = sums[:c] / n
     return mean, sums[c:2 * c] / n - mean.square(), n
@@ -279,13 +333,15 @@ class MaskedBatchNorm(nn.Module):
     the normalisation, and moves the running statistics by ``momentum``
     towards the batch mean and the unbiased variance var·n/max(n − 1, 1).
 
-    Under data parallelism (a process group of more than one rank) the
+    Under data parallelism (a data group of more than one rank) the
     training statistics are the global batch's, as the JAX module's over
     the mesh's global array: Σx·m, Σx²·m and n (without a mask Σx and n,
-    then Σ(x − mean)²) are all-reduced in float32 through the
-    differentiable all-reduce, so the gradients through mean and variance
-    span the ranks too, and the unbiased factor takes the global n.  One
-    process keeps the local path."""
+    then Σ(x − mean)²) are all-reduced over the data group in float32
+    through the differentiable all-reduce, so the gradients through mean
+    and variance span the ranks too, and the unbiased factor takes the
+    global n.  The model group's ranks hold the same rows (or a channel
+    slice of them), so they take no part.  One process keeps the local
+    path."""
 
     def __init__(self, channels: int, eps: float = 1e-5, momentum: float = 0.1):
         super().__init__()
@@ -335,7 +391,13 @@ class ConformerConvModule(nn.Module):
     one kernel in eval mode; in training mode the kernel takes GLU, mask
     and conv, and BatchNorm (batch statistics) and act stay in PyTorch.  In
     bfloat16 the kernel takes bfloat16 h, weights and bias and sums in
-    float32."""
+    float32.
+
+    Eval mode where autograd needs a backward (a deterministic block
+    trained, as the pipeline trains its stages) takes the training kernel,
+    whose backward is two kernels, then BatchNorm on the running statistics
+    and the act in PyTorch: the fused eval kernel has no backward.  Under
+    ``torch.no_grad()`` eval stays the one fused launch."""
 
     def __init__(self, dim: int, expansion_factor: int = 2, kernel_size: int = 31,
                  use_double_swish: bool = False, dropout: float = 0.0,
@@ -354,7 +416,8 @@ class ConformerConvModule(nn.Module):
     def forward(self, x: torch.Tensor, pad_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         h = self.pointwise_in(self.norm(x))
         w, b = self.depthwise.weight.to(h.dtype), self.depthwise.bias.to(h.dtype)
-        if self.training:
+        if self.training or (torch.is_grad_enabled() and (
+                h.requires_grad or w.requires_grad or self.bn.weight.requires_grad)):
             y = self.act(self.bn(glu_depthwise(h, pad_mask, w, b), pad_mask))
         else:
             y = glu_depthwise_bn_act(h, pad_mask, w, b, self.bn.eval_stats(), self.act_name)

@@ -52,6 +52,7 @@ from speechlid_tpu_torch.core.precision import compute_dtype
 from speechlid_tpu_torch.models.conformer import ConformerBlock, Dropout, Linear
 from speechlid_tpu_torch.models.rnn import BiLSTM
 from speechlid_tpu_torch.models.wavlm import WavLMConfig, convert_wavlm_state
+from speechlid_tpu_torch.parallel.mesh import copy_to_group, gather_from_group
 
 _NEG = torch.finfo(torch.float32).min
 
@@ -100,7 +101,21 @@ class BiLSTMLinearHead(nn.Module):
 
 class MultiLangHeadStack(nn.Module):
     """(B, T, D) → float32 logits (L, B, T, V_max+1), padded vocab ids
-    masked; with ``only=l`` just head l, (1, B, T, V_max+1)."""
+    masked; with ``only=l`` just head l, (1, B, T, V_max+1).
+
+    Expert parallelism (``parallel/sharding.py``, :meth:`set_experts`): a
+    rank of the model group holds the heads ``l`` whose ``l // per`` is its
+    model index; the others' slots are empty.  The input goes through
+    ``copy_to_group``, so the encoder's gradient sums the ranks' heads'.
+    All heads: each rank runs its own and the logits are gathered over the
+    group to (L, B, T, V_max+1), the same on every rank.  ``only=l`` on a
+    rank that does not own head l gives zeros (1, B, T, V_max+1) joined to
+    the graph, so the rank's backward joins the group's collectives.  In
+    training a rank draws the dropout masks of the heads it skips, so every
+    rank's generator stays where one process's is."""
+
+    expert_group = None
+    experts_per_rank = 0
 
     def __init__(self, vocab_sizes: Sequence[int], linear_dim: int = 768,
                  num_layers: int = 1, dim_head: int = 32, num_head: int = 8,
@@ -120,10 +135,27 @@ class MultiLangHeadStack(nn.Module):
                                 num_head, use_double_swish, dropout, dtype, quant_dot)
             for _ in self.vocab_sizes
         )
+        self.draw = (dropout, self.heads[0].out.in_features)  # a head's dropout: p, width
+        self.generator: Optional[torch.Generator] = None
         ids = torch.arange(self.vocab_max + 1)
         sizes = torch.tensor(self.vocab_sizes)[:, None]
         valid = (ids[None, :] < sizes) | (ids[None, :] == self.vocab_max)  # chars ∪ blank
         self.register_buffer("vocab_valid", valid[:, None, None, :], persistent=False)
+
+    def set_experts(self, group, per: int) -> None:
+        """Expert parallelism over ``group``: ``per`` heads a rank."""
+        self.expert_group, self.experts_per_rank = group, per
+
+    def owns(self, lang: int) -> bool:
+        return self.expert_group is None or lang // self.experts_per_rank == \
+            self.expert_group.index
+
+    def _skip(self, x: torch.Tensor) -> None:
+        """Draw what a skipped head's dropout would draw."""
+        p, width = self.draw
+        if self.training and p > 0.0:
+            torch.rand((x.shape[0], x.shape[1], width), generator=self.generator,
+                       device=x.device)
 
     def forward(self, x: torch.Tensor, lengths: Optional[torch.Tensor] = None,
                 only: Optional[int] = None) -> torch.Tensor:
@@ -131,10 +163,25 @@ class MultiLangHeadStack(nn.Module):
         valid = lengths
         if self.head_type != "bilstm" and lengths is not None:
             valid = torch.arange(x.shape[1], device=x.device)[None, :] < lengths[:, None]
+        if self.expert_group is not None:
+            x = copy_to_group(x, self.expert_group)
         if only is not None:
+            if not self.owns(only):
+                self._skip(x)
+                zeros = x.new_zeros((1, x.shape[0], x.shape[1], self.vocab_max + 1),
+                                    dtype=torch.float32)
+                return zeros + 0.0 * x.sum()
             logits = self.heads[only](x, valid)[None].float()
             return logits.masked_fill(~self.vocab_valid[only : only + 1], _NEG)
-        logits = torch.stack([head(x, valid) for head in self.heads]).float()
+        outs = []
+        for lang, head in enumerate(self.heads):
+            if self.owns(lang):
+                outs.append(head(x, valid).float())
+            else:
+                self._skip(x)
+        logits = torch.stack(outs)
+        if self.expert_group is not None:
+            logits = gather_from_group(logits, self.expert_group, 0)
         return logits.masked_fill(~self.vocab_valid, _NEG)
 
 

@@ -63,6 +63,7 @@ import torch.nn.functional as F
 from speechlid_tpu_torch.core.precision import compute_dtype
 from speechlid_tpu_torch.models.conformer import Conv1d, Dropout, LayerNorm, Linear
 from speechlid_tpu_torch.ops.quant import Dot, quant_dot_general
+from speechlid_tpu_torch.parallel.mesh import copy_to_group
 
 LN_EPS = 1e-5  # the reference's LayerNorm/GroupNorm eps (not flax's 1e-6)
 _NEG = torch.finfo(torch.float32).min
@@ -251,7 +252,18 @@ def _bucket_table(t: int, num_buckets: int, max_distance: int,
 class RelPosMultiheadAttention(nn.Module):
     """Self-attention with an optional (gated) relative position bias,
     batch-first (B, T, C).  Returns (output, the UNGATED position bias
-    (H, T, T) or None), so layers after the first reuse layer 0's bias."""
+    (H, T, T) or None), so layers after the first reuse layer 0's bias.
+
+    Under tensor parallelism (``parallel/sharding.py``) ``num_heads`` is
+    this rank's heads, ``head_index`` which of the ``num_heads_full`` they
+    are: q/k/v are column-parallel, ``out_proj`` row-parallel, the bias
+    table and ``grep_a`` hold these heads' columns (so the position bias
+    handed on is these heads'), and ``grep_linear``, shared by the heads,
+    stays whole and sums its gradient over ``tp_group``."""
+
+    tp_group = None
+    head_index: Optional[torch.Tensor] = None
+    num_heads_full = 0
 
     def __init__(self, embed_dim: int, num_heads: int, dropout: float = 0.0,
                  has_relative_attention_bias: bool = False, num_buckets: int = 320,
@@ -297,15 +309,21 @@ class RelPosMultiheadAttention(nn.Module):
             if self.gru_rel_pos:
                 # the gate reads the PRE-projection input, split per head;
                 # the float32 grep_a promotes it to float32
-                grep = self.grep_linear(x.view(b, t, h, d).transpose(1, 2))  # (B, H, T, 8)
+                if self.tp_group is None:
+                    heads = x.view(b, t, h, d)
+                else:
+                    heads = copy_to_group(x, self.tp_group).view(b, t, self.num_heads_full, d)
+                    heads = heads[:, :, self.head_index.to(x.device)]
+                grep = self.grep_linear(heads.transpose(1, 2))  # (B, H, T, 8)
                 gates = torch.sigmoid(grep.view(b, h, t, 2, 4).sum(-1))
                 gate_a, gate_b = gates[..., 0:1], gates[..., 1:2]
                 attn_bias = (gate_a * (gate_b * self.grep_a - 1.0) + 2.0) * attn_bias
             weights = weights + attn_bias
         if padding_mask is not None:
             weights = weights.masked_fill(padding_mask[:, None, None, :], _NEG)
-        probs = self.dropout(torch.softmax(weights, dim=-1).to(self.dtype))
-        out = (probs @ v).transpose(1, 2).reshape(b, t, c)
+        shard = None if self.tp_group is None else (self.head_index, self.num_heads_full)
+        probs = self.dropout(torch.softmax(weights, dim=-1).to(self.dtype), shard, dim=1)
+        out = (probs @ v).transpose(1, 2).reshape(b, t, h * d)
         return self.out_proj(out), position_bias
 
 
@@ -321,7 +339,11 @@ def _ffn_act(config: WavLMConfig, y: torch.Tensor, fc1: nn.Linear) -> torch.Tens
 
 class WavLMEncoderLayer(nn.Module):
     """Post-LN (``layer_norm_first=False``, Base+) or pre-LN transformer
-    layer; LayerNorm eps 1e-5, its output float32 in any compute dtype."""
+    layer; LayerNorm eps 1e-5, its output float32 in any compute dtype.
+    ``hidden_shard``: the tensor-parallel slice ``(index, ffn)`` of the FFN's
+    hidden features this rank holds."""
+
+    hidden_shard: Optional[tuple] = None
 
     def __init__(self, config: WavLMConfig, has_relative_attention_bias: bool = False):
         super().__init__()
@@ -352,13 +374,14 @@ class WavLMEncoderLayer(nn.Module):
                                               position_bias)
             x = residual + self.dropout(y)
             residual = x
-            y = self.activation_dropout(_ffn_act(self.config, self.final_layer_norm(x), self.fc1))
+            y = self.activation_dropout(_ffn_act(self.config, self.final_layer_norm(x), self.fc1),
+                                        self.hidden_shard)
             x = residual + self.dropout(self.fc2(y))
         else:
             y, position_bias = self.self_attn(x, padding_mask, position_bias)
             x = self.self_attn_layer_norm(residual + self.dropout(y))
             residual = x
-            y = self.activation_dropout(_ffn_act(self.config, x, self.fc1))
+            y = self.activation_dropout(_ffn_act(self.config, x, self.fc1), self.hidden_shard)
             x = self.final_layer_norm(residual + self.dropout(self.fc2(y)))
         return x, position_bias
 

@@ -48,9 +48,11 @@ Every wrapper takes its plain version for tensors on the CPU and launches
 its kernel for tensors on the card; there is no other path.  Each launch of
 the forward kernel counts in ``depthwise_conv1d.launches`` (the flipped
 ones also in ``.dx_launches``, the bfloat16 ones also in
-``.bf16_launches``) and in ``depthwise_conv1d.mode_launches`` under its
-mode (:data:`FWD_MODES`); a bfloat16 launch of ``depthwise_conv1d_bwd_w``
-also in ``depthwise_conv1d_bwd_w.bf16_launches``.
+``.bf16_launches``), in ``depthwise_conv1d.mode_launches`` under its
+mode (:data:`FWD_MODES`) and in ``depthwise_conv1d.width_launches`` under
+its mode and channel count (``"glu@144"``); a launch of
+``depthwise_conv1d_bwd_w`` also in ``depthwise_conv1d_bwd_w
+.width_launches`` (``"bwd_w@144"``), a bfloat16 one in ``.bf16_launches``.
 """
 
 from __future__ import annotations
@@ -263,11 +265,13 @@ def _check_cuda(what: str, *tensors: torch.Tensor) -> None:
         raise ValueError(f"{what} kernel needs contiguous tensors")
 
 
-def _count(mode: str, dtype: torch.dtype) -> None:
+def _count(mode: str, dtype: torch.dtype, c: int) -> None:
     depthwise_conv1d.launches += 1
     depthwise_conv1d.dx_launches += mode in ("plain_dx", "glu_dx")
     depthwise_conv1d.bf16_launches += dtype == torch.bfloat16
     depthwise_conv1d.mode_launches[mode] += 1
+    key = f"{mode}@{c}"
+    depthwise_conv1d.width_launches[key] = depthwise_conv1d.width_launches.get(key, 0) + 1
 
 
 def _stream() -> int:
@@ -288,7 +292,7 @@ def _launch_fwd(x: torch.Tensor, w: torch.Tensor, bias: Optional[torch.Tensor],
             y.data_ptr(), b, t, c, w.shape[0], pad_l, int(dx), _DTYPES[x.dtype], _stream(),
         )
     _build.check(err, "depthwise_conv1d_fwd")
-    _count("plain_dx" if dx else "plain", x.dtype)
+    _count("plain_dx" if dx else "plain", x.dtype, c)
     return y
 
 
@@ -352,9 +356,9 @@ def _launch_glu(h: torch.Tensor, mask: Optional[torch.Tensor], w: torch.Tensor,
         )
     _build.check(err, "depthwise_conv1d_glu_fwd")
     if bn is not None:
-        _count("glu_bn_act", h.dtype)
+        _count("glu_bn_act", h.dtype, c2 // 2)
         return y
-    _count("glu", h.dtype)
+    _count("glu", h.dtype, c2 // 2)
     return u, y
 
 
@@ -388,7 +392,7 @@ def glu_depthwise_dx(
             b, t, c, k, k - 1 - pad_l, _DTYPES[g.dtype], _stream(),
         )
     _build.check(err, "depthwise_conv1d_glu_bwd")
-    _count("glu_dx", g.dtype)
+    _count("glu_dx", g.dtype, c)
     return dh
 
 
@@ -450,6 +454,9 @@ def depthwise_conv1d_bwd_w(
     _build.check(err, "depthwise_conv1d_bwd_w")
     depthwise_conv1d_bwd_w.launches += 1
     depthwise_conv1d_bwd_w.bf16_launches += x.dtype == torch.bfloat16
+    key = f"bwd_w@{c}"
+    depthwise_conv1d_bwd_w.width_launches[key] = \
+        depthwise_conv1d_bwd_w.width_launches.get(key, 0) + 1
     return dw, db
 
 
@@ -519,8 +526,10 @@ def reset_launch_counts() -> None:
     depthwise_conv1d.dx_launches = 0
     depthwise_conv1d.bf16_launches = 0
     depthwise_conv1d.mode_launches = dict.fromkeys(FWD_MODES, 0)
+    depthwise_conv1d.width_launches = {}
     depthwise_conv1d_bwd_w.launches = 0
     depthwise_conv1d_bwd_w.bf16_launches = 0
+    depthwise_conv1d_bwd_w.width_launches = {}
 
 
 class GluDepthwiseFn(torch.autograd.Function):

@@ -162,3 +162,48 @@ def int8_linear(x: torch.Tensor, w: torch.Tensor, kind: Optional[str] = "int8") 
 def int8_linear_reference(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """:func:`int8_dot` with the int32 sums of :func:`int8_matmul_reference`."""
     return _int8_dot(x, w, int8_matmul_reference)
+
+
+class _RowParallelInt8(torch.autograd.Function):
+    """The int8 product of a row-parallel Linear (its contracted axis K
+    split over ``group``), bit-equal to the unsharded :func:`int8_dot` as
+    GSPMD computes it: each activation row's and each weight column's
+    abs-max is the MAX over the group of the ranks' maxima, every rank
+    quantizes its slice with those scales, the int32 partial sums are
+    all-reduced (exact), then one rescale.  Backward (``int8_ste``): the
+    exact product's, this rank's share of it."""
+
+    @staticmethod
+    def forward(ctx, x, w, group):
+        from speechlid_tpu_torch.parallel.mesh import all_reduce_
+
+        ctx.save_for_backward(x, w)
+        lead, k = x.shape[:-1], x.shape[-1]
+        x2 = x.reshape(-1, k)
+        amax = torch.cat([x2.float().abs().amax(dim=-1), w.float().abs().amax(dim=-1)])
+        amax = all_reduce_(amax, group, torch.distributed.ReduceOp.MAX)
+        s = torch.where(amax > 0, amax * INV_127, torch.ones_like(amax))
+        row, col = s[:x2.shape[0], None], s[x2.shape[0]:]
+        out32 = all_reduce_(int8_matmul(quantize(x2, row), quantize(w, col[:, None])), group)
+        out = out32.float() * (row * col)
+        return out.to(torch.promote_types(x.dtype, w.dtype)).reshape(*lead, w.shape[0])
+
+    @staticmethod
+    def backward(ctx, g):
+        g_x, g_w = _Int8DotSTE.backward(ctx, g)
+        return g_x, g_w, None
+
+
+def row_parallel_int8(x: torch.Tensor, w: torch.Tensor, group, kind: str) -> torch.Tensor:
+    """``x @ wᵀ`` summed over ``group`` (``x`` (..., K/n), ``w`` (N, K/n))
+    in the int8 engine of ``kind``.  ``"int8_ste"`` differentiates as the
+    exact product; ``"int8"``'s gradient through the scales' abs-max, which
+    here spans ranks, is not ported and raises where autograd would need
+    it."""
+    if kind == "int8" and torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
+        raise NotImplementedError(
+            "quant_dot='int8' has no backward in a row-parallel Linear: train with "
+            "'int8_ste', or run int8 under torch.no_grad()")
+    if kind not in ("int8", "int8_ste"):
+        raise ValueError(f"unknown quant_dot kind: {kind!r}")
+    return _RowParallelInt8.apply(x, w, group)

@@ -46,6 +46,13 @@ file serves exact or int8.
 ``bn_update_loop`` re-estimates the BatchNorm statistics after SWA's swap
 (``core/trainer.py``).
 
+Under expert parallelism (the heads owned by the ranks of a model group,
+``parallel/sharding.py``) the train step's own head runs on the rank that
+owns it; the others get a zero loss joined to the graph (their backward
+joins the encoder's collectives) and every rank's loss takes the owner's
+value, broadcast over the model group.  Validation gathers its metrics
+over the data group, whose ranks hold different rows.
+
 Accepted and without effect here: ``remat`` and ``scan_blocks`` (they
 change how XLA compiles the same numbers).
 """
@@ -76,7 +83,7 @@ from speechlid_tpu_torch.models.wavlm import WavLMConfig, load_wavlm_checkpoint
 from speechlid_tpu_torch.ops.ctc import ctc_loss
 from speechlid_tpu_torch.ops.frontend import fused_frontend, normalize_wav
 from speechlid_tpu_torch.ops.quant import quant_dot_general
-from speechlid_tpu_torch.parallel.mesh import process_count
+from speechlid_tpu_torch.parallel.mesh import broadcast, data_parallel
 
 SSL_FEATURIZERS = ("wavlm", "wav2vec2")
 # parameter-name parts (under ``featurizer.``) of an SSL featurizer that
@@ -327,11 +334,19 @@ class LidASRTask(TaskModule):
             logits, feat_lens = self.model(feats, f_len)
             own = logits[langs.to(self.device), torch.arange(len(langs), device=self.device)]
         lp = torch.log_softmax(own, dim=-1)
-        # the plain batch mean of the UNNORMALISED per-sample NLLs, not
-        # torch's label-length-normalised 'mean': the scale (× mean label
-        # length) is part of the effective learning rate
-        loss = ctc_loss(lp, batch["texts"], feat_lens, batch["text_lengths"], blank=-1,
-                        reduction="none").mean()
+        heads = self.model.heads
+        if train and not heads.owns(own_lang):  # ep: another rank's head
+            loss = 0.0 * logits.sum()
+        else:
+            # the plain batch mean of the UNNORMALISED per-sample NLLs, not
+            # torch's label-length-normalised 'mean': the scale (× mean label
+            # length) is part of the effective learning rate
+            loss = ctc_loss(lp, batch["texts"], feat_lens, batch["text_lengths"], blank=-1,
+                            reduction="none").mean()
+        if train and heads.expert_group is not None:  # the owner's value on every rank
+            value = broadcast(loss.detach().clone(), heads.expert_group,
+                              own_lang // heads.experts_per_rank)
+            loss = loss + (value - loss.detach())
         return loss, logits, lp, feat_lens
 
     def train_loop(self, batch: Dict[str, Any]):
@@ -434,8 +449,8 @@ class LidASRTask(TaskModule):
                     )[0]
                     ref = tok.decoder(texts[i : i + 1], [int(text_lens[i])])[0]
                     self.err_fn.update([hyp], [ref])
-        if process_count() > 1:
-            # data parallelism: every rank's trials and counts before compute;
+        if data_parallel():
+            # data parallelism: the data group's trials and counts before compute;
             # the loss is the checkpoint's monitor, so it is the global mean
             for metric in (self.eer, self.cavg, self.eer_true, self.cavg_true, self.err_fn):
                 metric.sync()

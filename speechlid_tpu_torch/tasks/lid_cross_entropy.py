@@ -51,7 +51,7 @@ from speechlid_tpu_torch.models.wav2vec2 import (
 )
 from speechlid_tpu_torch.models.wavlm import WavLMConfig, load_wavlm_checkpoint
 from speechlid_tpu_torch.ops.frontend import fused_frontend, normalize_wav
-from speechlid_tpu_torch.parallel.mesh import process_count
+from speechlid_tpu_torch.parallel.mesh import data_parallel
 
 SSL_FEATURIZERS = ("wavlm", "wav2vec2")
 # the keys of a batch the task reads
@@ -235,7 +235,7 @@ class LidCrossEntropyTask(TaskModule):
             self.eer.update(probs, langs)
             self.cavg.update(probs, langs)
             self.acc.update(probs, langs)
-        if process_count() > 1:
+        if data_parallel():
             # data parallelism: every rank's trials and counts, the global-mean
             # loss (the checkpoint's monitor)
             for metric in (self.eer, self.cavg, self.acc):

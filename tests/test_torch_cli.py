@@ -14,7 +14,8 @@ the JAX package's, on a tiny 2-language corpus on the CPU.
   ``--device`` the CLI asks for the card; ``trainer.use_swa=true``, ported,
   trains and writes ``swa_final.ckpt``; ``trainer.data_parallel=true``,
   ported, trains in a process group of one, bit-equal to the run without
-  it (two ranks: ``tests/test_torch_dist.py``);
+  it (two ranks: ``tests/test_torch_dist.py``); ``trainer.model_parallel=2``,
+  ported, refuses a group of one (two ranks: ``tests/test_torch_tp_trainer.py``);
 - the other two tasks: ``lid_cross.yaml`` (the ``xvector`` and ``linear``
   back-ends on fbank), ``lid_cross_wavlm.yaml`` and ``lid_cross_wav2vec.yaml``
   (tiny ``module.ssl_config``) and ``asr.yaml`` (one language) train an
@@ -198,8 +199,13 @@ def test_unported_options_raise(corpus, tmp_path, monkeypatch, override):
         for name, avg in swa["state"]["swa"]["params"].items():
             assert torch.equal(swa["state"]["model"][name], avg), name
         return
-    with pytest.raises(NotImplementedError):
+    # trainer.model_parallel=2: ported (tests/test_torch_tp_trainer.py trains it
+    # on two ranks); a group of one cannot hold a model axis of two
+    for env in ("RANK", "WORLD_SIZE", "LOCAL_RANK"):
+        monkeypatch.delenv(env, raising=False)
+    with pytest.raises(ValueError, match="model_parallel=2 needs a multiple of 2 processes"):
         main_lid.main(_args(corpus, tmp_path, override) + ["--device", "cpu"])
+    assert not torch.distributed.is_initialized()  # the CLI left its group
 
 
 @pytest.mark.parametrize("cli", ["port", "jax"])

@@ -19,7 +19,8 @@ rendezvous under the test's own directory.
   port's side): every parameter and BatchNorm statistic within 1e-4 (the
   Adam band of ``tests/test_torch_trainer.py`` for the leaves whose true
   gradient is zero), the step losses within 2e-4 of JAX's global ones on
-  average over the ranks, the validation metrics equal (the loss 1e-4,
+  average over the ranks and on each rank (every rank logs the global
+  batch's loss), the validation metrics equal (the loss 1e-4,
   the rest 1e-9), and the ranks bit-equal; with each rank's own BatchNorm
   statistics (the control) the state misses 1e-4;
 - ``main_lid`` with ``trainer.data_parallel=true`` at world size 2: equal
@@ -60,7 +61,7 @@ TOL, LOSS_TOL = 1e-4, 2e-4
 VOCABS = {"aa": list("abcde"), "bb": list("abcdefghi"), "cc": list("abcdefg")}
 
 
-def start_ranks(job: str, root: Path, inputs: dict) -> list:
+def start_ranks(job: str, root: Path, inputs: dict, world: int = WORLD) -> list:
     root.mkdir(parents=True, exist_ok=True)
     torch.save(inputs, root / "inputs.pt")
     env = {k: v for k, v in os.environ.items()
@@ -68,9 +69,9 @@ def start_ranks(job: str, root: Path, inputs: dict) -> list:
                         "SPEECHLID_SHARD_ID", "SPEECHLID_NUM_SHARDS")}
     env.update(OMP_NUM_THREADS="1", SPEECHLID_CACHE_DIR=str(root / "cache"))
     return [subprocess.Popen([sys.executable, "-m", "tests.torch_dist_ranks", job, str(r),
-                              str(WORLD), str(root)], cwd=ROOT, env=env,
+                              str(world), str(root)], cwd=ROOT, env=env,
                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-            for r in range(WORLD)]
+            for r in range(world)]
 
 
 def finish_ranks(procs: list, root: Path) -> list:
@@ -81,11 +82,11 @@ def finish_ranks(procs: list, root: Path) -> list:
             p.kill()
     for r, (p, out) in enumerate(zip(procs, outs)):
         assert p.returncode == 0, f"rank {r} failed:\n{out[-4000:]}"
-    return [torch.load(root / f"rank{r}.pt", weights_only=False) for r in range(WORLD)]
+    return [torch.load(root / f"rank{r}.pt", weights_only=False) for r in range(len(procs))]
 
 
-def run_ranks(job: str, root: Path, inputs: dict) -> list:
-    return finish_ranks(start_ranks(job, root, inputs), root)
+def run_ranks(job: str, root: Path, inputs: dict, world: int = WORLD) -> list:
+    return finish_ranks(start_ranks(job, root, inputs, world), root)
 
 
 # ---------------------------------------------------------------- collectives
@@ -208,7 +209,9 @@ def test_unsynced_statistics_miss_the_bar(collectives):
 def test_one_process_is_a_mesh_of_one():
     assert process_index() == 0 and process_count() == 1
     assert make_mesh().shape == {"data": 1, "model": 1}
-    with pytest.raises(NotImplementedError, match="next slice"):
+    # the model axis is ported (tests/test_torch_tp_trainer.py): one process
+    # cannot hold a model axis of two
+    with pytest.raises(ValueError, match="multiple of 2 processes"):
         make_mesh(model=2)
     with pytest.raises(ValueError, match="one process per card"):
         make_mesh(data=2)
@@ -285,6 +288,16 @@ def test_trainer_two_ranks_match_the_jax_mesh_trainer(trainer_runs):
     assert abs(got_0["avg_val_loss"] - want["avg_val_loss"]) <= TOL
     for key in ("val_acc", "val_wer", "eer", "cavg", "eer_true", "cavg_true"):
         assert abs(got_0[key] - want[key]) <= 1e-9, (key, got_0[key], want[key])
+
+
+def test_logged_train_loss_is_the_global_batch(trainer_runs):
+    """Every rank logs the global batch's loss, the mean of the data
+    group's, as the JAX trainer logs it (not its own rows')."""
+    rec, _, ranks = trainer_runs
+    for out in ranks:
+        got = np.asarray(out["synced"]["losses"])
+        assert np.abs(got - np.array(rec.losses)).max() <= LOSS_TOL, (got, rec.losses)
+    assert ranks[0]["synced"]["losses"] == ranks[1]["synced"]["losses"]
 
 
 def test_trainer_with_unsynced_statistics_misses_jax(trainer_runs):

@@ -45,6 +45,7 @@ def test_port_imports_no_jax():
                  "core.optim.novograd", "cli.sweep", "cli.prepare_manifest",
                  "cli.prepare_text", "cli.prepare_spectrum", "data.text", "models.extras",
                  "tasks.extras", "parallel", "parallel.mesh", "metrics.dist",
+                 "parallel.sharding", "parallel.pipeline", "parallel.dryrun",
                  "models.seldnet", "core.loggers.backends"):
         assert f"speechlid_tpu_torch.{name}" in modules, name
     result = subprocess.run(

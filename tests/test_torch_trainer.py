@@ -366,8 +366,16 @@ def test_accum_grad_steps_every_second_batch():
 
 
 def test_trainer_rejects_what_is_not_ported(tmp_path):
-    with pytest.raises(NotImplementedError):
+    # param_rules are ported (tests/test_torch_tp_trainer.py): they lay the
+    # model out over a mesh, so without one they are refused; over a mesh of
+    # one (no model axis) the model stays whole and trains
+    with pytest.raises(ValueError, match="mesh"):
         Trainer(device="cpu", param_rules=[("a", None)])
+    from speechlid_tpu_torch.parallel import CONFORMER_TP_RULES, EP_RULES
+
+    _, ruled = run_port(LidASRTask(**HPARAMS, device="cpu"), batches(8, [0, 1]),
+                        mesh=make_mesh(), param_rules=EP_RULES + CONFORMER_TP_RULES)
+    assert ruled.optimizer.count == 2 and ruled.layout.pieces == {}
     # the data-parallel mesh is ported (tests/test_torch_dist.py): one process
     # is a mesh of one, which trains; a mesh not from make_mesh is refused
     with pytest.raises(TypeError, match="make_mesh"):

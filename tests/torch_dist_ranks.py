@@ -1,4 +1,6 @@
-"""The rank processes of ``tests/test_torch_dist.py``: each job runs in N
+"""The rank processes of ``tests/test_torch_dist.py`` and of the tests of
+tensor, expert, pipeline and sequence parallelism
+(``tests/test_torch_{sharding,tp_trainer,pipeline}.py``): each job runs in N
 processes of a gloo group on the CPU and writes what it saw to
 ``<dir>/rank<r>.pt``.  This module imports the port only (no JAX).
 
@@ -22,7 +24,23 @@ from speechlid_tpu_torch.metrics.dist import allgather_rows, allreduce_sum_count
 from speechlid_tpu_torch.models import conformer as pconformer
 from speechlid_tpu_torch.models.batchnorm import flax_batch_norm
 from speechlid_tpu_torch.models.conformer import MaskedBatchNorm
-from speechlid_tpu_torch.parallel import initialize_multihost, make_mesh, shutdown
+from speechlid_tpu_torch import convert
+from speechlid_tpu_torch.parallel import (
+    CONFORMER_TP_RULES,
+    EP_RULES,
+    WAVLM_TP_RULES,
+    describe_shardings,
+    gather_stages,
+    gather_time,
+    initialize_multihost,
+    make_mesh,
+    make_param_sharder,
+    pipeline_apply,
+    shard_batch,
+    shard_time,
+    shutdown,
+    sp_wav2mel,
+)
 
 TIMEOUT = timedelta(seconds=60)  # a hung collective fails fast
 
@@ -105,7 +123,9 @@ class _EvalMetrics(Callback):
         self.evals.append(dict(metrics))
 
 
-def _fit(inputs: dict, rank: int, world: int) -> dict:
+def _fit(inputs: dict, rank: int, world: int, model: int = 1, rules=None, epochs: int = 1,
+         ckpt_dir=None) -> dict:
+    from speechlid_tpu_torch.core.callbacks import CkptCallback
     from speechlid_tpu_torch.core.trainer import Trainer
     from speechlid_tpu_torch.data.tokenizer import CTCTokenizer
     from speechlid_tpu_torch.tasks.lid_asr import LidASRTask
@@ -115,15 +135,17 @@ def _fit(inputs: dict, rank: int, world: int) -> dict:
     task = LidASRTask(**hp, device="cpu")
     task.model.load_state_dict(inputs["state"])
     task.init_parameters = lambda generator: None  # keep the weights it was given
-    split = lambda batches: [{k: (rows_of(rank, world, v) if np.ndim(v) else v)  # noqa: E731
-                              for k, v in b.items()} for b in batches]
+    mesh = make_mesh(model=model)
+    split = lambda batches: [shard_batch(mesh, b) for b in batches]  # noqa: E731
     rec = _EvalMetrics()
-    trainer = Trainer(total_epoch=1, use_progress_bar=False, device="cpu", callbacks=[rec],
-                      mesh=make_mesh())
+    callbacks = [rec] + ([CkptCallback(ckpt_dir, save_topk=3)] if ckpt_dir else [])
+    trainer = Trainer(total_epoch=epochs, use_progress_bar=False, device="cpu",
+                      callbacks=callbacks, mesh=mesh, param_rules=rules)
     trainer.fit(task, split(inputs["train"]), split(inputs["val"]))
     opt = trainer.optimizer
-    return {"state": task.model.state_dict(), "evals": rec.evals, "losses": rec.losses,
-            "steps": opt.count, "lr_sum": sum(opt.lr_at(i) for i in range(opt.count))}
+    return {"state": convert.full_state(task.model), "evals": rec.evals, "losses": rec.losses,
+            "steps": opt.count, "lr_sum": sum(opt.lr_at(i) for i in range(opt.count)),
+            "report": describe_shardings(task.model)}
 
 
 def job_trainer(inputs: dict, rank: int, world: int) -> dict:
@@ -144,21 +166,148 @@ def job_cli(inputs: dict, rank: int, world: int) -> dict:
     own ``exp_dir``, so what rank 1 would write would show."""
     from speechlid_tpu_torch.cli import main_lid
 
-    trainers = []
+    trainers, full = [], []
 
     class Recorded(main_lid.Trainer):
         def __init__(self, *args, **kw):
             super().__init__(*args, **kw)
             trainers.append(self)
 
+        def fit(self, *args, **kw):
+            super().fit(*args, **kw)
+            full.append(convert.full_state(self.module.model))  # while the group is up
+
     main_lid.Trainer = Recorded
     main_lid.main(inputs["args"] + [f"exp_dir={inputs['exp_dirs'][rank]}", "--device", "cpu"])
     (trainer,) = trainers
     return {"state": trainer.module.model.state_dict(), "steps": trainer.optimizer.count,
-            "mesh": trainer.mesh.shape}
+            "mesh": trainer.mesh.shape, "full_state": full[0],
+            "report": describe_shardings(trainer.module.model)}
 
 
-JOBS = {"collectives": job_collectives, "trainer": job_trainer, "cli": job_cli}
+def job_tp_fit(inputs: dict, rank: int, world: int) -> dict:
+    """``Trainer.fit`` with ``param_rules`` on a (world / model, model)
+    mesh; with ``control``, tp alone (the heads replicated, so that every
+    rank runs the own head) with the BatchNorm statistics taken over the
+    world instead of the data group."""
+    rules = EP_RULES + CONFORMER_TP_RULES
+    model = inputs["model"]
+    out = {"run": _fit(inputs, rank, world, model, rules, inputs.get("epochs", 1),
+                       inputs.get("ckpt_dirs", [None] * world)[rank])}
+    if inputs.get("control"):
+        from speechlid_tpu_torch.parallel.mesh import world_group
+
+        saved = pconformer.data_group
+        pconformer.data_group = world_group
+        try:
+            out["control"] = _fit(inputs, rank, world, model, CONFORMER_TP_RULES)
+        finally:
+            pconformer.data_group = saved
+    return out
+
+
+def _grads(model) -> dict:
+    """Every parameter's gradient, whole (gathered over the model group)."""
+    grads = {n: p.grad for n, p in model.named_parameters() if p.grad is not None}
+    return model.layout.full_state(grads, params_only=True)
+
+
+def job_tp_model(inputs: dict, rank: int, world: int) -> dict:
+    """The tiny flagship and a tiny WavLM laid out over a model axis of
+    ``world`` ranks: the eval forward and its gradient (gathered whole),
+    the layout's report, and the whole state gathered back."""
+    from speechlid_tpu_torch.models.wavlm import WavLM, WavLMConfig
+    from speechlid_tpu_torch.ops.ctc import ctc_loss
+    from speechlid_tpu_torch.tasks.lid_asr import LidASRTask
+
+    mesh = make_mesh(model=world)
+    out = {}
+    for case in inputs["lid"]:
+        model = LidASRTask(**case["hparams"], device="cpu").model
+        model.load_state_dict(case["state"])
+        model.eval()
+        make_param_sharder(mesh, EP_RULES + CONFORMER_TP_RULES)(model)
+        logits, feat_lens = model(case["x"], case["lengths"])
+        langs = case["langs"]
+        own = logits[langs, torch.arange(len(langs))]
+        loss = ctc_loss(torch.log_softmax(own, dim=-1), case["labels"], feat_lens,
+                        case["label_lengths"], blank=-1, reduction="none").mean()
+        loss.backward()
+        out[case["name"]] = {"logits": logits.detach(), "loss": loss.detach(),
+                             "grads": _grads(model), "report": describe_shardings(model),
+                             "replicated": model.layout.replicated,
+                             "state": convert.full_state(model)}
+    wav = inputs["wavlm"]
+    model = WavLM(WavLMConfig.from_dict(wav["config"]))
+    model.load_state_dict(wav["state"])
+    model.eval()
+    make_param_sharder(mesh, WAVLM_TP_RULES)(model)
+    y = model(wav["x"])[0]
+    (y * wav["cot"]).sum().backward()
+    out["wavlm"] = {"y": y.detach(), "grads": _grads(model), "report": describe_shardings(model),
+                    "state": convert.full_state(model)}
+    return out
+
+
+def job_int8_row(inputs: dict, rank: int, world: int) -> dict:
+    """A row-parallel int8 product: this rank's slice of the contracted axis."""
+    from speechlid_tpu_torch.ops.quant import row_parallel_int8
+
+    mesh = make_mesh(model=world)
+    k = inputs["x"].shape[-1] // world
+    cols = slice(rank * k, (rank + 1) * k)
+    with torch.no_grad():
+        y = row_parallel_int8(inputs["x"][..., cols], inputs["w"][:, cols],
+                              mesh.group("model"), "int8")
+    return {"y": y}
+
+
+def _trunk(states, x, mesh, n_microbatch=None) -> dict:
+    from speechlid_tpu_torch.models.conformer import ConformerBlock
+
+    s = mesh.index("stage")
+    block = ConformerBlock(x.shape[-1], dim_head=16, heads=2)
+    block.load_state_dict(states[s])
+    block.eval()
+    y = pipeline_apply(block, x, mesh, n_microbatch=n_microbatch)
+    (y ** 2).mean().backward()
+    grads = {n: p.grad for n, p in block.named_parameters()}
+    return {"stage": s, "y": y.detach(), "grads": grads, "stacked": gather_stages(block, mesh)}
+
+
+def job_pipeline(inputs: dict, rank: int, world: int) -> dict:
+    """``pipeline_apply`` on a (1, 4) mesh with M = 4 and 8, then on (2, 2)
+    with rows the data axis divides and rows it does not."""
+    out = {}
+    mesh = make_mesh(stage=4)
+    for m in (4, 8):
+        out[f"m{m}"] = _trunk(inputs["stages4"], inputs["x"], mesh, m)
+    mesh = make_mesh(data=2, stage=2)
+    out["dp"] = _trunk(inputs["stages2"], inputs["x"], mesh)
+    # 3 rows a microbatch: the data axis does not divide them, every data
+    # rank runs them all
+    out["dp_ragged"] = _trunk(inputs["stages2"], inputs["x"][:6], mesh)
+    return out
+
+
+def job_sp(inputs: dict, rank: int, world: int) -> dict:
+    """``sp_wav2mel`` over a seq axis of ``world`` ranks, gathered; and the
+    ``shard_time`` / ``gather_time`` round trip with its gradient."""
+    mesh = make_mesh(seq=world)
+    wavs, lengths = inputs["wavs"], inputs["lengths"]
+    frames = 1 + wavs.shape[1] // 160
+    local = sp_wav2mel(wavs, lengths, mesh)
+    x = inputs["x"].clone().requires_grad_(True)
+    part = shard_time(x, mesh)
+    back = gather_time(part * 2.0, mesh)
+    back.sum().backward()
+    return {"mel": gather_time(local, mesh, time_dim=2, size=frames), "local": local.shape,
+            "part": part.shape, "back": back.detach(), "dx": x.grad}
+
+
+JOBS = {"collectives": job_collectives, "trainer": job_trainer, "cli": job_cli,
+        "tp_fit": job_tp_fit, "tp_model": job_tp_model, "int8_row": job_int8_row,
+        "pipeline": job_pipeline, "sp": job_sp}
 
 
 def main(argv) -> None:
