@@ -8,6 +8,8 @@
     python3 chip_smoke.py --only quant   # the int8, SWA and Novograd phases alone
     python3 chip_smoke.py --only extras  # kaldi, the extras tasks, the sweep, the trace alone
     python3 chip_smoke.py --only dist  # data-parallel training and SELDNet alone
+    python3 chip_smoke.py --only mp  # tensor, expert, pipeline, sequence parallelism alone
+    python3 chip_smoke.py --only large  # WavLM-Large, remat, async checkpoints, float16 alone
 
 It builds the port's CUDA kernels from ``speechlid_tpu_torch/csrc`` (into
 ``build/``), holds each kernel, forward and backward, and each fused mode of
@@ -99,7 +101,21 @@ every random draw on (``dp_card_vs_single``); ``main_lid`` with
 ``trainer.data_parallel=true`` under ``python -m torch.distributed.run``
 over nccl at world size 1, beside the same run without it
 (``cli_dp``); and both SELDNet presets card against CPU
-(``seldnet_card_vs_cpu``); ``--only dist`` runs these alone.  Last
+(``seldnet_card_vs_cpu``); ``--only dist`` runs these alone.  Then tensor,
+expert, pipeline and sequence parallelism (``--only mp``).  Then
+``configs/lid_extra_finetune.yaml`` at its own WavLM-Large width (24 ×
+1024, heads at 1024 whose conv modules run the depthwise kernel at C =
+2048) through the training CLI on a corpus that fills its train buckets
+from 2 to 13 s, three epochs, a resume and ``cli.test_lid`` on the best
+checkpoint, its freeze gates and launches by channel count
+(``cli_wavlm_large``); ``remat`` off and on for the Large, Base+ and
+flagship steps, their losses, gradients, launches, peak memory and step
+times (``remat``); how long ``last.ckpt`` of the Large task blocks the loop
+with ``async_write`` off and on (``async_ckpt``); and the flagship in
+float16, card against CPU in inference and for one step
+(``f16_card_vs_cpu``); ``conv_fused`` holds every depthwise mode at the
+Large heads' shapes and every float16 mode against plain; ``--only large``
+runs these alone.  Last
 it times the kernels, the
 models and the train steps (the WavLM model's in ``wavlm_e2e``, bfloat16
 against float32 in turns in ``bf16_e2e``).  The fused modes are also timed against the
@@ -155,7 +171,11 @@ from speechlid_tpu_torch.cli.serve import (
     make_lid_fn,
 )
 from speechlid_tpu_torch.core.callbacks import Callback, CkptCallback, ProfileCallback
-from speechlid_tpu_torch.core.checkpoint import load_checkpoint, save_checkpoint
+from speechlid_tpu_torch.core.checkpoint import (
+    load_checkpoint,
+    save_checkpoint,
+    wait_for_checkpoints,
+)
 from speechlid_tpu_torch.core.precision import strict_float32
 from speechlid_tpu_torch.core.profile import _time_cost_recoder
 from speechlid_tpu_torch.core.trainer import Trainer
@@ -229,6 +249,12 @@ DW_BF16_TOL = (0.1, 0.15)  # rtol, atol of bf16 against the f32 result
 DW_BF16_ULPS = 2 * 2.0 ** -8
 DW_BF16_GRAD_TOL = 2e-2  # bf16 gradients: of the f32 gradient's largest entry
 DW_GRAD_TOL = 1e-4  # f32 gradients, atol and rtol (tests/test_pallas_depthwise.py)
+# float16 as bfloat16, with its 3 more mantissa bits: the kernel against the
+# float16 plain version within 2 float16 ulps of the largest entry, against
+# the float32 result and gradients at an eighth of bfloat16's bars
+DW_F16_ULPS = 2 * 2.0 ** -11
+DW_F16_TOL = (DW_BF16_TOL[0] / 8, DW_BF16_TOL[1] / 8)
+DW_F16_GRAD_TOL = DW_BF16_GRAD_TOL / 8
 MODEL_TOL = 1e-3  # card vs CPU scores: 14 + 1 float32 blocks, sums in another order
 
 # The flagship joint-LID model (configs/lid_supervised.yaml module block,
@@ -257,16 +283,18 @@ N_BLOCKS, N_LANG = FLAGSHIP["n_blocks"], len(FLAGSHIP["lang2vocab"])
 DW_PER_TRAIN_STEP = N_BLOCKS + 1  # the encoder's blocks and the batch's own head
 
 
-def launch_counts(fbank: int = 0, bwd_w: int = 0, bf16: bool = False, **modes: int) -> dict:
+def launch_counts(fbank: int = 0, bwd_w: int = 0, bf16: bool = False, f16: bool = False,
+                  **modes: int) -> dict:
     """The launch counts of :func:`launches` for the given fbank, dW/db and
     forward-kernel launches by mode (``FWD_MODES``; absent modes are 0),
-    every depthwise launch in bfloat16 with ``bf16`` and in float32
-    without."""
+    every depthwise launch in bfloat16 with ``bf16``, in float16 with
+    ``f16`` and in float32 without."""
     modes = {m: modes.get(m, 0) for m in FWD_MODES}
     total = sum(modes.values())
     return {"fbank": fbank, "depthwise": total,
             "depthwise_dx": modes["plain_dx"] + modes["glu_dx"], "depthwise_bwd_w": bwd_w,
             "depthwise_bf16": total if bf16 else 0, "depthwise_bwd_w_bf16": bwd_w if bf16 else 0,
+            "depthwise_f16": total if f16 else 0, "depthwise_bwd_w_f16": bwd_w if f16 else 0,
             **{f"depthwise_{m}": n for m, n in modes.items()}}
 
 
@@ -373,6 +401,26 @@ WAVLM_BF16_CLI_DW_SHAPE = (8, _wavlm_frames(2.0), WAVLM_DW_C, 31)  # lid_wavlm_b
 # C = 768 at the same frame counts: no path gives the kernel these shapes
 # (the heads' GLU gives it 1536 channels), held against plain all the same
 WAVLM_HALF_C_DW_SHAPES = ((1, 149, 768, 31), (32, 149, 768, 31), (8, 199, 768, 31))
+
+# The WavLM-Large extra-finetune (configs/lid_extra_finetune.yaml's own
+# module.ssl_config: 24 × 1024, FFN 4096, 16 heads, the layer-norm
+# extractor, pre-LN, wave normalisation, gated relative position bias, span
+# and channel masking at 0.15; heads at 1024, batches of 2, SGD, accum_grad
+# 4).  Its heads' conv modules run the depthwise kernel at C = 2 · 1024.
+WAVLM_LARGE = dict(encoder_layers=24, encoder_embed_dim=1024, encoder_ffn_embed_dim=4096,
+                   encoder_attention_heads=16, extractor_mode="layer_norm",
+                   layer_norm_first=True, normalize=True, relative_position_embedding=True,
+                   gru_rel_pos=True, mask_prob=0.15, mask_channel_prob=0.15)
+LARGE_DW_C = 2 * WAVLM_LARGE["encoder_embed_dim"]
+LARGE_B = 2  # the config's data.batch_size
+# the config's train buckets up to its max_duration of 13 s, each of which
+# the Large corpus fills (large_corpus): (2, 99 … 649, 2048)
+LARGE_BUCKETS = (2.0, 4.0, 8.0, 13.0)
+LARGE_TRAIN_DW_SHAPES = tuple((LARGE_B, _wavlm_frames(s), LARGE_DW_C, 31)
+                              for s in LARGE_BUCKETS)
+LARGE_EVAL_DW_SHAPE = (LARGE_B, _wavlm_frames(2.0), LARGE_DW_C, 31)  # val clips under 2 s
+# the float16 modes are held at the flagship's train step and eval CLI shapes
+F16_DW_SHAPES = (TRAIN_DW_SHAPE, EVAL_DW_SHAPE)
 
 
 def emit(obj) -> None:
@@ -649,7 +697,8 @@ ACTS = ("swish", "double_swish")
 # that take the kernel's scalar path (129) and an even kernel, the gate
 # model's shape, the eval CLI's on the flagship and the sweep's; then the
 # WavLM heads' shapes (served, scored, trained, the card-vs-CPU step, the
-# CLI) and the same frame counts at C = 768
+# CLI) and the same frame counts at C = 768; a tensor-parallel rank's (the
+# WavLM-Large heads' shapes at C = 2048 are held in phase_large)
 FUSED_SHAPES = (SERVE_DW_SHAPE, TRAIN_DW_SHAPE, SCORE_DW_SHAPE, (1, 7, 64, 31),
                 (3, 100, 129, 15), (2, 50, 96, 4), GATE_DW_SHAPE, EVAL_DW_SHAPE, SWEEP_DW_SHAPE,
                 WAVLM_SERVE_DW_SHAPE, WAVLM_SCORE_DW_SHAPE, WAVLM_TRAIN_DW_SHAPE,
@@ -685,7 +734,7 @@ def _bf16_gap(got: torch.Tensor, ref: torch.Tensor) -> tuple:
     return err, err / max(ref.float().abs().max().item(), 1e-30)
 
 
-def phase_conv_fused(gen: torch.Generator) -> dict:
+def phase_conv_fused(gen: torch.Generator, shapes=FUSED_SHAPES) -> dict:
     """The fused modes of the forward kernel against their plain versions
     on the card, float32 and bfloat16, Swish and DoubleSwish, with a ragged
     mask (and without one in eval): the eval call; the training forward;
@@ -694,10 +743,11 @@ def phase_conv_fused(gen: torch.Generator) -> dict:
     launches of one forward and backward.  In bfloat16 each mode is held
     against its bfloat16 plain version on the same inputs within 2 bf16
     ulps of the largest entry (``DW_BF16_ULPS``), and against the float32
-    result at ``DW_BF16_TOL``.  Returns the errors against plain found at
-    each shape (``<mode>`` float32, ``<mode>_bf16`` bfloat16)."""
+    result at ``DW_BF16_TOL``; at ``F16_DW_SHAPES`` the float16 modes too.
+    Returns the errors against plain found at each of ``shapes`` (``<mode>``
+    float32, ``<mode>_bf16`` bfloat16, ``<mode>_f16`` float16)."""
     found = {}
-    for b, t, c, k in FUSED_SHAPES:
+    for b, t, c, k in shapes:
         h, mask, w, bias, bn, gy = fused_inputs(b, t, c, k, gen)
         errs, errs16, gaps16 = {}, {}, {}
         ok = True
@@ -754,6 +804,10 @@ def phase_conv_fused(gen: torch.Generator) -> dict:
         ok &= all(rel <= DW_BF16_ULPS for _, rel in gaps16.values())
         same_bits = all(torch.equal(a, b2) for a, b2 in zip(got, again))
         padded_zero = bool((got[0][~mask] == 0).all()) and bool((got16[0][~mask] == 0).all())
+        f16 = {}
+        if (b, t, c, k) in F16_DW_SHAPES:  # the float16 modes, held as the bfloat16 ones
+            f16, f16_ok = _conv_fused_f16(h, mask, w, bias, bn, grads, ref)
+            ok &= f16_ok
         expect = launch_counts(glu=1, glu_dx=1, bwd_w=1)
         emit({"phase": "conv_fused_vs_plain", "shape": [b, t, c], "k": k,
               "valid_frames": mask.sum(dim=1).tolist(), "max_abs_err_f32": errs,
@@ -765,7 +819,7 @@ def phase_conv_fused(gen: torch.Generator) -> dict:
                                      for n, (e, r) in gaps16.items()},
               "tol_bf16_vs_bf16_plain_over_largest": DW_BF16_ULPS,
               "bit_equal_reruns": same_bits, "dh_zero_at_padded_frames": padded_zero,
-              "launches_forward_backward": counted,
+              "launches_forward_backward": counted, **({"f16": f16} if f16 else {}),
               "ok": bool(ok) and same_bits and padded_zero and counted == expect})
         if not (ok and same_bits and padded_zero and counted == expect):
             raise AssertionError(f"fused conv modes disagree with plain at {(b, t, c, k)}")
@@ -775,8 +829,58 @@ def phase_conv_fused(gen: torch.Generator) -> dict:
             "bwd_w": max(errs["grad_dw"], errs["grad_db"]),
             "glu_bn_act_bf16": max(e for n, (e, _) in gaps16.items() if n.startswith("eval")),
             "glu_bf16": gaps16["train_forward"][0], "glu_dx_bf16": gaps16["grad_dh"][0],
-            "bwd_w_bf16": max(gaps16["grad_dw"][0], gaps16["grad_db"][0])}
+            "bwd_w_bf16": max(gaps16["grad_dw"][0], gaps16["grad_db"][0]),
+            **f16.get("errs", {})}
     return found
+
+
+def _conv_fused_f16(h, mask, w, bias, bn, grads, ref32) -> tuple:
+    """The float16 instantiations of every fused mode at one shape: each
+    against its float16 plain version on the same inputs within
+    ``DW_F16_ULPS`` of the largest entry, against the float32 result at
+    ``DW_F16_TOL`` and the float32 gradients ``ref32`` within
+    ``DW_F16_GRAD_TOL`` of their largest entry, dh exactly 0 at padded
+    frames; a rerun bit-equal.  ``grads(fn, *inputs)`` is
+    :func:`phase_conv_fused`'s gradient of the training mode.  → (the
+    report with ``errs``, the errors against plain by ``<mode>_f16``, and
+    whether all held)."""
+    h16, w16, b16 = h.half(), w.half(), bias.half()
+    gaps, vs32, ok = {}, {}, True
+    with torch.no_grad():
+        for act in ACTS:
+            got = glu_depthwise_bn_act(h16, mask, w16, b16, bn, act)
+            ref = glu_depthwise_bn_act_plain(h, mask, w, bias, bn, act)
+            vs32[f"eval_{act}"] = (got.float() - ref).abs().max().item()
+            ok &= got.dtype == torch.float16 and torch.allclose(
+                got.float(), ref, rtol=DW_F16_TOL[0], atol=DW_F16_TOL[1])
+            gaps[f"eval_{act}"] = _bf16_gap(got, glu_depthwise_bn_act_plain(
+                h16, mask, w16, b16, bn, act))
+        got = glu_depthwise(h16, mask, w16, b16)
+        vs32["train_forward"] = (got.float() - glu_depthwise_plain(h, mask, w, bias)[1]
+                                 ).abs().max().item()
+        gaps["train_forward"] = _bf16_gap(got, glu_depthwise_plain(h16, mask, w16, b16)[1])
+    names = ("dh", "dw", "db")
+    got = grads(glu_depthwise, h16, w16, b16)
+    again = grads(glu_depthwise, h16, w16, b16)
+    plain = grads(lambda *a: glu_depthwise_plain(*a)[1], h16, w16, b16)
+    rel32 = {n: (a.float() - r).abs().max().item() / r.abs().max().item()
+             for n, a, r in zip(names, got, ref32)}
+    gaps.update({f"grad_{n}": _bf16_gap(a, r) for n, a, r in zip(names, got, plain)})
+    ok &= all(a.dtype == torch.float16 for a in got)
+    ok &= max(rel32.values()) <= DW_F16_GRAD_TOL
+    ok &= all(rel <= DW_F16_ULPS for _, rel in gaps.values())
+    ok &= all(torch.equal(a, b) for a, b in zip(got, again))
+    ok &= bool((got[0][~mask] == 0).all())
+    errs = {"glu_bn_act_f16": max(e for n, (e, _) in gaps.items() if n.startswith("eval")),
+            "glu_f16": gaps["train_forward"][0], "glu_dx_f16": gaps["grad_dh"][0],
+            "bwd_w_f16": max(gaps["grad_dw"][0], gaps["grad_db"][0])}
+    report = {"f16_vs_f16_plain": {n: {"max_abs_err": e, "over_largest": r}
+                                   for n, (e, r) in gaps.items()},
+              "tol_f16_vs_f16_plain_over_largest": DW_F16_ULPS,
+              "max_abs_err_f16_vs_f32": vs32, "tol_f16": DW_F16_TOL,
+              "max_err_f16_grad_over_largest_f32": rel32,
+              "tol_f16_grad_over_largest": DW_F16_GRAD_TOL, "errs": errs}
+    return report, bool(ok)
 
 
 def init_random_(model: torch.nn.Module, gen: torch.Generator) -> None:
@@ -809,13 +913,17 @@ def reset_launches() -> None:
 def launches() -> dict:
     """The wrappers' counts; ``depthwise`` holds every launch of the forward
     kernel, ``depthwise_dx`` the flipped ones among them, ``depthwise_bf16``
-    its bfloat16 ones, and ``depthwise_<mode>`` each mode's
-    (``FWD_MODES``); ``depthwise_bwd_w_bf16`` the bfloat16 dW/db launches."""
+    and ``depthwise_f16`` its bfloat16 and float16 ones, and
+    ``depthwise_<mode>`` each mode's (``FWD_MODES``);
+    ``depthwise_bwd_w_bf16`` and ``depthwise_bwd_w_f16`` the 16-bit dW/db
+    launches."""
     return {"fbank": log_mel.launches, "depthwise": depthwise_conv1d.launches,
             "depthwise_dx": depthwise_conv1d.dx_launches,
             "depthwise_bwd_w": depthwise_conv1d_bwd_w.launches,
             "depthwise_bf16": depthwise_conv1d.bf16_launches,
             "depthwise_bwd_w_bf16": depthwise_conv1d_bwd_w.bf16_launches,
+            "depthwise_f16": depthwise_conv1d.f16_launches,
+            "depthwise_bwd_w_f16": depthwise_conv1d_bwd_w.f16_launches,
             **{f"depthwise_{m}": n for m, n in depthwise_conv1d.mode_launches.items()}}
 
 
@@ -973,11 +1081,12 @@ def pin_subsampling_relus(card_sub, cpu_sub) -> dict:
              for conv in (card_sub.conv0, card_sub.conv1)]
 
     def forward(x):
+        m0, m1 = (m.to(x.device) for m in masks[:2])
         z0 = cpu_sub.conv0(x[:, None])
-        differ["conv0"] += int(((z0 > 0) != masks[0]).sum())
-        z1 = cpu_sub.conv1(z0 * masks[0])
-        differ["conv1"] += int(((z1 > 0) != masks[1]).sum())
-        y = (z1 * masks[1]).permute(0, 2, 3, 1)
+        differ["conv0"] += int(((z0 > 0) != m0).sum())
+        z1 = cpu_sub.conv1(z0 * m0)
+        differ["conv1"] += int(((z1 > 0) != m1).sum())
+        y = (z1 * m1).permute(0, 2, 3, 1)
         b, t, f, c = y.shape
         return cpu_sub.out(y.reshape(b, t, f * c))
 
@@ -1075,13 +1184,18 @@ CONFORMER_DETERMINISTIC = dict(FLAGSHIP, dropout=0.0, pos_dropout=0.0,
 
 
 def conformer_step_card_vs_cpu(hp: dict, gen: torch.Generator, batch: dict,
-                               tol: float = 0.0) -> dict:
+                               tol: float = 0.0, pin_reference: bool = False) -> dict:
     """:func:`step_card_vs_cpu` of the Conformer task ``hp`` with random
     weights, the CPU side given the card's features and the card's
     subsampling ReLU decisions (:func:`phase_train_card_vs_cpu` says why);
     the depthwise bias's true gradient is zero (a train-mode BatchNorm
     follows).  With ``tol``, a bfloat16 ``hp``'s leaves are held as
-    :func:`step_card_vs_cpu` holds them against a float32 reference."""
+    :func:`step_card_vs_cpu` holds them against a float32 reference; with
+    ``pin_reference`` that reference takes the card's ReLU decisions too,
+    so that the distances from it measure rounding alone (float16: the
+    float32 step decides hundreds of subsampling units otherwise, and each
+    flipped unit moves every gradient by more than float16's rounding,
+    ``scripts/f16_step_precision.py``)."""
     card, cpu = LidASRTask(**hp, device="cuda"), LidASRTask(**hp, device="cpu")
     init_random_(card.model, gen)
     cpu.model.load_state_dict(card.model.state_dict())
@@ -1096,9 +1210,17 @@ def conformer_step_card_vs_cpu(hp: dict, gen: torch.Generator, batch: dict,
     feats_diff = (feats.cpu() - own_feats).abs().max().item()
     cpu._features = lambda wavs, wav_lengths, augment=False: (feats.cpu(), f_len.cpu())
     pinned = pin_subsampling_relus(card.model.featurizer.subsample, cpu.model.featurizer.subsample)
+    hooks = list(pinned["hooks"])
+    if pin_reference:
+        reference_pinned = pin_subsampling_relus(card.model.featurizer.subsample,
+                                                 reference.model.featurizer.subsample)
+        hooks += reference_pinned["hooks"]
     step = step_card_vs_cpu(card, cpu, batch, ("depthwise.bias",),
-                            after_card=lambda: [hook.remove() for hook in pinned["hooks"]],
+                            after_card=lambda: [hook.remove() for hook in hooks],
                             reference=reference, tol=tol)
+    if pin_reference:
+        step["reference_subsampling_relus"] = "the card's"
+        step["reference_relu_units_decided_otherwise"] = reference_pinned["differ"]
     return {"cpu_features": "the card's", "max_abs_diff_features_db": feats_diff,
             "cpu_subsampling_relus": "the card's",
             "relu_units_decided_otherwise": pinned["differ"], **step}
@@ -1537,7 +1659,10 @@ def phase_cli_gate(root: str, corpus: str, smi: str, overrides=()) -> dict:
     utts = GATE_EPOCHS * N_LANG * CORPUS_TRAIN
     per_step, per_eval = _per_step(recorder)
     n_blocks = 4  # the round-5 config's
-    want_step = launch_counts(fbank=1, bwd_w=n_blocks + 1, glu=n_blocks + 1, glu_dx=n_blocks + 1)
+    # its remat: true rematerializes each encoder block, whose conv module
+    # runs its training forward again in the backward (the head's is not)
+    want_step = launch_counts(fbank=1, bwd_w=n_blocks + 1, glu=2 * n_blocks + 1,
+                              glu_dx=n_blocks + 1)
     want_eval = launch_counts(fbank=1, glu_bn_act=n_blocks + N_LANG)
     report = {
         "phase": "cli_gate", "config": "scripts/trained_lid_artifact.py:56-90, total_epoch 32",
@@ -2118,6 +2243,8 @@ def conv_module_device_kernels(task: LidASRTask, gen: torch.Generator) -> dict:
     return report
 
 
+# phase_conv_fused's error keys by dtype: "<mode>", "<mode>_bf16", "<mode>_f16"
+ERR_KEYS = {torch.float32: "", torch.bfloat16: "_bf16", torch.float16: "_f16"}
 CONFORMER_EVAL_ROWS = (("depthwise_conv1d_fwd[glu_bn_act]", SERVE_DW_SHAPE),
                        ("depthwise_conv1d_fwd[glu_bn_act]@b32", SCORE_DW_SHAPE),
                        ("depthwise_conv1d_fwd[glu_bn_act]@eval", EVAL_DW_SHAPE))
@@ -2139,7 +2266,7 @@ def fused_kernel_rows(gen: torch.Generator, errs: dict, counts: dict,
     float32, and the error is against the bfloat16 plain version."""
     rows = []
     size = torch.finfo(dtype).bits // 8  # bytes of an activation, a weight
-    err_key = "" if dtype == torch.float32 else "_bf16"
+    err_key = ERR_KEYS[dtype]
     type_name = str(dtype).replace("torch.", "")
 
     def inputs(shape):
@@ -2693,23 +2820,30 @@ WAVLM_BF16_CLI = dict(
 def phase_cli_wavlm(root: str, corpus: str, smi: str, run: dict = WAVLM_CLI) -> dict:
     """The training CLI on ``configs/lid_wavlm.yaml`` (``run``: or another
     WavLM config, with its steps, shapes and launches) with
-    ``module.ssl_config`` set to the Base+ shape, on the corpus: three
-    epochs of 3 steps (span masking on; the config's gates freeze the
-    extractor through epoch 1 and the transformer through epoch 0), then a
-    resume for a fourth (unless ``run["resume"]`` is false), each epoch
-    followed by an eval of the 72 val clips;
-    the frozen parts by epoch, the launches per train step and eval batch
-    and the conv shapes; one ``/lid`` answer from its checkpoint through
-    ``build_lid_fn``; and ``cli.test_lid`` clean on that checkpoint, whose
-    ``acc`` must be the ``val_acc`` the training CLI logged last.  Launch
-    counts are set to 0 just before each run and read just after."""
+    ``module.ssl_config`` set to the Base+ shape (``run["ssl_override"]``;
+    none: the config's own), on the corpus: three epochs of 3 steps (span
+    masking on; the config's gates freeze the extractor through epoch 1 and
+    the transformer through epoch 0), then a resume for a fourth (unless
+    ``run["resume"]`` is false), each epoch followed by an eval of the val
+    clips; the frozen parts by epoch, the launches per train step and eval
+    batch (and by channel count) and the conv shapes (``run["shape"]``, or
+    ``run["train_shapes"]`` and ``run["eval_shape"]``); the checkpoint
+    files after each run; one ``/lid`` answer from its checkpoint through
+    ``build_lid_fn``; and ``cli.test_lid`` clean on ``last.ckpt`` (with
+    ``run["test_best"]`` the best top-k file), whose ``acc`` must be the
+    ``val_acc`` the training CLI logged at that checkpoint's epoch.  Launch
+    counts are set to 0 just before each run and read just after; →
+    their sums over the runs, by channel count under ``"widths"``."""
     from speechlid_tpu_torch.cli import main_lid
     from speechlid_tpu_torch.data.audio_io import read_wav
 
     exp = os.path.join(root, run["name"])
     base = [_langs_override(corpus), f"exp_dir={exp}", "trainer.progress_bar=false",
-            f"trainer.train_data_factor={run['data_factor']}", run["ssl_override"]]
+            *([f"trainer.train_data_factor={run['data_factor']}"] if "data_factor" in run else []),
+            *([run["ssl_override"]] if run.get("ssl_override") else [])]
     last = os.path.join(exp, "ckpt", "last.ckpt")
+    train_shapes = set(run.get("train_shapes", [run.get("shape")]))
+    eval_shape = run.get("eval_shape", run.get("shape"))
     frozen, shapes = {}, set()
     build_task = main_lid.build_task
 
@@ -2729,7 +2863,7 @@ def phase_cli_wavlm(root: str, corpus: str, smi: str, run: dict = WAVLM_CLI) -> 
             k, c = module.depthwise.weight.shape
             shapes.add((*args[0].shape[:2], c, k))
 
-    runs, counted = {}, {}
+    runs, counted, widths, files = {}, {}, {}, {}
     main_lid.build_task = recording_build_task
     hook = torch.nn.modules.module.register_module_forward_hook(conv_seen)
     try:
@@ -2740,7 +2874,8 @@ def phase_cli_wavlm(root: str, corpus: str, smi: str, run: dict = WAVLM_CLI) -> 
             torch.cuda.synchronize()
             reset_launches()
             runs[name] = run_cli(_cli_args("configs", run["config"], *base, *extra))
-            counted[name] = launches()
+            counted[name], widths[name] = launches(), width_launches()
+            files[name] = sorted(os.listdir(os.path.dirname(last)))
     finally:
         main_lid.build_task = build_task
         hook.remove()
@@ -2748,22 +2883,33 @@ def phase_cli_wavlm(root: str, corpus: str, smi: str, run: dict = WAVLM_CLI) -> 
     evals = [line for line in lines if CLI_EVAL_KEYS <= set(line)]
     ckpt = load_checkpoint(last)
     ckpt_meta, ckpt_hparams = ckpt["meta"], ckpt["hyper_parameters"]
+    del ckpt
+    tested, tested_epoch = last, ckpt_meta["epoch"]
+    if run.get("test_best"):  # the top-k file of the lowest avg_val_loss, as its name holds it
+        best = min((f for f in files[list(files)[-1]] if f.startswith("epoch_")),
+                   key=lambda f: float(f[:-5].rsplit("_", 1)[1]))
+        tested, tested_epoch = os.path.join(os.path.dirname(last), best), int(best.split("_")[1])
     lid_fn, index2lang = build_lid_fn(last)
     state = InferenceState(lid_fn, index2lang)
     wav, _ = read_wav(os.path.join(corpus, "bb", "wav", "train", "val0.wav"))
     reset_launches()
     answer = state.lid(wav)
     served = launches()
+    del lid_fn, state
     clean, clean_launches, clean_s, clean_shapes = run_test_lid(
-        ["--ckpt", last, *_cli_args("configs", run["config"], _langs_override(corpus),
-                                    run["ssl_override"])])
+        ["--ckpt", tested, *_cli_args("configs", run["config"], _langs_override(corpus),
+                                      *([run["ssl_override"]] if run.get("ssl_override")
+                                        else []))])
     report = {"phase": run["name"], "nvidia_smi": smi,
-              "config": f"configs/{run['config']}.yaml, module.ssl_config WavLM-Base+",
+              "config": run.get("describe", f"configs/{run['config']}.yaml, "
+                                            "module.ssl_config WavLM-Base+"),
               "dtype": ckpt_hparams["dtype"],
               "ssl_dtype": ckpt_hparams["ssl_config"].get("dtype", "float32"),
               "steps_per_epoch": run["steps"], "frozen_by_epoch": frozen, "runs": {},
-              "launches": counted, "evals": evals, "conv_shapes": sorted(shapes),
+              "launches": counted, "launches_by_width": widths, "evals": evals,
+              "conv_shapes": sorted(shapes), "ckpt_files": files,
               "ckpt_meta": {k: ckpt_meta[k] for k in ("epoch", "global_step")},
+              "test_lid_ckpt": os.path.basename(tested),
               "served_from_cli_ckpt": answer, "served_launches": served,
               "test_lid_clean": _cell(clean), "test_lid_seconds": clean_s,
               "test_lid_launches_per_batch": {k: v / run["eval_batches"]
@@ -2782,27 +2928,34 @@ def phase_cli_wavlm(root: str, corpus: str, smi: str, run: dict = WAVLM_CLI) -> 
         checks[f"{name}_evals"] = [e["batches"] for e in recorder.evals] == \
             [run["eval_batches"]] * len(recorder.epochs)
     n_epochs = 3 + len(runs) - 1
+    n_lang = run.get("n_lang", N_LANG)
     checks.update({
         "frozen": {e: set(v) for e, v in frozen.items()} == {
             e: v for e, v in WAVLM_FROZEN.items() if e < n_epochs},
-        "conv_shapes": shapes == {run["shape"]} and clean_shapes["glu_bn_act"] == {
-            run["shape"]} and not clean_shapes["fbank"],
+        "conv_shapes": shapes == train_shapes | {eval_shape} and clean_shapes["glu_bn_act"] == {
+            eval_shape} and not clean_shapes["fbank"],
         "eval_lines": len(evals) == n_epochs
         and all(np.isfinite(e["avg_val_loss"]) for e in evals),
         "ckpt": ckpt_meta["epoch"] == n_epochs - 1
         and ckpt_meta["global_step"] == n_epochs * run["steps"],
-        "served": set(answer) == {"lang", "scores"} and len(answer["scores"]) == N_LANG
+        "ckpt_files": all(f == "last.ckpt" or f.startswith("epoch_") for f in files["fit"])
+        # last.ckpt and the top-k files (save_topk: 3 in every WavLM config)
+        and len(files[list(files)[-1]]) == min(n_epochs, 3) + 1,
+        "served": set(answer) == {"lang", "scores"} and len(answer["scores"]) == n_lang
         and all(np.isfinite(v) for v in answer["scores"].values())
         and served == run["per_eval"],
-        "test_lid_acc": clean["acc"] == evals[-1]["val_acc"]
-        and clean["n_utts"] == N_LANG * CORPUS_VAL,
+        "test_lid_acc": clean["acc"] == evals[tested_epoch]["val_acc"]
+        and clean["n_utts"] == n_lang * run.get("val_per_lang", CORPUS_VAL),
         "test_lid_launches": report["test_lid_launches_per_batch"] == run["per_eval"],
     })
     report["checks"] = checks
     emit(report)
     if not all(checks.values()):
         raise AssertionError(f"CLI phase {run['name']} failed: {checks}")
-    return {k: sum(c[k] for c in counted.values()) for k in counted["fit"]}
+    out = {k: sum(c[k] for c in counted.values()) for k in counted["fit"]}
+    out["widths"] = {k: sum(w.get(k, 0) for w in widths.values())
+                     for k in set().union(*widths.values())}
+    return out
 
 
 def _wavlm_batches(seed: int, n: int) -> list:
@@ -2892,7 +3045,7 @@ def bwd_w_row(gen: torch.Generator, errs: dict, shape: tuple, name: str, counted
         "replaces": "speechlid_tpu/ops/pallas/depthwise_kernel.py:78",
         "launches": counted["depthwise_bwd_w"],
         "launches_per_train_step": counted["depthwise_bwd_w"] / n_steps,
-        "max_abs_err": errs[shape]["bwd_w" + ("" if dtype == torch.float32 else "_bf16")],
+        "max_abs_err": errs[shape]["bwd_w" + ERR_KEYS[dtype]],
         "ms": k_ms, "kernel_ms": k_ms,
         "plain_ms": device_ms(lambda: depthwise_conv1d_bwd_w_plain(u, gy, k)),
         "library_ms": device_ms(conv1d_weight_library),
@@ -6877,10 +7030,375 @@ def mp_kernel_rows(gen: torch.Generator, errs: dict, reports: dict) -> list:
     return rows
 
 
+# ------------------------------------------------ the WavLM-Large extra-finetune, remat,
+# async checkpoint writes and float16
+
+LARGE_LANGS = ("aa", "bb")
+LARGE_TRAIN_CLIPS = 2  # a language's clips in each train bucket: one batch of LARGE_B
+LARGE_VAL_CLIPS = 2  # a language's val clips, 1.5 s: one eval batch in the 2 s bucket
+LARGE_STEPS = len(LARGE_LANGS) * len(LARGE_BUCKETS) * LARGE_TRAIN_CLIPS // LARGE_B
+LARGE_EVAL_BATCHES = len(LARGE_LANGS) * LARGE_VAL_CLIPS // LARGE_B
+# a micro-batch trains the own head's conv module at C = 2048; an eval batch
+# runs every head's
+LARGE_TRAIN_STEP_LAUNCHES = launch_counts(bwd_w=1, glu=1, glu_dx=1)
+LARGE_PER_EVAL_LAUNCHES = launch_counts(glu_bn_act=len(LARGE_LANGS))
+LARGE_CLI = dict(
+    name="cli_wavlm_large", config="lid_extra_finetune",
+    describe="configs/lid_extra_finetune.yaml at its own width (WavLM-Large 24x1024, "
+             "layer-norm extractor, pre-LN, hidden_states, SGD, accum_grad 4), seeded random "
+             "weights, two languages of tones",
+    steps=LARGE_STEPS, eval_batches=LARGE_EVAL_BATCHES, train_shapes=LARGE_TRAIN_DW_SHAPES,
+    eval_shape=LARGE_EVAL_DW_SHAPE, per_step=LARGE_TRAIN_STEP_LAUNCHES,
+    per_eval=LARGE_PER_EVAL_LAUNCHES, n_lang=len(LARGE_LANGS), val_per_lang=LARGE_VAL_CLIPS,
+    test_best=True)
+# the Large task for the remat and checkpoint phases: the config's module
+# block over the flagship's three languages
+LARGE_HP = dict(
+    lang2vocab=FLAGSHIP["lang2vocab"], lang2index=FLAGSHIP["lang2index"], featurizer="wavlm",
+    ssl_config=WAVLM_LARGE, feature_selection="hidden_states", head_type="conformer_linear",
+    head_layers=1, head_dim_head=32, head_num_head=8, dropout=0.1, lr=1e-4, optimizer="sgd",
+    schedule="tristage", schedule_conf=dict(phase_ratio=[0.1, 0.4, 0.5], max_update=100000),
+    clip_norm=20.0)
+# remat off and on, every random draw on (dropout, span and channel masks,
+# stochastic depth, SpecAugment, stretch), the generators seeded alike: the
+# step of each model at its path's batch, and what it launches; with remat a
+# Conformer block's conv module runs its training forward again in the
+# backward, the WavLM heads are not rematerialized
+REMAT_MODELS = {
+    "large": dict(hp=LARGE_HP, b=LARGE_B, seconds=13.0, per_step=WAVLM_TRAIN_STEP_LAUNCHES,
+                  remat_per_step=WAVLM_TRAIN_STEP_LAUNCHES),
+    "base_plus": dict(hp=WAVLM, b=8, seconds=4.0, per_step=WAVLM_TRAIN_STEP_LAUNCHES,
+                      remat_per_step=WAVLM_TRAIN_STEP_LAUNCHES),
+    "flagship": dict(hp=dict(FLAGSHIP, **TRAIN_HPARAMS), b=8, seconds=4.0,
+                     per_step=TRAIN_STEP_LAUNCHES,
+                     remat_per_step=launch_counts(fbank=1, bwd_w=DW_PER_TRAIN_STEP,
+                                                  glu=DW_PER_TRAIN_STEP + N_BLOCKS,
+                                                  glu_dx=DW_PER_TRAIN_STEP)),
+}
+REMAT_STEPS = 3  # timed steps of a turn, after one untimed
+REMAT_TURNS = (False, True, True, False)
+# card against CPU in float16, as bfloat16 (BF16_*) with 3 more mantissa bits
+F16_SCORE_TOL = 5e-3  # scores, of the largest score
+F16_LOSS_TOL = 2e-3  # the train step's loss, of its size
+F16_GRAD_TOL = 1e-2  # each gradient's relative L2 distance, as BF16_GRAD_TOL
+F16_HP = dict(FLAGSHIP, dtype="float16")
+F16_PER_FORWARD_LAUNCHES = launch_counts(fbank=1, glu_bn_act=DW_PER_FORWARD, f16=True)
+# the float16 step's clips, 2 s: the eval CLI's conv shape (8, 49, 288); the
+# CPU's float16 step on 4 s clips took 27.5 s of the script's time limit
+F16_TRAIN_SECONDS = 2.0
+F16_TRAIN_STEP_LAUNCHES = launch_counts(fbank=1, bwd_w=DW_PER_TRAIN_STEP, glu=DW_PER_TRAIN_STEP,
+                                        glu_dx=DW_PER_TRAIN_STEP, f16=True)
+
+
+def large_corpus(root: str) -> str:
+    """Two languages of tones under noise for the Large run, each clip
+    0.25 s under its bucket: per language ``LARGE_TRAIN_CLIPS`` train clips
+    in each of ``LARGE_BUCKETS`` (a batch of 2 in each) and
+    ``LARGE_VAL_CLIPS`` val clips of 1.5 s; texts of the language's own
+    four letters, longer for longer clips."""
+    from speechlid_tpu_torch.data.audio_io import write_wav
+
+    corpus = os.path.join(root, "large_corpus")
+    rng = np.random.RandomState(7)
+    seconds = {"train": [s - 0.25 for s in LARGE_BUCKETS for _ in range(LARGE_TRAIN_CLIPS)],
+               "val": [1.5] * LARGE_VAL_CLIPS}
+    for li, lang in enumerate(LARGE_LANGS):
+        wav_dir = os.path.join(corpus, lang, "wav", "train")
+        os.makedirs(wav_dir)
+        letters = list("abcd" if li == 0 else "efgh")
+        for split, durations in seconds.items():
+            lines = []
+            for i, sec in enumerate(durations):
+                n = int(sec * SR)
+                tone = np.sin(2 * np.pi * (180 + 150 * li + 25 * i) * np.arange(n) / SR)
+                write_wav(os.path.join(wav_dir, f"{split}{i}.wav"),
+                          (0.3 * tone + 0.01 * rng.randn(n)).astype(np.float32), SR)
+                words = ("".join(rng.choice(letters, 3)) for _ in range(2 + int(sec)))
+                lines.append(f"{split}{i}.wav\t{' '.join(words)}")
+            with open(os.path.join(corpus, lang, f"{split}.txt"), "w") as f:
+                f.write("\n".join(lines))
+    return corpus
+
+
+def _remat_owner(task: LidASRTask):
+    """The module whose ``remat`` switch covers the task's encoder."""
+    featurizer = task.model.featurizer
+    return featurizer if task.featurizer_kind == "conformer" else featurizer.upstream
+
+
+def phase_remat(gen: torch.Generator, smi: str) -> tuple:
+    """``remat`` off and on for each of ``REMAT_MODELS`` (WavLM-Large at
+    (2, 13 s), WavLM-Base+ and the Conformer flagship at (8, 4 s)), one
+    model each with seeded random weights and the switch flipped on it.
+    One step each way from generators seeded alike: the loss within
+    ``TRAIN_TOL`` of its size and every gradient within ``TRAIN_TOL`` of its
+    largest entry (the leaves whose true gradient is 0 of the largest
+    gradient of all) — the card's backward sums with atomics in no fixed
+    order, so the two are not bit-equal here as they are on the CPU — and
+    the launches of each step (counted from 0 just before it).  Then the
+    peak ``torch.cuda.max_memory_allocated`` and the host-clock ms of a
+    forward and backward, in turns off, on, on, off (``REMAT_STEPS`` steps
+    a turn).  → (the reports, the Large task)."""
+    reports, large = {}, None
+    for name, spec in REMAT_MODELS.items():
+        task = LidASRTask(**spec["hp"], device="cuda")
+        init_model_("conformer" if name == "flagship" else "wavlm", task, gen)
+        owner = _remat_owner(task)
+        batch = synthetic_batch(np.random.RandomState(5), lang=1, b=spec["b"],
+                                seconds=spec["seconds"])
+        placed = task.place_batch(batch)
+        task.model.train()
+
+        def step(remat: bool) -> torch.Tensor:
+            owner.remat = remat
+            task.set_generators(torch.Generator(task.device).manual_seed(0),
+                                torch.Generator().manual_seed(0))
+            task.model.zero_grad(set_to_none=True)
+            loss, _ = task.train_loop(placed)
+            loss.backward()
+            return loss
+
+        runs = {}
+        for remat in (False, True):
+            torch.cuda.synchronize()
+            reset_launches()
+            loss = step(remat).item()
+            runs[remat] = (loss, launches(), {n: p.grad.clone() for n, p in
+                                              task.model.named_parameters() if p.grad is not None})
+        (loss_off, counted_off, grads_off), (loss_on, counted_on, grads_on) = runs[False], runs[True]
+        largest = max(float(g.abs().max()) for g in grads_off.values())
+        worst, worst_name = 0.0, ""
+        for n, g in grads_off.items():
+            if n.endswith(("depthwise.bias", "k_proj.bias")):  # true gradient 0
+                err = float((grads_on[n] - g).abs().max()) / largest
+            else:
+                err = float((grads_on[n] - g).abs().max()) / max(float(g.abs().max()),
+                                                                  1e-6 * largest)
+            if err > worst:
+                worst, worst_name = err, n
+        same_leaves = set(grads_off) == set(grads_on)
+        del runs, grads_off, grads_on
+        task.model.zero_grad(set_to_none=True)
+        ms, peak, base = {False: [], True: []}, {False: [], True: []}, {False: [], True: []}
+        for remat in REMAT_TURNS:
+            step(remat)
+            task.model.zero_grad(set_to_none=True)
+            torch.cuda.synchronize()
+            base[remat].append(torch.cuda.memory_allocated())
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            for _ in range(REMAT_STEPS):
+                step(remat)
+            torch.cuda.synchronize()
+            ms[remat].append((time.perf_counter() - t0) * 1e3 / REMAT_STEPS)
+            peak[remat].append(torch.cuda.max_memory_allocated())
+        task.model.zero_grad(set_to_none=True)
+        gib = 2.0 ** 30
+        report = {
+            "phase": "remat", "model": name, "nvidia_smi": smi,
+            "batch": [spec["b"], spec["seconds"]], "loss_off": loss_off, "loss_on": loss_on,
+            "rel_err_loss": abs(loss_on - loss_off) / max(abs(loss_off), 1.0),
+            "max_rel_err_gradient": worst, "worst_gradient": worst_name, "tol": TRAIN_TOL,
+            "launches_off": counted_off, "launches_on": counted_on,
+            "step_ms": {"off": ms[False], "on": ms[True]},
+            "peak_gib": {"off": [p / gib for p in peak[False]],
+                         "on": [p / gib for p in peak[True]]},
+            "before_step_gib": {"off": [b / gib for b in base[False]],
+                                "on": [b / gib for b in base[True]]},
+            "turns": ["on" if r else "off" for r in REMAT_TURNS], "steps_a_turn": REMAT_STEPS,
+            "measured": "one forward and backward (no optimizer step), peak of "
+                        "torch.cuda.max_memory_allocated after zero_grad(set_to_none)",
+        }
+        checks = {"same_leaves": same_leaves, "loss": report["rel_err_loss"] <= TRAIN_TOL,
+                  "gradients": worst <= TRAIN_TOL,
+                  "launches_off": counted_off == spec["per_step"],
+                  "launches_on": counted_on == spec["remat_per_step"],
+                  "less_memory": max(peak[True]) < min(peak[False])}
+        report["checks"] = checks
+        emit(report)
+        if not all(checks.values()):
+            raise AssertionError(f"remat on the {name} step failed: {checks}")
+        reports[name] = report
+        if name == "large":
+            owner.remat = False
+            large = task
+        del task, placed
+        gc.collect()
+        torch.cuda.empty_cache()
+    return reports, large
+
+
+def phase_async_ckpt(task: LidASRTask, root: str, smi: str) -> dict:
+    """How long the train loop is blocked by ``CkptCallback`` writing
+    ``last.ckpt`` of the WavLM-Large task (its trainer's whole state: model,
+    SGD, generators), with ``async_write`` off and on, in turns off, on,
+    on, off: the callback's wall time (the state gathered and, off, written;
+    on, copied to fresh host memory while a thread serializes and writes),
+    and on, the time until the write has landed.  Right after each call a
+    parameter moves in place, as the next optimizer step would: the file
+    holds its value from before the call both ways."""
+    task.init_parameters = lambda generator: None  # keep the weights it has
+    trainer = Trainer(total_epoch=1, device=task.device, use_progress_bar=False)
+    trainer.trainer_prepare(task)
+    name, param = next(iter(task.model.named_parameters()))
+    blocked, landed, kept, sizes = {False: [], True: []}, [], [], []
+    for i, async_write in enumerate((False, True, True, False)):
+        cb = CkptCallback(os.path.join(root, "async_ckpt", str(i)), async_write=async_write)
+        cb.add_trainer(trainer)
+        before = param.detach().cpu().clone()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cb.after_eval_epoch(0, {"avg_val_loss": float("nan")})  # last.ckpt alone
+        blocked[async_write].append((time.perf_counter() - t0) * 1e3)
+        with torch.no_grad():
+            param.add_(1.0)  # the next step, in place, while the write may be in flight
+        wait_for_checkpoints()
+        if async_write:
+            landed.append((time.perf_counter() - t0) * 1e3)
+        path = os.path.join(cb.ckpt_path, "last.ckpt")
+        saved = torch.load(path, map_location="cpu", mmap=True, weights_only=True)
+        kept.append(torch.equal(saved["state"]["model"][name], before))
+        sizes.append(os.path.getsize(path))
+        del saved
+        os.remove(path)
+        with torch.no_grad():
+            param.sub_(1.0)
+    del trainer
+    report = {"phase": "async_ckpt", "nvidia_smi": smi,
+              "model": "WavLM-Large joint task (3 heads at 1024), SGD",
+              "params": sum(p.numel() for p in task.model.parameters()),
+              "file_bytes": sizes, "blocked_ms": {"off": blocked[False], "on": blocked[True]},
+              "write_landed_ms_on": landed, "turns": ["off", "on", "on", "off"],
+              "pre_step_values_kept": kept}
+    checks = {"kept": all(kept), "faster": max(blocked[True]) < min(blocked[False])}
+    report["checks"] = checks
+    emit(report)
+    if not all(checks.values()):
+        raise AssertionError(f"async checkpoint writes failed: {checks}")
+    return report
+
+
+def phase_f16_card_vs_cpu(gen: torch.Generator, smi: str) -> dict:
+    """The flagship with ``dtype="float16"`` on the card (the depthwise
+    kernel's float16 instantiations) against the same state_dict in
+    float16 on the CPU: inference at B = 8 on ragged 2 s clips (the eval
+    CLI's conv shape), scores within ``F16_SCORE_TOL`` of the largest,
+    ``pred_lang`` equal where the CPU's margin is clear of twice the
+    scores' distance, every depthwise launch in float16; and one
+    deterministic B = 8, 2 s train step held as
+    :func:`phase_bf16_train_card_vs_cpu` holds bfloat16's against a float32
+    step on the card, at ``F16_LOSS_TOL`` and ``F16_GRAD_TOL``, that step
+    taking the card's subsampling ReLU decisions too.  → the launches of
+    the forward and of the step."""
+    task = LidASRTask(**F16_HP, device="cuda")
+    init_random_(task.model, gen)
+    cpu = LidASRTask(**F16_HP, device="cpu")
+    cpu.model.load_state_dict(task.model.state_dict())
+    wavs = 0.1 * torch.randn(8, 2 * SR, generator=gen)
+    lengths = torch.tensor([2 * SR - i * SR // 8 for i in range(8)])
+    got, ref, per_forward, cpu_s, errs = infer_card_vs_cpu(task, cpu, wavs, lengths)
+    neg = torch.finfo(torch.float32).min
+    largest = ref["scores"].abs().max().item()
+    score_err = errs["max_abs_err_scores"]
+    top2 = ref["scores"].sort(dim=-1).values[:, -2:]
+    clear = (top2[:, 1] - top2[:, 0]) > 2 * score_err
+    batch = synthetic_batch(np.random.RandomState(4), lang=1, b=8, seconds=F16_TRAIN_SECONDS)
+    step = conformer_step_card_vs_cpu(dict(CONFORMER_DETERMINISTIC, dtype="float16"), gen, batch,
+                                      F16_GRAD_TOL, pin_reference=True)
+    report = {"phase": "f16_card_vs_cpu", "nvidia_smi": smi,
+              "config": "flagship 14x144, heads 3x(40,96,88), dtype float16",
+              "infer_batch": [8, 2 * SR], "lengths": lengths.tolist(), **errs,
+              "rel_err_scores": score_err / largest, "tol_of_largest_score": F16_SCORE_TOL,
+              "pred_lang_compared": clear.tolist(), "launches_per_forward": per_forward,
+              "train_batch": [8, int(F16_TRAIN_SECONDS * SR)], "tol_loss": F16_LOSS_TOL,
+              "tol_gradient": F16_GRAD_TOL, **step}
+    checks = {
+        "finite": bool(torch.isfinite(got["scores"]).all()
+                       and torch.isfinite(got["logits"][ref["logits"] > neg]).all()),
+        "float32_logits": got["logits"].dtype == torch.float32,
+        "scores": score_err <= F16_SCORE_TOL * largest,
+        "pred_lang": torch.equal(got["pred_lang"][clear], ref["pred_lang"][clear]),
+        "launches_forward": per_forward == F16_PER_FORWARD_LAUNCHES,
+        "step": (step["same_leaves"] and step["rel_err_loss"] <= F16_LOSS_TOL
+                 and step["max_card_over_bar"] <= 1.0
+                 and step["rel_l2_card_vs_float32"] <= 2 * step["rel_l2_cpu_vs_float32"] + 1e-3),
+        "launches_step": step["launches_per_train_step"] == F16_TRAIN_STEP_LAUNCHES,
+    }
+    report["checks"] = checks
+    emit(report)
+    if not all(checks.values()):
+        raise AssertionError(f"the float16 flagship on the card disagrees with the CPU: {checks}")
+    return {"per_forward": per_forward, "per_step": step["launches_per_train_step"]}
+
+
+def phase_large(gen: torch.Generator, root: str, smi: str) -> dict:
+    """This slice's phases in order: ``conv_fused`` at the WavLM-Large
+    heads' shapes (here, so that the phases before draw from ``gen`` what
+    they drew before this slice), the Large corpus, ``cli_wavlm_large``,
+    ``remat``, ``async_ckpt`` and ``f16_card_vs_cpu``; → their reports."""
+    conv_fused = phase_conv_fused(gen, LARGE_TRAIN_DW_SHAPES)
+    t0 = time.perf_counter()
+    cli = phase_cli_wavlm(root, large_corpus(root), smi, LARGE_CLI)
+    t1 = time.perf_counter()
+    remat, large = phase_remat(gen, smi)
+    t2 = time.perf_counter()
+    ckpt = phase_async_ckpt(large, root, smi)
+    del large
+    gc.collect()
+    torch.cuda.empty_cache()
+    t3 = time.perf_counter()
+    f16 = phase_f16_card_vs_cpu(gen, smi)
+    emit({"phase": "large_seconds", "cli_wavlm_large": t1 - t0, "remat": t2 - t1,
+          "async_ckpt": t3 - t2, "f16_card_vs_cpu": time.perf_counter() - t3})
+    return {"conv_fused": conv_fused, "cli": cli, "remat": remat, "async_ckpt": ckpt,
+            "f16": f16}
+
+
+def large_kernel_rows(gen: torch.Generator, errs: dict, reports: dict) -> list:
+    """The ``kernels`` line's rows of this slice: the depthwise kernel at the
+    WavLM-Large heads' C = 2048 (eval at the eval bucket's shape, the
+    training forward, dX with the GLU backward and dW/db at the 13 s
+    bucket's), their launches the wrappers' own counts at C = 2048 over
+    ``cli_wavlm_large``'s runs (every bucket); and its float16
+    instantiations at the flagship's (8, 49, 288) (2 s clips), their
+    launches those of ``f16_card_vs_cpu``'s forward and step."""
+    widths, c = reports["cli"]["widths"], LARGE_DW_C
+    on_cli = "cli_wavlm_large's fit and resume, every bucket (2, 99 … 649, 2048)"
+    rows = fused_kernel_rows(gen, reports["conv_fused"], {
+        "depthwise_conv1d_fwd[glu_bn_act]@large_eval": (widths[f"glu_bn_act@{c}"], {
+            "launches_counted_on": "cli_wavlm_large's eval batches"}),
+        "depthwise_conv1d_fwd[glu]@large_train": (widths[f"glu@{c}"], {
+            "launches_counted_on": on_cli}),
+        "depthwise_conv1d_fwd[glu_dx]@large_train": (widths[f"glu_dx@{c}"], {
+            "launches_counted_on": on_cli}),
+    }, eval_rows=(("depthwise_conv1d_fwd[glu_bn_act]@large_eval", LARGE_EVAL_DW_SHAPE),),
+        train_shape=LARGE_TRAIN_DW_SHAPES[-1], train_suffix="@large_train")
+    n_steps = LARGE_STEPS * 4  # three epochs and the resumed fourth
+    rows.append(bwd_w_row(gen, reports["conv_fused"], LARGE_TRAIN_DW_SHAPES[-1],
+                          "depthwise_conv1d_bwd_w@large_train",
+                          {"depthwise_bwd_w": widths[f"bwd_w@{c}"]}, n_steps))
+    per_forward, per_step = reports["f16"]["per_forward"], reports["f16"]["per_step"]
+    rows += fused_kernel_rows(gen, errs["conv_fused"], {
+        "depthwise_conv1d_fwd[glu_bn_act]@f16_eval": (per_forward["depthwise_glu_bn_act"], {
+            "launches_counted_on": "one float16 flagship forward at B = 8 on 2 s clips"}),
+        "depthwise_conv1d_fwd[glu]@f16_train": (per_step["depthwise_glu"], {
+            "launches_counted_on": "one float16 flagship train step at B = 8 x 2 s"}),
+        "depthwise_conv1d_fwd[glu_dx]@f16_train": (per_step["depthwise_glu_dx"], {
+            "launches_counted_on": "one float16 flagship train step at B = 8 x 2 s"}),
+    }, eval_rows=(("depthwise_conv1d_fwd[glu_bn_act]@f16_eval", EVAL_DW_SHAPE),),
+        train_shape=EVAL_DW_SHAPE, train_suffix="@f16_train", dtype=torch.float16)
+    rows.append(bwd_w_row(gen, errs["conv_fused"], EVAL_DW_SHAPE,
+                          "depthwise_conv1d_bwd_w@f16_train", per_step, 1, dtype=torch.float16))
+    for row in rows:
+        if row["launches"] <= 0:
+            raise AssertionError(f"{row['name']} was not launched on its path")
+    return rows
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description="Drive the PyTorch/CUDA port on one card.")
     parser.add_argument("--only", choices=("cli_gate", "ce_asr", "se", "quant", "extras",
-                                           "dist", "mp"),
+                                           "dist", "mp", "large"),
                         help="run this phase alone, after the build and the corpus "
                              "(ce_asr: the cross-entropy and ASR phases; se: the speech "
                              "enhancement and bilstm phases on cli_flagship's checkpoint; "
@@ -6891,6 +7409,8 @@ def main(argv=None) -> int:
                              "and SELDNet; "
                              "mp: tensor, expert, pipeline and sequence parallelism, the "
                              "model-parallel CLI and the dryrun; "
+                             "large: the WavLM-Large extra-finetune through the CLI, remat, "
+                             "async checkpoint writes and float16; "
                              "each with the kernel checks and rows they need)")
     parser.add_argument("--seed", type=int, default=0,
                         help="the CLI's seed for --only cli_gate (the gate's own is 0)")
@@ -6977,6 +7497,16 @@ def main(argv=None) -> int:
                                      "kind": torch.cuda.get_device_name(0),
                                      "count": torch.cuda.device_count()}})
         return 0
+    if args.only == "large":
+        errs = {"fbank": phase_fbank(gen), "conv_fused": phase_conv_fused(gen)}
+        with tempfile.TemporaryDirectory() as root:
+            os.environ["SPEECHLID_CACHE_DIR"] = os.path.join(root, "cache")
+            reports = phase_large(gen, root, smi)
+        emit({"kernels": large_kernel_rows(gen, errs, reports)})
+        emit({"ok": True, "device": {"platform": "gpu",
+                                     "kind": torch.cuda.get_device_name(0),
+                                     "count": torch.cuda.device_count()}})
+        return 0
     errs = {"fbank": phase_fbank(gen), "depthwise": phase_depthwise(gen),
             "depthwise_bwd": phase_depthwise_bwd(gen), "conv_fused": phase_conv_fused(gen)}
     task = phase_model(gen)
@@ -7019,6 +7549,7 @@ def main(argv=None) -> int:
         extras_reports = phase_extras(gen, root, smi)
         dist_reports = phase_dist(gen, root, corpus, smi)
         mp_reports = phase_mp(gen, root, corpus, smi)
+        large_reports = phase_large(gen, root, smi)
     # host-clock loops first, the profiler's runs after (it slows what follows it)
     phase_se_e2e(gen, smi, serve_se, eval_se)
     phase_quant_e2e(gen, smi)
@@ -7035,6 +7566,7 @@ def main(argv=None) -> int:
     kernels += extras_kernel_rows(gen, errs, extras_reports)
     kernels += dist_kernel_rows(gen, errs, dist_reports)
     kernels += mp_kernel_rows(gen, errs, mp_reports)
+    kernels += large_kernel_rows(gen, errs, large_reports)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -4,12 +4,16 @@
 After each eval epoch: ``last.ckpt`` always; keep the top-k checkpoints by a
 monitored metric (min or max mode, priority-queue retention); filenames
 embed epoch + metric (``epoch_21_avg_val_loss_19.43.ckpt``).  Writes are
-synchronous: the JAX package's background writer hid a device fetch over a
-network, which a local ``torch.save`` does not have.  ``save_swa`` writes
-``swa_final.ckpt`` once SWA's average is in the model.  Under data
-parallelism every rank gathers the checkpoint's state (it holds every
-rank's device generator), rank 0 alone writes, and every rank waits at a
-barrier until the files are there.
+asynchronous by default (``async_write``, as in the JAX package): the
+state is copied to the host at once and a background thread serializes
+and writes ``last.ckpt`` and a top-k file from that one copy; the previous
+epoch's writes are settled before top-k pruning, so pruning never meets a
+half-written file, and ``Trainer.fit`` waits for every write before it
+returns.  ``save_swa`` writes ``swa_final.ckpt`` once SWA's average is in
+the model, synchronously as in the JAX package.  Under data parallelism
+every rank gathers the checkpoint's state on its main thread (a
+collective: it holds the model group's slices and every rank's device
+generator), rank 0 alone writes, and every rank meets at a barrier.
 """
 
 from __future__ import annotations
@@ -21,7 +25,7 @@ import os
 from typing import Dict, List, Optional, Tuple
 
 from speechlid_tpu_torch.core.callbacks.base import Callback
-from speechlid_tpu_torch.core.checkpoint import save_checkpoint
+from speechlid_tpu_torch.core.checkpoint import save_checkpoint, wait_for_checkpoints
 from speechlid_tpu_torch.parallel.mesh import barrier, process_index
 
 
@@ -33,8 +37,10 @@ class CkptCallback(Callback):
         mode: str = "min",  # 'min' | 'max'
         save_topk: int = 3,
         interval: int = 1,
+        async_write: bool = True,  # background serialization + disk I/O
     ) -> None:
         super().__init__(interval)
+        self.async_write = async_write
         self.ckpt_path = os.path.abspath(os.path.expanduser(ckpt_path))
         self.monitor = monitor
         self.mode = mode
@@ -88,11 +94,15 @@ class CkptCallback(Callback):
         barrier()
 
     def _save(self, epoch: int, metrics: Dict, state: Dict) -> None:
+        # settle the previous epoch's writes so that the pruning below never
+        # races an in-flight file
+        wait_for_checkpoints()
         if not self._scanned:
             self._rescan()
         os.makedirs(self.ckpt_path, exist_ok=True)
         meta = self.trainer.checkpoint_meta(epoch, metrics)
-        save_checkpoint(os.path.join(self.ckpt_path, "last.ckpt"), state, meta)
+        paths = [os.path.join(self.ckpt_path, "last.ckpt")]
+        worst_path = None
 
         value = metrics.get(self.monitor)
         if value is None or not math.isfinite(value):
@@ -101,19 +111,17 @@ class CkptCallback(Callback):
                     "CkptCallback: monitored key %r not in metrics %s",
                     self.monitor, sorted(metrics),
                 )
-            return
-        priority = value if self.mode == "max" else -value
-        if len(self._heap) < self.save_topk:
-            path = self._fname(epoch, value)
-            save_checkpoint(path, state, meta)
-            heapq.heappush(self._heap, (priority, path))
-        elif priority > self._heap[0][0]:
-            _, worst_path = heapq.heapreplace(
-                self._heap, (priority, self._fname(epoch, value))
-            )
-            save_checkpoint(self._fname(epoch, value), state, meta)
-            if os.path.exists(worst_path):
-                os.remove(worst_path)
+        else:
+            priority = value if self.mode == "max" else -value
+            if len(self._heap) < self.save_topk:
+                paths.append(self._fname(epoch, value))
+                heapq.heappush(self._heap, (priority, paths[-1]))
+            elif priority > self._heap[0][0]:
+                paths.append(self._fname(epoch, value))
+                _, worst_path = heapq.heapreplace(self._heap, (priority, paths[-1]))
+        save_checkpoint(paths, state, meta, async_write=self.async_write)
+        if worst_path is not None and os.path.exists(worst_path):
+            os.remove(worst_path)
 
     def save_swa(self, epoch: int, metrics: Dict) -> None:
         if self.trainer is None:

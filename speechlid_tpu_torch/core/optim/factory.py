@@ -21,6 +21,17 @@ them:
 A frozen parameter (``requires_grad=False``) keeps its moments exactly in
 both modes.  The update is in place.
 
+``optim_conf`` holds the options optax's constructor takes beside the
+learning rate (:data:`OPTIM_CONF_KEYS`): ``b1``, ``b2``, ``eps``,
+``eps_root`` (inside the square root, ``m̂ / (√(v̂ + eps_root) + eps)``) and
+``nesterov`` (``m̂ = b1·m/(1 − b1^(c+1)) + (1 − b1)·g/(1 − b1^c)``) for Adam
+and AdamW; ``momentum`` and ``nesterov`` for SGD, whose momentum is optax's
+``trace`` (t ← g + momentum·t; the update t, or g + momentum·t with
+``nesterov``), kept per parameter in ``mu`` and so in every checkpoint;
+``b1``, ``b2`` and ``eps`` for routed Adam; Novograd's own
+(``core/optim/novograd.py``).  A key the optimizer does not take raises
+``TypeError``, as optax's signature does.
+
 Under a tensor or expert layout (``parallel/sharding.py`` marks each
 parameter it slices or owns with ``sharded_over``, the model group) the
 global-norm clip sums ‖g‖² over the replicated parameters once and the
@@ -43,6 +54,26 @@ from speechlid_tpu_torch.core.optim.schedules import (
 )
 from speechlid_tpu_torch.parallel.mesh import all_reduce_
 
+# what ``optim_conf`` may hold for each optimizer (optax's keyword arguments)
+OPTIM_CONF_KEYS = {
+    "adam": ("b1", "b2", "eps", "eps_root", "nesterov"),
+    "adamw": ("b1", "b2", "eps", "eps_root", "nesterov"),
+    "sgd": ("momentum", "nesterov"),
+    "routed_adam": ("b1", "b2", "eps"),
+}
+
+
+def _checked_conf(name: str, routed: bool, optim_conf: Optional[Dict[str, Any]]) -> Dict[str, Any]:
+    conf = dict(optim_conf or {})
+    if name == "novograd":
+        return conf  # novograd_conf checks its own
+    kind = "routed_adam" if routed else name
+    unknown = sorted(set(conf) - set(OPTIM_CONF_KEYS[kind]))
+    if unknown:
+        raise TypeError(f"{kind} got unexpected optim_conf keys {unknown}: it takes "
+                        f"{list(OPTIM_CONF_KEYS[kind])}")
+    return conf
+
 
 class Optimizer:
     """Clip → [L2] → Adam / AdamW / SGD / Novograd → lr, over named
@@ -50,13 +81,12 @@ class Optimizer:
 
     ``step()`` reads each parameter's ``.grad``; ``lr_fn`` is the schedule
     (``None``: the constant ``lr``, or the plateau scheduler's current lr).
-    ``b1``, ``b2`` and ``eps`` are optax's Adam defaults; ``optim_conf``
-    holds Novograd's options (``core/optim/novograd.py``), whose
-    ``weight_decay`` acts after the normalisation, and Novograd's second
-    moment is one float32 scalar a flax leaf (``novograd.leaf_name``: the
-    language heads' tensors share theirs)."""
+    ``optim_conf``: the options of the module docstring, optax's defaults
+    where it is silent.  Novograd's ``weight_decay`` acts after the
+    normalisation, and its second moment is one float32 scalar a flax leaf
+    (``novograd.leaf_name``: the language heads' tensors share theirs)."""
 
-    b1, b2, eps = 0.9, 0.999, 1e-8
+    b1, b2, eps, eps_root, nesterov, momentum = 0.9, 0.999, 1e-8, 0.0, False, None
 
     def __init__(
         self,
@@ -72,8 +102,7 @@ class Optimizer:
     ) -> None:
         if name not in ("adam", "adamw", "sgd", "novograd"):
             raise ValueError(f"unknown optimizer: {name}")
-        if optim_conf and name != "novograd":
-            raise NotImplementedError(f"optim_conf for {name} is not ported")
+        optim_conf = _checked_conf(name, routed, optim_conf)
         self.names, self.params = map(list, zip(*named_params))
         self.name, self.lr, self.weight_decay = name, float(lr), float(weight_decay)
         self.clip_norm, self.lr_fn, self.plateau, self.routed = clip_norm, lr_fn, plateau, routed
@@ -85,11 +114,16 @@ class Optimizer:
         self.mu: List[torch.Tensor] = []
         self.nu: List[torch.Tensor] = []
         self.nu_max: Optional[List[torch.Tensor]] = None
-        self.novograd = novograd_conf(**(optim_conf or {})) if name == "novograd" else None
+        self.novograd = novograd_conf(**optim_conf) if name == "novograd" else None
+        if name != "novograd":
+            for key, value in optim_conf.items():
+                setattr(self, key, value)
         self.nu_names = self.names  # what nu is keyed by in a state dict
         if name in ("adam", "adamw"):
             self.mu = [torch.zeros_like(p) for p in self.params]
             self.nu = [torch.zeros_like(p) for p in self.params]
+        elif name == "sgd" and self.momentum is not None:
+            self.mu = [torch.zeros_like(p) for p in self.params]  # optax's trace
         elif name == "novograd":
             self.nu_names = list(dict.fromkeys(leaf_name(n) for n in self.names))
             self.leaf_of = [self.nu_names.index(leaf_name(n)) for n in self.names]
@@ -146,10 +180,15 @@ class Optimizer:
         if self.name == "adam" and self.weight_decay:
             # L2 inside the optimizer, after the clip of the raw gradients
             grads = torch._foreach_add(grads, params, alpha=self.weight_decay)
+        mu = [self.mu[i] for i in idx] if self.mu else []
         if self.name == "sgd":
+            if self.momentum is not None:
+                torch._foreach_mul_(mu, self.momentum)
+                torch._foreach_add_(mu, grads)
+                grads = (torch._foreach_add(grads, torch._foreach_mul(mu, self.momentum))
+                         if self.nesterov else mu)
             torch._foreach_add_(params, grads, alpha=-lr)
             return
-        mu = [self.mu[i] for i in idx]
         if self.name == "novograd":
             leaves: Dict[int, List[int]] = {}  # leaf → positions in this step's lists
             if self.group is not None:  # every split leaf joins its collectives
@@ -174,10 +213,18 @@ class Optimizer:
         else:
             counts = [self.count] * len(idx)
         denom = torch._foreach_div(nu, [1.0 - self.b2 ** c for c in counts])
+        if self.eps_root:
+            torch._foreach_add_(denom, self.eps_root)
         torch._foreach_sqrt_(denom)
         torch._foreach_add_(denom, self.eps)
         if self.name == "adamw" and self.weight_decay:
             torch._foreach_mul_(params, 1.0 - lr * self.weight_decay)
+        if self.nesterov:
+            m_hat = torch._foreach_mul(mu, [self.b1 / (1.0 - self.b1 ** (c + 1)) for c in counts])
+            torch._foreach_add_(m_hat, torch._foreach_mul(
+                grads, [(1.0 - self.b1) / (1.0 - self.b1 ** c) for c in counts]))
+            torch._foreach_addcdiv_(params, m_hat, denom, scalars=[-lr] * len(idx))
+            return
         torch._foreach_addcdiv_(params, mu, denom,
                                 scalars=[-lr / (1.0 - self.b1 ** c) for c in counts])
 
@@ -217,9 +264,10 @@ def make_optimizer(
     schedule: None | 'tristage' | 'cosine' | 'plateau'.  For 'plateau' the
     trainer feeds the returned scheduler after each eval epoch and the
     optimizer reads its current lr.  ``routed=True`` (adam only) is the
-    routing-aware Adam of the module docstring.  ``optim_conf``: Novograd's
-    options (``beta1``, ``beta2``, ``eps``, ``grad_averaging``,
-    ``amsgrad``, ``luc``, ``luc_trust``, ``luc_eps``)."""
+    routing-aware Adam of the module docstring.  ``optim_conf``: the
+    optimizer's own options (:data:`OPTIM_CONF_KEYS`; Novograd's ``beta1``,
+    ``beta2``, ``eps``, ``grad_averaging``, ``amsgrad``, ``luc``,
+    ``luc_trust``, ``luc_eps``)."""
     lr = float(lr)  # guard against YAML "2e-3"-style string floats
     schedule_conf = dict(schedule_conf or {})
     if routed:

@@ -6,7 +6,9 @@ donated step.  Here the task owns an ``nn.Module`` and the step is eager
 PyTorch in place: ``train_loop`` → ``backward`` → ``Optimizer.step``.  The
 host loop around it is the same: data feeding, callbacks, logging,
 checkpointing, eval every ``eval_interval`` epochs, ``train_data_factor``
-epoch truncation, plateau lr on the eval moving average, resume.
+epoch truncation, plateau lr on the eval moving average, resume.  ``fit``
+returns after every async checkpoint write (``CkptCallback``'s default)
+has landed, and a resume waits for them before it reads.
 
 Map from the JAX trainer:
 
@@ -91,7 +93,7 @@ import torch
 
 from speechlid_tpu_torch.core.callbacks.base import Callback
 from speechlid_tpu_torch.core.callbacks.ckpt import CkptCallback
-from speechlid_tpu_torch.core.checkpoint import load_checkpoint
+from speechlid_tpu_torch.core.checkpoint import load_checkpoint, wait_for_checkpoints
 from speechlid_tpu_torch.core.loggers import Logger
 from speechlid_tpu_torch.core.module import TaskModule
 from speechlid_tpu_torch.core.precision import strict_float32
@@ -102,6 +104,7 @@ from speechlid_tpu_torch.parallel.mesh import (
     all_gather_object,
     all_reduce_,
     average_grads,
+    barrier,
     data_group,
     initialized,
     process_count,
@@ -261,6 +264,9 @@ class Trainer:
                     cb.after_eval_epoch(epoch, eval_metrics)
         if self.use_swa:
             self._finalize_swa(train_loader)
+        wait_for_checkpoints()  # every async checkpoint write has landed
+        if self.mesh is not None:
+            barrier()  # … on rank 0, before any rank goes on
 
     def train_step(self, batch: Dict[str, Any]) -> Dict[str, torch.Tensor]:
         """One batch: forward, backward, and on every ``accum_grad``-th
@@ -470,6 +476,7 @@ class Trainer:
     def _resume(self, path: str) -> None:
         """Restore model, optimizer, generators, epoch, logger counters and
         plateau from a checkpoint this trainer wrote."""
+        wait_for_checkpoints()  # an async write to ``path`` has landed
         ckpt = load_checkpoint(path)
         if "state" not in ckpt:
             raise ValueError(

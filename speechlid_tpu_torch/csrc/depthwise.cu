@@ -34,11 +34,12 @@
 //                      conv gives du, and the kernel writes dh (B, T, 2C) =
 //                      mask·[du·σ(g), du·a·σ(g)·(1 − σ(g))] from the saved h.
 //
-// In bfloat16 everything is computed in float and rounded to bfloat16 where
-// the JAX package's bfloat16 conv module rounds: u before the conv (the u
-// written for dW is the one the conv read), the conv output before
-// BatchNorm, BatchNorm's output before the act, and the output; in the GLU
-// backward du (dX's output) before the product, and dh.
+// In bfloat16 and float16 everything is computed in float and rounded to
+// the 16-bit type where the JAX package's conv module of that dtype rounds:
+// u before the conv (the u written for dW is the one the conv read), the
+// conv output before BatchNorm, BatchNorm's output before the act, and the
+// output; in the GLU backward du (dX's output) before the product, and dh.
+// Every template below takes float, __nv_bfloat16 or __half.
 //
 // In eval one launch replaces the 13 of GLU, mask, conv, BatchNorm and
 // Swish; in training the forward takes GLU and mask (5 launches become 1)
@@ -98,6 +99,7 @@
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 
@@ -142,10 +144,29 @@ struct FwdArgs {
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ float to_f32(__half v) { return __half2float(v); }
 template <typename T> __device__ __forceinline__ T from_f32(float v);
 template <> __device__ __forceinline__ float from_f32<float>(float v) { return v; }
 template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);
+  return __float2bfloat16(v);  // round to nearest even
+}
+template <> __device__ __forceinline__ __half from_f32<__half>(float v) {
+  return __float2half_rn(v);
+}
+// two packed 16-bit values (the low one first) as float, and back
+__device__ __forceinline__ float2 pair_to_f32(unsigned raw, __nv_bfloat16) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw));
+}
+__device__ __forceinline__ float2 pair_to_f32(unsigned raw, __half) {
+  return __half22float2(*reinterpret_cast<const __half2*>(&raw));
+}
+__device__ __forceinline__ unsigned pair_from_f32(float lo, float hi, __nv_bfloat16) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const unsigned*>(&v);
+}
+__device__ __forceinline__ unsigned pair_from_f32(float lo, float hi, __half) {
+  const __half2 v = __floats2half2_rn(lo, hi);
+  return *reinterpret_cast<const unsigned*>(&v);
 }
 // v as the module's tensors of type T hold it
 template <typename T> __device__ __forceinline__ float in_type(float v) {
@@ -169,8 +190,8 @@ __device__ __forceinline__ float4 load4(const T* row, int c, int C) {
       v = *reinterpret_cast<const float4*>(row + c);
     } else {
       const uint2 raw = *reinterpret_cast<const uint2*>(row + c);
-      const float2 lo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.x));
-      const float2 hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.y));
+      const float2 lo = pair_to_f32(raw.x, T());
+      const float2 hi = pair_to_f32(raw.y, T());
       v = make_float4(lo.x, lo.y, hi.x, hi.y);
     }
   } else {
@@ -188,11 +209,9 @@ __device__ __forceinline__ void store4(T* row, int c, int C, float4 v) {
     if constexpr (std::is_same<T, float>::value) {
       *reinterpret_cast<float4*>(row + c) = v;
     } else {
-      __nv_bfloat162 lo = __floats2bfloat162_rn(v.x, v.y);
-      __nv_bfloat162 hi = __floats2bfloat162_rn(v.z, v.w);
       uint2 raw;
-      raw.x = *reinterpret_cast<unsigned*>(&lo);
-      raw.y = *reinterpret_cast<unsigned*>(&hi);
+      raw.x = pair_from_f32(v.x, v.y, T());
+      raw.y = pair_from_f32(v.z, v.w, T());
       *reinterpret_cast<uint2*>(row + c) = raw;
     }
   } else {
@@ -205,7 +224,7 @@ __device__ __forceinline__ void store4(T* row, int c, int C, float4 v) {
 __device__ __forceinline__ float4 lds4(const float* p) { return *reinterpret_cast<const float4*>(p); }
 
 // shared memory of one block: the weights, the staged span as it arrives,
-// and (bfloat16) the conv's input in float; float32 forms it in place
+// and (16-bit types) the conv's input in float; float32 forms it in place
 __host__ __device__ constexpr int fwd_parts(int pro) { return pro == kGluIn ? 2 : 1; }
 template <typename T, int kPro>
 __host__ __device__ size_t fwd_smem_bytes(int K) {
@@ -411,6 +430,8 @@ int dispatch_fwd(const FwdArgs& a, int B, int dtype, cudaStream_t stream) {
     err = launch_fwd<float, kPro, kEpi>(a, B, stream);
   else if (dtype == 1)
     err = launch_fwd<__nv_bfloat16, kPro, kEpi>(a, B, stream);
+  else if (dtype == 2)
+    err = launch_fwd<__half, kPro, kEpi>(a, B, stream);
   else
     err = cudaErrorInvalidValue;
   return static_cast<int>(err);
@@ -586,8 +607,9 @@ cudaError_t launch_bwd_w(const void* x, const void* g, void* dw, void* db,
 
 }  // namespace
 
-// The forward kernel's modes.  dtype: 0 = float32, 1 = bfloat16 (the
-// activations, w and bias of that type; BatchNorm's parameters float32).
+// The forward kernel's modes.  dtype: 0 = float32, 1 = bfloat16, 2 =
+// float16 (the activations, w and bias of that type; BatchNorm's
+// parameters float32).
 // Each launches one kernel on `stream`, allocates nothing, and returns the
 // cudaError_t of the launch (0 on success).  K <= kMaxK keeps the staging
 // under 48 KB.
@@ -640,7 +662,8 @@ extern "C" int depthwise_conv1d_glu_bwd(
 }
 
 // dW (K, C) and db (C,) of the depthwise conv from x and the output
-// gradient g, both (B, T, C) of `dtype` (0 = float32, 1 = bfloat16); dw and
+// gradient g, both (B, T, C) of `dtype` (0 = float32, 1 = bfloat16, 2 =
+// float16); dw and
 // db come out in that type, sums in float32.  Launches one cluster kernel on
 // `stream`; allocates nothing.  Returns the cudaError_t of the launch (0 on
 // success).
@@ -657,6 +680,8 @@ extern "C" int depthwise_conv1d_bwd_w(
     err = launch_bwd_w<float>(x, g, dw, db, B, Tn, C, K, pad_l, stream);
   else if (dtype == 1)
     err = launch_bwd_w<__nv_bfloat16>(x, g, dw, db, B, Tn, C, K, pad_l, stream);
+  else if (dtype == 2)
+    err = launch_bwd_w<__half>(x, g, dw, db, B, Tn, C, K, pad_l, stream);
   else
     err = cudaErrorInvalidValue;
   return static_cast<int>(err);

@@ -55,6 +55,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from speechlid_tpu_torch.core.precision import compute_dtype
+from speechlid_tpu_torch.models.remat import recomputing, remat_call
 from speechlid_tpu_torch.ops.cuda.depthwise_kernel import (
     ACTIVATIONS,
     BatchNormStats,
@@ -341,7 +342,9 @@ class MaskedBatchNorm(nn.Module):
     and variance span the ranks too, and the unbiased factor takes the
     global n.  The model group's ranks hold the same rows (or a channel
     slice of them), so they take no part.  One process keeps the local
-    path."""
+    path.  In the recomputation of a rematerialized block
+    (``models/remat.py``) the running statistics stay where the forward
+    left them."""
 
     def __init__(self, channels: int, eps: float = 1e-5, momentum: float = 0.1):
         super().__init__()
@@ -359,14 +362,10 @@ class MaskedBatchNorm(nn.Module):
 
     def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         xf = x.float()
-        if self.training and data_parallel():
-            mean, var, n = _global_moments(xf, mask)
-            with torch.no_grad():
-                unbiased = var * (n / (n - 1.0).clamp_min(1.0))
-                self.running_mean.lerp_(mean, self.momentum)
-                self.running_var.lerp_(unbiased, self.momentum)
-        elif self.training:
-            if mask is None:
+        if self.training:
+            if data_parallel():
+                mean, var, n = _global_moments(xf, mask)
+            elif mask is None:
                 n = torch.tensor(float(x.shape[0] * x.shape[1]), device=x.device)
                 mean = xf.mean(dim=(0, 1))
                 var = xf.var(dim=(0, 1), unbiased=False)
@@ -375,10 +374,11 @@ class MaskedBatchNorm(nn.Module):
                 n = m.sum(dim=(0, 1)).clamp_min(1.0)
                 mean = (xf * m).sum(dim=(0, 1)) / n
                 var = (xf.square() * m).sum(dim=(0, 1)) / n - mean.square()
-            with torch.no_grad():
-                unbiased = var * (n / (n - 1.0).clamp_min(1.0))
-                self.running_mean.lerp_(mean, self.momentum)
-                self.running_var.lerp_(unbiased, self.momentum)
+            if not recomputing():  # a rematerialized block moves them once
+                with torch.no_grad():
+                    unbiased = var * (n / (n - 1.0).clamp_min(1.0))
+                    self.running_mean.lerp_(mean, self.momentum)
+                    self.running_var.lerp_(unbiased, self.momentum)
         else:
             mean, var = self.running_mean, self.running_var
         y = (xf - mean) * torch.rsqrt(var + self.eps)
@@ -497,9 +497,12 @@ class Conv2dSubsampling(nn.Module):
 class ConformerModel(nn.Module):
     """Subsample → ×√d → positional dropout → N ConformerBlocks over the
     valid-frame mask, with linear stochastic depth in training mode; every
-    block and the subsampling compute in ``dtype`` (``"float32"`` or
-    ``"bfloat16"``), the output in it; the blocks' projections take
-    ``quant_dot``."""
+    block and the subsampling compute in ``dtype`` (``"float32"``,
+    ``"bfloat16"`` or ``"float16"``), the output in it; the blocks'
+    projections take ``quant_dot``.  ``remat``: each block is
+    rematerialized in the backward pass (``models/remat.remat_call``, JAX's
+    ``nn.remat``): its activations are not kept, for one more forward of
+    the block in the backward; the step's numbers do not change."""
 
     def __init__(self, n_blocks: int = 14, n_mels: int = 80, encoder_dim: int = 144,
                  dim_head: int = 64, heads: int = 4, ff_mult: int = 4,
@@ -509,10 +512,11 @@ class ConformerModel(nn.Module):
                  conv_dropout: float = 0.0, pos_dropout: float = 0.1,
                  use_stochastic_depth: bool = True, stochastic_depth_p: float = 0.7,
                  dtype: Union[str, torch.dtype] = torch.float32,
-                 quant_dot: Optional[str] = None):
+                 quant_dot: Optional[str] = None, remat: bool = False):
         super().__init__()
         dtype = compute_dtype(dtype)
         self.dtype = dtype
+        self.remat = remat
         self.encoder_dim = encoder_dim
         self.sub_sampling = sub_sampling
         self.pos_dropout = Dropout(pos_dropout)
@@ -553,7 +557,7 @@ class ConformerModel(nn.Module):
         if self.training and self.use_stochastic_depth:
             keep = self.draw_keep(x.device)
         for i, block in enumerate(self.blocks):
-            y = block(x, mask)
+            y = remat_call(block, x, mask) if self.remat else block(x, mask)
             # a dropped block still ran: its BatchNorm statistics have moved
             x = y if keep is None else torch.where(keep[i], y, x)
         return x  # (B, T', encoder_dim)

@@ -91,14 +91,15 @@ class Featurizer(nn.Module):
 class SSLFeaturizerModel(nn.Module):
     """Upstream (WavLM or wav2vec2) + Featurizer: (B, T) normalised wave →
     (B, T', C).  Span masking runs in training mode (the JAX module's
-    ``mask=not deterministic``)."""
+    ``mask=not deterministic``); ``remat`` rematerializes each encoder
+    layer in the backward pass (:class:`WavLM`)."""
 
     def __init__(self, config: WavLMConfig, feature_selection: str = "last_hidden_state",
-                 mask_attention: bool = False):
+                 mask_attention: bool = False, remat: bool = False):
         super().__init__()
         self.config = config
         self.feature_selection = feature_selection
-        self.upstream = WavLM(config, mask_attention=mask_attention)
+        self.upstream = WavLM(config, mask_attention=mask_attention, remat=remat)
         if feature_selection != "last_hidden_state":
             self.featurizer = Featurizer(config.encoder_layers + 1, feature_selection)
 

@@ -62,6 +62,7 @@ import torch.nn.functional as F
 
 from speechlid_tpu_torch.core.precision import compute_dtype
 from speechlid_tpu_torch.models.conformer import Conv1d, Dropout, LayerNorm, Linear
+from speechlid_tpu_torch.models.remat import remat_call
 from speechlid_tpu_torch.ops.quant import Dot, quant_dot_general
 from speechlid_tpu_torch.parallel.mesh import copy_to_group
 
@@ -452,13 +453,16 @@ def compute_mask_spans(
 class WavLM(nn.Module):
     """Full WavLM; ``forward`` is the reference's ``extract_features``:
     (B, T) wave → (last hidden state (B, T', C), frame lengths or None[,
-    hidden states of every layer, input first])."""
+    hidden states of every layer, input first]).  ``remat``: each encoder
+    layer is rematerialized in the backward pass (``models/remat.py``, JAX's
+    ``nn.remat``)."""
 
-    def __init__(self, config: WavLMConfig, mask_attention: bool = False):
+    def __init__(self, config: WavLMConfig, mask_attention: bool = False, remat: bool = False):
         super().__init__()
         dtype = compute_dtype(config.dtype)
         self.config = config
         self.mask_attention = mask_attention
+        self.remat = remat
         self.generator: Optional[torch.Generator] = None
         c = config.encoder_embed_dim
         self.feature_extractor = ConvFeatureExtractor(config)
@@ -524,7 +528,10 @@ class WavLM(nn.Module):
         position_bias = None
         drop = cfg.encoder_layerdrop > 0 and self.training
         for layer in self.layers:
-            y, position_bias = layer(x, pad_mask, position_bias)
+            if self.remat:
+                y, position_bias = remat_call(layer, x, pad_mask, position_bias)
+            else:
+                y, position_bias = layer(x, pad_mask, position_bias)
             if drop:  # the layer ran; keep its output or skip it
                 keep = torch.rand((), generator=self.generator, device=x.device) \
                     >= cfg.encoder_layerdrop
@@ -543,10 +550,10 @@ class WavLMModel(nn.Module):
     layer (B, T', C), or every hidden state (L+1, B, T', C); masking only in
     training mode."""
 
-    def __init__(self, config: WavLMConfig):
+    def __init__(self, config: WavLMConfig, remat: bool = False):
         super().__init__()
         self.config = config
-        self.wavlm = WavLM(config)
+        self.wavlm = WavLM(config, remat=remat)
 
     def subsampled_lengths(self, lengths: torch.Tensor) -> torch.Tensor:
         return conv_out_lengths(lengths, self.config.conv_layers)

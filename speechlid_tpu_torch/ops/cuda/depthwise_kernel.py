@@ -5,7 +5,8 @@ PyTorch versions and an emulation of the backward's tiling.
 Replaces ``speechlid_tpu/ops/pallas/depthwise_kernel.py`` (``_pallas_impl``,
 body ``_dw_kernel_3d``, and its ``custom_vjp`` ``_dw_bwd``): 'SAME'
 depthwise conv1d plus bias over (B, T, C) activations, (B, T, C) ⊛ (k, C) +
-(C,), left halo ``pad_l``, float32 accumulation for bfloat16 inputs.
+(C,), left halo ``pad_l``, float32 accumulation for bfloat16 and float16
+inputs.
 
 On the card every kernel here moves each element once for 2·k FLOP, so each
 is bound by bytes and, at the Conformer's shapes, by the floor of a launch.
@@ -26,8 +27,9 @@ the conv, and whole launches go:
   :func:`glu_mask_bwd_plain` is the formula), dW and db from
   ``depthwise_conv1d_bwd_w`` on u: two launches.
 
-In bfloat16 the kernels read and write bfloat16 and compute in float32,
-rounding to bfloat16 where the JAX package's bfloat16 conv module rounds:
+In bfloat16 (and float16) the kernels read and write that type and compute
+in float32, rounding to it where the JAX package's conv module of that
+dtype rounds:
 u = mask·GLU(h) before the conv (so the u written for dW is the u the conv
 read), the conv output before BatchNorm, BatchNorm's output before the
 act, and the act's output; in dX the conv's output du before the GLU
@@ -48,11 +50,13 @@ Every wrapper takes its plain version for tensors on the CPU and launches
 its kernel for tensors on the card; there is no other path.  Each launch of
 the forward kernel counts in ``depthwise_conv1d.launches`` (the flipped
 ones also in ``.dx_launches``, the bfloat16 ones also in
-``.bf16_launches``), in ``depthwise_conv1d.mode_launches`` under its
+``.bf16_launches``, the float16 ones in ``.f16_launches``), in
+``depthwise_conv1d.mode_launches`` under its
 mode (:data:`FWD_MODES`) and in ``depthwise_conv1d.width_launches`` under
 its mode and channel count (``"glu@144"``); a launch of
 ``depthwise_conv1d_bwd_w`` also in ``depthwise_conv1d_bwd_w
-.width_launches`` (``"bwd_w@144"``), a bfloat16 one in ``.bf16_launches``.
+.width_launches`` (``"bwd_w@144"``), a bfloat16 one in ``.bf16_launches``,
+a float16 one in ``.f16_launches``.
 """
 
 from __future__ import annotations
@@ -63,7 +67,7 @@ import torch
 
 from speechlid_tpu_torch.ops.cuda import _build
 
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 # the kernels are compiled with the same values (_build.TILING)
 MAX_KERNEL_SIZE = _build.TILING["DW_MAX_KERNEL_SIZE"]  # the staging stays under 48 KB
 TIME_CHUNK = _build.TILING["DW_BWD_TIME_CHUNK"]    # frames of one utterance per chunk of bwd_w
@@ -258,7 +262,7 @@ def _check_cuda(what: str, *tensors: torch.Tensor) -> None:
     first = tensors[0]
     if first.dtype not in _DTYPES or any(t.dtype != first.dtype for t in tensors):
         raise TypeError(
-            f"{what} kernel takes float32 or bfloat16 tensors of one dtype; got "
+            f"{what} kernel takes float32, bfloat16 or float16 tensors of one dtype; got "
             f"{[t.dtype for t in tensors]}"
         )
     if not all(t.is_contiguous() for t in tensors):
@@ -269,6 +273,7 @@ def _count(mode: str, dtype: torch.dtype, c: int) -> None:
     depthwise_conv1d.launches += 1
     depthwise_conv1d.dx_launches += mode in ("plain_dx", "glu_dx")
     depthwise_conv1d.bf16_launches += dtype == torch.bfloat16
+    depthwise_conv1d.f16_launches += dtype == torch.float16
     depthwise_conv1d.mode_launches[mode] += 1
     key = f"{mode}@{c}"
     depthwise_conv1d.width_launches[key] = depthwise_conv1d.width_launches.get(key, 0) + 1
@@ -454,6 +459,7 @@ def depthwise_conv1d_bwd_w(
     _build.check(err, "depthwise_conv1d_bwd_w")
     depthwise_conv1d_bwd_w.launches += 1
     depthwise_conv1d_bwd_w.bf16_launches += x.dtype == torch.bfloat16
+    depthwise_conv1d_bwd_w.f16_launches += x.dtype == torch.float16
     key = f"bwd_w@{c}"
     depthwise_conv1d_bwd_w.width_launches[key] = \
         depthwise_conv1d_bwd_w.width_launches.get(key, 0) + 1
@@ -525,10 +531,12 @@ def reset_launch_counts() -> None:
     depthwise_conv1d.launches = 0
     depthwise_conv1d.dx_launches = 0
     depthwise_conv1d.bf16_launches = 0
+    depthwise_conv1d.f16_launches = 0
     depthwise_conv1d.mode_launches = dict.fromkeys(FWD_MODES, 0)
     depthwise_conv1d.width_launches = {}
     depthwise_conv1d_bwd_w.launches = 0
     depthwise_conv1d_bwd_w.bf16_launches = 0
+    depthwise_conv1d_bwd_w.f16_launches = 0
     depthwise_conv1d_bwd_w.width_launches = {}
 
 

@@ -124,14 +124,18 @@ class _Int8DotSTE(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        x, w = ctx.saved_tensors
-        n, k = w.shape
-        g2 = g.reshape(-1, n)
-        gw_type = torch.promote_types(g.dtype, w.dtype)
-        gx_type = torch.promote_types(g.dtype, x.dtype)
-        g_x = (g2.to(gw_type) @ w.to(gw_type)).to(x.dtype).reshape(x.shape)
-        g_w = (g2.t().to(gx_type) @ x.reshape(-1, k).to(gx_type)).to(w.dtype)
-        return g_x, g_w
+        return _exact_backward(*ctx.saved_tensors, g)
+
+
+def _exact_backward(x: torch.Tensor, w: torch.Tensor, g: torch.Tensor):
+    """(g_x, g_w) of the exact product ``x @ wᵀ`` under its gradient ``g``."""
+    n, k = w.shape
+    g2 = g.reshape(-1, n)
+    gw_type = torch.promote_types(g.dtype, w.dtype)
+    gx_type = torch.promote_types(g.dtype, x.dtype)
+    g_x = (g2.to(gw_type) @ w.to(gw_type)).to(x.dtype).reshape(x.shape)
+    g_w = (g2.t().to(gx_type) @ x.reshape(-1, k).to(gx_type)).to(w.dtype)
+    return g_x, g_w
 
 
 def int8_dot_ste(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -164,20 +168,38 @@ def int8_linear_reference(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return _int8_dot(x, w, int8_matmul_reference)
 
 
+def _amax_share(t: torch.Tensor, amax: torch.Tensor, d_amax: torch.Tensor,
+                count: torch.Tensor) -> torch.Tensor:
+    """The gradient of ``amax = max|t|`` over t's last axis into ``t``
+    (float32): ``d_amax`` split evenly over the ``count`` elements that hold
+    the maximum (over the whole group), signed as ``t``: autograd's
+    ``amax`` and ``abs`` backward, in their order of operations."""
+    hit = (t.float().abs() == amax[:, None]).float()
+    return (d_amax[:, None] / count[:, None]) * hit * t.float().sgn()
+
+
 class _RowParallelInt8(torch.autograd.Function):
     """The int8 product of a row-parallel Linear (its contracted axis K
     split over ``group``), bit-equal to the unsharded :func:`int8_dot` as
     GSPMD computes it: each activation row's and each weight column's
     abs-max is the MAX over the group of the ranks' maxima, every rank
     quantizes its slice with those scales, the int32 partial sums are
-    all-reduced (exact), then one rescale.  Backward (``int8_ste``): the
-    exact product's, this rank's share of it."""
+    all-reduced (exact), then one rescale.
+
+    Backward, ``int8_ste``: the exact product's, this rank's share of it.
+    ``int8``: the gradient of the unsharded :func:`int8_dot`, as JAX
+    differentiates the sharded program.  ``round`` has none, so it flows
+    through the scales alone: d(row scale) = Σ_n g·out32·col and d(column
+    scale) = Σ_m g·out32·row (the same on every rank: g and the summed
+    out32 are), then through ``s = amax/127`` into the elements that hold
+    the global maximum, on whichever rank holds them, split evenly over all
+    tied elements of the group (their count is one more all-reduce, as the
+    one-process ``amax`` counts them)."""
 
     @staticmethod
-    def forward(ctx, x, w, group):
+    def forward(ctx, x, w, group, kind):
         from speechlid_tpu_torch.parallel.mesh import all_reduce_
 
-        ctx.save_for_backward(x, w)
         lead, k = x.shape[:-1], x.shape[-1]
         x2 = x.reshape(-1, k)
         amax = torch.cat([x2.float().abs().amax(dim=-1), w.float().abs().amax(dim=-1)])
@@ -185,25 +207,39 @@ class _RowParallelInt8(torch.autograd.Function):
         s = torch.where(amax > 0, amax * INV_127, torch.ones_like(amax))
         row, col = s[:x2.shape[0], None], s[x2.shape[0]:]
         out32 = all_reduce_(int8_matmul(quantize(x2, row), quantize(w, col[:, None])), group)
+        ctx.save_for_backward(x, w, out32, amax)
+        ctx.group, ctx.kind = group, kind
         out = out32.float() * (row * col)
         return out.to(torch.promote_types(x.dtype, w.dtype)).reshape(*lead, w.shape[0])
 
     @staticmethod
+    @torch.autograd.function.once_differentiable
     def backward(ctx, g):
-        g_x, g_w = _Int8DotSTE.backward(ctx, g)
-        return g_x, g_w, None
+        x, w, out32, amax = ctx.saved_tensors
+        if ctx.kind == "int8_ste":
+            return (*_exact_backward(x, w, g), None, None)
+        from speechlid_tpu_torch.parallel.mesh import all_reduce_
+
+        m, n = out32.shape
+        x2 = x.reshape(m, -1)
+        s = torch.where(amax > 0, amax * INV_127, torch.ones_like(amax))
+        row, col = s[:m, None], s[m:]
+        g_p = g.reshape(m, n).float() * out32.float()  # d(row ⊗ col)
+        d_s = torch.cat([(g_p * col).sum(dim=1), (g_p * row).sum(dim=0)])
+        d_amax = torch.where(amax > 0, d_s * INV_127, torch.zeros_like(d_s))
+        hits = torch.cat([(x2.float().abs() == amax[:m, None]).sum(dim=-1),
+                          (w.float().abs() == amax[m:, None]).sum(dim=-1)]).float()
+        count = all_reduce_(hits, ctx.group)
+        g_x = _amax_share(x2, amax[:m], d_amax[:m], count[:m]).to(x.dtype).reshape(x.shape)
+        g_w = _amax_share(w, amax[m:], d_amax[m:], count[m:]).to(w.dtype)
+        return g_x, g_w, None, None
 
 
 def row_parallel_int8(x: torch.Tensor, w: torch.Tensor, group, kind: str) -> torch.Tensor:
     """``x @ wᵀ`` summed over ``group`` (``x`` (..., K/n), ``w`` (N, K/n))
-    in the int8 engine of ``kind``.  ``"int8_ste"`` differentiates as the
-    exact product; ``"int8"``'s gradient through the scales' abs-max, which
-    here spans ranks, is not ported and raises where autograd would need
-    it."""
-    if kind == "int8" and torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
-        raise NotImplementedError(
-            "quant_dot='int8' has no backward in a row-parallel Linear: train with "
-            "'int8_ste', or run int8 under torch.no_grad()")
+    in the int8 engine of ``kind``, differentiable as :class:`_RowParallelInt8`
+    says: ``"int8_ste"`` as the exact product, ``"int8"`` through the
+    scales' abs-max over the whole group."""
     if kind not in ("int8", "int8_ste"):
         raise ValueError(f"unknown quant_dot kind: {kind!r}")
-    return _RowParallelInt8.apply(x, w, group)
+    return _RowParallelInt8.apply(x, w, group, kind)

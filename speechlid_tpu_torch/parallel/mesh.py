@@ -101,8 +101,11 @@ def initialize_multihost(
 
 
 def shutdown() -> None:
-    """Leave the process group (a no-op when none was joined)."""
+    """Leave the process group (a no-op when none was joined), after every
+    rank has come this far: a rank that tore its connections down while a
+    peer still read its last collective's data aborted that peer."""
     if dist.is_available() and dist.is_initialized():
+        dist.barrier()
         _HOST_GROUPS.pop(id(dist.group.WORLD), None)
         _CURRENT.clear()
         dist.destroy_process_group()

@@ -53,8 +53,12 @@ joins the encoder's collectives) and every rank's loss takes the owner's
 value, broadcast over the model group.  Validation gathers its metrics
 over the data group, whose ranks hold different rows.
 
-Accepted and without effect here: ``remat`` and ``scan_blocks`` (they
-change how XLA compiles the same numbers).
+``remat``: each Conformer block, or each SSL encoder layer, is
+rematerialized in the backward pass (``models/remat.py``, where JAX puts
+``nn.remat``; the heads are not, as in JAX): less activation memory for one
+more forward of the encoder in the backward, the same numbers bit for bit.
+``scan_blocks`` is accepted and without effect: it changes only how XLA
+compiles the same numbers (the checkpoint converter reads scanned trees).
 """
 
 from __future__ import annotations
@@ -212,6 +216,7 @@ class LidASRTask(TaskModule):
                 dim_head=dim_head, sub_sampling=sub_sampling, use_double_swish=double_swish,
                 pos_dropout=pos_dropout, use_stochastic_depth=use_stochastic_depth,
                 stochastic_depth_p=stochastic_depth_p, dtype=self.dtype, quant_dot=quant_dot,
+                remat=remat,
             )
         else:
             if pt_path:
@@ -228,7 +233,8 @@ class LidASRTask(TaskModule):
                 ssl_cfg = dataclasses.replace(
                     ssl_cfg, quant_dot=quant_dot,
                     conv_extractor_impl=ssl_conv_impl or ssl_cfg.conv_extractor_impl)
-            featurizer_module = SSLFeaturizerModel(ssl_cfg, feature_selection=feature_selection)
+            featurizer_module = SSLFeaturizerModel(ssl_cfg, feature_selection=feature_selection,
+                                                   remat=remat)
             encoder_dim = ssl_cfg.encoder_embed_dim  # the heads' width
         self.model = MutiLangModel(
             featurizer_module, self.vocab_sizes, linear_dim=encoder_dim,

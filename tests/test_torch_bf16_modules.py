@@ -219,5 +219,6 @@ def test_layers_cast_per_call_and_keep_float32_parameters():
         assert p.dtype == torch.float32 and p.grad.dtype == torch.float32
     assert compute_dtype("bfloat16") is torch.bfloat16
     assert compute_dtype(torch.float32) is torch.float32
-    with pytest.raises(NotImplementedError, match="float16"):
-        compute_dtype("float16")
+    assert compute_dtype("float16") is torch.float16  # ported too (tests/test_torch_f16.py)
+    with pytest.raises(NotImplementedError, match="float64"):
+        compute_dtype("float64")

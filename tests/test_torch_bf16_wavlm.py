@@ -159,5 +159,7 @@ def test_config_dtype_names():
     model = pwavlm.WavLM(pwavlm.WavLMConfig.from_dict(conf))
     assert model.layers[0].fc1.compute_dtype == torch.bfloat16
     assert model.feature_extractor.conv_0.compute_dtype == torch.bfloat16
-    with pytest.raises(NotImplementedError, match="float16"):
-        pwavlm.WavLM(pwavlm.WavLMConfig.from_dict(dict(TINY_SSL, dtype="float16")))
+    half = pwavlm.WavLM(pwavlm.WavLMConfig.from_dict(dict(TINY_SSL, dtype="float16")))
+    assert half.layers[0].fc1.compute_dtype == torch.float16
+    with pytest.raises(NotImplementedError, match="float64"):
+        pwavlm.WavLM(pwavlm.WavLMConfig.from_dict(dict(TINY_SSL, dtype="float64")))

@@ -46,7 +46,7 @@ def test_port_imports_no_jax():
                  "cli.prepare_text", "cli.prepare_spectrum", "data.text", "models.extras",
                  "tasks.extras", "parallel", "parallel.mesh", "metrics.dist",
                  "parallel.sharding", "parallel.pipeline", "parallel.dryrun",
-                 "models.seldnet", "core.loggers.backends"):
+                 "models.seldnet", "core.loggers.backends", "models.remat"):
         assert f"speechlid_tpu_torch.{name}" in modules, name
     result = subprocess.run(
         [sys.executable, "-c", CHECK, "chip_smoke", *modules],

@@ -178,12 +178,15 @@ def test_frozen_parameter_keeps_moments_and_resumes():
 
 def test_factory_rejects_what_is_not_ported():
     named = _torch_side(_tree())
-    # novograd is ported (tests/test_torch_novograd.py holds it to optax);
-    # options of the other optimizers are not
+    # every optimizer's options are ported (tests/test_torch_novograd.py and
+    # tests/test_torch_optim_conf.py hold them to optax); a key an optimizer
+    # does not take raises
     novograd, _ = make_optimizer(named, "novograd", optim_conf=dict(amsgrad=True))
     assert novograd.nu_max is not None and all(n.shape == () for n in novograd.nu)
-    with pytest.raises(NotImplementedError):
-        make_optimizer(named, "adam", optim_conf=dict(b1=0.8))
+    adam, _ = make_optimizer(named, "adam", optim_conf=dict(b1=0.8))
+    assert adam.b1 == 0.8
+    with pytest.raises(TypeError):
+        make_optimizer(named, "adam", optim_conf=dict(beta1=0.8))
     with pytest.raises(TypeError):
         make_optimizer(named, "novograd", optim_conf=dict(beta3=0.5))
     with pytest.raises(ValueError):

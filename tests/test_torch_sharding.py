@@ -20,7 +20,10 @@ against the JAX sharder, on the CPU.
   1); the same for a tiny WavLM with the gated relative
   position bias on; the whole state gathered back equals the state loaded;
 - a row-parallel int8 product on 2 ranks: bit-equal to the one-process
-  ``int8_linear`` and to JAX's ``int8_dot_general``."""
+  ``int8_linear`` and to JAX's ``int8_dot_general``; its gradient, for
+  ``int8`` (through the abs-max scales, ties split over the group) and
+  ``int8_ste``, bit-equal to the one-process port's and within 1e-6 of JAX's
+  program sharded over a 2-device mesh."""
 
 import jax
 import jax.numpy as jnp
@@ -30,7 +33,7 @@ import torch
 
 from speechlid_tpu.models.wavlm import WavLM as JaxWavLM, WavLMConfig as JaxWavLMConfig
 from speechlid_tpu.ops.ctc import ctc_loss as jax_ctc_loss
-from speechlid_tpu.ops.quant import int8_dot_general
+from speechlid_tpu.ops.quant import int8_dot_general, int8_dot_general_ste
 from speechlid_tpu.parallel import (
     CONFORMER_TP_RULES as JAX_TP_RULES,
     EP_RULES as JAX_EP_RULES,
@@ -336,12 +339,28 @@ def test_wavlm_tp_forward_and_gradients(tp_model_runs):
 
 # ------------------------------------------------------------------- int8
 
-def test_row_parallel_int8_is_bit_equal(tmp_path):
+@pytest.fixture(scope="module")
+def int8_rows(tmp_path_factory):
+    """x, w, the cotangent and the two ranks' outputs of ``job_int8_row``.
+    Row 3's abs-max lies on rank 1's half of K alone; row 7's is tied
+    across the ranks (9 and −9), row 9's within rank 0; weight row 2's is
+    tied across the ranks."""
     rng = np.random.RandomState(5)
     x = rng.randn(33, 64).astype(np.float32)
     w = rng.randn(48, 64).astype(np.float32)
-    x[3, 40] = 25.0  # a row's max on rank 1's half of K
-    ranks = run_ranks("int8_row", tmp_path, {"x": torch.from_numpy(x), "w": torch.from_numpy(w)})
+    cot = rng.randn(33, 48).astype(np.float32)
+    x[3, 40] = 25.0
+    x[7, 5], x[7, 50] = 9.0, -9.0
+    x[9, 1] = x[9, 2] = 7.0
+    w[2, 10] = w[2, 33] = 6.0
+    ranks = run_ranks("int8_row", tmp_path_factory.mktemp("int8_row"),
+                      {"x": torch.from_numpy(x), "w": torch.from_numpy(w),
+                       "cot": torch.from_numpy(cot)})
+    return x, w, cot, ranks
+
+
+def test_row_parallel_int8_is_bit_equal(int8_rows):
+    x, w, _, ranks = int8_rows
     one = int8_linear(torch.from_numpy(x), torch.from_numpy(w), "int8")
     dn = (((1,), (0,)), ((), ()))
     want = np.asarray(jax.jit(lambda a, b: int8_dot_general(a, b, dn))(x, w.T.copy()))
@@ -350,13 +369,54 @@ def test_row_parallel_int8_is_bit_equal(tmp_path):
         np.testing.assert_array_equal(out["y"].numpy(), want)
 
 
+@pytest.mark.parametrize("kind", ["int8", "int8_ste"])
+def test_row_parallel_int8_gradient(int8_rows, kind):
+    """The ranks' gradient slices, put together, equal the one-process
+    port's gradient bit for bit (ties split over the whole group, as
+    ``amax`` splits them), and JAX's gradient of its program sharded over a
+    2-device mesh (x's and w's contracted axis on ``model``) within 1e-6 of
+    the largest entry: the two sum the scale gradients in another order."""
+    from jax.sharding import Mesh as JaxMesh, NamedSharding, PartitionSpec
+
+    x, w, cot, ranks = int8_rows
+    xt, wt = torch.from_numpy(x).requires_grad_(True), torch.from_numpy(w).requires_grad_(True)
+    (int8_linear(xt, wt, kind) * torch.from_numpy(cot)).sum().backward()
+    got_dx = torch.cat([out[kind]["dx"] for out in ranks], dim=-1)
+    got_dw = torch.cat([out[kind]["dw"] for out in ranks], dim=-1)
+    assert torch.equal(got_dx, xt.grad) and torch.equal(got_dw, wt.grad)
+    for out in ranks:
+        assert torch.equal(out[kind]["y"], ranks[0]["y"])
+    if kind == "int8":  # the ties each take their share, on either rank
+        assert got_dx[7, 5] != 0 and got_dx[7, 50] != 0 and got_dx[9, 1] == got_dx[9, 2] != 0
+        assert got_dw[2, 10] == got_dw[2, 33] != 0
+    dn = (((1,), (0,)), ((), ()))
+    jdot = int8_dot_general if kind == "int8" else int8_dot_general_ste
+    mesh = JaxMesh(np.array(jax.devices()[:2]), ("model",))
+    grad = jax.jit(jax.grad(lambda a, b: jnp.sum(jdot(a, b, dn) * cot), argnums=(0, 1)),
+                   in_shardings=(NamedSharding(mesh, PartitionSpec(None, "model")),
+                                 NamedSharding(mesh, PartitionSpec("model", None))))
+    want_dx, want_dwt = (np.asarray(g) for g in grad(x, w.T.copy()))
+    for got, want in ((got_dx.numpy(), want_dx), (got_dw.numpy(), want_dwt.T)):
+        np.testing.assert_allclose(got, want, rtol=0, atol=1e-6 * np.abs(want).max())
+
+
 def test_row_parallel_int8_refuses_a_backward():
+    """Both engines now have a backward in a row-parallel Linear (in a
+    group of one, ``int8``'s equals the one-process product's bit for bit);
+    an unknown engine still raises."""
     from speechlid_tpu_torch.ops.quant import row_parallel_int8
     from speechlid_tpu_torch.parallel.mesh import Group
 
     x = torch.randn(4, 8, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="int8_ste"):
-        row_parallel_int8(x, torch.randn(3, 8), Group(ranks=(0,)), "int8")
+    w = torch.randn(3, 8)
+    y = row_parallel_int8(x, w, Group(ranks=(0,)), "int8")
+    y.sum().backward()
+    x1 = x.detach().clone().requires_grad_(True)
+    int8_linear(x1, w, "int8").sum().backward()
+    assert torch.equal(x.grad, x1.grad)
+    with pytest.raises(ValueError, match="quant_dot"):
+        row_parallel_int8(x, w, Group(ranks=(0,)), "int4")
+    x.grad = None
     y = row_parallel_int8(x, torch.randn(3, 8), Group(ranks=(0,)), "int8_ste")
     y.sum().backward()
     assert x.grad is not None

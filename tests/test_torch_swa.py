@@ -33,6 +33,7 @@ from speechlid_tpu.core.callbacks import Callback as JaxCallback
 from speechlid_tpu.tasks.lid_cross_entropy import LidCrossEntropyTask as JaxCETask
 from speechlid_tpu_torch import convert
 from speechlid_tpu_torch.core.callbacks import Callback, CkptCallback
+from speechlid_tpu_torch.core.checkpoint import wait_for_checkpoints
 from speechlid_tpu_torch.core.trainer import Trainer
 from speechlid_tpu_torch.tasks.lid_asr import LidASRTask
 from speechlid_tpu_torch.tasks.lid_cross_entropy import LidCrossEntropyTask
@@ -161,6 +162,7 @@ def test_resumed_run_averages_on(runs, tmp_path):
     class KeepEpoch2(Callback):
         def after_eval_epoch(self, epoch, metrics):
             if epoch == 2:
+                wait_for_checkpoints()  # CkptCallback writes on a thread of its own
                 shutil.copy(tmp_path / "ckpt" / "last.ckpt", tmp_path / "epoch2.ckpt")
 
     first = LidASRTask(**HP, device="cpu")

@@ -396,8 +396,11 @@ def test_trainer_rejects_what_is_not_ported(tmp_path):
         Trainer(total_epoch=1, use_progress_bar=False, device="cpu").fit(task, [mixed])
     with pytest.raises(ValueError, match="lives on"):
         Trainer(device="meta").fit(task, [mixed])
+    # float16 compute is ported (tests/test_torch_f16.py); float64 is not
+    half = LidASRTask(**dict(HPARAMS, dtype="float16"), device="cpu")
+    assert half.dtype == torch.float16
     with pytest.raises(NotImplementedError):
-        LidASRTask(**dict(HPARAMS, dtype="float16"), device="cpu")
+        LidASRTask(**dict(HPARAMS, dtype="float64"), device="cpu")
     tiny_wavlm = dict(encoder_layers=1, encoder_embed_dim=32, encoder_ffn_embed_dim=64,
                       encoder_attention_heads=2, conv_feature_layers="[(16,10,5)]",
                       conv_pos=16, conv_pos_groups=4)

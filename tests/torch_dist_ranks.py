@@ -161,6 +161,28 @@ def job_trainer(inputs: dict, rank: int, world: int) -> dict:
     return out
 
 
+def job_ckpt_async(inputs: dict, rank: int, world: int) -> dict:
+    """``Trainer.fit`` under a data mesh with ``CkptCallback``'s async
+    writes into this rank's own directory; every write is recorded (and
+    slowed, so that writes are in flight while training goes on)."""
+    import time
+
+    from speechlid_tpu_torch.core import checkpoint
+
+    written = []
+    write = checkpoint._write
+
+    def slow_write(paths, payload):
+        time.sleep(0.2)
+        write(paths, payload)
+        written.extend(paths)
+
+    checkpoint._write = slow_write
+    out = _fit(inputs, rank, world, epochs=2, ckpt_dir=inputs["ckpt_dirs"][rank])
+    out["written"] = list(written)  # fit returned: every write has landed
+    return out
+
+
 def job_cli(inputs: dict, rank: int, world: int) -> dict:
     """``main_lid`` with ``trainer.data_parallel=true``; each rank names its
     own ``exp_dir``, so what rank 1 would write would show."""
@@ -249,17 +271,55 @@ def job_tp_model(inputs: dict, rank: int, world: int) -> dict:
     return out
 
 
+def job_tp_remat(inputs: dict, rank: int, world: int) -> dict:
+    """One train step of the tiny flagship laid out over a model axis of
+    ``world`` ranks, with ``remat`` off and on: loss, whole gradients, the
+    whole state (the BatchNorm statistics) and the generators' states."""
+    from speechlid_tpu_torch.tasks.lid_asr import LidASRTask
+
+    mesh = make_mesh(model=world)
+    out = {"calls": {}}
+    for remat in (False, True):
+        task = LidASRTask(**inputs["hparams"], remat=remat, device="cpu")
+        task.model.load_state_dict(inputs["state"])
+        make_param_sharder(mesh, EP_RULES + CONFORMER_TP_RULES)(task.model)
+        gens = torch.Generator().manual_seed(0), torch.Generator().manual_seed(1)
+        task.set_generators(*gens)
+        calls = [0]
+        for block in task.model.featurizer.blocks:  # the recomputation runs no forward hooks
+            def counted(*args, _forward=block.forward):
+                calls[0] += 1
+                return _forward(*args)
+            block.forward = counted
+        task.model.train()
+        loss, _ = task.train_loop(task.place_batch(inputs["batch"]))
+        loss.backward()
+        out["calls"][remat] = calls[0]
+        out[remat] = (loss.detach(), _grads(task.model), convert.full_state(task.model),
+                      [g.get_state() for g in gens])
+    return out
+
+
 def job_int8_row(inputs: dict, rank: int, world: int) -> dict:
-    """A row-parallel int8 product: this rank's slice of the contracted axis."""
+    """A row-parallel int8 product on this rank's slice of the contracted
+    axis: the forward under ``torch.no_grad()``, and for ``int8`` and
+    ``int8_ste`` the output and this rank's slices of the gradients under
+    the cotangent ``cot``."""
     from speechlid_tpu_torch.ops.quant import row_parallel_int8
 
     mesh = make_mesh(model=world)
     k = inputs["x"].shape[-1] // world
     cols = slice(rank * k, (rank + 1) * k)
     with torch.no_grad():
-        y = row_parallel_int8(inputs["x"][..., cols], inputs["w"][:, cols],
-                              mesh.group("model"), "int8")
-    return {"y": y}
+        out = {"y": row_parallel_int8(inputs["x"][..., cols], inputs["w"][:, cols],
+                                      mesh.group("model"), "int8")}
+    for kind in ("int8", "int8_ste"):
+        x = inputs["x"][..., cols].clone().requires_grad_(True)
+        w = inputs["w"][:, cols].clone().requires_grad_(True)
+        y = row_parallel_int8(x, w, mesh.group("model"), kind)
+        (y * inputs["cot"]).sum().backward()
+        out[kind] = {"y": y.detach(), "dx": x.grad, "dw": w.grad}
+    return out
 
 
 def _trunk(states, x, mesh, n_microbatch=None) -> dict:
@@ -307,6 +367,7 @@ def job_sp(inputs: dict, rank: int, world: int) -> dict:
 
 JOBS = {"collectives": job_collectives, "trainer": job_trainer, "cli": job_cli,
         "tp_fit": job_tp_fit, "tp_model": job_tp_model, "int8_row": job_int8_row,
+        "ckpt_async": job_ckpt_async, "tp_remat": job_tp_remat,
         "pipeline": job_pipeline, "sp": job_sp}
 
 
