@@ -1,0 +1,7 @@
+"""mfu.score: see harness.runner.mfu."""
+
+from harness.runner import mfu
+
+
+def read(run):
+    return mfu(run, train=False)
