@@ -80,6 +80,17 @@ activity on the card), one Chrome trace an epoch,
 ``<profile_dir>/epoch_<epoch>.pt.trace.json``, as the JAX trainer wraps
 them in its ``jax.profiler`` trace.  Without ``profile_dir`` no profiler
 runs.
+
+Spans (``core/profile.py``), recorded only while a profiler runs (a
+``profile_dir`` epoch, or any ``torch.profiler`` around the loop): each
+batch of ``_run_train_epoch`` is a ``trainer.step`` (id ``global_step``)
+holding ``trainer.forward``, ``trainer.backward``, at the accumulation
+boundary ``trainer.optimizer`` (⊃ ``trainer.grad_sync`` under a mesh), and
+``trainer.fetch`` of the previous step's metrics; the task's and model's
+spans nest in the forward.  They go to the profiler's trace as annotations
+and to ``_time_cost_recoder``'s records (at most ``MAX_SPANS``, until its
+``remove_recoder``).  The host totals ``get_batch``, ``batch_to_device``
+and ``train_step_dispatch`` are kept always.
 """
 
 from __future__ import annotations
@@ -97,7 +108,7 @@ from speechlid_tpu_torch.core.checkpoint import load_checkpoint, wait_for_checkp
 from speechlid_tpu_torch.core.loggers import Logger
 from speechlid_tpu_torch.core.module import TaskModule
 from speechlid_tpu_torch.core.precision import strict_float32
-from speechlid_tpu_torch.core.profile import _time_cost_recoder, device_trace
+from speechlid_tpu_torch.core.profile import BACKWARD, _time_cost_recoder, device_trace
 from speechlid_tpu_torch.core.seed import seed_everything
 from speechlid_tpu_torch.parallel.mesh import (
     Mesh,
@@ -114,6 +125,7 @@ from speechlid_tpu_torch.parallel.mesh import (
 from speechlid_tpu_torch.parallel.sharding import make_param_sharder
 
 RANK_SEED_STRIDE = 2 ** 32  # data index d's device generator: seed + d · stride
+span = _time_cost_recoder.span
 
 
 def _to_host(metrics: Dict[str, Any]) -> Dict[str, Any]:
@@ -277,15 +289,19 @@ class Trainer:
         with _time_cost_recoder.measure("batch_to_device"):
             placed = self.module.place_batch(batch)
         with _time_cost_recoder.measure("train_step_dispatch"):
-            loss, metrics = self.module.train_loop(placed)
+            with span("trainer.forward"):
+                loss, metrics = self.module.train_loop(placed)
             if loss.requires_grad:  # not when this batch reaches no trainable parameter
-                (loss / self.accum_grad).backward()
+                with span(BACKWARD):
+                    (loss / self.accum_grad).backward()
             self.global_step += 1
             if self.global_step % self.accum_grad == 0:
-                if self.mesh is not None and initialized():
-                    average_grads(self.module.model)
-                self.optimizer.step()
-                self.optimizer.zero_grad()
+                with span("trainer.optimizer"):
+                    if self.mesh is not None and initialized():
+                        with span("trainer.grad_sync"):
+                            average_grads(self.module.model)
+                    self.optimizer.step()
+                    self.optimizer.zero_grad()
         metrics = dict(metrics)
         metrics["loss"] = self._global_loss(loss.detach())
         return metrics
@@ -320,9 +336,10 @@ class Trainer:
             if batch is None:
                 break
             i += 1
-            metrics = self.train_step(batch)
-            if pending is not None:
-                self._collect_train_metrics(pending, outputs, bar)
+            with span("trainer.step", batch=self.global_step + 1):
+                metrics = self.train_step(batch)
+                if pending is not None:
+                    self._collect_train_metrics(pending, outputs, bar)
             pending = (self.global_step, metrics)
         if pending is not None:
             self._collect_train_metrics(pending, outputs, bar)
@@ -332,7 +349,8 @@ class Trainer:
 
     def _collect_train_metrics(self, pending, outputs: List[Dict], bar) -> None:
         step, metrics = pending
-        host = _to_host(metrics)
+        with span("trainer.fetch"):
+            host = _to_host(metrics)
         outputs.append(host)
         scalars = {k: v for k, v in host.items() if np.isscalar(v)}
         if bar is not None:

@@ -55,6 +55,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from speechlid_tpu_torch.core.precision import compute_dtype
+from speechlid_tpu_torch.core.profile import _time_cost_recoder
 from speechlid_tpu_torch.models.remat import recomputing, remat_call
 from speechlid_tpu_torch.ops.cuda.depthwise_kernel import (
     ACTIVATIONS,
@@ -77,6 +78,7 @@ from speechlid_tpu_torch.parallel.mesh import (
 
 LN_EPS = 1e-6  # flax nn.LayerNorm default
 _NEG = torch.finfo(torch.float32).min
+span = _time_cost_recoder.span
 
 
 def _cast_params(module: nn.Module, x: torch.Tensor):
@@ -548,7 +550,9 @@ class ConformerModel(nn.Module):
         return Conv1dSubSampling2.out_lengths(lengths)
 
     def forward(self, x: torch.Tensor, lengths: Optional[torch.Tensor] = None) -> torch.Tensor:
-        x = self.pos_dropout(self.subsample(x) * math.sqrt(self.encoder_dim))
+        with span("model.extractor"):
+            x = self.subsample(x)
+        x = self.pos_dropout(x * math.sqrt(self.encoder_dim))
         mask = None
         if lengths is not None:
             sub_len = self.subsampled_lengths(lengths)

@@ -49,12 +49,14 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from speechlid_tpu_torch.core.precision import compute_dtype
+from speechlid_tpu_torch.core.profile import _time_cost_recoder
 from speechlid_tpu_torch.models.conformer import ConformerBlock, Dropout, Linear
 from speechlid_tpu_torch.models.rnn import BiLSTM
 from speechlid_tpu_torch.models.wavlm import WavLMConfig, convert_wavlm_state
 from speechlid_tpu_torch.parallel.mesh import copy_to_group, gather_from_group
 
 _NEG = torch.finfo(torch.float32).min
+span = _time_cost_recoder.span
 
 
 class ConformerLinearHead(nn.Module):
@@ -259,23 +261,26 @@ class MutiLangModel(nn.Module):
 
     def forward(self, x: torch.Tensor, lengths: Optional[torch.Tensor] = None,
                 only: Optional[int] = None):
-        feats = self.featurizer(x, lengths)
-        feat_lengths = None if lengths is None else self.featurizer.subsampled_lengths(lengths)
-        return self.heads(feats, feat_lengths, only), feat_lengths
+        with span("model.featurizer"):
+            feats = self.featurizer(x, lengths)
+            feat_lengths = None if lengths is None else self.featurizer.subsampled_lengths(lengths)
+        with span("model.heads"):
+            return self.heads(feats, feat_lengths, only), feat_lengths
 
     def infer(self, x: torch.Tensor, lengths: Optional[torch.Tensor] = None
               ) -> Dict[str, torch.Tensor]:
         """All-language inference: logits, feat_lengths, confidence scores,
         MLP scores and the predicted language (argmax of the scores)."""
         logits, feat_lengths = self(x, lengths)
-        scores = lang_confidence_scores(logits, self.vocab_sizes, feat_lengths)
-        return {
-            "logits": logits,
-            "feat_lengths": feat_lengths,
-            "scores": scores,
-            "mlp_scores": self.discriminator(scores),
-            "pred_lang": scores.argmax(dim=-1),
-        }
+        with span("model.scores"):
+            scores = lang_confidence_scores(logits, self.vocab_sizes, feat_lengths)
+            return {
+                "logits": logits,
+                "feat_lengths": feat_lengths,
+                "scores": scores,
+                "mlp_scores": self.discriminator(scores),
+                "pred_lang": scores.argmax(dim=-1),
+            }
 
 
 # ---------------------------------------------------------------------------

@@ -61,6 +61,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from speechlid_tpu_torch.core.precision import compute_dtype
+from speechlid_tpu_torch.core.profile import _time_cost_recoder
 from speechlid_tpu_torch.models.conformer import Conv1d, Dropout, LayerNorm, Linear
 from speechlid_tpu_torch.models.remat import remat_call
 from speechlid_tpu_torch.ops.quant import Dot, quant_dot_general
@@ -68,6 +69,7 @@ from speechlid_tpu_torch.parallel.mesh import copy_to_group
 
 LN_EPS = 1e-5  # the reference's LayerNorm/GroupNorm eps (not flax's 1e-6)
 _NEG = torch.finfo(torch.float32).min
+span = _time_cost_recoder.span
 
 
 def _eval_conv_spec(spec: str) -> List[Tuple[int, int, int]]:
@@ -490,7 +492,8 @@ class WavLM(nn.Module):
             mean = source.mean(dim=-1, keepdim=True)
             var = source.var(dim=-1, keepdim=True, unbiased=False)
             source = (source - mean) / torch.sqrt(var + 1e-5)
-        features = self.feature_extractor(source)
+        with span("model.extractor"):
+            features = self.feature_extractor(source)
         if cfg.feature_grad_mult == 0.0:
             features = features.detach()
         elif cfg.feature_grad_mult != 1.0:

@@ -64,6 +64,7 @@ compiles the same numbers (the checkpoint converter reads scanned trees).
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import logging
 from typing import Any, Dict, List, Optional, Union
 
@@ -73,6 +74,7 @@ import torch
 from speechlid_tpu_torch.core.module import TaskModule
 from speechlid_tpu_torch.core.optim import make_optimizer
 from speechlid_tpu_torch.core.precision import compute_dtype, strict_float32
+from speechlid_tpu_torch.core.profile import _time_cost_recoder
 from speechlid_tpu_torch.metrics import CAvg, CharErrorRate, EER, WordErrorRate
 from speechlid_tpu_torch.metrics.dist import allreduce_sum_counts
 from speechlid_tpu_torch.models.conformer import ConformerModel, set_generator
@@ -94,6 +96,7 @@ SSL_FEATURIZERS = ("wavlm", "wav2vec2")
 # each freeze gate holds, as the JAX task's mask names them
 SSL_EXTRACTOR_PARTS = (".feature_extractor.", ".post_extract_proj.")
 SSL_TRANSFORMER_PARTS = (".layers.", ".pos_conv.", ".encoder_layer_norm.")
+span = _time_cost_recoder.span
 
 
 def normalize_scores(scores: np.ndarray) -> np.ndarray:
@@ -298,11 +301,12 @@ class LidASRTask(TaskModule):
         """The featurizer's input and its lengths: fbank features for the
         Conformer, the normalised wave for an SSL upstream (its conv
         extractor is the frontend)."""
-        if self.featurizer_kind == "conformer":
-            return self._features(wavs, wav_lengths, augment)
-        if augment and self._generator is None:
-            raise RuntimeError("training needs set_generators() first (the Trainer calls it)")
-        return normalize_wav(wavs, wav_lengths), wav_lengths
+        with span("task.frontend"):
+            if self.featurizer_kind == "conformer":
+                return self._features(wavs, wav_lengths, augment)
+            if augment and self._generator is None:
+                raise RuntimeError("training needs set_generators() first (the Trainer calls it)")
+            return normalize_wav(wavs, wav_lengths), wav_lengths
 
     def _features(self, wavs: torch.Tensor, wav_lengths: Optional[torch.Tensor],
                   augment: bool = False):
@@ -347,8 +351,9 @@ class LidASRTask(TaskModule):
             # the plain batch mean of the UNNORMALISED per-sample NLLs, not
             # torch's label-length-normalised 'mean': the scale (× mean label
             # length) is part of the effective learning rate
-            loss = ctc_loss(lp, batch["texts"], feat_lens, batch["text_lengths"], blank=-1,
-                            reduction="none").mean()
+            with span("task.loss"):
+                loss = ctc_loss(lp, batch["texts"], feat_lens, batch["text_lengths"], blank=-1,
+                                reduction="none").mean()
         if train and heads.expert_group is not None:  # the owner's value on every rank
             value = broadcast(loss.detach().clone(), heads.expert_group,
                               own_lang // heads.experts_per_rank)
@@ -483,15 +488,18 @@ class LidASRTask(TaskModule):
     # ---------------------------------------------------------------- infer
     def infer_fn(self):
         """``fn(wavs (B, T), wav_lengths (B,)) → infer dict`` on the task's
-        device (inputs are moved there), in eval mode."""
+        device (inputs are moved there), in eval mode; each call is a
+        ``task.infer`` span (``core/profile.py``), its id the call's number."""
+        calls = itertools.count(1)
 
         @torch.inference_mode()
         def fn(wavs: torch.Tensor, wav_lengths: Optional[torch.Tensor] = None):
-            self.model.eval()
-            wavs = wavs.to(self.device, torch.float32)
-            if wav_lengths is not None:
-                wav_lengths = wav_lengths.to(self.device)
-            feats, f_len = self._model_inputs(wavs, wav_lengths)
-            return self.model.infer(feats, f_len)
+            with span("task.infer", batch=next(calls)):
+                self.model.eval()
+                wavs = wavs.to(self.device, torch.float32)
+                if wav_lengths is not None:
+                    wav_lengths = wav_lengths.to(self.device)
+                feats, f_len = self._model_inputs(wavs, wav_lengths)
+                return self.model.infer(feats, f_len)
 
         return fn
