@@ -10,6 +10,7 @@
     python3 chip_smoke.py --only dist  # data-parallel training and SELDNet alone
     python3 chip_smoke.py --only mp  # tensor, expert, pipeline, sequence parallelism alone
     python3 chip_smoke.py --only large  # WavLM-Large, remat, async checkpoints, float16 alone
+    python3 chip_smoke.py --only subsample  # the Conv2d subsampling kernels alone
 
 It builds the port's CUDA kernels from ``speechlid_tpu_torch/csrc`` (into
 ``build/``), holds each kernel, forward and backward, and each fused mode of
@@ -137,6 +138,7 @@ seeded ``torch.Generator``.  Imports nothing of JAX.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import ctypes
 import gc
 import importlib.util
@@ -190,6 +192,7 @@ from speechlid_tpu_torch.models.se import DPRNNEnhancer, si_snr
 from speechlid_tpu_torch.models.seldnet import seldnet_augmented, seldnet_vanilla
 from speechlid_tpu_torch.models.conformer import (
     ConformerConvModule,
+    Conv2dSubsampling,
     DepthwiseConv1d,
     Dropout,
     FBankLayer,
@@ -220,6 +223,13 @@ from speechlid_tpu_torch.ops.cuda.fbank_kernel import (
     log_mel,
     log_mel_plain,
     log_mel_tiled_plain,
+)
+from speechlid_tpu_torch.ops.cuda import subsample_kernel
+from speechlid_tpu_torch.ops.cuda.subsample_kernel import (
+    out_frames,
+    subsample_bwd,
+    subsample_conv_plain,
+    subsample_fwd,
 )
 from speechlid_tpu_torch.tasks.asr import ASRTask
 from speechlid_tpu_torch.tasks.extras import (
@@ -1071,17 +1081,39 @@ def synthetic_batch(rng: np.random.RandomState, lang: int, b: int, seconds: floa
 
 def pin_subsampling_relus(card_sub, cpu_sub) -> dict:
     """Make the CPU side's Conv2d subsampling take each ReLU decision from
-    the card's forward: hooks on the card's two convs record which units are
-    positive, and the CPU's subsampling (the same convs and Linear as
-    ``Conv2dSubsampling.forward``) multiplies by those masks in place of its
-    ReLUs.  Returns the hooks and, filled in by the CPU's forward, how many
-    units of each ReLU the CPU's own rounding would have decided otherwise."""
-    masks, differ = [], {"conv0": 0, "conv1": 0}
-    hooks = [conv.register_forward_hook(lambda mod, args, out: masks.append((out > 0).cpu()))
-             for conv in (card_sub.conv0, card_sub.conv1)]
+    the card's forward: hooks record which units are positive, conv1's from
+    the input of the card's Linear (the kernel's or the chain's output),
+    conv0's from the card's conv0 where the chain ran it, else from the
+    card's plain conv0 over the same input (float32, TF32 off: the
+    kernel's decisions but for a unit within rounding of 0); the CPU's
+    subsampling (the same convs and Linear as ``Conv2dSubsampling.forward``)
+    multiplies by those masks in place of its ReLUs.  Returns the hooks and,
+    filled in by the CPU's forward, how many units of each ReLU the CPU's
+    own rounding would have decided otherwise."""
+    masks, differ = {}, {"conv0": 0, "conv1": 0}
+
+    def record_input(mod, args):
+        masks["x"] = args[0].detach()
+
+    def record_conv0(mod, args, out):
+        masks["conv0"] = (out > 0).cpu()
+
+    def record_conv1(mod, args):
+        b, t, _ = args[0].shape
+        y = args[0].detach().reshape(b, t, -1, card_sub.conv1.out_channels)
+        masks["conv1"] = (y > 0).permute(0, 3, 1, 2).cpu()
+
+    hooks = [card_sub.register_forward_pre_hook(record_input),
+             card_sub.conv0.register_forward_hook(record_conv0),
+             card_sub.out.register_forward_pre_hook(record_conv1)]
 
     def forward(x):
-        m0, m1 = (m.to(x.device) for m in masks[:2])
+        if "conv0" not in masks:  # the kernel ran conv0
+            with torch.no_grad():
+                z = F.conv2d(masks["x"][:, None], card_sub.conv0.weight, card_sub.conv0.bias,
+                             stride=2)
+            masks["conv0"] = (z > 0).cpu()
+        m0, m1 = (masks[k].to(x.device) for k in ("conv0", "conv1"))
         z0 = cpu_sub.conv0(x[:, None])
         differ["conv0"] += int(((z0 > 0) != m0).sum())
         z1 = cpu_sub.conv1(z0 * m0)
@@ -1255,6 +1287,173 @@ def phase_train_card_vs_cpu(gen: torch.Generator) -> None:
           and step["launches_per_train_step"] == TRAIN_STEP_LAUNCHES)
     if not ok:
         raise AssertionError("train step on the card disagrees with the CPU")
+
+
+# the Conv2d subsampling at the benchmark's batches (fbank frames): a served
+# 3 s clip, the B = 512 scorer at 3 s, the B = 128 trainer at 13 s
+SUBSAMPLE_SHAPES = {"serving": (1, 301), "scoring": (512, 301), "training": (128, 1301)}
+# relative to the largest entry, float32 sums in another order than cuDNN's: the
+# forward's 1296-term sums, the gradients' over up to a million positions
+# (DW_GRAD_TOL's bar)
+SUBSAMPLE_TOL = 1e-5
+SUBSAMPLE_GRAD_TOL = 1e-4
+
+
+def events_ms(fn, reps: int = 10, rounds: int = 5) -> float:
+    """Device time of one ``fn()``: CUDA events around ``reps`` calls, the
+    median of ``rounds`` (no graph: autograd calls run in it; at
+    milliseconds a call the host's gaps are far below the work)."""
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(rounds):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / reps)
+    return sorted(times)[len(times) // 2]
+
+
+def subsample_flops(b: int, t: int, backward: bool = False) -> float:
+    """The products of the subsampling's convolutions over (B, T, 80): conv1
+    and conv0 forward; backward, conv1's two gradients and conv0's weight
+    gradient (x takes none)."""
+    t0, t1 = out_frames(t)
+    conv1 = 2.0 * b * t1 * 19 * 144 * 9 * 144
+    conv0 = 2.0 * b * t0 * 39 * 144 * 9
+    return 2 * conv1 + conv0 if backward else conv1 + conv0
+
+
+def _rel_err(got: torch.Tensor, ref: torch.Tensor) -> float:
+    return float((got - ref).abs().max() / ref.abs().max().clamp_min(1e-30))
+
+
+def _grid(shape, gen: torch.Generator, top: int, scale: float) -> torch.Tensor:
+    """Integers in [-top, top] times ``scale`` (a power of two), on the card."""
+    return (torch.randint(-top, top + 1, shape, generator=gen) * scale).float().cuda()
+
+
+def subsample_errors(x, w, dy) -> tuple:
+    """The kernels' relative errors against the plain version (autograd
+    through cuDNN's convolutions, TF32 off) on x, the weights w (conv0's,
+    its bias, conv1's, its bias) and the output gradient dy: (forward,
+    {gradient: error}, conv1 units whose ReLU the two decide otherwise)."""
+    y = subsample_fwd(x, *w)
+    grads = subsample_bwd(x, w[0], w[1], w[2], y, dy)
+    params = [p.clone().requires_grad_() for p in w]
+    ref_y = subsample_conv_plain(x, *params)
+    ref_grads = torch.autograd.grad(ref_y, params, dy)
+    flips = int(((y > 0) != (ref_y > 0)).sum())
+    return (_rel_err(y, ref_y.detach()),
+            {n: _rel_err(g, r) for n, g, r in zip(("dw0", "db0", "dw1", "db1"), grads, ref_grads)},
+            flips)
+
+
+def phase_subsample(gen: torch.Generator) -> list:
+    """The subsampling kernels against their plain version (cuDNN, TF32 off)
+    at the benchmark's shapes, forward and backward, each timed beside the
+    plain version and the chain the port ran before them (``library_ms``:
+    conv0, ReLU, conv1, ReLU and the permute copy, never called by the
+    port); then the flagship's scoring forward and training step counted
+    through them (one forward launch a batch, three backward launches a
+    step), the step against the CPU's.  Returns the kernel rows.
+
+    The check runs on inputs of a grid where every product and every sum of
+    the forward, and of dA0, is exact in float32 (x, conv0's weights, conv1's
+    and the output gradient small integers times powers of two): both sides
+    then take every ReLU decision alike, and what differs is the order of
+    the weight gradients' long sums.  On the random inputs the rows are
+    timed with, a unit within rounding of 0 can take its ReLU one way in the
+    kernel and the other in cuDNN, and one such unit moves a bias gradient
+    by about 1e-3 of its size: those errors and the units are reported."""
+    sub = Conv2dSubsampling(80, 144).cuda()
+    init_random_(sub, gen)
+    w = [p.detach() for p in (sub.conv0.weight, sub.conv0.bias, sub.conv1.weight,
+                               sub.conv1.bias)]
+    params = [p.clone().requires_grad_() for p in w]
+    rows, ok = [], True
+    for shape_name, (b, t) in SUBSAMPLE_SHAPES.items():
+        t0, t1 = out_frames(t)
+        grid_w = [_grid((144, 1, 3, 3), gen, 8, 2 ** -3), _grid((144,), gen, 8, 2 ** -5),
+                  _grid((144, 144, 3, 3), gen, 8, 2 ** -6), _grid((144,), gen, 8, 2 ** -11)]
+        grid_fwd, grid_bwd, grid_flips = subsample_errors(
+            _grid((b, t, 80), gen, 4, 2 ** -2), grid_w, _grid((b, t1, 19, 144), gen, 8, 2 ** -4))
+        x = torch.randn(b, t, 80, generator=gen).cuda()
+        dy = torch.randn((b, t1, 19, 144), generator=gen).cuda()
+        rand_fwd, rand_bwd, rand_flips = subsample_errors(x, w, dy)
+        subsample_kernel.reset_launch_counts()
+        with torch.no_grad():
+            module_y = sub(x)  # the module's forward: the kernel's launch
+        fwd_launches = subsample_fwd.launches
+        y = subsample_fwd(x, *w)
+        subsample_kernel.reset_launch_counts()
+        grads = subsample_bwd(x, w[0], w[1], w[2], y, dy)
+        bwd_launches = subsample_bwd.launches
+        again = subsample_bwd(x, w[0], w[1], w[2], y, dy)
+        same_bits = all(torch.equal(g, h) for g, h in zip(grads, again))
+        ref_y = subsample_conv_plain(x, *params)
+        lib_y = subsample_conv_plain(x, *params).contiguous()
+        with torch.no_grad():
+            module_ref = sub.out(ref_y.detach().reshape(b, t1, 19 * 144))
+        timed = {
+            "forward": (lambda: subsample_fwd(x, *w),
+                        lambda: subsample_conv_plain(x, *w),
+                        lambda: subsample_conv_plain(x, *w).contiguous(),
+                        subsample_flops(b, t), fwd_launches, grid_fwd, rand_fwd),
+            "backward": (lambda: subsample_bwd(x, w[0], w[1], w[2], y, dy),
+                         lambda: torch.autograd.grad(ref_y, params, dy, retain_graph=True),
+                         lambda: torch.autograd.grad(lib_y, params, dy, retain_graph=True),
+                         subsample_flops(b, t, True), bwd_launches, max(grid_bwd.values()),
+                         max(rand_bwd.values())),
+        }
+        for direction, (kernel, plain, library, flops, launched, err, rand_err) in timed.items():
+            with torch.no_grad() if direction == "forward" else contextlib.nullcontext():
+                k_ms, p_ms, l_ms = events_ms(kernel), events_ms(plain), events_ms(library)
+            b_ms, b_by = bound_ms(0.0, flops)
+            rows.append({
+                "name": f"subsample_{direction}", "route": "cuda",
+                "source": "speechlid_tpu_torch/csrc/subsample.cu", "replaces": "none (XLA conv)",
+                "shape": f"{shape_name} x ({b}, {t}, 80) -> y1 ({b}, {t1}, 19, 144); "
+                         f"a0 ({b}, {t0}, 39, 144) not stored",
+                "ms": k_ms, "plain_ms": p_ms, "library_ms": l_ms,
+                "library_call": "F.conv2d, relu, F.conv2d, relu, permute copy (cuDNN, no TF32)",
+                "bound_ms": b_ms, "bound_by": b_by, "flops": flops,
+                "share_of_fp32_peak": b_ms / k_ms, "launches": launched,
+                "max_rel_err_vs_plain": err, "random_inputs_max_rel_err": rand_err,
+                "random_inputs_conv1_relus_decided_otherwise": rand_flips,
+                **({"grad_rel_err": grid_bwd, "random_inputs_grad_rel_err": rand_bwd,
+                    "same_bits_twice": same_bits}
+                   if direction == "backward" else
+                   {"module_max_rel_err": _rel_err(module_y, module_ref)}),
+            })
+            ok = ok and err <= (SUBSAMPLE_TOL if direction == "forward" else SUBSAMPLE_GRAD_TOL)
+        ok = ok and fwd_launches == 1 and bwd_launches == 3 and same_bits and grid_flips == 0
+        del ref_y, lib_y, grads, again, module_y, module_ref, y, dy, x
+        torch.cuda.empty_cache()
+    # the flagship's scoring forward and training step through the kernels
+    subsample_kernel.reset_launch_counts()
+    phase_model(gen)
+    scoring = (subsample_fwd.launches, subsample_bwd.launches)
+    subsample_kernel.reset_launch_counts()
+    phase_train_card_vs_cpu(gen)
+    training = (subsample_fwd.launches, subsample_bwd.launches)
+    report = {"phase": "subsample", "tol": SUBSAMPLE_TOL, "grad_tol": SUBSAMPLE_GRAD_TOL,
+              "rows": rows,
+              "flagship_scoring_launches": {"infer_calls": 2, "fwd": scoring[0],
+                                            "bwd": scoring[1]},
+              "flagship_train_step_launches": {"fwd": training[0], "bwd": training[1]}}
+    emit(report)
+    # phase_model calls infer twice (set-up, then the counted call)
+    ok = ok and scoring == (2, 0) and training == (1, 3)
+    if not ok:
+        raise AssertionError("the subsampling kernels disagree with their plain version or "
+                             "the flagship's steps did not go through them")
+    return rows
 
 
 class _StepLosses(Callback):
@@ -7398,7 +7597,7 @@ def large_kernel_rows(gen: torch.Generator, errs: dict, reports: dict) -> list:
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description="Drive the PyTorch/CUDA port on one card.")
     parser.add_argument("--only", choices=("cli_gate", "ce_asr", "se", "quant", "extras",
-                                           "dist", "mp", "large"),
+                                           "dist", "mp", "large", "subsample"),
                         help="run this phase alone, after the build and the corpus "
                              "(ce_asr: the cross-entropy and ASR phases; se: the speech "
                              "enhancement and bilstm phases on cli_flagship's checkpoint; "
@@ -7411,6 +7610,8 @@ def main(argv=None) -> int:
                              "model-parallel CLI and the dryrun; "
                              "large: the WavLM-Large extra-finetune through the CLI, remat, "
                              "async checkpoint writes and float16; "
+                             "subsample: the Conv2d subsampling kernels, and the flagship's "
+                             "scoring forward and training step through them; "
                              "each with the kernel checks and rows they need)")
     parser.add_argument("--seed", type=int, default=0,
                         help="the CLI's seed for --only cli_gate (the gate's own is 0)")
@@ -7497,6 +7698,12 @@ def main(argv=None) -> int:
                                      "kind": torch.cuda.get_device_name(0),
                                      "count": torch.cuda.device_count()}})
         return 0
+    if args.only == "subsample":
+        emit({"kernels": phase_subsample(gen)})
+        emit({"ok": True, "device": {"platform": "gpu",
+                                     "kind": torch.cuda.get_device_name(0),
+                                     "count": torch.cuda.device_count()}})
+        return 0
     if args.only == "large":
         errs = {"fbank": phase_fbank(gen), "conv_fused": phase_conv_fused(gen)}
         with tempfile.TemporaryDirectory() as root:
@@ -7567,6 +7774,7 @@ def main(argv=None) -> int:
     kernels += dist_kernel_rows(gen, errs, dist_reports)
     kernels += mp_kernel_rows(gen, errs, mp_reports)
     kernels += large_kernel_rows(gen, errs, large_reports)
+    kernels += phase_subsample(gen)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

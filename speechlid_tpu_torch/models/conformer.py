@@ -26,6 +26,12 @@ needs no transposes.  Parity details that differ from PyTorch's defaults:
   mask, depthwise conv, eval BatchNorm and activation in eval mode
   (``glu_depthwise_bn_act``); GLU, mask and conv in training mode
   (``glu_depthwise``), whose backward is two kernels;
+- the float32 Conv2d subsampling on the card (80 mel bins, 144 channels)
+  runs its two convolutions and ReLUs through ``ops/cuda/subsample_kernel``
+  (one kernel forward, three backward; conv0's output never reaches device
+  memory), writing the NHWC layout its Linear reads as a view; on the CPU,
+  in bfloat16 or float16 and at other widths it keeps the chain of
+  ``Conv2d`` modules;
 - ``quant_dot`` (``"int8"``, ``"int8_ste"``; ``ops/quant.py``) quantizes the
   projections JAX quantizes: the FFN's two, the attention's ``to_q``,
   ``to_kv`` and ``to_out``, and the conv module's two pointwise GEMMs; the
@@ -66,6 +72,7 @@ from speechlid_tpu_torch.ops.cuda.depthwise_kernel import (
     glu_depthwise_bn_act,
     swish,
 )
+from speechlid_tpu_torch.ops.cuda import subsample_kernel
 from speechlid_tpu_torch.ops.frontend import fused_frontend
 from speechlid_tpu_torch.ops.quant import quant_dot_general, row_parallel_int8
 from speechlid_tpu_torch.parallel.mesh import (
@@ -474,7 +481,15 @@ class Conv1dSubSampling2(nn.Module):
 
 class Conv2dSubsampling(nn.Module):
     """ESPnet 2D ×4 subsampling: two conv k3 s2 (valid) over (T, mel), then
-    Linear over the (freq, channel) features flattened frequency-major."""
+    Linear over the (freq, channel) features flattened frequency-major.
+
+    A float32 input on the card with a float32 compute dtype, 80 mel bins
+    and 144 channels goes through the subsampling kernels
+    (``subsample_kernel.subsample_conv``: both convolutions and ReLUs, the
+    output channels last); a CPU input, a bfloat16 or float16 compute dtype
+    or other widths through the chain of ``Conv2d`` modules.  The choice is by what the
+    module computes in and at (the kernels are float32 only and tiled for
+    the flagship's widths; 16-bit instantiations are later work)."""
 
     def __init__(self, idim: int, odim: int, dtype: torch.dtype = torch.float32):
         super().__init__()
@@ -483,10 +498,24 @@ class Conv2dSubsampling(nn.Module):
         f_out = ((idim - 1) // 2 - 1) // 2
         self.out = Linear(f_out * odim, odim, compute_dtype=dtype)
 
+    def uses_kernel(self, x: torch.Tensor) -> bool:
+        """Whether ``x`` goes through the subsampling kernels: float32 on the
+        card, computed in float32, at the widths they are tiled for (80 mel
+        bins, 144 channels) and long enough for an output frame."""
+        return (x.device.type == "cuda" and x.dtype == torch.float32
+                and self.conv0.compute_dtype == torch.float32
+                and x.shape[-1] == subsample_kernel.N_MELS
+                and self.conv1.out_channels == subsample_kernel.CHANNELS
+                and x.shape[1] >= subsample_kernel.MIN_FRAMES)
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:  # (B, T, idim)
-        y = F.relu(self.conv0(x[:, None]))  # (B, C, T, F): H = time, W = mel
-        y = F.relu(self.conv1(y))
-        y = y.permute(0, 2, 3, 1)  # (B, T', F', C), the NHWC order of the JAX conv
+        if self.uses_kernel(x):
+            y = subsample_kernel.subsample_conv(x, self.conv0.weight, self.conv0.bias,
+                                                self.conv1.weight, self.conv1.bias)
+        else:
+            y = F.relu(self.conv0(x[:, None]))  # (B, C, T, F): H = time, W = mel
+            y = F.relu(self.conv1(y))
+            y = y.permute(0, 2, 3, 1)  # (B, T', F', C), the NHWC order of the JAX conv
         b, t, f, c = y.shape
         return self.out(y.reshape(b, t, f * c))
 

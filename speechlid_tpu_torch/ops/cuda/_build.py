@@ -29,7 +29,7 @@ from pathlib import Path
 
 _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
-SOURCES = ("fbank.cu", "depthwise.cu")
+SOURCES = ("fbank.cu", "depthwise.cu", "subsample.cu")
 BUILD_DIR = _PKG.parent / "build"
 TILING = {
     "FBANK_TILE_FRAMES": 16,   # frames of a block's tile
@@ -42,6 +42,9 @@ TILING = {
     "DW_BWD_TIME_CHUNK": 64,   # frames of one utterance per time chunk of bwd_w
     "DW_BWD_QUARTERS": 4,      # runs a chunk's frames are summed in
     "DW_BWD_MAX_CLUSTER": 8,   # blocks that share one channel tile's chunks
+    "SUB_BK": 16,              # K rows of a subsampling chunk (wgrad: positions)
+    "SUB_WGRAD_SPLITS": 29,    # position ranges of dW1: 9 taps × 29 = 261 blocks, two an SM
+    "SUB_DGRAD_BLOCKS": 264,   # blocks that share the dgrad tiles: two an SM
 }
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -68,6 +71,10 @@ _SIGNATURES = {
     "depthwise_conv1d_glu_bwd": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     # x, g, dw, db, B, T, C, K, pad_l, dtype, stream
     "depthwise_conv1d_bwd_w": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    # x, w0 rows, w1 (tap, ci, co), b1, y, B, T, F, C, stream
+    "subsample_fwd": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    # x, w0 rows, w1 (tap, co, ci), y, dy, scratch, dw0, db0, dw1, db1, B, T, F, C, stream
+    "subsample_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
 }
 
 
