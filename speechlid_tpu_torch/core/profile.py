@@ -38,7 +38,11 @@ The program's spans, each a layer boundary of PERF.md §3:
   waits for the card);
 - ``task.infer`` (id: the batch's number through one ``infer_fn()``),
   ``task.frontend`` (the featurizer's input), ``task.loss`` (CTC);
-- ``model.featurizer`` ⊃ ``model.extractor`` (its convolutional front),
+- ``model.featurizer`` ⊃ ``model.extractor`` (its convolutional front)
+  and, in an SSL upstream (``models/wavlm.py``), ``model.encoder`` (the
+  positional conv through the last layer and the final LayerNorm) ⊃
+  ``model.attention`` (one a layer: its attention core, the position bias
+  and gate where it has them, the logits, softmax and dropout, p·v);
   ``model.heads``, ``model.scores`` (the confidences and discriminator).
 
 ``device_ms`` is the time between the span's two events on the stream, so

@@ -300,33 +300,34 @@ class RelPosMultiheadAttention(nn.Module):
         k = self.k_proj(x).view(b, t, h, d).transpose(1, 2)
         v = self.v_proj(x).view(b, t, h, d).transpose(1, 2)
 
-        if self.relative_attention_bias is not None and position_bias is None:
-            bucket = _bucket_table(t, self.num_buckets, self.max_distance, x.device)
-            position_bias = self.relative_attention_bias[bucket].permute(2, 0, 1)  # (H, T, T)
+        with span("model.attention"):
+            if self.relative_attention_bias is not None and position_bias is None:
+                bucket = _bucket_table(t, self.num_buckets, self.max_distance, x.device)
+                position_bias = self.relative_attention_bias[bucket].permute(2, 0, 1)  # (H, T, T)
 
-        # float32 logits of the compute-dtype q and k: their products are
-        # exact in float32, summed there (JAX's preferred_element_type)
-        weights = q.float() @ k.float().transpose(-1, -2)  # (B, H, T, T)
-        if position_bias is not None:
-            attn_bias = position_bias[None]
-            if self.gru_rel_pos:
-                # the gate reads the PRE-projection input, split per head;
-                # the float32 grep_a promotes it to float32
-                if self.tp_group is None:
-                    heads = x.view(b, t, h, d)
-                else:
-                    heads = copy_to_group(x, self.tp_group).view(b, t, self.num_heads_full, d)
-                    heads = heads[:, :, self.head_index.to(x.device)]
-                grep = self.grep_linear(heads.transpose(1, 2))  # (B, H, T, 8)
-                gates = torch.sigmoid(grep.view(b, h, t, 2, 4).sum(-1))
-                gate_a, gate_b = gates[..., 0:1], gates[..., 1:2]
-                attn_bias = (gate_a * (gate_b * self.grep_a - 1.0) + 2.0) * attn_bias
-            weights = weights + attn_bias
-        if padding_mask is not None:
-            weights = weights.masked_fill(padding_mask[:, None, None, :], _NEG)
-        shard = None if self.tp_group is None else (self.head_index, self.num_heads_full)
-        probs = self.dropout(torch.softmax(weights, dim=-1).to(self.dtype), shard, dim=1)
-        out = (probs @ v).transpose(1, 2).reshape(b, t, h * d)
+            # float32 logits of the compute-dtype q and k: their products are
+            # exact in float32, summed there (JAX's preferred_element_type)
+            weights = q.float() @ k.float().transpose(-1, -2)  # (B, H, T, T)
+            if position_bias is not None:
+                attn_bias = position_bias[None]
+                if self.gru_rel_pos:
+                    # the gate reads the PRE-projection input, split per head;
+                    # the float32 grep_a promotes it to float32
+                    if self.tp_group is None:
+                        heads = x.view(b, t, h, d)
+                    else:
+                        heads = copy_to_group(x, self.tp_group).view(b, t, self.num_heads_full, d)
+                        heads = heads[:, :, self.head_index.to(x.device)]
+                    grep = self.grep_linear(heads.transpose(1, 2))  # (B, H, T, 8)
+                    gates = torch.sigmoid(grep.view(b, h, t, 2, 4).sum(-1))
+                    gate_a, gate_b = gates[..., 0:1], gates[..., 1:2]
+                    attn_bias = (gate_a * (gate_b * self.grep_a - 1.0) + 2.0) * attn_bias
+                weights = weights + attn_bias
+            if padding_mask is not None:
+                weights = weights.masked_fill(padding_mask[:, None, None, :], _NEG)
+            shard = None if self.tp_group is None else (self.head_index, self.num_heads_full)
+            probs = self.dropout(torch.softmax(weights, dim=-1).to(self.dtype), shard, dim=1)
+            out = (probs @ v).transpose(1, 2).reshape(b, t, h * d)
         return self.out_proj(out), position_bias
 
 
@@ -522,27 +523,28 @@ class WavLM(nn.Module):
 
         if pad_mask is not None:
             x = x.masked_fill(pad_mask[:, :, None], 0.0)
-        x = x + self.pos_conv(x)
-        if not cfg.layer_norm_first:
-            x = self.encoder_layer_norm(x)
-        x = self.dropout(x)
+        with span("model.encoder"):
+            x = x + self.pos_conv(x)
+            if not cfg.layer_norm_first:
+                x = self.encoder_layer_norm(x)
+            x = self.dropout(x)
 
-        layer_results = [x]
-        position_bias = None
-        drop = cfg.encoder_layerdrop > 0 and self.training
-        for layer in self.layers:
-            if self.remat:
-                y, position_bias = remat_call(layer, x, pad_mask, position_bias)
-            else:
-                y, position_bias = layer(x, pad_mask, position_bias)
-            if drop:  # the layer ran; keep its output or skip it
-                keep = torch.rand((), generator=self.generator, device=x.device) \
-                    >= cfg.encoder_layerdrop
-                y = torch.where(keep, y, x)
-            x = y
-            layer_results.append(x)
-        if cfg.layer_norm_first:
-            x = self.encoder_layer_norm(x)
+            layer_results = [x]
+            position_bias = None
+            drop = cfg.encoder_layerdrop > 0 and self.training
+            for layer in self.layers:
+                if self.remat:
+                    y, position_bias = remat_call(layer, x, pad_mask, position_bias)
+                else:
+                    y, position_bias = layer(x, pad_mask, position_bias)
+                if drop:  # the layer ran; keep its output or skip it
+                    keep = torch.rand((), generator=self.generator, device=x.device) \
+                        >= cfg.encoder_layerdrop
+                    y = torch.where(keep, y, x)
+                x = y
+                layer_results.append(x)
+            if cfg.layer_norm_first:
+                x = self.encoder_layer_norm(x)
         if ret_layer_results:
             return x, feat_len, layer_results
         return x, feat_len

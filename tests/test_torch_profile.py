@@ -81,6 +81,8 @@ TRAIN_TREE = {"trainer.forward": "trainer.step", "task.frontend": "trainer.forwa
               "model.heads": "trainer.forward", "task.loss": "trainer.forward",
               "trainer.backward": "trainer.step", "trainer.optimizer": "trainer.step",
               "trainer.fetch": "trainer.step"}
+# an SSL featurizer's encoder and its layers' attention cores
+SSL_TREE = {**TRAIN_TREE, "model.encoder": "model.featurizer", "model.attention": "model.encoder"}
 
 
 def lid_batches(n, seed=0, b=2, t=8000):
@@ -144,6 +146,7 @@ def test_spans_off_record_nothing_and_keep_the_host_totals(recoder):
 @pytest.mark.parametrize("featurizer", ["conformer", "wavlm"])
 def test_train_step_span_tree(recoder, featurizer):
     task, trainer = lid_trainer(featurizer)
+    tree = SSL_TREE if featurizer == "wavlm" else TRAIN_TREE
     with cpu_profiler():
         trainer._run_train_epoch(0, lid_batches(4))
     spans = recoder.spans()
@@ -158,11 +161,11 @@ def test_train_step_span_tree(recoder, featurizer):
         inside = [s for s in spans if step in lineage(s)[:-1]]
         assert {s.batch for s in inside} == {step.batch}
         for s in inside:
-            assert s.parent.name == TRAIN_TREE[s.name], path(s)
+            assert s.parent.name == tree[s.name], path(s)
         assert sorted(s.name for s in inside if s.parent.name == "trainer.forward") == sorted(
             ["task.frontend", "model.featurizer", "model.heads", "task.loss"])
         assert [s.name for s in inside if s.parent.name == "model.featurizer"] == [
-            "model.extractor"]
+            "model.extractor"] + ["model.encoder"] * (featurizer == "wavlm")
     last = spans[-1]  # the last step's metrics, fetched after the loop
     assert last.name == "trainer.fetch" and last.parent is None
     assert "trainer.grad_sync" not in {s.name for s in spans}  # no mesh
@@ -192,6 +195,50 @@ def test_infer_span_tree(recoder):
         assert [path(s) for s in spans if root in lineage(s) and len(path(s)) == 3] == [
             ["task.infer", "model.featurizer", "model.extractor"]]
         assert {s.batch for s in spans if root in lineage(s)} == {root.batch}
+
+
+# the XLS-R layout at a tiny width: pre-LN layers over the layer-norm
+# extractor, no position bias
+TINY_XLSR = dict(encoder_layers=3, encoder_embed_dim=32, encoder_ffn_embed_dim=64,
+                 encoder_attention_heads=4, conv_feature_layers="[(16,10,5)] + [(16,3,2)] * 2",
+                 conv_pos=16, conv_pos_groups=4, extractor_mode="layer_norm",
+                 layer_norm_first=True, conv_bias=True, normalize=True)
+
+
+def ssl_forward(featurizer):
+    """A tiny SSL task's scoring forward of one batch; → its encoder
+    layers."""
+    ssl = TINY_WAVLM if featurizer == "wavlm" else TINY_XLSR
+    task = LidASRTask(**HP, featurizer=featurizer, ssl_config=ssl, device="cpu")
+    batch = lid_batches(1)[0]
+    task.infer_fn()(torch.as_tensor(batch["wavs"]), torch.as_tensor(batch["wav_lengths"]))
+    return ssl["encoder_layers"]
+
+
+@pytest.mark.parametrize("featurizer", ["wavlm", "wav2vec2"])
+def test_ssl_encoder_and_attention_spans(recoder, featurizer):
+    """One ``model.encoder`` a forward inside ``model.featurizer``, after
+    the extractor, and inside it one ``model.attention`` a layer."""
+    with cpu_profiler():
+        layers = ssl_forward(featurizer)
+    spans = recoder.spans()
+    encoders = [s for s in spans if s.name == "model.encoder"]
+    assert [path(s) for s in encoders] == [["task.infer", "model.featurizer", "model.encoder"]]
+    encoder = encoders[0]
+    assert [s.name for s in spans if s.parent is encoder.parent] == [
+        "model.extractor", "model.encoder"]
+    attention = [s for s in spans if s.name == "model.attention"]
+    assert len(attention) == layers and all(s.parent is encoder for s in attention)
+    assert [s.name for s in spans if s.parent is encoder] == ["model.attention"] * layers
+    for s in attention:
+        assert encoder.start_ns <= s.start_ns <= s.end_ns <= encoder.end_ns
+        assert s.device_ms is None  # off the card
+
+
+@pytest.mark.parametrize("featurizer", ["wavlm", "wav2vec2"])
+def test_ssl_spans_off_record_nothing(recoder, featurizer):
+    ssl_forward(featurizer)
+    assert recoder.spans() == [] and recoder.dropped == 0
 
 
 def test_device_trace_holds_every_span(tmp_path, recoder):
