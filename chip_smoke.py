@@ -11,6 +11,7 @@
     python3 chip_smoke.py --only mp  # tensor, expert, pipeline, sequence parallelism alone
     python3 chip_smoke.py --only large  # WavLM-Large, remat, async checkpoints, float16 alone
     python3 chip_smoke.py --only subsample  # the Conv2d subsampling kernels alone
+    python3 chip_smoke.py --only relpos_attn  # the rel-pos attention kernels alone
 
 It builds the port's CUDA kernels from ``speechlid_tpu_torch/csrc`` (into
 ``build/``), holds each kernel, forward and backward, and each fused mode of
@@ -224,7 +225,12 @@ from speechlid_tpu_torch.ops.cuda.fbank_kernel import (
     log_mel_plain,
     log_mel_tiled_plain,
 )
-from speechlid_tpu_torch.ops.cuda import subsample_kernel
+from speechlid_tpu_torch.ops.cuda import relpos_attn_kernel, subsample_kernel
+from speechlid_tpu_torch.ops.cuda.relpos_attn_kernel import (
+    relpos_attn_plain,
+    relpos_bwd,
+    relpos_fwd,
+)
 from speechlid_tpu_torch.ops.cuda.subsample_kernel import (
     out_frames,
     subsample_bwd,
@@ -1453,6 +1459,162 @@ def phase_subsample(gen: torch.Generator) -> list:
     if not ok:
         raise AssertionError("the subsampling kernels disagree with their plain version or "
                              "the flagship's steps did not go through them")
+    return rows
+
+
+# (b, h, n, d) of the rel-pos attention kernels: the flagship's scoring
+# encoder block, its training encoder block and own head (13 s, unstretched),
+# the WavLM heads' scoring and the SSL heads' 13 s training, where
+# |i − j| > 512 and the clip is live; then the rows' lengths as the
+# benchmark's mixes draw them: scoring 10 % of rows in [n/3, n] (crop3s),
+# training every row in [8n/13, n] (bucket13s)
+RELPOS_SHAPES = {"scoring encoder": (512, 4, 74, 64), "training encoder": (128, 4, 324, 64),
+                 "training head": (128, 8, 324, 32), "WavLM scoring heads": (32, 8, 149, 32),
+                 "SSL training head": (8, 8, 649, 32)}
+RELPOS_LENGTHS = {"scoring": (0.1, 1 / 3), "training": (1.0, 8 / 13)}  # (share drawn, lowest)
+RELPOS_P = 512
+RELPOS_TOL = 1e-5  # kernel vs plain, relative to each output's largest entry
+
+
+def relpos_flops(b: int, h: int, n: int, d: int) -> float:
+    """The forward's products as ``harness/counters.py`` counts them: q·kᵀ,
+    one relative-position product a query and key, p·v."""
+    return 3 * 2.0 * b * h * n * n * d
+
+
+def _relpos_inputs(b, h, n, d, lengths_of, gen):
+    q = torch.randn(b, n, h * d, generator=gen).cuda()
+    kv = torch.randn(b, n, 2 * h * d, generator=gen).cuda()
+    table = torch.randn(2 * RELPOS_P + 1, d, generator=gen).cuda()
+    dout = torch.randn(b, n, h * d, generator=gen).cuda()
+    share, lowest = RELPOS_LENGTHS[lengths_of]
+    lengths = torch.full((b,), n)
+    drawn = max(1, int(share * b))
+    lengths[:drawn] = torch.randint(int(lowest * n), n + 1, (drawn,), generator=gen)
+    lengths[0], lengths[-1] = n, 1  # one whole utterance, one fully padded past its first frame
+    mask = (torch.arange(n)[None, :] < lengths[:, None]).cuda()
+    return q, kv, table, mask, dout
+
+
+def _relpos_launches() -> tuple:
+    return relpos_fwd.launches, relpos_bwd.launches
+
+
+def phase_relpos_attn(gen: torch.Generator, flagship_launches=None) -> list:
+    """The rel-pos attention kernels against their plain version (the chain
+    the port ran before them: q·Eᵀ over the whole table, a gather, the
+    (b, h, n, n) passes) at the benchmark's shapes with ragged masks,
+    forward and backward, each twice (the same bits), the calls' peak
+    memory (the forward's beside one (b, h, n, n) float32 tensor, the
+    backward's against its outputs and partials), and times beside the
+    FFMA bound, the chain and one library yardstick (``library_ms``:
+    ``F.scaled_dot_product_attention`` with the pair mask and no relative
+    positions, never called by the port); then the flagship's scoring
+    forward (two ``infer`` calls of ``phase_model``) and training step
+    (``phase_train_card_vs_cpu``) counted through them, run here or, in the
+    whole script, counted where it ran them (``flagship_launches``: the
+    (forward, backward) launches of each).  Returns the kernel rows."""
+    rows, ok = [], True
+    for shape_name, (b, h, n, d) in RELPOS_SHAPES.items():
+        q, kv, table, mask, dout = _relpos_inputs(
+            b, h, n, d, "training" if "training" in shape_name else "scoring", gen)
+        args = (table, mask, h, RELPOS_P)
+        relpos_attn_kernel.reset_launch_counts()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        o, lse = relpos_fwd(q, kv, *args)
+        torch.cuda.synchronize()
+        fwd_peak = torch.cuda.max_memory_allocated() - base
+        torch.cuda.reset_peak_memory_stats()
+        grads = relpos_bwd(q, kv, table, mask, o, lse, dout, h, RELPOS_P)
+        torch.cuda.synchronize()
+        bwd_peak = torch.cuda.max_memory_allocated() - base
+        launched = (relpos_fwd.launches, relpos_bwd.launches)
+        o2, lse2 = relpos_fwd(q, kv, *args)
+        again = relpos_bwd(q, kv, table, mask, o2, lse2, dout, h, RELPOS_P)
+        same_bits = torch.equal(o, o2) and all(torch.equal(g, r) for g, r in zip(grads, again))
+        leaves = [x.clone().requires_grad_() for x in (q, kv, table)]
+        ref = relpos_attn_plain(*leaves, mask, h, RELPOS_P)
+        ref_grads = torch.autograd.grad(ref, leaves, dout, retain_graph=True)
+        errs = {"o": _rel_err(o, ref.detach()),
+                **{n_: _rel_err(g, r) for n_, g, r in zip(("dq", "dkv", "dtable"), grads,
+                                                         ref_grads)}}
+        qh = q.view(b, n, h, d).transpose(1, 2)
+        kh, vh = (x.reshape(b, n, h, d).transpose(1, 2) for x in kv.chunk(2, dim=-1))
+        pair = mask[:, None, :, None] & mask[:, None, None, :]
+        lib = [x.clone().requires_grad_() for x in (qh, kh, vh)]
+        lib_o = F.scaled_dot_product_attention(*lib, attn_mask=pair)
+        with torch.no_grad():
+            fwd_ms = events_ms(lambda: relpos_fwd(q, kv, *args))
+            chain_fwd_ms = events_ms(lambda: relpos_attn_plain(q, kv, *args))
+            lib_fwd_ms = events_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh,
+                                                                          attn_mask=pair))
+        bwd_ms = events_ms(lambda: relpos_bwd(q, kv, table, mask, o, lse, dout, h, RELPOS_P))
+        chain_bwd_ms = events_ms(lambda: torch.autograd.grad(ref, leaves, dout,
+                                                             retain_graph=True))
+        lib_bwd_ms = events_ms(lambda: torch.autograd.grad(lib_o, lib, dout.view(
+            b, n, h, d).transpose(1, 2), retain_graph=True))
+        flops = relpos_flops(b, h, n, d)
+        nn_bytes = 4 * b * h * n * n
+        # what the backward allocates beside the forward's o and lse: dq, dkv,
+        # dtable, dQ's partials (a key tile each) and dE's (a block each)
+        nt, g_ = relpos_attn_kernel.tiles(n), relpos_attn_kernel.heads_per_block(b, h, n)
+        np_ = nt * relpos_attn_kernel.TILE
+        bwd_bytes = 4 * (2 * q.numel() + b * h * np_ + kv.numel() + table.numel()
+                         + nt * b * h * np_ * d
+                         + b * (h // g_) * nt * (np_ + relpos_attn_kernel.TILE - 1) * d)
+        for direction, ms, chain_ms, lib_ms, fl, peak, err in (
+                ("forward", fwd_ms, chain_fwd_ms, lib_fwd_ms, flops, fwd_peak, errs["o"]),
+                ("backward", bwd_ms, chain_bwd_ms, lib_bwd_ms, 2 * flops, bwd_peak,
+                 max(errs["dq"], errs["dkv"], errs["dtable"]))):
+            b_ms, b_by = bound_ms(0.0, fl)
+            rows.append({
+                "name": f"relpos_attn_{direction}", "route": "cuda",
+                "source": "speechlid_tpu_torch/csrc/relpos_attn.cu",
+                "replaces": "none (XLA: q·Eᵀ, gather, softmax)",
+                "shape": f"{shape_name} (b, h, n, d) = ({b}, {h}, {n}, {d}), P = {RELPOS_P}, "
+                         f"the cell's lengths",
+                "ms": ms, "chain_ms": chain_ms, "library_ms": lib_ms,
+                "library_call": "F.scaled_dot_product_attention(q, k, v, attn_mask=pair), "
+                                "float32, no relative positions",
+                "bound_ms": b_ms, "bound_by": b_by, "flops": fl,
+                "share_of_fp32_peak": b_ms / ms,
+                "launches": launched[0] if direction == "forward" else launched[1],
+                "max_rel_err_vs_plain": err,
+                "peak_bytes": peak, "bhnn_float32_bytes": nn_bytes,
+                **({"bwd_allocated_bytes": bwd_bytes} if direction == "backward" else {}),
+                **({"grad_rel_err": {k: v for k, v in errs.items() if k != "o"},
+                    "same_bits_twice": same_bits} if direction == "backward" else {}),
+            })
+            ok = ok and err <= RELPOS_TOL
+        # the forward holds o and lse alone; the backward its outputs and
+        # partials (the allocator rounds each tensor up to 2 MB)
+        ok = (ok and launched == (1, 3) and same_bits and fwd_peak < nn_bytes
+              and bwd_peak <= bwd_bytes + 16 * 2 ** 20)
+        del q, kv, table, mask, dout, o, lse, grads, again, o2, lse2, ref, ref_grads, lib, lib_o
+        torch.cuda.empty_cache()
+    # the flagship's scoring forward and training step through the kernels
+    if flagship_launches is None:
+        relpos_attn_kernel.reset_launch_counts()
+        phase_model(gen)
+        scoring = _relpos_launches()
+        relpos_attn_kernel.reset_launch_counts()
+        phase_train_card_vs_cpu(gen)
+        flagship_launches = (scoring, _relpos_launches())
+    scoring, training = flagship_launches
+    blocks = N_BLOCKS + N_LANG  # the encoder's and every head's, a forward
+    report = {"phase": "relpos_attn", "tol": RELPOS_TOL, "rows": rows,
+              "flagship_scoring_launches": {"infer_calls": 2, "fwd": scoring[0],
+                                            "bwd": scoring[1]},
+              "flagship_train_step_launches": {"fwd": training[0], "bwd": training[1]}}
+    emit(report)
+    # phase_model calls infer twice; a train step runs the encoder and the own head
+    ok = ok and scoring == (2 * blocks, 0) and training == (N_BLOCKS + 1, 3 * (N_BLOCKS + 1))
+    if not ok:
+        raise AssertionError("the rel-pos attention kernels disagree with their plain version, "
+                             "differ between two runs, or the flagship's steps did not go "
+                             "through them")
     return rows
 
 
@@ -7597,7 +7759,8 @@ def large_kernel_rows(gen: torch.Generator, errs: dict, reports: dict) -> list:
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description="Drive the PyTorch/CUDA port on one card.")
     parser.add_argument("--only", choices=("cli_gate", "ce_asr", "se", "quant", "extras",
-                                           "dist", "mp", "large", "subsample"),
+                                           "dist", "mp", "large", "subsample",
+                                           "relpos_attn"),
                         help="run this phase alone, after the build and the corpus "
                              "(ce_asr: the cross-entropy and ASR phases; se: the speech "
                              "enhancement and bilstm phases on cli_flagship's checkpoint; "
@@ -7611,6 +7774,8 @@ def main(argv=None) -> int:
                              "large: the WavLM-Large extra-finetune through the CLI, remat, "
                              "async checkpoint writes and float16; "
                              "subsample: the Conv2d subsampling kernels, and the flagship's "
+                             "scoring forward and training step through them; "
+                             "relpos_attn: the rel-pos attention kernels, and the flagship's "
                              "scoring forward and training step through them; "
                              "each with the kernel checks and rows they need)")
     parser.add_argument("--seed", type=int, default=0,
@@ -7698,8 +7863,9 @@ def main(argv=None) -> int:
                                      "kind": torch.cuda.get_device_name(0),
                                      "count": torch.cuda.device_count()}})
         return 0
-    if args.only == "subsample":
-        emit({"kernels": phase_subsample(gen)})
+    if args.only in ("subsample", "relpos_attn"):
+        phase = phase_subsample if args.only == "subsample" else phase_relpos_attn
+        emit({"kernels": phase(gen)})
         emit({"ok": True, "device": {"platform": "gpu",
                                      "kind": torch.cuda.get_device_name(0),
                                      "count": torch.cuda.device_count()}})
@@ -7716,10 +7882,14 @@ def main(argv=None) -> int:
         return 0
     errs = {"fbank": phase_fbank(gen), "depthwise": phase_depthwise(gen),
             "depthwise_bwd": phase_depthwise_bwd(gen), "conv_fused": phase_conv_fused(gen)}
+    relpos_attn_kernel.reset_launch_counts()
     task = phase_model(gen)
+    relpos_scoring = _relpos_launches()
     serve_report = phase_serve(task, gen)
     served = serve_report["launches"]
+    relpos_attn_kernel.reset_launch_counts()
     phase_train_card_vs_cpu(gen)
+    relpos_flagship = (relpos_scoring, _relpos_launches())
     trained, training = phase_train(gen)
     with tempfile.TemporaryDirectory() as root:
         os.environ["SPEECHLID_CACHE_DIR"] = os.path.join(root, "cache")  # manifest scans
@@ -7775,6 +7945,7 @@ def main(argv=None) -> int:
     kernels += mp_kernel_rows(gen, errs, mp_reports)
     kernels += large_kernel_rows(gen, errs, large_reports)
     kernels += phase_subsample(gen)
+    kernels += phase_relpos_attn(gen, relpos_flagship)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -43,7 +43,10 @@ The program's spans, each a layer boundary of PERF.md §3:
   positional conv through the last layer and the final LayerNorm) ⊃
   ``model.attention`` (one a layer: its attention core, the position bias
   and gate where it has them, the logits, softmax and dropout, p·v);
-  ``model.heads``, ``model.scores`` (the confidences and discriminator).
+  ``model.heads``, ``model.scores`` (the confidences and discriminator);
+  ``model.relpos_attn`` in every Conformer block, the encoder's (inside
+  ``model.featurizer``) and the heads' (inside ``model.heads``): its
+  attention core between the projections.
 
 ``device_ms`` is the time between the span's two events on the stream, so
 it holds any time the card waited for the host inside the span.

@@ -10,6 +10,9 @@ needs no transposes.  Parity details that differ from PyTorch's defaults:
 - LayerNorm eps is flax's 1e-6, not torch's 1e-5;
 - attention masks fill with ``finfo(float32).min`` (not -inf) before a
   float32 softmax, so a fully padded query row comes out uniform;
+- the float32 attention core on the card (head widths 32 and 64) runs
+  through ``ops/cuda/relpos_attn_kernel`` (one kernel forward, three
+  backward, no (n, n) tensor in device memory), with the same semantics;
 - the Conv2d subsampling flattens (B, T', F', C) frequency-major, as the
   NHWC JAX convolution does;
 - ``dtype`` is the compute dtype of flax's ``dtype=`` (``"float32"`` or
@@ -72,7 +75,7 @@ from speechlid_tpu_torch.ops.cuda.depthwise_kernel import (
     glu_depthwise_bn_act,
     swish,
 )
-from speechlid_tpu_torch.ops.cuda import subsample_kernel
+from speechlid_tpu_torch.ops.cuda import relpos_attn_kernel, subsample_kernel
 from speechlid_tpu_torch.ops.frontend import fused_frontend
 from speechlid_tpu_torch.ops.quant import quant_dot_general, row_parallel_int8
 from speechlid_tpu_torch.parallel.mesh import (
@@ -84,7 +87,6 @@ from speechlid_tpu_torch.parallel.mesh import (
 )
 
 LN_EPS = 1e-6  # flax nn.LayerNorm default
-_NEG = torch.finfo(torch.float32).min
 span = _time_cost_recoder.span
 
 
@@ -246,10 +248,14 @@ class RelPosAttention(nn.Module):
     """MHSA with Shaw relative position bias:
     dots = q·kᵀ·scale + q·E[clip(i-j, ±max_pos)]·scale.
 
-    Plain matmul and softmax (no fused attention): the JAX package computes
-    it outside any kernel, and parity is the point.  In bfloat16 both score
-    matmuls and their sum are bfloat16; the logits go to float32 before the
-    mask (JAX's float32 fill value promotes them there) and the softmax.
+    Everything between the projections (``to_q``, ``to_kv``; ``to_out``)
+    is ``ops/cuda/relpos_attn_kernel``: on the card, in float32 at head
+    widths 32 and 64 (:meth:`uses_kernel`), one kernel forward and three
+    backward that write no (n, n) or (n, 2P+1) tensor; on the CPU, in
+    bfloat16 or float16 and at other widths the plain chain of the JAX
+    package (``relpos_attn_plain``: q·Eᵀ over the whole table, a gather,
+    the mask and a float32 softmax; in bfloat16 both score matmuls and
+    their sum are bfloat16, the logits float32 from the mask on).
 
     Under tensor parallelism ``heads`` is this rank's number of heads and
     ``tp_group`` is set: the table ``rel_pos_emb``, shared by the heads,
@@ -270,31 +276,25 @@ class RelPosAttention(nn.Module):
         self.to_out = Linear(inner, dim, compute_dtype=dtype, quant_dot=quant_dot)
         self.rel_pos_emb = nn.Parameter(torch.randn(2 * max_pos_emb + 1, dim_head))
 
-    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-        b, n, _ = x.shape
-        h, d = self.heads, self.dim_head
-        q = self.to_q(x).view(b, n, h, d).transpose(1, 2)
-        k, v = self.to_kv(x).chunk(2, dim=-1)
-        k = k.reshape(b, n, h, d).transpose(1, 2)
-        v = v.reshape(b, n, h, d).transpose(1, 2)
+    def uses_kernel(self, q: torch.Tensor) -> bool:
+        """Whether ``q`` (the projection's output) goes through the kernels:
+        float32 on the card, computed in float32, at a head width they are
+        built for (16-bit instantiations and other widths are later work)."""
+        return (q.device.type == "cuda" and q.dtype == torch.float32
+                and self.dtype == torch.float32
+                and self.dim_head in relpos_attn_kernel.HEAD_DIMS)
 
-        scale = d ** -0.5
-        dots = (q @ k.transpose(-1, -2)) * scale
-        # q·Eᵀ over the whole (2P+1, d) table, then a gather along the
-        # relative-distance axis: no (n, n, d) embedding is materialised
-        seq = torch.arange(n, device=x.device)
-        dist = (seq[:, None] - seq[None, :]).clamp(-self.max_pos_emb, self.max_pos_emb)
-        dist = dist + self.max_pos_emb
+    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        q, kv = self.to_q(x), self.to_kv(x)
         table = self.rel_pos_emb if self.tp_group is None else \
             copy_to_group(self.rel_pos_emb, self.tp_group)
-        pos_scores = (q @ table.to(q.dtype).t()) * scale  # (b, h, n, 2P+1)
-        dots = (dots + torch.gather(pos_scores, -1, dist.expand(b, h, n, n))).float()
-
-        if mask is not None:
-            pair = mask[:, None, :, None] & mask[:, None, None, :]
-            dots = dots.masked_fill(~pair, _NEG)
-        attn = torch.softmax(dots, dim=-1).to(self.dtype)
-        out = (attn @ v).transpose(1, 2).reshape(b, n, h * d)
+        with span("model.relpos_attn"):
+            if self.uses_kernel(q):
+                out = relpos_attn_kernel.relpos_attn(q, kv, table, mask, self.heads,
+                                                     self.max_pos_emb)
+            else:
+                out = relpos_attn_kernel.relpos_attn_plain(q, kv, table, mask, self.heads,
+                                                           self.max_pos_emb, self.dtype)
         return self.dropout(self.to_out(out))
 
 

@@ -29,7 +29,7 @@ from pathlib import Path
 
 _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
-SOURCES = ("fbank.cu", "depthwise.cu", "subsample.cu")
+SOURCES = ("fbank.cu", "depthwise.cu", "subsample.cu", "relpos_attn.cu")
 BUILD_DIR = _PKG.parent / "build"
 TILING = {
     "FBANK_TILE_FRAMES": 16,   # frames of a block's tile
@@ -45,6 +45,7 @@ TILING = {
     "SUB_BK": 16,              # K rows of a subsampling chunk (wgrad: positions)
     "SUB_WGRAD_SPLITS": 29,    # position ranges of dW1: 9 taps × 29 = 261 blocks, two an SM
     "SUB_DGRAD_BLOCKS": 264,   # blocks that share the dgrad tiles: two an SM
+    "RPA_TILE": 32,            # queries and keys of a rel-pos attention tile
 }
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -75,6 +76,12 @@ _SIGNATURES = {
     "subsample_fwd": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     # x, w0 rows, w1 (tap, co, ci), y, dy, scratch, dw0, db0, dw1, db1, B, T, F, C, stream
     "subsample_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    # q, kv, table, mask (or null), o, lse, B, N, H, D, P, scale, stream
+    "relpos_attn_fwd": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P),
+    # q, kv, table, mask (or null), o, lse, dout, dq, dkv, dtable, part_dq, part_de,
+    # B, N, H, D, P, G, scale, stream
+    "relpos_attn_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                        _I, _I, _I, _I, _I, _I, _F, _P),
 }
 
 

@@ -1,0 +1,358 @@
+"""The Conformer blocks' Shaw relative-position attention core as one CUDA
+kernel family (``csrc/relpos_attn.cu``), forward and backward, its plain
+PyTorch version and an emulation of the kernels' tiles.
+
+Replaces no TPU kernel: the JAX package leaves ``RelPosAttention`` to XLA.
+Between the projections (q from ``to_q``, k and v from ``to_kv``, both as
+they write them, and ``to_out`` after) the function is
+
+    o = softmax(mask(s·q·kᵀ + s·q·E[clip(i − j, ±P) + P])) · v,   s = d^-1/2
+
+per utterance and head, a pair masked with ``finfo(float32).min`` where
+either frame is padded (a padded query row then averages v over all n keys).
+
+:func:`relpos_attn_plain` is the chain ``RelPosAttention`` ran, moved as it
+stood: q·Eᵀ over the whole (2P + 1, d) table, a gather, the (b, h, n, n)
+passes.  It is the CPU path, the path of bfloat16, float16 and other head
+widths, and the kernels' oracle.
+
+On the card (float32, d 32 or 64) the kernels never write an (n, n) or an
+(n, 2P + 1) tensor:
+
+- :func:`relpos_fwd`: one launch, flash-style over 32 × 32 tiles with an
+  online softmax; o and a log-sum-exp a row.
+- :func:`relpos_bwd`: three launches and no atomics: the tiles (a block per
+  utterance, group of :func:`heads_per_block` heads and key tile, walking
+  the query tiles), then the sums of dQ's partials over the key tiles and
+  of dE's partials over the blocks, each in index order: the same bits on
+  every run.
+
+:class:`RelPosAttnFn` ties them together under autograd.
+:func:`relpos_attn_tiled_plain` follows the kernels' tiles, their online
+softmax and their partials' indices in plain PyTorch, so that the CPU tests
+reach the index arithmetic the kernels depend on.  Each forward launch
+counts in ``relpos_fwd.launches``, each backward launch in
+``relpos_bwd.launches`` (three a backward).
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from speechlid_tpu_torch.ops.cuda import _build
+
+TILE = _build.TILING["RPA_TILE"]  # queries and keys of a tile (the kernels' too)
+HEAD_DIMS = (32, 64)              # the head widths the kernels are built for
+MIN_BWD_BLOCKS = 1980             # five waves of three backward blocks on 132 SMs
+_NEG = torch.finfo(torch.float32).min
+
+
+def relpos_attn_plain(q: torch.Tensor, kv: torch.Tensor, table: torch.Tensor,
+                      mask: Optional[torch.Tensor], heads: int, max_pos_emb: int,
+                      dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """Plain version: (b, n, h·d) attention output of q (b, n, h·d) and kv
+    (b, n, 2·h·d) (k, then v) with the table (2P + 1, d), mask (b, n) bool
+    (True = valid) or None; the probabilities go to ``dtype`` (default
+    q's) before p·v.  In bfloat16 both score products and their sum are
+    bfloat16; the logits go to float32 before the mask and the softmax."""
+    b, n, inner = q.shape
+    h = heads
+    d = inner // h
+    dtype = q.dtype if dtype is None else dtype
+    q = q.view(b, n, h, d).transpose(1, 2)
+    k, v = kv.chunk(2, dim=-1)
+    k = k.reshape(b, n, h, d).transpose(1, 2)
+    v = v.reshape(b, n, h, d).transpose(1, 2)
+
+    scale = d ** -0.5
+    dots = (q @ k.transpose(-1, -2)) * scale
+    # q·Eᵀ over the whole (2P+1, d) table, then a gather along the
+    # relative-distance axis: no (n, n, d) embedding is materialised
+    seq = torch.arange(n, device=q.device)
+    dist = (seq[:, None] - seq[None, :]).clamp(-max_pos_emb, max_pos_emb)
+    dist = dist + max_pos_emb
+    pos_scores = (q @ table.to(q.dtype).t()) * scale  # (b, h, n, 2P+1)
+    dots = (dots + torch.gather(pos_scores, -1, dist.expand(b, h, n, n))).float()
+
+    if mask is not None:
+        pair = mask[:, None, :, None] & mask[:, None, None, :]
+        dots = dots.masked_fill(~pair, _NEG)
+    attn = torch.softmax(dots, dim=-1).to(dtype)
+    return (attn @ v).transpose(1, 2).reshape(b, n, h * d)
+
+
+# ---------------------------------------------------------------------------
+# What the kernels and their emulation share
+# ---------------------------------------------------------------------------
+
+
+def tiles(n: int) -> int:
+    """Tiles of TILE frames that cover n frames."""
+    return -(-n // TILE)
+
+
+def heads_per_block(b: int, h: int, n: int) -> int:
+    """G, the heads a backward block takes: the most, a divisor of h, that
+    still leave MIN_BWD_BLOCKS blocks (b · h/G · key tiles), else 1.  More
+    heads a block sum more of dE in the block and leave fewer partials."""
+    for g in range(h, 0, -1):
+        if h % g == 0 and b * (h // g) * tiles(n) >= MIN_BWD_BLOCKS:
+            return g
+    return 1
+
+
+def band_rows(i0: int, j0: int, max_pos_emb: int) -> torch.Tensor:
+    """(2·TILE − 1,): the table rows of a tile's diagonals, e = i − j + TILE − 1
+    for its pairs (tile-local i, j): clip(i0 − j0 + e − TILE + 1, ±P) + P."""
+    e = torch.arange(2 * TILE - 1)
+    return (i0 - j0 + e - (TILE - 1)).clamp(-max_pos_emb, max_pos_emb) + max_pos_emb
+
+
+def table_row_span(row: int, j0: int, max_pos_emb: int, rows: int) -> Tuple[int, int]:
+    """[lo, hi] of the partial rows ρ of a backward block at key tile j0
+    (ρ = i − j + j0 + TILE − 1) whose distance clips to table ``row``: one ρ
+    inside, every ρ beyond ±P at the edge rows; cut to [0, rows)."""
+    p = max_pos_emb
+    lo = 0 if row == 0 else max(0, row - p + j0 + TILE - 1)
+    hi = rows - 1 if row == 2 * p else min(rows - 1, row - p + j0 + TILE - 1)
+    return lo, hi
+
+
+def relpos_attn_tiled_plain(
+    q: torch.Tensor, kv: torch.Tensor, table: torch.Tensor, mask: Optional[torch.Tensor],
+    heads: int, max_pos_emb: int, dout: torch.Tensor,
+) -> Tuple[torch.Tensor, Tuple[torch.Tensor, ...]]:
+    """The kernels' tiles in plain PyTorch, float32: (o, (dq, dkv, dtable))
+    for the output gradient ``dout``.
+
+    The forward walks each query tile's key tiles with the online softmax
+    (a padded query row's logits 0 over the n keys, masked and absent keys
+    −inf), the backward each key tile's query tiles: P from the saved
+    log-sum-exp, dS, dK and dV, dE / s by the tile's diagonals into the
+    partial of (utterance, head group, key tile) at rows i0 + e, dQ's
+    partial of the key tile; then the sums over the key tiles and, table
+    row by table row, over the blocks' partial rows (:func:`table_row_span`),
+    times s."""
+    b, n, hd = q.shape
+    h, p = heads, max_pos_emb
+    d = hd // h
+    s = d ** -0.5
+    nt = tiles(n)
+    np_, nr = nt * TILE, nt * TILE + TILE - 1
+
+    def heads_first(x):  # (b, n, h·d) → (b, h, NP, d), zero rows past n
+        return F.pad(x.float().reshape(b, n, h, d).transpose(1, 2), (0, 0, 0, np_ - n))
+
+    qh = heads_first(q)
+    k, v = heads_first(kv[..., :hd]), heads_first(kv[..., hd:])
+    g_out = heads_first(dout)
+    idx = torch.arange(np_)
+    valid = torch.ones((b, n), dtype=torch.bool) if mask is None else mask.cpu()
+    state = torch.zeros((b, np_), dtype=torch.long)  # 0 past n, 1 padded, 2 valid
+    state[:, :n] = 1 + valid.long()
+    e_of = torch.arange(TILE)[:, None] - torch.arange(TILE)[None, :] + TILE - 1  # (i, j) → e
+    table = table.float()
+
+    def logits(i0, j0):
+        band = table[band_rows(i0, j0, p)]                            # (63, d)
+        qt, kt = qh[:, :, i0:i0 + TILE], k[:, :, j0:j0 + TILE]
+        sc = (qt @ kt.transpose(-1, -2) + torch.einsum("bhic,ijc->bhij", qt, band[e_of])) * s
+        row, key = state[:, None, i0:i0 + TILE, None], state[:, None, None, j0:j0 + TILE]
+        sc = torch.where(row == 1, torch.zeros(()), sc)
+        sc = torch.where((key == 0) | ((key == 1) & (row != 1)), torch.full((), -torch.inf), sc)
+        return sc, band, row, key
+
+    o = torch.zeros((b, h, np_, d))
+    lse = torch.zeros((b, h, np_))
+    for i0 in range(0, np_, TILE):
+        m = torch.full((b, h, TILE), -torch.inf)
+        l_sum = torch.zeros((b, h, TILE))
+        acc = torch.zeros((b, h, TILE, d))
+        for j0 in range(0, np_, TILE):
+            sc = logits(i0, j0)[0]
+            m_new = torch.maximum(m, sc.amax(-1))
+            mu = torch.where(m_new == -torch.inf, torch.zeros(()), m_new)
+            alpha = torch.exp(m - mu)
+            pr = torch.exp(sc - mu[..., None])
+            l_sum = l_sum * alpha + pr.sum(-1)
+            acc = acc * alpha[..., None] + pr @ v[:, :, j0:j0 + TILE]
+            m = m_new
+        o[:, :, i0:i0 + TILE] = acc / l_sum[..., None]
+        lse[:, :, i0:i0 + TILE] = torch.where(m == -torch.inf, torch.zeros(()), m) + l_sum.log()
+    o = o * (idx < n)[:, None]
+    d_row = (g_out * o).sum(-1)                                       # D_i = dO_i · o_i
+
+    g = heads_per_block(b, h, n)
+    part_dq = torch.zeros((nt, b, h, np_, d))
+    part_de = torch.zeros((b, h // g, nt, nr, d))
+    dk, dv = torch.zeros_like(k), torch.zeros_like(v)
+    for kt, j0 in enumerate(range(0, np_, TILE)):
+        for i0 in range(0, np_, TILE):
+            sc, band, row, key = logits(i0, j0)
+            dp = g_out[:, :, i0:i0 + TILE] @ v[:, :, j0:j0 + TILE].transpose(-1, -2)
+            pr = torch.exp(sc - lse[:, :, i0:i0 + TILE, None])
+            pr = torch.where((row == 0) | (key == 0), torch.zeros(()), pr)
+            ds = torch.where((row == 2) & (key == 2),
+                             pr * (dp - d_row[:, :, i0:i0 + TILE, None]), torch.zeros(()))
+            dv[:, :, j0:j0 + TILE] += pr.transpose(-1, -2) @ g_out[:, :, i0:i0 + TILE]
+            dk[:, :, j0:j0 + TILE] += ds.transpose(-1, -2) @ qh[:, :, i0:i0 + TILE]
+            skew = torch.zeros((b, h, TILE, 2 * TILE - 1))            # G[i][i − j + 31] = dS_ij
+            skew.scatter_(-1, e_of.expand(b, h, TILE, TILE), ds)
+            de = skew.transpose(-1, -2) @ qh[:, :, i0:i0 + TILE]       # (b, h, 63, d), / s
+            part_de[:, :, kt, i0:i0 + 2 * TILE - 1] += de.reshape(b, h // g, g, -1, d).sum(2)
+            part_dq[kt, :, :, i0:i0 + TILE] = s * (ds @ k[:, :, j0:j0 + TILE] + skew @ band)
+    dq = part_dq.sum(0)
+    dtable = torch.zeros_like(table)
+    blocks = part_de.reshape(-1, nt, nr, d)
+    for row in range(2 * p + 1):
+        for kt in range(nt):
+            lo, hi = table_row_span(row, kt * TILE, p, nr)
+            if lo <= hi:
+                dtable[row] += blocks[:, kt, lo:hi + 1].sum((0, 1))
+    dtable, dk = dtable * s, dk * s
+
+    def back(x):  # (b, h, NP, d) → (b, n, h·d)
+        return x[:, :, :n].transpose(1, 2).reshape(b, n, hd)
+
+    return back(o), (back(dq), torch.cat([back(dk), back(dv)], -1), dtable)
+
+
+# ---------------------------------------------------------------------------
+# The kernels
+# ---------------------------------------------------------------------------
+
+
+def _check(q: torch.Tensor, kv: torch.Tensor, table: torch.Tensor,
+           mask: Optional[torch.Tensor], heads: int, max_pos_emb: int) -> int:
+    """Shapes and devices of a call; the head width d.  Raises on what the
+    kernels do not take."""
+    if q.dim() != 3 or q.shape[-1] % heads:
+        raise ValueError(f"q must be (b, n, heads·d); got {tuple(q.shape)} for {heads} heads")
+    b, n, hd = q.shape
+    d = hd // heads
+    if tuple(kv.shape) != (b, n, 2 * hd):
+        raise ValueError(f"kv must be (b, n, 2·heads·d) = {(b, n, 2 * hd)}; got {tuple(kv.shape)}")
+    if tuple(table.shape) != (2 * max_pos_emb + 1, d):
+        raise ValueError(f"the table must be (2P + 1, d) = {(2 * max_pos_emb + 1, d)}; "
+                         f"got {tuple(table.shape)}")
+    if mask is not None and (tuple(mask.shape) != (b, n) or mask.dtype != torch.bool):
+        raise ValueError(f"the mask must be (b, n) bool; got {tuple(mask.shape)} {mask.dtype}")
+    devices = {t.device for t in (q, kv, table) + (() if mask is None else (mask,))}
+    if len(devices) != 1:
+        raise ValueError(f"q, kv, the table and the mask lie on different devices: {devices}")
+    return d
+
+
+def _check_cuda(d: int, *tensors: torch.Tensor) -> None:
+    if d not in HEAD_DIMS:
+        raise ValueError(f"the rel-pos attention kernels take head widths {HEAD_DIMS}; got {d}")
+    if any(t.dtype != torch.float32 for t in tensors):
+        raise TypeError(f"the rel-pos attention kernels take float32 tensors; got "
+                        f"{[t.dtype for t in tensors]}")
+    if any(t.device.type != "cuda" for t in tensors):
+        raise ValueError("the rel-pos attention kernels run on a CUDA device")
+
+
+def _stream() -> int:
+    return torch.cuda.current_stream().cuda_stream
+
+
+def _mask_bytes(mask: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+    return None if mask is None else mask.contiguous().view(torch.uint8)
+
+
+def relpos_fwd(q: torch.Tensor, kv: torch.Tensor, table: torch.Tensor,
+               mask: Optional[torch.Tensor], heads: int,
+               max_pos_emb: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(o (b, n, h·d), lse (b·h, tiles·TILE)) of float32 CUDA tensors: one
+    launch of the forward kernel, counted in ``relpos_fwd.launches``.  No
+    autograd."""
+    d = _check(q, kv, table, mask, heads, max_pos_emb)
+    _check_cuda(d, q, kv, table)
+    q, kv, table, m = q.contiguous(), kv.contiguous(), table.contiguous(), _mask_bytes(mask)
+    b, n, _ = q.shape
+    o = torch.empty_like(q)
+    lse = torch.empty((b * heads, tiles(n) * TILE), dtype=torch.float32, device=q.device)
+    with torch.cuda.device(q.device):
+        err = _build.lib().relpos_attn_fwd(
+            q.data_ptr(), kv.data_ptr(), table.data_ptr(), None if m is None else m.data_ptr(),
+            o.data_ptr(), lse.data_ptr(), b, n, heads, d, max_pos_emb, d ** -0.5, _stream())
+    _build.check(err, "relpos_attn_fwd")
+    relpos_fwd.launches += 1
+    return o, lse
+
+
+def relpos_bwd(q: torch.Tensor, kv: torch.Tensor, table: torch.Tensor,
+               mask: Optional[torch.Tensor], o: torch.Tensor, lse: torch.Tensor,
+               dout: torch.Tensor, heads: int, max_pos_emb: int) -> Tuple[torch.Tensor, ...]:
+    """(dq, dkv, dtable) from the forward's inputs, its o and lse and the
+    output gradient (float32 CUDA tensors): three launches, counted in
+    ``relpos_bwd.launches``, and their partials' scratch."""
+    d = _check(q, kv, table, mask, heads, max_pos_emb)
+    _check_cuda(d, q, kv, table, o, lse, dout)
+    q, kv, table, m = q.contiguous(), kv.contiguous(), table.contiguous(), _mask_bytes(mask)
+    o, dout = o.contiguous(), dout.contiguous()
+    b, n, _ = q.shape
+    nt = tiles(n)
+    g = heads_per_block(b, heads, n)
+    part_dq = torch.empty((nt, b * heads, nt * TILE, d), dtype=torch.float32, device=q.device)
+    part_de = torch.empty((b * (heads // g), nt, nt * TILE + TILE - 1, d), dtype=torch.float32,
+                          device=q.device)
+    dq, dkv, dtable = torch.empty_like(q), torch.empty_like(kv), torch.empty_like(table)
+    with torch.cuda.device(q.device):
+        err = _build.lib().relpos_attn_bwd(
+            q.data_ptr(), kv.data_ptr(), table.data_ptr(), None if m is None else m.data_ptr(),
+            o.data_ptr(), lse.data_ptr(), dout.data_ptr(), dq.data_ptr(), dkv.data_ptr(),
+            dtable.data_ptr(), part_dq.data_ptr(), part_de.data_ptr(), b, n, heads, d,
+            max_pos_emb, g, d ** -0.5, _stream())
+    _build.check(err, "relpos_attn_bwd")
+    relpos_bwd.launches += 3
+    return dq, dkv, dtable
+
+
+class RelPosAttnFn(torch.autograd.Function):
+    """The attention core on the card with its gradients, all through the
+    kernels: one forward launch, three backward.  Saves q, kv, the table,
+    the mask, o and one float32 a row (lse)."""
+
+    @staticmethod
+    def forward(ctx, q, kv, table, mask, heads, max_pos_emb):
+        o, lse = relpos_fwd(q, kv, table, mask, heads, max_pos_emb)
+        ctx.save_for_backward(q, kv, table, mask, o, lse)
+        ctx.heads, ctx.max_pos_emb = heads, max_pos_emb
+        return o
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, dout):
+        q, kv, table, mask, o, lse = ctx.saved_tensors
+        grads = relpos_bwd(q, kv, table, mask, o, lse, dout, ctx.heads, ctx.max_pos_emb)
+        return (*grads, None, None, None)
+
+
+def relpos_attn(q: torch.Tensor, kv: torch.Tensor, table: torch.Tensor,
+                mask: Optional[torch.Tensor], heads: int, max_pos_emb: int) -> torch.Tensor:
+    """(b, n, h·d) attention core of q (b, n, h·d), kv (b, n, 2·h·d) and the
+    table (2P + 1, d), mask (b, n) bool or None, differentiable in q, kv
+    and the table.
+
+    CPU tensors: :func:`relpos_attn_plain` under autograd.  Float32 CUDA
+    tensors with d in HEAD_DIMS: :class:`RelPosAttnFn`.  Anything else
+    raises."""
+    d = _check(q, kv, table, mask, heads, max_pos_emb)
+    if q.device.type == "cpu":
+        return relpos_attn_plain(q, kv, table, mask, heads, max_pos_emb)
+    _check_cuda(d, q, kv, table)
+    return RelPosAttnFn.apply(q, kv, table, mask, heads, max_pos_emb)
+
+
+def reset_launch_counts() -> None:
+    """Set every launch count of this module to 0."""
+    relpos_fwd.launches = 0
+    relpos_bwd.launches = 0
+
+
+reset_launch_counts()

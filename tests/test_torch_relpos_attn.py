@@ -1,0 +1,205 @@
+"""The Conformer's rel-pos attention core on the CPU: its plain version
+against the chain ``RelPosAttention`` ran before it moved (bit for bit,
+forward and the gradients of q, k, v and the table), the module around it,
+the emulation of the kernels' tiles against the plain version, the rule by
+which the module chooses the kernels, and what the wrapper refuses.  The
+CUDA kernels are held against the plain version on the card by
+``chip_smoke.py --only relpos_attn``.
+
+The emulation's tolerance is 1e-5 of each output's largest entry: float32
+sums of up to 649 keys (and, for the table, over every pair of a distance)
+in another order than the chain's."""
+
+from types import SimpleNamespace
+
+import pytest
+import torch
+
+from speechlid_tpu_torch.models import conformer
+from speechlid_tpu_torch.ops.cuda import relpos_attn_kernel as rk
+from tests.torch_parity import one_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_thread")
+
+NEG = torch.finfo(torch.float32).min
+TOL = 1e-5
+
+
+def chain(q, kv, table, mask, h, p, dtype=torch.float32):
+    """``RelPosAttention.forward`` between its projections as it stood
+    before the kernels: q·Eᵀ over the whole table, the gather, the mask and
+    the softmax, each its own pass."""
+    b, n, _ = q.shape
+    d = q.shape[-1] // h
+    q = q.view(b, n, h, d).transpose(1, 2)
+    k, v = kv.chunk(2, dim=-1)
+    k = k.reshape(b, n, h, d).transpose(1, 2)
+    v = v.reshape(b, n, h, d).transpose(1, 2)
+    scale = d ** -0.5
+    dots = (q @ k.transpose(-1, -2)) * scale
+    seq = torch.arange(n, device=q.device)
+    dist = (seq[:, None] - seq[None, :]).clamp(-p, p)
+    dist = dist + p
+    pos_scores = (q @ table.to(q.dtype).t()) * scale
+    dots = (dots + torch.gather(pos_scores, -1, dist.expand(b, h, n, n))).float()
+    if mask is not None:
+        pair = mask[:, None, :, None] & mask[:, None, None, :]
+        dots = dots.masked_fill(~pair, NEG)
+    attn = torch.softmax(dots, dim=-1).to(dtype)
+    return (attn @ v).transpose(1, 2).reshape(b, n, h * d)
+
+
+def inputs(b, n, h, d, p, masked, seed=0):
+    """q, kv, the table and the output gradient; a ragged mask whose last
+    utterances are fully padded past a few frames and whose first is
+    whole (fully padded query rows in the batch)."""
+    g = torch.Generator().manual_seed(seed)
+    q = torch.randn(b, n, h * d, generator=g)
+    kv = torch.randn(b, n, 2 * h * d, generator=g)
+    table = torch.randn(2 * p + 1, d, generator=g)
+    dout = torch.randn(b, n, h * d, generator=g)
+    mask = None
+    if masked:
+        lengths = torch.randint(1, n + 1, (b,), generator=g)
+        lengths[0] = n
+        lengths[-1] = min(lengths[-1], max(1, n // 3))
+        mask = torch.arange(n)[None, :] < lengths[:, None]
+    return q, kv, table, mask, dout
+
+
+def grads(fn, q, kv, table, dout):
+    leaves = [x.clone().requires_grad_() for x in (q, kv, table)]
+    out = fn(*leaves)
+    return (out, *torch.autograd.grad(out, leaves, dout))
+
+
+def rel_err(got, ref):
+    got, ref = got.detach(), ref.detach()
+    return float((got - ref).abs().max() / ref.abs().max().clamp_min(1e-30))
+
+
+@pytest.mark.parametrize("n", [1, 74, 149, 324, 649])
+@pytest.mark.parametrize("h,d", [(4, 64), (8, 32)])
+@pytest.mark.parametrize("masked", [False, True])
+def test_plain_equals_the_chain_bit_for_bit(n, h, d, masked):
+    q, kv, table, mask, dout = inputs(2, n, h, d, 512, masked)
+    got = grads(lambda *x: rk.relpos_attn_plain(*x, mask, h, 512), q, kv, table, dout)
+    ref = grads(lambda *x: chain(*x, mask, h, 512), q, kv, table, dout)
+    for name, g, r in zip(("out", "dq", "dkv", "dtable"), got, ref):
+        assert torch.equal(g, r), name
+
+
+def test_module_forward_is_the_chain_between_its_projections():
+    torch.manual_seed(0)
+    attn = conformer.RelPosAttention(32, heads=4, dim_head=8, max_pos_emb=6)
+    x = torch.randn(3, 20, 32)
+    mask = torch.arange(20)[None, :] < torch.tensor([20, 13, 4])[:, None]
+    got = attn(x, mask)
+    ref = attn.to_out(chain(attn.to_q(x), attn.to_kv(x), attn.rel_pos_emb, mask, 4, 6))
+    assert torch.equal(got, ref)
+    g_got = torch.autograd.grad(got.square().sum(), list(attn.parameters()))
+    g_ref = torch.autograd.grad(ref.square().sum(), list(attn.parameters()))
+    assert all(torch.equal(a, b) for a, b in zip(g_got, g_ref))
+
+
+# (b, n, h, d, P): tiles cut short, one frame, the clip live (n > P + 1),
+# the benchmark's scoring and head widths
+TILED = [(2, 40, 2, 32, 8), (3, 70, 4, 64, 512), (1, 1, 2, 32, 4), (2, 100, 2, 32, 30),
+         (2, 74, 8, 32, 512), (2, 33, 4, 64, 3)]
+
+
+@pytest.mark.parametrize("b,n,h,d,p", TILED)
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("min_blocks", [rk.MIN_BWD_BLOCKS, 1])
+def test_tiled_emulation_matches_plain(b, n, h, d, p, masked, min_blocks, monkeypatch):
+    """The kernels' tiles, online softmax and partials (one head a block,
+    then every head of the utterance in one block) against autograd."""
+    monkeypatch.setattr(rk, "MIN_BWD_BLOCKS", min_blocks)
+    q, kv, table, mask, dout = inputs(b, n, h, d, p, masked, seed=n)
+    ref = grads(lambda *x: rk.relpos_attn_plain(*x, mask, h, p), q, kv, table, dout)
+    out, got = rk.relpos_attn_tiled_plain(q, kv, table, mask, h, p, dout)
+    for name, g, r in zip(("out", "dq", "dkv", "dtable"), (out, *got), ref):
+        assert g.shape == r.shape, name
+        if n == 1 and name in ("dq", "dtable"):  # one key: the softmax is flat, both zero
+            assert max(g.abs().max(), r.abs().max()) <= 1e-6, name
+        else:
+            assert rel_err(g, r) <= TOL, (name, rel_err(g, r))
+
+
+def test_padded_rows_average_every_key_and_pass_no_gradient():
+    q, kv, table, mask, dout = inputs(2, 40, 2, 32, 8, True)
+    out, (dq, dkv, dtable) = rk.relpos_attn_tiled_plain(q, kv, table, mask, 2, 8, dout)
+    dead = ~mask
+    v = kv[..., 64:]
+    assert torch.allclose(out[dead], v.mean(1, keepdim=True).expand_as(v)[dead], atol=1e-5)
+    assert torch.all(dq[dead] == 0)  # a padded query row passes no gradient to q
+
+
+def test_heads_per_block():
+    assert rk.heads_per_block(128, 4, 324) == 2     # 128 · 2 · 11 key tiles = 2816 blocks
+    assert rk.heads_per_block(128, 8, 324) == 4     # 128 · 2 · 11 = 2816; 128 · 1 · 11 = 1408
+    assert rk.heads_per_block(8, 8, 649) == 1       # 8 · 8 · 21 = 1344: every head its block
+    assert rk.heads_per_block(512, 4, 74) == 2      # 512 · 1 · 3 = 1536 is too few
+    assert rk.heads_per_block(1, 3, 10) == 1
+
+
+@pytest.mark.parametrize("p", [0, 3, 512])
+@pytest.mark.parametrize("n", [1, 40, 649])
+def test_table_rows_take_each_partial_row_once(p, n):
+    """Over the table's rows the spans of a block's partial rows cover each
+    row ρ once, at the row its distance clips to."""
+    rows = rk.tiles(n) * rk.TILE + rk.TILE - 1
+    for j0 in range(0, rk.tiles(n) * rk.TILE, rk.TILE):
+        seen = torch.zeros(rows, dtype=torch.long)
+        for row in range(2 * p + 1):
+            lo, hi = rk.table_row_span(row, j0, p, rows)
+            for rho in range(lo, hi + 1):
+                assert min(max(rho - j0 - rk.TILE + 1, -p), p) + p == row
+                seen[rho] += 1
+        assert torch.all(seen == 1)
+
+
+def fake(device, dtype):
+    return SimpleNamespace(device=torch.device(device), dtype=dtype)
+
+
+@pytest.mark.parametrize("dim_head,dtype,device,taken", [
+    (64, torch.float32, "cuda", True), (32, torch.float32, "cuda", True),
+    (16, torch.float32, "cuda", False), (48, torch.float32, "cuda", False),
+    (64, torch.bfloat16, "cuda", False), (32, torch.float16, "cuda", False),
+    (64, torch.float32, "cpu", False), (32, torch.float32, "cpu", False)])
+def test_uses_kernel(dim_head, dtype, device, taken):
+    attn = conformer.RelPosAttention(16, heads=2, dim_head=dim_head, max_pos_emb=4,
+                                     dtype=dtype)
+    assert attn.uses_kernel(fake(device, dtype)) is taken
+
+
+def test_the_cpu_and_untaken_widths_never_reach_the_wrapper(monkeypatch):
+    def refuse(*args, **kwargs):
+        raise AssertionError("the wrapper was called")
+
+    monkeypatch.setattr(rk, "relpos_attn", refuse)
+    for dim_head in (16, 32, 64):
+        attn = conformer.RelPosAttention(16, heads=2, dim_head=dim_head, max_pos_emb=4)
+        x = torch.randn(2, 9, 16)
+        assert attn(x, torch.ones(2, 9, dtype=torch.bool)).shape == (2, 9, 16)
+        cuda_q = fake("cuda", torch.float32)
+        assert attn.uses_kernel(cuda_q) is (dim_head != 16)
+
+
+def test_wrapper_takes_the_plain_version_on_the_cpu_and_refuses_the_rest():
+    q, kv, table, mask, _ = inputs(2, 10, 2, 32, 4, True)
+    assert torch.equal(rk.relpos_attn(q, kv, table, mask, 2, 4),
+                       rk.relpos_attn_plain(q, kv, table, mask, 2, 4))
+    with pytest.raises(ValueError):
+        rk.relpos_attn(q, kv[..., :64], table, mask, 2, 4)
+    with pytest.raises(ValueError):
+        rk.relpos_attn(q, kv, table[:5], mask, 2, 4)
+    with pytest.raises(ValueError):
+        rk.relpos_attn(q, kv, table, mask.float(), 2, 4)
+    with pytest.raises(ValueError):  # a width the kernels are not built for
+        rk._check_cuda(16, q)
+    with pytest.raises(TypeError):
+        rk._check_cuda(32, q.double())
+    with pytest.raises(ValueError):  # a CPU tensor never launches a kernel
+        rk.relpos_fwd(q, kv, table, mask, 2, 4)
