@@ -36,7 +36,8 @@ eval and augmentation paths agree with the CPU (``eval_ops``); the eval CLI
 (``cli.test_lid``) scores both CLI checkpoints clean, over the SNR × noise
 grid with LM arbitration and into a CSV and a submission file
 (``cli_eval_flagship``, ``cli_eval_gate``); and the training CLI trains
-with the waveform augmentor (``cli_augment``).  Then the WavLM-Base+ joint
+with the waveform augmentor, whose chain on the card agrees with the CPU's
+(``cli_augment``).  Then the WavLM-Base+ joint
 model (12 × 768 with the gated relative position bias, three heads of 768
 whose conv modules run the depthwise kernel at C = 1536): card against CPU
 in inference (``wavlm_model_card_vs_cpu``) and for one deterministic train
@@ -70,8 +71,8 @@ scores ``cli_flagship``'s checkpoint with that SE model blended in at
 run without SE (``cli_eval_se``); one server answers ``/lid`` and ``/se``
 from four threads (``serve_se``); ``LidASRTask(head_type="bilstm")`` at the
 flagship's width on the card against the CPU, inference and a step
-(``bilstm_card_vs_cpu``); and their times (``se_e2e``); ``--only se`` runs
-these alone.  Then the int8 engine (``ops/quant.py``), SWA and Novograd:
+(``bilstm_card_vs_cpu``); ``--only se`` runs these alone.  Then the int8
+engine (``ops/quant.py``), SWA and Novograd:
 every quantized Linear shape of both flagship paths, the card's codes and
 ``_int_mm``'s int32 sums against the CPU's and a float64 oracle, timed
 against ``F.linear`` in float32 and bfloat16 (``quant_dense``); ``serve
@@ -82,14 +83,15 @@ training CLI at the Base+ width, and one QAT step card against CPU
 (``cli_eval_quant``); the flagship through the CLI with
 ``trainer.use_swa=true`` (``cli_swa``: the average and the re-estimated
 statistics in ``swa_final.ckpt``) and with ``module.optimizer=novograd``
-(``cli_novograd``); and ``infer`` utt/s in float32, bfloat16, int8 and
-bfloat16 + int8 (``quant_e2e``); ``--only quant`` runs these alone.  Then kaldi fbank and
+(``cli_novograd``); and the launches of ``infer`` in int8 and bfloat16 +
+int8 (``quant_launches``); ``--only quant`` runs these alone.  Then kaldi fbank and
 ``FBankLayer`` on a padded (8, 64000) batch with a row shorter than the
 kaldi window, card against the CPU's float64 (``kaldi_card_vs_cpu``); every
 model of ``models/extras.py`` at ``main_extras``' default widths, card
-against CPU in inference and for one step, and each task's step timed
-(``extras_card_vs_cpu``); ``main_extras lm | rml | spec_pred | image`` on
-data ``prepare_text`` and ``prepare_spectrum`` prepared, two epochs each
+against CPU in inference and for one step, and each task's steps
+launching no hand kernel (``extras_card_vs_cpu``); ``main_extras lm | rml |
+spec_pred | image`` on data ``prepare_text`` and ``prepare_spectrum``
+prepared, two epochs each
 with the training loss falling (``cli_extras``); the port's ``sweep`` on
 ``configs/sweep_lid.yaml``'s bayes spec over ``main_lid`` at full width, on
 manifests ``prepare_manifest`` wrote, every trial launching the kernels
@@ -101,8 +103,7 @@ batch, the first step's gradients and the state after three Adam steps,
 the ranks bit-equal and each rank's launches a step, then two steps with
 every random draw on (``dp_card_vs_single``); ``main_lid`` with
 ``trainer.data_parallel=true`` under ``python -m torch.distributed.run``
-over nccl at world size 1, beside the same run without it
-(``cli_dp``); and both SELDNet presets card against CPU
+over nccl at world size 1 (``cli_dp``); and both SELDNet presets card against CPU
 (``seldnet_card_vs_cpu``); ``--only dist`` runs these alone.  Then tensor,
 expert, pipeline and sequence parallelism (``--only mp``).  Then
 ``configs/lid_extra_finetune.yaml`` at its own WavLM-Large width (24 ×
@@ -111,24 +112,27 @@ expert, pipeline and sequence parallelism (``--only mp``).  Then
 from 2 to 13 s, three epochs, a resume and ``cli.test_lid`` on the best
 checkpoint, its freeze gates and launches by channel count
 (``cli_wavlm_large``); ``remat`` off and on for the Large, Base+ and
-flagship steps, their losses, gradients, launches, peak memory and step
-times (``remat``); how long ``last.ckpt`` of the Large task blocks the loop
+flagship steps, their losses, gradients, launches and peak memory
+(``remat``); how long ``last.ckpt`` of the Large task blocks the loop
 with ``async_write`` off and on (``async_ckpt``); and the flagship in
 float16, card against CPU in inference and for one step
 (``f16_card_vs_cpu``); ``conv_fused`` holds every depthwise mode at the
 Large heads' shapes and every float16 mode against plain; ``--only large``
 runs these alone.  Last
-it times the kernels, the
-models and the train steps (the WavLM model's in ``wavlm_e2e``, bfloat16
-against float32 in turns in ``bf16_e2e``).  The fused modes are also timed against the
-unfused chain they replace (``chain_ms``), in turns chain, fused, fused, chain, and a
-CUDA graph capture shows one device kernel between a conv module's two
-pointwise GEMMs.  Each phase prints one JSON line (the eval CLI prints its own
-result lines as well); any failure raises and exits non-zero.  The ``{"kernels": …}`` line lists every kernel and fused mode
-at the shape the served or the trained path gives it, with its launches as
-counted on that path, its error against its plain version at that shape
-and its times beside its bound.  The last line is
-``{"ok": true, "device": …}``.
+it checks the launches of the models' forwards and train steps that the
+kernel rows count (``quant_launches``, ``ce_launches``, the WavLM and
+bfloat16 ones), shows in CUDA graph captures two device kernels a depthwise
+backward and one between a conv module's two pointwise GEMMs
+(``device_kernels``), and times the kernels on the card.  The fused modes
+are timed against the unfused chain they replace (``chain_ms``), in turns
+chain, fused, fused, chain.  Each phase prints one JSON line (the eval CLI
+prints its own result lines as well); any failure raises and exits
+non-zero.  The ``{"kernels": …}`` line lists every kernel and fused mode at
+the shape the served or the trained path gives it, with its launches as
+counted on that path (``_build.launches``), its error against its plain
+version at that shape and its times beside its bound.  End-to-end rates
+are the benchmark's (``benchmark/run.py``), not this script's.  The last
+line is ``{"ok": true, "device": …}``.
 
 float32 with TF32 off for matmuls and cuDNN convolutions (cuDNN would
 otherwise run the Conv2d subsampling in TF32), and bfloat16 where a phase
@@ -139,18 +143,19 @@ seeded ``torch.Generator``.  Imports nothing of JAX.
 from __future__ import annotations
 
 import argparse
+import collections
 import contextlib
 import ctypes
 import gc
 import importlib.util
 import json
 import os
-import statistics
 import subprocess
 import sys
 import tempfile
 import threading
 import time
+import types
 import urllib.request
 from http.server import ThreadingHTTPServer
 from pathlib import Path
@@ -180,7 +185,6 @@ from speechlid_tpu_torch.core.checkpoint import (
     wait_for_checkpoints,
 )
 from speechlid_tpu_torch.core.precision import strict_float32
-from speechlid_tpu_torch.core.profile import _time_cost_recoder
 from speechlid_tpu_torch.core.trainer import Trainer
 from speechlid_tpu_torch.data.augmentor import WavAugmentor
 from speechlid_tpu_torch.models.batchnorm import FlaxBatchNorm
@@ -218,14 +222,13 @@ from speechlid_tpu_torch.ops.cuda.depthwise_kernel import (
     glu_depthwise_dx,
     glu_depthwise_plain,
     glu_mask_bwd_plain,
-    reset_launch_counts,
 )
 from speechlid_tpu_torch.ops.cuda.fbank_kernel import (
     log_mel,
     log_mel_plain,
     log_mel_tiled_plain,
 )
-from speechlid_tpu_torch.ops.cuda import relpos_attn_kernel, subsample_kernel
+from speechlid_tpu_torch.ops.cuda import relpos_attn_kernel
 from speechlid_tpu_torch.ops.cuda.relpos_attn_kernel import (
     relpos_attn_plain,
     relpos_bwd,
@@ -921,26 +924,38 @@ def init_random_(model: torch.nn.Module, gen: torch.Generator) -> None:
                 module.running_var.copy_(0.5 + torch.rand(module.running_var.shape, generator=gen))
 
 
+def clear_launches(*families: str) -> None:
+    """Clear the counts of ``_build.launches`` whose entry points start with
+    one of ``families``."""
+    for key in [k for k in _build.launches if k.entry.startswith(families)]:
+        del _build.launches[key]
+
+
 def reset_launches() -> None:
-    log_mel.launches = 0
-    reset_launch_counts()
+    """Clear the fbank and depthwise counts (the subsampling's and the
+    rel-pos attention's are cleared by the phases that read them)."""
+    clear_launches("fbank", "depthwise")
 
 
 def launches() -> dict:
-    """The wrappers' counts; ``depthwise`` holds every launch of the forward
-    kernel, ``depthwise_dx`` the flipped ones among them, ``depthwise_bf16``
-    and ``depthwise_f16`` its bfloat16 and float16 ones, and
-    ``depthwise_<mode>`` each mode's (``FWD_MODES``);
+    """The fbank and depthwise counts of ``_build.launches``; ``depthwise``
+    holds every launch of the forward kernel, ``depthwise_dx`` the flipped
+    ones among them, ``depthwise_bf16`` and ``depthwise_f16`` its bfloat16
+    and float16 ones, and ``depthwise_<mode>`` each mode's (``FWD_MODES``);
     ``depthwise_bwd_w_bf16`` and ``depthwise_bwd_w_f16`` the 16-bit dW/db
     launches."""
-    return {"fbank": log_mel.launches, "depthwise": depthwise_conv1d.launches,
-            "depthwise_dx": depthwise_conv1d.dx_launches,
-            "depthwise_bwd_w": depthwise_conv1d_bwd_w.launches,
-            "depthwise_bf16": depthwise_conv1d.bf16_launches,
-            "depthwise_bwd_w_bf16": depthwise_conv1d_bwd_w.bf16_launches,
-            "depthwise_f16": depthwise_conv1d.f16_launches,
-            "depthwise_bwd_w_f16": depthwise_conv1d_bwd_w.f16_launches,
-            **{f"depthwise_{m}": n for m, n in depthwise_conv1d.mode_launches.items()}}
+    modes = {m: _build.launched(mode=m) for m in FWD_MODES}
+    by_dtype = {d: sum(_build.launched(mode=m, dtype=d) for m in FWD_MODES)
+                for d in (torch.bfloat16, torch.float16)}
+    return {"fbank": _build.launched(entry="fbank_log_mel_f32"),
+            "depthwise": sum(modes.values()),
+            "depthwise_dx": modes["plain_dx"] + modes["glu_dx"],
+            "depthwise_bwd_w": _build.launched(mode="bwd_w"),
+            "depthwise_bf16": by_dtype[torch.bfloat16],
+            "depthwise_bwd_w_bf16": _build.launched(mode="bwd_w", dtype=torch.bfloat16),
+            "depthwise_f16": by_dtype[torch.float16],
+            "depthwise_bwd_w_f16": _build.launched(mode="bwd_w", dtype=torch.float16),
+            **{f"depthwise_{m}": n for m, n in modes.items()}}
 
 
 def infer_card_vs_cpu(task: LidASRTask, cpu: LidASRTask, wavs: torch.Tensor,
@@ -948,8 +963,8 @@ def infer_card_vs_cpu(task: LidASRTask, cpu: LidASRTask, wavs: torch.Tensor,
     """``infer`` of ``task`` on the card (after one call that sets cuBLAS
     and cuDNN up) and of ``cpu``, which holds the same state_dict, on the
     same batch; → (the card's outputs on the host, the CPU's, the launches
-    of the card's second call, the CPU call's seconds, the errors of the
-    logits (where not masked), scores and MLP scores)."""
+    of the card's second call, the errors of the logits (where not masked),
+    scores and MLP scores)."""
     infer = task.infer_fn()
     infer(wavs, lengths)
     torch.cuda.synchronize()
@@ -957,16 +972,14 @@ def infer_card_vs_cpu(task: LidASRTask, cpu: LidASRTask, wavs: torch.Tensor,
     out = infer(wavs, lengths)
     torch.cuda.synchronize()
     per_forward = launches()
-    t0 = time.perf_counter()
     ref = cpu.infer_fn()(wavs, lengths)
-    cpu_s = time.perf_counter() - t0
     got = {k: v.cpu() for k, v in out.items()}
     live = ref["logits"] > torch.finfo(torch.float32).min
     errs = {"max_abs_err_logits": (got["logits"][live] - ref["logits"][live]).abs().max().item(),
             "max_abs_err_scores": (got["scores"] - ref["scores"]).abs().max().item(),
             "max_abs_err_mlp_scores":
                 (got["mlp_scores"] - ref["mlp_scores"]).abs().max().item()}
-    return got, ref, per_forward, cpu_s, errs
+    return got, ref, per_forward, errs
 
 
 def phase_model(gen: torch.Generator) -> LidASRTask:
@@ -978,7 +991,7 @@ def phase_model(gen: torch.Generator) -> LidASRTask:
     cpu_task.model.load_state_dict(task.model.state_dict())
     wavs = 0.1 * torch.randn(2, 3 * SR, generator=gen)
     lengths = torch.tensor([3 * SR, 40000])
-    got, ref, per_forward, _, errs = infer_card_vs_cpu(task, cpu_task, wavs, lengths)
+    got, ref, per_forward, errs = infer_card_vs_cpu(task, cpu_task, wavs, lengths)
     neg = torch.finfo(torch.float32).min
     score_err = errs["max_abs_err_scores"]
     report = {
@@ -1023,17 +1036,15 @@ def phase_serve(task: LidASRTask, gen: torch.Generator, per_forward: dict = PER_
     thread.start()
     url = f"http://127.0.0.1:{server.server_address[1]}"
     wavs = [(0.1 * torch.randn(int(s * SR), generator=gen)).numpy() for s in SERVE_SECONDS]
-    answers, client_ms = [], []
+    answers = []
     try:
         torch.cuda.synchronize()
         reset_launches()
         for _ in range(SERVE_ROUNDS):
             for wav in wavs:
-                t0 = time.perf_counter()
                 req = urllib.request.Request(url + "/lid", data=wav.tobytes(), method="POST")
                 with urllib.request.urlopen(req, timeout=120) as resp:
                     status, body = resp.status, json.loads(resp.read())
-                client_ms.append((time.perf_counter() - t0) * 1e3)
                 answers.append((wav, status, body))
         served = launches()
         health = _get(url + "/healthz")
@@ -1057,8 +1068,7 @@ def phase_serve(task: LidASRTask, gen: torch.Generator, per_forward: dict = PER_
         "phase": name, "requests": n_req, "seconds": list(SERVE_SECONDS),
         "rounds": SERVE_ROUNDS, "launches": served,
         "max_abs_diff_vs_direct_infer": worst,
-        "client_p50_ms": statistics.median(client_ms),
-        "client_ms": client_ms, "healthz": health, "stats": stats,
+        "healthz": health, "stats": stats,
         "langs": [body["lang"] for _, _, body in answers[:len(wavs)]],
     }
     emit(report)
@@ -1139,8 +1149,8 @@ def step_card_vs_cpu(card: LidASRTask, cpu: LidASRTask, batch: dict, zero_grad_l
                      after_card=None, reference: LidASRTask = None, tol: float = 0.0) -> dict:
     """One deterministic train step of ``card`` and of ``cpu`` (the same
     state_dict) on ``batch``: the loss of each, the launches of the card's
-    step, the CPU's seconds, and the worst gradient's distance between the
-    two over its own largest entry.  Leaves named with a suffix of
+    step, and the worst gradient's distance between the two over its own
+    largest entry.  Leaves named with a suffix of
     ``zero_grad_leaves`` have a true gradient of 0, so both sides hold
     rounding noise there: the noise is held against the largest gradient of
     all.  ``after_card`` runs after the card's step.
@@ -1165,16 +1175,14 @@ def step_card_vs_cpu(card: LidASRTask, cpu: LidASRTask, batch: dict, zero_grad_l
         task.model.train()
         torch.cuda.synchronize()
         reset_launches()
-        t0 = time.perf_counter()
         loss, _ = task.train_loop(task.place_batch(batch))
         loss.backward()
         if name == "card" and after_card is not None:
             after_card()
-        results[name] = (loss.item(), launches(), time.perf_counter() - t0,
+        results[name] = (loss.item(), launches(),
                          {k: p.grad.cpu() for k, p in task.model.named_parameters()
                           if p.grad is not None})
-    (loss_card, counted, _, grads_card), (loss_cpu, _, cpu_s, grads_cpu) = (
-        results["card"], results["cpu"])
+    (loss_card, counted, grads_card), (loss_cpu, _, grads_cpu) = results["card"], results["cpu"]
     largest = max(float(g.abs().max()) for g in grads_cpu.values())
 
     def distance(name, a, b):
@@ -1191,7 +1199,7 @@ def step_card_vs_cpu(card: LidASRTask, cpu: LidASRTask, batch: dict, zero_grad_l
         if err > worst:
             worst, worst_name = err, name
         if reference is not None and not name.endswith(tuple(zero_grad_leaves)):
-            g32 = results["float32"][3][name]
+            g32 = results["float32"][2][name]
             own_cpu, own_card = rel_l2(g_cpu, g32), rel_l2(grads_card[name], g32)
             if max(own_cpu, own_card, err) > tol:
                 far[name] = {"max_abs_card_vs_cpu": err, "rel_l2_cpu_vs_float32": own_cpu,
@@ -1202,12 +1210,11 @@ def step_card_vs_cpu(card: LidASRTask, cpu: LidASRTask, batch: dict, zero_grad_l
            "rel_err_loss": abs(loss_card - loss_cpu) / max(abs(loss_cpu), 1.0),
            "gradients": len(grads_cpu), "same_leaves": set(grads_card) == set(grads_cpu),
            "max_rel_err_gradient": worst, "worst_gradient": worst_name,
-           "largest_gradient_entry": largest, "cpu_step_seconds": cpu_s,
-           "launches_per_train_step": counted}
+           "largest_gradient_entry": largest, "launches_per_train_step": counted}
     if reference is not None:
         flat = {side: torch.cat([g.flatten() for _, g in sorted(grads.items())])
                 for side, grads in (("card", grads_card), ("cpu", grads_cpu),
-                                    ("float32", results["float32"][3]))}
+                                    ("float32", results["float32"][2]))}
         out.update({"loss_float32": results["float32"][0], "max_card_over_bar": over_bar,
                     "rel_l2_card_vs_cpu": rel_l2(flat["card"], flat["cpu"]),
                     "rel_l2_card_vs_float32": rel_l2(flat["card"], flat["float32"]),
@@ -1360,6 +1367,10 @@ def subsample_errors(x, w, dy) -> tuple:
             flips)
 
 
+def _subsample_launches() -> tuple:
+    return _build.launched(entry="subsample_fwd"), _build.launched(entry="subsample_bwd")
+
+
 def phase_subsample(gen: torch.Generator) -> list:
     """The subsampling kernels against their plain version (cuDNN, TF32 off)
     at the benchmark's shapes, forward and backward, each timed beside the
@@ -1392,14 +1403,14 @@ def phase_subsample(gen: torch.Generator) -> list:
         x = torch.randn(b, t, 80, generator=gen).cuda()
         dy = torch.randn((b, t1, 19, 144), generator=gen).cuda()
         rand_fwd, rand_bwd, rand_flips = subsample_errors(x, w, dy)
-        subsample_kernel.reset_launch_counts()
+        clear_launches("subsample")
         with torch.no_grad():
             module_y = sub(x)  # the module's forward: the kernel's launch
-        fwd_launches = subsample_fwd.launches
+        fwd_launches = _build.launched(entry="subsample_fwd")
         y = subsample_fwd(x, *w)
-        subsample_kernel.reset_launch_counts()
+        clear_launches("subsample")
         grads = subsample_bwd(x, w[0], w[1], w[2], y, dy)
-        bwd_launches = subsample_bwd.launches
+        bwd_launches = _build.launched(entry="subsample_bwd")
         again = subsample_bwd(x, w[0], w[1], w[2], y, dy)
         same_bits = all(torch.equal(g, h) for g, h in zip(grads, again))
         ref_y = subsample_conv_plain(x, *params)
@@ -1442,12 +1453,12 @@ def phase_subsample(gen: torch.Generator) -> list:
         del ref_y, lib_y, grads, again, module_y, module_ref, y, dy, x
         torch.cuda.empty_cache()
     # the flagship's scoring forward and training step through the kernels
-    subsample_kernel.reset_launch_counts()
+    clear_launches("subsample")
     phase_model(gen)
-    scoring = (subsample_fwd.launches, subsample_bwd.launches)
-    subsample_kernel.reset_launch_counts()
+    scoring = _subsample_launches()
+    clear_launches("subsample")
     phase_train_card_vs_cpu(gen)
-    training = (subsample_fwd.launches, subsample_bwd.launches)
+    training = _subsample_launches()
     report = {"phase": "subsample", "tol": SUBSAMPLE_TOL, "grad_tol": SUBSAMPLE_GRAD_TOL,
               "rows": rows,
               "flagship_scoring_launches": {"infer_calls": 2, "fwd": scoring[0],
@@ -1497,7 +1508,7 @@ def _relpos_inputs(b, h, n, d, lengths_of, gen):
 
 
 def _relpos_launches() -> tuple:
-    return relpos_fwd.launches, relpos_bwd.launches
+    return _build.launched(entry="relpos_attn_fwd"), _build.launched(entry="relpos_attn_bwd")
 
 
 def phase_relpos_attn(gen: torch.Generator, flagship_launches=None) -> list:
@@ -1519,7 +1530,7 @@ def phase_relpos_attn(gen: torch.Generator, flagship_launches=None) -> list:
         q, kv, table, mask, dout = _relpos_inputs(
             b, h, n, d, "training" if "training" in shape_name else "scoring", gen)
         args = (table, mask, h, RELPOS_P)
-        relpos_attn_kernel.reset_launch_counts()
+        clear_launches("relpos")
         torch.cuda.synchronize()
         base = torch.cuda.memory_allocated()
         torch.cuda.reset_peak_memory_stats()
@@ -1530,7 +1541,7 @@ def phase_relpos_attn(gen: torch.Generator, flagship_launches=None) -> list:
         grads = relpos_bwd(q, kv, table, mask, o, lse, dout, h, RELPOS_P)
         torch.cuda.synchronize()
         bwd_peak = torch.cuda.max_memory_allocated() - base
-        launched = (relpos_fwd.launches, relpos_bwd.launches)
+        launched = _relpos_launches()
         o2, lse2 = relpos_fwd(q, kv, *args)
         again = relpos_bwd(q, kv, table, mask, o2, lse2, dout, h, RELPOS_P)
         same_bits = torch.equal(o, o2) and all(torch.equal(g, r) for g, r in zip(grads, again))
@@ -1596,10 +1607,10 @@ def phase_relpos_attn(gen: torch.Generator, flagship_launches=None) -> list:
         torch.cuda.empty_cache()
     # the flagship's scoring forward and training step through the kernels
     if flagship_launches is None:
-        relpos_attn_kernel.reset_launch_counts()
+        clear_launches("relpos")
         phase_model(gen)
         scoring = _relpos_launches()
-        relpos_attn_kernel.reset_launch_counts()
+        clear_launches("relpos")
         phase_train_card_vs_cpu(gen)
         flagship_launches = (scoring, _relpos_launches())
     scoring, training = flagship_launches
@@ -1669,10 +1680,7 @@ def phase_train(gen: torch.Generator):
                           callbacks=[rec, CkptCallback(ckpt_dir)])
         torch.cuda.synchronize()
         reset_launches()
-        t0 = time.perf_counter()
         trainer.fit(task, train, val)
-        torch.cuda.synchronize()
-        fit_seconds = time.perf_counter() - t0
         counted = launches()
         last = f"{ckpt_dir}/last.ckpt"
 
@@ -1693,7 +1701,7 @@ def phase_train(gen: torch.Generator):
     last_eval = rec.evals[-1]
     emit({
         "phase": "train", "epochs": TRAIN_EPOCHS, "batches": TRAIN_BATCHES,
-        "batch": [TRAIN_B, int(TRAIN_SECONDS * SR)], "fit_seconds": fit_seconds,
+        "batch": [TRAIN_B, int(TRAIN_SECONDS * SR)],
         "losses": rec.losses, "epoch_loss": epoch_loss, "evals": rec.evals,
         "launches": counted, "launches_train_steps": rec.train_launches,
         "launches_eval_batches": rec.eval_launches,
@@ -1850,8 +1858,7 @@ def phase_cli_corpus(root: str) -> str:
 
 class _CliRecorder(ProfileCallback):
     """The CLI's own ``ProfileCallback``, recording as well, per train epoch:
-    the wall seconds, the steps, the host-clock table it prints (before it
-    clears it) and the kernels' launches; per eval epoch the batches and the
+    the steps and the kernels' launches; per eval epoch the batches and the
     launches.  ``chip_smoke`` puts it in ``cli.main_lid``'s namespace for
     the CLI runs, so the CLI builds it in place of ``ProfileCallback``."""
 
@@ -1863,16 +1870,13 @@ class _CliRecorder(ProfileCallback):
         _CliRecorder.runs.append(self)
 
     def before_train_epoch(self, epoch):
-        self._t0, self._step0, self._mark = time.perf_counter(), self.trainer.global_step, launches()
+        self._step0, self._mark = self.trainer.global_step, launches()
         self._eval_batches = 0
 
     def after_train_epoch(self, epoch, metrics):
         now = launches()
-        self.epochs.append({
-            "epoch": epoch, "seconds": time.perf_counter() - self._t0,
-            "steps": self.trainer.global_step - self._step0,
-            "launches": {k: now[k] - self._mark[k] for k in now},
-            "host": _time_cost_recoder.snapshot()})
+        self.epochs.append({"epoch": epoch, "steps": self.trainer.global_step - self._step0,
+                            "launches": {k: now[k] - self._mark[k] for k in now}})
         self._mark = now
         super().after_train_epoch(epoch, metrics)
 
@@ -1885,23 +1889,22 @@ class _CliRecorder(ProfileCallback):
                            "launches": {k: now[k] - self._mark[k] for k in now}})
 
 
-def run_cli(args: list, recorder_class: type = None) -> tuple:
+def run_cli(args: list, recorder_class: type = None) -> _CliRecorder:
     """``cli.main_lid.main(args)`` in this process, with :class:`_CliRecorder`
-    (or its subclass ``recorder_class``) as its ``ProfileCallback``; → (the
-    recorder, wall seconds)."""
+    (or its subclass ``recorder_class``) as its ``ProfileCallback``; → the
+    recorder."""
     from speechlid_tpu_torch.cli import main_lid
 
     saved = main_lid.ProfileCallback
     main_lid.ProfileCallback = recorder_class or _CliRecorder
     _CliRecorder.runs.clear()
-    t0 = time.perf_counter()
     try:
         main_lid.main(args)
     finally:
         main_lid.ProfileCallback = saved
     torch.cuda.synchronize()
     (recorder,) = _CliRecorder.runs
-    return recorder, time.perf_counter() - t0
+    return recorder
 
 
 def _per_step(recorder) -> tuple:
@@ -1965,9 +1968,9 @@ def phase_cli_flagship(root: str, corpus: str) -> dict:
               "ckpt_meta": {k: ckpt_meta[k] for k in ("epoch", "global_step")},
               "served_from_cli_ckpt": answer}
     checks = {}
-    for name, (recorder, seconds) in runs.items():
+    for name, recorder in runs.items():
         per_step, per_eval = _per_step(recorder)
-        report["runs"][name] = {"seconds": seconds, "epochs": recorder.epochs,
+        report["runs"][name] = {"epochs": recorder.epochs,
                                 "eval_batches": [e["batches"] for e in recorder.evals],
                                 "launches_per_train_step": per_step,
                                 "launches_per_eval_batch": per_eval}
@@ -1979,7 +1982,7 @@ def phase_cli_flagship(root: str, corpus: str) -> dict:
         "eval_lines": len(evals) == 2 and all(np.isfinite(e["avg_val_loss"]) for e in evals),
         "train_lines": train_kinds == set(map(frozenset, CLI_TRAIN_KEYS)),
         "ckpt": ckpt_meta["epoch"] == 1 and ckpt_meta["global_step"] == 2 * FLAGSHIP_STEPS,
-        "resumed_at_epoch_1": [e["epoch"] for e in runs["resume"][0].epochs] == [1],
+        "resumed_at_epoch_1": [e["epoch"] for e in runs["resume"].epochs] == [1],
         "served": set(answer) == {"lang", "scores"} and len(answer["scores"]) == N_LANG
         and all(np.isfinite(v) for v in answer["scores"].values()),
     })
@@ -1994,8 +1997,8 @@ def phase_cli_gate(root: str, corpus: str, smi: str, overrides=()) -> dict:
     held-out ``val_acc`` reaches the bar of 0.9 (``bar_met``) and fails when
     the run did not learn (see ``LEARNED_ACC``), or when its evaluations,
     steps or launches are not the expected ones.  Reports the whole eval
-    trajectory beside round 5's, wall seconds an epoch, train steps/s and utt/s with the real feeder,
-    and the launches per train step and per eval batch.  ``overrides`` are
+    trajectory beside round 5's and the launches per train step and per
+    eval batch.  ``overrides`` are
     further ``key=value`` arguments of the CLI (none for the gate itself)."""
     conf_dir = os.path.join(root, "conf")
     os.makedirs(conf_dir)
@@ -2004,7 +2007,7 @@ def phase_cli_gate(root: str, corpus: str, smi: str, overrides=()) -> dict:
     exp = os.path.join(root, "gate")
     torch.cuda.synchronize()
     reset_launches()
-    recorder, seconds = run_cli(_cli_args(conf_dir, "gate", f"exp_dir={exp}", *overrides))
+    recorder = run_cli(_cli_args(conf_dir, "gate", f"exp_dir={exp}", *overrides))
     counted = launches()
     lines = _metrics_lines(os.path.join(exp, "metrics.jsonl"))
     steps_per_epoch = recorder.epochs[0]["steps"]
@@ -2014,10 +2017,7 @@ def phase_cli_gate(root: str, corpus: str, smi: str, overrides=()) -> dict:
                   for line in lines if CLI_EVAL_KEYS <= set(line)]
     best = max(t["val_acc"] for t in trajectory)
     first = next((t["epoch"] for t in trajectory if t["val_acc"] >= GATE_ACC), None)
-    epoch_s = [e["seconds"] for e in recorder.epochs]
-    train_s = sum(epoch_s)
     steps = sum(e["steps"] for e in recorder.epochs)
-    utts = GATE_EPOCHS * N_LANG * CORPUS_TRAIN
     per_step, per_eval = _per_step(recorder)
     n_blocks = 4  # the round-5 config's
     # its remat: true rematerializes each encoder block, whose conv module
@@ -2033,10 +2033,6 @@ def phase_cli_gate(root: str, corpus: str, smi: str, overrides=()) -> dict:
         "best_val_acc": best, "first_epoch_at_bar": first, "trajectory": trajectory,
         "round5_val_acc_jax_cli": ROUND5_VAL_ACC,
         "epochs": GATE_EPOCHS, "steps": steps, "steps_per_epoch": steps_per_epoch,
-        "cli_seconds": seconds, "train_seconds": train_s,
-        "epoch_seconds_median": statistics.median(epoch_s), "epoch_seconds_first": epoch_s[0],
-        "train_steps_per_s": steps / train_s, "train_utt_per_s": utts / train_s,
-        "host_table_last_epoch_s": {k: v[0] for k, v in recorder.epochs[-1]["host"].items()},
         "launches": counted, "launches_per_train_step": per_step,
         "launches_per_eval_batch": per_eval,
     }
@@ -2173,7 +2169,7 @@ def run_test_lid(args: list) -> tuple:
     """``cli.test_lid.main(args)`` in this process, its launches counted
     from 0, and the shapes the kernels were called at: the fbank kernel's
     wav (B, T) and each conv module's (B, T, C, k); → (its result, the
-    launches, wall seconds, {"fbank": shapes, "glu_bn_act": shapes})."""
+    launches, {"fbank": shapes, "glu_bn_act": shapes})."""
     from speechlid_tpu_torch.cli import test_lid
 
     shapes = {"fbank": set(), "glu_bn_act": set()}
@@ -2193,14 +2189,12 @@ def run_test_lid(args: list) -> tuple:
     try:
         torch.cuda.synchronize()
         reset_launches()
-        t0 = time.perf_counter()
         result = test_lid.main(args)
         torch.cuda.synchronize()
-        seconds = time.perf_counter() - t0
     finally:
         frontend.wav2mel = wav2mel
         hook.remove()
-    return result, launches(), seconds, shapes
+    return result, launches(), shapes
 
 
 def _cell(row: dict, noise: str = "clean", snr=None) -> dict:
@@ -2229,17 +2223,17 @@ def phase_cli_eval(name: str, root: str, ckpt: str, config: list, logged_val_acc
     os.makedirs(out_dir)
     want_batch = launch_counts(fbank=1, glu_bn_act=n_blocks + N_LANG)
     base = ["--ckpt", ckpt, *config]
-    clean, clean_launches, clean_s, clean_shapes = run_test_lid(base)
-    rows, sweep_launches, sweep_s, sweep_shapes = run_test_lid(
+    clean, clean_launches, clean_shapes = run_test_lid(base)
+    rows, sweep_launches, sweep_shapes = run_test_lid(
         base + ["--sweep", "--lm-dir", lm_dir, "--kenlm-threshold", str(KENLM_THRESHOLD),
                 "--noise-dir", noise_dir, "--csv", os.path.join(out_dir, "sweep.jsonl")])
     per_batch = {k: v / (EVAL_CELLS * EVAL_BATCHES) for k, v in sweep_launches.items()}
     report = {
         "phase": f"cli_eval_{name}", "nvidia_smi": smi, "checkpoint": os.path.relpath(ckpt, root),
-        "clean": _cell(clean), "logged_val_acc": logged_val_acc, "clean_seconds": clean_s,
+        "clean": _cell(clean), "logged_val_acc": logged_val_acc,
         "clean_launches_per_batch": {k: v / EVAL_BATCHES for k, v in clean_launches.items()},
         "kenlm_threshold": KENLM_THRESHOLD, "sweep": [_cell(r) for r in rows],
-        "sweep_seconds": sweep_s, "sweep_launches": sweep_launches,
+        "sweep_launches": sweep_launches,
         "sweep_launches_per_batch": per_batch, "batches_per_cell": EVAL_BATCHES,
         "kernel_shapes": {k: sorted(v) for k, v in sweep_shapes.items()},
     }
@@ -2258,7 +2252,7 @@ def phase_cli_eval(name: str, root: str, ckpt: str, config: list, logged_val_acc
     }
     if single_cell:
         csv_path, sub_path = os.path.join(out_dir, "cell.csv"), os.path.join(out_dir, "cell.sub")
-        cell, _, _, _ = run_test_lid(base + ["--snr", "5", "--noise", "babble", "--noise-dir",
+        cell, _, _ = run_test_lid(base + ["--snr", "5", "--noise", "babble", "--noise-dir",
                                           noise_dir, "--lm-dir", lm_dir, "--kenlm-threshold",
                                           str(KENLM_THRESHOLD), "--csv", csv_path,
                                           "--submission", sub_path])
@@ -2277,28 +2271,43 @@ def phase_cli_eval(name: str, root: str, ckpt: str, config: list, logged_val_acc
 
 
 AUGMENT_CONF = "data.wav_augment={speed: true, pitch: true, reverb: true}"
-AUGMENT_EPOCHS = 3  # each run's first epoch is left out of the means
+AUGMENT_EPOCHS = 3
 AUGMENT_VARIANTS = {"speed": (0.9, 0, False), "pitch": (1.0, 40, False),
                     "reverb": (1.0, 0, True)}  # (speed, cents, reverb)
 
 
-def augmentor_call_ms(device: str, reps: int) -> dict:
-    """Host-clock ms of the augmentor's chain at (8, 64000), dither and
-    preemphasis on, for each variant: ``WavAugmentor.apply`` with the wavs
-    moved to its device and back, as ``__call__`` moves them; the median of
-    ``reps`` after one warm-up."""
-    aug = WavAugmentor(sample_rate=SR, device=device)
+def augmentor_card_vs_cpu() -> dict:
+    """``WavAugmentor(device="cuda")``, the chain ``data.wav_augment={device:
+    cuda}`` runs, once for each variant at (8, 64000), dither and
+    preemphasis on, untimed: its output stays on the card with the batch's
+    shape, is finite, and is held against the CPU augmentor's on the same
+    draw (the card's dithered wavs and room impulse response, replayed from
+    its generator's state, stand in for the CPU's draws)."""
+    from speechlid_tpu_torch.data import augmentor
+
+    card, cpu = WavAugmentor(sample_rate=SR, device="cuda"), WavAugmentor(sample_rate=SR)
     wavs = torch.from_numpy((0.1 * np.random.RandomState(0).randn(8, 4 * SR)).astype(np.float32))
-    out = {}
+    dither, synthetic_rir = augmentor.dither, augmentor.synthetic_rir
+    errs, on_card = {}, {}
     for name, variant in AUGMENT_VARIANTS.items():
-        aug.apply(wavs.to(aug.device), *variant).cpu()
-        times = []
-        for _ in range(reps):
-            t0 = time.perf_counter()
-            aug.apply(wavs.to(aug.device), *variant).cpu()
-            times.append((time.perf_counter() - t0) * 1e3)
-        out[name] = statistics.median(times)
-    return out
+        replay = torch.Generator(device="cuda")
+        replay.set_state(card.generator.get_state())
+        got = card.apply(wavs.cuda(), *variant)
+        on_card[name] = (got.is_cuda and got.shape == wavs.shape
+                         and bool(torch.isfinite(got).all()))
+        dithered = dither(replay, wavs.cuda()).cpu()
+        rir = synthetic_rir(replay, SR, rt60=0.3).cpu()
+        augmentor.dither = lambda *args, **kwargs: dithered
+        augmentor.synthetic_rir = lambda *args, **kwargs: rir
+        try:
+            want = cpu.apply(wavs, *variant)
+        finally:
+            augmentor.dither, augmentor.synthetic_rir = dither, synthetic_rir
+        errs[name] = (got.cpu() - want).abs().max().item()
+    checks = {"on_card": all(on_card.values()),
+              "vs_cpu": all(e <= EVAL_OPS_TOL for e in errs.values())}
+    return {"shape": list(wavs.shape), "max_abs_err_vs_cpu": errs, "tol": EVAL_OPS_TOL,
+            "checks": checks}
 
 
 class _AugmentorRecorder(WavAugmentor):
@@ -2320,8 +2329,8 @@ class _AugmentorRecorder(WavAugmentor):
 def run_cli_feeders(args: list) -> tuple:
     """:func:`run_cli` with :class:`_AugmentorRecorder` as the CLI's
     ``WavAugmentor`` and each feeder the CLI builds recorded with the
-    batches it assembled; → (the recorder, wall seconds, the augmentors
-    built, [(train, feeder, batches assembled)])."""
+    batches it assembled; → (the recorder, the augmentors built, [(train,
+    feeder, batches assembled)])."""
     from speechlid_tpu_torch.cli import main_lid
 
     saved = main_lid.WavAugmentor, main_lid.build_feeder
@@ -2344,7 +2353,7 @@ def run_cli_feeders(args: list) -> tuple:
     _AugmentorRecorder.built.clear()
     before = set(threading.enumerate())
     try:
-        recorder, seconds = run_cli(args)
+        recorder = run_cli(args)
     finally:
         main_lid.WavAugmentor, main_lid.build_feeder = saved
     # an epoch cut short leaves its prefetch thread to finish the batch it
@@ -2352,36 +2361,25 @@ def run_cli_feeders(args: list) -> tuple:
     for thread in set(threading.enumerate()) - before:
         if thread.name.endswith("(worker)"):
             thread.join(timeout=30)
-    return recorder, seconds, list(_AugmentorRecorder.built), feeders
-
-
-def _epoch_row(epoch: dict) -> dict:
-    host = epoch["host"]
-    return {"seconds": epoch["seconds"], "steps": epoch["steps"],
-            **{k: host.get(k, (0.0, 0))[0]
-               for k in ("get_batch", "batch_to_device", "train_step_dispatch")}}
+    return recorder, list(_AugmentorRecorder.built), feeders
 
 
 def phase_cli_augment(root: str, corpus: str) -> dict:
     """The training CLI at full width (``configs/lid_supervised.yaml``, 9
     steps an epoch, 3 epochs) without and with ``data.wav_augment={speed:
     true, pitch: true, reverb: true}`` at its default ``device: cpu``: one
-    plain run, then one augmented run (one of each holds every check below;
-    the times are a report).  Checks: every epoch takes its
+    plain run, then one augmented run.  Checks: every epoch takes its
     9 steps; a train step launches what it does without augmentation (the
     augmentor runs on the host); an augmented run builds one augmentor, for
     the train feeder, which calls it once for every batch it assembles, and
-    the eval feeder has none; a plain run builds none.  Reports each
-    epoch's seconds and host-clock table (the feeder's wait ``get_batch``,
-    ``batch_to_device``, ``train_step_dispatch``), their means over the
-    epochs after each run's first by kind, and one call of the augmentor's
-    chain at (8, 64000) on the CPU and on the card by variant."""
+    the eval feeder has none; a plain run builds none.  Then the augmentor
+    on the card against the CPU's (:func:`augmentor_card_vs_cpu`)."""
     runs, checks = [], {}
     for i, augment in enumerate((False, True)):
         exp = os.path.join(root, f"augment{i}")
         torch.cuda.synchronize()
         reset_launches()
-        recorder, seconds, built, feeders = run_cli_feeders(_cli_args(
+        recorder, built, feeders = run_cli_feeders(_cli_args(
             "configs", "lid_supervised", _langs_override(corpus), f"exp_dir={exp}",
             "trainer.progress_bar=false", f"trainer.train_data_factor={FLAGSHIP_DATA_FACTOR}",
             f"trainer.total_epoch={AUGMENT_EPOCHS}", *([AUGMENT_CONF] if augment else [])))
@@ -2389,8 +2387,7 @@ def phase_cli_augment(root: str, corpus: str) -> dict:
         kind = "augment" if augment else "plain"
         (train, train_feeder, assembled), (eval_train, eval_feeder, _) = feeders
         calls = [aug.calls for aug in built]
-        runs.append({"kind": kind, "seconds": seconds,
-                     "epochs": [_epoch_row(e) for e in recorder.epochs],
+        runs.append({"kind": kind, "epoch_steps": [e["steps"] for e in recorder.epochs],
                      "augmentor_calls": calls, "train_batches_assembled": assembled,
                      "launches_per_train_step": per_step, "launches_per_eval_batch": per_eval})
         checks[f"{i}_{kind}_steps"] = ([e["steps"] for e in recorder.epochs]
@@ -2404,49 +2401,14 @@ def phase_cli_augment(root: str, corpus: str) -> dict:
                                         and assembled >= FLAGSHIP_STEPS * AUGMENT_EPOCHS)
         else:
             checks[f"{i}_no_augmentor"] = not built and train_feeder.augmentor is None
-    means = {}
-    for kind in ("plain", "augment"):
-        rows = [e for r in runs if r["kind"] == kind for e in r["epochs"][1:]]
-        means[kind] = {k: statistics.fmean(e[k] for e in rows)
-                       for k in ("seconds", "get_batch", "batch_to_device", "train_step_dispatch")}
-    report = {
-        "phase": "cli_augment", "order": [r["kind"] for r in runs], "runs": runs,
-        "epoch_means_after_first": means,
-        "augment_minus_plain_s": {k: means["augment"][k] - means["plain"][k]
-                                  for k in means["plain"]},
-        "augmentor_call_ms": {"shape": [8, 4 * SR], "cpu": augmentor_call_ms("cpu", 3),
-                              "cuda": augmentor_call_ms("cuda", 5),
-                              "cpu_threads": torch.get_num_threads()},
-        "checks": checks,
-    }
+    card = augmentor_card_vs_cpu()
+    checks.update({f"augmentor_{k}": v for k, v in card.pop("checks").items()})
+    report = {"phase": "cli_augment", "order": [r["kind"] for r in runs], "runs": runs,
+              "augmentor_card_vs_cpu": card, "checks": checks}
     emit(report)
     if not all(checks.values()):
         raise AssertionError(f"cli_augment failed: {checks}")
     return report
-
-
-def _profile_device(fn) -> dict:
-    """One ``fn()`` under torch.profiler: wall time, the summed device time
-    of its kernels, their ratio and the ten largest kernel rows.  Counts
-    here are reports only: a trace late in a long process can drop kernel
-    records (:func:`_graph_device_work` counts what a check needs)."""
-    torch.cuda.synchronize()
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    rows = []  # device-side events only: an aten op's row repeats its kernels' time
-    for e in prof.key_averages():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            rows.append((e.self_device_time_total, e.key, e.count))
-    rows.sort(reverse=True)
-    device_us = sum(r[0] for r in rows)
-    return {"wall_us": wall_us, "device_us": device_us,
-            "device_busy_share": device_us / wall_us,
-            "device_kernels": sum(r[2] for r in rows),
-            "top": [{"kernel": key[:80], "us": dev, "count": n} for dev, key, n in rows[:10]]}
 
 
 # CUgraphNodeType: the nodes that run work on the card
@@ -2766,14 +2728,54 @@ def fbank_row(name: str, shape_key: str, gen: torch.Generator, errs: dict, count
     }
 
 
-def phase_timings(task: LidASRTask, gen: torch.Generator, errs: dict, served: dict,
-                  serve_report: dict, trained: dict, training, cli: dict,
-                  cli_eval: dict) -> list:
+INFER_CALLS = 10  # forwards a launch count is taken over
+
+
+def counted_calls(fn, calls: int) -> dict:
+    """:func:`launches` over ``calls`` calls of ``fn``."""
+    reset_launches()
+    for _ in range(calls):
+        fn()
+    return launches()
+
+
+def infer_launches(task: LidASRTask, gen: torch.Generator, per_forward: dict,
+                   what: str) -> dict:
+    """The launches of ``INFER_CALLS`` calls of ``task``'s ``infer`` on 3 s
+    clips at B = 1 and at B = 32, each held to ``per_forward`` a call;
+    → {"b1": …, "b32": …}."""
+    infer, out = task.infer_fn(), {}
+    for batch in (1, 32):
+        wavs = 0.1 * torch.randn(batch, 3 * SR, generator=gen)
+        out[f"b{batch}"] = counted = counted_calls(
+            lambda: infer(wavs, torch.full((batch,), 3 * SR)), INFER_CALLS)
+        if counted != {k: n * INFER_CALLS for k, n in per_forward.items()}:
+            raise AssertionError(f"{what} infer at B = {batch}: launches {counted}")
+    return out
+
+
+def train_launches(trainer: Trainer, batches: list, steps: int, per_step: dict,
+                   what: str) -> dict:
+    """The launches of ``steps`` train steps of ``trainer`` on ``batches`` in
+    turn, held to ``per_step`` a step, with finite losses."""
+    losses = []
+    counted = counted_calls(lambda: losses.append(float(
+        trainer.train_step(batches[len(losses) % len(batches)])["loss"])), steps)
+    if counted != {k: n * steps for k, n in per_step.items()} or not np.isfinite(losses).all():
+        raise AssertionError(f"{what} train step: launches {counted}, losses {losses}")
+    return counted
+
+
+def flagship_kernel_rows(task: LidASRTask, gen: torch.Generator, errs: dict, served: dict,
+                         serve_report: dict, trained: dict, training, cli: dict,
+                         cli_eval: dict) -> list:
     """Kernel, plain and library times at the main paths' shapes (serving:
     B = 1, 3 s clip; training: B = 8, 4 s clips; the eval CLI: B = 8, 2 s
-    clips), their bounds, and the model's throughput, latency and
-    train-step time.  ``cli`` holds the launches of the CLI flagship phase,
-    which each row also reports (``launches_cli``) for the counter it
+    clips) and their bounds, with the launches of a train step and of
+    ``INFER_CALLS`` forwards at B = 1 and B = 32 checked; then one backward
+    of each depthwise autograd Function and one eval conv module, read from
+    CUDA graph captures.  ``cli`` holds the launches of the CLI flagship
+    phase, which each row also reports (``launches_cli``) for the counter it
     counts, and ``cli_eval`` the report of ``cli_eval_flagship``, whose
     sweep's launches the ``@eval`` rows count.  Returns the rows of the
     ``kernels`` line."""
@@ -2781,62 +2783,19 @@ def phase_timings(task: LidASRTask, gen: torch.Generator, errs: dict, served: di
     n_steps = TRAIN_EPOCHS * TRAIN_BATCHES
     kernels = []
 
-    # Host-clock timings come before the first use of torch.profiler and
-    # are read again after the last: the second reading shows what the
-    # profiler leaves behind in its process for a host-bound loop.
-    # end to end, training: the step at B = 8, 4 s clips, its launches as
-    # counted over these steps and the shape its encoder convs see
+    # training: a step at B = 8, 4 s clips, its launches and the shape its
+    # encoder convs see
     trainer, train_batches = training
     seen = []
     conv = trainer.module.model.featurizer.blocks[0].conv
     k_conv = conv.depthwise.weight.shape[0]
     hook = conv.pointwise_in.register_forward_hook(  # h (B, T, 2C) into the fused call
         lambda mod, args, out: seen.append((*out.shape[:2], out.shape[2] // 2, k_conv)))
-    for batch in train_batches[:3]:
-        trainer.train_step(batch)
-    timed_steps = 12
-
-    def timed_train_steps() -> float:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for i in range(timed_steps):
-            metrics = trainer.train_step(train_batches[i % len(train_batches)])
-        float(metrics["loss"])
-        return (time.perf_counter() - t0) / timed_steps
-
-    reset_launches()
-    step_s = timed_train_steps()
-    per_step = {name: n / timed_steps for name, n in launches().items()}
+    train_launches(trainer, train_batches, len(train_batches), TRAIN_STEP_LAUNCHES, "flagship")
     hook.remove()
-    if per_step != TRAIN_STEP_LAUNCHES or set(seen) != {TRAIN_DW_SHAPE}:
-        raise AssertionError(f"train step: launches {per_step}, encoder conv shapes {set(seen)}")
-
-    # end to end, inference: throughput on 3 s clips at B = 1 and B = 32,
-    # with the launches counted over the timed calls
-    infer = task.infer_fn()
-    e2e, infer_counts, infer_inputs = {}, {}, {}
-
-    def timed_infer(batch: int, iters: int) -> float:
-        wavs, lengths = infer_inputs[batch]
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(iters):
-            out = infer(wavs, lengths)
-        out["scores"].cpu()
-        return (time.perf_counter() - t0) / iters
-
-    for batch, iters in ((1, 30), (32, 10)):
-        infer_inputs[batch] = (0.1 * torch.randn(batch, 3 * SR, generator=gen),
-                               torch.full((batch,), 3 * SR))
-        for _ in range(3):
-            infer(*infer_inputs[batch])
-        reset_launches()
-        dt = timed_infer(batch, iters)
-        infer_counts[batch] = launches()
-        e2e[f"b{batch}"] = {"ms_per_batch": dt * 1e3, "utt_per_s": batch / dt,
-                            "launches": infer_counts[batch], "calls": iters}
-        if infer_counts[batch] != {k: n * iters for k, n in PER_FORWARD_LAUNCHES.items()}:
-            raise AssertionError(f"infer at B = {batch}: launches {infer_counts[batch]}")
+    if set(seen) != {TRAIN_DW_SHAPE}:
+        raise AssertionError(f"train step: encoder conv shapes {set(seen)}")
+    b32 = infer_launches(task, gen, PER_FORWARD_LAUNCHES, "flagship")["b32"]
 
     # kernel 1: fbank where the paths call it: a served 3 s clip, a train
     # batch of 8 × 4 s, a scored batch of 32 × 3 s
@@ -2850,9 +2809,9 @@ def phase_timings(task: LidASRTask, gen: torch.Generator, errs: dict, served: di
     kernels.append(fbank_entry("fbank_log_mel@train", "train", trained["fbank"], {
         "launches_per_train_step": trained["fbank"] / n_steps,
         "launches_counted_on": "the train steps of Trainer.fit"}))
-    kernels.append(fbank_entry("fbank_log_mel@b32", "b32", infer_counts[32]["fbank"], {
-        "launches_per_batch": infer_counts[32]["fbank"] / e2e["b32"]["calls"],
-        "launches_counted_on": "the timed infer calls at B = 32 on 3 s clips"}))
+    kernels.append(fbank_entry("fbank_log_mel@b32", "b32", b32["fbank"], {
+        "launches_per_batch": b32["fbank"] / INFER_CALLS,
+        "launches_counted_on": "the counted infer calls at B = 32 on 3 s clips"}))
     eval_counted_on = (f"the eval CLI's --sweep on the flagship checkpoint: {EVAL_CELLS} "
                        f"cells x {EVAL_BATCHES} batches")
     eval_launches = cli_eval["sweep_launches"]
@@ -3000,9 +2959,9 @@ def phase_timings(task: LidASRTask, gen: torch.Generator, errs: dict, served: di
     kernels.extend(fused_kernel_rows(gen, errs["conv_fused"], {
         "depthwise_conv1d_fwd[glu_bn_act]": (served["depthwise_glu_bn_act"], {
             "launches_per_request": served["depthwise_glu_bn_act"] / n_req}),
-        "depthwise_conv1d_fwd[glu_bn_act]@b32": (infer_counts[32]["depthwise_glu_bn_act"], {
-            "launches_per_batch": infer_counts[32]["depthwise_glu_bn_act"] / e2e["b32"]["calls"],
-            "launches_counted_on": "the timed infer calls at B = 32 on 3 s clips"}),
+        "depthwise_conv1d_fwd[glu_bn_act]@b32": (b32["depthwise_glu_bn_act"], {
+            "launches_per_batch": b32["depthwise_glu_bn_act"] / INFER_CALLS,
+            "launches_counted_on": "the counted infer calls at B = 32 on 3 s clips"}),
         "depthwise_conv1d_fwd[glu_bn_act]@eval": (eval_launches["depthwise_glu_bn_act"], {
             "launches_per_eval_batch":
                 cli_eval["sweep_launches_per_batch"]["depthwise_glu_bn_act"],
@@ -3028,36 +2987,8 @@ def phase_timings(task: LidASRTask, gen: torch.Generator, errs: dict, served: di
         if not (entry["launches"] > 0 and entry["launches_cli"] > 0):
             raise AssertionError(f"{name} was not launched on its main path")
 
-    # under the profiler: one train step; the depthwise backward from a CUDA graph
-    torch.cuda.reset_peak_memory_stats()
-    train_profile = _profile_device(lambda: trainer.train_step(train_batches[0]))
-    train_e2e = {"batch": [TRAIN_B, int(TRAIN_SECONDS * SR)], "ms_per_step": step_s * 1e3,
-                 "utt_per_s": TRAIN_B / step_s, "timed_steps": timed_steps,
-                 "launches_per_step": per_step,
-                 "encoder_conv_shape": list(TRAIN_DW_SHAPE),
-                 "peak_memory_mb": torch.cuda.max_memory_allocated() / 2 ** 20,
-                 "profile_step": train_profile}
-
-    # one B=1 forward under the profiler: device time by kernel, busy share
-    wavs = 0.1 * torch.randn(1, 3 * SR, generator=gen)
-    lengths = torch.tensor([3 * SR])
-    infer_profile = _profile_device(lambda: infer(wavs, lengths)["scores"].cpu())
-    backward_report = backward_device_kernels(gen)
-    conv_module_report = conv_module_device_kernels(task, gen)
-    after_profiler = {"train_ms_per_step": timed_train_steps() * 1e3,
-                      "b1_ms_per_batch": timed_infer(1, 30) * 1e3,
-                      "b32_ms_per_batch": timed_infer(32, 10) * 1e3}
-    emit({
-        "phase": "e2e", "infer_3s": e2e,
-        "after_profiler": after_profiler,
-        "lid_p50_ms_client": serve_report["client_p50_ms"],
-        "lid_p50_ms_handler": serve_report["stats"]["total"]["p50_ms"],
-        "lid_p50_ms_device": serve_report["stats"]["device"]["p50_ms"],
-        "profile_b1_3s": infer_profile,
-        "train_step_b8_4s": train_e2e,
-        "depthwise_backward": backward_report,
-        "conv_module_eval": conv_module_report,
-    })
+    emit({"phase": "device_kernels", "depthwise_backward": backward_device_kernels(gen),
+          "conv_module_eval": conv_module_device_kernels(task, gen)})
     return kernels
 
 
@@ -3090,7 +3021,7 @@ def phase_wavlm_model(gen: torch.Generator) -> LidASRTask:
     cpu_task.model.load_state_dict(task.model.state_dict())
     wavs = 0.1 * torch.randn(2, 3 * SR, generator=gen)
     lengths = torch.tensor([3 * SR, 2 * SR])
-    got, ref, per_forward, cpu_s, errs = infer_card_vs_cpu(task, cpu_task, wavs, lengths)
+    got, ref, per_forward, errs = infer_card_vs_cpu(task, cpu_task, wavs, lengths)
     neg = torch.finfo(torch.float32).min
     score_err = errs["max_abs_err_scores"]
     emit({
@@ -3102,7 +3033,7 @@ def phase_wavlm_model(gen: torch.Generator) -> LidASRTask:
         "feat_lengths": got["feat_lengths"].tolist(), **errs,
         "scores": got["scores"].tolist(), "pred_lang": got["pred_lang"].tolist(),
         "pred_lang_cpu": ref["pred_lang"].tolist(), "tol": MODEL_TOL,
-        "cpu_forward_seconds": cpu_s, "launches_per_forward": per_forward,
+        "launches_per_forward": per_forward,
     })
     checks = {
         "finite": bool(torch.isfinite(got["logits"]).all() and torch.isfinite(got["scores"]).all()
@@ -3257,7 +3188,7 @@ def phase_cli_wavlm(root: str, corpus: str, smi: str, run: dict = WAVLM_CLI) -> 
     answer = state.lid(wav)
     served = launches()
     del lid_fn, state
-    clean, clean_launches, clean_s, clean_shapes = run_test_lid(
+    clean, clean_launches, clean_shapes = run_test_lid(
         ["--ckpt", tested, *_cli_args("configs", run["config"], _langs_override(corpus),
                                       *([run["ssl_override"]] if run.get("ssl_override")
                                         else []))])
@@ -3272,14 +3203,14 @@ def phase_cli_wavlm(root: str, corpus: str, smi: str, run: dict = WAVLM_CLI) -> 
               "ckpt_meta": {k: ckpt_meta[k] for k in ("epoch", "global_step")},
               "test_lid_ckpt": os.path.basename(tested),
               "served_from_cli_ckpt": answer, "served_launches": served,
-              "test_lid_clean": _cell(clean), "test_lid_seconds": clean_s,
+              "test_lid_clean": _cell(clean),
               "test_lid_launches_per_batch": {k: v / run["eval_batches"]
                                               for k, v in clean_launches.items()},
               "test_lid_conv_shapes": sorted(clean_shapes["glu_bn_act"])}
     checks = {}
-    for name, (recorder, seconds) in runs.items():
+    for name, recorder in runs.items():
         per_step, per_eval = _per_step(recorder)
-        report["runs"][name] = {"seconds": seconds, "epochs": recorder.epochs,
+        report["runs"][name] = {"epochs": recorder.epochs,
                                 "eval_batches": [e["batches"] for e in recorder.evals],
                                 "launches_per_train_step": per_step,
                                 "launches_per_eval_batch": per_eval}
@@ -3325,59 +3256,20 @@ def _wavlm_batches(seed: int, n: int) -> list:
             for i in range(n)]
 
 
-def phase_wavlm_host_timings(task: LidASRTask, gen: torch.Generator) -> dict:
-    """Host-clock times of the WavLM joint model, before any use of the
-    profiler in this process: ``infer`` on 3 s clips at B = 1 and B = 32
-    (``BASELINE.json``'s headline metric is 3 s-clip utterances a second),
-    and the train step at B = 8 on 4 s clips with dropout and span masking
-    on, its peak memory; each with the launches counted over the timed
-    calls.  The model's weights then train on: nothing after reads them."""
-    infer = task.infer_fn()
-    out = {"infer_3s": {}, "launches": {}}
-    for batch, iters in ((1, 30), (32, 10)):
-        wavs = 0.1 * torch.randn(batch, 3 * SR, generator=gen)
-        lengths = torch.full((batch,), 3 * SR)
-        for _ in range(3):
-            infer(wavs, lengths)
-        torch.cuda.synchronize()
-        reset_launches()
-        t0 = time.perf_counter()
-        for _ in range(iters):
-            result = infer(wavs, lengths)
-        result["scores"].cpu()
-        dt = (time.perf_counter() - t0) / iters
-        counted = launches()
-        out["launches"][f"b{batch}"] = counted
-        out["infer_3s"][f"b{batch}"] = {"ms_per_batch": dt * 1e3, "utt_per_s": batch / dt,
-                                        "calls": iters, "launches": counted}
-        if counted != {k: n * iters for k, n in WAVLM_PER_FORWARD_LAUNCHES.items()}:
-            raise AssertionError(f"WavLM infer at B = {batch}: launches {counted}")
+WAVLM_TRAIN_STEPS = 9  # train steps the WavLM rows' launches are counted over
 
+
+def phase_wavlm_launches(task: LidASRTask, gen: torch.Generator) -> dict:
+    """The launches of the WavLM joint model, checked: ``infer`` on 3 s
+    clips at B = 1 and B = 32, and ``WAVLM_TRAIN_STEPS`` train steps at
+    B = 8 on 4 s clips with dropout and span masking on.  The model's
+    weights then train on: nothing after reads them."""
+    out = infer_launches(task, gen, WAVLM_PER_FORWARD_LAUNCHES, "WavLM")
     task.init_parameters = lambda generator: None  # train on from these weights
     trainer = Trainer(total_epoch=1, use_progress_bar=False, seed=0)
     trainer.trainer_prepare(task)
-    train_batches = _wavlm_batches(3, 3)
-    for batch in train_batches:
-        trainer.train_step(batch)
-    timed_steps = 9
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    reset_launches()
-    t0 = time.perf_counter()
-    for i in range(timed_steps):
-        metrics = trainer.train_step(train_batches[i % len(train_batches)])
-    loss = float(metrics["loss"])
-    step_s = (time.perf_counter() - t0) / timed_steps
-    per_step = {k: n / timed_steps for k, n in launches().items()}
-    out["launches"]["train"] = {k: n * timed_steps for k, n in per_step.items()}
-    out["train_step_b8_4s"] = {
-        "batch": [WAVLM_TRAIN_B, int(WAVLM_TRAIN_SECONDS * SR)], "ms_per_step": step_s * 1e3,
-        "utt_per_s": WAVLM_TRAIN_B / step_s, "timed_steps": timed_steps,
-        "last_loss": loss, "launches_per_step": per_step,
-        "peak_memory_mb": torch.cuda.max_memory_allocated() / 2 ** 20}
-    if per_step != WAVLM_TRAIN_STEP_LAUNCHES or not np.isfinite(loss):
-        raise AssertionError(f"WavLM train step: launches {per_step}, loss {loss}")
-    out["trainer"], out["train_batches"] = trainer, train_batches
+    out["train"] = train_launches(trainer, _wavlm_batches(3, 3), WAVLM_TRAIN_STEPS,
+                                  WAVLM_TRAIN_STEP_LAUNCHES, "WavLM")
     return out
 
 
@@ -3420,28 +3312,23 @@ def bwd_w_row(gen: torch.Generator, errs: dict, shape: tuple, name: str, counted
     }
 
 
-def phase_wavlm_timings(task: LidASRTask, gen: torch.Generator, errs: dict, host: dict,
-                        serve_report: dict, cli: dict) -> list:
-    """The WavLM line (host times from :func:`phase_wavlm_host_timings`,
-    ``/lid`` p50, one B = 1 forward and one train step under the profiler:
-    device busy share and the largest kernels; the grouped positional conv
-    alone, with cuDNN's default algorithm and with the one its search picks)
-    and the ``kernels`` line's
-    rows of the depthwise kernel at the WavLM heads' shapes: eval at the
-    served and the scored shape, the training forward, dX with the GLU
-    backward and dW/db at the train step's, each with its launches on its
-    path and on the CLI run."""
+def wavlm_kernel_rows(gen: torch.Generator, errs: dict, counts: dict, serve_report: dict,
+                      cli: dict) -> list:
+    """The ``kernels`` line's rows of the depthwise kernel at the WavLM
+    heads' shapes: eval at the served and the scored shape, the training
+    forward, dX with the GLU backward and dW/db at the train step's, each
+    with its launches on its path (``counts``: :func:`phase_wavlm_launches`)
+    and on the CLI run."""
     n_req = serve_report["requests"]
-    served, counts = serve_report["launches"], host["launches"]
-    trainer, train_batches = host["trainer"], host["train_batches"]
-    n_steps = host["train_step_b8_4s"]["timed_steps"]
+    served = serve_report["launches"]
+    n_steps = WAVLM_TRAIN_STEPS
     rows = fused_kernel_rows(gen, errs["conv_fused"], {
         "depthwise_conv1d_fwd[glu_bn_act]@wavlm": (served["depthwise_glu_bn_act"], {
             "launches_per_request": served["depthwise_glu_bn_act"] / n_req,
             "launches_counted_on": "the WavLM /lid requests"}),
         "depthwise_conv1d_fwd[glu_bn_act]@wavlm_b32": (counts["b32"]["depthwise_glu_bn_act"], {
-            "launches_per_batch": counts["b32"]["depthwise_glu_bn_act"] / 10,
-            "launches_counted_on": "the timed WavLM infer calls at B = 32 on 3 s clips"}),
+            "launches_per_batch": counts["b32"]["depthwise_glu_bn_act"] / INFER_CALLS,
+            "launches_counted_on": "the counted WavLM infer calls at B = 32 on 3 s clips"}),
         "depthwise_conv1d_fwd[glu]@wavlm_train": (counts["train"]["depthwise_glu"], {
             "launches_per_train_step": counts["train"]["depthwise_glu"] / n_steps}),
         "depthwise_conv1d_fwd[glu_dx]@wavlm_train": (counts["train"]["depthwise_glu_dx"], {
@@ -3458,41 +3345,6 @@ def phase_wavlm_timings(task: LidASRTask, gen: torch.Generator, errs: dict, host
         row["launches_cli_are"] = "the cli_wavlm runs (lid_wavlm.yaml, 4 x 2 s clips)"
         if not (row["launches"] > 0 and row["launches_cli"] > 0):
             raise AssertionError(f"{row['name']} was not launched on its WavLM path")
-
-    pos_conv = task.model.featurizer.upstream.pos_conv
-    c_model, g = WAVLM_BASE_PLUS["encoder_embed_dim"], pos_conv.groups
-    pos_conv_times = {}
-    with torch.no_grad():
-        for batch in (1, 32):
-            t = _wavlm_frames(3.0)
-            x = torch.randn(batch, t, c_model, generator=gen).cuda()
-            flops = 2.0 * batch * t * c_model * (c_model // g) * pos_conv.kernel_size
-            b_ms, b_by = bound_ms(4.0 * (2 * x.numel() + pos_conv.weight_v.numel()), flops)
-            default_ms = device_ms(lambda: pos_conv(x))
-            torch.backends.cudnn.benchmark = True  # what cuDNN's own search would pick
-            try:
-                searched_ms = device_ms(lambda: pos_conv(x))
-            finally:
-                torch.backends.cudnn.benchmark = False
-            pos_conv_times[f"b{batch}_3s"] = {
-                "ms": default_ms, "ms_cudnn_benchmark": searched_ms, "bound_ms": b_ms,
-                "bound_by": b_by, "flops": flops,
-                "shape": f"x ({batch}, {t}, {c_model}), k {pos_conv.kernel_size}, {g} groups"}
-
-    wavs = 0.1 * torch.randn(1, 3 * SR, generator=gen)
-    lengths = torch.tensor([3 * SR])
-    infer = task.infer_fn()
-    infer_profile = _profile_device(lambda: infer(wavs, lengths)["scores"].cpu())
-    step_profile = _profile_device(lambda: float(trainer.train_step(train_batches[0])["loss"]))
-    emit({
-        "phase": "wavlm_e2e", "config": "WavLM-Base+ joint model, 3 heads",
-        "infer_3s": host["infer_3s"], "train_step_b8_4s": host["train_step_b8_4s"],
-        "lid_p50_ms_client": serve_report["client_p50_ms"],
-        "lid_p50_ms_handler": serve_report["stats"]["total"]["p50_ms"],
-        "lid_p50_ms_device": serve_report["stats"]["device"]["p50_ms"],
-        "profile_b1_3s": infer_profile, "profile_step_b8_4s": step_profile,
-        "pos_conv": pos_conv_times,
-    })
     return rows
 
 
@@ -3515,15 +3367,12 @@ BF16_MODELS = {
                       train_hp=dict(FLAGSHIP, **TRAIN_HPARAMS),
                       per_forward=BF16_PER_FORWARD_LAUNCHES,
                       per_step=BF16_TRAIN_STEP_LAUNCHES,
-                      f32_per_forward=PER_FORWARD_LAUNCHES, f32_per_step=TRAIN_STEP_LAUNCHES,
                       config="flagship 14x144, heads 3x(40,96,88), dtype bfloat16"),
     "wavlm": dict(hp=dict(WAVLM, dtype="bfloat16", ssl_config=WAVLM_BASE_PLUS_BF16),
                   deterministic=dict(WAVLM_DETERMINISTIC, dtype="bfloat16", ssl_config=dict(
                       WAVLM_DETERMINISTIC["ssl_config"], dtype="bfloat16")),
                   train_hp=WAVLM, per_forward=WAVLM_BF16_PER_FORWARD_LAUNCHES,
                   per_step=WAVLM_BF16_TRAIN_STEP_LAUNCHES,
-                  f32_per_forward=WAVLM_PER_FORWARD_LAUNCHES,
-                  f32_per_step=WAVLM_TRAIN_STEP_LAUNCHES,
                   config="WavLM-Base+ 12x768 + heads 3x(40,96,88) at 768, dtype and "
                          "ssl_config.dtype bfloat16"),
 }
@@ -3560,7 +3409,7 @@ def phase_bf16_model(gen: torch.Generator, model: str) -> None:
     cpu.model.load_state_dict(task.model.state_dict())
     wavs = 0.1 * torch.randn(2, 3 * SR, generator=gen)
     lengths = torch.tensor([3 * SR, 2 * SR])
-    got, ref, per_forward, cpu_s, errs = infer_card_vs_cpu(task, cpu, wavs, lengths)
+    got, ref, per_forward, errs = infer_card_vs_cpu(task, cpu, wavs, lengths)
     neg = torch.finfo(torch.float32).min
     live = ref["logits"] > neg
     largest = ref["scores"].abs().max().item()
@@ -3575,8 +3424,7 @@ def phase_bf16_model(gen: torch.Generator, model: str) -> None:
         "tol_of_largest_score": BF16_SCORE_TOL,
         "scores": got["scores"].tolist(), "scores_cpu": ref["scores"].tolist(),
         "pred_lang": got["pred_lang"].tolist(), "pred_lang_cpu": ref["pred_lang"].tolist(),
-        "pred_lang_compared": clear.tolist(), "cpu_forward_seconds": cpu_s,
-        "cpu_depth": "full", "launches_per_forward": per_forward,
+        "pred_lang_compared": clear.tolist(), "cpu_depth": "full", "launches_per_forward": per_forward,
     })
     checks = {
         "finite": bool(torch.isfinite(got["logits"][live]).all()
@@ -3629,105 +3477,41 @@ def phase_bf16_train_card_vs_cpu(gen: torch.Generator) -> None:
             raise AssertionError(f"the bf16 {model} train step on the card disagrees with the CPU")
 
 
-BF16_TURNS = ("float32", "bfloat16", "bfloat16", "float32")
+BF16_TRAIN_STEPS = 6  # train steps the bfloat16 rows' launches are counted over
 
 
-def phase_bf16_host_timings(gen: torch.Generator) -> dict:
-    """bfloat16 against float32, in turns float32, bfloat16, bfloat16,
-    float32 within this call (host-bound times move by tens of percent
-    between calls), each model with the same weights in both: ``infer`` on
-    3 s clips at B = 1 and B = 32, 10 ``/lid`` requests, and the B = 8, 4 s
-    train step with everything random on and its peak memory; the launches
-    of every timed run, checked.  Before any use of the profiler in this
-    process.  Returns, per model, the times, the bfloat16 runs' launches
-    and the bfloat16 tasks, trainers and batches."""
+def phase_bf16_launches(gen: torch.Generator) -> dict:
+    """Each model in bfloat16: the launches of ``INFER_CALLS`` calls of
+    ``infer`` on 3 s clips at B = 1 and B = 32, of 10 ``/lid`` requests and
+    of ``BF16_TRAIN_STEPS`` B = 8, 4 s train steps with everything random on
+    (finite losses), checked (the float32 models' are the flagship's and
+    WavLM's phases).  Returns, per model, the launches."""
     out = {}
     for model, spec in BF16_MODELS.items():
-        tasks, trainers = {}, {}
-        for dtype in ("float32", "bfloat16"):
-            hp = spec["train_hp"] if dtype == "float32" else dict(
-                spec["train_hp"], dtype="bfloat16",
-                **({"ssl_config": WAVLM_BASE_PLUS_BF16} if model == "wavlm" else {}))
-            tasks[dtype] = LidASRTask(**hp, device="cuda")
-        init_model_(model, tasks["float32"], gen)
-        tasks["bfloat16"].model.load_state_dict(tasks["float32"].model.state_dict())
-        expect = {"float32": (spec["f32_per_forward"], spec["f32_per_step"]),
-                  "bfloat16": (spec["per_forward"], spec["per_step"])}
-        times = {dtype: {"b1_ms": [], "b32_ms": [], "lid_p50_ms": [], "train_ms": [],
-                         "train_peak_mb": []} for dtype in tasks}
-        counts = {}
-        for batch, iters in ((1, 30), (32, 10)):
-            wavs = 0.1 * torch.randn(batch, 3 * SR, generator=gen)
-            lengths = torch.full((batch,), 3 * SR)
-            for task in tasks.values():
-                for _ in range(3):
-                    task.infer_fn()(wavs, lengths)
-            for dtype in BF16_TURNS:
-                infer = tasks[dtype].infer_fn()
-                torch.cuda.synchronize()
-                reset_launches()
-                t0 = time.perf_counter()
-                for _ in range(iters):
-                    result = infer(wavs, lengths)
-                result["scores"].cpu()
-                times[dtype][f"b{batch}_ms"].append((time.perf_counter() - t0) / iters * 1e3)
-                counted = launches()
-                if counted != {k: n * iters for k, n in expect[dtype][0].items()}:
-                    raise AssertionError(f"{model} {dtype} infer at B = {batch}: {counted}")
-                if dtype == "bfloat16":
-                    counts[f"b{batch}"] = counted
-        for dtype in BF16_TURNS:
-            report = phase_serve(tasks[dtype], gen, expect[dtype][0],
-                                 f"bf16_e2e_serve_{model}_{dtype}")
-            times[dtype]["lid_p50_ms"].append(report["client_p50_ms"])
-            if dtype == "bfloat16":
-                counts["serve"], counts["requests"] = report["launches"], report["requests"]
+        task = LidASRTask(**dict(spec["train_hp"], dtype="bfloat16", **(
+            {"ssl_config": WAVLM_BASE_PLUS_BF16} if model == "wavlm" else {})), device="cuda")
+        init_model_(model, task, gen)
+        out[model] = counts = infer_launches(task, gen, spec["per_forward"], f"bf16 {model}")
+        report = phase_serve(task, gen, spec["per_forward"], f"bf16_serve_{model}")
+        counts["serve"], counts["requests"] = report["launches"], report["requests"]
+        task.init_parameters = lambda generator: None  # train on from these weights
+        trainer = Trainer(total_epoch=1, use_progress_bar=False, seed=0)
+        trainer.trainer_prepare(task)
         rng = np.random.RandomState(5)
         batches = [synthetic_batch(rng, i % N_LANG, TRAIN_B, TRAIN_SECONDS) for i in range(3)]
-        for dtype, task in tasks.items():
-            task.init_parameters = lambda generator: None  # train on from these weights
-            trainers[dtype] = Trainer(total_epoch=1, use_progress_bar=False, seed=0)
-            trainers[dtype].trainer_prepare(task)
-            for batch in batches:
-                trainers[dtype].train_step(batch)
-        steps = 6
-        for dtype in BF16_TURNS:
-            torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats()
-            reset_launches()
-            t0 = time.perf_counter()
-            for i in range(steps):
-                metrics = trainers[dtype].train_step(batches[i % len(batches)])
-            loss = float(metrics["loss"])
-            times[dtype]["train_ms"].append((time.perf_counter() - t0) / steps * 1e3)
-            times[dtype]["train_peak_mb"].append(torch.cuda.max_memory_allocated() / 2 ** 20)
-            counted = launches()
-            if counted != {k: n * steps for k, n in expect[dtype][1].items()} \
-                    or not np.isfinite(loss):
-                raise AssertionError(f"{model} {dtype} train step: {counted}, loss {loss}")
-            if dtype == "bfloat16":
-                counts["train"], counts["train_steps"] = counted, steps
-        summary = {dtype: {k: statistics.mean(v) for k, v in t.items()}
-                   for dtype, t in times.items()}
-        for dtype in summary:
-            summary[dtype]["b1_utt_per_s"] = 1e3 / summary[dtype]["b1_ms"]
-            summary[dtype]["b32_utt_per_s"] = 32e3 / summary[dtype]["b32_ms"]
-            summary[dtype]["train_utt_per_s"] = TRAIN_B * 1e3 / summary[dtype]["train_ms"]
-        out[model] = {"readings": times, "mean": summary,
-                      "bf16_over_f32": {k: summary["bfloat16"][k] / summary["float32"][k]
-                                        for k in summary["float32"]},
-                      "counts": counts, "task": tasks["bfloat16"],
-                      "trainer": trainers["bfloat16"], "batches": batches}
+        counts["train"] = train_launches(trainer, batches, BF16_TRAIN_STEPS, spec["per_step"],
+                                         f"bf16 {model}")
+        del task, trainer
+        gc.collect()
+        torch.cuda.empty_cache()
     return out
 
 
-def phase_bf16_timings(gen: torch.Generator, errs: dict, host: dict, cli: dict) -> list:
-    """The ``bf16_e2e`` line (:func:`phase_bf16_host_timings`' times, then
-    one bfloat16 B = 1 forward and one train step of each model under the
-    profiler: device kernels, busy share, the ten largest) and the
-    ``kernels`` line's bfloat16 rows: the depthwise kernel's bfloat16 modes
-    at the shapes the bfloat16 paths give it, with their launches there
-    (WavLM rows also on the ``cli_wavlm_bf16`` run)."""
+def bf16_kernel_rows(gen: torch.Generator, errs: dict, launched: dict, cli: dict) -> list:
+    """The ``kernels`` line's bfloat16 rows: the depthwise kernel's bfloat16
+    modes at the shapes the bfloat16 paths give it, with their launches
+    there (``launched``: :func:`phase_bf16_launches`; WavLM rows also on the
+    ``cli_wavlm_bf16`` run)."""
     rows = []
     for model, eval_rows, train_shape in (
             ("conformer", (("depthwise_conv1d_fwd[glu_bn_act]@bf16", SERVE_DW_SHAPE),
@@ -3736,16 +3520,16 @@ def phase_bf16_timings(gen: torch.Generator, errs: dict, host: dict, cli: dict) 
             ("wavlm", (("depthwise_conv1d_fwd[glu_bn_act]@wavlm_bf16", WAVLM_SERVE_DW_SHAPE),
                        ("depthwise_conv1d_fwd[glu_bn_act]@wavlm_bf16_b32", WAVLM_SCORE_DW_SHAPE)),
              WAVLM_TRAIN_DW_SHAPE)):
-        counts = host[model]["counts"]
-        n_req, n_steps = counts["requests"], counts["train_steps"]
+        counts = launched[model]
+        n_req, n_steps = counts["requests"], BF16_TRAIN_STEPS
         suffix = "@bf16" if model == "conformer" else "@wavlm_bf16"
         model_rows = fused_kernel_rows(gen, errs["conv_fused"], {
             eval_rows[0][0]: (counts["serve"]["depthwise_glu_bn_act"], {
                 "launches_per_request": counts["serve"]["depthwise_glu_bn_act"] / n_req,
                 "launches_counted_on": f"the bfloat16 {model} /lid requests"}),
             eval_rows[1][0]: (counts["b32"]["depthwise_glu_bn_act"], {
-                "launches_per_batch": counts["b32"]["depthwise_glu_bn_act"] / 10,
-                "launches_counted_on": f"the timed bfloat16 {model} infer calls at B = 32"}),
+                "launches_per_batch": counts["b32"]["depthwise_glu_bn_act"] / INFER_CALLS,
+                "launches_counted_on": f"the counted bfloat16 {model} infer calls at B = 32"}),
             f"depthwise_conv1d_fwd[glu]{suffix}_train": (counts["train"]["depthwise_glu"], {
                 "launches_per_train_step": counts["train"]["depthwise_glu"] / n_steps}),
             f"depthwise_conv1d_fwd[glu_dx]{suffix}_train": (counts["train"]["depthwise_glu_dx"], {
@@ -3764,19 +3548,6 @@ def phase_bf16_timings(gen: torch.Generator, errs: dict, host: dict, cli: dict) 
             if not row["launches"] > 0:
                 raise AssertionError(f"{row['name']} was not launched on its bfloat16 path")
         rows += model_rows
-    profiles = {}
-    for model in BF16_MODELS:
-        task, trainer = host[model]["task"], host[model]["trainer"]
-        infer = task.infer_fn()
-        wavs, lengths = 0.1 * torch.randn(1, 3 * SR, generator=gen), torch.tensor([3 * SR])
-        profiles[model] = {
-            "profile_b1_3s": _profile_device(lambda: infer(wavs, lengths)["scores"].cpu()),
-            "profile_step_b8_4s": _profile_device(
-                lambda: float(trainer.train_step(host[model]["batches"][0])["loss"]))}
-    emit({"phase": "bf16_e2e", "turns": list(BF16_TURNS),
-          **{model: {"times": host[model]["readings"], "mean": host[model]["mean"],
-                     "bf16_over_f32": host[model]["bf16_over_f32"], **profiles[model]}
-             for model in BF16_MODELS}})
     return rows
 
 
@@ -3788,7 +3559,7 @@ CE_CLASSES = 3
 CE_TOL = 1e-3  # card vs CPU logits, of the CPU's largest entry; the loss, gradients, statistics
 CE_B, CE_SECONDS = 4, 4.0  # the card-vs-CPU forward: a ragged batch of 4 s clips
 CE_TRAIN_B = 8  # the card-vs-CPU train step, 4 s clips
-CE_E2E_B = 16  # lid_cross.yaml's batch size: the timed train steps and the 13 s eval
+CE_E2E_B = 16  # lid_cross.yaml's batch size: the counted train steps and the 13 s eval
 CE_TRAIN_BACKENDS = ("xvector", "resnet34")
 # lid_cross.yaml on the round-5 corpus: 3 languages x 96 clips in
 # language-homogeneous batches of 16 are 18 steps an epoch, 24 val clips a
@@ -3902,15 +3673,13 @@ def phase_ce_model_card_vs_cpu(gen: torch.Generator) -> None:
         got = ce_logits(card, wavs, lengths)
         torch.cuda.synchronize()
         counted = launches()
-        t0 = time.perf_counter()
         ref = ce_logits(cpu, wavs, lengths)
-        cpu_s = time.perf_counter() - t0
         got = got.cpu()
         err = (got - ref).abs().max().item() / ref.abs().max().item()
         want = CE_FBANK_LAUNCHES if name.startswith("fbank/") else NO_LAUNCHES
         row = {"params": sum(p.numel() for p in card.model.parameters()),
                "max_abs_err_over_largest": err, "argmax": got.argmax(-1).tolist(),
-               "argmax_cpu": ref.argmax(-1).tolist(), "cpu_seconds": cpu_s,
+               "argmax_cpu": ref.argmax(-1).tolist(),
                "launches_per_forward": {k: v for k, v in counted.items() if v}}
         row["ok"] = (bool(torch.isfinite(got).all()) and err <= CE_TOL
                      and row["argmax"] == row["argmax_cpu"] and counted == want)
@@ -4131,13 +3900,11 @@ def phase_cli_cross(root: str, corpus: str, smi: str) -> dict:
     lines = _metrics_lines(os.path.join(exp, "metrics.jsonl"))
     evals = [line for line in lines if "val_acc" in line]
     test = _metrics_lines(os.path.join(root, "cross_test", "metrics.jsonl"))[-1]
-    epochs = runs["fit"][0].epochs + runs["resume"][0].epochs
+    epochs = runs["fit"].epochs + runs["resume"].epochs
     steps = [e["steps"] for e in epochs]
     lrs = _lr_by_epoch(lines, [int(n) for n in np.cumsum(steps)])
-    per_epoch = [{"epoch": e["epoch"], "seconds": e["seconds"], "steps": e["steps"],
-                  "get_batch_s": e["host"].get("get_batch", (None,))[0],
-                  "train_step_dispatch_s": e["host"].get("train_step_dispatch", (None,))[0],
-                  "lr": lr, **{k: ev[k] for k in ("val_acc", "eer", "cavg", "avg_val_loss")}}
+    per_epoch = [{"epoch": e["epoch"], "steps": e["steps"], "lr": lr,
+                  **{k: ev[k] for k in ("val_acc", "eer", "cavg", "avg_val_loss")}}
                  for e, ev, lr in zip(epochs, evals, lrs)]
     best = max(e["val_acc"] for e in evals)
     ckpt_meta = load_checkpoint(last)["meta"]
@@ -4148,9 +3915,9 @@ def phase_cli_cross(root: str, corpus: str, smi: str) -> dict:
               "launches": counted, "fbank_shapes": {str(k): v for k, v in shapes.items()},
               "ckpt_meta": {k: ckpt_meta[k] for k in ("epoch", "global_step")}, "runs": {}}
     checks = {}
-    for name, (recorder, seconds) in runs.items():
+    for name, recorder in runs.items():
         per_step, per_eval = _per_step(recorder)
-        report["runs"][name] = {"seconds": seconds, "eval_batches":
+        report["runs"][name] = {"eval_batches":
                                 [e["batches"] for e in recorder.evals],
                                 "launches_per_train_step": per_step,
                                 "launches_per_eval_batch": per_eval}
@@ -4165,7 +3932,7 @@ def phase_cli_cross(root: str, corpus: str, smi: str) -> dict:
         "eval_lines": len(evals) == CROSS_EPOCHS + 1
         and all(np.isfinite(e["avg_val_loss"]) and np.isfinite(e["eer"]) for e in evals),
         "lr_lines": all(lr is not None for lr in lrs),
-        "resumed_at_last_epoch": [e["epoch"] for e in runs["resume"][0].epochs] == [CROSS_EPOCHS],
+        "resumed_at_last_epoch": [e["epoch"] for e in runs["resume"].epochs] == [CROSS_EPOCHS],
         "ckpt": ckpt_meta["epoch"] == CROSS_EPOCHS
         and ckpt_meta["global_step"] == (CROSS_EPOCHS + 1) * CROSS_EPOCH_STEPS,
         "test_val_acc": test["val_acc"] == evals[-1]["val_acc"],
@@ -4220,9 +3987,9 @@ def phase_cli_cross_ssl(root: str, corpus: str, smi: str) -> dict:
               "evals": evals, "launches": counted,
               "ckpt_meta": {k: ckpt["meta"][k] for k in ("epoch", "global_step")}, "runs": {}}
     checks = {}
-    for name, (recorder, seconds) in runs.items():
+    for name, recorder in runs.items():
         per_step, per_eval = _per_step(recorder)
-        report["runs"][name] = {"seconds": seconds, "epochs": recorder.epochs,
+        report["runs"][name] = {"epochs": recorder.epochs,
                                 "eval_batches": [e["batches"] for e in recorder.evals]}
         checks[f"{name}_steps"] = [e["steps"] for e in recorder.epochs] == [CROSS_SSL_STEPS]
         checks[f"{name}_evals"] = [e["batches"] for e in recorder.evals] == \
@@ -4292,20 +4059,17 @@ def phase_cli_asr(root: str, corpus: str, lm_dir: str, smi: str) -> dict:
                                    train=False)
     cpu_task, _ = ASRTask.resume_from_checkpoint(last, device="cpu", lm_path=arpa)
     cpu_task.model.eval()
-    t0 = time.perf_counter()
     cpu = cpu_task.test_loop_end([_to_host(cpu_task.val_loop(cpu_task.place_batch(b)))
                                   for b in feeder])
-    cpu_s = time.perf_counter() - t0
-    per_step, per_eval = _per_step(runs["fit"][0])
+    per_step, per_eval = _per_step(runs["fit"])
     report = {"phase": "cli_asr", "nvidia_smi": smi,
               "config": f"configs/asr.yaml (14 x 144-d, one CTC head), language {ASR_LANG}, "
                         f"beam search with {ASR_LANG}.arpa",
-              "steps": [e["steps"] for e in runs["fit"][0].epochs],
-              "seconds": {k: v[1] for k, v in runs.items()},
+              "steps": [e["steps"] for e in runs["fit"].epochs],
               "val_cer": evals[-1]["val_wer"] if evals else None,
               "test": {k: test.get(k) for k in ("val_wer", "test_cer_lm", "avg_val_loss")},
               "cpu_test": {k: cpu.get(k) for k in ("val_wer", "test_cer_lm", "avg_val_loss")},
-              "cpu_test_seconds": cpu_s, "launches": counted,
+              "launches": counted,
               "launches_per_train_step": per_step, "launches_per_eval_batch": per_eval,
               "conv_shapes": conv_shapes}
     checks = {
@@ -4326,15 +4090,14 @@ def phase_cli_asr(root: str, corpus: str, lm_dir: str, smi: str) -> dict:
     return report
 
 
-def phase_ce_timings(gen: torch.Generator) -> dict:
-    """Host-clock times of the cross-entropy task on the card, before any
-    use of the profiler: the train step of the x-vector and the ResNet34
-    back-ends at B = 16 on 4 s clips (Adam, the trainer's step), its peak
-    memory and launches; and the x-vector's eval batch at (16, 13 s), the
-    largest bucket of ``lid_cross.yaml``, whose fbank launches the kernels
-    line counts."""
+def phase_ce_launches(gen: torch.Generator) -> dict:
+    """The launches of the cross-entropy task on the card, checked: train
+    steps of the x-vector and the ResNet34 back-ends at B = 16 on 4 s clips
+    (Adam, the trainer's step; finite losses), and five x-vector eval
+    batches at (16, 13 s), the largest bucket of ``lid_cross.yaml``, whose
+    fbank launches the kernels line counts."""
     rng = np.random.RandomState(12)
-    out = {"train_step_b16_4s": {}}
+    out = {}
     for backend in CE_TRAIN_BACKENDS:
         task = LidCrossEntropyTask(**dict(config_module("lid_cross"), backend=backend,
                                           num_classes=CE_CLASSES), device="cuda")
@@ -4342,50 +4105,19 @@ def phase_ce_timings(gen: torch.Generator) -> dict:
         trainer.trainer_prepare(task)
         task.before_train_loop(0)
         batches = [ce_batch(rng, CE_E2E_B, CE_SECONDS) for _ in range(3)]
-        for batch in batches:
-            trainer.train_step(batch)
-        timed_steps = 9
-        torch.cuda.synchronize()
-        gc.collect()  # what earlier tasks left behind them (the trainer refers back to its task)
-        torch.cuda.reset_peak_memory_stats()
-        baseline = torch.cuda.memory_allocated()
-        reset_launches()
-        t0 = time.perf_counter()
-        for i in range(timed_steps):
-            metrics = trainer.train_step(batches[i % len(batches)])
-        loss = float(metrics["loss"])
-        step_s = (time.perf_counter() - t0) / timed_steps
-        per_step = {k: n / timed_steps for k, n in launches().items()}
-        out["train_step_b16_4s"][backend] = {
-            "params": sum(p.numel() for p in task.model.parameters()),
-            "ms_per_step": step_s * 1e3, "utt_per_s": CE_E2E_B / step_s,
-            "timed_steps": timed_steps, "last_loss": loss,
-            "peak_memory_mb": torch.cuda.max_memory_allocated() / 2 ** 20,
-            "memory_before_mb": baseline / 2 ** 20,
-            "launches_per_step": {k: v for k, v in per_step.items() if v}}
-        if per_step != CE_FBANK_LAUNCHES or not np.isfinite(loss):
-            raise AssertionError(f"{backend} train step: launches {per_step}, loss {loss}")
+        train_launches(trainer, batches, len(batches), CE_FBANK_LAUNCHES, backend)
         if backend == "xvector":
             task.model.eval()
             batch = task.place_batch(ce_batch(rng, CE_E2E_B, 13.0))
-            for _ in range(2):
-                task.val_loop(batch)
             evals = 5
-            torch.cuda.synchronize()
-            reset_launches()
-            t0 = time.perf_counter()
-            for _ in range(evals):
-                result = task.val_loop(batch)
-            result["probs"].cpu()
-            counted = launches()
-            out["eval_b16_13s_xvector"] = {
-                "ms_per_batch": (time.perf_counter() - t0) / evals * 1e3, "batches": evals,
-                "launches": {k: v for k, v in counted.items() if v}}
+            counted = counted_calls(lambda: task.val_loop(batch), evals)
+            out["eval_b16_13s_xvector"] = {"batches": evals,
+                                           "launches": {k: v for k, v in counted.items() if v}}
             if counted != {k: v * evals for k, v in CE_FBANK_LAUNCHES.items()}:
                 raise AssertionError(f"x-vector eval at 13 s: launches {counted}")
         del task, trainer
         torch.cuda.empty_cache()
-    emit({"phase": "ce_e2e", **out})
+    emit({"phase": "ce_launches", **out})
     return out
 
 
@@ -4404,7 +4136,7 @@ def ce_asr_kernel_rows(gen: torch.Generator, errs: dict, cross: dict, ce: dict,
     """The ``kernels`` line's rows of the cross-entropy and ASR paths: the
     fbank kernel at the CLI's two buckets (16 × 2 s and 16 × 4 s, launches
     counted on ``cli_cross``) and at the largest bucket of ``lid_cross.yaml``
-    (16 × 13 s, launches counted on ``ce_e2e``'s eval batches); the
+    (16 × 13 s, launches counted on ``ce_launches``' eval batches); the
     depthwise modes at the ASR path's 2 s shape with the launches of
     ``cli_asr``."""
     total = sum(c["fbank"] for c in cross["launches"].values())
@@ -4417,7 +4149,8 @@ def ce_asr_kernel_rows(gen: torch.Generator, errs: dict, cross: dict, ce: dict,
     evals = ce["eval_b16_13s_xvector"]
     rows.append(fbank_row("fbank_log_mel@cross_13s", "cross_13s", gen, errs,
                           evals["launches"]["fbank"], {
-                              "launches_counted_on": "ce_e2e: x-vector val_loop at (16, 13 s)",
+                              "launches_counted_on": "ce_launches: x-vector val_loop at "
+                                                     "(16, 13 s)",
                               "launches_per_eval_batch": 1}))
     fit, test = asr["launches"]["fit"], asr["launches"]["test"]
     on_asr = (f"cli_asr: asr.yaml, {ASR_STEPS} steps, {ASR_EVAL_BATCHES} eval batches, "
@@ -4461,7 +4194,6 @@ SE_CUDNN_TOL = 1e-2
 SE_ZERO_GRAD_LEAVES = {"dprnn": ("decoder.bias",)}  # SI-SNR removes the mean: true gradient 0
 CLI_SE_CLIPS, CLI_SE_SECONDS, CLI_SE_EPOCHS, CLI_SE_BATCH, CLI_SE_LR = 80, 1.0, 10, 8, 2e-3
 SE_FACTOR_SWEEP = "0:1:0.5"
-SE_TIMED_SECONDS = (2.0, 4.0)
 BILSTM = dict(FLAGSHIP, head_type="bilstm")
 BILSTM_PER_FORWARD_LAUNCHES = launch_counts(fbank=1, glu_bn_act=N_BLOCKS)  # no conv in the heads
 BILSTM_TRAIN_STEP_LAUNCHES = launch_counts(fbank=1, bwd_w=N_BLOCKS, glu=N_BLOCKS, glu_dx=N_BLOCKS)
@@ -4555,16 +4287,12 @@ def phase_se_card_vs_cpu(gen: torch.Generator) -> dict:
             model.train()  # cuDNN's LSTM keeps what its backward needs in training mode only
             x, c = torch.from_numpy(noisy).to(dev), torch.from_numpy(clean).to(dev)
             nm = None if num_mic is None else num_mic.to(dev)
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
             est = se_forward(kind, model, x, nm)
             loss = -si_snr(est, c).mean()
             loss.backward()
-            torch.cuda.synchronize()
-            sides[side] = (est.detach().cpu(), loss.item(), time.perf_counter() - t0,
+            sides[side] = (est.detach().cpu(), loss.item(),
                            {n: p.grad.cpu() for n, p in model.named_parameters()})
-        (est_card, loss_card, card_s, g_card), (est_cpu, loss_cpu, cpu_s, g_cpu) = (
-            sides["card"], sides["cpu"])
+        (est_card, loss_card, g_card), (est_cpu, loss_cpu, g_cpu) = sides["card"], sides["cpu"]
         largest = max(float(g.abs().max()) for g in g_cpu.values())
         zero = SE_ZERO_GRAD_LEAVES.get(kind, ())
         worst, worst_name, over, zero_ok = 0.0, "", {}, True
@@ -4605,9 +4333,7 @@ def phase_se_card_vs_cpu(gen: torch.Generator) -> dict:
             "loss_cpu": loss_cpu, "rel_err_loss": loss_err, "gradients": len(g_cpu),
             "max_rel_err_gradient": worst, "worst_gradient": worst_name,
             "zero_gradient_leaves": list(zero), "leaves_held_to_float64": held_to_float64,
-            "max_rel_l2_card_vs_float64": worst64,
-            "card_step_seconds": card_s,
-            "cpu_step_seconds": cpu_s, "finite": bool(torch.isfinite(est_card).all()),
+            "max_rel_l2_card_vs_float64": worst64, "finite": bool(torch.isfinite(est_card).all()),
         }
         ok &= (out_err <= SE_TOL and loss_err <= SE_TOL and grads_ok
                and report[kind]["finite"] and set(g_card) == set(g_cpu))
@@ -4634,12 +4360,9 @@ def phase_cli_se(root: str, smi: str) -> dict:
     np.savez(data, noisy=noisy, clean=clean)
     torch.cuda.synchronize()
     reset_launches()
-    t0 = time.perf_counter()
     trainer = main_extras.main(["se", "--data", data, "--epochs", str(CLI_SE_EPOCHS),
                                 "--batch-size", str(CLI_SE_BATCH), "--lr", str(CLI_SE_LR),
                                 "--no-progress", "--ckpt-dir", os.path.join(exp, "ckpt")])
-    torch.cuda.synchronize()
-    seconds = time.perf_counter() - t0
     counted = launches()
     ckpt = os.path.join(exp, "ckpt", "last.ckpt")
     task, meta = SETask.resume_from_checkpoint(ckpt)
@@ -4652,7 +4375,6 @@ def phase_cli_se(root: str, smi: str) -> dict:
     report = {"phase": "cli_se", "nvidia_smi": smi, "clips": CLI_SE_CLIPS,
               "clip_seconds": CLI_SE_SECONDS, "train_clips": split, "epochs": CLI_SE_EPOCHS,
               "batch": CLI_SE_BATCH, "lr": CLI_SE_LR, "steps": trainer.global_step,
-              "seconds": seconds, "seconds_per_epoch": seconds / CLI_SE_EPOCHS,
               "val_si_snr_noisy_db": before, "val_si_snr_enhanced_db": enhanced,
               "ckpt_files": sorted(os.listdir(os.path.join(exp, "ckpt"))),
               "ckpt_epoch": meta["meta"].get("epoch"), "launches": counted,
@@ -4683,10 +4405,10 @@ def phase_cli_eval_se(root: str, corpus: str, lid_ckpt: str, se_ckpt: str, input
             "--snr", "5", "--noise", "white", "--noise-dir", noise_dir]
     want_batch = launch_counts(fbank=1, glu_bn_act=N_BLOCKS + N_LANG)
     want_shapes = {"fbank": {FBANK_SHAPES["eval"]}, "glu_bn_act": {EVAL_DW_SHAPE}}
-    plain, plain_launches, plain_s, plain_shapes = run_test_lid(base)
-    half, half_launches, half_s, half_shapes = run_test_lid(
+    plain, plain_launches, plain_shapes = run_test_lid(base)
+    half, half_launches, half_shapes = run_test_lid(
         base + ["--se-ckpt", se_ckpt, "--factor", "0.5"])
-    rows, sweep_launches, sweep_s, sweep_shapes = run_test_lid(
+    rows, sweep_launches, sweep_shapes = run_test_lid(
         base + ["--se-ckpt", se_ckpt, "--factor-sweep", SE_FACTOR_SWEEP,
                 "--csv", os.path.join(root, "se", "factor_sweep.jsonl")])
     n_utts = N_LANG * CORPUS_VAL
@@ -4699,11 +4421,6 @@ def phase_cli_eval_se(root: str, corpus: str, lid_ckpt: str, se_ckpt: str, input
         "phase": "cli_eval_se", "nvidia_smi": smi, "cell": "white, 5 dB",
         "no_se": _cell(plain, "white", 5.0), "factor_0.5": _cell(half, "white", 5.0),
         "sweep": [dict(_cell(r), factor=r["factor"]) for r in rows],
-        "seconds": {"no_se": plain_s, "factor_0.5": half_s, "sweep": sweep_s},
-        "eval_batch_ms": {"no_se": plain_s / EVAL_BATCHES * 1e3,
-                          "factor_0.5": half_s / EVAL_BATCHES * 1e3},
-        "ms_per_utt": {"no_se": plain["avg_time_s"] * 1e3,
-                       "factor_0.5": half["avg_time_s"] * 1e3},
         "launches": {"no_se": plain_launches, "factor_0.5": half_launches,
                      "sweep": sweep_launches},
         "launches_per_eval_batch": per_batch, "batches_per_cell": EVAL_BATCHES,
@@ -4745,11 +4462,10 @@ def phase_serve_se(lid_ckpt: str, se_ckpt: str, gen: torch.Generator) -> dict:
 
     def post(job):
         path, wav = job
-        t0 = time.perf_counter()
         req = urllib.request.Request(url + path, data=wav.tobytes(), method="POST")
         with urllib.request.urlopen(req, timeout=300) as resp:
             body = resp.read()
-        return path, wav, resp.status, body, (time.perf_counter() - t0) * 1e3
+        return path, wav, resp.status, body
 
     try:
         torch.cuda.synchronize()
@@ -4762,11 +4478,9 @@ def phase_serve_se(lid_ckpt: str, se_ckpt: str, gen: torch.Generator) -> dict:
         server.server_close()
         thread.join(timeout=30)
     worst_se, worst_lid, lengths_ok = 0.0, 0.0, True
-    ms = {"/lid": [], "/se": []}
-    for path, wav, status, body, client_ms in answers:
+    for path, wav, status, body in answers:
         if status != 200:
             raise AssertionError(f"{path}: status {status}")
-        ms[path].append(client_ms)
         padded, n = state.pad(wav)
         if path == "/se":
             out = np.frombuffer(body, np.float32)
@@ -4777,11 +4491,9 @@ def phase_serve_se(lid_ckpt: str, se_ckpt: str, gen: torch.Generator) -> dict:
             scores = json.loads(body)["scores"]
             got = np.array([scores[index2lang[i]] for i in range(N_LANG)], np.float32)
             worst_lid = max(worst_lid, float(np.abs(got - lid_fn(padded, n)[0]).max()))
-    n_lid = len(ms["/lid"])
-    report = {"phase": "serve_se", "requests": {k: len(v) for k, v in ms.items()},
+    n_lid = sum(path == "/lid" for path, *_ in answers)
+    report = {"phase": "serve_se", "requests": {"/lid": n_lid, "/se": len(answers) - n_lid},
               "client_threads": 4, "seconds": list(SERVE_SECONDS),
-              "se_p50_ms": statistics.median(ms["/se"]), "lid_p50_ms": statistics.median(ms["/lid"]),
-              "se_ms": ms["/se"], "lid_ms": ms["/lid"],
               "max_abs_diff_se_vs_direct": worst_se, "max_abs_diff_lid_vs_direct": worst_lid,
               "launches": served}
     emit(report)
@@ -4807,7 +4519,7 @@ def phase_bilstm_card_vs_cpu(gen: torch.Generator) -> dict:
     cpu.model.load_state_dict(task.model.state_dict())
     batch = synthetic_batch(np.random.RandomState(2), lang=1, b=TRAIN_B, seconds=TRAIN_SECONDS)
     wavs, lengths = torch.from_numpy(batch["wavs"]), torch.from_numpy(batch["wav_lengths"])
-    got, ref, per_forward, _, errs = infer_card_vs_cpu(task, cpu, wavs, lengths)
+    got, ref, per_forward, errs = infer_card_vs_cpu(task, cpu, wavs, lengths)
     del task, cpu
     step = conformer_step_card_vs_cpu(dict(CONFORMER_DETERMINISTIC, head_type="bilstm"), gen,
                                       batch)
@@ -4831,94 +4543,15 @@ def phase_bilstm_card_vs_cpu(gen: torch.Generator) -> dict:
     return report
 
 
-def _host_ms(fn, reps: int = 10) -> float:
-    """Median wall milliseconds of ``fn()`` after two warm-up calls, the
-    card synchronised after each."""
-    for _ in range(2):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        times.append((time.perf_counter() - t0) * 1e3)
-    return statistics.median(times)
-
-
-def phase_se_e2e(gen: torch.Generator, smi: str, serve_report: dict, eval_report: dict) -> dict:
-    """Host-clock times of the SE paths: the enhance hook per utterance at
-    2 s and 4 s for each model (the DPRNN and FaSNet-TAC through
-    ``SETask.make_enhance_fn``, one mic; FaSNet-Origin, which no task
-    builds, as a forward of a 4-mic clip); ``/se`` p50 and an eval batch
-    with SE at factor 0.5 against without (from ``serve_se`` and
-    ``cli_eval_se``); a DPRNN train step at B = 8, 4 s; and the device
-    kernels of a DPRNN forward, read from a CUDA graph capture."""
-    rng = np.random.RandomState(13)
-    enhance = {}
-    for kind in SE_MODELS:
-        if kind == "fasnet_origin":
-            model = se_model(kind).cuda().eval()
-            init_se_(model, gen)
-        else:
-            task = SETask(model_type=kind, device="cuda")
-            init_se_(task.model, gen)
-            fn = task.make_enhance_fn()
-        for seconds in SE_TIMED_SECONDS:
-            noisy, _ = se_tones(rng, 1, int(seconds * SR), SE_MICS if kind == "fasnet_origin"
-                                else 0)
-            if kind == "fasnet_origin":
-                x = torch.from_numpy(noisy)
-
-                def call():
-                    with torch.inference_mode():
-                        return model(x.cuda())[0, 0].cpu().numpy()
-            else:
-                def call():
-                    return fn(noisy[0])
-            enhance[f"{kind}@{seconds:g}s"] = _host_ms(call)
-    task = SETask(device="cuda")
-    init_se_(task.model, gen)
-    optimizer, _ = task.config_optim()
-    noisy, clean = se_tones(rng, 8, int(4 * SR))
-    batch = task.place_batch({"noisy": noisy, "clean": clean})
-    task.model.train()
-
-    def step():
-        loss, _ = task.train_loop(batch)
-        loss.backward()
-        optimizer.step()
-        optimizer.zero_grad()
-
-    step_ms = _host_ms(step)
-    task.model.eval()
-    x = torch.from_numpy(noisy[:1, : 2 * SR]).cuda()
-    with torch.no_grad():
-        work = _graph_device_work(lambda: task.model(x))
-    report = {
-        "phase": "se_e2e", "nvidia_smi": smi, "enhance_ms_per_utterance": enhance,
-        "se_p50_ms": serve_report["se_p50_ms"], "lid_p50_ms_beside_se": serve_report["lid_p50_ms"],
-        "eval_batch_ms": eval_report["eval_batch_ms"],
-        "eval_ms_per_utt": eval_report["ms_per_utt"],
-        "dprnn_train_step_ms_b8_4s": step_ms,
-        "dprnn_forward_device_work_1x2s": len(work),
-        "dprnn_forward_kernels_1x2s": sum(1 for w in work if w not in ("memcpy", "memset")),
-        "dprnn_forward_top_kernels": sorted({w[:60] for w in work})[:12],
-        "counted_by": "cuda_graph_capture",
-    }
-    emit(report)
-    return report
-
-
 def phase_se(gen: torch.Generator, root: str, corpus: str, inputs: tuple, smi: str) -> tuple:
     """The SE and bilstm phases in order, on ``cli_flagship``'s checkpoint;
-    → (``cli_eval_se``'s report, ``serve_se``'s, ``bilstm_card_vs_cpu``'s)."""
+    → (``cli_eval_se``'s report, ``bilstm_card_vs_cpu``'s)."""
     lid_ckpt = os.path.join(root, "flagship", "ckpt", "last.ckpt")
     phase_se_card_vs_cpu(gen)
     se_ckpt = phase_cli_se(root, smi)["ckpt"]
     eval_se = phase_cli_eval_se(root, corpus, lid_ckpt, se_ckpt, inputs, smi)
-    serve_se = phase_serve_se(lid_ckpt, se_ckpt, gen)
-    return eval_se, serve_se, phase_bilstm_card_vs_cpu(gen)
+    phase_serve_se(lid_ckpt, se_ckpt, gen)
+    return eval_se, phase_bilstm_card_vs_cpu(gen)
 
 
 def se_bilstm_kernel_rows(gen: torch.Generator, errs: dict, eval_se: dict,
@@ -5023,7 +4656,7 @@ QUANT_MODELS = {
 # its output by a step of its scale: the tests measured the port against
 # JAX at 0.85-1.0 times JAX's own one-ulp flips, tests/test_torch_quant_task.py)
 QUANT_SPREAD = 3.0
-QUANT_SETTINGS = ("float32", "bfloat16", "int8", "bfloat16+int8")
+QUANT_SETTINGS = ("int8", "bfloat16+int8")  # the launches only phase_quant_launches checks
 # the QAT config at the Base+ width: 2 epochs (the first with the encoder
 # frozen, its freeze gates at 0) of 3 steps of 8 clips, each with an eval
 QAT_DATA_FACTOR = 0.1
@@ -5217,20 +4850,17 @@ def phase_quant_serve(root: str, gen: torch.Generator, smi: str) -> dict:
         exact_fn = make_lid_fn(task)
         url, server, thread = _serve_cli(["--ckpt", ckpt, "--quant", "int8", "--port", "0"])
         wavs = [(0.1 * torch.randn(int(s * SR), generator=gen)).numpy() for s in SERVE_SECONDS]
-        answers, client_ms = [], []
+        answers = []
         try:
             torch.cuda.synchronize()
             reset_launches()
             with CountIntMM() as mm:
                 for _ in range(SERVE_ROUNDS):
                     for i, wav in enumerate(wavs):
-                        t0 = time.perf_counter()
                         req = urllib.request.Request(url + "/lid", data=wav.tobytes(),
                                                      method="POST")
                         with urllib.request.urlopen(req, timeout=300) as resp:
-                            body = json.loads(resp.read())
-                        client_ms.append((time.perf_counter() - t0) * 1e3)
-                        answers.append((i, body))
+                            answers.append((i, json.loads(resp.read())))
             served = launches()
             stats = _get(url + "/stats")
         finally:
@@ -5239,13 +4869,11 @@ def phase_quant_serve(root: str, gen: torch.Generator, smi: str) -> dict:
         cpu_fn, index2lang = build_lid_fn(ckpt, "cpu", "int8")
         pad = InferenceState(None, index2lang).pad
         per_wav = []
-        t0 = time.perf_counter()
         for wav in wavs:
             padded, n = pad(wav)
             nudged, _ = pad(np.nextafter(wav, np.float32(np.inf)).astype(np.float32))
             per_wav.append({"cpu": cpu_fn(padded, n)[0], "cpu_nudged": cpu_fn(nudged, n)[0],
                             "card_exact": exact_fn(padded, n)[0]})
-        cpu_s = time.perf_counter() - t0
         langs = [index2lang[i] for i in range(N_LANG)]
         card = [np.array([body["scores"][lang] for lang in langs]) for _, body in answers]
         largest = max(float(np.abs(p["cpu"]).max()) for p in per_wav)
@@ -5266,7 +4894,6 @@ def phase_quant_serve(root: str, gen: torch.Generator, smi: str) -> dict:
             "seconds": list(SERVE_SECONDS), "launches": served, "int_mm_calls": mm.calls,
             "int_mm_per_request": mm.calls / n_req, "int_mm_per_forward": mm_per_forward,
             "stats_engine": stats.get("engine"), "stats": stats,
-            "client_p50_ms": statistics.median(client_ms), "client_ms": client_ms,
             "max_abs_err_scores_vs_cpu_int8": err, "largest_score": largest,
             "cpu_one_ulp_spread": spread, "bar": bar, "bar_rule": (
                 f"max({spec['base_tol']}{' x largest' if model != 'conformer' else ''}, "
@@ -5275,7 +4902,6 @@ def phase_quant_serve(root: str, gen: torch.Generator, smi: str) -> dict:
             "pred_lang_agree_int8_vs_exact": sum(agree) / len(agree),
             "scores_card_int8": [c.tolist() for c in card[:len(wavs)]],
             "scores_card_exact": [p["card_exact"].tolist() for p in per_wav],
-            "cpu_seconds": cpu_s,
         }
         emit(report)
         checks = {
@@ -5314,53 +4940,31 @@ def _setting_hp(model: str, setting: str) -> dict:
     return hp
 
 
-def phase_quant_e2e(gen: torch.Generator, smi: str) -> dict:
-    """``infer`` utt/s on 3 s clips at B = 1 and B = 32, both models, in the
-    four settings float32, bfloat16, int8 and bfloat16 + int8 (the same
-    weights; int8 as ``serve --quant int8`` builds it from a checkpoint,
-    so WavLM's extractor stays the conv), in turns forward then backward
-    through the settings within this call; the launches of every timed
-    run, checked.  Host clock, before any use of the profiler."""
-    out = {}
+def phase_quant_launches(gen: torch.Generator) -> None:
+    """The launches of ``INFER_CALLS`` calls of ``infer`` on 3 s clips at
+    B = 1 and B = 32, both models, in the int8 and bfloat16 + int8 settings
+    (the float32 model's weights; int8 as ``serve --quant int8`` builds it
+    from a checkpoint, so WavLM's extractor stays the conv), checked.  The
+    float32 and bfloat16 settings' launches are checked by
+    :func:`flagship_kernel_rows`, :func:`phase_wavlm_launches` and
+    :func:`phase_bf16_launches`."""
+    counts = {}
     for model in ("conformer", "wavlm"):
-        tasks = {s: LidASRTask(**_setting_hp(model, s), device="cuda") for s in QUANT_SETTINGS}
-        init_model_(model, tasks["float32"], gen)
-        for s in QUANT_SETTINGS[1:]:
-            tasks[s].model.load_state_dict(tasks["float32"].model.state_dict())
-        expect = {s: (PER_FORWARD_LAUNCHES if model == "conformer" else
-                      WAVLM_PER_FORWARD_LAUNCHES) for s in QUANT_SETTINGS}
-        for s in ("bfloat16", "bfloat16+int8"):
-            expect[s] = (BF16_PER_FORWARD_LAUNCHES if model == "conformer"
-                         else WAVLM_BF16_PER_FORWARD_LAUNCHES)
-        readings = {s: {"b1_ms": [], "b32_ms": []} for s in QUANT_SETTINGS}
-        for batch, iters in ((1, 30), (32, 10)):
-            wavs = 0.1 * torch.randn(batch, 3 * SR, generator=gen)
-            lengths = torch.full((batch,), 3 * SR)
-            for task in tasks.values():
-                for _ in range(3):
-                    task.infer_fn()(wavs, lengths)
-            for s in QUANT_SETTINGS + QUANT_SETTINGS[::-1]:
-                infer = tasks[s].infer_fn()
-                torch.cuda.synchronize()
-                reset_launches()
-                t0 = time.perf_counter()
-                for _ in range(iters):
-                    result = infer(wavs, lengths)
-                result["scores"].cpu()
-                readings[s][f"b{batch}_ms"].append((time.perf_counter() - t0) / iters * 1e3)
-                if launches() != {k: v * iters for k, v in expect[s].items()}:
-                    raise AssertionError(f"quant_e2e {model} {s} B = {batch}: {launches()}")
-        mean = {s: {k: statistics.mean(v) for k, v in r.items()} for s, r in readings.items()}
-        for s in mean:
-            mean[s]["b1_utt_per_s"] = 1e3 / mean[s]["b1_ms"]
-            mean[s]["b32_utt_per_s"] = 32e3 / mean[s]["b32_ms"]
-        out[model] = {"readings": readings, "mean": mean}
-        del tasks
+        weights = LidASRTask(**_setting_hp(model, "float32"), device="cuda")
+        init_model_(model, weights, gen)
+        for s in QUANT_SETTINGS:
+            task = LidASRTask(**_setting_hp(model, s), device="cuda")
+            task.model.load_state_dict(weights.model.state_dict())
+            expect = {("conformer", "int8"): PER_FORWARD_LAUNCHES,
+                      ("wavlm", "int8"): WAVLM_PER_FORWARD_LAUNCHES,
+                      ("conformer", "bfloat16+int8"): BF16_PER_FORWARD_LAUNCHES,
+                      ("wavlm", "bfloat16+int8"): WAVLM_BF16_PER_FORWARD_LAUNCHES}[model, s]
+            counts[f"{model} {s}"] = infer_launches(task, gen, expect, f"{model} {s}")
+            del task
+        del weights
         gc.collect()
         torch.cuda.empty_cache()
-    emit({"phase": "quant_e2e", "nvidia_smi": smi, "settings": list(QUANT_SETTINGS),
-          "turns": "each setting in order, then in reverse", **out})
-    return out
+    emit({"phase": "quant_launches", "settings": list(QUANT_SETTINGS), "launches": counts})
 
 
 def phase_cli_qat(root: str, corpus: str, smi: str) -> dict:
@@ -5407,7 +5011,7 @@ def phase_cli_qat(root: str, corpus: str, smi: str) -> dict:
         torch.cuda.synchronize()
         reset_launches()
         with CountIntMM() as mm:
-            recorder, seconds = run_cli(args)
+            recorder = run_cli(args)
         counted = launches()
     finally:
         main_lid.build_task = build_task
@@ -5434,9 +5038,8 @@ def phase_cli_qat(root: str, corpus: str, smi: str) -> dict:
     report = {
         "phase": "cli_qat", "nvidia_smi": smi,
         "config": "configs/lid_wavlm_qat.yaml, module.ssl_config WavLM-Base+",
-        "seconds": seconds, "epochs": recorder.epochs,
-        "seconds_per_epoch": [e["seconds"] for e in recorder.epochs],
-        "eval_batches": [e["batches"] for e in recorder.evals], "frozen_by_epoch": frozen,
+        "epochs": recorder.epochs, "eval_batches": [e["batches"] for e in recorder.evals],
+        "frozen_by_epoch": frozen,
         "launches": counted, "launches_per_train_step": per_step,
         "launches_per_eval_batch": per_eval, "conv_shapes": sorted(shapes),
         "int_mm_calls": mm.calls, "int_mm_per_train_forward": mm_train,
@@ -5471,14 +5074,14 @@ def phase_cli_eval_quant(root: str, corpus: str, ckpt: str, smi: str) -> dict:
     kernel in every block, the int8 run makes every block's and head's
     ``_int_mm`` calls, at the eval shapes held against plain."""
     base = ["--ckpt", ckpt, *_cli_args("configs", "lid_supervised", _langs_override(corpus))]
-    exact, exact_launches, exact_s, _ = run_test_lid(base)
+    exact, exact_launches, _ = run_test_lid(base)
     with CountIntMM() as mm:
-        quant_run, counted, quant_s, shapes = run_test_lid(base + ["--quant", "int8"])
+        quant_run, counted, shapes = run_test_lid(base + ["--quant", "int8"])
     want = launch_counts(fbank=1, glu_bn_act=DW_PER_FORWARD)
     mm_per_batch = int_mm_per_forward(build_int8_model(FLAGSHIP))
     report = {"phase": "cli_eval_quant", "nvidia_smi": smi,
               "checkpoint": os.path.relpath(ckpt, root), "exact": _cell(exact),
-              "int8": _cell(quant_run), "exact_seconds": exact_s, "int8_seconds": quant_s,
+              "int8": _cell(quant_run),
               "launches_per_batch": {k: v / EVAL_BATCHES for k, v in counted.items()},
               "int_mm_calls": mm.calls, "int_mm_per_batch": mm.calls / EVAL_BATCHES,
               "kernel_shapes": {k: sorted(v) for k, v in shapes.items()}, "_counted": counted}
@@ -5514,16 +5117,15 @@ class _SnapshotRecorder(_CliRecorder):
 def _run_flagship_cli(root: str, corpus: str, name: str, *overrides: str) -> tuple:
     """``lid_supervised.yaml`` (the flagship) through the CLI on the corpus
     with 9 steps an epoch, the launches counted from 0; → (recorder,
-    seconds, launches, metrics lines, experiment dir)."""
+    launches, metrics lines, experiment dir)."""
     exp = os.path.join(root, name)
     args = _cli_args("configs", "lid_supervised", _langs_override(corpus), f"exp_dir={exp}",
                      "trainer.progress_bar=false",
                      f"trainer.train_data_factor={FLAGSHIP_DATA_FACTOR}", *overrides)
     torch.cuda.synchronize()
     reset_launches()
-    recorder, seconds = run_cli(args, _SnapshotRecorder)
-    return (recorder, seconds, launches(), _metrics_lines(os.path.join(exp, "metrics.jsonl")),
-            exp)
+    recorder = run_cli(args, _SnapshotRecorder)
+    return recorder, launches(), _metrics_lines(os.path.join(exp, "metrics.jsonl")), exp
 
 
 def phase_cli_swa(root: str, corpus: str, smi: str) -> dict:
@@ -5533,7 +5135,7 @@ def phase_cli_swa(root: str, corpus: str, smi: str) -> dict:
     (apart from the last epoch's), and the launches: per train step and
     eval batch as ``cli_flagship``'s, and the re-estimation's 72
     train-mode forwards (two passes over the 36 train batches)."""
-    recorder, seconds, counted, lines, exp = _run_flagship_cli(
+    recorder, counted, lines, exp = _run_flagship_cli(
         root, corpus, "swa", f"trainer.total_epoch={SWA_EPOCHS}", "trainer.use_swa=true")
     swa = torch.load(os.path.join(exp, "ckpt", "swa_final.ckpt"), map_location="cpu",
                      weights_only=True)["state"]
@@ -5547,8 +5149,7 @@ def phase_cli_swa(root: str, corpus: str, smi: str) -> dict:
     in_epochs = {k: sum(e["launches"][k] for e in recorder.epochs + recorder.evals)
                  for k in counted}
     bn = {k: counted[k] - in_epochs[k] for k in counted}
-    report = {"phase": "cli_swa", "nvidia_smi": smi, "seconds": seconds,
-              "seconds_per_epoch": [e["seconds"] for e in recorder.epochs],
+    report = {"phase": "cli_swa", "nvidia_smi": smi,
               "swa_count": swa["swa"]["count"], "max_rel_err_params_vs_mean_of_epochs_2_3":
               mean_err, "max_abs_running_stat_moved_by_reestimation": moved,
               "launches": counted, "launches_per_train_step": per_step,
@@ -5575,13 +5176,12 @@ def phase_cli_novograd(root: str, corpus: str, smi: str) -> dict:
     with one second moment a flax leaf (the heads' stacked), the mean train
     loss drops from the first epoch to the last, and the launches per step
     and eval batch are ``cli_flagship``'s."""
-    recorder, seconds, counted, lines, _ = _run_flagship_cli(
+    recorder, counted, lines, _ = _run_flagship_cli(
         root, corpus, "novograd", f"trainer.total_epoch={NOVOGRAD_EPOCHS}",
         "module.optimizer=novograd", "module.schedule=null")
     epoch_loss = [line["avg_train_loss"] for line in lines if "avg_train_loss" in line]
     per_step, per_eval = _per_step(recorder)
-    report = {"phase": "cli_novograd", "nvidia_smi": smi, "seconds": seconds,
-              "seconds_per_epoch": [e["seconds"] for e in recorder.epochs],
+    report = {"phase": "cli_novograd", "nvidia_smi": smi,
               "avg_train_loss_by_epoch": epoch_loss, "optimizer": recorder.optimizer_info,
               "launches": counted, "launches_per_train_step": per_step,
               "launches_per_eval_batch": per_eval, "_counted": counted}
@@ -5693,7 +5293,7 @@ SPEC_D, SPEC_WIN = 64, 32  # SpecPredTask's feat_dim and --win-len defaults
 EXTRAS_TOL = 1e-3  # card vs CPU: the output and each gradient of its leaf's largest entry
 EXTRAS_CUDNN_TOL = 1e-2  # a leaf past EXTRAS_TOL: to the CPU's float64 step, as se_card_vs_cpu
 EXTRAS_MODELS = {
-    # name: (model, input kind, the task and its keyword arguments for the timed step)
+    # name: (model, input kind, the task and its keyword arguments for the counted steps)
     "base_cnn": (lambda: extras_models.BaseCNN(10), "image",
                  (ImageClassificationTask, dict(num_classes=10))),
     "lstm_lm": (lambda: extras_models.LSTMLM(LM_VOCAB, 128, 256), "ids",
@@ -5855,11 +5455,10 @@ def _extras_zero_grad(name: str, model) -> set:
     return set()
 
 
-def _extras_step_ms(name: str) -> dict:
-    """A train step of the model's task on the card at B = 32 (forward,
-    backward, Adam with the clip): ``_host_ms``, and the hand-kernel
-    launches of its 12 steps."""
-    make, kind, (task_cls, kwargs) = EXTRAS_MODELS[name]
+def _extras_step_launches(name: str) -> dict:
+    """The hand-kernel launches of two train steps of the model's task on
+    the card at B = 32 (forward, backward, Adam with the clip)."""
+    _, kind, (task_cls, kwargs) = EXTRAS_MODELS[name]
     task = task_cls(**kwargs, device="cuda")
     trainer = Trainer(total_epoch=1, use_progress_bar=False, device="cuda")
     trainer.trainer_prepare(task)
@@ -5874,9 +5473,7 @@ def _extras_step_ms(name: str) -> dict:
                  "snr": rng.uniform(-10, 18, EXTRAS_B).astype(np.float32)}
     else:
         batch = {"x": inputs[0].numpy(), "y": rng.randn(EXTRAS_B, SPEC_D).astype(np.float32)}
-    reset_launches()
-    ms = _host_ms(lambda: float(trainer.train_step(batch)["loss"]))
-    return {"step_ms": ms, "launches": launches()}
+    return counted_calls(lambda: float(trainer.train_step(batch)["loss"]), 2)
 
 
 def phase_extras_card_vs_cpu(gen: torch.Generator, smi: str) -> dict:
@@ -5890,7 +5487,8 @@ def phase_extras_card_vs_cpu(gen: torch.Generator, smi: str) -> dict:
     float32 LSTM and GRU are less exact than the CPU's, ROADMAP §3) is held
     to the CPU's float64 step in relative L2, within ``EXTRAS_CUDNN_TOL`` or
     three times the CPU's float32 distance, as ``se_card_vs_cpu``; the
-    readings are printed.  Then each task's train step on the card, timed."""
+    readings are printed.  Then each task's train steps on the card launch
+    no hand kernel."""
     rng = np.random.RandomState(21)
     report, ok = {}, True
     for name, (make, kind, _) in EXTRAS_MODELS.items():
@@ -5953,7 +5551,7 @@ def phase_extras_card_vs_cpu(gen: torch.Generator, smi: str) -> dict:
                                 / max(float(b.abs().max()), 1e-30))
         out64_err = max(float((c - p).abs().max()) / float(p.abs().max())
                         for c, p in zip(out_card, out64))
-        step = _extras_step_ms(name)
+        step_launches = _extras_step_launches(name)
         report[name] = {
             "input": [list(x.shape) for x in inputs],
             "params": sum(p.numel() for p in card.parameters()),
@@ -5962,10 +5560,10 @@ def phase_extras_card_vs_cpu(gen: torch.Generator, smi: str) -> dict:
             "gradients": len(g_cpu), "zero_gradient_leaves": sorted(zero),
             "relus": sum(int(m.numel()) for m in masks), "relus_pinned_that_differed": flipped,
             "leaves_held_to_float64": held, "max_rel_err_bn_stats": stats_err,
-            "train_step_ms_b32": step["step_ms"], "train_step_launches": step["launches"]}
+            "train_step_launches": step_launches}
         ok &= (fwd_err <= EXTRAS_TOL and (train_err <= EXTRAS_TOL or out64_err <= EXTRAS_TOL)
                and leaves_ok and stats_err <= EXTRAS_TOL and set(g_card) == set(g_cpu)
-               and step["launches"] == launch_counts())
+               and step_launches == launch_counts())
         del card, cpu, cpu64
     emit({"phase": "extras_card_vs_cpu", "nvidia_smi": smi, "tol": EXTRAS_TOL,
           "tol_cudnn_vs_float64": EXTRAS_CUDNN_TOL, "batch": EXTRAS_B, **report})
@@ -6099,19 +5697,17 @@ def phase_cli_extras(root: str, smi: str) -> dict:
         main_extras._trainer = recording_trainer
         torch.cuda.synchronize()
         reset_launches()
-        t0 = time.perf_counter()
         try:
             trainer = main_extras.main([*argv, "--epochs", str(EXTRAS_EPOCHS), "--no-progress",
                                         "--ckpt-dir", ckpt])
         finally:
             main_extras._trainer = saved
         torch.cuda.synchronize()
-        seconds = time.perf_counter() - t0
         counted = launches()
         task, _ = task_cls.resume_from_checkpoint(os.path.join(ckpt, "last.ckpt"))
         same = all(torch.equal(p, task.model.state_dict()[k])
                    for k, p in trainer.module.model.state_dict().items())
-        report[name] = {"seconds": seconds, "steps_per_epoch": recorder.steps,
+        report[name] = {"steps_per_epoch": recorder.steps,
                         "avg_train_loss": recorder.losses, "launches": counted,
                         "hyper_parameters": task.hyper_parameters}
         checks[name] = (len(recorder.losses) == EXTRAS_EPOCHS
@@ -6127,11 +5723,9 @@ def phase_cli_extras(root: str, smi: str) -> dict:
         recorder = _EpochLosses()
         task = ImageClassificationTask(num_classes=10)
         trainer = Trainer(total_epoch=EXTRAS_EPOCHS, use_progress_bar=False, callbacks=[recorder])
-        t0 = time.perf_counter()
         trainer.fit(task, [(x[i:i + 32], y[i:i + 32]) for i in range(0, 1620, 32)],
                     [(x[i:i + 32], y[i:i + 32]) for i in range(1620, 1800, 32)])
-        report["image"] = {"seconds": time.perf_counter() - t0, "steps_per_epoch": recorder.steps,
-                           "avg_train_loss": recorder.losses}
+        report["image"] = {"steps_per_epoch": recorder.steps, "avg_train_loss": recorder.losses}
         checks["image"] = recorder.losses[1] < recorder.losses[0]
     report["checks"] = checks
     emit(report)
@@ -6175,7 +5769,7 @@ def phase_cli_sweep(root: str, smi: str) -> dict:
     the same seed and history; every trial launches ``fbank_log_mel`` and
     the training and eval depthwise modes.  Each trial's launches are
     counted apart (``main_lid.main`` wrapped: counts set to 0 before, read
-    after) with its wall time."""
+    after)."""
     import random
 
     from speechlid_tpu_torch.cli import main_lid
@@ -6212,12 +5806,11 @@ def phase_cli_sweep(root: str, smi: str) -> dict:
         reset_launches()
         fbank_shapes.clear()
         conv_shapes.clear()
-        t0 = time.perf_counter()
         try:
             train_main(argv)
         finally:
             torch.cuda.synchronize()
-            trials.append({"seconds": time.perf_counter() - t0, "launches": launches(),
+            trials.append({"launches": launches(),
                            "sampled": sampled, "fbank_shapes": sorted(fbank_shapes),
                            "conv_shapes": sorted(conv_shapes)})
 
@@ -6415,20 +6008,23 @@ class _LossRecorder(Callback):
 
 
 def width_launches() -> dict:
-    """The depthwise wrappers' counts by mode and channel count C, as they
-    launch their kernels (``"glu@144"``, ``"glu_dx@144"``, ``"bwd_w@144"``)."""
-    return {**depthwise_conv1d.width_launches, **depthwise_conv1d_bwd_w.width_launches}
+    """The depthwise counts of ``_build.launches`` by mode and channel count
+    C (``"glu@144"``, ``"glu_dx@144"``, ``"bwd_w@144"``)."""
+    widths = collections.Counter()
+    for key, n in _build.launches.items():
+        if key.entry.startswith("depthwise"):
+            widths[f"{key.mode}@{key.width}"] += n
+    return dict(widths)
 
 
 class _CountedTrainer(Trainer):
     """``Trainer`` that reads the launch counters, also by channel count,
-    and the host clock (the card synchronised) around each train step, and
-    keeps the gradients the optimizer's first step takes."""
+    around each train step, and keeps the gradients the optimizer's first
+    step takes."""
 
     def __init__(self, *args, **kwargs):
         super().__init__(*args, **kwargs)
-        self.step_launches, self.step_ms, self.first_grads = [], [], None
-        self.step_widths = []
+        self.step_launches, self.step_widths, self.first_grads = [], [], None
 
     def trainer_prepare(self, module):
         super().trainer_prepare(module)
@@ -6446,12 +6042,8 @@ class _CountedTrainer(Trainer):
         self.optimizer.step = recorded_step
 
     def train_step(self, batch):
-        torch.cuda.synchronize()
         reset_launches()
-        t0 = time.perf_counter()
         out = super().train_step(batch)
-        torch.cuda.synchronize()
-        self.step_ms.append((time.perf_counter() - t0) * 1e3)
         self.step_launches.append(launches())
         self.step_widths.append(width_launches())
         return out
@@ -6487,7 +6079,7 @@ def _dp_fit(hp: dict, state: dict, batches: list, mesh=None, rules=None, val=Non
     opt = trainer.optimizer
     out = {"state": {k: v.cpu() for k, v in convert.full_state(task.model).items()},
            "first_grads": trainer.first_grads, "losses": losses.losses,
-           "step_launches": trainer.step_launches, "step_ms": trainer.step_ms,
+           "step_launches": trainer.step_launches,
            "step_widths": trainer.step_widths, "stretch_rates": rates,
            "lr_sum": sum(opt.lr_at(i) for i in range(opt.count))}
     if after is not None:
@@ -6528,12 +6120,11 @@ def rank_child(root: str, job: str, rank: int, world: int) -> None:
 def run_ranks(job: str, inputs: dict, world: int, local=None) -> tuple:
     """``world`` ranks of ``job``, each a process of its own on cuda:0, while
     ``local()`` (the one-process run it is held to) runs here.  → (the
-    ranks' outputs, ``local()``'s, the seconds until all ended)."""
+    ranks' outputs, ``local()``'s)."""
     with tempfile.TemporaryDirectory() as root:
         torch.save(inputs, os.path.join(root, "inputs.pt"))
         env = {k: v for k, v in os.environ.items()
                if k not in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT")}
-        t0 = time.perf_counter()
         procs = [subprocess.Popen(
             [sys.executable, "-c",
              f"import chip_smoke; chip_smoke.rank_child({root!r}, {job!r}, {r}, {world})"],
@@ -6545,14 +6136,13 @@ def run_ranks(job: str, inputs: dict, world: int, local=None) -> tuple:
         finally:
             for p in procs:
                 p.kill()
-        seconds = time.perf_counter() - t0
         for r, (p, out) in enumerate(zip(procs, outs)):
             if p.returncode != 0:
                 print(out[-4000:], file=sys.stderr)
                 raise AssertionError(f"{job}: rank {r} failed ({p.returncode})")
         ranks = [torch.load(os.path.join(root, f"rank{r}.pt"), weights_only=False)
                  for r in range(world)]
-    return ranks, mine, seconds
+    return ranks, mine
 
 
 def bit_equal(a: dict, b: dict) -> bool:
@@ -6624,8 +6214,8 @@ def phase_dp_card_vs_single(gen: torch.Generator, smi: str) -> dict:
     init_random_(init.model, gen)
     state = {k: v.cpu() for k, v in init.model.state_dict().items()}
     del init
-    ranks, single, seconds = run_ranks("dp", {"state": state, "batches": batches}, DP_WORLD,
-                                       lambda: _dp_fit(DP_HP, state, batches[:DP_STEPS]))
+    ranks, single = run_ranks("dp", {"state": state, "batches": batches}, DP_WORLD,
+                              lambda: _dp_fit(DP_HP, state, batches[:DP_STEPS]))
     det = [r["deterministic"] for r in ranks]
     rnd = [r["random"] for r in ranks]
     close = _dp_close(det[0]["state"], single["state"], single["lr_sum"])
@@ -6651,15 +6241,11 @@ def phase_dp_card_vs_single(gen: torch.Generator, smi: str) -> dict:
     }
     report = {"phase": "dp_card_vs_single", "nvidia_smi": smi, "world": DP_WORLD,
               "backend": "gloo, both ranks on cuda:0",
-              "batch_per_rank": [DP_B, int(DP_SECONDS * SR)], "steps": DP_STEPS,
-              "tol": TRAIN_TOL, "seconds": seconds,
+              "batch_per_rank": [DP_B, int(DP_SECONDS * SR)], "steps": DP_STEPS, "tol": TRAIN_TOL,
               "single_losses": single["losses"], "rank_losses": [d["losses"] for d in det],
               "max_loss_gap": loss_gap, **{k: v for k, v in grads.items() if k != "ok"},
               **{k: v for k, v in close.items() if k != "ok"},
               "lr_sum": single["lr_sum"], "launches_per_rank_step": det[0]["step_launches"][0],
-              # host clock, the card synchronised around each step; the
-              # first step holds the warm-up
-              "step_ms_single": single["step_ms"], "step_ms_ranks": [d["step_ms"] for d in det],
               "launches": counted, "random_stretch_rates": [r["stretch_rates"] for r in rnd],
               "random_losses": [r["losses"] for r in rnd], "checks": checks}
     emit(report)
@@ -6668,58 +6254,37 @@ def phase_dp_card_vs_single(gen: torch.Generator, smi: str) -> dict:
     return report
 
 
-def _epoch_seconds(metrics_path: str) -> list:
-    """Seconds between the eval lines of ``metrics.jsonl`` (an epoch's train
-    steps, eval and checkpoint)."""
-    ts = [line["ts"] for line in _metrics_lines(metrics_path) if CLI_EVAL_KEYS <= set(line)]
-    return [b - a for a, b in zip(ts, ts[1:])]
-
-
 def phase_cli_dp(root: str, corpus: str, smi: str) -> dict:
     """``main_lid`` with ``trainer.data_parallel=true`` at world size 1 over
     nccl, launched by ``python -m torch.distributed.run --standalone
     --nproc-per-node 1`` on the corpus, 2 epochs of ``FLAGSHIP_STEPS`` steps
     at full width: it trains and validates (EER, Cavg and accuracy logged),
-    and rank 0 writes the checkpoint, with one device generator.  The same
-    run without ``data_parallel``, in a process of its own too, gives the
-    collectives' cost at world size 1 (the second epoch's seconds of each)."""
-    base = [_langs_override(corpus), "trainer.progress_bar=false", "trainer.total_epoch=2",
-            f"trainer.train_data_factor={FLAGSHIP_DATA_FACTOR}"]
-    here = str(Path(__file__).resolve().parent)
-    runs = {}
-    for name, launcher, extra in (
-            ("data_parallel", ["-m", "torch.distributed.run", "--standalone",
-                               "--nproc-per-node", "1"], ["trainer.data_parallel=true"]),
-            ("plain", [], [])):
-        exp = os.path.join(root, f"cli_dp_{name}")
-        t0 = time.perf_counter()
-        child = subprocess.run(
-            [sys.executable, *launcher, "-m", "speechlid_tpu_torch.cli.main_lid",
-             *_cli_args("configs", "lid_supervised", *base, f"exp_dir={exp}", *extra)],
-            cwd=here, capture_output=True, text=True, timeout=600)
-        if child.returncode != 0:
-            print(child.stderr[-4000:], file=sys.stderr)
-            raise AssertionError(f"cli_dp's {name} run failed ({child.returncode})")
-        lines = _metrics_lines(os.path.join(exp, "metrics.jsonl"))
-        runs[name] = {"seconds": time.perf_counter() - t0,
-                      "epoch_seconds": _epoch_seconds(os.path.join(exp, "metrics.jsonl")),
-                      "evals": [line for line in lines if CLI_EVAL_KEYS <= set(line)],
-                      "ckpt": load_checkpoint(os.path.join(exp, "ckpt", "last.ckpt"))}
-    dp, plain = runs["data_parallel"], runs["plain"]
-    state = dp.pop("ckpt")["state"]
-    plain.pop("ckpt")
+    and rank 0 writes the checkpoint, with one device generator."""
+    exp = os.path.join(root, "cli_dp_data_parallel")
+    child = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node", "1",
+         "-m", "speechlid_tpu_torch.cli.main_lid",
+         *_cli_args("configs", "lid_supervised", _langs_override(corpus),
+                    "trainer.progress_bar=false", "trainer.total_epoch=2",
+                    f"trainer.train_data_factor={FLAGSHIP_DATA_FACTOR}", f"exp_dir={exp}",
+                    "trainer.data_parallel=true")],
+        cwd=str(Path(__file__).resolve().parent), capture_output=True, text=True, timeout=600)
+    if child.returncode != 0:
+        print(child.stderr[-4000:], file=sys.stderr)
+        raise AssertionError(f"cli_dp's data_parallel run failed ({child.returncode})")
+    evals = [line for line in _metrics_lines(os.path.join(exp, "metrics.jsonl"))
+             if CLI_EVAL_KEYS <= set(line)]
+    state = load_checkpoint(os.path.join(exp, "ckpt", "last.ckpt"))["state"]
     checks = {
-        "validated": len(dp["evals"]) == 2 and all(
-            np.isfinite(e[k]) for e in dp["evals"] for k in ("avg_val_loss", "val_acc")),
-        "eer_cavg_acc_logged": all({"eer", "cavg", "val_acc"} <= set(e) for e in dp["evals"]),
+        "validated": len(evals) == 2 and all(
+            np.isfinite(e[k]) for e in evals for k in ("avg_val_loss", "val_acc")),
+        "eer_cavg_acc_logged": all({"eer", "cavg", "val_acc"} <= set(e) for e in evals),
         "rank0_ckpt": len(state["device_generators"]) == 1,
     }
     report = {"phase": "cli_dp", "nvidia_smi": smi,
               "launcher": "python -m torch.distributed.run --standalone --nproc-per-node 1",
               "backend": "nccl", "config": "configs/lid_supervised.yaml (14 x 144-d)",
-              "steps_per_epoch": FLAGSHIP_STEPS, "runs": runs,
-              "second_epoch_seconds": {k: r["epoch_seconds"][-1] for k, r in runs.items()},
-              "checks": checks}
+              "steps_per_epoch": FLAGSHIP_STEPS, "evals": evals, "checks": checks}
     emit(report)
     if not all(checks.values()):
         raise AssertionError(f"cli_dp failed: {checks}")
@@ -6736,8 +6301,7 @@ def phase_seldnet_card_vs_cpu(gen: torch.Generator, smi: str) -> dict:
     of the CPU leaf's largest entry, or a leaf past it within
     ``EXTRAS_CUDNN_TOL`` (or three times the CPU's distance) of the CPU's
     float64 step in relative L2.  The conv biases feed train-mode
-    BatchNorms (true gradient 0): held against the largest gradient.  And
-    the eval forward's milliseconds on the card (``_host_ms``)."""
+    BatchNorms (true gradient 0): held against the largest gradient."""
     report, ok = {}, True
     for name, (make, channels) in SELD_PRESETS.items():
         card = make().cuda()
@@ -6795,10 +6359,6 @@ def phase_seldnet_card_vs_cpu(gen: torch.Generator, smi: str) -> dict:
                         for (k, a), (_, b) in zip(card.state_dict().items(),
                                                   cpu.state_dict().items())
                         if k.endswith(("running_mean", "running_var")))
-        xc = x.cuda()
-        card.eval()
-        with torch.no_grad():
-            forward_ms = _host_ms(lambda: card(xc))
         report[name] = {
             "input": [SELD_B, channels, 256, SELD_T],
             "params": sum(p.numel() for p in card.parameters()),
@@ -6806,7 +6366,7 @@ def phase_seldnet_card_vs_cpu(gen: torch.Generator, smi: str) -> dict:
             "max_rel_err_gradient": worst, "gradients": len(g_cpu),
             "zero_gradient_leaves": sorted(zero), "relus": sum(int(m.numel()) for m in masks),
             "relus_pinned_that_differed": flipped, "leaves_held_to_float64": held,
-            "max_rel_err_bn_stats": stats_err, "forward_ms_b16": forward_ms}
+            "max_rel_err_bn_stats": stats_err}
         ok &= (fwd_err <= EXTRAS_TOL and train_err <= EXTRAS_TOL and leaves_ok
                and stats_err <= EXTRAS_TOL and set(g_card) == set(g_cpu))
         del card, cpu, cpu64
@@ -6954,9 +6514,8 @@ def _mp_job_dp_tp(inputs: dict, rank: int, world: int) -> dict:
 def _mp_job_cli(inputs: dict, rank: int, world: int) -> dict:
     from speechlid_tpu_torch.cli import main_lid
 
-    t0 = time.perf_counter()
     main_lid.main(inputs["args"])
-    return {"seconds": time.perf_counter() - t0}
+    return {}
 
 
 def _pp_block(state: dict = None) -> torch.nn.Module:
@@ -6984,11 +6543,10 @@ def _mp_job_pp(inputs: dict, rank: int, world: int) -> dict:
         block.zero_grad()
         torch.cuda.synchronize()
         reset_launches()
-        t0 = time.perf_counter()
         y = pipeline_apply(block, x, mesh, n_microbatch=m)
         (y ** 2).mean().backward()
         torch.cuda.synchronize()
-        out[key] = {"seconds": time.perf_counter() - t0, "launches": launches(),
+        out[key] = {"launches": launches(),
                     "y": y.detach().cpu(),
                     "grads": {n: p.grad.cpu() for n, p in block.named_parameters()}}
     out["sp"] = _sp_mel(make_mesh(data=world // SP_SEQ, seq=SP_SEQ), inputs)
@@ -7005,13 +6563,7 @@ def _sp_mel(mesh, inputs: dict) -> dict:
 
     def seen(wav, *args, **kwargs):
         spans.append(list(wav.shape))
-        # the wrapper counts in ``log_mel.launches`` at its module's name:
-        # bound to it while it runs, the count lands on its own counter
-        fbank_kernel.log_mel = real
-        try:
-            return real(wav, *args, **kwargs)
-        finally:
-            fbank_kernel.log_mel = seen
+        return real(wav, *args, **kwargs)
 
     wavs, lengths = inputs["wavs"].cuda(), inputs["lengths"].cuda()
     fbank_kernel.log_mel = seen
@@ -7070,7 +6622,7 @@ def phase_tp_card_vs_single(gen: torch.Generator, smi: str) -> dict:
     batches = [mp_batch(rng, i % n_lang, TRAIN_B, TRAIN_SECONDS)
                for i in range(TP_STEPS + TP_RANDOM_STEPS)]
     state = _random_state(MP_HP, gen)
-    ranks, single, seconds = run_ranks(
+    ranks, single = run_ranks(
         "tp", {"state": state, "batches": batches}, MP_MODEL,
         lambda: {"deterministic": _dp_fit(MP_HP, state, batches[:TP_STEPS], after=_tp_eval),
                  "random": _dp_fit(MP_RANDOM_HP, state, batches[TP_STEPS:])})
@@ -7116,7 +6668,7 @@ def phase_tp_card_vs_single(gen: torch.Generator, smi: str) -> dict:
     report = {"phase": "tp_card_vs_single", "nvidia_smi": smi, "mesh": {"data": 1, "model": 2},
               "backend": "gloo, both ranks on cuda:0", "model": "14 x 144, 4 heads of 144",
               "batch": [TRAIN_B, int(TRAIN_SECONDS * SR)], "steps": TP_STEPS,
-              "random_steps": TP_RANDOM_STEPS, "seconds": seconds, "tol": TRAIN_TOL,
+              "random_steps": TP_RANDOM_STEPS, "tol": TRAIN_TOL,
               "loss_tol": [LOSS_RTOL, LOSS_ATOL],
               "langs": langs, "single_losses": one_det["losses"],
               "rank_losses": [d["losses"] for d in det], "max_loss_gap": loss_gap,
@@ -7128,11 +6680,7 @@ def phase_tp_card_vs_single(gen: torch.Generator, smi: str) -> dict:
               "step_launches": [d["step_launches"] for d in det],
               "step_widths": [d["step_widths"] for d in det],
               "eval_launches": [e["launches"] for e in ev], "eval_widths": [e["widths"] for e in ev],
-              "eval_max_score_gap": score_gap,
-              # host clock, the card synchronised around each step; both ranks
-              # share the one card, so a rank's step holds the other's work
-              "step_ms_single": one_det["step_ms"], "step_ms_ranks": [d["step_ms"] for d in det],
-              "checks": checks}
+              "eval_max_score_gap": score_gap, "checks": checks}
     emit(report)
     if not all(checks.values()):
         raise AssertionError(f"tp_card_vs_single failed: {checks}")
@@ -7156,7 +6704,7 @@ def phase_dp_tp_card(gen: torch.Generator, smi: str) -> dict:
     val = [mp_batch(rng, 3, 2 * TRAIN_B, TRAIN_SECONDS)]
     state = _random_state(DP_TP_HP, gen)
     with tempfile.TemporaryDirectory() as ckpt_dir:
-        ranks, single, seconds = run_ranks(
+        ranks, single = run_ranks(
             "dp_tp", {"state": state, "train": train, "val": val, "ckpt_dir": ckpt_dir},
             DP_TP_WORLD, lambda: _dp_fit(DP_TP_HP, state, train))
         (first,) = [f for f in os.listdir(ckpt_dir) if f.startswith("epoch_0_")]
@@ -7188,12 +6736,12 @@ def phase_dp_tp_card(gen: torch.Generator, smi: str) -> dict:
     report = {"phase": "dp_tp_card", "nvidia_smi": smi, "mesh": {"data": 2, "model": 2},
               "backend": "gloo, four ranks on cuda:0",
               "model": f"{DP_TP_BLOCKS} x 144 (depth cut from 14), 4 heads of 144",
-              "global_batch": [2 * TRAIN_B, int(TRAIN_SECONDS * SR)], "seconds": seconds,
+              "global_batch": [2 * TRAIN_B, int(TRAIN_SECONDS * SR)],
               "single_losses": single["losses"], "rank_losses": [f["losses"] for f in fits],
               "resumed_losses": losses.losses, "max_loss_gap": loss_gap,
               **{k: v for k, v in grads.items() if k != "ok"},
               **{k: v for k, v in close.items() if k != "ok"},
-              "step_ms_ranks": [f["step_ms"] for f in fits], "checks": checks}
+              "checks": checks}
     emit(report)
     if not all(checks.values()):
         raise AssertionError(f"dp_tp_card failed: {checks}")
@@ -7215,8 +6763,7 @@ def phase_cli_tp(root: str, corpus: str, smi: str) -> dict:
     overrides = [_langs_override(corpus), "trainer.progress_bar=false",
                  "trainer.total_epoch=1", f"trainer.train_data_factor={FLAGSHIP_DATA_FACTOR}",
                  f"exp_dir={exp}", "trainer.model_parallel=2"]
-    ranks, _, seconds = run_ranks("cli", {"args": _cli_args("configs", "lid_supervised",
-                                                         *overrides)}, MP_MODEL)
+    run_ranks("cli", {"args": _cli_args("configs", "lid_supervised", *overrides)}, MP_MODEL)
     evals = [line for line in _metrics_lines(os.path.join(exp, "metrics.jsonl"))
              if CLI_EVAL_KEYS <= set(line)]
     ckpt = os.path.join(exp, "ckpt", "last.ckpt")
@@ -7241,8 +6788,7 @@ def phase_cli_tp(root: str, corpus: str, smi: str) -> dict:
     report = {"phase": "cli_tp", "nvidia_smi": smi, "config": "configs/lid_supervised.yaml",
               "overrides": ["trainer.model_parallel=2", f"train_data_factor "
                             f"{FLAGSHIP_DATA_FACTOR}", "1 epoch"],
-              "steps": FLAGSHIP_STEPS, "seconds": seconds,
-              "rank_seconds": [r["seconds"] for r in ranks], "evals": evals,
+              "steps": FLAGSHIP_STEPS, "evals": evals,
               "one_process_avg_val_loss": again["avg_val_loss"], "val_loss_gap": gap,
               "checks": checks}
     emit(report)
@@ -7285,8 +6831,8 @@ def phase_pp_card(gen: torch.Generator, smi: str) -> dict:
                 "grads": [{n: p.grad.cpu() for n, p in b.named_parameters()} for b in blocks],
                 "mel": frontend.wav2mel(frontend.normalize_wav(w, n), lengths=n).cpu()}
 
-    ranks, one, seconds = run_ranks("pp", {"states": states, "x": x, "wavs": wavs,
-                                        "lengths": lengths}, PP_STAGES, sequential)
+    ranks, one = run_ranks("pp", {"states": states, "x": x, "wavs": wavs,
+                               "lengths": lengths}, PP_STAGES, sequential)
     worst_y, worst_g, fwd_ok, grad_ok, launches_ok = 0.0, 0.0, True, True, True
     for out in ranks:
         for m in PP_MICROBATCHES:
@@ -7309,10 +6855,7 @@ def phase_pp_card(gen: torch.Generator, smi: str) -> dict:
     report = {"phase": "pp_card", "nvidia_smi": smi, "mesh": {"data": 1, "stage": PP_STAGES},
               "backend": "gloo, four ranks on cuda:0", "x": list(x.shape),
               "microbatches": list(PP_MICROBATCHES), "tol": [PP_FWD_TOL, PP_GRAD_TOL],
-              "max_abs_err_y": worst_y, "max_abs_err_grad": worst_g, "seconds": seconds,
-              # host clock around a forward and backward on each stage rank; the
-              # four ranks share the one card
-              "step_seconds": {m: [o[m]["seconds"] for o in ranks] for m in PP_MICROBATCHES},
+              "max_abs_err_y": worst_y, "max_abs_err_grad": worst_g,
               "launches": {m: [o[m]["launches"] for o in ranks] for m in PP_MICROBATCHES},
               "sp_mesh": {"data": PP_STAGES // SP_SEQ, "seq": SP_SEQ}, "sp_wav": [b, t],
               "sp_max_abs_err_db": sp_err, "sp_tol_db": FBANK_TOL,
@@ -7332,11 +6875,9 @@ def phase_dryrun_card(smi: str) -> dict:
     in ``pp_card``)."""
     from speechlid_tpu_torch.parallel.dryrun import dryrun_multichip
 
-    t0 = time.perf_counter()
     dry = dryrun_multichip(4, "cuda")
     checks = {"dryrun": all(dry["checks"].values())}
-    report = {"phase": "dryrun_card", "nvidia_smi": smi, "dryrun": dry,
-              "seconds": time.perf_counter() - t0, "checks": checks}
+    report = {"phase": "dryrun_card", "nvidia_smi": smi, "dryrun": dry, "checks": checks}
     emit(report)
     if not all(checks.values()):
         raise AssertionError(f"dryrun_card failed: {checks}")
@@ -7436,7 +6977,7 @@ REMAT_MODELS = {
                                                   glu=DW_PER_TRAIN_STEP + N_BLOCKS,
                                                   glu_dx=DW_PER_TRAIN_STEP)),
 }
-REMAT_STEPS = 3  # timed steps of a turn, after one untimed
+REMAT_STEPS = 3  # steps of a turn, after one more
 REMAT_TURNS = (False, True, True, False)
 # card against CPU in float16, as bfloat16 (BF16_*) with 3 more mantissa bits
 F16_SCORE_TOL = 5e-3  # scores, of the largest score
@@ -7497,9 +7038,9 @@ def phase_remat(gen: torch.Generator, smi: str) -> tuple:
     gradient of all) — the card's backward sums with atomics in no fixed
     order, so the two are not bit-equal here as they are on the CPU — and
     the launches of each step (counted from 0 just before it).  Then the
-    peak ``torch.cuda.max_memory_allocated`` and the host-clock ms of a
-    forward and backward, in turns off, on, on, off (``REMAT_STEPS`` steps
-    a turn).  → (the reports, the Large task)."""
+    peak ``torch.cuda.max_memory_allocated`` of a forward and backward, in
+    turns off, on, on, off (``REMAT_STEPS`` steps a turn).  → (the reports,
+    the Large task)."""
     reports, large = {}, None
     for name, spec in REMAT_MODELS.items():
         task = LidASRTask(**spec["hp"], device="cuda")
@@ -7540,18 +7081,16 @@ def phase_remat(gen: torch.Generator, smi: str) -> tuple:
         same_leaves = set(grads_off) == set(grads_on)
         del runs, grads_off, grads_on
         task.model.zero_grad(set_to_none=True)
-        ms, peak, base = {False: [], True: []}, {False: [], True: []}, {False: [], True: []}
+        peak, base = {False: [], True: []}, {False: [], True: []}
         for remat in REMAT_TURNS:
             step(remat)
             task.model.zero_grad(set_to_none=True)
             torch.cuda.synchronize()
             base[remat].append(torch.cuda.memory_allocated())
             torch.cuda.reset_peak_memory_stats()
-            t0 = time.perf_counter()
             for _ in range(REMAT_STEPS):
                 step(remat)
             torch.cuda.synchronize()
-            ms[remat].append((time.perf_counter() - t0) * 1e3 / REMAT_STEPS)
             peak[remat].append(torch.cuda.max_memory_allocated())
         task.model.zero_grad(set_to_none=True)
         gib = 2.0 ** 30
@@ -7561,7 +7100,6 @@ def phase_remat(gen: torch.Generator, smi: str) -> tuple:
             "rel_err_loss": abs(loss_on - loss_off) / max(abs(loss_off), 1.0),
             "max_rel_err_gradient": worst, "worst_gradient": worst_name, "tol": TRAIN_TOL,
             "launches_off": counted_off, "launches_on": counted_on,
-            "step_ms": {"off": ms[False], "on": ms[True]},
             "peak_gib": {"off": [p / gib for p in peak[False]],
                          "on": [p / gib for p in peak[True]]},
             "before_step_gib": {"off": [b / gib for b in base[False]],
@@ -7657,7 +7195,7 @@ def phase_f16_card_vs_cpu(gen: torch.Generator, smi: str) -> dict:
     cpu.model.load_state_dict(task.model.state_dict())
     wavs = 0.1 * torch.randn(8, 2 * SR, generator=gen)
     lengths = torch.tensor([2 * SR - i * SR // 8 for i in range(8)])
-    got, ref, per_forward, cpu_s, errs = infer_card_vs_cpu(task, cpu, wavs, lengths)
+    got, ref, per_forward, errs = infer_card_vs_cpu(task, cpu, wavs, lengths)
     neg = torch.finfo(torch.float32).min
     largest = ref["scores"].abs().max().item()
     score_err = errs["max_abs_err_scores"]
@@ -7756,138 +7294,74 @@ def large_kernel_rows(gen: torch.Generator, errs: dict, reports: dict) -> list:
     return rows
 
 
-def main(argv=None) -> int:
-    parser = argparse.ArgumentParser(description="Drive the PyTorch/CUDA port on one card.")
-    parser.add_argument("--only", choices=("cli_gate", "ce_asr", "se", "quant", "extras",
-                                           "dist", "mp", "large", "subsample",
-                                           "relpos_attn"),
-                        help="run this phase alone, after the build and the corpus "
-                             "(ce_asr: the cross-entropy and ASR phases; se: the speech "
-                             "enhancement and bilstm phases on cli_flagship's checkpoint; "
-                             "quant: the int8, SWA and Novograd phases, on it too; "
-                             "extras: kaldi fbank, FBankLayer, the extras tasks, the sweep "
-                             "and the trainer's trace; "
-                             "dist: data-parallel training on two ranks and through the CLI, "
-                             "and SELDNet; "
-                             "mp: tensor, expert, pipeline and sequence parallelism, the "
-                             "model-parallel CLI and the dryrun; "
-                             "large: the WavLM-Large extra-finetune through the CLI, remat, "
-                             "async checkpoint writes and float16; "
-                             "subsample: the Conv2d subsampling kernels, and the flagship's "
-                             "scoring forward and training step through them; "
-                             "relpos_attn: the rel-pos attention kernels, and the flagship's "
-                             "scoring forward and training step through them; "
-                             "each with the kernel checks and rows they need)")
-    parser.add_argument("--seed", type=int, default=0,
-                        help="the CLI's seed for --only cli_gate (the gate's own is 0)")
-    args = parser.parse_args(argv)
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device; this script runs only on the card",
-              file=sys.stderr)
-        return 2
-    gen = torch.Generator().manual_seed(0)
-    smi = phase_build()
-    if args.only == "cli_gate":
-        with tempfile.TemporaryDirectory() as root:
-            os.environ["SPEECHLID_CACHE_DIR"] = os.path.join(root, "cache")
-            phase_cli_gate(root, phase_cli_corpus(root), smi, [f"seed={args.seed}"])
-        emit({"ok": True, "device": {"platform": "gpu",
-                                     "kind": torch.cuda.get_device_name(0),
-                                     "count": torch.cuda.device_count()}})
-        return 0
-    if args.only == "ce_asr":
-        errs = {"fbank": phase_fbank(gen), "conv_fused": phase_conv_fused(gen)}
-        with tempfile.TemporaryDirectory() as root:
-            os.environ["SPEECHLID_CACHE_DIR"] = os.path.join(root, "cache")
-            corpus = phase_cli_corpus(root)
-            cross_cli, asr_cli = phase_ce_asr(gen, root, corpus, phase_eval_inputs(root)[1], smi)
-        emit({"kernels": ce_asr_kernel_rows(gen, errs, cross_cli, phase_ce_timings(gen),
-                                            asr_cli)})
-        emit({"ok": True, "device": {"platform": "gpu",
-                                     "kind": torch.cuda.get_device_name(0),
-                                     "count": torch.cuda.device_count()}})
-        return 0
-    if args.only == "se":
-        errs = {"fbank": phase_fbank(gen), "conv_fused": phase_conv_fused(gen)}
-        with tempfile.TemporaryDirectory() as root:
-            os.environ["SPEECHLID_CACHE_DIR"] = os.path.join(root, "cache")
-            corpus = phase_cli_corpus(root)
+def _only_cli_gate(run) -> None:
+    phase_cli_gate(run.root, run.corpus, run.smi, [f"seed={run.seed}"])
+
+
+def _only_ce_asr(run) -> list:
+    cross, asr = phase_ce_asr(run.gen, run.root, run.corpus, phase_eval_inputs(run.root)[1],
+                              run.smi)
+    return ce_asr_kernel_rows(run.gen, run.errs, cross, phase_ce_launches(run.gen), asr)
+
+
+def _only_se(run) -> list:
+    eval_se, bilstm = phase_se(run.gen, run.root, run.corpus, phase_eval_inputs(run.root),
+                               run.smi)
+    return se_bilstm_kernel_rows(run.gen, run.errs, eval_se, bilstm)
+
+
+def _only_quant(run) -> list:
+    reports = phase_quant(run.gen, run.root, run.corpus, run.smi)
+    phase_quant_launches(run.gen)
+    return quant_kernel_rows(run.gen, run.errs, reports)
+
+
+# --only name → (fbank and conv_fused first, the corpus, cli_flagship's
+# checkpoint, then the phases: a function of the run → the kernels line's
+# rows, or None for no such line)
+ONLY = {
+    "cli_gate": (False, True, False, _only_cli_gate),
+    "ce_asr": (True, True, False, _only_ce_asr),
+    "se": (True, True, True, _only_se),
+    "quant": (True, True, True, _only_quant),
+    "extras": (True, False, False, lambda run: extras_kernel_rows(
+        run.gen, run.errs, phase_extras(run.gen, run.root, run.smi))),
+    "dist": (True, True, False, lambda run: dist_kernel_rows(
+        run.gen, run.errs, phase_dist(run.gen, run.root, run.corpus, run.smi))),
+    "mp": (True, True, False, lambda run: mp_kernel_rows(
+        run.gen, run.errs, phase_mp(run.gen, run.root, run.corpus, run.smi))),
+    "large": (True, False, False, lambda run: large_kernel_rows(
+        run.gen, run.errs, phase_large(run.gen, run.root, run.smi))),
+    "subsample": (False, False, False, lambda run: phase_subsample(run.gen)),
+    "relpos_attn": (False, False, False, lambda run: phase_relpos_attn(run.gen)),
+}
+
+
+def run_only(name: str, gen: torch.Generator, smi: str, seed: int) -> None:
+    """The phases of ``--only name`` (:data:`ONLY`) after the build."""
+    checks, needs_corpus, needs_flagship, phases = ONLY[name]
+    errs = {"fbank": phase_fbank(gen), "conv_fused": phase_conv_fused(gen)} if checks else {}
+    with tempfile.TemporaryDirectory() as root:
+        os.environ["SPEECHLID_CACHE_DIR"] = os.path.join(root, "cache")  # manifest scans
+        corpus = phase_cli_corpus(root) if needs_corpus else None
+        if needs_flagship:
             phase_cli_flagship(root, corpus)
-            eval_se, serve_se, bilstm = phase_se(gen, root, corpus, phase_eval_inputs(root), smi)
-        phase_se_e2e(gen, smi, serve_se, eval_se)
-        emit({"kernels": se_bilstm_kernel_rows(gen, errs, eval_se, bilstm)})
-        emit({"ok": True, "device": {"platform": "gpu",
-                                     "kind": torch.cuda.get_device_name(0),
-                                     "count": torch.cuda.device_count()}})
-        return 0
-    if args.only == "quant":
-        errs = {"fbank": phase_fbank(gen), "conv_fused": phase_conv_fused(gen)}
-        with tempfile.TemporaryDirectory() as root:
-            os.environ["SPEECHLID_CACHE_DIR"] = os.path.join(root, "cache")
-            corpus = phase_cli_corpus(root)
-            phase_cli_flagship(root, corpus)
-            reports = phase_quant(gen, root, corpus, smi)
-        phase_quant_e2e(gen, smi)
-        emit({"kernels": quant_kernel_rows(gen, errs, reports)})
-        emit({"ok": True, "device": {"platform": "gpu",
-                                     "kind": torch.cuda.get_device_name(0),
-                                     "count": torch.cuda.device_count()}})
-        return 0
-    if args.only == "extras":
-        errs = {"fbank": phase_fbank(gen), "conv_fused": phase_conv_fused(gen)}
-        with tempfile.TemporaryDirectory() as root:
-            os.environ["SPEECHLID_CACHE_DIR"] = os.path.join(root, "cache")
-            reports = phase_extras(gen, root, smi)
-        emit({"kernels": extras_kernel_rows(gen, errs, reports)})
-        emit({"ok": True, "device": {"platform": "gpu",
-                                     "kind": torch.cuda.get_device_name(0),
-                                     "count": torch.cuda.device_count()}})
-        return 0
-    if args.only == "dist":
-        errs = {"fbank": phase_fbank(gen), "conv_fused": phase_conv_fused(gen)}
-        with tempfile.TemporaryDirectory() as root:
-            os.environ["SPEECHLID_CACHE_DIR"] = os.path.join(root, "cache")
-            reports = phase_dist(gen, root, phase_cli_corpus(root), smi)
-        emit({"kernels": dist_kernel_rows(gen, errs, reports)})
-        emit({"ok": True, "device": {"platform": "gpu",
-                                     "kind": torch.cuda.get_device_name(0),
-                                     "count": torch.cuda.device_count()}})
-        return 0
-    if args.only == "mp":
-        errs = {"fbank": phase_fbank(gen), "conv_fused": phase_conv_fused(gen)}
-        with tempfile.TemporaryDirectory() as root:
-            os.environ["SPEECHLID_CACHE_DIR"] = os.path.join(root, "cache")
-            reports = phase_mp(gen, root, phase_cli_corpus(root), smi)
-        emit({"kernels": mp_kernel_rows(gen, errs, reports)})
-        emit({"ok": True, "device": {"platform": "gpu",
-                                     "kind": torch.cuda.get_device_name(0),
-                                     "count": torch.cuda.device_count()}})
-        return 0
-    if args.only in ("subsample", "relpos_attn"):
-        phase = phase_subsample if args.only == "subsample" else phase_relpos_attn
-        emit({"kernels": phase(gen)})
-        emit({"ok": True, "device": {"platform": "gpu",
-                                     "kind": torch.cuda.get_device_name(0),
-                                     "count": torch.cuda.device_count()}})
-        return 0
-    if args.only == "large":
-        errs = {"fbank": phase_fbank(gen), "conv_fused": phase_conv_fused(gen)}
-        with tempfile.TemporaryDirectory() as root:
-            os.environ["SPEECHLID_CACHE_DIR"] = os.path.join(root, "cache")
-            reports = phase_large(gen, root, smi)
-        emit({"kernels": large_kernel_rows(gen, errs, reports)})
-        emit({"ok": True, "device": {"platform": "gpu",
-                                     "kind": torch.cuda.get_device_name(0),
-                                     "count": torch.cuda.device_count()}})
-        return 0
+        rows = phases(types.SimpleNamespace(gen=gen, errs=errs, root=root, corpus=corpus,
+                                            smi=smi, seed=seed))
+    if rows is not None:
+        emit({"kernels": rows})
+
+
+def run_all(gen: torch.Generator, smi: str) -> None:
+    """Every phase, then the kernels line."""
     errs = {"fbank": phase_fbank(gen), "depthwise": phase_depthwise(gen),
             "depthwise_bwd": phase_depthwise_bwd(gen), "conv_fused": phase_conv_fused(gen)}
-    relpos_attn_kernel.reset_launch_counts()
+    clear_launches("relpos")
     task = phase_model(gen)
     relpos_scoring = _relpos_launches()
     serve_report = phase_serve(task, gen)
     served = serve_report["launches"]
-    relpos_attn_kernel.reset_launch_counts()
+    clear_launches("relpos")
     phase_train_card_vs_cpu(gen)
     relpos_flagship = (relpos_scoring, _relpos_launches())
     trained, training = phase_train(gen)
@@ -7921,23 +7395,21 @@ def main(argv=None) -> int:
         phase_bf16_train_card_vs_cpu(gen)
         bf16_cli = phase_cli_wavlm(root, corpus, smi, WAVLM_BF16_CLI)
         cross_cli, asr_cli = phase_ce_asr(gen, root, corpus, inputs[1], smi)
-        eval_se, serve_se, bilstm = phase_se(gen, root, corpus, inputs, smi)
+        eval_se, bilstm = phase_se(gen, root, corpus, inputs, smi)
         quant_reports = phase_quant(gen, root, corpus, smi)
         extras_reports = phase_extras(gen, root, smi)
         dist_reports = phase_dist(gen, root, corpus, smi)
         mp_reports = phase_mp(gen, root, corpus, smi)
         large_reports = phase_large(gen, root, smi)
-    # host-clock loops first, the profiler's runs after (it slows what follows it)
-    phase_se_e2e(gen, smi, serve_se, eval_se)
-    phase_quant_e2e(gen, smi)
-    ce_host = phase_ce_timings(gen)
-    bf16_host = phase_bf16_host_timings(gen)
-    wavlm_host = phase_wavlm_host_timings(wavlm_task, gen)
-    kernels = phase_timings(task, gen, errs, served, serve_report, trained, training, cli,
-                            flagship_eval)
-    kernels += phase_wavlm_timings(wavlm_task, gen, errs, wavlm_host, wavlm_serve, wavlm_cli)
-    kernels += phase_bf16_timings(gen, errs, bf16_host, bf16_cli)
-    kernels += ce_asr_kernel_rows(gen, errs, cross_cli, ce_host, asr_cli)
+    phase_quant_launches(gen)
+    ce_launched = phase_ce_launches(gen)
+    bf16_launched = phase_bf16_launches(gen)
+    wavlm_launched = phase_wavlm_launches(wavlm_task, gen)
+    kernels = flagship_kernel_rows(task, gen, errs, served, serve_report, trained, training, cli,
+                                   flagship_eval)
+    kernels += wavlm_kernel_rows(gen, errs, wavlm_launched, wavlm_serve, wavlm_cli)
+    kernels += bf16_kernel_rows(gen, errs, bf16_launched, bf16_cli)
+    kernels += ce_asr_kernel_rows(gen, errs, cross_cli, ce_launched, asr_cli)
     kernels += se_bilstm_kernel_rows(gen, errs, eval_se, bilstm)
     kernels += quant_kernel_rows(gen, errs, quant_reports)
     kernels += extras_kernel_rows(gen, errs, extras_reports)
@@ -7947,6 +7419,41 @@ def main(argv=None) -> int:
     kernels += phase_subsample(gen)
     kernels += phase_relpos_attn(gen, relpos_flagship)
     emit({"kernels": kernels})
+
+
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(description="Drive the PyTorch/CUDA port on one card.")
+    parser.add_argument("--only", choices=tuple(ONLY),
+                        help="run this phase alone, after the build and the corpus "
+                             "(ce_asr: the cross-entropy and ASR phases; se: the speech "
+                             "enhancement and bilstm phases on cli_flagship's checkpoint; "
+                             "quant: the int8, SWA and Novograd phases, on it too; "
+                             "extras: kaldi fbank, FBankLayer, the extras tasks, the sweep "
+                             "and the trainer's trace; "
+                             "dist: data-parallel training on two ranks and through the CLI, "
+                             "and SELDNet; "
+                             "mp: tensor, expert, pipeline and sequence parallelism, the "
+                             "model-parallel CLI and the dryrun; "
+                             "large: the WavLM-Large extra-finetune through the CLI, remat, "
+                             "async checkpoint writes and float16; "
+                             "subsample: the Conv2d subsampling kernels, and the flagship's "
+                             "scoring forward and training step through them; "
+                             "relpos_attn: the rel-pos attention kernels, and the flagship's "
+                             "scoring forward and training step through them; "
+                             "each with the kernel checks and rows they need)")
+    parser.add_argument("--seed", type=int, default=0,
+                        help="the CLI's seed for --only cli_gate (the gate's own is 0)")
+    args = parser.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this script runs only on the card",
+              file=sys.stderr)
+        return 2
+    gen = torch.Generator().manual_seed(0)
+    smi = phase_build()
+    if args.only:
+        run_only(args.only, gen, smi, args.seed)
+    else:
+        run_all(gen, smi)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

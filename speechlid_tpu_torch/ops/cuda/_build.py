@@ -11,6 +11,10 @@ an unchanged one is loaded as it is.  The sources compile in parallel, one
 Nothing here runs at import: :func:`lib` builds on its first call, which a
 kernel wrapper makes only for a tensor on the card.
 
+Every wrapper launches through :func:`launch`, which counts the kernels it
+launched in :data:`launches` under (entry point, mode, dtype, width);
+:func:`launched` sums them and ``launches.clear()`` resets them.
+
 The kernels' tile sizes are set here and nowhere else (:data:`TILING`):
 ``nvcc`` gets them as ``-D`` definitions, and the wrappers' index functions
 and plain-PyTorch emulations import them from here.
@@ -18,6 +22,7 @@ and plain-PyTorch emulations import them from here.
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
 import hashlib
@@ -26,6 +31,7 @@ import shutil
 import subprocess
 import tempfile
 from pathlib import Path
+from typing import Any, NamedTuple
 
 _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
@@ -154,8 +160,41 @@ def lib() -> ctypes.CDLL:
     return so
 
 
-def check(err: int, what: str) -> None:
-    """Raise if a launch returned a CUDA error."""
+class LaunchKey(NamedTuple):
+    """What :data:`launches` tells launches apart by: the C entry point, the
+    wrapper's mode (``""`` where an entry has only one), the tensors' dtype
+    (``None`` for the float32-only entries) and the channel count (0 where
+    the wrapper does not count by width)."""
+
+    entry: str
+    mode: str = ""
+    dtype: Any = None
+    width: int = 0
+
+
+launches: collections.Counter = collections.Counter()
+
+
+def call(entry: str, *args) -> None:
+    """Call the library's ``entry`` with ``args`` and raise if it returned a
+    CUDA error.  The entry point is looked up on :func:`lib` at every call,
+    never kept: a tracer may put a wrapper in its place for a while."""
+    err = getattr(lib(), entry)(*args)
     if err:
         msg = lib().speechlid_cuda_error_string(err).decode()
-        raise RuntimeError(f"{what}: CUDA error {err} ({msg})")
+        raise RuntimeError(f"{entry}: CUDA error {err} ({msg})")
+
+
+def launch(entry: str, *args, mode: str = "", dtype: Any = None, width: int = 0,
+           kernels: int = 1) -> None:
+    """:func:`call`, then add the ``kernels`` it launched to
+    :data:`launches` under their :class:`LaunchKey`."""
+    call(entry, *args)
+    launches[LaunchKey(entry, mode, dtype, width)] += kernels
+
+
+def launched(**fields) -> int:
+    """Kernels launched, summed over the keys whose fields equal ``fields``
+    (``launched(mode="glu", width=144)``; no fields: every launch)."""
+    return sum(n for key, n in launches.items()
+               if all(getattr(key, f) == v for f, v in fields.items()))

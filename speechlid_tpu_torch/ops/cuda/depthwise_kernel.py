@@ -47,16 +47,10 @@ same bits on every run (design notes in the CUDA source).
 PyTorch.
 
 Every wrapper takes its plain version for tensors on the CPU and launches
-its kernel for tensors on the card; there is no other path.  Each launch of
-the forward kernel counts in ``depthwise_conv1d.launches`` (the flipped
-ones also in ``.dx_launches``, the bfloat16 ones also in
-``.bf16_launches``, the float16 ones in ``.f16_launches``), in
-``depthwise_conv1d.mode_launches`` under its
-mode (:data:`FWD_MODES`) and in ``depthwise_conv1d.width_launches`` under
-its mode and channel count (``"glu@144"``); a launch of
-``depthwise_conv1d_bwd_w`` also in ``depthwise_conv1d_bwd_w
-.width_launches`` (``"bwd_w@144"``), a bfloat16 one in ``.bf16_launches``,
-a float16 one in ``.f16_launches``.
+its kernel for tensors on the card; there is no other path.  Each launch
+counts in ``_build.launches`` under its entry point, its mode
+(:data:`FWD_MODES` for the forward kernel, ``"bwd_w"`` for
+``depthwise_conv1d_bwd_w``), its dtype and its channel count C.
 """
 
 from __future__ import annotations
@@ -269,16 +263,6 @@ def _check_cuda(what: str, *tensors: torch.Tensor) -> None:
         raise ValueError(f"{what} kernel needs contiguous tensors")
 
 
-def _count(mode: str, dtype: torch.dtype, c: int) -> None:
-    depthwise_conv1d.launches += 1
-    depthwise_conv1d.dx_launches += mode in ("plain_dx", "glu_dx")
-    depthwise_conv1d.bf16_launches += dtype == torch.bfloat16
-    depthwise_conv1d.f16_launches += dtype == torch.float16
-    depthwise_conv1d.mode_launches[mode] += 1
-    key = f"{mode}@{c}"
-    depthwise_conv1d.width_launches[key] = depthwise_conv1d.width_launches.get(key, 0) + 1
-
-
 def _stream() -> int:
     return torch.cuda.current_stream().cuda_stream
 
@@ -292,12 +276,12 @@ def _launch_fwd(x: torch.Tensor, w: torch.Tensor, bias: Optional[torch.Tensor],
     b, t, c = x.shape
     y = torch.empty_like(x)
     with torch.cuda.device(x.device):
-        err = _build.lib().depthwise_conv1d_fwd(
+        _build.launch(
+            "depthwise_conv1d_fwd",
             x.data_ptr(), w.data_ptr(), None if bias is None else bias.data_ptr(),
             y.data_ptr(), b, t, c, w.shape[0], pad_l, int(dx), _DTYPES[x.dtype], _stream(),
+            mode="plain_dx" if dx else "plain", dtype=x.dtype, width=c,
         )
-    _build.check(err, "depthwise_conv1d_fwd")
-    _count("plain_dx" if dx else "plain", x.dtype, c)
     return y
 
 
@@ -352,19 +336,16 @@ def _launch_glu(h: torch.Tensor, mask: Optional[torch.Tensor], w: torch.Tensor,
             raise TypeError("glu_depthwise_bn_act: BatchNorm statistics must be contiguous "
                             "(C,) float32 tensors on h's device")
     with torch.cuda.device(h.device):
-        err = _build.lib().depthwise_conv1d_glu_fwd(
+        _build.launch(
+            "depthwise_conv1d_glu_fwd",
             h.data_ptr(), mask_ptr, w.data_ptr(), bias.data_ptr(),
             *(None if v is None else v.data_ptr() for v in stats),
             float(bn.eps) if bn is not None else 0.0, _ACT_CODES[act],
             None if u is None else u.data_ptr(), y.data_ptr(),
             b, t, c2 // 2, w.shape[0], pad_l, _DTYPES[h.dtype], _stream(),
+            mode="glu" if bn is None else "glu_bn_act", dtype=h.dtype, width=c2 // 2,
         )
-    _build.check(err, "depthwise_conv1d_glu_fwd")
-    if bn is not None:
-        _count("glu_bn_act", h.dtype, c2 // 2)
-        return y
-    _count("glu", h.dtype, c2 // 2)
-    return u, y
+    return y if bn is not None else (u, y)
 
 
 def glu_depthwise_dx(
@@ -392,12 +373,12 @@ def glu_depthwise_dx(
     b, t, c = g.shape
     dh = torch.empty_like(h)
     with torch.cuda.device(g.device):
-        err = _build.lib().depthwise_conv1d_glu_bwd(
+        _build.launch(
+            "depthwise_conv1d_glu_bwd",
             g.data_ptr(), w.data_ptr(), h.data_ptr(), mask_ptr, dh.data_ptr(),
             b, t, c, k, k - 1 - pad_l, _DTYPES[g.dtype], _stream(),
+            mode="glu_dx", dtype=g.dtype, width=c,
         )
-    _build.check(err, "depthwise_conv1d_glu_bwd")
-    _count("glu_dx", g.dtype, c)
     return dh
 
 
@@ -410,8 +391,7 @@ def depthwise_conv1d_dx(
     ``k - 1 - pad_l``.
 
     CPU tensors: :func:`depthwise_conv1d_plain` with ``flip=True``.  CUDA
-    tensors: one launch of the forward kernel, counted in
-    ``depthwise_conv1d.launches``, ``.dx_launches`` and mode ``plain_dx``."""
+    tensors: one launch of the forward kernel, counted as mode ``plain_dx``."""
     if g.dim() != 3 or w.dim() != 2 or w.shape[1] != g.shape[2]:
         raise ValueError(f"expected g (B, T, C), w (k, C); got {tuple(g.shape)}, {tuple(w.shape)}")
     k = w.shape[0]
@@ -434,8 +414,8 @@ def depthwise_conv1d_bwd_w(
     output gradient ``g``, both (B, T, C).
 
     CPU tensors: :func:`depthwise_conv1d_bwd_w_plain`.  CUDA tensors: the
-    reduction kernel, one launch and no other device work, counted in
-    ``depthwise_conv1d_bwd_w.launches``."""
+    reduction kernel, one launch and no other device work, counted as mode
+    ``bwd_w``."""
     if x.dim() != 3 or g.shape != x.shape:
         raise ValueError(f"expected x and g (B, T, C); got {tuple(x.shape)}, {tuple(g.shape)}")
     pad_l = (k - 1) // 2 if pad_l is None else pad_l
@@ -452,17 +432,12 @@ def depthwise_conv1d_bwd_w(
     dw = torch.empty((k, c), dtype=x.dtype, device=x.device)
     db = torch.empty((c,), dtype=x.dtype, device=x.device)
     with torch.cuda.device(x.device):
-        err = _build.lib().depthwise_conv1d_bwd_w(
+        _build.launch(
+            "depthwise_conv1d_bwd_w",
             x.data_ptr(), g.data_ptr(), dw.data_ptr(), db.data_ptr(),
             b, t, c, k, pad_l, _DTYPES[x.dtype], _stream(),
+            mode="bwd_w", dtype=x.dtype, width=c,
         )
-    _build.check(err, "depthwise_conv1d_bwd_w")
-    depthwise_conv1d_bwd_w.launches += 1
-    depthwise_conv1d_bwd_w.bf16_launches += x.dtype == torch.bfloat16
-    depthwise_conv1d_bwd_w.f16_launches += x.dtype == torch.float16
-    key = f"bwd_w@{c}"
-    depthwise_conv1d_bwd_w.width_launches[key] = \
-        depthwise_conv1d_bwd_w.width_launches.get(key, 0) + 1
     return dw, db
 
 
@@ -526,20 +501,6 @@ def depthwise_conv1d(
     return DepthwiseConv1dFn.apply(x, w, bias, pad_l)
 
 
-def reset_launch_counts() -> None:
-    """Set every launch count of this module to 0."""
-    depthwise_conv1d.launches = 0
-    depthwise_conv1d.dx_launches = 0
-    depthwise_conv1d.bf16_launches = 0
-    depthwise_conv1d.f16_launches = 0
-    depthwise_conv1d.mode_launches = dict.fromkeys(FWD_MODES, 0)
-    depthwise_conv1d.width_launches = {}
-    depthwise_conv1d_bwd_w.launches = 0
-    depthwise_conv1d_bwd_w.bf16_launches = 0
-    depthwise_conv1d_bwd_w.f16_launches = 0
-    depthwise_conv1d_bwd_w.width_launches = {}
-
-
 class GluDepthwiseFn(torch.autograd.Function):
     """The conv module's training forward on the card with its gradient:
     the forward is one launch (GLU and mask in front of the conv, the bias
@@ -577,8 +538,8 @@ def glu_depthwise(
     differentiable in h, w and bias.
 
     CPU tensors: :func:`glu_depthwise_plain` under autograd.  CUDA tensors:
-    :class:`GluDepthwiseFn`, whose launches count as modes ``glu`` and
-    ``glu_dx`` (and dW/db in ``depthwise_conv1d_bwd_w.launches``)."""
+    :class:`GluDepthwiseFn`, whose launches count as modes ``glu``,
+    ``glu_dx`` and ``bwd_w``."""
     pad_l = _check_glu("glu_depthwise", h, mask, w, bias, pad_l)
     if h.device.type == "cpu":
         return glu_depthwise_plain(h, mask, w, bias, pad_l)[1]
@@ -608,6 +569,3 @@ def glu_depthwise_bn_act(
         raise RuntimeError("glu_depthwise_bn_act has no backward on the card: run eval "
                            "forwards under torch.no_grad(), or train in training mode")
     return _launch_glu(h, mask, w, bias, pad_l, bn=bn, act=act)
-
-
-reset_launch_counts()

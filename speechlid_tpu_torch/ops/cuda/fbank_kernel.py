@@ -205,10 +205,8 @@ def kernel_occupancy(hop_length: int, win_pad: int, n_tiles: int, device) -> Tup
     the kernel its shared memory there."""
     blocks_per_sm, clusters = ctypes.c_int(0), ctypes.c_int(0)
     with torch.cuda.device(device):
-        err = _build.lib().fbank_log_mel_setup(
-            hop_length, win_pad, n_tiles,
-            ctypes.addressof(blocks_per_sm), ctypes.addressof(clusters))
-    _build.check(err, "fbank_log_mel_setup")
+        _build.call("fbank_log_mel_setup", hop_length, win_pad, n_tiles,
+                    ctypes.addressof(blocks_per_sm), ctypes.addressof(clusters))
     return blocks_per_sm.value, clusters.value
 
 
@@ -223,7 +221,7 @@ def log_mel(
     """(B, T) float32 wav → (B, n_mels, 1 + T // hop) dB mel (no clamp).
 
     CPU tensor: :func:`log_mel_plain`.  CUDA tensor: the kernel, one launch
-    and no other device work, counted in ``log_mel.launches``.  Anything
+    and no other device work, counted in ``_build.launches``.  Anything
     else raises."""
     if wav.dim() != 2:
         raise ValueError(f"log_mel expects (B, T) audio, got {tuple(wav.shape)}")
@@ -250,16 +248,12 @@ def log_mel(
     resident = kernel_occupancy(hop_length, basis.shape[1], basis.shape[0], wav.device)[1]
     out = torch.empty((b, n_frames, n_mels), dtype=torch.float32, device=wav.device)
     with torch.cuda.device(wav.device):
-        err = _build.lib().fbank_log_mel_f32(
+        _build.launch(
+            "fbank_log_mel_f32",
             wav.data_ptr(), b, t, n_frames,
             basis.data_ptr(), basis.shape[1], basis.shape[0], n_fft // 2 + 1,
             fb.data_ptr(), ranges.data_ptr(), n_mels, hop_length,
             (n_fft - win_length) // 2 - pad, resident,
             out.data_ptr(), torch.cuda.current_stream().cuda_stream,
         )
-    _build.check(err, "fbank_log_mel_f32")
-    log_mel.launches += 1
     return out.transpose(1, 2)
-
-
-log_mel.launches = 0

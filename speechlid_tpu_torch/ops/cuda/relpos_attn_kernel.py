@@ -30,9 +30,8 @@ On the card (float32, d 32 or 64) the kernels never write an (n, n) or an
 :class:`RelPosAttnFn` ties them together under autograd.
 :func:`relpos_attn_tiled_plain` follows the kernels' tiles, their online
 softmax and their partials' indices in plain PyTorch, so that the CPU tests
-reach the index arithmetic the kernels depend on.  Each forward launch
-counts in ``relpos_fwd.launches``, each backward launch in
-``relpos_bwd.launches`` (three a backward).
+reach the index arithmetic the kernels depend on.  Each launch counts in
+``_build.launches`` under its entry point (three a backward).
 """
 
 from __future__ import annotations
@@ -268,8 +267,7 @@ def relpos_fwd(q: torch.Tensor, kv: torch.Tensor, table: torch.Tensor,
                mask: Optional[torch.Tensor], heads: int,
                max_pos_emb: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """(o (b, n, h·d), lse (b·h, tiles·TILE)) of float32 CUDA tensors: one
-    launch of the forward kernel, counted in ``relpos_fwd.launches``.  No
-    autograd."""
+    launch of the forward kernel.  No autograd."""
     d = _check(q, kv, table, mask, heads, max_pos_emb)
     _check_cuda(d, q, kv, table)
     q, kv, table, m = q.contiguous(), kv.contiguous(), table.contiguous(), _mask_bytes(mask)
@@ -277,11 +275,10 @@ def relpos_fwd(q: torch.Tensor, kv: torch.Tensor, table: torch.Tensor,
     o = torch.empty_like(q)
     lse = torch.empty((b * heads, tiles(n) * TILE), dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
-        err = _build.lib().relpos_attn_fwd(
+        _build.launch(
+            "relpos_attn_fwd",
             q.data_ptr(), kv.data_ptr(), table.data_ptr(), None if m is None else m.data_ptr(),
             o.data_ptr(), lse.data_ptr(), b, n, heads, d, max_pos_emb, d ** -0.5, _stream())
-    _build.check(err, "relpos_attn_fwd")
-    relpos_fwd.launches += 1
     return o, lse
 
 
@@ -289,8 +286,8 @@ def relpos_bwd(q: torch.Tensor, kv: torch.Tensor, table: torch.Tensor,
                mask: Optional[torch.Tensor], o: torch.Tensor, lse: torch.Tensor,
                dout: torch.Tensor, heads: int, max_pos_emb: int) -> Tuple[torch.Tensor, ...]:
     """(dq, dkv, dtable) from the forward's inputs, its o and lse and the
-    output gradient (float32 CUDA tensors): three launches, counted in
-    ``relpos_bwd.launches``, and their partials' scratch."""
+    output gradient (float32 CUDA tensors): three launches and their
+    partials' scratch."""
     d = _check(q, kv, table, mask, heads, max_pos_emb)
     _check_cuda(d, q, kv, table, o, lse, dout)
     q, kv, table, m = q.contiguous(), kv.contiguous(), table.contiguous(), _mask_bytes(mask)
@@ -303,13 +300,12 @@ def relpos_bwd(q: torch.Tensor, kv: torch.Tensor, table: torch.Tensor,
                           device=q.device)
     dq, dkv, dtable = torch.empty_like(q), torch.empty_like(kv), torch.empty_like(table)
     with torch.cuda.device(q.device):
-        err = _build.lib().relpos_attn_bwd(
+        _build.launch(
+            "relpos_attn_bwd",
             q.data_ptr(), kv.data_ptr(), table.data_ptr(), None if m is None else m.data_ptr(),
             o.data_ptr(), lse.data_ptr(), dout.data_ptr(), dq.data_ptr(), dkv.data_ptr(),
             dtable.data_ptr(), part_dq.data_ptr(), part_de.data_ptr(), b, n, heads, d,
-            max_pos_emb, g, d ** -0.5, _stream())
-    _build.check(err, "relpos_attn_bwd")
-    relpos_bwd.launches += 3
+            max_pos_emb, g, d ** -0.5, _stream(), kernels=3)
     return dq, dkv, dtable
 
 
@@ -347,12 +343,3 @@ def relpos_attn(q: torch.Tensor, kv: torch.Tensor, table: torch.Tensor,
         return relpos_attn_plain(q, kv, table, mask, heads, max_pos_emb)
     _check_cuda(d, q, kv, table)
     return RelPosAttnFn.apply(q, kv, table, mask, heads, max_pos_emb)
-
-
-def reset_launch_counts() -> None:
-    """Set every launch count of this module to 0."""
-    relpos_fwd.launches = 0
-    relpos_bwd.launches = 0
-
-
-reset_launch_counts()

@@ -35,8 +35,8 @@ kernels depend on.
 
 :func:`subsample_conv` takes :func:`subsample_conv_plain` for tensors on
 the CPU and the kernels for float32 tensors on the card; anything else
-raises.  Each forward launch counts in ``subsample_fwd.launches``, each
-backward launch in ``subsample_bwd.launches`` (three a backward).
+raises.  Each launch counts in ``_build.launches`` under its entry point
+(three a backward).
 """
 
 from __future__ import annotations
@@ -260,7 +260,7 @@ def _conv0_rows(w0: torch.Tensor, b0: torch.Tensor) -> torch.Tensor:
 def subsample_fwd(x: torch.Tensor, w0: torch.Tensor, b0: torch.Tensor, w1: torch.Tensor,
                   b1: torch.Tensor) -> torch.Tensor:
     """y1 (B, T', 19, 144) of float32 CUDA tensors: one launch of the forward
-    kernel, counted in ``subsample_fwd.launches``.  No autograd."""
+    kernel.  No autograd."""
     _check(x, w0, b0, w1, b1)
     _check_cuda(x, w0, b0, w1, b1)
     x = x.contiguous()
@@ -268,19 +268,16 @@ def subsample_fwd(x: torch.Tensor, w0: torch.Tensor, b0: torch.Tensor, w1: torch
     w1f = w1.detach().permute(2, 3, 1, 0).contiguous()  # (kh, kw, ci, co)
     y = torch.empty((b, out_frames(t)[1], F_OUT, CHANNELS), dtype=x.dtype, device=x.device)
     with torch.cuda.device(x.device):
-        err = _build.lib().subsample_fwd(x.data_ptr(), _conv0_rows(w0, b0).data_ptr(),
-                                         w1f.data_ptr(), b1.detach().contiguous().data_ptr(),
-                                         y.data_ptr(), b, t, N_MELS, CHANNELS, _stream())
-    _build.check(err, "subsample_fwd")
-    subsample_fwd.launches += 1
+        _build.launch("subsample_fwd", x.data_ptr(), _conv0_rows(w0, b0).data_ptr(),
+                      w1f.data_ptr(), b1.detach().contiguous().data_ptr(),
+                      y.data_ptr(), b, t, N_MELS, CHANNELS, _stream())
     return y
 
 
 def subsample_bwd(x: torch.Tensor, w0: torch.Tensor, b0: torch.Tensor, w1: torch.Tensor,
                   y: torch.Tensor, dy: torch.Tensor) -> Tuple[torch.Tensor, ...]:
     """(dW0, db0, dW1, db1) from x, the forward's y1 and its gradient ``dy``
-    (float32 CUDA tensors): three launches, counted in
-    ``subsample_bwd.launches``, and their partials' scratch."""
+    (float32 CUDA tensors): three launches and their partials' scratch."""
     _check(x, w0, b0, w1, b0)
     _check_cuda(x, w0, b0, w1, y, dy)
     x, y, dy = x.contiguous(), y.contiguous(), dy.contiguous()
@@ -296,12 +293,11 @@ def subsample_bwd(x: torch.Tensor, w0: torch.Tensor, b0: torch.Tensor, w1: torch
     grads = [torch.empty(shape, dtype=torch.float32, device=x.device)
              for shape in (w0.shape, b0.shape, w1.shape, (CHANNELS,))]
     with torch.cuda.device(x.device):
-        err = _build.lib().subsample_bwd(
+        _build.launch(
+            "subsample_bwd",
             x.data_ptr(), _conv0_rows(w0, b0).data_ptr(), w1d.data_ptr(), y.data_ptr(),
             dy.data_ptr(), scratch.data_ptr(), *(g.data_ptr() for g in grads),
-            b, t, N_MELS, CHANNELS, _stream())
-    _build.check(err, "subsample_bwd")
-    subsample_bwd.launches += 3
+            b, t, N_MELS, CHANNELS, _stream(), kernels=3)
     return tuple(grads)
 
 
@@ -341,12 +337,3 @@ def subsample_conv(x: torch.Tensor, w0: torch.Tensor, b0: torch.Tensor, w1: torc
         return subsample_conv_plain(x, w0, b0, w1, b1)
     _check_cuda(x, w0, b0, w1, b1)
     return SubsampleFn.apply(x, w0, b0, w1, b1)
-
-
-def reset_launch_counts() -> None:
-    """Set every launch count of this module to 0."""
-    subsample_fwd.launches = 0
-    subsample_bwd.launches = 0
-
-
-reset_launch_counts()

@@ -24,6 +24,7 @@ import torch
 from speechlid_tpu.models import conformer as jconf
 from speechlid_tpu_torch import convert
 from speechlid_tpu_torch.models import conformer
+from speechlid_tpu_torch.ops.cuda import _build
 from speechlid_tpu_torch.ops.cuda import depthwise_kernel as dw
 from tests.torch_parity import init_variables, one_thread  # noqa: F401
 
@@ -79,8 +80,7 @@ def _unfused_chain(h, mask, w, bias, pad_l=None):
 
 
 def _counts():
-    return (dw.depthwise_conv1d.launches, dw.depthwise_conv1d.dx_launches,
-            dict(dw.depthwise_conv1d.mode_launches), dw.depthwise_conv1d_bwd_w.launches)
+    return dict(_build.launches)
 
 
 # ---------------------------------------------- the module against the JAX one
