@@ -149,6 +149,7 @@ import ctypes
 import gc
 import importlib.util
 import json
+import math
 import os
 import subprocess
 import sys
@@ -1570,11 +1571,10 @@ def phase_relpos_attn(gen: torch.Generator, flagship_launches=None) -> list:
         nn_bytes = 4 * b * h * n * n
         # what the backward allocates beside the forward's o and lse: dq, dkv,
         # dtable, dQ's partials (a key tile each) and dE's (a block each)
-        nt, g_ = relpos_attn_kernel.tiles(n), relpos_attn_kernel.heads_per_block(b, h, n)
-        np_ = nt * relpos_attn_kernel.TILE
-        bwd_bytes = 4 * (2 * q.numel() + b * h * np_ + kv.numel() + table.numel()
-                         + nt * b * h * np_ * d
-                         + b * (h // g_) * nt * (np_ + relpos_attn_kernel.TILE - 1) * d)
+        np_ = relpos_attn_kernel.tiles(n) * relpos_attn_kernel.TILE
+        part_bytes = 4 * sum(math.prod(shape) for shape in relpos_attn_kernel.bwd_partials(
+            b, h, n, d))
+        bwd_bytes = 4 * (2 * q.numel() + b * h * np_ + kv.numel() + table.numel()) + part_bytes
         for direction, ms, chain_ms, lib_ms, fl, peak, err in (
                 ("forward", fwd_ms, chain_fwd_ms, lib_fwd_ms, flops, fwd_peak, errs["o"]),
                 ("backward", bwd_ms, chain_bwd_ms, lib_bwd_ms, 2 * flops, bwd_peak,
@@ -1594,7 +1594,8 @@ def phase_relpos_attn(gen: torch.Generator, flagship_launches=None) -> list:
                 "launches": launched[0] if direction == "forward" else launched[1],
                 "max_rel_err_vs_plain": err,
                 "peak_bytes": peak, "bhnn_float32_bytes": nn_bytes,
-                **({"bwd_allocated_bytes": bwd_bytes} if direction == "backward" else {}),
+                **({"bwd_allocated_bytes": bwd_bytes, "bwd_partial_bytes": part_bytes}
+                   if direction == "backward" else {}),
                 **({"grad_rel_err": {k: v for k, v in errs.items() if k != "o"},
                     "same_bits_twice": same_bits} if direction == "backward" else {}),
             })

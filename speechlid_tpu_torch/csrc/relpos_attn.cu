@@ -29,19 +29,40 @@
 //             (s goes on each dot).  A thread owns the pairs (ty + 8a,
 //             tx + 8b), a, b < 4, which touch 7 of those rows.  o and one
 //             log-sum-exp a row are written.
-//   backward  one block per (utterance, group of G heads, 32 keys) walks
-//             the queries 32 at a time: it recomputes S as the forward did
-//             (the same function, so P = exp(S − lse) is the forward's), dP
-//             = dO·vᵀ, D_i = dO_i · o_i and dS = P ⊙ (dP − D), zero on masked
-//             pairs; dK and dV sum in registers, dE's 63 diagonals of the
-//             tile go into the block's partial (rows i − j + j0 + 31), and
-//             the tile's dQ (dS·k + the diagonals' dS·E) is written as one
-//             partial a key tile.  dS is kept in shared memory also skewed
-//             by diagonal (G[i][i − j + 31]), so the two products along the
-//             diagonals are plain loops over rows.  Two small kernels then
-//             sum dQ's partials over the key tiles and dE's over the blocks
-//             (the clipped distances into E's edge rows), each in index
-//             order.
+//   backward  one block of 256 threads (8 warps) per (utterance, group of
+//             G heads, 64 keys) walks the queries 32 at a time, three phases
+//             a step between barriers.  (1) Warps 0–3 recompute S for the
+//             32 × 64 pairs, each 32-key half by the forward's own function
+//             over its slice of the step's band (rows 32 − 32kh …), so every
+//             logit is the forward's bit for bit; warps 4–7 compute dP =
+//             dO·vᵀ for the same pairs and D_i = dO_i · o_i (o staged where P
+//             goes next).  A thread owns 4 × 4 pairs (ty + 8a, 32kh + tx +
+//             8b): 4 channels of 4 rows of each operand and 7 band rows feed
+//             32 FMAs (64 with the band).  (2) Warps 0–3 form P = exp(S −
+//             lse) and dS = P ⊙ (dP − D), zero unless both frames are valid,
+//             dS over dP in place and again skewed by diagonal (G[i][i − j +
+//             63]).  (3) All 8 warps: dV in warps 0–3 and dK in 4–7 sum in
+//             registers across the walk, a thread 4 keys × D/8 channels (32
+//             floats at d = 64: a float4 of P or dS and D/32 of dO or q feed
+//             8·D/8 FMAs); dQ's partial of the key tile, dS·k + G·E (at d =
+//             64 a warp 16 rows × 16 channels, 2 × 4 a thread, so a float4 of
+//             k or E is read by 4 groups of lanes; at d = 32 a warp 4 rows ×
+//             all channels), and dE along the step's 95 diagonals into the
+//             block's partial (rows i0 + e; 4 diagonals × D/16 channels a
+//             thread, warps 0–3 the diagonals 32 … 63, 4–7 the rest).  A
+//             32-key half without a valid key is left out of S, dP, dK, and
+//             of the diagonals only it reaches.  Shared memory is 106 KB at d
+//             = 64 (70 KB at d = 32) and a thread keeps to 128 registers,
+//             so two blocks, 16 warps, share an SM: enough to hide the
+//             latency of shared loads and dependent FMAs.  64 keys a block
+//             halve dQ's partials: 277 MB a call at the training encoder (b,
+//             h, n) = (128, 4, 324), where 32-key blocks would write 507;
+//             dE's 163 MB (G = 2).  dQ stays
+//             partial: a separate pass would recompute S and P (11.7 products
+//             a pair against 8.7).  Two small kernels then sum dQ's partials
+//             over the key tiles and dE's over the blocks (the clipped
+//             distances into E's edge rows), each in index order, the latter
+//             8 table rows a CUDA block so each partial is read in runs.
 //
 // The mask decides what a tile computes: a tile where no valid row meets a
 // valid key takes no logits (its padded rows only their uniform weights, its
@@ -60,16 +81,21 @@
 
 namespace {
 
-#if !defined(RPA_TILE)
-#error "the tile size comes as a -D definition from ops/cuda/_build.py (TILING)"
+#if !defined(RPA_TILE) || !defined(RPA_BWD_KEYS)
+#error "the tile sizes come as -D definitions from ops/cuda/_build.py (TILING)"
 #endif
 
-constexpr int kT = RPA_TILE;       // queries and keys of a tile
-static_assert(kT == 32, "the thread mapping is built for 32 × 32 tiles and 64 threads");
-constexpr int kThreads = 64;       // 8 × 8: ty = tid / 8, tx = tid % 8
-constexpr int kBand = 2 * kT;      // E rows of a tile's band: 63 used, row 63 zero
-constexpr int kPS = kT + 4;        // row stride of the 32 × 32 P and dS tiles
-constexpr int kGS = kBand + 4;     // row stride of the skewed dS (64 diagonals)
+constexpr int kT = RPA_TILE;       // queries and keys of a forward tile, queries of a backward step
+constexpr int kKT = RPA_BWD_KEYS;  // keys of a backward block
+static_assert(kT == 32, "the thread mappings are built for 32-query tiles");
+static_assert(kKT == 2 * kT, "a backward block's keys are two 32-key halves of the forward's tile");
+constexpr int kThreads = 64;       // forward: 8 × 8, ty = tid / 8, tx = tid % 8
+constexpr int kBand = 2 * kT;      // E rows of a forward tile's band: 63 used, row 63 zero
+constexpr int kPS = kT + 4;        // row stride of the forward's 32 × 32 P tile
+constexpr int kBwdThreads = 256;   // backward: two halves of 128, then all 256
+constexpr int kBwdBand = kT + kKT;  // E rows of a backward step's band: 95 used, row 95 zero
+constexpr int kBPS = kKT + 4;      // row stride of the backward's 32 × 64 P and dS tiles
+constexpr int kBGS = kBwdBand + 4;  // row stride of the skewed dS (96 diagonals)
 constexpr int kReduceThreads = 1024;
 constexpr int kOut = 0, kDead = 1, kLive = 2;  // a frame past N, padded, valid
 
@@ -77,9 +103,11 @@ template <int D>
 struct Cfg {
   static_assert(D == 32 || D == 64, "head widths 32 and 64");
   static constexpr int S = D + 4;     // row stride of the q, k, v, dO and E tiles
-  static constexpr int CPT = D / 8;   // channels a thread owns of a (32 × D) tile
-  static constexpr int EG = 512 / D;  // diagonals of a dE group: 8 or 16
-  static constexpr int CPL = D / 32;  // channels a lane owns in dE
+  static constexpr int CPT = D / 8;   // channels a thread owns of a (32 × D) tile (forward), in dK, dV
+  static constexpr int CH = D / 16;   // channels a backward thread owns in dQ and dE
+  // the backward's shared floats: k, v (64 rows), q, dO (32), the band (96), P
+  // (o before it) and dS (dP before it), the skewed dS
+  static constexpr int BWD_FLOATS = (2 * kKT + 2 * kT + kBwdBand) * S + 2 * kT * kBPS + kT * kBGS;
 };
 
 struct Args {
@@ -93,7 +121,7 @@ struct Args {
   float* dq;             // (B, N, H·D)
   float* dkv;            // (B, N, 2·H·D)
   float* dtable;         // (2P + 1, D)
-  float* part_dq;        // (n key tiles, B·H, NP, D)
+  float* part_dq;        // (n key tiles, B·H, NP, D), 64 keys a tile
   float* part_de;        // (B·H/G, n key tiles, NR, D)
   int B, N, H, P, G;
   float scale;
@@ -105,6 +133,28 @@ __device__ __forceinline__ float4 ld4(const float* p) {
 
 __device__ __forceinline__ float at(const float4& v, int k) {
   return k == 0 ? v.x : (k == 1 ? v.y : (k == 2 ? v.z : v.w));
+}
+
+// W = D/16 floats (the backward's dQ and dE channels): a float4 or a float2.
+template <int W>
+__device__ __forceinline__ void ld_vec(const float* p, float (&v)[W]) {
+  static_assert(W == 2 || W == 4, "2 or 4 floats");
+  if constexpr (W == 4) {
+    const float4 x = ld4(p);
+    v[0] = x.x; v[1] = x.y; v[2] = x.z; v[3] = x.w;
+  } else {
+    const float2 x = *reinterpret_cast<const float2*>(p);
+    v[0] = x.x; v[1] = x.y;
+  }
+}
+
+template <int W>
+__device__ __forceinline__ void st_vec(float* p, const float (&v)[W], float mul) {
+  static_assert(W == 2 || W == 4, "2 or 4 floats");
+  if constexpr (W == 4)
+    *reinterpret_cast<float4*>(p) = make_float4(v[0] * mul, v[1] * mul, v[2] * mul, v[3] * mul);
+  else
+    *reinterpret_cast<float2*>(p) = make_float2(v[0] * mul, v[1] * mul);
 }
 
 // A thread's channels of a (32 × D) row: 4tx … 4tx + 3, then 32 + 4tx … 32 + 4tx + 3 (D = 64).
@@ -125,14 +175,14 @@ __device__ __forceinline__ void store_chans(float* row, int tx, const float (&v)
         make_float4(v[4 * g] * mul, v[4 * g + 1] * mul, v[4 * g + 2] * mul, v[4 * g + 3] * mul);
 }
 
-// Rows [r0, r0 + 32) of a (·, D) matrix with row stride `ld` into a tile of
-// stride D + 4 by cp.async, zeros at or past `limit`; the caller commits and
-// waits (tile_ready) once for every tile of a step.
-template <int D>
+// Rows [r0, r0 + ROWS) of a (·, D) matrix with row stride `ld` into a tile of
+// stride D + 4 by cp.async, NT threads, zeros at or past `limit`; the caller
+// commits and waits (tile_ready) once for every tile of a step.
+template <int D, int ROWS, int NT>
 __device__ __forceinline__ void load_rows(float* dst, const float* src, size_t ld, int r0,
                                           int limit) {
   constexpr int V = D / 4;
-  for (int idx = threadIdx.x; idx < kT * V; idx += kThreads) {
+  for (int idx = threadIdx.x; idx < ROWS * V; idx += NT) {
     const int r = idx / V, c = 4 * (idx % V);
     const bool in = r0 + r < limit;
     __pipeline_memcpy_async(dst + r * Cfg<D>::S + c, src + (size_t)(in ? r0 + r : 0) * ld + c,
@@ -140,15 +190,16 @@ __device__ __forceinline__ void load_rows(float* dst, const float* src, size_t l
   }
 }
 
-// The band of E a tile reads: row e holds E[clip(diag0 + e, ±P) + P], diag0 =
-// i0 − j0 − 31, for e < 63 (pair (i, j) reads row i − j + 31, tile-local);
-// row 63 is zero.  By cp.async, as load_rows.
-template <int D>
+// The band of E a tile reads: row e holds E[clip(diag0 + e, ±P) + P] for e <
+// ROWS − 1 (a forward tile's pair (i, j) reads row i − j + 31, a backward
+// step's i − j + 63, tile-local); the last row is zero.  By cp.async, as
+// load_rows.
+template <int D, int ROWS, int NT>
 __device__ __forceinline__ void load_band(float* Es, const float* table, int P, int diag0) {
   constexpr int V = D / 4;
-  for (int idx = threadIdx.x; idx < kBand * V; idx += kThreads) {
+  for (int idx = threadIdx.x; idx < ROWS * V; idx += NT) {
     const int e = idx / V, c = 4 * (idx % V);
-    const bool in = e < kBand - 1;
+    const bool in = e < ROWS - 1;
     const int row = in ? min(max(diag0 + e, -P), P) + P : 0;
     __pipeline_memcpy_async(Es + e * Cfg<D>::S + c, table + (size_t)row * D + c, 16,
                             in ? 0 : 16);
@@ -233,7 +284,7 @@ __global__ void __launch_bounds__(kThreads) relpos_fwd_kernel(Args a) {
   const float* kb = a.kv + (size_t)b * N * 2 * HD + h * D;
   const uint8_t* mb = a.mask == nullptr ? nullptr : a.mask + (size_t)b * N;
 
-  load_rows<D>(Qs, qb, HD, i0, N);  // s·q·(k + E): the scale goes on the dot
+  load_rows<D, kT, kThreads>(Qs, qb, HD, i0, N);  // s·q·(k + E): the scale goes on the dot
   // what the tile's rows need: a valid row the valid keys' logits, a padded
   // row the uniform weights of all N keys
   const int rs = tid < kT ? frame_state(mb, i0 + tid, N) : kOut;
@@ -257,10 +308,10 @@ __global__ void __launch_bounds__(kThreads) relpos_fwd_kernel(Args a) {
     if (!q_dead && !k_live) continue;  // every weight of the tile is 0
     const bool logits = q_live && k_live;  // else only padded rows' uniform weights
     if (logits) {
-      load_rows<D>(Ks, kb, 2 * (size_t)HD, j0, N);
-      load_band<D>(Es, a.table, a.P, i0 - j0 - (kT - 1));
+      load_rows<D, kT, kThreads>(Ks, kb, 2 * (size_t)HD, j0, N);
+      load_band<D, kBand, kThreads>(Es, a.table, a.P, i0 - j0 - (kT - 1));
     }
-    load_rows<D>(Vs, kb + HD, 2 * (size_t)HD, j0, N);
+    load_rows<D, kT, kThreads>(Vs, kb + HD, 2 * (size_t)HD, j0, N);
     if (tid < kT) kst[tid] = ks;
     tile_ready();
     float s[4][4] = {};
@@ -325,70 +376,75 @@ __global__ void __launch_bounds__(kThreads) relpos_fwd_kernel(Args a) {
 
 // ---------------------------------------------------------------- backward
 
-// dV_j += Σ_i P_ij dO_i and, WITH_DK, dK_j += Σ_i dS_ij q_i (s goes on at the end):
-// keys j = ty + 8r of the tile, the thread's channels.
-template <int D, bool WITH_DK>
-__device__ __forceinline__ void dkv_tile(const float* __restrict__ PT, const float* __restrict__ dST,
-                                         const float* __restrict__ dOs,
-                                         const float* __restrict__ Qs, int ty, int tx,
-                                         float (&dv)[4][D / 8], float (&dk)[4][D / 8]) {
+// acc_j += Σ_i W_ij X_i over a step's 32 queries in order (dV: W = P, X =
+// dO; dK: W = dS, X = q, s goes on at the end): keys 4kx + r, channels
+// (D/8)·kc + u.
+template <int D>
+__device__ __forceinline__ void dkv_step(const float* __restrict__ Ws, const float* __restrict__ Xs,
+                                         int kx, int kc, float (&acc)[4][D / 8]) {
   constexpr int S = Cfg<D>::S, CPT = Cfg<D>::CPT;
-#pragma unroll 2
-  for (int i = 0; i < kT; i += 4) {
-    float4 pt[4], gt[4];
+#pragma unroll 4
+  for (int i = 0; i < kT; ++i) {
+    const float4 w = ld4(Ws + i * kBPS + 4 * kx);
+    float x[CPT];
 #pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      pt[r] = ld4(PT + (ty + 8 * r) * kPS + i);
-      if constexpr (WITH_DK) gt[r] = ld4(dST + (ty + 8 * r) * kPS + i);
+    for (int g = 0; g < CPT / 4; ++g) {
+      const float4 v = ld4(Xs + i * S + CPT * kc + 4 * g);
+      x[4 * g] = v.x; x[4 * g + 1] = v.y; x[4 * g + 2] = v.z; x[4 * g + 3] = v.w;
     }
 #pragma unroll
-    for (int ii = 0; ii < 4; ++ii) {
-      float g[CPT], x[CPT];
-      load_chans<D>(dOs + (i + ii) * S, tx, g);
-      if constexpr (WITH_DK) load_chans<D>(Qs + (i + ii) * S, tx, x);
+    for (int r = 0; r < 4; ++r)
 #pragma unroll
-      for (int r = 0; r < 4; ++r)
-#pragma unroll
-        for (int u = 0; u < CPT; ++u) {
-          dv[r][u] = fmaf(at(pt[r], ii), g[u], dv[r][u]);
-          if constexpr (WITH_DK) dk[r][u] = fmaf(at(gt[r], ii), x[u], dk[r][u]);
-        }
-    }
+      for (int u = 0; u < CPT; ++u) acc[r][u] = fmaf(at(w, r), x[u], acc[r][u]);
   }
 }
 
 template <int D>
-constexpr int bwd_smem_floats() {
-  return 4 * kT * Cfg<D>::S + kBand * Cfg<D>::S + 2 * kT * kPS + kT * kGS;
-}
-
-template <int D>
-__global__ void __launch_bounds__(kThreads, 3) relpos_bwd_kernel(Args a) {
-  constexpr int S = Cfg<D>::S, CPT = Cfg<D>::CPT, EG = Cfg<D>::EG, CPL = Cfg<D>::CPL;
+__global__ void __launch_bounds__(kBwdThreads, 2) relpos_bwd_kernel(Args a) {
+  constexpr int S = Cfg<D>::S, CPT = Cfg<D>::CPT, CH = Cfg<D>::CH;
   extern __shared__ __align__(16) float smem[];
   float* Ks = smem;
-  float* Vs = Ks + kT * S;
-  float* Qs = Vs + kT * S;
+  float* Vs = Ks + kKT * S;
+  float* Qs = Vs + kKT * S;
   float* dOs = Qs + kT * S;
   float* Es = dOs + kT * S;
-  float* PT = Es + kBand * S;   // P[i][j] at PT[j][i]
-  float* dST = PT + kT * kPS;   // dS[i][j] at dST[j][i]
-  float* Gs = dST + kT * kPS;   // dS[i][j] at Gs[i][i − j + 31]
-  __shared__ int kst[kT], rst[kT];
+  float* Ps = Es + kBwdBand * S;  // P[i][j]; before it o[i] (stride S), for D_i
+  float* dSs = Ps + kT * kBPS;    // dS[i][j]; before it dP[i][j]
+  float* Gs = dSs + kT * kBPS;    // dS[i][j] at Gs[i][i − j + 63]
+  __shared__ int kst[kKT], rst[kT];
   __shared__ float lse_s[kT], dsum[kT];
-  const int tid = threadIdx.x, ty = tid >> 3, tx = tid & 7, lane = tid & 31, warp = tid >> 5;
-  const int hg = blockIdx.x, kt = blockIdx.y, nkt = gridDim.y, j0 = kt * kT;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  // (1): half 0 (warps 0–3) S, half 1 dP; a thread the pairs (ty + 8a, 32kh + tx + 8b)
+  const int half = tid >> 7, kh = (tid >> 6) & 1, ty = (tid >> 3) & 7, tx = tid & 7;
+  // (3) dV in half 0, dK in half 1: keys 4kx + r, channels (D/8)·kc + u
+  const int kx = (lane & 7) + 8 * (warp & 1), kc = (lane >> 3) + 4 * ((warp >> 1) & 1);
+  // (3) dQ: rows r0 and r1 = r0 + kQStep, channels qc + u: at d = 64 a warp
+  // takes 16 rows (from 16(w % 2)) × 16 channels, so each float4 of k or E
+  // goes to 8 lanes; at d = 32 a warp 4 rows (from 4w) × all 32 channels,
+  // fewer diagonals.  dE: diagonals 4m + t (+32g), m = 2(w % 4) + lane / 16,
+  // g = 1 in warps 0–3, 0 and 2 in 4–7, channels CH·(lane % 16) + u
+  constexpr bool kWide = D == 64;
+  constexpr int kQStep = kWide ? 8 : 2, kQDiag = kWide ? 80 : 68;  // diagonals a warp walks
+  const int r0 = kWide ? 16 * (warp & 1) + (lane & 7) : 4 * warp + (lane >> 4);
+  const int qc = kWide ? 16 * (warp >> 1) + 4 * (lane >> 3) : 2 * (lane & 15);
+  const int q_elo = kWide ? 16 * (warp & 1) : 4 * warp;
+  const int cg = lane & 15, m = 2 * (warp & 3) + (lane >> 4);
+  const int hg = blockIdx.x, kt = blockIdx.y, nkt = gridDim.y, j0 = kt * kKT;
   const int N = a.N, H = a.H, HD = H * D, G = a.G, HG = H / G;
   const int b = hg / HG, grp = hg % HG;
-  const int nqt = (N + kT - 1) / kT, NP = nqt * kT, NR = NP + kT - 1;
+  const int nqt = (N + kT - 1) / kT, NP = nqt * kT, NR = NP + kKT - 1;
   const uint8_t* mb = a.mask == nullptr ? nullptr : a.mask + (size_t)b * N;
   float* pde = a.part_de + ((size_t)hg * nkt + kt) * NR * D;
 
-  // diagonals no pair of a tile reaches stay zero in every tile
-  for (int idx = tid; idx < kT * kGS; idx += kThreads) Gs[idx] = 0.f;
-  const int ks = tid < kT ? frame_state(mb, j0 + tid, N) : kOut;
-  if (tid < kT) kst[tid] = ks;
-  const int k_live = __syncthreads_or(ks == kLive);
+  // diagonals no pair of a step reaches stay zero in every step
+  for (int idx = tid; idx < kT * kBGS; idx += kBwdThreads) Gs[idx] = 0.f;
+  const int ks = tid < kKT ? frame_state(mb, j0 + tid, N) : kOut;
+  if (tid < kKT) kst[tid] = ks;
+  // a 32-key half without a valid key has no logits and a zero dS: its S,
+  // dP, dK and the diagonals only it reaches are left out
+  const bool k_lo = __syncthreads_or(tid < kT && ks == kLive) != 0;
+  const bool k_hi = __syncthreads_or(tid >= kT && ks == kLive) != 0;
+  const bool k_live = k_lo || k_hi;
 
   for (int hh = 0; hh < G; ++hh) {
     const int h = grp * G + hh, bh = b * H + h;
@@ -396,175 +452,193 @@ __global__ void __launch_bounds__(kThreads, 3) relpos_bwd_kernel(Args a) {
     const float* ob = a.o + (size_t)b * N * HD + h * D;
     const float* gb = a.dout + (size_t)b * N * HD + h * D;
     const float* kb = a.kv + (size_t)b * N * 2 * HD + h * D;
-    __syncthreads();  // the last head's readers of Ks are done
-    load_rows<D>(Ks, kb, 2 * (size_t)HD, j0, N);
-    load_rows<D>(Vs, kb + HD, 2 * (size_t)HD, j0, N);
+    __syncthreads();  // the last head's readers of Ks and Vs are done
+    load_rows<D, kKT, kBwdThreads>(Ks, kb, 2 * (size_t)HD, j0, N);
+    load_rows<D, kKT, kBwdThreads>(Vs, kb + HD, 2 * (size_t)HD, j0, N);
     tile_ready();
-    float dk[4][CPT], dv[4][CPT];
+    float dkv[4][CPT];  // dV in half 0, dK / s in half 1
 #pragma unroll
     for (int r = 0; r < 4; ++r)
 #pragma unroll
-      for (int u = 0; u < CPT; ++u) dk[r][u] = dv[r][u] = 0.f;
+      for (int u = 0; u < CPT; ++u) dkv[r][u] = 0.f;
 
     for (int qt = 0; qt < nqt; ++qt) {
       const int i0 = qt * kT;
       const int rs = tid < kT ? frame_state(mb, i0 + tid, N) : kOut;
-      // also: the last tile's readers are done
+      // also: the last step's readers are done
       const int q_live = __syncthreads_or(rs == kLive), q_dead = __syncthreads_or(rs == kDead);
       // dS is 0 unless a valid row meets a valid key; P is 0 unless it is
       // that, or a padded row (uniform over the N keys)
       const bool need_ds = q_live && k_live, need_p = need_ds || q_dead;
       if (need_p) {
         if (need_ds) {
-          load_rows<D>(Qs, qb, HD, i0, N);
-          load_band<D>(Es, a.table, a.P, i0 - j0 - (kT - 1));
+          load_rows<D, kT, kBwdThreads>(Qs, qb, HD, i0, N);
+          load_rows<D, kT, kBwdThreads>(Ps, ob, HD, i0, N);
+          load_band<D, kBwdBand, kBwdThreads>(Es, a.table, a.P, i0 - j0 - (kKT - 1));
         }
-        load_rows<D>(dOs, gb, HD, i0, N);
+        load_rows<D, kT, kBwdThreads>(dOs, gb, HD, i0, N);
         if (tid < kT) {
           rst[tid] = rs;
           lse_s[tid] = rs != kOut ? a.lse[(size_t)bh * NP + i0 + tid] : 0.f;
         }
-        if (need_ds) {  // D_i = dO_i · o_i: two threads a row
-          const int r = tid >> 1, c0 = (tid & 1) * (D / 2), i = i0 + r;
-          float4 x[D / 8], g[D / 8];
-#pragma unroll
-          for (int c = 0; c < D / 8; ++c) {
-            x[c] = g[c] = make_float4(0.f, 0.f, 0.f, 0.f);
-            if (i < N) {
-              x[c] = ld4(ob + (size_t)i * HD + c0 + 4 * c);
-              g[c] = ld4(gb + (size_t)i * HD + c0 + 4 * c);
-            }
-          }
-          float d = 0.f;
-#pragma unroll
-          for (int c = 0; c < D / 8; ++c) {
-            d = fmaf(g[c].x, x[c].x, d); d = fmaf(g[c].y, x[c].y, d);
-            d = fmaf(g[c].z, x[c].z, d); d = fmaf(g[c].w, x[c].w, d);
-          }
-          d += __shfl_xor_sync(0xffffffffu, d, 1);
-          if ((tid & 1) == 0) dsum[r] = d;
-        }
         tile_ready();
-        float s[4][4] = {}, dp[4][4] = {};
-        if (need_ds) {
-          pair_dots<D, true>(Qs, Ks, Es, ty, tx, s);
-          pair_dots<D, false>(dOs, Vs, nullptr, ty, tx, dp);
-        }
-#pragma unroll
-        for (int r = 0; r < 4; ++r)
-#pragma unroll
-          for (int c = 0; c < 4; ++c) {
-            const int il = ty + 8 * r, jl = tx + 8 * c, rsi = rst[il], ksj = kst[jl];
-            float p = 0.f, ds = 0.f;
-            if (rsi != kOut && ksj != kOut) {
-              p = expf(logit(s[r][c] * a.scale, rsi, ksj) - lse_s[il]);
-              if (rsi == kLive && ksj == kLive) ds = p * (dp[r][c] - dsum[il]);
-            }
-            PT[jl * kPS + il] = p;
-            if (need_ds) {
-              dST[jl * kPS + il] = ds;
-              Gs[il * kGS + il - jl + kT - 1] = ds;
-            }
-          }
-        __syncthreads();
-        // dV_j += Σ_i P_ij dO_i, dK_j += Σ_i dS_ij q_i, keys j = ty + 8r
-        if (need_ds)
-          dkv_tile<D, true>(PT, dST, dOs, Qs, ty, tx, dv, dk);
-        else
-          dkv_tile<D, false>(PT, dST, dOs, Qs, ty, tx, dv, dk);
-      }
-      // dE / s along the tile's diagonals e: Σ_i G[i][e] q_i, into the
-      // block's partial row i0 + e; a warp takes every other group of EG
-      // diagonals, a lane CPL channels.  The rows the last tile also reached
-      // (e < 31) and the later heads of the group add to what is there; a
-      // tile without dS writes zeros where it would write first.
-      for (int g = warp; g < kBand / EG; g += 2) {
-        const int e0 = g * EG;
-        float acc[EG][CPL];
-#pragma unroll
-        for (int e = 0; e < EG; ++e) {
-          // what the partial holds where this tile adds (read before the products)
-          const int ee = e0 + e;
-          const bool fresh = hh == 0 && (qt == 0 || ee >= kT - 1);
-#pragma unroll
-          for (int c = 0; c < CPL; ++c)
-            acc[e][c] = ee < kBand - 1 && !fresh && need_ds
-                            ? pde[(size_t)(i0 + ee) * D + lane * CPL + c] : 0.f;
-        }
-        if (need_ds) {
-          const int ilo = max(0, e0 - (kT - 1)), ihi = min(kT - 1, e0 + EG - 1);
-          for (int i = ilo; i <= ihi; ++i) {
-            float gv[EG], x[CPL];
-#pragma unroll
-            for (int t = 0; t < EG; t += 4) {
-              const float4 v = ld4(Gs + i * kGS + e0 + t);
-              gv[t] = v.x; gv[t + 1] = v.y; gv[t + 2] = v.z; gv[t + 3] = v.w;
-            }
-#pragma unroll
-            for (int c = 0; c < CPL; ++c) x[c] = Qs[i * S + lane * CPL + c];
-#pragma unroll
-            for (int e = 0; e < EG; ++e)
-#pragma unroll
-              for (int c = 0; c < CPL; ++c) acc[e][c] = fmaf(gv[e], x[c], acc[e][c]);
-          }
-        }
-#pragma unroll
-        for (int e = 0; e < EG; ++e) {
-          const int ee = e0 + e;
-          const bool fresh = hh == 0 && (qt == 0 || ee >= kT - 1);
-          if (ee < kBand - 1 && (fresh || need_ds)) {
-#pragma unroll
-            for (int c = 0; c < CPL; ++c) pde[(size_t)(i0 + ee) * D + lane * CPL + c] = acc[e][c];
-          }
-        }
-      }
-      {  // dQ's partial of this key tile: s·(Σ_j dS_ij k_j + Σ_e G[i][e] E_e), rows 4ty + r
-        float acc[4][CPT];
-#pragma unroll
-        for (int r = 0; r < 4; ++r)
-#pragma unroll
-          for (int u = 0; u < CPT; ++u) acc[r][u] = 0.f;
-        if (need_ds) {
-#pragma unroll 4
-          for (int j = 0; j < kT; ++j) {
-            const float4 g = ld4(dST + j * kPS + 4 * ty);
-            float x[CPT];
-            load_chans<D>(Ks + j * S, tx, x);
+        // (1) S in half 0: each 32-key half as a forward tile, its band the
+        // rows 32 − 32kh … of this step's; dP and D_i in half 1
+        const bool my_keys = kh == 0 ? k_lo : k_hi;
+        float s[4][4] = {};
+        if (need_ds && half == 0) {
+          if (my_keys)
+            pair_dots<D, true>(Qs, Ks + kh * kT * S, Es + (kKT - kT - kh * kT) * S, ty, tx, s);
+        } else if (need_ds) {
+          if (my_keys) {
+            float dp[4][4];
+            pair_dots<D, false>(dOs, Vs + kh * kT * S, nullptr, ty, tx, dp);
 #pragma unroll
             for (int r = 0; r < 4; ++r)
 #pragma unroll
-              for (int u = 0; u < CPT; ++u) acc[r][u] = fmaf(at(g, r), x[u], acc[r][u]);
+              for (int c = 0; c < 4; ++c) dSs[(ty + 8 * r) * kBPS + kh * kT + tx + 8 * c] = dp[r][c];
           }
-          // a warp's rows 16w … 16w + 15 reach the diagonals 16w … 16w + 46
-          const int elo = 16 * warp;
+          const int t = tid - 128, r = t >> 2, part = t & 3;  // D_i: four threads a row
+          float d = 0.f;
+#pragma unroll
+          for (int m4 = 0; m4 < D / 16; ++m4) {
+            const int c = part * (D / 4) + 4 * m4;
+            const float4 x = ld4(Ps + r * S + c), g = ld4(dOs + r * S + c);  // o, dO
+            d = fmaf(g.x, x.x, d); d = fmaf(g.y, x.y, d);
+            d = fmaf(g.z, x.z, d); d = fmaf(g.w, x.w, d);
+          }
+          d += __shfl_xor_sync(0xffffffffu, d, 1);
+          d += __shfl_xor_sync(0xffffffffu, d, 2);
+          if (part == 0) dsum[r] = d;
+        }
+        __syncthreads();
+        // (2) P and dS of half 0's pairs; dS over dP in place and skewed
+        if (half == 0) {
+#pragma unroll
+          for (int r = 0; r < 4; ++r)
+#pragma unroll
+            for (int c = 0; c < 4; ++c) {
+              const int il = ty + 8 * r, jl = kh * kT + tx + 8 * c, rsi = rst[il], ksj = kst[jl];
+              float p = 0.f, ds = 0.f;
+              if (rsi != kOut && ksj != kOut) {
+                p = expf(logit(s[r][c] * a.scale, rsi, ksj) - lse_s[il]);
+                if (rsi == kLive && ksj == kLive) ds = p * (dSs[il * kBPS + jl] - dsum[il]);
+              }
+              Ps[il * kBPS + jl] = p;
+              if (need_ds) {
+                dSs[il * kBPS + jl] = ds;
+                Gs[il * kBGS + il - jl + kKT - 1] = ds;
+              }
+            }
+        }
+        __syncthreads();
+        // (3) dV_j += Σ_i P_ij dO_i in half 0, dK_j += Σ_i dS_ij q_i in half 1
+        if (half == 0 ? q_dead || ((warp & 1) == 0 ? k_lo : k_hi)
+                      : need_ds && ((warp & 1) == 0 ? k_lo : k_hi))
+          dkv_step<D>(half == 0 ? Ps : dSs, half == 0 ? dOs : Qs, kx, kc, dkv);
+      }
+      // dE / s along the step's diagonals e: Σ_i G[i][e] q_i, into the
+      // block's partial row i0 + e.  The rows the last step also reached (e
+      // < 63) and the later heads of the group add the step's sum to what is
+      // there (another thread wrote it, before the barrier that opened this
+      // step); a step without dS writes zeros where it would write first.
+      for (int gi = 0; gi <= half; ++gi) {
+        const int g = half == 0 ? 1 : 2 * gi, e0 = 4 * m + 32 * g;
+        const int ilo = max(0, 8 * (warp & 3) + 32 * g - (kKT - 1));
+        const int ihi = min(kT - 1, 8 * (warp & 3) + 7 + 32 * g);  // the warp's rows: G is 0 past a lane's
+        float acc[4][CH], old[4][CH];
+#pragma unroll
+        for (int t = 0; t < 4; ++t) {
+          const int ee = e0 + t;
+          const bool fresh = hh == 0 && (qt == 0 || ee >= kKT - 1);
+#pragma unroll
+          for (int u = 0; u < CH; ++u) acc[t][u] = 0.f;
+          if (ee < kBwdBand - 1 && !fresh && need_ds)
+            ld_vec<CH>(pde + (size_t)(i0 + ee) * D + CH * cg, old[t]);
+          else
+#pragma unroll
+            for (int u = 0; u < CH; ++u) old[t][u] = 0.f;
+        }
+        // e < 32 only the keys 32 … 63 reach, e ≥ 64 only 0 … 31
+        if (need_ds && (g != 0 || k_hi) && (g != 2 || k_lo)) {
+          for (int i = ilo; i <= ihi; ++i) {
+            const float4 gv = ld4(Gs + i * kBGS + e0);
+            float x[CH];
+            ld_vec<CH>(Qs + i * S + CH * cg, x);
+#pragma unroll
+            for (int t = 0; t < 4; ++t)
+#pragma unroll
+              for (int u = 0; u < CH; ++u) acc[t][u] = fmaf(at(gv, t), x[u], acc[t][u]);
+          }
+        }
+#pragma unroll
+        for (int t = 0; t < 4; ++t) {
+          const int ee = e0 + t;
+          const bool fresh = hh == 0 && (qt == 0 || ee >= kKT - 1);
+          if (ee < kBwdBand - 1 && (fresh || need_ds)) {
+#pragma unroll
+            for (int u = 0; u < CH; ++u) acc[t][u] += old[t][u];
+            st_vec<CH>(pde + (size_t)(i0 + ee) * D + CH * cg, acc[t], 1.f);
+          }
+        }
+      }
+      {  // dQ's partial of this key tile: s·(Σ_j dS_ij k_j + Σ_e G[i][e] E_e)
+        const int r1 = r0 + kQStep;
+        float acc[2][CH];
+#pragma unroll
+        for (int r = 0; r < 2; ++r)
+#pragma unroll
+          for (int u = 0; u < CH; ++u) acc[r][u] = 0.f;
+        if (need_ds) {
 #pragma unroll 2
-          for (int e = elo; e < elo + 48; e += 4) {
-            float4 g[4];
+          for (int j = k_lo ? 0 : kT; j < (k_hi ? kKT : kT); j += 4) {
+            const float4 g0 = ld4(dSs + r0 * kBPS + j), g1 = ld4(dSs + r1 * kBPS + j);
 #pragma unroll
-            for (int r = 0; r < 4; ++r) g[r] = ld4(Gs + (4 * ty + r) * kGS + e);
+            for (int t = 0; t < 4; ++t) {
+              float x[CH];
+              ld_vec<CH>(Ks + (j + t) * S + qc, x);
 #pragma unroll
-            for (int ee = 0; ee < 4; ++ee) {
-              float x[CPT];
-              load_chans<D>(Es + (e + ee) * S, tx, x);
+              for (int u = 0; u < CH; ++u) {
+                acc[0][u] = fmaf(at(g0, t), x[u], acc[0][u]);
+                acc[1][u] = fmaf(at(g1, t), x[u], acc[1][u]);
+              }
+            }
+          }
+          // the warp's rows reach kQDiag − 1 diagonals from q_elo; keys 0 … 31
+          // only those from q_elo + 32, keys 32 … 63 only those below
+          // q_elo + kQDiag − 32
+          const int e_hi = q_elo + (k_lo ? kQDiag : kQDiag - kT);
+#pragma unroll 2
+          for (int e = q_elo + (k_hi ? 0 : kT); e < e_hi; e += 4) {
+            const float4 g0 = ld4(Gs + r0 * kBGS + e), g1 = ld4(Gs + r1 * kBGS + e);
 #pragma unroll
-              for (int r = 0; r < 4; ++r)
+            for (int t = 0; t < 4; ++t) {
+              float x[CH];
+              ld_vec<CH>(Es + (e + t) * S + qc, x);
 #pragma unroll
-                for (int u = 0; u < CPT; ++u) acc[r][u] = fmaf(at(g[r], ee), x[u], acc[r][u]);
+              for (int u = 0; u < CH; ++u) {
+                acc[0][u] = fmaf(at(g0, t), x[u], acc[0][u]);
+                acc[1][u] = fmaf(at(g1, t), x[u], acc[1][u]);
+              }
             }
           }
         }
-        float* dst = a.part_dq + (((size_t)kt * a.B * H + bh) * NP + i0 + 4 * ty) * D;
-#pragma unroll
-        for (int r = 0; r < 4; ++r) store_chans<D>(dst + r * D, tx, acc[r], a.scale);
+        float* dst = a.part_dq + (((size_t)kt * a.B * H + bh) * NP + i0) * D + qc;
+        st_vec<CH>(dst + r0 * D, acc[0], a.scale);
+        st_vec<CH>(dst + r1 * D, acc[1], a.scale);
       }
     }
 #pragma unroll
     for (int r = 0; r < 4; ++r) {
-      const int j = j0 + ty + 8 * r;
+      const int j = j0 + 4 * kx + r;
       if (j < N) {
-        float* row = a.dkv + (size_t)(b * N + j) * 2 * HD + h * D;
-        store_chans<D>(row, tx, dk[r], a.scale);
-        store_chans<D>(row + HD, tx, dv[r], 1.f);
+        float* row = a.dkv + (size_t)(b * N + j) * 2 * HD + (half == 0 ? HD : 0) + h * D + CPT * kc;
+        const float mul = half == 0 ? 1.f : a.scale;
+#pragma unroll
+        for (int g = 0; g < CPT / 4; ++g)
+          *reinterpret_cast<float4*>(row + 4 * g) =
+              make_float4(dkv[r][4 * g] * mul, dkv[r][4 * g + 1] * mul, dkv[r][4 * g + 2] * mul,
+                          dkv[r][4 * g + 3] * mul);
       }
     }
   }
@@ -590,31 +664,56 @@ __global__ void relpos_dq_reduce_kernel(const float* __restrict__ part, float* _
   }
 }
 
-// dE row R of the table: s times every block's partial rows ρ whose
-// distance r = ρ − j0 − 31 clips to R − P, the blocks dealt to
+// dE rows R of the table: s times every block's partial rows ρ whose
+// distance r = ρ − j0 − 63 clips to R − P, the blocks dealt to
 // kReduceThreads / D parts, each part's sum in block and row order, the
-// parts added in order.
+// parts added in order.  A CUDA block takes kDeRows rows inside the table
+// (one ρ a block each, contiguous, or none: it adds 0); blocks 0 and 1 take
+// the edge rows 0 and 2P, every clipped ρ, kDeRows at a time.
+constexpr int kDeRows = 8;
+
 template <int D>
 __global__ void __launch_bounds__(kReduceThreads) relpos_de_reduce_kernel(
     const float* __restrict__ part, float* __restrict__ dtable, int nblk, int nkt, int NR, int P,
     float scale) {
   constexpr int kParts = kReduceThreads / D;
-  __shared__ float sums[kReduceThreads];
-  const int R = blockIdx.x, t = threadIdx.x, c = t % D;
-  float s = 0.f;
+  __shared__ float sums[kDeRows][kReduceThreads];
+  const int t = threadIdx.x, c = t % D;
+  const bool edge = blockIdx.x < 2;
+  const int R0 = edge ? (blockIdx.x == 0 ? 0 : 2 * P) : 1 + (blockIdx.x - 2) * kDeRows;
+  float s[kDeRows];
+#pragma unroll
+  for (int u = 0; u < kDeRows; ++u) s[u] = 0.f;
   for (int blk = t / D; blk < nblk; blk += kParts) {
-    const int j0 = (blk % nkt) * kT;
-    const int lo = R == 0 ? 0 : max(0, R - P + j0 + kT - 1);
-    const int hi = R == 2 * P ? NR - 1 : min(NR - 1, R - P + j0 + kT - 1);
     const float* pb = part + (size_t)blk * NR * D + c;
-    for (int rho = lo; rho <= hi; ++rho) s += pb[(size_t)rho * D];
+    const int rho0 = R0 - P + (blk % nkt) * kKT + kKT - 1;  // R0's ρ in this block
+    if (!edge) {
+      float v[kDeRows];
+#pragma unroll
+      for (int u = 0; u < kDeRows; ++u)
+        v[u] = R0 + u < 2 * P && rho0 + u >= 0 && rho0 + u < NR ? pb[(size_t)(rho0 + u) * D] : 0.f;
+#pragma unroll
+      for (int u = 0; u < kDeRows; ++u) s[u] += v[u];
+    } else {
+      const int lo = R0 == 0 ? 0 : max(0, rho0), hi = R0 == 2 * P ? NR - 1 : min(NR - 1, rho0);
+      for (int rho = lo; rho <= hi; rho += kDeRows) {
+        float v[kDeRows];
+#pragma unroll
+        for (int u = 0; u < kDeRows; ++u) v[u] = rho + u <= hi ? pb[(size_t)(rho + u) * D] : 0.f;
+#pragma unroll
+        for (int u = 0; u < kDeRows; ++u) s[0] += v[u];
+      }
+    }
   }
-  sums[t] = s;
+#pragma unroll
+  for (int u = 0; u < kDeRows; ++u) sums[u][t] = s[u];
   __syncthreads();
-  if (t < D) {
-    float total = sums[t];
-    for (int p = 1; p < kParts; ++p) total += sums[p * D + t];
-    dtable[(size_t)R * D + t] = total * scale;
+  for (int o = t; o < kDeRows * D; o += kReduceThreads) {
+    const int u = o / D, ch = o % D, R = R0 + u;
+    if ((edge && u > 0) || (!edge && R >= 2 * P)) continue;
+    float total = sums[u][ch];
+    for (int p = 1; p < kParts; ++p) total += sums[u][p * D + ch];
+    dtable[(size_t)R * D + ch] = total * scale;
   }
 }
 
@@ -632,14 +731,14 @@ int launch_fwd(const Args& a, cudaStream_t stream) {
 
 template <int D>
 int launch_bwd(const Args& a, cudaStream_t stream) {
-  const int nkt = (a.N + kT - 1) / kT, NP = nkt * kT, NR = NP + kT - 1;
-  const size_t smem = bwd_smem_floats<D>() * sizeof(float);
+  const int nkt = (a.N + kKT - 1) / kKT, NP = (a.N + kT - 1) / kT * kT, NR = NP + kKT - 1;
+  const size_t smem = Cfg<D>::BWD_FLOATS * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(reinterpret_cast<const void*>(relpos_bwd_kernel<D>),
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const int nhg = a.B * (a.H / a.G);
-  relpos_bwd_kernel<D><<<dim3(nhg, nkt), kThreads, smem, stream>>>(a);
+  relpos_bwd_kernel<D><<<dim3(nhg, nkt), kBwdThreads, smem, stream>>>(a);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   const size_t total = (size_t)a.B * a.N * a.H * D;
@@ -648,8 +747,11 @@ int launch_bwd(const Args& a, cudaStream_t stream) {
   relpos_dq_reduce_kernel<D><<<blocks, 256, 0, stream>>>(a.part_dq, a.dq, a.B, a.N, a.H, NP, nkt);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  relpos_de_reduce_kernel<D><<<2 * a.P + 1, kReduceThreads, 0, stream>>>(
+  const int inner = 2 * a.P - 1;  // table rows between the edges
+  relpos_de_reduce_kernel<D><<<(a.P == 0 ? 1 : 2) + (inner + kDeRows - 1) / kDeRows,
+                               kReduceThreads, 0, stream>>>(
       a.part_de, a.dtable, nhg * nkt, nkt, NR, a.P, a.scale);
+
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -675,8 +777,8 @@ extern "C" int relpos_attn_fwd(const void* q, const void* kv, const void* table,
 }
 
 // dq, dkv and dtable from the forward's inputs, its o and lse and the output
-// gradient dout (B, N, H·D); part_dq holds ceil(N/32) · B·H · NP · D floats
-// and part_de B·(H/G) · ceil(N/32) · (NP + 31) · D, NP = ceil(N/32)·32; G
+// gradient dout (B, N, H·D); part_dq holds ceil(N/64) · B·H · NP · D floats
+// and part_de B·(H/G) · ceil(N/64) · (NP + 63) · D, NP = ceil(N/32)·32; G
 // divides H.  Three launches on `stream`: the tiles, dQ's sum, dE's sum.
 extern "C" int relpos_attn_bwd(const void* q, const void* kv, const void* table, const void* mask,
                                const void* o, const void* lse, const void* dout, void* dq,

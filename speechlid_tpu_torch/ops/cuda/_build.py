@@ -52,6 +52,7 @@ TILING = {
     "SUB_WGRAD_SPLITS": 29,    # position ranges of dW1: 9 taps × 29 = 261 blocks, two an SM
     "SUB_DGRAD_BLOCKS": 264,   # blocks that share the dgrad tiles: two an SM
     "RPA_TILE": 32,            # queries and keys of a rel-pos attention tile
+    "RPA_BWD_KEYS": 64,        # keys of a rel-pos attention backward block
 }
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

@@ -21,11 +21,11 @@ On the card (float32, d 32 or 64) the kernels never write an (n, n) or an
 
 - :func:`relpos_fwd`: one launch, flash-style over 32 × 32 tiles with an
   online softmax; o and a log-sum-exp a row.
-- :func:`relpos_bwd`: three launches and no atomics: the tiles (a block per
-  utterance, group of :func:`heads_per_block` heads and key tile, walking
-  the query tiles), then the sums of dQ's partials over the key tiles and
-  of dE's partials over the blocks, each in index order: the same bits on
-  every run.
+- :func:`relpos_bwd`: three launches and no atomics: the tiles (a block of
+  256 threads per utterance, group of :func:`heads_per_block` heads and
+  KEY_TILE keys, walking the queries TILE at a time), then the sums of dQ's
+  partials over the key tiles and of dE's partials over the blocks, each in
+  index order: the same bits on every run.
 
 :class:`RelPosAttnFn` ties them together under autograd.
 :func:`relpos_attn_tiled_plain` follows the kernels' tiles, their online
@@ -43,9 +43,10 @@ import torch.nn.functional as F
 
 from speechlid_tpu_torch.ops.cuda import _build
 
-TILE = _build.TILING["RPA_TILE"]  # queries and keys of a tile (the kernels' too)
+TILE = _build.TILING["RPA_TILE"]  # queries and keys of a forward tile, queries of a backward step
+KEY_TILE = _build.TILING["RPA_BWD_KEYS"]  # keys of a backward block
 HEAD_DIMS = (32, 64)              # the head widths the kernels are built for
-MIN_BWD_BLOCKS = 1980             # five waves of three backward blocks on 132 SMs
+MIN_BWD_BLOCKS = 1536             # about six waves of two 64-wide backward blocks on 132 SMs
 _NEG = torch.finfo(torch.float32).min
 
 
@@ -93,76 +94,95 @@ def tiles(n: int) -> int:
     return -(-n // TILE)
 
 
-def heads_per_block(b: int, h: int, n: int) -> int:
+def key_tiles(n: int) -> int:
+    """Backward blocks' key tiles of KEY_TILE frames that cover n frames."""
+    return -(-n // KEY_TILE)
+
+
+def heads_per_block(b: int, h: int, n: int, d: int) -> int:
     """G, the heads a backward block takes: the most, a divisor of h, that
-    still leave MIN_BWD_BLOCKS blocks (b · h/G · key tiles), else 1.  More
-    heads a block sum more of dE in the block and leave fewer partials."""
+    still leave MIN_BWD_BLOCKS blocks (b · h/G · key tiles) of 64-wide heads,
+    a block of d = 32 counting half (it does half the products a step), else
+    1.  More heads a block sum more of dE in the block and leave fewer
+    partials; more blocks balance the ragged rows better over the SMs."""
     for g in range(h, 0, -1):
-        if h % g == 0 and b * (h // g) * tiles(n) >= MIN_BWD_BLOCKS:
+        if h % g == 0 and b * (h // g) * key_tiles(n) * d >= MIN_BWD_BLOCKS * 64:
             return g
     return 1
 
 
-def band_rows(i0: int, j0: int, max_pos_emb: int) -> torch.Tensor:
-    """(2·TILE − 1,): the table rows of a tile's diagonals, e = i − j + TILE − 1
-    for its pairs (tile-local i, j): clip(i0 − j0 + e − TILE + 1, ±P) + P."""
-    e = torch.arange(2 * TILE - 1)
-    return (i0 - j0 + e - (TILE - 1)).clamp(-max_pos_emb, max_pos_emb) + max_pos_emb
+def bwd_partials(b: int, h: int, n: int, d: int) -> Tuple[Tuple[int, ...], Tuple[int, ...]]:
+    """Shapes of the backward's scratch: dQ's partials (key tiles, b·h, NP,
+    d) and dE's (b·h/G, key tiles, NP + KEY_TILE − 1, d), NP = tiles(n)·TILE."""
+    nkt, np_ = key_tiles(n), tiles(n) * TILE
+    return ((nkt, b * h, np_, d),
+            (b * (h // heads_per_block(b, h, n, d)), nkt, np_ + KEY_TILE - 1, d))
+
+
+def band_rows(i0: int, j0: int, max_pos_emb: int, keys: int = TILE) -> torch.Tensor:
+    """(TILE + keys − 1,): the table rows of the diagonals of TILE queries
+    from i0 against ``keys`` keys from j0, e = i − j + keys − 1 for their
+    pairs (tile-local i, j): clip(i0 − j0 + e − keys + 1, ±P) + P."""
+    e = torch.arange(TILE + keys - 1)
+    return (i0 - j0 + e - (keys - 1)).clamp(-max_pos_emb, max_pos_emb) + max_pos_emb
 
 
 def table_row_span(row: int, j0: int, max_pos_emb: int, rows: int) -> Tuple[int, int]:
     """[lo, hi] of the partial rows ρ of a backward block at key tile j0
-    (ρ = i − j + j0 + TILE − 1) whose distance clips to table ``row``: one ρ
-    inside, every ρ beyond ±P at the edge rows; cut to [0, rows)."""
+    (ρ = i − j + j0 + KEY_TILE − 1) whose distance clips to table ``row``:
+    one ρ inside, every ρ beyond ±P at the edge rows; cut to [0, rows)."""
     p = max_pos_emb
-    lo = 0 if row == 0 else max(0, row - p + j0 + TILE - 1)
-    hi = rows - 1 if row == 2 * p else min(rows - 1, row - p + j0 + TILE - 1)
+    lo = 0 if row == 0 else max(0, row - p + j0 + KEY_TILE - 1)
+    hi = rows - 1 if row == 2 * p else min(rows - 1, row - p + j0 + KEY_TILE - 1)
     return lo, hi
 
 
 def relpos_attn_tiled_plain(
     q: torch.Tensor, kv: torch.Tensor, table: torch.Tensor, mask: Optional[torch.Tensor],
-    heads: int, max_pos_emb: int, dout: torch.Tensor,
+    heads: int, max_pos_emb: int, dout: torch.Tensor, seen: Optional[dict] = None,
 ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, ...]]:
     """The kernels' tiles in plain PyTorch, float32: (o, (dq, dkv, dtable))
     for the output gradient ``dout``.
 
-    The forward walks each query tile's key tiles with the online softmax
-    (a padded query row's logits 0 over the n keys, masked and absent keys
-    −inf), the backward each key tile's query tiles: P from the saved
-    log-sum-exp, dS, dK and dV, dE / s by the tile's diagonals into the
-    partial of (utterance, head group, key tile) at rows i0 + e, dQ's
-    partial of the key tile; then the sums over the key tiles and, table
-    row by table row, over the blocks' partial rows (:func:`table_row_span`),
-    times s."""
+    The forward walks each query tile's key tiles (TILE × TILE) with the
+    online softmax (a padded query row's logits 0 over the n keys, masked
+    and absent keys −inf).  The backward walks each block's KEY_TILE keys
+    TILE queries at a time: the logits of each TILE-key half by the
+    forward's function, over its slice of the step's band; P from the saved
+    log-sum-exp, dS, dK and dV; dQ's partial of the key tile; dE / s by the
+    step's diagonals, added into the partial of (utterance, head group, key
+    tile) at rows i0 + e head by head of the group, each head's steps in
+    order.  Then the sums over the key tiles in order and, table row by
+    table row, over the blocks' partial rows (:func:`table_row_span`),
+    times s.  ``seen``, a dict, takes the (b, h, NP, NP) logits the forward
+    computed (``"fwd"``) and those the backward recomputed (``"bwd"``)."""
     b, n, hd = q.shape
     h, p = heads, max_pos_emb
     d = hd // h
     s = d ** -0.5
-    nt = tiles(n)
-    np_, nr = nt * TILE, nt * TILE + TILE - 1
+    nt, nkt = tiles(n), key_tiles(n)
+    np_, nk, nr = nt * TILE, nkt * KEY_TILE, nt * TILE + KEY_TILE - 1
 
-    def heads_first(x):  # (b, n, h·d) → (b, h, NP, d), zero rows past n
-        return F.pad(x.float().reshape(b, n, h, d).transpose(1, 2), (0, 0, 0, np_ - n))
+    def heads_first(x, rows):  # (b, n, h·d) → (b, h, rows, d), zero rows past n
+        return F.pad(x.float().reshape(b, n, h, d).transpose(1, 2), (0, 0, 0, rows - n))
 
-    qh = heads_first(q)
-    k, v = heads_first(kv[..., :hd]), heads_first(kv[..., hd:])
-    g_out = heads_first(dout)
+    qh, g_out = heads_first(q, np_), heads_first(dout, np_)
+    k, v = heads_first(kv[..., :hd], nk), heads_first(kv[..., hd:], nk)
     idx = torch.arange(np_)
     valid = torch.ones((b, n), dtype=torch.bool) if mask is None else mask.cpu()
-    state = torch.zeros((b, np_), dtype=torch.long)  # 0 past n, 1 padded, 2 valid
+    state = torch.zeros((b, nk), dtype=torch.long)  # 0 past n, 1 padded, 2 valid
     state[:, :n] = 1 + valid.long()
     e_of = torch.arange(TILE)[:, None] - torch.arange(TILE)[None, :] + TILE - 1  # (i, j) → e
     table = table.float()
+    if seen is not None:
+        seen.update(fwd=torch.zeros((b, h, np_, np_)), bwd=torch.zeros((b, h, np_, np_)))
 
-    def logits(i0, j0):
-        band = table[band_rows(i0, j0, p)]                            # (63, d)
+    def logits(i0, j0, band):  # a TILE × TILE tile over its band (2·TILE − 1 rows)
         qt, kt = qh[:, :, i0:i0 + TILE], k[:, :, j0:j0 + TILE]
         sc = (qt @ kt.transpose(-1, -2) + torch.einsum("bhic,ijc->bhij", qt, band[e_of])) * s
         row, key = state[:, None, i0:i0 + TILE, None], state[:, None, None, j0:j0 + TILE]
         sc = torch.where(row == 1, torch.zeros(()), sc)
-        sc = torch.where((key == 0) | ((key == 1) & (row != 1)), torch.full((), -torch.inf), sc)
-        return sc, band, row, key
+        return torch.where((key == 0) | ((key == 1) & (row != 1)), torch.full((), -torch.inf), sc)
 
     o = torch.zeros((b, h, np_, d))
     lse = torch.zeros((b, h, np_))
@@ -171,7 +191,9 @@ def relpos_attn_tiled_plain(
         l_sum = torch.zeros((b, h, TILE))
         acc = torch.zeros((b, h, TILE, d))
         for j0 in range(0, np_, TILE):
-            sc = logits(i0, j0)[0]
+            sc = logits(i0, j0, table[band_rows(i0, j0, p)])
+            if seen is not None:
+                seen["fwd"][:, :, i0:i0 + TILE, j0:j0 + TILE] = sc
             m_new = torch.maximum(m, sc.amax(-1))
             mu = torch.where(m_new == -torch.inf, torch.zeros(()), m_new)
             alpha = torch.exp(m - mu)
@@ -184,36 +206,51 @@ def relpos_attn_tiled_plain(
     o = o * (idx < n)[:, None]
     d_row = (g_out * o).sum(-1)                                       # D_i = dO_i · o_i
 
-    g = heads_per_block(b, h, n)
-    part_dq = torch.zeros((nt, b, h, np_, d))
-    part_de = torch.zeros((b, h // g, nt, nr, d))
+    g = heads_per_block(b, h, n, d)
+    part_dq = torch.zeros((nkt, b, h, np_, d))
+    part_de = torch.zeros((b, h // g, nkt, nr, d))
     dk, dv = torch.zeros_like(k), torch.zeros_like(v)
-    for kt, j0 in enumerate(range(0, np_, TILE)):
+    nd = TILE + KEY_TILE - 1                                          # a step's diagonals
+    e_step = torch.arange(TILE)[:, None] - torch.arange(KEY_TILE)[None, :] + KEY_TILE - 1
+    for kt, j0 in enumerate(range(0, nk, KEY_TILE)):
+        keys, steps = slice(j0, j0 + KEY_TILE), []
         for i0 in range(0, np_, TILE):
-            sc, band, row, key = logits(i0, j0)
-            dp = g_out[:, :, i0:i0 + TILE] @ v[:, :, j0:j0 + TILE].transpose(-1, -2)
-            pr = torch.exp(sc - lse[:, :, i0:i0 + TILE, None])
+            rows = slice(i0, i0 + TILE)
+            band = table[band_rows(i0, j0, p, KEY_TILE)]             # (nd, d)
+            # each TILE-key half as the forward's tile: its band rows from (1 − half)·TILE
+            sc = torch.cat([logits(i0, j0 + half * TILE,
+                                   band[(1 - half) * TILE:(1 - half) * TILE + 2 * TILE - 1])
+                            for half in (0, 1)], -1)
+            if seen is not None and j0 < np_:
+                seen["bwd"][:, :, rows, j0:j0 + KEY_TILE] = sc[..., :np_ - j0]
+            row, key = state[:, None, rows, None], state[:, None, None, keys]
+            dp = g_out[:, :, rows] @ v[:, :, keys].transpose(-1, -2)
+            pr = torch.exp(sc - lse[:, :, rows, None])
             pr = torch.where((row == 0) | (key == 0), torch.zeros(()), pr)
-            ds = torch.where((row == 2) & (key == 2),
-                             pr * (dp - d_row[:, :, i0:i0 + TILE, None]), torch.zeros(()))
-            dv[:, :, j0:j0 + TILE] += pr.transpose(-1, -2) @ g_out[:, :, i0:i0 + TILE]
-            dk[:, :, j0:j0 + TILE] += ds.transpose(-1, -2) @ qh[:, :, i0:i0 + TILE]
-            skew = torch.zeros((b, h, TILE, 2 * TILE - 1))            # G[i][i − j + 31] = dS_ij
-            skew.scatter_(-1, e_of.expand(b, h, TILE, TILE), ds)
-            de = skew.transpose(-1, -2) @ qh[:, :, i0:i0 + TILE]       # (b, h, 63, d), / s
-            part_de[:, :, kt, i0:i0 + 2 * TILE - 1] += de.reshape(b, h // g, g, -1, d).sum(2)
-            part_dq[kt, :, :, i0:i0 + TILE] = s * (ds @ k[:, :, j0:j0 + TILE] + skew @ band)
-    dq = part_dq.sum(0)
+            ds = torch.where((row == 2) & (key == 2), pr * (dp - d_row[:, :, rows, None]),
+                             torch.zeros(()))
+            dv[:, :, keys] += pr.transpose(-1, -2) @ g_out[:, :, rows]
+            dk[:, :, keys] += ds.transpose(-1, -2) @ qh[:, :, rows]
+            skew = torch.zeros((b, h, TILE, nd))                      # G[i][i − j + 63] = dS_ij
+            skew.scatter_(-1, e_step.expand(b, h, TILE, KEY_TILE), ds)
+            steps.append(skew.transpose(-1, -2) @ qh[:, :, rows])      # (b, h, nd, d), / s
+            part_dq[kt, :, :, rows] = s * (ds @ k[:, :, keys] + skew @ band)
+        for hh in range(g):  # the group's heads in turn, each head's steps in order
+            for i0, de in zip(range(0, np_, TILE), steps):
+                part_de[:, :, kt, i0:i0 + nd] += de.reshape(b, h // g, g, nd, d)[:, :, hh]
+    dq = part_dq[0]
+    for kt in range(1, nkt):
+        dq = dq + part_dq[kt]
     dtable = torch.zeros_like(table)
-    blocks = part_de.reshape(-1, nt, nr, d)
+    blocks = part_de.reshape(-1, nkt, nr, d)
     for row in range(2 * p + 1):
-        for kt in range(nt):
-            lo, hi = table_row_span(row, kt * TILE, p, nr)
+        for kt in range(nkt):
+            lo, hi = table_row_span(row, kt * KEY_TILE, p, nr)
             if lo <= hi:
                 dtable[row] += blocks[:, kt, lo:hi + 1].sum((0, 1))
     dtable, dk = dtable * s, dk * s
 
-    def back(x):  # (b, h, NP, d) → (b, n, h·d)
+    def back(x):  # (b, h, rows, d) → (b, n, h·d)
         return x[:, :, :n].transpose(1, 2).reshape(b, n, hd)
 
     return back(o), (back(dq), torch.cat([back(dk), back(dv)], -1), dtable)
@@ -293,11 +330,10 @@ def relpos_bwd(q: torch.Tensor, kv: torch.Tensor, table: torch.Tensor,
     q, kv, table, m = q.contiguous(), kv.contiguous(), table.contiguous(), _mask_bytes(mask)
     o, dout = o.contiguous(), dout.contiguous()
     b, n, _ = q.shape
-    nt = tiles(n)
-    g = heads_per_block(b, heads, n)
-    part_dq = torch.empty((nt, b * heads, nt * TILE, d), dtype=torch.float32, device=q.device)
-    part_de = torch.empty((b * (heads // g), nt, nt * TILE + TILE - 1, d), dtype=torch.float32,
-                          device=q.device)
+    g = heads_per_block(b, heads, n, d)
+    dq_shape, de_shape = bwd_partials(b, heads, n, d)
+    part_dq = torch.empty(dq_shape, dtype=torch.float32, device=q.device)
+    part_de = torch.empty(de_shape, dtype=torch.float32, device=q.device)
     dq, dkv, dtable = torch.empty_like(q), torch.empty_like(kv), torch.empty_like(table)
     with torch.cuda.device(q.device):
         _build.launch(

@@ -6,9 +6,11 @@ which the module chooses the kernels, and what the wrapper refuses.  The
 CUDA kernels are held against the plain version on the card by
 ``chip_smoke.py --only relpos_attn``.
 
-The emulation's tolerance is 1e-5 of each output's largest entry: float32
-sums of up to 649 keys (and, for the table, over every pair of a distance)
-in another order than the chain's."""
+The emulation follows the backward's blocks of 64 keys walking 32 queries a
+step: it is held against autograd through the plain version across both
+tiles' edges, with G heads a block 1 and the most.  Its tolerance is 1e-5 of
+each output's largest entry: float32 sums of up to 649 keys (and, for the
+table, over every pair of a distance) in another order than the chain's."""
 
 from types import SimpleNamespace
 
@@ -126,6 +128,64 @@ def test_tiled_emulation_matches_plain(b, n, h, d, p, masked, min_blocks, monkey
             assert rel_err(g, r) <= TOL, (name, rel_err(g, r))
 
 
+# lengths across the backward's 64-key tiles and the forward's 32-row ones
+EDGES = [1, 63, 64, 65, 127, 128, 129, 324, 649]
+MASKS = ["valid", "ragged", "dead"]
+
+
+def edge_inputs(n, d, kind, seed):
+    """b = 2, h = 2, P = 40 (the clip live past n = 41); ``kind``: no mask,
+    a ragged one (the first utterance whole), or one whose second utterance
+    is padded throughout."""
+    q, kv, table, mask, dout = inputs(2, n, 2, d, 40, kind != "valid", seed=seed)
+    if kind == "dead":
+        mask[1] = False
+    return q, kv, table, mask, dout
+
+
+@pytest.mark.parametrize("n", EDGES)
+@pytest.mark.parametrize("d", [32, 64])
+@pytest.mark.parametrize("kind", MASKS)
+def test_tiled_emulation_across_tile_edges(n, d, kind, monkeypatch):
+    """The emulated tiles against autograd through the plain version at
+    lengths on each side of the tiles' edges; G alternates between 1 and the
+    most (2), so each width and mask meets both."""
+    g_most = (EDGES.index(n) + MASKS.index(kind)) % 2 == 0
+    monkeypatch.setattr(rk, "MIN_BWD_BLOCKS", 1 if g_most else 10 ** 9)
+    assert rk.heads_per_block(2, 2, n, d) == (2 if g_most else 1)
+    q, kv, table, mask, dout = edge_inputs(n, d, kind, seed=n + d)
+    ref = grads(lambda *x: rk.relpos_attn_plain(*x, mask, 2, 40), q, kv, table, dout)
+    out, got = rk.relpos_attn_tiled_plain(q, kv, table, mask, 2, 40, dout)
+    # one key: the softmax is flat, so dS = P(dP − D) is the rounding of dP −
+    # D and dq, dtable are that times k and E, against 0 in the plain chain
+    d_max = (dout.view(2, n, 2, d) * kv[..., 2 * d:].reshape(2, n, 2, d)).sum(-1).abs().max()
+    flat = TOL * d_max * (kv[..., :2 * d].abs().max() + table.abs().max())
+    for name, g, r in zip(("out", "dq", "dkv", "dtable"), (out, *got), ref):
+        assert g.shape == r.shape, name
+        assert torch.isfinite(g).all(), name
+        if n == 1 and name in ("dq", "dtable"):
+            assert max(g.abs().max(), r.abs().max()) <= flat, name
+        else:
+            assert rel_err(g, r) <= TOL, (name, rel_err(g, r))
+
+
+@pytest.mark.parametrize("n,d,kind", [(129, 64, "ragged"), (65, 32, "dead"), (200, 32, "valid")])
+def test_backward_recomputes_the_forwards_logits_bit_for_bit(n, d, kind):
+    """The backward's 64-key steps take each 32-key half's logits by the
+    forward's function over its slice of the step's band: every logit the
+    forward computed, the backward computes again, bit for bit (so P =
+    exp(S − lse) is the forward's)."""
+    q, kv, table, mask, dout = edge_inputs(n, d, kind, seed=7)
+    seen = {}
+    rk.relpos_attn_tiled_plain(q, kv, table, mask, 2, 40, dout, seen=seen)
+    assert torch.equal(seen["fwd"], seen["bwd"])
+    assert torch.isfinite(seen["fwd"]).any()
+    band = rk.band_rows(64, 0, 40, rk.KEY_TILE)
+    for half in (0, 1):  # each half's slice is the forward tile's band
+        start = (1 - half) * rk.TILE
+        assert torch.equal(band[start:start + 2 * rk.TILE - 1], rk.band_rows(64, half * rk.TILE, 40))
+
+
 def test_padded_rows_average_every_key_and_pass_no_gradient():
     q, kv, table, mask, dout = inputs(2, 40, 2, 32, 8, True)
     out, (dq, dkv, dtable) = rk.relpos_attn_tiled_plain(q, kv, table, mask, 2, 8, dout)
@@ -136,11 +196,35 @@ def test_padded_rows_average_every_key_and_pass_no_gradient():
 
 
 def test_heads_per_block():
-    assert rk.heads_per_block(128, 4, 324) == 2     # 128 · 2 · 11 key tiles = 2816 blocks
-    assert rk.heads_per_block(128, 8, 324) == 4     # 128 · 2 · 11 = 2816; 128 · 1 · 11 = 1408
-    assert rk.heads_per_block(8, 8, 649) == 1       # 8 · 8 · 21 = 1344: every head its block
-    assert rk.heads_per_block(512, 4, 74) == 2      # 512 · 1 · 3 = 1536 is too few
-    assert rk.heads_per_block(1, 3, 10) == 1
+    assert rk.heads_per_block(128, 4, 324, 64) == 2  # 128 · 2 · 6 key tiles = 1536 blocks
+    assert rk.heads_per_block(128, 8, 324, 32) == 2  # 128 · 4 · 6 = 3072 blocks of half work
+    assert rk.heads_per_block(8, 8, 649, 32) == 1    # 8 · 8 · 11 = 704: every head its block
+    assert rk.heads_per_block(512, 4, 74, 64) == 2   # 512 · 2 · 2 = 2048; 512 · 1 · 2 = 1024
+    assert rk.heads_per_block(1, 3, 10, 64) == 1
+
+
+def test_heads_per_block_counts_key_tiles_of_64():
+    """The rule counts blocks of KEY_TILE keys: (168, 4, 384) has 6 key
+    tiles, so four heads a block would leave 1008 blocks, under six waves of
+    two; by 32-key tiles (12) the same four heads left 2016.  At the SSL
+    heads' (8, 8, 649) the grid still outnumbers two blocks on each of 132
+    SMs."""
+    assert rk.KEY_TILE == 64 and rk.key_tiles(384) == 6 and rk.tiles(384) == 12
+    assert rk.heads_per_block(168, 4, 384, 64) == 2
+    assert 168 * rk.tiles(384) >= 1980 and 168 * rk.key_tiles(384) < rk.MIN_BWD_BLOCKS
+    # a block of 32-wide heads counts half: the same grid takes fewer heads a block
+    assert rk.heads_per_block(128, 8, 324, 64) == 4 and rk.heads_per_block(128, 8, 324, 32) == 2
+    assert 8 * 8 // rk.heads_per_block(8, 8, 649, 32) * rk.key_tiles(649) >= 2 * 132
+
+
+def test_bwd_partials():
+    """The backward's scratch: dQ's partials once for every 64 keys (6 at n
+    = 324, where 32-key tiles gave 11), rows as the log-sum-exp (NP = 352),
+    and dE's a block each with NP + 63 rows."""
+    assert rk.bwd_partials(128, 4, 324, 64) == ((6, 512, 352, 64), (256, 6, 415, 64))
+    assert rk.bwd_partials(128, 8, 324, 32) == ((6, 1024, 352, 32), (512, 6, 415, 32))
+    assert rk.bwd_partials(8, 8, 649, 32) == ((11, 64, 672, 32), (64, 11, 735, 32))
+    assert rk.bwd_partials(2, 2, 1, 64) == ((1, 4, 32, 64), (4, 1, 95, 64))
 
 
 @pytest.mark.parametrize("p", [0, 3, 512])
@@ -148,13 +232,13 @@ def test_heads_per_block():
 def test_table_rows_take_each_partial_row_once(p, n):
     """Over the table's rows the spans of a block's partial rows cover each
     row ρ once, at the row its distance clips to."""
-    rows = rk.tiles(n) * rk.TILE + rk.TILE - 1
-    for j0 in range(0, rk.tiles(n) * rk.TILE, rk.TILE):
+    rows = rk.tiles(n) * rk.TILE + rk.KEY_TILE - 1
+    for j0 in range(0, rk.key_tiles(n) * rk.KEY_TILE, rk.KEY_TILE):
         seen = torch.zeros(rows, dtype=torch.long)
         for row in range(2 * p + 1):
             lo, hi = rk.table_row_span(row, j0, p, rows)
             for rho in range(lo, hi + 1):
-                assert min(max(rho - j0 - rk.TILE + 1, -p), p) + p == row
+                assert min(max(rho - j0 - rk.KEY_TILE + 1, -p), p) + p == row
                 seen[rho] += 1
         assert torch.all(seen == 1)
 
