@@ -11,7 +11,7 @@
     python3 chip_smoke.py --only mp  # tensor, expert, pipeline, sequence parallelism alone
     python3 chip_smoke.py --only large  # WavLM-Large, remat, async checkpoints, float16 alone
     python3 chip_smoke.py --only subsample  # the Conv2d subsampling kernels alone
-    python3 chip_smoke.py --only relpos_attn  # the rel-pos attention kernels alone
+    python3 chip_smoke.py --only relpos_attn  # the rel-pos kernels and their two upstreams
 
 It builds the port's CUDA kernels from ``speechlid_tpu_torch/csrc`` (into
 ``build/``), holds each kernel, forward and backward, and each fused mode of
@@ -44,7 +44,10 @@ in inference (``wavlm_model_card_vs_cpu``) and for one deterministic train
 step (``wavlm_train_card_vs_cpu``), served on ``/lid`` (``wavlm_serve``),
 and through the training CLI on ``configs/lid_wavlm.yaml`` with the Base+
 ``module.ssl_config`` across both freeze gates with span masking, a resume,
-a served request and ``cli.test_lid`` on its checkpoint (``cli_wavlm``).
+a served request and ``cli.test_lid`` on its checkpoint (``cli_wavlm``);
+then ``configs/torch/lid_wav2vec_conformer.yaml`` at 4 layers through the
+training CLI across its transformer gate, its Transformer-XL attention
+counted through the rel-pos kernels (``cli_w2v2_conformer``).
 Then both models in bfloat16 (``dtype="bfloat16"``; WavLM's
 ``ssl_config.dtype`` too): card against CPU in inference
 (``bf16_model_card_vs_cpu``, ``bf16_wavlm_model_card_vs_cpu``) and for a
@@ -232,8 +235,13 @@ from speechlid_tpu_torch.ops.cuda.fbank_kernel import (
 from speechlid_tpu_torch.ops.cuda import relpos_attn_kernel
 from speechlid_tpu_torch.ops.cuda.relpos_attn_kernel import (
     relpos_attn_plain,
+    relpos_attn_xl,
+    relpos_attn_xl_plain,
     relpos_bwd,
     relpos_fwd,
+    relpos_xl_bwd,
+    relpos_xl_fwd,
+    xl_operands,
 )
 from speechlid_tpu_torch.ops.cuda.subsample_kernel import (
     out_frames,
@@ -1512,6 +1520,199 @@ def _relpos_launches() -> tuple:
     return _build.launched(entry="relpos_attn_fwd"), _build.launched(entry="relpos_attn_bwd")
 
 
+# (b, h, n, d) of the Transformer-XL instantiation: wav2vec2_conformer_large.
+# train_bucket13s's 24 layers (13 s, P = n − 1, no mask: mask_attention=False)
+RELPOS_XL_SHAPE = (8, 16, 649, 64)
+
+
+def relpos_xl_rows(gen: torch.Generator) -> tuple:
+    """The XL instantiation at the cell's shape against HF's chain
+    (``relpos_attn_xl_plain``) under autograd, every input's gradient (q,
+    kv, the heads' table, u and v through ``xl_operands``): without a mask
+    (the cell's call, timed) and with the training mix's lengths and one
+    utterance padded past its first frame (``mask_attention=True``); each
+    kernel call twice (the same bits), the calls' peak memory, times beside
+    the FFMA bound and the chain.  → (rows, ok)."""
+    b, h, n, d = RELPOS_XL_SHAPE
+    p = n - 1
+    rows, ok = [], True
+    for masked in (False, True):
+        q, kv, _, mask, dout = _relpos_inputs(b, h, n, d, "training", gen)
+        mask = mask if masked else None
+        pos = torch.randn(h, 2 * p + 1, d, generator=gen).cuda()
+        u, v = (0.5 * torch.randn(h, d, generator=gen)).cuda(), \
+            (0.5 * torch.randn(h, d, generator=gen)).cuda()
+        q_u, beta = xl_operands(q, pos, u, v)
+        clear_launches("relpos_attn_xl")
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        o, lse = relpos_xl_fwd(q_u, kv, pos, beta, mask, h)
+        torch.cuda.synchronize()
+        fwd_peak = torch.cuda.max_memory_allocated() - base
+        torch.cuda.reset_peak_memory_stats()
+        grads = relpos_xl_bwd(q_u, kv, pos, beta, mask, o, lse, dout, h)
+        torch.cuda.synchronize()
+        bwd_peak = torch.cuda.max_memory_allocated() - base
+        launched = (_build.launched(entry="relpos_attn_xl_fwd"),
+                    _build.launched(entry="relpos_attn_xl_bwd"))
+        o2, lse2 = relpos_xl_fwd(q_u, kv, pos, beta, mask, h)
+        again = relpos_xl_bwd(q_u, kv, pos, beta, mask, o2, lse2, dout, h)
+        same_bits = torch.equal(o, o2) and all(torch.equal(g, r) for g, r in zip(grads, again))
+        leaves = [x.clone().requires_grad_() for x in (q, kv, pos, u, v)]
+        got = relpos_attn_xl(*leaves, mask, h)
+        got_grads = torch.autograd.grad(got, leaves, dout)
+        ref = relpos_attn_xl_plain(*leaves, mask, h)
+        ref_grads = torch.autograd.grad(ref, leaves, dout, retain_graph=True)
+        errs = {"o": _rel_err(got.detach(), ref.detach()),
+                **{k: _rel_err(g, r) for k, g, r in zip(("dq", "dkv", "dpos", "du", "dv"),
+                                                        got_grads, ref_grads)}}
+        ok = ok and launched == (1, 4) and same_bits and max(errs.values()) <= RELPOS_TOL
+        if not masked:
+            with torch.no_grad():
+                fwd_ms = events_ms(lambda: relpos_xl_fwd(q_u, kv, pos, beta, mask, h))
+                chain_fwd_ms = events_ms(lambda: relpos_attn_xl_plain(q, kv, pos, u, v, mask, h))
+            bwd_ms = events_ms(lambda: relpos_xl_bwd(q_u, kv, pos, beta, mask, o, lse, dout, h))
+            chain_bwd_ms = events_ms(lambda: torch.autograd.grad(ref, leaves, dout,
+                                                                 retain_graph=True))
+            flops = relpos_flops(b, h, n, d)
+            for direction, ms, chain_ms, fl, peak in (
+                    ("forward", fwd_ms, chain_fwd_ms, flops, fwd_peak),
+                    ("backward", bwd_ms, chain_bwd_ms, 2 * flops, bwd_peak)):
+                b_ms, b_by = bound_ms(0.0, fl)
+                rows.append({
+                    "name": f"relpos_attn_xl_{direction}", "route": "cuda",
+                    "source": "speechlid_tpu_torch/csrc/relpos_attn.cu (XL)",
+                    "replaces": "none (HF's chain: q+u, q+v products, rel-shift, softmax)",
+                    "shape": f"(b, h, n, d) = {RELPOS_XL_SHAPE}, P = n - 1, no mask",
+                    "ms": ms, "chain_ms": chain_ms, "plain_ms": chain_ms,
+                    "bound_ms": b_ms, "bound_by": b_by, "flops": fl,
+                    "share_of_fp32_peak": b_ms / ms, "launches": launched[direction != "forward"],
+                    "peak_bytes": peak, "heads_per_block": 1,
+                    "bhnn_float32_bytes": 4 * b * h * n * n})
+        rows[-1].setdefault("checks", {})["masked" if masked else "unmasked"] = {
+            "max_rel_err_vs_plain": errs, "same_bits_twice": same_bits}
+        del q, kv, pos, u, v, q_u, beta, o, lse, grads, again, o2, lse2, got, got_grads
+        del ref, ref_grads, leaves
+        torch.cuda.empty_cache()
+    return rows, ok
+
+
+# The wav2vec 2.0 Conformer Large joint model (configs/torch/
+# lid_wav2vec_conformer.yaml's module block) at its published widths with 4
+# of its 24 layers; for the card-vs-CPU step no dropout, span masks or layer
+# drop.  Its attention is the kernels' Transformer-XL form at d = 64.
+W2V2_CONFORMER_LAYERS = 4
+W2V2_CONFORMER = dict(
+    lang2vocab=FLAGSHIP["lang2vocab"], lang2index=FLAGSHIP["lang2index"],
+    featurizer="wav2vec2_conformer", feature_selection="last_hidden_state",
+    ssl_config=dict(encoder_layers=W2V2_CONFORMER_LAYERS, normalize=True, dropout=0.0,
+                    attention_dropout=0.0, mask_prob=0.0, encoder_layerdrop=0.0),
+    head_type="conformer_linear", head_layers=1, head_dim_head=32, head_num_head=8,
+    dropout=0.0)
+
+
+def _relpos_launches_by_form() -> dict:
+    return {"xl_fwd": _build.launched(entry="relpos_attn_xl_fwd"),
+            "xl_bwd": _build.launched(entry="relpos_attn_xl_bwd"),
+            "shaw_fwd": _build.launched(entry="relpos_attn_fwd"),
+            "shaw_bwd": _build.launched(entry="relpos_attn_bwd")}
+
+
+def w2v2_conformer_card_vs_cpu(gen: torch.Generator) -> tuple:
+    """The wav2vec 2.0 Conformer upstream on the main path:
+    ``LidASRTask(featurizer="wav2vec2_conformer")`` (:data:`W2V2_CONFORMER`)
+    with random weights (``pos_bias_u`` and ``pos_bias_v`` away from 0) on
+    the card (kernels) and the same state_dict on the CPU (HF's rel-shift
+    chain): two ``infer`` calls on rows of 4 and 3 s (the scores within
+    ``MODEL_TOL``, ``pred_lang`` equal), then one train step (the loss and
+    every gradient within ``TRAIN_TOL``); the rel-pos launches of each, the
+    counts cleared just before: in scoring one XL forward a layer and one
+    Shaw forward a head, a call; in the step one XL forward and four
+    backward a layer, one Shaw forward and three backward (the own head).
+    → (report, ok)."""
+    card = LidASRTask(**W2V2_CONFORMER, device="cuda")
+    init_random_(card.model, gen)
+    cpu = LidASRTask(**W2V2_CONFORMER, device="cpu")
+    cpu.model.load_state_dict(card.model.state_dict())
+    wavs = 0.1 * torch.randn(2, 4 * SR, generator=gen)
+    lengths = torch.tensor([4 * SR, 3 * SR])
+    clear_launches("relpos")
+    got, ref, _, errs = infer_card_vs_cpu(card, cpu, wavs, lengths)
+    scoring = _relpos_launches_by_form()
+    clear_launches("relpos")
+    batch = synthetic_batch(np.random.RandomState(3), lang=1, b=2, seconds=4.0)
+    step = step_card_vs_cpu(card, cpu, batch, ("depthwise.bias",))
+    training = _relpos_launches_by_form()
+    layers = W2V2_CONFORMER_LAYERS
+    checks = {
+        "scores": errs["max_abs_err_scores"] <= MODEL_TOL,
+        "pred_lang": torch.equal(got["pred_lang"], ref["pred_lang"]),
+        "step": (step["same_leaves"] and step["rel_err_loss"] <= TRAIN_TOL
+                 and step["max_rel_err_gradient"] <= TRAIN_TOL),
+        "xl_leaves_compared": all(  # u, v and linear_pos take gradients, compared above
+            any(n.endswith(leaf) and p.grad is not None for n, p in card.model.named_parameters())
+            for leaf in ("pos_bias_u", "pos_bias_v", "linear_pos.weight")),
+        "scoring_launches": scoring == {"xl_fwd": 2 * layers, "xl_bwd": 0,
+                                        "shaw_fwd": 2 * N_LANG, "shaw_bwd": 0},
+        "train_step_launches": training == {"xl_fwd": layers, "xl_bwd": 4 * layers,
+                                            "shaw_fwd": 1, "shaw_bwd": 3},
+    }
+    report = {"config": f"wav2vec 2.0 Conformer Large widths, {layers} of 24 layers, "
+                        "heads 3x(40,96,88) at 1024",
+              "params": sum(p.numel() for p in card.model.parameters()),
+              "infer_calls": 2, **errs, "scoring_launches": scoring,
+              "train_step": {k: v for k, v in step.items() if k != "launches_per_train_step"},
+              "train_step_launches": training, "checks": checks}
+    del card, cpu
+    torch.cuda.empty_cache()
+    return report, all(checks.values())
+
+
+W2V2_CONFORMER_CLI_FACTOR = 0.05  # the recipe's 72 batches of 4 an epoch cut to 3
+
+
+def phase_cli_w2v2_conformer(root: str, corpus: str) -> dict:
+    """The training CLI on ``configs/torch/lid_wav2vec_conformer.yaml`` at
+    :data:`W2V2_CONFORMER_LAYERS` layers on the corpus (without the recipe's
+    ``wav_augment``, which the CLI refuses as the JAX CLI does): three
+    epochs of 3 steps, each followed by an eval of the val clips; epochs 0
+    and 1 hold the layers frozen (``freeze_transformer_epoch`` 1), epoch 2
+    trains them.  The gradient reaches the attention in every epoch (the
+    front end's LayerNorm and ``mask_emb`` train throughout), so the XL
+    launches of the run (counts cleared just before) are one forward a layer
+    for every train step and eval batch and four backward a layer for every
+    step.  Losses and the eval losses must be finite."""
+    exp = os.path.join(root, "w2v2_conformer")
+    layers = W2V2_CONFORMER_LAYERS
+    clear_launches("relpos")
+    recorder = run_cli(_cli_args("configs", "torch/lid_wav2vec_conformer",
+                                 _langs_override(corpus), f"exp_dir={exp}",
+                                 f"module.ssl_config.encoder_layers={layers}",
+                                 "data.wav_augment=null", "trainer.total_epoch=3",
+                                 f"trainer.train_data_factor={W2V2_CONFORMER_CLI_FACTOR}",
+                                 "trainer.progress_bar=false"))
+    launched = _relpos_launches_by_form()
+    steps = [e["steps"] for e in recorder.epochs]
+    batches = [e["batches"] for e in recorder.evals]
+    lines = _metrics_lines(os.path.join(exp, "metrics.jsonl"))
+    losses = [r["loss"] for r in lines if "loss" in r]
+    val = [r["avg_val_loss"] for r in lines if "avg_val_loss" in r]
+    report = {"phase": "cli_w2v2_conformer", "layers": layers, "steps": steps,
+              "eval_batches": batches, "relpos_launches": launched,
+              "loss_first_last": [losses[0], losses[-1]] if losses else None,
+              "avg_val_loss": val}
+    emit(report)
+    ok = (len(steps) == 3 and len(batches) == 3 and all(steps) and losses
+          and all(np.isfinite(losses)) and len(val) == 3 and all(np.isfinite(val))
+          and launched["xl_fwd"] == layers * (sum(steps) + sum(batches))
+          and launched["xl_bwd"] == 4 * layers * sum(steps))
+    if not ok:
+        raise AssertionError("the wav2vec 2.0 Conformer recipe did not train through the CLI "
+                             "on the XL kernels")
+    return report
+
+
 def phase_relpos_attn(gen: torch.Generator, flagship_launches=None) -> list:
     """The rel-pos attention kernels against their plain version (the chain
     the port ran before them: q·Eᵀ over the whole table, a gather, the
@@ -1525,7 +1726,10 @@ def phase_relpos_attn(gen: torch.Generator, flagship_launches=None) -> list:
     forward (two ``infer`` calls of ``phase_model``) and training step
     (``phase_train_card_vs_cpu``) counted through them, run here or, in the
     whole script, counted where it ran them (``flagship_launches``: the
-    (forward, backward) launches of each).  Returns the kernel rows."""
+    (forward, backward) launches of each); then the XL form at the wav2vec
+    2.0 Conformer cell's shape (:func:`relpos_xl_rows`) and that upstream's
+    scoring and training step through it (:func:`w2v2_conformer_card_vs_cpu`).
+    Returns the kernel rows."""
     rows, ok = [], True
     for shape_name, (b, h, n, d) in RELPOS_SHAPES.items():
         q, kv, table, mask, dout = _relpos_inputs(
@@ -1614,18 +1818,24 @@ def phase_relpos_attn(gen: torch.Generator, flagship_launches=None) -> list:
         clear_launches("relpos")
         phase_train_card_vs_cpu(gen)
         flagship_launches = (scoring, _relpos_launches())
+    xl_rows, xl_ok = relpos_xl_rows(gen)
+    rows += xl_rows
+    w2v2_conformer, w2v2_conformer_ok = w2v2_conformer_card_vs_cpu(gen)
+    ok = ok and xl_ok and w2v2_conformer_ok
     scoring, training = flagship_launches
     blocks = N_BLOCKS + N_LANG  # the encoder's and every head's, a forward
     report = {"phase": "relpos_attn", "tol": RELPOS_TOL, "rows": rows,
               "flagship_scoring_launches": {"infer_calls": 2, "fwd": scoring[0],
                                             "bwd": scoring[1]},
-              "flagship_train_step_launches": {"fwd": training[0], "bwd": training[1]}}
+              "flagship_train_step_launches": {"fwd": training[0], "bwd": training[1]},
+              "w2v2_conformer_card_vs_cpu": w2v2_conformer}
     emit(report)
     # phase_model calls infer twice; a train step runs the encoder and the own head
     ok = ok and scoring == (2 * blocks, 0) and training == (N_BLOCKS + 1, 3 * (N_BLOCKS + 1))
     if not ok:
-        raise AssertionError("the rel-pos attention kernels disagree with their plain version, "
-                             "differ between two runs, or the flagship's steps did not go "
+        raise AssertionError("the rel-pos attention kernels (Shaw's or the XL form) disagree "
+                             "with their plain version, differ between two runs, or the "
+                             "flagship's or the wav2vec 2.0 Conformer's steps did not go "
                              "through them")
     return rows
 
@@ -7317,6 +7527,12 @@ def _only_quant(run) -> list:
     return quant_kernel_rows(run.gen, run.errs, reports)
 
 
+def _only_relpos_attn(run) -> list:
+    rows = phase_relpos_attn(run.gen)
+    phase_cli_w2v2_conformer(run.root, run.corpus)
+    return rows
+
+
 # --only name → (fbank and conv_fused first, the corpus, cli_flagship's
 # checkpoint, then the phases: a function of the run → the kernels line's
 # rows, or None for no such line)
@@ -7334,7 +7550,7 @@ ONLY = {
     "large": (True, False, False, lambda run: large_kernel_rows(
         run.gen, run.errs, phase_large(run.gen, run.root, run.smi))),
     "subsample": (False, False, False, lambda run: phase_subsample(run.gen)),
-    "relpos_attn": (False, False, False, lambda run: phase_relpos_attn(run.gen)),
+    "relpos_attn": (False, True, False, _only_relpos_attn),
 }
 
 
@@ -7391,6 +7607,7 @@ def run_all(gen: torch.Generator, smi: str) -> None:
         wavlm_serve = phase_serve(wavlm_task, gen, WAVLM_PER_FORWARD_LAUNCHES, "wavlm_serve")
         phase_wavlm_train_card_vs_cpu(gen)
         wavlm_cli = phase_cli_wavlm(root, corpus, smi)
+        phase_cli_w2v2_conformer(root, corpus)
         phase_bf16_model(gen, "conformer")
         phase_bf16_model(gen, "wavlm")
         phase_bf16_train_card_vs_cpu(gen)
@@ -7439,8 +7656,10 @@ def main(argv=None) -> int:
                              "async checkpoint writes and float16; "
                              "subsample: the Conv2d subsampling kernels, and the flagship's "
                              "scoring forward and training step through them; "
-                             "relpos_attn: the rel-pos attention kernels, and the flagship's "
-                             "scoring forward and training step through them; "
+                             "relpos_attn: the rel-pos attention kernels, Shaw's and the "
+                             "Transformer-XL form, the flagship's and the wav2vec 2.0 "
+                             "Conformer's scoring forward and training step through them, "
+                             "and the latter's recipe through the CLI; "
                              "each with the kernel checks and rows they need)")
     parser.add_argument("--seed", type=int, default=0,
                         help="the CLI's seed for --only cli_gate (the gate's own is 0)")

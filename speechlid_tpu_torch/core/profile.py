@@ -48,6 +48,16 @@ The program's spans, each a layer boundary of PERF.md §3:
   ``model.featurizer``) and the heads' (inside ``model.heads``): its
   attention core between the projections.
 
+``model.conv_module`` wraps every Conformer conv module's forward (the
+LayerNorm, both pointwise GEMMs and what lies between them).
+
+- ``count(key, value)``: a counter, recorded only while a profiler runs, as
+  a span is: each call appends ``value`` to ``key``'s list
+  (:meth:`TimeCostRecoder.counted` reads it; ``remove_recoder`` clears
+  it).  The program keeps one: ``relpos_attn``, each rel-pos attention
+  kernel launch's (direction, b, h, n, d, mask), the mask (b, n) or None
+  (``ops/cuda/relpos_attn_kernel``).
+
 ``device_ms`` is the time between the span's two events on the stream, so
 it holds any time the card waited for the host inside the span.
 
@@ -175,6 +185,7 @@ class TimeCostRecoder:
         self.recorder: Dict[str, float] = {}
         self.counts: Dict[str, int] = {}
         self._spans: List[Span] = []
+        self._counters: Dict[str, list] = {}
         self.dropped = 0
         self._local = threading.local()
         self._backward: List[Span] = []
@@ -189,6 +200,7 @@ class TimeCostRecoder:
             self.recorder.clear()
             self.counts.clear()
             self._spans.clear()
+            self._counters.clear()
             self.dropped = 0
 
     def pretty_table(self) -> str:
@@ -225,6 +237,18 @@ class TimeCostRecoder:
         if not _autograd_profiler._is_profiler_enabled:
             return _OFF
         return _On(self, name, batch)
+
+    def count(self, key: str, value) -> None:
+        """Append ``value`` to the counter ``key`` while a profiler runs;
+        otherwise one flag check."""
+        if _autograd_profiler._is_profiler_enabled:
+            with self._data_lock:
+                self._counters.setdefault(key, []).append(value)
+
+    def counted(self, key: str) -> list:
+        """The values the counter ``key`` took, in order."""
+        with self._data_lock:
+            return list(self._counters.get(key, ()))
 
     def spans(self) -> List[Span]:
         """The recorded spans in the order they opened."""

@@ -72,6 +72,23 @@
 // No atomics, and the order of every sum is fixed by the shape and the mask
 // alone: the same bits on every run.  D (the head width) is 32 or 64; G (heads a
 // backward block takes) comes from ops/cuda/relpos_attn_kernel.py.
+//
+// The Transformer-XL form (wav2vec 2.0 Conformer: S_ij = s·[(q_i + u)·k_j + (q_i
+// + v)·p_{i−j}], unclipped) is the same source compiled a second time with
+// RPA_XL = 1 (ops/cuda/_build.py UNITS), its kernels in the namespace xl and its
+// entries relpos_attn_xl_*:
+//
+//   S_ij = s · q'_i · (k_j + E_h[clip(i − j, ±P) + P]) + β_h[clip(i − j, ±P) + P]
+//
+// with q' = q + u, a table E_h = p_h per head (H, 2P + 1, D) and a logit bias
+// β_h(r) = s·(v_h − u_h)·p_h(r) per head and distance (H, 2P + 1), both made by
+// the caller.  The bias rides in shared memory beside its band of E and goes on
+// each logit as fmaf(dot, s, β), in the forward and in the backward's
+// recomputation alike.  The backward also writes dβ_h(r) = Σ_{i−j=r} dS_ij (the
+// diagonal sums dE forms, with q' replaced by 1).  Since every head has its own
+// table, a block takes one head (G = 1) and dE's and dβ's partials are per head,
+// head-major, summed per head; four launches.  What RPA_XL adds stands in #if
+// blocks, so the Shaw compilation is the code it was.
 
 #include <cuda_pipeline.h>
 #include <cuda_runtime.h>
@@ -83,6 +100,12 @@ namespace {
 
 #if !defined(RPA_TILE) || !defined(RPA_BWD_KEYS)
 #error "the tile sizes come as -D definitions from ops/cuda/_build.py (TILING)"
+#endif
+#ifndef RPA_XL
+#define RPA_XL 0
+#endif
+#if RPA_XL
+namespace xl {
 #endif
 
 constexpr int kT = RPA_TILE;       // queries and keys of a forward tile, queries of a backward step
@@ -125,6 +148,11 @@ struct Args {
   float* part_de;        // (B·H/G, n key tiles, NR, D)
   int B, N, H, P, G;
   float scale;
+#if RPA_XL
+  const float* beta;     // (H, 2P + 1): the logit bias by distance
+  float* dbeta;          // (H, 2P + 1)
+  float* part_db;        // (H·B, n key tiles, NR): dβ's partials, head-major
+#endif
 };
 
 __device__ __forceinline__ float4 ld4(const float* p) {
@@ -206,6 +234,17 @@ __device__ __forceinline__ void load_band(float* Es, const float* table, int P, 
   }
 }
 
+#if RPA_XL
+// The bias band beside its band of E: row e holds β[clip(diag0 + e, ±P) + P]
+// for e < ROWS − 1, the last row zero.  Plain loads; the tile's barrier
+// publishes them.
+template <int ROWS, int NT>
+__device__ __forceinline__ void load_beta(float* Bs, const float* beta, int P, int diag0) {
+  for (int e = threadIdx.x; e < ROWS; e += NT)
+    Bs[e] = e < ROWS - 1 ? beta[min(max(diag0 + e, -P), P) + P] : 0.f;
+}
+#endif
+
 // Every copy this thread issued has landed, then every thread's has.
 __device__ __forceinline__ void tile_ready() {
   __pipeline_commit();
@@ -277,6 +316,9 @@ __global__ void __launch_bounds__(kThreads) relpos_fwd_kernel(Args a) {
   __shared__ __align__(16) float Es[kBand * S];
   __shared__ __align__(16) float Ps[kT * kPS];
   __shared__ int kst[kT];
+#if RPA_XL
+  __shared__ float Bs[kBand];  // the bias band
+#endif
   const int tid = threadIdx.x, ty = tid >> 3, tx = tid & 7;
   const int bh = blockIdx.x, b = bh / a.H, h = bh % a.H, i0 = blockIdx.y * kT;
   const int N = a.N, HD = a.H * D, NP = gridDim.y * kT;
@@ -309,7 +351,13 @@ __global__ void __launch_bounds__(kThreads) relpos_fwd_kernel(Args a) {
     const bool logits = q_live && k_live;  // else only padded rows' uniform weights
     if (logits) {
       load_rows<D, kT, kThreads>(Ks, kb, 2 * (size_t)HD, j0, N);
+#if RPA_XL  // the head's own table and bias
+      load_band<D, kBand, kThreads>(Es, a.table + (size_t)h * (2 * a.P + 1) * D, a.P,
+                                    i0 - j0 - (kT - 1));
+      load_beta<kBand, kThreads>(Bs, a.beta + (size_t)h * (2 * a.P + 1), a.P, i0 - j0 - (kT - 1));
+#else
       load_band<D, kBand, kThreads>(Es, a.table, a.P, i0 - j0 - (kT - 1));
+#endif
     }
     load_rows<D, kT, kThreads>(Vs, kb + HD, 2 * (size_t)HD, j0, N);
     if (tid < kT) kst[tid] = ks;
@@ -321,7 +369,12 @@ __global__ void __launch_bounds__(kThreads) relpos_fwd_kernel(Args a) {
       float tmax = -INFINITY;
 #pragma unroll
       for (int c = 0; c < 4; ++c) {
+#if RPA_XL  // pair (ty + 8r, tx + 8c): band row i − j + 31
+        s[r][c] = logit(logits ? fmaf(s[r][c], a.scale, Bs[ty - tx + kT - 1 + 8 * (r - c)]) : 0.f,
+                        rst[r], kst[tx + 8 * c]);
+#else
         s[r][c] = logit(s[r][c] * a.scale, rst[r], kst[tx + 8 * c]);
+#endif
         tmax = fmaxf(tmax, s[r][c]);
       }
 #pragma unroll
@@ -413,6 +466,9 @@ __global__ void __launch_bounds__(kBwdThreads, 2) relpos_bwd_kernel(Args a) {
   float* Gs = dSs + kT * kBPS;    // dS[i][j] at Gs[i][i − j + 63]
   __shared__ int kst[kKT], rst[kT];
   __shared__ float lse_s[kT], dsum[kT];
+#if RPA_XL
+  __shared__ float Bb[kBwdBand];  // the step's bias band
+#endif
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   // (1): half 0 (warps 0–3) S, half 1 dP; a thread the pairs (ty + 8a, 32kh + tx + 8b)
   const int half = tid >> 7, kh = (tid >> 6) & 1, ty = (tid >> 3) & 7, tx = tid & 7;
@@ -434,7 +490,12 @@ __global__ void __launch_bounds__(kBwdThreads, 2) relpos_bwd_kernel(Args a) {
   const int b = hg / HG, grp = hg % HG;
   const int nqt = (N + kT - 1) / kT, NP = nqt * kT, NR = NP + kKT - 1;
   const uint8_t* mb = a.mask == nullptr ? nullptr : a.mask + (size_t)b * N;
+#if RPA_XL  // one head a block (G = 1): its own partials, head-major
+  float* pde = a.part_de + (((size_t)grp * a.B + b) * nkt + kt) * NR * D;
+  float* pdb = a.part_db + (((size_t)grp * a.B + b) * nkt + kt) * NR;
+#else
   float* pde = a.part_de + ((size_t)hg * nkt + kt) * NR * D;
+#endif
 
   // diagonals no pair of a step reaches stay zero in every step
   for (int idx = tid; idx < kT * kBGS; idx += kBwdThreads) Gs[idx] = 0.f;
@@ -474,7 +535,14 @@ __global__ void __launch_bounds__(kBwdThreads, 2) relpos_bwd_kernel(Args a) {
         if (need_ds) {
           load_rows<D, kT, kBwdThreads>(Qs, qb, HD, i0, N);
           load_rows<D, kT, kBwdThreads>(Ps, ob, HD, i0, N);
+#if RPA_XL
+          load_band<D, kBwdBand, kBwdThreads>(Es, a.table + (size_t)h * (2 * a.P + 1) * D, a.P,
+                                              i0 - j0 - (kKT - 1));
+          load_beta<kBwdBand, kBwdThreads>(Bb, a.beta + (size_t)h * (2 * a.P + 1), a.P,
+                                           i0 - j0 - (kKT - 1));
+#else
           load_band<D, kBwdBand, kBwdThreads>(Es, a.table, a.P, i0 - j0 - (kKT - 1));
+#endif
         }
         load_rows<D, kT, kBwdThreads>(dOs, gb, HD, i0, N);
         if (tid < kT) {
@@ -521,7 +589,11 @@ __global__ void __launch_bounds__(kBwdThreads, 2) relpos_bwd_kernel(Args a) {
               const int il = ty + 8 * r, jl = kh * kT + tx + 8 * c, rsi = rst[il], ksj = kst[jl];
               float p = 0.f, ds = 0.f;
               if (rsi != kOut && ksj != kOut) {
+#if RPA_XL  // the forward's logit: band row i − j + 63
+                p = expf(logit(fmaf(s[r][c], a.scale, Bb[il - jl + kKT - 1]), rsi, ksj) - lse_s[il]);
+#else
                 p = expf(logit(s[r][c] * a.scale, rsi, ksj) - lse_s[il]);
+#endif
                 if (rsi == kLive && ksj == kLive) ds = p * (dSs[il * kBPS + jl] - dsum[il]);
               }
               Ps[il * kBPS + jl] = p;
@@ -542,11 +614,15 @@ __global__ void __launch_bounds__(kBwdThreads, 2) relpos_bwd_kernel(Args a) {
       // < 63) and the later heads of the group add the step's sum to what is
       // there (another thread wrote it, before the barrier that opened this
       // step); a step without dS writes zeros where it would write first.
+      // XL: dβ the same way, Σ_i G[i][e], by the lane of channel group 0.
       for (int gi = 0; gi <= half; ++gi) {
         const int g = half == 0 ? 1 : 2 * gi, e0 = 4 * m + 32 * g;
         const int ilo = max(0, 8 * (warp & 3) + 32 * g - (kKT - 1));
         const int ihi = min(kT - 1, 8 * (warp & 3) + 7 + 32 * g);  // the warp's rows: G is 0 past a lane's
         float acc[4][CH], old[4][CH];
+#if RPA_XL
+        float db[4], db_old[4];
+#endif
 #pragma unroll
         for (int t = 0; t < 4; ++t) {
           const int ee = e0 + t;
@@ -558,6 +634,10 @@ __global__ void __launch_bounds__(kBwdThreads, 2) relpos_bwd_kernel(Args a) {
           else
 #pragma unroll
             for (int u = 0; u < CH; ++u) old[t][u] = 0.f;
+#if RPA_XL
+          db[t] = 0.f;
+          db_old[t] = ee < kBwdBand - 1 && !fresh && need_ds && cg == 0 ? pdb[i0 + ee] : 0.f;
+#endif
         }
         // e < 32 only the keys 32 … 63 reach, e ≥ 64 only 0 … 31
         if (need_ds && (g != 0 || k_hi) && (g != 2 || k_lo)) {
@@ -569,6 +649,10 @@ __global__ void __launch_bounds__(kBwdThreads, 2) relpos_bwd_kernel(Args a) {
             for (int t = 0; t < 4; ++t)
 #pragma unroll
               for (int u = 0; u < CH; ++u) acc[t][u] = fmaf(at(gv, t), x[u], acc[t][u]);
+#if RPA_XL
+#pragma unroll
+            for (int t = 0; t < 4; ++t) db[t] += at(gv, t);
+#endif
           }
         }
 #pragma unroll
@@ -579,6 +663,9 @@ __global__ void __launch_bounds__(kBwdThreads, 2) relpos_bwd_kernel(Args a) {
 #pragma unroll
             for (int u = 0; u < CH; ++u) acc[t][u] += old[t][u];
             st_vec<CH>(pde + (size_t)(i0 + ee) * D + CH * cg, acc[t], 1.f);
+#if RPA_XL
+            if (cg == 0) pdb[i0 + ee] = db[t] + db_old[t];
+#endif
           }
         }
       }
@@ -678,6 +765,10 @@ __global__ void __launch_bounds__(kReduceThreads) relpos_de_reduce_kernel(
     float scale) {
   constexpr int kParts = kReduceThreads / D;
   __shared__ float sums[kDeRows][kReduceThreads];
+#if RPA_XL  // head blockIdx.y's table rows from its own blocks' partials (nblk a head)
+  part += (size_t)blockIdx.y * nblk * NR * D;
+  dtable += (size_t)blockIdx.y * (2 * P + 1) * D;
+#endif
   const int t = threadIdx.x, c = t % D;
   const bool edge = blockIdx.x < 2;
   const int R0 = edge ? (blockIdx.x == 0 ? 0 : 2 * P) : 1 + (blockIdx.x - 2) * kDeRows;
@@ -717,6 +808,26 @@ __global__ void __launch_bounds__(kReduceThreads) relpos_de_reduce_kernel(
   }
 }
 
+#if RPA_XL
+// dβ (H, 2P + 1), a thread a head's row R: every block's partial rows whose
+// distance clips to R − P, blocks and rows in order.
+__global__ void relpos_db_reduce_kernel(const float* __restrict__ part, float* __restrict__ dbeta,
+                                        int nblk, int nkt, int NR, int H, int P) {
+  const int rows = 2 * P + 1;
+  for (int o = blockIdx.x * blockDim.x + threadIdx.x; o < H * rows; o += gridDim.x * blockDim.x) {
+    const int h = o / rows, R = o % rows;
+    float s = 0.f;
+    for (int blk = 0; blk < nblk; ++blk) {
+      const float* pb = part + ((size_t)h * nblk + blk) * NR;
+      const int rho0 = R - P + (blk % nkt) * kKT + kKT - 1;
+      const int lo = R == 0 ? 0 : max(0, rho0), hi = R == 2 * P ? NR - 1 : min(NR - 1, rho0);
+      for (int rho = lo; rho <= hi; ++rho) s += pb[rho];
+    }
+    dbeta[o] = s;
+  }
+}
+#endif
+
 bool shape_ok(int B, int N, int H, int D, int P) {
   return B >= 1 && N >= 1 && H >= 1 && P >= 0 && (D == 32 || D == 64) &&
          (long long)B * H <= INT32_MAX && (N + kT - 1) / kT <= 65535;
@@ -748,15 +859,32 @@ int launch_bwd(const Args& a, cudaStream_t stream) {
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   const int inner = 2 * a.P - 1;  // table rows between the edges
+#if RPA_XL  // a head a grid row, then dβ
+  relpos_de_reduce_kernel<D><<<dim3((a.P == 0 ? 1 : 2) + (inner + kDeRows - 1) / kDeRows, a.H),
+                               kReduceThreads, 0, stream>>>(
+      a.part_de, a.dtable, a.B * nkt, nkt, NR, a.P, a.scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  relpos_db_reduce_kernel<<<(a.H * (2 * a.P + 1) + 255) / 256, 256, 0, stream>>>(
+      a.part_db, a.dbeta, a.B * nkt, nkt, NR, a.H, a.P);
+#else
   relpos_de_reduce_kernel<D><<<(a.P == 0 ? 1 : 2) + (inner + kDeRows - 1) / kDeRows,
                                kReduceThreads, 0, stream>>>(
       a.part_de, a.dtable, nhg * nkt, nkt, NR, a.P, a.scale);
+#endif
 
   return static_cast<int>(cudaGetLastError());
 }
 
+#if RPA_XL
+}  // namespace xl
+#endif
 }  // namespace
+#if RPA_XL
+using namespace xl;
+#endif
 
+#if !RPA_XL
 // o (B, N, H·D) and lse (B·H, ceil(N/32)·32) of q (B, N, H·D), kv (B, N, 2·H·D)
 // and the table (2P + 1, D); mask (B, N) bytes, 1 = valid, or null.  All float32,
 // contiguous.  One launch on `stream`.
@@ -803,3 +931,55 @@ extern "C" int relpos_attn_bwd(const void* q, const void* kv, const void* table,
   a.scale = scale;
   return D == 64 ? launch_bwd<64>(a, stream) : launch_bwd<32>(a, stream);
 }
+#else
+// The Transformer-XL form: q holds q + u, table the heads' (H, 2P + 1, D) and
+// beta their (H, 2P + 1) logit bias; otherwise as relpos_attn_fwd.
+extern "C" int relpos_attn_xl_fwd(const void* q, const void* kv, const void* table,
+                                  const void* beta, const void* mask, void* o, void* lse, int B,
+                                  int N, int H, int D, int P, float scale, cudaStream_t stream) {
+  if (!shape_ok(B, N, H, D, P)) return static_cast<int>(cudaErrorInvalidValue);
+  Args a{};
+  a.q = static_cast<const float*>(q);
+  a.kv = static_cast<const float*>(kv);
+  a.table = static_cast<const float*>(table);
+  a.beta = static_cast<const float*>(beta);
+  a.mask = static_cast<const uint8_t*>(mask);
+  a.o = static_cast<float*>(o);
+  a.lse = static_cast<float*>(lse);
+  a.B = B; a.N = N; a.H = H; a.P = P; a.G = 1;
+  a.scale = scale;
+  return D == 64 ? launch_fwd<64>(a, stream) : launch_fwd<32>(a, stream);
+}
+
+// The Transformer-XL backward: dtable (H, 2P + 1, D) and dbeta (H, 2P + 1)
+// besides dq (of q + u) and dkv; one head a block (G = 1); part_de holds H·B ·
+// ceil(N/64) · (NP + 63) · D floats and part_db H·B · ceil(N/64) · (NP + 63).
+// Four launches on `stream`: the tiles, dQ's sum, dE's and dβ's sums.
+extern "C" int relpos_attn_xl_bwd(const void* q, const void* kv, const void* table,
+                                  const void* beta, const void* mask, const void* o,
+                                  const void* lse, const void* dout, void* dq, void* dkv,
+                                  void* dtable, void* dbeta, void* part_dq, void* part_de,
+                                  void* part_db, int B, int N, int H, int D, int P, float scale,
+                                  cudaStream_t stream) {
+  if (!shape_ok(B, N, H, D, P)) return static_cast<int>(cudaErrorInvalidValue);
+  Args a{};
+  a.q = static_cast<const float*>(q);
+  a.kv = static_cast<const float*>(kv);
+  a.table = static_cast<const float*>(table);
+  a.beta = static_cast<const float*>(beta);
+  a.mask = static_cast<const uint8_t*>(mask);
+  a.o = const_cast<float*>(static_cast<const float*>(o));
+  a.lse = const_cast<float*>(static_cast<const float*>(lse));
+  a.dout = static_cast<const float*>(dout);
+  a.dq = static_cast<float*>(dq);
+  a.dkv = static_cast<float*>(dkv);
+  a.dtable = static_cast<float*>(dtable);
+  a.dbeta = static_cast<float*>(dbeta);
+  a.part_dq = static_cast<float*>(part_dq);
+  a.part_de = static_cast<float*>(part_de);
+  a.part_db = static_cast<float*>(part_db);
+  a.B = B; a.N = N; a.H = H; a.P = P; a.G = 1;
+  a.scale = scale;
+  return D == 64 ? launch_bwd<64>(a, stream) : launch_bwd<32>(a, stream);
+}
+#endif

@@ -41,6 +41,12 @@ needs no transposes.  Parity details that differ from PyTorch's defaults:
   subsampling's output projection stays exact, as in JAX.  The port fuses
   no projection, so each has JAX's scales.
 
+The blocks of the wav2vec 2.0 Conformer upstream (``models/wav2vec2.py``)
+are the same :class:`ConformerBlock` with ``attention="xl"``
+(:class:`RelPosXLAttention`, Transformer-XL relative positions with biased
+projections over the shared sinusoidal table :func:`sinusoidal_table`),
+``ln_eps`` 1e-5 and a conv module of expansion 1 without biases.
+
 ``nn.Module.training`` selects the mode.  In training mode:
 
 - ``MaskedBatchNorm`` normalises with the statistics of the batch's valid
@@ -56,6 +62,7 @@ needs no transposes.  Parity details that differ from PyTorch's defaults:
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional, Union
 
@@ -182,10 +189,6 @@ class LayerNorm(nn.LayerNorm):
         return y.to(self.compute_dtype)
 
 
-def _layer_norm(dim: int, dtype: torch.dtype = torch.float32) -> LayerNorm:
-    return LayerNorm(dim, eps=LN_EPS, compute_dtype=dtype)
-
-
 class Dropout(nn.Module):
     """Inverted dropout in training mode, drawn from ``self.generator`` (a
     ``torch.Generator`` on the input's device; ``None`` is the global one).
@@ -225,22 +228,26 @@ def set_generator(module: nn.Module, generator: Optional[torch.Generator]) -> No
 
 
 class FeedForward(nn.Module):
-    """dim → dim·mult → dim with Swish.  ``hidden_shard``: the tensor-parallel
-    slice ``(index, dim·mult)`` of the hidden features this rank holds."""
+    """dim → dim·mult → dim with Swish, dropout on the hidden features
+    (``hidden_dropout``, default ``dropout``) and on the output.
+    ``hidden_shard``: the tensor-parallel slice ``(index, dim·mult)`` of the
+    hidden features this rank holds."""
 
     hidden_shard: Optional[tuple] = None
 
     def __init__(self, dim: int, mult: int = 4, use_double_swish: bool = False,
                  dropout: float = 0.0, dtype: torch.dtype = torch.float32,
-                 quant_dot: Optional[str] = None):
+                 quant_dot: Optional[str] = None, hidden_dropout: Optional[float] = None):
         super().__init__()
         self.act = double_swish if use_double_swish else swish
         self.fc1 = Linear(dim, dim * mult, compute_dtype=dtype, quant_dot=quant_dot)
         self.fc2 = Linear(dim * mult, dim, compute_dtype=dtype, quant_dot=quant_dot)
         self.dropout = Dropout(dropout)
+        self.hidden_dropout = (self.dropout if hidden_dropout is None
+                               else Dropout(hidden_dropout))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        hidden = self.dropout(self.act(self.fc1(x)), self.hidden_shard)
+        hidden = self.hidden_dropout(self.act(self.fc1(x)), self.hidden_shard)
         return self.dropout(self.fc2(hidden))
 
 
@@ -301,12 +308,16 @@ class RelPosAttention(nn.Module):
 class DepthwiseConv1d(nn.Module):
     """'SAME' depthwise conv1d over (B, T, C) through the CUDA kernel
     (plain version on the CPU); weight (k, C), the layout the kernel takes.
-    ``ConformerConvModule`` reads its parameters into its fused call."""
+    ``ConformerConvModule`` reads its parameters into its fused call.
+    ``bias=False``: the kernels' bias is a zero buffer, no parameter."""
 
-    def __init__(self, channels: int, kernel_size: int):
+    def __init__(self, channels: int, kernel_size: int, bias: bool = True):
         super().__init__()
         self.weight = nn.Parameter(torch.empty(kernel_size, channels))
-        self.bias = nn.Parameter(torch.zeros(channels))
+        if bias:
+            self.bias = nn.Parameter(torch.zeros(channels))
+        else:
+            self.register_buffer("bias", torch.zeros(channels), persistent=False)
         nn.init.normal_(self.weight, std=kernel_size ** -0.5)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -375,7 +386,8 @@ class MaskedBatchNorm(nn.Module):
             if data_parallel():
                 mean, var, n = _global_moments(xf, mask)
             elif mask is None:
-                n = torch.tensor(float(x.shape[0] * x.shape[1]), device=x.device)
+                # made on the card: a host tensor's copy would wait for the stream
+                n = xf.new_full((), float(x.shape[0] * x.shape[1]))
                 mean = xf.mean(dim=(0, 1))
                 var = xf.var(dim=(0, 1), unbiased=False)
             else:
@@ -410,53 +422,163 @@ class ConformerConvModule(nn.Module):
 
     def __init__(self, dim: int, expansion_factor: int = 2, kernel_size: int = 31,
                  use_double_swish: bool = False, dropout: float = 0.0,
-                 dtype: torch.dtype = torch.float32, quant_dot: Optional[str] = None):
+                 dtype: torch.dtype = torch.float32, quant_dot: Optional[str] = None,
+                 bias: bool = True, ln_eps: float = LN_EPS):
         super().__init__()
         inner = dim * expansion_factor
         self.dropout = Dropout(dropout)
         self.act_name = "double_swish" if use_double_swish else "swish"
         self.act = ACTIVATIONS[self.act_name]
-        self.norm = _layer_norm(dim, dtype)
-        self.pointwise_in = Linear(dim, 2 * inner, compute_dtype=dtype, quant_dot=quant_dot)
-        self.depthwise = DepthwiseConv1d(inner, kernel_size)
+        self.norm = LayerNorm(dim, eps=ln_eps, compute_dtype=dtype)
+        self.pointwise_in = Linear(dim, 2 * inner, bias=bias, compute_dtype=dtype,
+                                   quant_dot=quant_dot)
+        self.depthwise = DepthwiseConv1d(inner, kernel_size, bias=bias)
         self.bn = MaskedBatchNorm(inner)
-        self.pointwise_out = Linear(inner, dim, compute_dtype=dtype, quant_dot=quant_dot)
+        self.pointwise_out = Linear(inner, dim, bias=bias, compute_dtype=dtype,
+                                    quant_dot=quant_dot)
 
     def forward(self, x: torch.Tensor, pad_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-        h = self.pointwise_in(self.norm(x))
-        w, b = self.depthwise.weight.to(h.dtype), self.depthwise.bias.to(h.dtype)
-        if self.training or (torch.is_grad_enabled() and (
-                h.requires_grad or w.requires_grad or self.bn.weight.requires_grad)):
-            y = self.act(self.bn(glu_depthwise(h, pad_mask, w, b), pad_mask))
-        else:
-            y = glu_depthwise_bn_act(h, pad_mask, w, b, self.bn.eval_stats(), self.act_name)
-        return self.dropout(self.pointwise_out(y))
+        with span("model.conv_module"):
+            h = self.pointwise_in(self.norm(x))
+            w, b = self.depthwise.weight.to(h.dtype), self.depthwise.bias.to(h.dtype)
+            if self.training or (torch.is_grad_enabled() and (
+                    h.requires_grad or w.requires_grad or self.bn.weight.requires_grad)):
+                y = self.act(self.bn(glu_depthwise(h, pad_mask, w, b), pad_mask))
+            else:
+                y = glu_depthwise_bn_act(h, pad_mask, w, b, self.bn.eval_stats(),
+                                         self.act_name)
+            return self.dropout(self.pointwise_out(y))
+
+
+@functools.lru_cache(maxsize=64)
+def sinusoidal_table(n: int, dim: int, device: torch.device) -> torch.Tensor:
+    """(2n − 1, dim) sinusoidal embeddings of the relative positions r = −(n −
+    1) … n − 1, row r + n − 1: [sin(r·w_k), cos(r·w_k)] at channels (2k, 2k
+    + 1), w_k = 10000^(−2k/dim), computed as HF's
+    ``Wav2Vec2ConformerRelPositionalEmbedding`` computes them (its rows
+    reversed), on the CPU and kept on ``device``: one table a length, which
+    every layer and the whole batch share.  A normal tensor even when first
+    asked for under ``torch.inference_mode``."""
+    with torch.inference_mode(False):
+        position = torch.arange(0, n, dtype=torch.int64).float().unsqueeze(1)
+        div_term = torch.exp(torch.arange(0, dim, 2, dtype=torch.int64).float()
+                             * -(math.log(10000.0) / dim))
+        positive, negative = torch.zeros(n, dim), torch.zeros(n, dim)
+        positive[:, 0::2] = torch.sin(position * div_term)
+        positive[:, 1::2] = torch.cos(position * div_term)
+        negative[:, 0::2] = torch.sin(-1 * position * div_term)
+        negative[:, 1::2] = torch.cos(-1 * position * div_term)
+        return torch.cat([negative[1:].flip(0), positive]).to(device)
+
+
+class RelPosXLAttention(nn.Module):
+    """MHSA with Transformer-XL relative positions (wav2vec 2.0 Conformer,
+    HF's ``Wav2Vec2ConformerSelfAttention`` with ``"relative"`` positions):
+    per head, s = d^-1/2,
+
+        logits_ij = s·[(q_i + u)·k_j + (q_i + v)·p(i − j)],  p = linear_pos(PE)
+
+    with biased ``to_q``, ``to_kv`` and ``to_out``, ``linear_pos`` without a
+    bias, and ``pos_bias_u``, ``pos_bias_v`` (heads, dim_head).  The table
+    PE (:func:`sinusoidal_table`, 2n − 1 rows) comes from the caller;
+    ``linear_pos`` runs over it once a forward, for the whole batch.
+
+    The core between the projections is ``ops/cuda/relpos_attn_kernel``'s
+    :func:`~relpos_attn_kernel.relpos_attn_xl`: on the card in float32 at
+    head widths 32 and 64 (:meth:`uses_kernel`; in training only without
+    dropout on the probabilities, which the kernels do not draw), the
+    kernels' XL instantiation; otherwise HF's chain (q + u, q + v products,
+    the rel-shift, a float32 softmax, dropout on the probabilities).
+    ``dropout`` also drops the output, as HF's ``self_attn_dropout``."""
+
+    def __init__(self, dim: int, heads: int = 16, dim_head: int = 64, dropout: float = 0.0,
+                 dtype: torch.dtype = torch.float32, quant_dot: Optional[str] = None):
+        super().__init__()
+        self.heads, self.dim_head = heads, dim_head
+        self.dtype = dtype
+        inner = heads * dim_head
+        self.to_q = Linear(dim, inner, compute_dtype=dtype, quant_dot=quant_dot)
+        self.to_kv = Linear(dim, 2 * inner, compute_dtype=dtype, quant_dot=quant_dot)
+        self.to_out = Linear(inner, dim, compute_dtype=dtype, quant_dot=quant_dot)
+        self.linear_pos = Linear(dim, inner, bias=False, compute_dtype=dtype)
+        self.pos_bias_u = nn.Parameter(torch.zeros(heads, dim_head))
+        self.pos_bias_v = nn.Parameter(torch.zeros(heads, dim_head))
+        self.prob_dropout = Dropout(dropout)
+        self.dropout = Dropout(dropout)
+
+    def uses_kernel(self, q: torch.Tensor) -> bool:
+        """Whether ``q`` goes through the kernels: as
+        :meth:`RelPosAttention.uses_kernel`, and in training only where no
+        dropout falls on the probabilities."""
+        return (q.device.type == "cuda" and q.dtype == torch.float32
+                and self.dtype == torch.float32
+                and self.dim_head in relpos_attn_kernel.HEAD_DIMS
+                and not (self.prob_dropout.training and self.prob_dropout.p > 0.0))
+
+    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor],
+                pe: torch.Tensor) -> torch.Tensor:
+        q, kv = self.to_q(x), self.to_kv(x)
+        pos = self.linear_pos(pe).view(pe.shape[0], self.heads, self.dim_head).transpose(0, 1)
+        u, v = self.pos_bias_u.to(q.dtype), self.pos_bias_v.to(q.dtype)
+        with span("model.relpos_attn"):
+            if self.uses_kernel(q):
+                out = relpos_attn_kernel.relpos_attn_xl(q, kv, pos, u, v, mask, self.heads)
+            else:
+                out = relpos_attn_kernel.relpos_attn_xl_plain(
+                    q, kv, pos, u, v, mask, self.heads, self.prob_dropout)
+        return self.dropout(self.to_out(out))
 
 
 class ConformerBlock(nn.Module):
-    """½FF → MHSA → conv → ½FF → post-LN, pre-norm residuals."""
+    """½FF → MHSA → conv → ½FF → post-LN, pre-norm residuals.
+
+    ``attention``: ``"shaw"`` (:class:`RelPosAttention`, the flagship's) or
+    ``"xl"`` (:class:`RelPosXLAttention`, whose forward takes the shared
+    sinusoidal table ``pe``); ``ln_eps`` every LayerNorm's epsilon;
+    ``conv_bias`` whether the conv module's GEMMs and depthwise conv have
+    biases; ``ff_hidden_dropout`` the FFNs' hidden dropout (default
+    ``ff_dropout``)."""
 
     def __init__(self, dim: int, dim_head: int = 64, heads: int = 8, ff_mult: int = 4,
                  conv_expansion_factor: int = 2, conv_kernel_size: int = 31,
                  use_double_swish: bool = False, attn_dropout: float = 0.0,
                  ff_dropout: float = 0.0, conv_dropout: float = 0.0,
-                 dtype: torch.dtype = torch.float32, quant_dot: Optional[str] = None):
+                 dtype: torch.dtype = torch.float32, quant_dot: Optional[str] = None,
+                 attention: str = "shaw", ln_eps: float = LN_EPS, conv_bias: bool = True,
+                 ff_hidden_dropout: Optional[float] = None):
         super().__init__()
-        self.norm_ff1 = _layer_norm(dim, dtype)
-        self.ff1 = FeedForward(dim, ff_mult, use_double_swish, ff_dropout, dtype, quant_dot)
-        self.norm_attn = _layer_norm(dim, dtype)
-        self.attn = RelPosAttention(dim, heads, dim_head, dropout=attn_dropout, dtype=dtype,
-                                    quant_dot=quant_dot)
-        self.conv = ConformerConvModule(dim, conv_expansion_factor, conv_kernel_size,
-                                        use_double_swish, conv_dropout, dtype, quant_dot)
-        self.norm_ff2 = _layer_norm(dim, dtype)
-        # ff2 ignores use_double_swish, as the reference's second half-FFN does
-        self.ff2 = FeedForward(dim, ff_mult, False, ff_dropout, dtype, quant_dot)
-        self.post_norm = _layer_norm(dim, dtype)
+        if attention not in ("shaw", "xl"):
+            raise ValueError(f"unknown attention {attention!r}: 'shaw' or 'xl'")
 
-    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        def norm():
+            return LayerNorm(dim, eps=ln_eps, compute_dtype=dtype)
+
+        self.norm_ff1 = norm()
+        self.ff1 = FeedForward(dim, ff_mult, use_double_swish, ff_dropout, dtype, quant_dot,
+                               ff_hidden_dropout)
+        self.norm_attn = norm()
+        if attention == "xl":
+            self.attn = RelPosXLAttention(dim, heads, dim_head, dropout=attn_dropout,
+                                          dtype=dtype, quant_dot=quant_dot)
+        else:
+            self.attn = RelPosAttention(dim, heads, dim_head, dropout=attn_dropout, dtype=dtype,
+                                        quant_dot=quant_dot)
+        self.conv = ConformerConvModule(dim, conv_expansion_factor, conv_kernel_size,
+                                        use_double_swish, conv_dropout, dtype, quant_dot,
+                                        bias=conv_bias, ln_eps=ln_eps)
+        self.norm_ff2 = norm()
+        # ff2 ignores use_double_swish, as the reference's second half-FFN does
+        self.ff2 = FeedForward(dim, ff_mult, False, ff_dropout, dtype, quant_dot,
+                               ff_hidden_dropout)
+        self.post_norm = norm()
+
+    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None,
+                pe: Optional[torch.Tensor] = None) -> torch.Tensor:
         x = 0.5 * self.ff1(self.norm_ff1(x)) + x
-        x = self.attn(self.norm_attn(x), mask) + x
+        if pe is None:
+            x = self.attn(self.norm_attn(x), mask) + x
+        else:
+            x = self.attn(self.norm_attn(x), mask, pe) + x
         x = self.conv(x, pad_mask=mask) + x
         x = 0.5 * self.ff2(self.norm_ff2(x)) + x
         return self.post_norm(x)

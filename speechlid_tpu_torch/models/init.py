@@ -20,7 +20,9 @@ The SSL featurizers (``models/wavlm.py``, ``models/wav2vec2.py``) add:
 ``relative_attention_bias`` N(0, 1); ``grep_a`` ones; the positional conv's
 ``weight_v`` N(0, √(4/(K·C))), ``weight_g`` ones and bias zeros;
 ``mask_emb`` uniform on [0, 1); the Featurizer's ``layer_weights`` zeros.
-Their convs and Dense layers are ``lecun_normal`` like the rest.
+Their convs and Dense layers are ``lecun_normal`` like the rest.  The
+wav2vec 2.0 Conformer's XL attention (no JAX counterpart) takes HF's zeros
+for ``pos_bias_u`` and ``pos_bias_v``; its ``linear_pos`` is a Dense.
 
 The classifier zoo (``models/{classifier,resnet,xvector,pooling}.py``) adds:
 dilated Conv1d and bias-free Conv2d kernels (``lecun_normal``); MHASTP's
@@ -76,11 +78,16 @@ from speechlid_tpu_torch.models.conformer import (
     DepthwiseConv1d,
     MaskedBatchNorm,
     RelPosAttention,
+    RelPosXLAttention,
 )
 from speechlid_tpu_torch.models.pooling import MHASTP
 from speechlid_tpu_torch.models.rnn import GRUDirection, LSTMDirection
 from speechlid_tpu_torch.models.wav2vec2 import Featurizer
-from speechlid_tpu_torch.models.wavlm import RelPosMultiheadAttention, WavLM, _WeightNormConvPos
+from speechlid_tpu_torch.models.wavlm import (
+    RelPosMultiheadAttention,
+    SSLFrontEnd,
+    _WeightNormConvPos,
+)
 
 # the standard deviation of a unit normal truncated to [-2, 2]
 TRUNCATED_NORMAL_STD = 0.87962566103423978
@@ -171,7 +178,10 @@ def init_like_flax_(module: nn.Module, generator: torch.Generator) -> None:
             draws["weight_v"] = torch.randn(m.weight_v.shape, generator=generator) \
                 * math.sqrt(4.0 / (k * c))
             draws["weight_g"] = torch.ones(m.weight_g.shape)
-        elif isinstance(m, WavLM):
+        elif isinstance(m, RelPosXLAttention):
+            draws["pos_bias_u"] = torch.zeros(m.pos_bias_u.shape)
+            draws["pos_bias_v"] = torch.zeros(m.pos_bias_v.shape)
+        elif isinstance(m, SSLFrontEnd):
             draws["mask_emb"] = torch.rand(m.mask_emb.shape, generator=generator)
         elif isinstance(m, Featurizer):
             draws["layer_weights"] = torch.zeros(m.layer_weights.shape)

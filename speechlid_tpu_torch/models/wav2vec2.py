@@ -1,4 +1,4 @@
-"""wav2vec 2.0 upstream and the s3prl-style Featurizer (port of
+"""wav2vec 2.0 upstreams and the s3prl-style Featurizer (port of
 ``speechlid_tpu/models/wav2vec2.py``).
 
 The inference path of fairseq's ``Wav2Vec2Model`` is WavLM without the
@@ -6,16 +6,32 @@ gated relative position bias, so the encoder is :class:`WavLM` with
 ``relative_position_embedding=False``: one implementation, two
 checkpoints.  The quantizer and contrastive heads exist only for
 pre-training; the fairseq loader drops them.
+
+:class:`Wav2Vec2Conformer` is the wav2vec 2.0 Conformer with relative
+positions (arXiv:2010.05171; HF's ``Wav2Vec2ConformerModel``,
+``position_embeddings_type="relative"``): WavLM's front end
+(:class:`~speechlid_tpu_torch.models.wavlm.SSLFrontEnd`) under Conformer
+layers (``models/conformer.ConformerBlock`` with Transformer-XL attention)
+and a final LayerNorm; no positional conv (HF builds one and never calls
+it).  It has no JAX counterpart and no checkpoint loader.
 """
 
 from __future__ import annotations
 
+from dataclasses import dataclass
 from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.nn as nn
 
+from speechlid_tpu_torch.core.precision import compute_dtype
+from speechlid_tpu_torch.core.profile import _time_cost_recoder
+from speechlid_tpu_torch.models.conformer import ConformerBlock, Dropout, sinusoidal_table
+from speechlid_tpu_torch.models.remat import remat_call
 from speechlid_tpu_torch.models.wavlm import (
+    LN_EPS,
+    LayerNorm,
+    SSLFrontEnd,
     WavLM,
     WavLMConfig,
     conv_out_lengths,
@@ -49,6 +65,85 @@ def wav2vec2_config(
         gru_rel_pos=False,
         **overrides,
     )
+
+
+@dataclass(frozen=True)
+class Wav2Vec2ConformerConfig(WavLMConfig):
+    """The wav2vec 2.0 Conformer's config: WavLM's fields for the front end
+    and the widths (``encoder_ffn_embed_dim`` the FFNs' hidden width), the
+    depthwise kernel's taps, and the defaults of the published Large (24 ×
+    1024, 16 heads, FFN 4096, swish, a layer-norm extractor with conv
+    biases).  ``dropout`` takes HF's ``hidden_dropout`` and
+    ``conformer_conv_dropout``, ``activation_dropout`` the FFNs' hidden
+    dropout, ``attention_dropout`` the probabilities' and the attention
+    output's.  The positional conv's fields go unused."""
+
+    extractor_mode: str = "layer_norm"
+    encoder_layers: int = 24
+    encoder_embed_dim: int = 1024
+    encoder_ffn_embed_dim: int = 4096
+    encoder_attention_heads: int = 16
+    activation_fn: str = "swish"
+    layer_norm_first: bool = True
+    conv_bias: bool = True
+    depthwise_conv_kernel_size: int = 31
+
+
+def wav2vec2_conformer_config(**conf: Any) -> Wav2Vec2ConformerConfig:
+    """The config from an ``ssl_config`` dict; keys that are not fields are
+    dropped, as :meth:`WavLMConfig.from_dict` drops them."""
+    cfg = Wav2Vec2ConformerConfig.from_dict(conf)
+    if cfg.activation_fn != "swish" or not cfg.layer_norm_first:
+        raise ValueError("the wav2vec 2.0 Conformer's layers are swish FFNs around pre-LN "
+                         f"blocks; got activation_fn={cfg.activation_fn!r}, "
+                         f"layer_norm_first={cfg.layer_norm_first}")
+    return cfg
+
+
+class Wav2Vec2Conformer(SSLFrontEnd):
+    """(B, T) wave → (last hidden state (B, T', C), frame lengths or None[,
+    hidden states of every layer, input first]): :meth:`SSLFrontEnd.front`,
+    then (span ``model.encoder``) dropout, ``layers`` (each a
+    :class:`ConformerBlock`: ½FFN, XL attention over the shared sinusoidal
+    table of 2T' − 1 positions, a bias-free conv module of expansion 1 at
+    C channels, ½FFN, LayerNorm; every LayerNorm eps 1e-5) and
+    ``encoder_layer_norm``.  Padding follows ``mask_attention``: by default
+    no mask reaches the attention or the conv module (the BatchNorm's
+    statistics take every frame)."""
+
+    def __init__(self, config: Wav2Vec2ConformerConfig, mask_attention: bool = False,
+                 remat: bool = False):
+        super().__init__(config, mask_attention, remat)
+        c, h = config.encoder_embed_dim, config.encoder_attention_heads
+        self.dropout = Dropout(config.dropout)
+        self.layers = nn.ModuleList(
+            ConformerBlock(c, dim_head=c // h, heads=h,
+                           ff_mult=config.encoder_ffn_embed_dim // c,
+                           conv_expansion_factor=1,
+                           conv_kernel_size=config.depthwise_conv_kernel_size,
+                           attn_dropout=config.attention_dropout, ff_dropout=config.dropout,
+                           conv_dropout=config.dropout, dtype=compute_dtype(config.dtype),
+                           quant_dot=config.quant_dot, attention="xl", ln_eps=LN_EPS,
+                           conv_bias=False, ff_hidden_dropout=config.activation_dropout)
+            for _ in range(config.encoder_layers))
+        self.encoder_layer_norm = LayerNorm(c, eps=LN_EPS)
+
+    def forward(self, source: torch.Tensor, lengths: Optional[torch.Tensor] = None,
+                mask: bool = False, ret_layer_results: bool = False):
+        x, feat_len, pad_mask = self.front(source, lengths, mask)
+        valid = None if pad_mask is None else ~pad_mask
+        with _time_cost_recoder.span("model.encoder"):
+            x = self.dropout(x)
+            pe = sinusoidal_table(x.shape[1], x.shape[2], x.device)
+            layer_results = [x]
+            for layer in self.layers:
+                y = remat_call(layer, x, valid, pe) if self.remat else layer(x, valid, pe)
+                x = self.layer_drop(x, y)
+                layer_results.append(x)
+            x = self.encoder_layer_norm(x)
+        if ret_layer_results:
+            return x, feat_len, layer_results
+        return x, feat_len
 
 
 class Wav2Vec2(nn.Module):
@@ -89,7 +184,8 @@ class Featurizer(nn.Module):
 
 
 class SSLFeaturizerModel(nn.Module):
-    """Upstream (WavLM or wav2vec2) + Featurizer: (B, T) normalised wave →
+    """Upstream (WavLM or wav2vec2, or the wav2vec 2.0 Conformer for a
+    :class:`Wav2Vec2ConformerConfig`) + Featurizer: (B, T) normalised wave →
     (B, T', C).  Span masking runs in training mode (the JAX module's
     ``mask=not deterministic``); ``remat`` rematerializes each encoder
     layer in the backward pass (:class:`WavLM`)."""
@@ -99,7 +195,8 @@ class SSLFeaturizerModel(nn.Module):
         super().__init__()
         self.config = config
         self.feature_selection = feature_selection
-        self.upstream = WavLM(config, mask_attention=mask_attention, remat=remat)
+        upstream = Wav2Vec2Conformer if isinstance(config, Wav2Vec2ConformerConfig) else WavLM
+        self.upstream = upstream(config, mask_attention=mask_attention, remat=remat)
         if feature_selection != "last_hidden_state":
             self.featurizer = Featurizer(config.encoder_layers + 1, feature_selection)
 

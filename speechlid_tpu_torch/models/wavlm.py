@@ -453,12 +453,13 @@ def compute_mask_spans(
     return mask
 
 
-class WavLM(nn.Module):
-    """Full WavLM; ``forward`` is the reference's ``extract_features``:
-    (B, T) wave → (last hidden state (B, T', C), frame lengths or None[,
-    hidden states of every layer, input first]).  ``remat``: each encoder
-    layer is rematerialized in the backward pass (``models/remat.py``, JAX's
-    ``nn.remat``)."""
+class SSLFrontEnd(nn.Module):
+    """What every SSL upstream of the port has before its encoder: the conv
+    extractor, its LayerNorm, the projection to the encoder's width, input
+    dropout, the span masks and ``mask_emb`` (:meth:`front`).  ``remat``:
+    each encoder layer is rematerialized in the backward pass
+    (``models/remat.py``, JAX's ``nn.remat``); ``mask_attention``: the
+    padding reaches the encoder (module docstring)."""
 
     def __init__(self, config: WavLMConfig, mask_attention: bool = False, remat: bool = False):
         super().__init__()
@@ -475,19 +476,16 @@ class WavLM(nn.Module):
                                   else None)
         self.dropout_input = Dropout(config.dropout_input)
         self.mask_emb = nn.Parameter(torch.rand(c))
-        self.pos_conv = _WeightNormConvPos(config)
-        self.encoder_layer_norm = LayerNorm(c, eps=LN_EPS)
-        self.dropout = Dropout(config.dropout)
-        self.layers = nn.ModuleList(
-            WavLMEncoderLayer(config, has_relative_attention_bias=(
-                config.relative_position_embedding and i == 0))
-            for i in range(config.encoder_layers))
 
     def feat_lengths(self, sample_lengths: torch.Tensor) -> torch.Tensor:
         return conv_out_lengths(sample_lengths, self.config.conv_layers)
 
-    def forward(self, source: torch.Tensor, lengths: Optional[torch.Tensor] = None,
-                mask: bool = False, ret_layer_results: bool = False):
+    def front(self, source: torch.Tensor, lengths: Optional[torch.Tensor], mask: bool):
+        """(B, T) wave → (the encoder's input (B, T', C), frame lengths or
+        None, the padding mask (True = padded) or None): normalisation, the
+        extractor (``model.extractor``), LayerNorm, projection, input
+        dropout, span masks in training (``mask``), padded frames zeroed
+        under ``mask_attention``."""
         cfg = self.config
         if cfg.normalize:
             mean = source.mean(dim=-1, keepdim=True)
@@ -523,6 +521,39 @@ class WavLM(nn.Module):
 
         if pad_mask is not None:
             x = x.masked_fill(pad_mask[:, :, None], 0.0)
+        return x, feat_len, pad_mask
+
+    def layer_drop(self, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+        """A layer's output ``y`` from its input ``x`` under layer drop in
+        training: the layer ran; keep its output or skip it."""
+        if self.config.encoder_layerdrop > 0 and self.training:
+            keep = torch.rand((), generator=self.generator, device=x.device) \
+                >= self.config.encoder_layerdrop
+            return torch.where(keep, y, x)
+        return y
+
+
+class WavLM(SSLFrontEnd):
+    """Full WavLM; ``forward`` is the reference's ``extract_features``:
+    (B, T) wave → (last hidden state (B, T', C), frame lengths or None[,
+    hidden states of every layer, input first]): :meth:`SSLFrontEnd.front`,
+    then the encoder."""
+
+    def __init__(self, config: WavLMConfig, mask_attention: bool = False, remat: bool = False):
+        super().__init__(config, mask_attention, remat)
+        c = config.encoder_embed_dim
+        self.pos_conv = _WeightNormConvPos(config)
+        self.encoder_layer_norm = LayerNorm(c, eps=LN_EPS)
+        self.dropout = Dropout(config.dropout)
+        self.layers = nn.ModuleList(
+            WavLMEncoderLayer(config, has_relative_attention_bias=(
+                config.relative_position_embedding and i == 0))
+            for i in range(config.encoder_layers))
+
+    def forward(self, source: torch.Tensor, lengths: Optional[torch.Tensor] = None,
+                mask: bool = False, ret_layer_results: bool = False):
+        cfg = self.config
+        x, feat_len, pad_mask = self.front(source, lengths, mask)
         with span("model.encoder"):
             x = x + self.pos_conv(x)
             if not cfg.layer_norm_first:
@@ -531,17 +562,12 @@ class WavLM(nn.Module):
 
             layer_results = [x]
             position_bias = None
-            drop = cfg.encoder_layerdrop > 0 and self.training
             for layer in self.layers:
                 if self.remat:
                     y, position_bias = remat_call(layer, x, pad_mask, position_bias)
                 else:
                     y, position_bias = layer(x, pad_mask, position_bias)
-                if drop:  # the layer ran; keep its output or skip it
-                    keep = torch.rand((), generator=self.generator, device=x.device) \
-                        >= cfg.encoder_layerdrop
-                    y = torch.where(keep, y, x)
-                x = y
+                x = self.layer_drop(x, y)
                 layer_results.append(x)
             if cfg.layer_norm_first:
                 x = self.encoder_layer_norm(x)

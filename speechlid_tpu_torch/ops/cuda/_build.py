@@ -5,8 +5,10 @@ Every ``csrc/*.cu`` source of this package is compiled by ``nvcc`` for
 ``ctypes`` (no PyTorch headers: a build takes seconds, not minutes).  The
 library lands in ``build/`` at the root of the checkout, named by a hash of
 the sources and flags, so a changed source is rebuilt at its first use and
-an unchanged one is loaded as it is.  The sources compile in parallel, one
-``nvcc`` each, and link once.
+an unchanged one is loaded as it is.  The objects (:data:`UNITS`: a source
+and the flags it adds; ``relpos_attn.cu`` twice, its Transformer-XL
+instantiation beside Shaw's) compile in parallel, one ``nvcc`` each, and
+link once.
 
 Nothing here runs at import: :func:`lib` builds on its first call, which a
 kernel wrapper makes only for a tensor on the card.
@@ -36,6 +38,10 @@ from typing import Any, NamedTuple
 _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
 SOURCES = ("fbank.cu", "depthwise.cu", "subsample.cu", "relpos_attn.cu")
+# object → (source, the flags it adds): every source once, and the rel-pos
+# attention's Transformer-XL instantiation (entries relpos_attn_xl_*)
+UNITS = {**{Path(src).stem: (src, ()) for src in SOURCES},
+         "relpos_attn_xl": ("relpos_attn.cu", ("-DRPA_XL=1",))}
 BUILD_DIR = _PKG.parent / "build"
 TILING = {
     "FBANK_TILE_FRAMES": 16,   # frames of a block's tile
@@ -89,6 +95,13 @@ _SIGNATURES = {
     # B, N, H, D, P, G, scale, stream
     "relpos_attn_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                         _I, _I, _I, _I, _I, _I, _F, _P),
+    # q + u, kv, tables (H, 2P + 1, D), beta (H, 2P + 1), mask (or null), o, lse,
+    # B, N, H, D, P, scale, stream
+    "relpos_attn_xl_fwd": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P),
+    # q + u, kv, tables, beta, mask (or null), o, lse, dout, dq, dkv, dtable, dbeta,
+    # part_dq, part_de, part_db, B, N, H, D, P, scale, stream
+    "relpos_attn_xl_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                           _I, _I, _I, _I, _I, _F, _P),
 }
 
 
@@ -109,26 +122,27 @@ def library_path(flags=None) -> Path:
     for name in SOURCES:
         h.update(name.encode())
         h.update((CSRC / name).read_bytes())
+    h.update(repr(sorted(UNITS.items())).encode())
     return BUILD_DIR / f"libspeechlid_kernels_{h.hexdigest()[:16]}.so"
 
 
 def build(target: Path, flags=None) -> None:
-    """Compile every source with ``flags`` (default ``NVCC_FLAGS``) and link
-    them into ``target``."""
+    """Compile every unit with ``flags`` (default ``NVCC_FLAGS``) and its
+    own, and link them into ``target``."""
     flags = NVCC_FLAGS if flags is None else flags
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
-        objs = [Path(tmp) / (Path(s).stem + ".o") for s in SOURCES]
+        objs = [Path(tmp) / (name + ".o") for name in UNITS]
         procs = [
             subprocess.Popen(
-                [nvcc, *flags, "-c", str(CSRC / s), "-o", str(o)],
+                [nvcc, *flags, *own, "-c", str(CSRC / src), "-o", str(o)],
                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
             )
-            for s, o in zip(SOURCES, objs)
+            for (src, own), o in zip(UNITS.values(), objs)
         ]
         logs = [p.communicate()[0] for p in procs]
-        failed = [(s, log) for s, p, log in zip(SOURCES, procs, logs) if p.returncode]
+        failed = [(name, log) for name, p, log in zip(UNITS, procs, logs) if p.returncode]
         if failed:
             raise RuntimeError(
                 "nvcc failed:\n" + "\n".join(f"--- {s}\n{log}" for s, log in failed)

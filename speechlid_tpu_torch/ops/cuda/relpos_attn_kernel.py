@@ -1,6 +1,7 @@
-"""The Conformer blocks' Shaw relative-position attention core as one CUDA
+"""The Conformer blocks' relative-position attention core as one CUDA
 kernel family (``csrc/relpos_attn.cu``), forward and backward, its plain
-PyTorch version and an emulation of the kernels' tiles.
+PyTorch versions and an emulation of the kernels' tiles: Shaw's form (the
+flagship's blocks) and the Transformer-XL form (wav2vec 2.0 Conformer).
 
 Replaces no TPU kernel: the JAX package leaves ``RelPosAttention`` to XLA.
 Between the projections (q from ``to_q``, k and v from ``to_kv``, both as
@@ -32,6 +33,25 @@ On the card (float32, d 32 or 64) the kernels never write an (n, n) or an
 softmax and their partials' indices in plain PyTorch, so that the CPU tests
 reach the index arithmetic the kernels depend on.  Each launch counts in
 ``_build.launches`` under its entry point (three a backward).
+
+The Transformer-XL form (:func:`relpos_attn_xl`), per head with
+s = d^-1/2 and the projected sinusoidal table p_h(r), r = −P … P:
+
+    S_ij = s·[(q_i + u)·k_j + (q_i + v)·p_h(i − j)]
+
+:func:`relpos_attn_xl_plain` is HF's chain (``Wav2Vec2ConformerSelf
+Attention._apply_relative_embeddings``: the two products and the zero-pad
+rel-shift), the CPU path and the oracle.  On the card the same source,
+compiled a second time with ``RPA_XL`` (``_build.UNITS``; entries
+``relpos_attn_xl_fwd`` / ``_bwd``), takes it in Shaw's form:
+q' = q + u against the per-head table E_h = p_h, plus a logit bias β_h(r) =
+s·(v − u)·p_h(r) a head and distance, so S_ij = s·q'_i·(k_j + E_h(i − j)) +
+β_h(i − j).  The backward writes dq', dkv, dE_h and dβ_h (four launches, one
+head a block); autograd takes them on to u, v and the projection of p.
+
+Every kernel launch, Shaw or XL, also notes its (direction, b, h, n, d) in
+the profiler registry's ``relpos_attn`` counter while a profiler runs
+(``core/profile.py``), where the benchmark reads the launches' least time.
 """
 
 from __future__ import annotations
@@ -41,6 +61,7 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from speechlid_tpu_torch.core.profile import _time_cost_recoder
 from speechlid_tpu_torch.ops.cuda import _build
 
 TILE = _build.TILING["RPA_TILE"]  # queries and keys of a forward tile, queries of a backward step
@@ -84,6 +105,49 @@ def relpos_attn_plain(q: torch.Tensor, kv: torch.Tensor, table: torch.Tensor,
     return (attn @ v).transpose(1, 2).reshape(b, n, h * d)
 
 
+def relpos_attn_xl_plain(q: torch.Tensor, kv: torch.Tensor, pos: torch.Tensor,
+                         u: torch.Tensor, v: torch.Tensor, mask: Optional[torch.Tensor],
+                         heads: int, dropout=None) -> torch.Tensor:
+    """Plain Transformer-XL version, HF's chain: (b, n, h·d) attention output
+    of q (b, n, h·d) and kv (b, n, 2·h·d) with the heads' projected table
+    ``pos`` (h, 2P + 1, d), row r + P for distance r = i − j (P ≥ n − 1),
+    and the biases u, v (h, d); the mask as :func:`relpos_attn_plain`'s.
+    (q + v)·pᵀ runs over the 2n − 1 distances in HF's order (n − 1 first),
+    then the zero-pad rel-shift puts p(i − j) at (i, j).  ``dropout``, a
+    module, takes the probabilities (the kernels have none)."""
+    b, n, inner = q.shape
+    h = heads
+    d = inner // h
+    p = (pos.shape[1] - 1) // 2
+    q = q.view(b, n, h, d).transpose(1, 2)
+    k, val = kv.chunk(2, dim=-1)
+    k = k.reshape(b, n, h, d).transpose(1, 2)
+    val = val.reshape(b, n, h, d).transpose(1, 2)
+    ac = (q + u[:, None]) @ k.transpose(-1, -2)
+    rel = pos[:, p - n + 1:p + n].flip(1)                   # (h, 2n − 1, d): n − 1 … −(n − 1)
+    bd = (q + v[:, None]) @ rel.transpose(-1, -2)           # (b, h, n, 2n − 1)
+    bd = torch.cat([bd.new_zeros(b, h, n, 1), bd], dim=-1).view(b, h, 2 * n, n)
+    bd = bd[:, :, 1:].reshape(b, h, n, 2 * n - 1)[..., :n]  # (i, j) → p(i − j)
+    dots = (ac + bd) * d ** -0.5
+    dots = dots.to(torch.promote_types(dots.dtype, torch.float32))  # 16-bit → float32
+    if mask is not None:
+        pair = mask[:, None, :, None] & mask[:, None, None, :]
+        dots = dots.masked_fill(~pair, _NEG)
+    attn = torch.softmax(dots, dim=-1).to(q.dtype)
+    if dropout is not None:
+        attn = dropout(attn)
+    return (attn @ val).transpose(1, 2).reshape(b, n, h * d)
+
+
+def xl_operands(q: torch.Tensor, pos: torch.Tensor, u: torch.Tensor,
+                v: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """What the kernels take of the XL form: (q + u (b, n, h·d), the logit
+    bias β (h, 2P + 1) = s·(v − u)·p_h(r)); differentiable."""
+    d = pos.shape[-1]
+    beta = torch.einsum("hd,hrd->hr", v - u, pos) * d ** -0.5
+    return q + u.reshape(-1), beta
+
+
 # ---------------------------------------------------------------------------
 # What the kernels and their emulation share
 # ---------------------------------------------------------------------------
@@ -119,6 +183,14 @@ def bwd_partials(b: int, h: int, n: int, d: int) -> Tuple[Tuple[int, ...], Tuple
             (b * (h // heads_per_block(b, h, n, d)), nkt, np_ + KEY_TILE - 1, d))
 
 
+def xl_bwd_partials(b: int, h: int, n: int, d: int) -> Tuple[Tuple[int, ...], ...]:
+    """Shapes of the XL backward's scratch (one head a block, G = 1): dQ's
+    partials as :func:`bwd_partials`', dE's and dβ's a block each, head-major:
+    (h·b, key tiles, NR, d) and (h·b, key tiles, NR), NR = NP + KEY_TILE − 1."""
+    nkt, nr = key_tiles(n), tiles(n) * TILE + KEY_TILE - 1
+    return ((nkt, b * h, tiles(n) * TILE, d), (h * b, nkt, nr, d), (h * b, nkt, nr))
+
+
 def band_rows(i0: int, j0: int, max_pos_emb: int, keys: int = TILE) -> torch.Tensor:
     """(TILE + keys − 1,): the table rows of the diagonals of TILE queries
     from i0 against ``keys`` keys from j0, e = i − j + keys − 1 for their
@@ -140,9 +212,13 @@ def table_row_span(row: int, j0: int, max_pos_emb: int, rows: int) -> Tuple[int,
 def relpos_attn_tiled_plain(
     q: torch.Tensor, kv: torch.Tensor, table: torch.Tensor, mask: Optional[torch.Tensor],
     heads: int, max_pos_emb: int, dout: torch.Tensor, seen: Optional[dict] = None,
+    beta: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, ...]]:
     """The kernels' tiles in plain PyTorch, float32: (o, (dq, dkv, dtable))
-    for the output gradient ``dout``.
+    for the output gradient ``dout``; with ``beta`` (h, 2P + 1) the XL
+    instantiation: ``table`` is the heads' (h, 2P + 1, d), each logit gets
+    the bias of its distance after the scale, one head a block (G = 1), and
+    the gradients end with dβ (o, (dq, dkv, dtable, dbeta)).
 
     The forward walks each query tile's key tiles (TILE × TILE) with the
     online softmax (a padded query row's logits 0 over the n keys, masked
@@ -152,14 +228,16 @@ def relpos_attn_tiled_plain(
     log-sum-exp, dS, dK and dV; dQ's partial of the key tile; dE / s by the
     step's diagonals, added into the partial of (utterance, head group, key
     tile) at rows i0 + e head by head of the group, each head's steps in
-    order.  Then the sums over the key tiles in order and, table row by
-    table row, over the blocks' partial rows (:func:`table_row_span`),
-    times s.  ``seen``, a dict, takes the (b, h, NP, NP) logits the forward
-    computed (``"fwd"``) and those the backward recomputed (``"bwd"``)."""
+    order (XL: dβ by the same diagonals, each head its own partials).  Then
+    the sums over the key tiles in order and, table row by table row, over
+    the blocks' partial rows (:func:`table_row_span`), times s (not dβ).
+    ``seen``, a dict, takes the (b, h, NP, NP) logits the forward computed
+    (``"fwd"``) and those the backward recomputed (``"bwd"``)."""
     b, n, hd = q.shape
     h, p = heads, max_pos_emb
     d = hd // h
     s = d ** -0.5
+    xl = beta is not None
     nt, nkt = tiles(n), key_tiles(n)
     np_, nk, nr = nt * TILE, nkt * KEY_TILE, nt * TILE + KEY_TILE - 1
 
@@ -173,13 +251,18 @@ def relpos_attn_tiled_plain(
     state = torch.zeros((b, nk), dtype=torch.long)  # 0 past n, 1 padded, 2 valid
     state[:, :n] = 1 + valid.long()
     e_of = torch.arange(TILE)[:, None] - torch.arange(TILE)[None, :] + TILE - 1  # (i, j) → e
-    table = table.float()
+    # (1 or h, 2P + 1, d): Shaw's one table for every head, XL's a head's own
+    table = table.float() if xl else table.float()[None]
+    bias = beta.float() if xl else None
     if seen is not None:
         seen.update(fwd=torch.zeros((b, h, np_, np_)), bwd=torch.zeros((b, h, np_, np_)))
 
-    def logits(i0, j0, band):  # a TILE × TILE tile over its band (2·TILE − 1 rows)
+    def logits(i0, j0, rows):  # a TILE × TILE tile over its band's table rows (2·TILE − 1)
         qt, kt = qh[:, :, i0:i0 + TILE], k[:, :, j0:j0 + TILE]
-        sc = (qt @ kt.transpose(-1, -2) + torch.einsum("bhic,ijc->bhij", qt, band[e_of])) * s
+        band = table[:, rows][:, e_of]                                 # (1 or h, i, j, c)
+        sc = (qt @ kt.transpose(-1, -2) + torch.einsum("bhic,hijc->bhij", qt, band)) * s
+        if xl:
+            sc = sc + bias[:, rows][:, e_of]
         row, key = state[:, None, i0:i0 + TILE, None], state[:, None, None, j0:j0 + TILE]
         sc = torch.where(row == 1, torch.zeros(()), sc)
         return torch.where((key == 0) | ((key == 1) & (row != 1)), torch.full((), -torch.inf), sc)
@@ -191,7 +274,7 @@ def relpos_attn_tiled_plain(
         l_sum = torch.zeros((b, h, TILE))
         acc = torch.zeros((b, h, TILE, d))
         for j0 in range(0, np_, TILE):
-            sc = logits(i0, j0, table[band_rows(i0, j0, p)])
+            sc = logits(i0, j0, band_rows(i0, j0, p))
             if seen is not None:
                 seen["fwd"][:, :, i0:i0 + TILE, j0:j0 + TILE] = sc
             m_new = torch.maximum(m, sc.amax(-1))
@@ -206,9 +289,10 @@ def relpos_attn_tiled_plain(
     o = o * (idx < n)[:, None]
     d_row = (g_out * o).sum(-1)                                       # D_i = dO_i · o_i
 
-    g = heads_per_block(b, h, n, d)
+    g = 1 if xl else heads_per_block(b, h, n, d)
     part_dq = torch.zeros((nkt, b, h, np_, d))
     part_de = torch.zeros((b, h // g, nkt, nr, d))
+    part_db = torch.zeros((b, h, nkt, nr))
     dk, dv = torch.zeros_like(k), torch.zeros_like(v)
     nd = TILE + KEY_TILE - 1                                          # a step's diagonals
     e_step = torch.arange(TILE)[:, None] - torch.arange(KEY_TILE)[None, :] + KEY_TILE - 1
@@ -216,10 +300,10 @@ def relpos_attn_tiled_plain(
         keys, steps = slice(j0, j0 + KEY_TILE), []
         for i0 in range(0, np_, TILE):
             rows = slice(i0, i0 + TILE)
-            band = table[band_rows(i0, j0, p, KEY_TILE)]             # (nd, d)
+            band_idx = band_rows(i0, j0, p, KEY_TILE)                 # (nd,)
             # each TILE-key half as the forward's tile: its band rows from (1 − half)·TILE
             sc = torch.cat([logits(i0, j0 + half * TILE,
-                                   band[(1 - half) * TILE:(1 - half) * TILE + 2 * TILE - 1])
+                                   band_idx[(1 - half) * TILE:(1 - half) * TILE + 2 * TILE - 1])
                             for half in (0, 1)], -1)
             if seen is not None and j0 < np_:
                 seen["bwd"][:, :, rows, j0:j0 + KEY_TILE] = sc[..., :np_ - j0]
@@ -233,27 +317,33 @@ def relpos_attn_tiled_plain(
             dk[:, :, keys] += ds.transpose(-1, -2) @ qh[:, :, rows]
             skew = torch.zeros((b, h, TILE, nd))                      # G[i][i − j + 63] = dS_ij
             skew.scatter_(-1, e_step.expand(b, h, TILE, KEY_TILE), ds)
-            steps.append(skew.transpose(-1, -2) @ qh[:, :, rows])      # (b, h, nd, d), / s
-            part_dq[kt, :, :, rows] = s * (ds @ k[:, :, keys] + skew @ band)
+            steps.append((skew.transpose(-1, -2) @ qh[:, :, rows], skew.sum(2)))  # / s; dβ
+            part_dq[kt, :, :, rows] = s * (ds @ k[:, :, keys] + skew @ table[:, band_idx])
         for hh in range(g):  # the group's heads in turn, each head's steps in order
-            for i0, de in zip(range(0, np_, TILE), steps):
+            for i0, (de, db) in zip(range(0, np_, TILE), steps):
                 part_de[:, :, kt, i0:i0 + nd] += de.reshape(b, h // g, g, nd, d)[:, :, hh]
+                if xl:
+                    part_db[:, :, kt, i0:i0 + nd] += db
     dq = part_dq[0]
     for kt in range(1, nkt):
         dq = dq + part_dq[kt]
+    # Shaw: every block into the one table; XL: each head's blocks into its own
+    blocks = part_de.transpose(0, 1) if xl else part_de.reshape(1, -1, nkt, nr, d)
     dtable = torch.zeros_like(table)
-    blocks = part_de.reshape(-1, nkt, nr, d)
+    dbeta = torch.zeros((h, 2 * p + 1))
     for row in range(2 * p + 1):
         for kt in range(nkt):
             lo, hi = table_row_span(row, kt * KEY_TILE, p, nr)
             if lo <= hi:
-                dtable[row] += blocks[:, kt, lo:hi + 1].sum((0, 1))
+                dtable[:, row] += blocks[:, :, kt, lo:hi + 1].sum((1, 2))
+                dbeta[:, row] += part_db[:, :, kt, lo:hi + 1].sum((0, 2))
     dtable, dk = dtable * s, dk * s
 
     def back(x):  # (b, h, rows, d) → (b, n, h·d)
         return x[:, :, :n].transpose(1, 2).reshape(b, n, hd)
 
-    return back(o), (back(dq), torch.cat([back(dk), back(dv)], -1), dtable)
+    grads = (back(dq), torch.cat([back(dk), back(dv)], -1))
+    return back(o), (grads + (dtable, dbeta) if xl else grads + (dtable[0],))
 
 
 # ---------------------------------------------------------------------------
@@ -300,6 +390,15 @@ def _mask_bytes(mask: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
     return None if mask is None else mask.contiguous().view(torch.uint8)
 
 
+def _note(direction: str, q: torch.Tensor, heads: int, mask: Optional[torch.Tensor]) -> None:
+    """The launch's (direction, b, h, n, d, mask) into the profiler's
+    counter; the mask (or None) is held as it is, with no work on the
+    device, so that a reader can count the valid pairs the kernels compute
+    (tiles where no valid query meets a valid key are skipped)."""
+    b, n, hd = q.shape
+    _time_cost_recoder.count("relpos_attn", (direction, b, heads, n, hd // heads, mask))
+
+
 def relpos_fwd(q: torch.Tensor, kv: torch.Tensor, table: torch.Tensor,
                mask: Optional[torch.Tensor], heads: int,
                max_pos_emb: int) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -316,6 +415,7 @@ def relpos_fwd(q: torch.Tensor, kv: torch.Tensor, table: torch.Tensor,
             "relpos_attn_fwd",
             q.data_ptr(), kv.data_ptr(), table.data_ptr(), None if m is None else m.data_ptr(),
             o.data_ptr(), lse.data_ptr(), b, n, heads, d, max_pos_emb, d ** -0.5, _stream())
+    _note("forward", q, heads, mask)
     return o, lse
 
 
@@ -342,6 +442,7 @@ def relpos_bwd(q: torch.Tensor, kv: torch.Tensor, table: torch.Tensor,
             o.data_ptr(), lse.data_ptr(), dout.data_ptr(), dq.data_ptr(), dkv.data_ptr(),
             dtable.data_ptr(), part_dq.data_ptr(), part_de.data_ptr(), b, n, heads, d,
             max_pos_emb, g, d ** -0.5, _stream(), kernels=3)
+    _note("backward", q, heads, mask)
     return dq, dkv, dtable
 
 
@@ -379,3 +480,114 @@ def relpos_attn(q: torch.Tensor, kv: torch.Tensor, table: torch.Tensor,
         return relpos_attn_plain(q, kv, table, mask, heads, max_pos_emb)
     _check_cuda(d, q, kv, table)
     return RelPosAttnFn.apply(q, kv, table, mask, heads, max_pos_emb)
+
+
+# ---------------------------------------------------------------------------
+# The Transformer-XL instantiation
+# ---------------------------------------------------------------------------
+
+
+def _check_xl(q: torch.Tensor, kv: torch.Tensor, pos: torch.Tensor,
+              mask: Optional[torch.Tensor], heads: int) -> Tuple[int, int]:
+    """(d, P) of an XL call, P = (rows − 1) / 2 of the heads' table ``pos``
+    (h, 2P + 1, d), which must reach every distance (P ≥ n − 1)."""
+    if q.dim() != 3 or q.shape[-1] % heads:
+        raise ValueError(f"q must be (b, n, heads·d); got {tuple(q.shape)} for {heads} heads")
+    d, n = q.shape[-1] // heads, q.shape[1]
+    if pos.dim() != 3 or pos.shape[0] != heads or pos.shape[2] != d or pos.shape[1] % 2 != 1:
+        raise ValueError(f"the XL table must be (heads, 2P + 1, d) = ({heads}, 2P + 1, {d}); "
+                         f"got {tuple(pos.shape)}")
+    p = (pos.shape[1] - 1) // 2
+    if p < n - 1:
+        raise ValueError(f"the XL table reaches distances ±{p}, short of ±{n - 1}")
+    _check(q, kv, pos[0], mask, heads, p)
+    return d, p
+
+
+def relpos_xl_fwd(q: torch.Tensor, kv: torch.Tensor, table: torch.Tensor, beta: torch.Tensor,
+                  mask: Optional[torch.Tensor], heads: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(o, lse) of the XL form from q + u (``q``), kv, the heads' table (h,
+    2P + 1, d) and β (h, 2P + 1), float32 CUDA tensors: one launch.  No
+    autograd."""
+    d, p = _check_xl(q, kv, table, mask, heads)
+    _check_cuda(d, q, kv, table, beta)
+    if tuple(beta.shape) != tuple(table.shape[:2]):
+        raise ValueError(f"beta must be (heads, 2P + 1) = {tuple(table.shape[:2])}; "
+                         f"got {tuple(beta.shape)}")
+    q, kv, table, beta = q.contiguous(), kv.contiguous(), table.contiguous(), beta.contiguous()
+    m = _mask_bytes(mask)
+    b, n, _ = q.shape
+    o = torch.empty_like(q)
+    lse = torch.empty((b * heads, tiles(n) * TILE), dtype=torch.float32, device=q.device)
+    with torch.cuda.device(q.device):
+        _build.launch(
+            "relpos_attn_xl_fwd",
+            q.data_ptr(), kv.data_ptr(), table.data_ptr(), beta.data_ptr(),
+            None if m is None else m.data_ptr(), o.data_ptr(), lse.data_ptr(),
+            b, n, heads, d, p, d ** -0.5, _stream())
+    _note("forward", q, heads, mask)
+    return o, lse
+
+
+def relpos_xl_bwd(q: torch.Tensor, kv: torch.Tensor, table: torch.Tensor, beta: torch.Tensor,
+                  mask: Optional[torch.Tensor], o: torch.Tensor, lse: torch.Tensor,
+                  dout: torch.Tensor, heads: int) -> Tuple[torch.Tensor, ...]:
+    """(dq, dkv, dtable, dbeta) of the XL form: four launches and their
+    partials' scratch (:func:`xl_bwd_partials`)."""
+    d, p = _check_xl(q, kv, table, mask, heads)
+    _check_cuda(d, q, kv, table, beta, o, lse, dout)
+    q, kv, table, beta = q.contiguous(), kv.contiguous(), table.contiguous(), beta.contiguous()
+    m, o, dout = _mask_bytes(mask), o.contiguous(), dout.contiguous()
+    b, n, _ = q.shape
+    part_dq, part_de, part_db = (torch.empty(shape, dtype=torch.float32, device=q.device)
+                                 for shape in xl_bwd_partials(b, heads, n, d))
+    dq, dkv = torch.empty_like(q), torch.empty_like(kv)
+    dtable, dbeta = torch.empty_like(table), torch.empty_like(beta)
+    with torch.cuda.device(q.device):
+        _build.launch(
+            "relpos_attn_xl_bwd",
+            q.data_ptr(), kv.data_ptr(), table.data_ptr(), beta.data_ptr(),
+            None if m is None else m.data_ptr(), o.data_ptr(), lse.data_ptr(), dout.data_ptr(),
+            dq.data_ptr(), dkv.data_ptr(), dtable.data_ptr(), dbeta.data_ptr(),
+            part_dq.data_ptr(), part_de.data_ptr(), part_db.data_ptr(),
+            b, n, heads, d, p, d ** -0.5, _stream(), kernels=4)
+    _note("backward", q, heads, mask)
+    return dq, dkv, dtable, dbeta
+
+
+class RelPosXLAttnFn(torch.autograd.Function):
+    """The XL core on the card with its gradients through the kernels: one
+    forward launch, four backward.  Takes q + u, kv, the heads' table and
+    β; saves them, the mask, o and lse."""
+
+    @staticmethod
+    def forward(ctx, q, kv, table, beta, mask, heads):
+        o, lse = relpos_xl_fwd(q, kv, table, beta, mask, heads)
+        ctx.save_for_backward(q, kv, table, beta, mask, o, lse)
+        ctx.heads = heads
+        return o
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, dout):
+        q, kv, table, beta, mask, o, lse = ctx.saved_tensors
+        grads = relpos_xl_bwd(q, kv, table, beta, mask, o, lse, dout, ctx.heads)
+        return (*grads, None, None)
+
+
+def relpos_attn_xl(q: torch.Tensor, kv: torch.Tensor, pos: torch.Tensor, u: torch.Tensor,
+                   v: torch.Tensor, mask: Optional[torch.Tensor], heads: int) -> torch.Tensor:
+    """(b, n, h·d) Transformer-XL attention core of q (b, n, h·d), kv (b, n,
+    2·h·d), the heads' projected table ``pos`` (h, 2P + 1, d), P ≥ n − 1,
+    and the biases u, v (h, d), differentiable in all five.
+
+    CPU tensors: :func:`relpos_attn_xl_plain` under autograd.  Float32 CUDA
+    tensors with d in HEAD_DIMS: :class:`RelPosXLAttnFn` on q + u and β
+    (:func:`xl_operands`), whose gradients autograd takes on to u, v and
+    ``pos``.  Anything else raises."""
+    d, _ = _check_xl(q, kv, pos, mask, heads)
+    if q.device.type == "cpu":
+        return relpos_attn_xl_plain(q, kv, pos, u, v, mask, heads)
+    _check_cuda(d, q, kv, pos, u, v)
+    q_u, beta = xl_operands(q, pos, u, v)
+    return RelPosXLAttnFn.apply(q_u, kv, pos, beta, mask, heads)

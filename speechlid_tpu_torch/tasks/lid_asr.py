@@ -1,6 +1,10 @@
 """Joint LID + per-language CTC-ASR task (port of
 ``speechlid_tpu/tasks/lid_asr.py``): Conformer, WavLM or wav2vec2
-featurizer.
+featurizer, or the wav2vec 2.0 Conformer (``featurizer=
+"wav2vec2_conformer"``, ``models/wav2vec2.Wav2Vec2Conformer``: the port's
+own, with no JAX counterpart and no checkpoint loader; its layers and final
+LayerNorm freeze with the transformer, its extractor and projection with
+the featurizer).
 
 Builds the same model from the same hyper-parameter names as the JAX
 ``LidASRTask``, so either package's checkpoint ``hyper_parameters``
@@ -84,6 +88,7 @@ from speechlid_tpu_torch.models.wav2vec2 import (
     SSLFeaturizerModel,
     load_fairseq_wav2vec2_checkpoint,
     wav2vec2_config,
+    wav2vec2_conformer_config,
 )
 from speechlid_tpu_torch.models.wavlm import WavLMConfig, load_wavlm_checkpoint
 from speechlid_tpu_torch.ops.ctc import ctc_loss
@@ -91,7 +96,7 @@ from speechlid_tpu_torch.ops.frontend import fused_frontend, normalize_wav
 from speechlid_tpu_torch.ops.quant import quant_dot_general
 from speechlid_tpu_torch.parallel.mesh import broadcast, data_parallel
 
-SSL_FEATURIZERS = ("wavlm", "wav2vec2")
+SSL_FEATURIZERS = ("wavlm", "wav2vec2", "wav2vec2_conformer")
 # parameter-name parts (under ``featurizer.``) of an SSL featurizer that
 # each freeze gate holds, as the JAX task's mask names them
 SSL_EXTRACTOR_PARTS = (".feature_extractor.", ".post_extract_proj.")
@@ -222,6 +227,9 @@ class LidASRTask(TaskModule):
                 remat=remat,
             )
         else:
+            if pt_path and featurizer == "wav2vec2_conformer":
+                raise ValueError("the wav2vec 2.0 Conformer has no checkpoint loader: "
+                                 "give ssl_config")
             if pt_path:
                 load = load_wavlm_checkpoint if featurizer == "wavlm" \
                     else load_fairseq_wav2vec2_checkpoint
@@ -229,7 +237,8 @@ class LidASRTask(TaskModule):
             else:
                 conf = dict(ssl_config or {})
                 ssl_cfg = (WavLMConfig.from_dict(conf) if featurizer == "wavlm"
-                           else wav2vec2_config(**conf))
+                           else wav2vec2_config(**conf) if featurizer == "wav2vec2"
+                           else wav2vec2_conformer_config(**conf))
             # the task's dtype does not reach the SSL config, as in the JAX
             # task: ssl_config's own dtype sets the encoder's
             if quant_dot or ssl_conv_impl:

@@ -83,9 +83,12 @@ TRAIN_TREE = {"trainer.forward": "trainer.step", "task.frontend": "trainer.forwa
               "trainer.fetch": "trainer.step"}
 # an SSL featurizer's encoder and its layers' attention cores
 SSL_TREE = {**TRAIN_TREE, "model.encoder": "model.featurizer", "model.attention": "model.encoder"}
-# a Conformer block's rel-pos attention core: one a block, in the Conformer
-# encoder (model.featurizer) and in every ConformerLinear head (model.heads)
+# a Conformer block's rel-pos attention core and its conv module: one each a
+# block, in the Conformer encoder (model.featurizer) and in every
+# ConformerLinear head (model.heads)
 RELPOS = "model.relpos_attn"
+CONV = "model.conv_module"
+BLOCK_SPANS = {RELPOS, CONV}
 RELPOS_PARENTS = {"model.featurizer", "model.heads"}
 
 
@@ -165,16 +168,17 @@ def test_train_step_span_tree(recoder, featurizer):
         inside = [s for s in spans if step in lineage(s)[:-1]]
         assert {s.batch for s in inside} == {step.batch}
         for s in inside:
-            assert s.parent.name in (RELPOS_PARENTS if s.name == RELPOS else {tree[s.name]}), \
-                path(s)
+            assert s.parent.name in (RELPOS_PARENTS if s.name in BLOCK_SPANS
+                                     else {tree[s.name]}), path(s)
         assert sorted(s.name for s in inside if s.parent.name == "trainer.forward") == sorted(
             ["task.frontend", "model.featurizer", "model.heads", "task.loss"])
         assert [s.name for s in inside if s.parent.name == "model.featurizer"
-                and s.name != RELPOS] == ["model.extractor"] + ["model.encoder"] * (
+                and s.name not in BLOCK_SPANS] == ["model.extractor"] + ["model.encoder"] * (
                     featurizer == "wavlm")
         relpos = [s.parent.name for s in inside if s.name == RELPOS]
         blocks = HP["n_blocks"] if featurizer == "conformer" else 0
         assert relpos.count("model.featurizer") == blocks and "model.heads" in relpos
+        assert sorted(s.parent.name for s in inside if s.name == CONV) == sorted(relpos)
     last = spans[-1]  # the last step's metrics, fetched after the loop
     assert last.name == "trainer.fetch" and last.parent is None
     assert "trainer.grad_sync" not in {s.name for s in spans}  # no mesh
@@ -202,9 +206,11 @@ def test_infer_span_tree(recoder):
         assert [s.name for s in spans if s.parent is root] == [
             "task.frontend", "model.featurizer", "model.heads", "model.scores"]
         assert [path(s) for s in spans if root in lineage(s) and len(path(s)) == 3
-                and s.name != RELPOS] == [["task.infer", "model.featurizer", "model.extractor"]]
-        assert {s.parent.name for s in spans if root in lineage(s) and s.name == RELPOS} == \
-            RELPOS_PARENTS
+                and s.name not in BLOCK_SPANS] == [
+                    ["task.infer", "model.featurizer", "model.extractor"]]
+        for name in BLOCK_SPANS:
+            assert {s.parent.name for s in spans if root in lineage(s) and s.name == name} == \
+                RELPOS_PARENTS
         assert {s.batch for s in spans if root in lineage(s)} == {root.batch}
 
 
@@ -260,7 +266,7 @@ def test_device_trace_holds_every_span(tmp_path, recoder):
         trainer._run_train_epoch(0, lid_batches(2))
         fn(torch.as_tensor(batch["wavs"]), torch.as_tensor(batch["wav_lengths"]))
     names = {s.name for s in recoder.spans()}
-    assert names == set(TRAIN_TREE) | {"trainer.step", "task.infer", "model.scores", RELPOS}
+    assert names == set(TRAIN_TREE) | {"trainer.step", "task.infer", "model.scores"} | BLOCK_SPANS
     annotations = [e for e in _events(tmp_path / "spans.pt.trace.json")
                    if e.get("cat") == "user_annotation"]
     assert names <= {e["name"] for e in annotations}

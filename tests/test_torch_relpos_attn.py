@@ -287,3 +287,169 @@ def test_wrapper_takes_the_plain_version_on_the_cpu_and_refuses_the_rest():
         rk._check_cuda(32, q.double())
     with pytest.raises(ValueError):  # a CPU tensor never launches a kernel
         rk.relpos_fwd(q, kv, table, mask, 2, 4)
+
+
+# ---------------------------------------------------------------------------
+# The Transformer-XL form (wav2vec 2.0 Conformer): per-head tables, u, v
+# ---------------------------------------------------------------------------
+
+
+def xl_direct(q, kv, pos, u, v, mask, h):
+    """S_ij = s·[(q_i + u)·k_j + (q_i + v)·p(i − j)] pair by pair, the
+    (n, n, d) table of distances gathered: no rel-shift."""
+    b, n, hd = q.shape
+    d = hd // h
+    p = (pos.shape[1] - 1) // 2
+    qh = q.view(b, n, h, d).transpose(1, 2)
+    k, val = kv.chunk(2, dim=-1)
+    k = k.reshape(b, n, h, d).transpose(1, 2)
+    val = val.reshape(b, n, h, d).transpose(1, 2)
+    i = torch.arange(n)
+    e = pos[:, i[:, None] - i[None, :] + p]  # (h, n, n, d)
+    s = ((qh + u[:, None]) @ k.transpose(-1, -2)
+         + torch.einsum("bhid,hijd->bhij", qh + v[:, None], e)) * d ** -0.5
+    if mask is not None:
+        s = s.masked_fill(~(mask[:, None, :, None] & mask[:, None, None, :]), NEG)
+    return (s.softmax(-1) @ val).transpose(1, 2).reshape(b, n, hd)
+
+
+def xl_inputs(b, n, h, d, p, kind, seed=0, dtype=torch.float32):
+    """q, kv, the heads' table (h, 2P + 1, d), u, v, the mask (``kind`` as
+    :func:`edge_inputs`': none, ragged with the first utterance whole, or
+    the last utterance padded throughout) and the output gradient."""
+    g = torch.Generator().manual_seed(seed)
+    q = torch.randn(b, n, h * d, generator=g, dtype=dtype)
+    kv = torch.randn(b, n, 2 * h * d, generator=g, dtype=dtype)
+    pos = torch.randn(h, 2 * p + 1, d, generator=g, dtype=dtype)
+    u, v = torch.randn(2, h, d, generator=g, dtype=dtype)
+    dout = torch.randn(b, n, h * d, generator=g, dtype=dtype)
+    mask = None
+    if kind != "valid":
+        lengths = torch.randint(1, n + 1, (b,), generator=g)
+        lengths[0] = n
+        mask = torch.arange(n)[None, :] < lengths[:, None]
+        if kind == "dead":
+            mask[-1] = False
+    return q, kv, pos, u, v, mask, dout
+
+
+@pytest.mark.parametrize("n,extra", [(1, 0), (40, 0), (70, 5), (129, 0)])
+@pytest.mark.parametrize("kind", MASKS)
+def test_xl_plain_is_the_pairwise_form(n, extra, kind):
+    """HF's chain (two products, the zero-pad rel-shift) equals the
+    pairwise form in float64 at P = n − 1 and beyond."""
+    q, kv, pos, u, v, mask, _ = xl_inputs(2, n, 2, 8, n - 1 + extra, kind, seed=n,
+                                          dtype=torch.float64)
+    got = rk.relpos_attn_xl_plain(q, kv, pos, u, v, mask, 2)
+    assert torch.allclose(got, xl_direct(q, kv, pos, u, v, mask, 2), rtol=0, atol=1e-12)
+
+
+def xl_grads(fn, q, kv, pos, u, v, dout):
+    leaves = [x.clone().requires_grad_() for x in (q, kv, pos, u, v)]
+    out = fn(*leaves)
+    return (out, *torch.autograd.grad(out, leaves, dout))
+
+
+def xl_tiled(q, kv, pos, u, v, mask, h, dout):
+    """The kernels' XL emulation on q + u and β, its dq', dE and dβ carried
+    back to q, u, v and the table by autograd through :func:`xl_operands`,
+    as ``RelPosXLAttnFn``'s backward hands them to autograd."""
+    leaves = [x.clone().requires_grad_() for x in (q, pos, u, v)]
+    q_u, beta = rk.xl_operands(*leaves)
+    p = (pos.shape[1] - 1) // 2
+    out, (dq_u, dkv, dtable, dbeta) = rk.relpos_attn_tiled_plain(
+        q_u.detach(), kv, pos, mask, h, p, dout, beta=beta.detach())
+    dq, dpos, du, dv = torch.autograd.grad([q_u, beta], leaves, [dq_u, dbeta])
+    return out, dq, dkv, dpos + dtable, du, dv
+
+
+XL_NAMES = ("out", "dq", "dkv", "dpos", "du", "dv")
+
+
+@pytest.mark.parametrize("n", EDGES)
+@pytest.mark.parametrize("d", [32, 64])
+@pytest.mark.parametrize("kind", MASKS)
+def test_xl_tiled_emulation_matches_plain(n, d, kind):
+    """The XL instantiation's tiles (per-head tables and β, one head a
+    block, dβ by the diagonals) against autograd through HF's chain, at
+    lengths across both tiles' edges, P = n − 1 (the cell's) or beyond,
+    with a fully padded utterance among the masks (``mask_attention=True``)."""
+    p = n - 1 + (EDGES.index(n) % 3) * 7
+    q, kv, pos, u, v, mask, dout = xl_inputs(2, n, 2, d, p, kind, seed=n + d)
+    ref = xl_grads(lambda *x: rk.relpos_attn_xl_plain(*x, mask, 2), q, kv, pos, u, v, dout)
+    got = xl_tiled(q, kv, pos, u, v, mask, 2, dout)
+    for name, g, r in zip(XL_NAMES, got, ref):
+        assert g.shape == r.shape, name
+        assert torch.isfinite(g).all(), name
+        if n == 1 and name not in ("out", "dkv"):  # one key: a flat softmax, zeros
+            assert max(g.abs().max(), r.abs().max()) <= 1e-5 * d_scale(dout, kv, pos), name
+        else:
+            assert rel_err(g, r) <= TOL, (name, rel_err(g, r))
+
+
+def d_scale(dout, kv, pos):
+    """What the rounding of dP − D at one key is multiplied by: |dO|·|v|
+    times the operands it meets (k, the table, u and v through q')."""
+    return float(dout.abs().max() * kv.abs().max() * (kv.abs().max() + pos.abs().max()) * 64)
+
+
+def test_xl_backward_recomputes_the_forwards_logits_bit_for_bit():
+    q, kv, pos, u, v, mask, dout = xl_inputs(2, 129, 2, 64, 128, "ragged", seed=3)
+    q_u, beta = rk.xl_operands(q, pos, u, v)
+    seen = {}
+    rk.relpos_attn_tiled_plain(q_u, kv, pos, mask, 2, 128, dout, seen=seen, beta=beta)
+    assert torch.equal(seen["fwd"], seen["bwd"]) and torch.isfinite(seen["fwd"]).any()
+
+
+def test_xl_module_is_the_chain_between_its_projections():
+    """``RelPosXLAttention``: biased projections, ``linear_pos`` over the
+    shared table once, the core HF's chain on the CPU; every leaf's
+    gradient through it (u, v and ``linear_pos`` included)."""
+    torch.manual_seed(0)
+    attn = conformer.RelPosXLAttention(32, heads=4, dim_head=8)
+    with torch.no_grad():
+        attn.pos_bias_u.normal_()
+        attn.pos_bias_v.normal_()
+    x = torch.randn(3, 20, 32)
+    mask = torch.arange(20)[None, :] < torch.tensor([20, 13, 4])[:, None]
+    pe = conformer.sinusoidal_table(20, 32, torch.device("cpu"))
+    got = attn(x, mask, pe)
+    pos = attn.linear_pos(pe).view(39, 4, 8).transpose(0, 1)
+    ref = attn.to_out(xl_direct(attn.to_q(x), attn.to_kv(x), pos, attn.pos_bias_u,
+                                attn.pos_bias_v, mask, 4))
+    assert rel_err(got, ref) <= TOL
+    g_got = torch.autograd.grad(got.square().sum(), list(attn.parameters()))
+    g_ref = torch.autograd.grad(ref.square().sum(), list(attn.parameters()))
+    assert len(g_got) == 9  # to_q, to_kv, to_out (weight, bias), linear_pos, u, v
+    assert all(rel_err(a, b) <= TOL for a, b in zip(g_got, g_ref))
+
+
+@pytest.mark.parametrize("training,p_drop,device,taken", [
+    (False, 0.1, "cuda", True), (True, 0.0, "cuda", True), (True, 0.1, "cuda", False),
+    (False, 0.0, "cpu", False)])
+def test_xl_uses_kernel(training, p_drop, device, taken):
+    """The kernels draw no dropout: in training with attention dropout the
+    module keeps HF's chain."""
+    attn = conformer.RelPosXLAttention(16, heads=2, dim_head=32, dropout=p_drop)
+    attn.train(training)
+    assert attn.uses_kernel(fake(device, torch.float32)) is taken
+
+
+def test_xl_wrapper_takes_the_plain_chain_on_the_cpu_and_refuses_the_rest():
+    q, kv, pos, u, v, mask, _ = xl_inputs(2, 10, 2, 32, 9, "ragged")
+    assert torch.equal(rk.relpos_attn_xl(q, kv, pos, u, v, mask, 2),
+                       rk.relpos_attn_xl_plain(q, kv, pos, u, v, mask, 2))
+    with pytest.raises(ValueError):  # the table reaches ±8, short of the distance 9
+        rk.relpos_attn_xl(q, kv, pos[:, 1:-1], u, v, mask, 2)
+    with pytest.raises(ValueError):  # one table for all heads is Shaw's form
+        rk.relpos_attn_xl(q, kv, pos[0], u, v, mask, 2)
+    with pytest.raises(ValueError):  # a CPU tensor never launches a kernel
+        rk.relpos_xl_fwd(q, kv, pos, pos[..., 0], mask, 2)
+
+
+def test_xl_bwd_partials():
+    """At the cell's (8, 16, 649, 64): dQ's partials as Shaw's, dE's and
+    dβ's one 64-key block of one head each (G = 1), head-major."""
+    assert rk.xl_bwd_partials(8, 16, 649, 64) == (
+        (11, 128, 672, 64), (128, 11, 735, 64), (128, 11, 735))
+    assert rk.heads_per_block(8, 16, 649, 64) == 1  # Shaw's rule gives 1 there too
